@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch / CUDA port (``lightplane_tpu_torch``) on one
 NVIDIA Hopper GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the phases below
+    python3 chip_smoke.py --ablate   # phases 1-2, then R2 with parts off
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -11,18 +12,41 @@ exits non-zero without its result line:
    capability, which must be 9.0; TF32 is switched off.
 2. Build: ``nvcc`` compiles ``lightplane_tpu_torch/csrc/*.cu`` (cached under
    ``build/kernels/`` by a hash of the sources).
-3. Kernel vs plain PyTorch version on the card, at small sizes, over the
-   configurations the kernel supports.
-4. The slice: the ``LightplaneRenderer`` module at the repository's headline
+3. The forward kernel (R1) vs its plain PyTorch version on the card, at
+   4096 rays and 48 samples, over nine configurations it supports.
+3b. The backward kernel (R2) vs its plain version on the same nine
+   configurations, with the JAX parity tests' N(0, 0.05) decoders:
+   gradients of a fixed random-projection loss w.r.t. the grid-list,
+   ``mlp_params`` and ``rays.encoding`` through
+   ``lightplane_renderer(impl="cuda")`` (R1 + R2) and ``impl="torch"``.
+   First, on the triplane config with the initialiser's decoder, where f32
+   gradients are rough at relu kinks, it prints how far each f32 version is
+   from the f64 run and how close that ray came to a kink.
+4. Serving: the ``LightplaneRenderer`` module at the repository's headline
    render config (triplane 3 x 32^2 x 32ch, MLPs 2/2/2 with hidden 32,
    harmonic ray embedding, 256 samples) serves four 256 x 256 frames from
-   four orbit poses through the CUDA kernel; frame 0 is checked against the
-   plain version and both are timed.
+   four orbit poses through R1; frame 0 is checked against the plain
+   version and both are timed.  Before it, the memory that earlier phases
+   leave allocated is printed, and serving's peak is read above it too.
+5. Training: the same model as ``nn.Module`` plus triplane
+   ``nn.Parameter``s takes 12 Adam steps of one full frame each through
+   R1 + R2 against targets a second model renders; the fw+bw step, each
+   kernel and the plain versions are timed, and peak memory is read at 128
+   and 256 samples.
 
-The last two lines are a JSON line per kernel and the result line
-``{"ok": true, "device": {...}}``.  Needs no network and no JAX.
+Phases 4 and 5 each set the kernels' launch counts to 0 just before they
+run and read them just after.  The last lines are the card's name and power
+limit, a JSON line with every kernel (its launches on the training path, its
+error against the plain version, its time, the plain version's time and the
+least time the card could take) and the result line ``{"ok": true,
+"device": {...}}``.  Needs no network and no JAX.
+
+``--ablate`` builds variants of R2 with parts switched off (the
+``LIGHTPLANE_BW_ABLATE`` bits of ``csrc/renderer_bw.cu``), one build each,
+all started together, and times each twice in turn at the slice shape.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -38,6 +62,10 @@ MAX_DIFF, MEAN_DIFF, MEAN_REL_DIFF = 0.1, 2e-3, 7e-4
 # order, fused multiply-adds, CUDA's expf/logf): both are f32 on the card.
 KERNEL_MAX_ABS = 1e-3
 
+# H100 SXM peaks (NVIDIA's data sheet): FP32 on the CUDA cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
 IMAGE = 256
 SLICE = dict(
     num_samples=256, color_chn=3, grid_chn=32, mlp_hidden_chn=32,
@@ -46,10 +74,35 @@ SLICE = dict(
 )
 
 
-def compare(name, x, y, max_abs=KERNEL_MAX_ABS, magnitude_scaled=False):
+# the parity configs of phases 3 and 3b: (name, random_case kwargs,
+# renderer kwargs); voxel64_32ch is the 64^3 x 32ch grid beyond a TPU's VMEM
+_TRI = [(1, 1, 32, 32, 32), (1, 32, 1, 32, 32), (1, 32, 32, 1, 32)]
+PARITY_CASES = [
+    ("triplane", dict(grid_shapes=_TRI), {}),
+    ("voxel_batch2", dict(grid_shapes=[(2, 16, 16, 16, 16)], batch=2), {}),
+    ("voxel_plane_mask",
+     dict(grid_shapes=[(1, 16, 16, 16, 16), (1, 1, 24, 20, 16)]),
+     dict(mask_out_of_bounds_samples=True)),
+    ("contract", dict(grid_shapes=_TRI), dict(contract_coords=True)),
+    ("noise", dict(grid_shapes=_TRI),
+     dict(inject_noise_sigma=1.0, inject_noise_seed=3)),
+    ("samples_inf8", dict(grid_shapes=_TRI),
+     dict(num_samples_inf=8, disparity_at_inf=1e-3)),
+    ("mlp_1_3_2_h64",
+     dict(grid_shapes=[(1, 16, 16, 16, 16)], hidden=64, layers=(1, 3, 2)),
+     {}),
+    ("mlp_0_1_3",
+     dict(grid_shapes=[(1, 16, 16, 16, 32)], layers=(0, 1, 3)), {}),
+    ("voxel64_32ch", dict(grid_shapes=[(1, 64, 64, 64, 32)]), {}),
+]
+
+
+def compare(name, x, y, max_abs=KERNEL_MAX_ABS, magnitude_scaled=False,
+            max_rel=None):
     """Assert the compare_one bounds and ``max |x - y| <= max_abs`` (both
-    absolute bounds scaled by the data's magnitude when asked); returns
-    (max |diff|, mean |diff|)."""
+    absolute bounds scaled by the data's magnitude when asked), or, given
+    ``max_rel``, ``max |x - y| <= max_rel * max |y|``; returns (max |diff|,
+    mean |diff|)."""
     x = x.detach().double().cpu().numpy()
     y = y.detach().double().cpu().numpy()
     assert x.shape == y.shape, f"{name}: shape {x.shape} vs {y.shape}"
@@ -64,7 +117,11 @@ def compare(name, x, y, max_abs=KERNEL_MAX_ABS, magnitude_scaled=False):
     assert mx <= MAX_DIFF * scale_max, f"{name}: max |diff| {mx}"
     assert mn <= MEAN_DIFF * scale_mean, f"{name}: mean |diff| {mn}"
     assert rel.mean() <= MEAN_REL_DIFF, f"{name}: mean rel diff {rel.mean()}"
-    assert mx <= max_abs * scale_max, f"{name}: max |diff| {mx} > {max_abs}"
+    if max_rel is None:
+        assert mx <= max_abs * scale_max, f"{name}: max |diff| {mx}"
+    else:
+        limit = max_rel * float(np.abs(y).max())
+        assert mx <= limit, f"{name}: max |diff| {mx} > {limit}"
     return mx, mn
 
 
@@ -174,29 +231,10 @@ def phase_parity(lp):
     from lightplane_tpu_torch.ops import renderer as rmod
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
-    tri = [(1, 1, 32, 32, 32), (1, 32, 1, 32, 32), (1, 32, 32, 1, 32)]
-    cases = [
-        ("triplane", dict(grid_shapes=tri), {}),
-        ("voxel_batch2", dict(grid_shapes=[(2, 16, 16, 16, 16)], batch=2), {}),
-        ("voxel_plane_mask",
-         dict(grid_shapes=[(1, 16, 16, 16, 16), (1, 1, 24, 20, 16)]),
-         dict(mask_out_of_bounds_samples=True)),
-        ("contract", dict(grid_shapes=tri), dict(contract_coords=True)),
-        ("noise", dict(grid_shapes=tri),
-         dict(inject_noise_sigma=1.0, inject_noise_seed=3)),
-        ("samples_inf8", dict(grid_shapes=tri),
-         dict(num_samples_inf=8, disparity_at_inf=1e-3)),
-        ("mlp_1_3_2_h64",
-         dict(grid_shapes=[(1, 16, 16, 16, 16)], hidden=64, layers=(1, 3, 2)),
-         {}),
-        ("mlp_0_1_3",
-         dict(grid_shapes=[(1, 16, 16, 16, 32)], layers=(0, 1, 3)), {}),
-        ("voxel64_32ch", dict(grid_shapes=[(1, 64, 64, 64, 32)]), {}),
-    ]
     worst = 0.0
     rng = np.random.default_rng(0)
     with torch.inference_mode():
-        for name, case_kw, render_kw in cases:
+        for name, case_kw, render_kw in PARITY_CASES:
             rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
             kw = dict(num_samples=48, gain=1.5, **render_kw)
             out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
@@ -215,22 +253,8 @@ def phase_parity(lp):
                     compare(label, a, b)
             if scaled:
                 # the kernel's own disparity schedule: the unsplit march
-                grid_flat, _, sizes, _ = lp.process_and_flatten_grid(
-                    grid, None)
-                cfg = rmod._RenderCfg(
-                    num_samples=48, num_samples_inf=8, gain=1.5,
-                    mask_out_of_bounds_samples=False, contract_coords=False,
-                    disparity_at_inf=1e-3, inject_noise_sigma=0.0,
-                    grid_sizes=sizes, color_grid_sizes=None,
-                    n_hidden_trunk=dp.n_hidden_trunk,
-                    n_hidden_opacity=dp.n_hidden_opacity,
-                    n_hidden_color=dp.n_hidden_color,
-                    scaffold_size=None, num_rays_noise=len(rays),
-                    out_chn=dp.color_chn,
-                )
-                geom = (rays.directions, rays.origins, rays.near, rays.far,
-                        rays.grid_idx.to(torch.int32), None, 0)
-                diff = (grid_flat, None, dp.mlp_params, rays.encoding)
+                cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp,
+                                                **kw)
                 print("  samples_inf8, unsplit march in one kernel launch:")
                 for label, a, b in zip(
                     ("depth", "nlt", "feat"),
@@ -258,6 +282,7 @@ def phase_slice(lp, smi):
     image_size = (IMAGE, IMAGE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
 
     rfw.LAUNCHES = 0
     with torch.inference_mode():
@@ -318,7 +343,8 @@ def phase_slice(lp, smi):
           f"{plain_ms:.3f} ms  [{smi}]")
     print(f"  module frame: median {frame_ms:.3f} ms through the kernel, "
           f"{frame_plain_ms:.3f} ms through the plain version  [{smi}]")
-    print(f"  peak allocated while serving: {peak} bytes  [{smi}]")
+    print(f"  peak allocated while serving: {peak} bytes, {peak - base} "
+          f"above the {base} held before it  [{smi}]")
     return dict(
         name="renderer_fw", route="cuda",
         source="lightplane_tpu_torch/csrc/renderer_fw.cu",
@@ -326,6 +352,513 @@ def phase_slice(lp, smi):
         launches=launches, max_abs_err=max(errs), ms=kernel_ms,
         plain_ms=plain_ms,
     )
+
+
+def held_memory():
+    """Print what the phases before serving leave allocated, and free
+    cuBLAS's workspaces (allocated by PyTorch, held after a matrix product)
+    so that serving's peak counts serving's own."""
+    print("== memory held after phases 1-3b")
+    gc.collect()
+    torch.cuda.synchronize()
+    print(f"  {torch.cuda.memory_allocated()} bytes allocated")
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        print(f"  {torch.cuda.memory_allocated()} bytes after freeing "
+              f"cuBLAS's workspaces")
+
+
+def unsplit_march(lp, rmod, rays, grid, dp, **kw):
+    """``(cfg, geom, diff)`` of the whole march, background samples
+    included, as ``lightplane_renderer(rays, grid, dp, **kw)`` builds them
+    and one kernel launch runs it."""
+    grid_flat, _, sizes, _ = lp.process_and_flatten_grid(grid, None)
+    return rmod._march_inputs(rays, grid_flat, None, sizes, None, dp, **kw)
+
+
+def slice_march(lp, rmod, module, grid, rays):
+    """``(cfg, geom, diff)`` of ``module``'s march over ``rays`` in their
+    order, with its ray embedding, as its forward hands them to R1."""
+    with torch.no_grad():
+        enc = module._get_ray_embedding(rays.directions)
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    m = module
+    return unsplit_march(
+        lp, rmod, rays, [g.detach() for g in grid], m.get_decoder_params(),
+        num_samples=m.num_samples, gain=m.gain,
+        num_samples_inf=m.num_samples_inf,
+        mask_out_of_bounds_samples=m.mask_out_of_bounds_samples,
+        contract_coords=m.contract_coords, disparity_at_inf=m.disparity_at_inf,
+    )
+
+
+def kernel_work(rmod, cfg, geom, grid_flat, mlp_numel):
+    """(FLOPs, bytes) the forward and the backward kernel must do on these
+    inputs: decoder multiply-adds per ray-sample (each layer's real width,
+    the heads' last layers only the outputs used), times 1 forward, times 3
+    backward (recompute, input gradients, weight gradients); plus C
+    multiply-adds for every in-bounds sampling corner of this run's points
+    (once forward, twice backward: sample and splat).  Bytes: every input
+    read once and every output written once."""
+    directions, origins, near, far = geom[:4]
+    R = directions.shape[0]
+    C = grid_flat.shape[1]
+    color_chn = cfg.out_chn
+    macs = 0
+    for m, widths in enumerate((cfg.n_hidden_trunk, cfg.n_hidden_opacity,
+                                cfg.n_hidden_color)):
+        for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+            # the colour head's last layer computes the rendered channels
+            last_color = m == 2 and i == len(widths) - 2
+            macs += a * (color_chn if last_color else b)
+    corners = 0
+    with torch.no_grad():
+        for s in range(cfg.tot_num_samples):
+            t, _ = rmod._step_depth_delta(cfg, near, far, s)
+            pts = rmod._step_points(cfg, origins, directions, t)
+            keep = torch.ones_like(t)
+            if cfg.mask_out_of_bounds_samples:
+                keep = (pts.abs() <= 1.0).all(-1).float()
+            for _, D, H, W, _ in cfg.grid_sizes:
+                n = keep
+                for k, size in enumerate((W, H, D)):
+                    if size == 1:
+                        continue
+                    f0 = torch.floor(((pts[:, k] + 1.0) * 0.5) * size - 0.5)
+                    n = n * (((f0 >= 0) & (f0 < size)).float()
+                             + ((f0 >= -1) & (f0 < size - 1)).float())
+                corners += float(n.sum())
+    samples = R * cfg.tot_num_samples
+    flops_fw = 2.0 * (samples * macs + corners * C)
+    flops_bw = 2.0 * (3 * samples * macs + 2 * corners * C)
+    rays_bytes = 4 * R * (3 + 3 + 1 + 1 + 1 + cfg.n_hidden_color[0])
+    params_bytes = 4 * (grid_flat.numel() + mlp_numel)
+    bytes_fw = rays_bytes + params_bytes + 4 * R * (2 + color_chn)
+    # + nlt and the cotangents in, the gradients of the grid, the MLP and
+    # the encodings out
+    bytes_bw = (rays_bytes + params_bytes + 4 * R * (3 + color_chn)
+                + params_bytes + 4 * R * cfg.n_hidden_color[0])
+    return (flops_fw, bytes_fw), (flops_bw, bytes_bw)
+
+
+def bound(flops, nbytes):
+    """The least milliseconds the card could take, and what sets it."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def projected_grads(lp, rays, grid, dp, impl, proj, naive=False, **kw):
+    """Gradients of ``sum(proj * outputs)`` w.r.t. the grid-list,
+    ``mlp_params`` and ``rays.encoding``."""
+    grid = [g.detach().clone().requires_grad_(True) for g in grid]
+    mlp = dp.mlp_params.detach().clone().requires_grad_(True)
+    enc = rays.encoding.detach().clone().requires_grad_(True)
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    dp = lp.DecoderParams(mlp, dp.n_hidden_trunk, dp.n_hidden_opacity,
+                          dp.n_hidden_color, dp.color_chn)
+    if naive:
+        out = lp.lightplane_renderer_naive(rays, grid, dp, **kw)
+    else:
+        out = lp.lightplane_renderer(rays, grid, dp, impl=impl, **kw)
+    sum((o * p).sum() for o, p in zip(out, proj)).backward()
+    return [g.grad for g in grid] + [mlp.grad, enc.grad]
+
+
+def as_f64(lp, rays, grid, dp, proj):
+    """The same inputs in float64, for the plain version's reference run."""
+    d = torch.float64
+    rays = lp.Rays(rays.directions.to(d), rays.origins.to(d), rays.grid_idx,
+                   rays.near.to(d), rays.far.to(d), rays.encoding.to(d))
+    dp = lp.DecoderParams(dp.mlp_params.to(d), dp.n_hidden_trunk,
+                          dp.n_hidden_opacity, dp.n_hidden_color,
+                          dp.color_chn)
+    return rays, [g.to(d) for g in grid], dp, [p.to(d) for p in proj]
+
+
+# The kernel and its plain version differ only in f32 rounding, but the
+# gradient of a relu MLP jumps where a pre-activation crosses 0: at a
+# pre-activation within rounding of 0, two f32 evaluations may take opposite
+# sides and a gradient moves by a whole term, up to several 1e-3 x max |g|
+# at these shapes (kink_check prints it).  So the nine configs give no
+# cotangent to the rays that come within KINK_MARGIN of a kink (measured in
+# f64, relative to the pre-activation's terms; f32 rounding is ~1e-7 of
+# them), and hold the kernel within compare_one's bounds and max |d| <=
+# 1e-3 x max |g| of each gradient: no floor of 1, so stricter than 1e-3 x
+# max(1, max |g|).
+GRAD_MAX_REL = 1e-3
+KINK_MARGIN = 1e-5
+
+
+def grad_compare(names, got, plain, ref, magnitude_scaled=False):
+    """Hold ``got`` against ``plain`` within compare_one's bounds and
+    GRAD_MAX_REL, and print both against ``ref``, ``plain``'s f64 run;
+    returns the worst max |got - plain|."""
+    worst = 0.0
+    for name, a, b, r in zip(names, got, plain, ref):
+        r = r.detach().double()
+        e_a = float((a.detach().double() - r).abs().max())
+        e_b = float((b.detach().double() - r).abs().max())
+        mx, _ = compare(name, a, b, magnitude_scaled=magnitude_scaled,
+                        max_rel=GRAD_MAX_REL)
+        worst = max(worst, mx)
+        print(f"           max|g| {float(r.abs().max()):.3e}, max|d| from "
+              f"f64: {e_a:.3e} and {e_b:.3e}")
+    return worst
+
+
+def kink_margin(rmod, cfg, geom, diff, colour_only=False):
+    """Per ray, the smallest |x| / sum |terms of x| over the march of every
+    x that goes through a relu of the decoder (only the colour MLP's with
+    ``colour_only``, the ones the encoding gradient sees)."""
+    from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
+    from lightplane_tpu_torch.ops.mlp_utils import (
+        flattened_decoder_params_to_list,
+    )
+
+    directions, origins, near, far, grid_idx = geom[:5]
+    grid_flat, _, mlp, enc = diff
+    w_t, b_t, w_o, b_o, w_c, b_c = flattened_decoder_params_to_list(
+        mlp, cfg.n_hidden_trunk, cfg.n_hidden_opacity, cfg.n_hidden_color)
+    margin = torch.full_like(near, float("inf"))
+
+    def relu(x, terms, seen=True):
+        """relu(x), noting how near x comes to 0 against its terms."""
+        nonlocal margin
+        if seen:
+            ratio = torch.where(terms > 0, x.abs() / terms, float("inf"))
+            margin = torch.minimum(margin, ratio.amin(-1))
+        return torch.relu(x)
+
+    def dense(x, w, b):
+        return x @ w + b, x.abs() @ w.abs() + b.abs()
+
+    rest = not colour_only
+    for s in range(cfg.tot_num_samples):
+        t, _ = rmod._step_depth_delta(cfg, near, far, s)
+        pts = rmod._step_points(cfg, origins, directions, t)
+        mask = cfg.mask_out_of_bounds_samples
+        x = sample_grid_rep(grid_flat, cfg.grid_sizes, pts, grid_idx, mask)
+        terms = sample_grid_rep(grid_flat.abs(), cfg.grid_sizes, pts,
+                                grid_idx, mask)
+        for w, b in zip(w_t, b_t):
+            x = relu(*dense(x, w, b), rest)
+            terms = x
+        trunk = x = relu(x, terms, rest)  # the feature's, with no trunk MLP
+        for w, b in zip(w_o[:-1], b_o[:-1]):
+            x = relu(*dense(x, w, b), rest)
+        x = trunk + enc
+        for w, b in zip(w_c[:-1], b_c[:-1]):
+            x = relu(*dense(x, w, b))
+    return margin
+
+
+def kink_check(lp, rmod, rng):
+    """The triplane config with every ray's cotangent: each f32 version's
+    encoding gradient against the f64 run, and how near the ray where each
+    is farthest from it comes to a kink of the colour MLP."""
+    rays, grid, dp = random_case(lp, rng, 4096, grid_shapes=_TRI)
+    kw = dict(num_samples=48, gain=1.5)
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    n = len(rays)
+    proj = [torch.randn(s, generator=gen).cuda() for s in [(n,), (n,), (n, 3)]]
+    g_k = projected_grads(lp, rays, grid, dp, "cuda", proj, **kw)[-1]
+    g_p = projected_grads(lp, rays, grid, dp, "torch", proj, **kw)[-1]
+    rays64, grid64, dp64, proj64 = as_f64(lp, rays, grid, dp, proj)
+    g_r = projected_grads(lp, rays64, grid64, dp64, "torch", proj64, **kw)[-1]
+    with torch.no_grad():
+        margin = kink_margin(rmod, *unsplit_march(lp, rmod, rays64, grid64,
+                                                  dp64, **kw),
+                             colour_only=True)
+    print("  triplane, every ray's cotangent: g_enc of each f32 version "
+          "against the f64 run, and the colour MLP's kink margin of its "
+          "worst ray")
+    print(f"    kink margin over all {n} rays: median "
+          f"{float(margin.median()):.2e}; {int((margin < KINK_MARGIN).sum())}"
+          f" rays under {KINK_MARGIN:g}")
+    for label, g in (("kernel", g_k), ("plain", g_p)):
+        err = (g.double() - g_r).abs().amax(-1)
+        i = int(err.argmax())
+        print(f"    {label:6s} max|d| {float(err[i]):.3e} at ray {i}, kink "
+              f"margin {float(margin[i]):.2e}")
+
+
+def phase_backward_parity(lp):
+    print("== phase 3b: backward kernel vs plain PyTorch version on the card")
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    worst = 0.0
+    rng = np.random.default_rng(1)
+    kink_check(lp, rmod, rng)
+    print(f"  the nine configs; rays within {KINK_MARGIN:g} of a relu kink "
+          f"get no cotangent:")
+    for name, case_kw, render_kw in PARITY_CASES:
+        rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
+        kw = dict(num_samples=48, gain=1.5, **render_kw)
+        gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+        n = len(rays)
+        proj = [torch.randn(s, generator=gen).cuda()
+                for s in [(n,), (n,), (n, 3)]]
+        rays64, grid64, dp64, _ = as_f64(lp, rays, grid, dp, proj)
+        with torch.no_grad():
+            keep = kink_margin(rmod, *unsplit_march(
+                lp, rmod, rays64, grid64, dp64, **kw)) >= KINK_MARGIN
+        w = keep.float()
+        proj = [p * (w if p.dim() == 1 else w[:, None]) for p in proj]
+        proj64 = [p.double() for p in proj]
+        before = rbw.LAUNCHES
+        g_k = projected_grads(lp, rays, grid, dp, "cuda", proj, **kw)
+        torch.cuda.synchronize()
+        assert rbw.LAUNCHES == before + 1, "the backward kernel did not run"
+        g_p = projected_grads(lp, rays, grid, dp, "torch", proj, **kw)
+        g_r = projected_grads(lp, rays64, grid64, dp64, "torch", proj64, **kw)
+        names = [f"g_grid{i}" for i in range(len(grid))] + ["g_mlp", "g_enc"]
+        print(f"  {name}: {render_kw or ''} ({n - int(keep.sum())} of {n} "
+              f"rays without a cotangent)")
+        # background samples put gradients at O(1/disparity): compare_one's
+        # absolute bounds scale with them, as in the JAX parity tests
+        scaled = "num_samples_inf" in render_kw
+        worst = max(worst, grad_compare(names, g_k, g_p, g_r, scaled))
+        if name == "triplane":
+            g_n = projected_grads(lp, rays, grid, dp, None, proj, naive=True,
+                                  **kw)
+            g_nr = projected_grads(lp, rays64, grid64, dp64, None, proj64,
+                                   naive=True, **kw)
+            print("  triplane, the kernels vs autograd of the naive renderer "
+                  "(f64: the naive renderer's):")
+            grad_compare(names, g_k, g_n, g_nr)
+        if scaled:
+            cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp, **kw)
+            cfg64, geom64, diff64 = unsplit_march(lp, rmod, rays64, grid64,
+                                                  dp64, **kw)
+            with torch.no_grad():
+                nlt = rfw.render_fwd_torch(cfg, geom, diff)[1]
+                nlt64 = rfw.render_fwd_torch(cfg64, geom64, diff64)[1]
+                g_out = (proj[0], proj[1], proj[2].contiguous())
+                print("  samples_inf8, unsplit march in one kernel launch:")
+                g_u = rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out)
+                g_v = rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+                g_w = rbw.render_bwd_torch(cfg64, geom64, diff64, nlt64,
+                                           tuple(g.double() for g in g_out))
+            pick = (0, 2, 3)
+            grad_compare(("g_grid", "g_mlp", "g_enc"), [g_u[i] for i in pick],
+                         [g_v[i] for i in pick], [g_w[i] for i in pick],
+                         magnitude_scaled=True)
+    print(f"  all configs within bounds; worst max|d| {worst:.3e}")
+
+
+def phase_training(lp, smi):
+    print("== phase 5: training, 12 Adam steps of 256x256 rays x 256 samples")
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.utils import grid_utils
+
+    dev = "cuda"
+    res, chn = 32, SLICE["grid_chn"]
+    image_size = (IMAGE, IMAGE)
+
+    def model(seed):
+        gen = torch.Generator().manual_seed(seed)
+        module = lp.LightplaneRenderer(generator=gen, device=dev, **SLICE)
+        grid = grid_utils.init_3d_representation(gen, "triplane", res, chn,
+                                                 device=dev)
+        return module, grid
+
+    teacher, teacher_grid = model(1)
+    poses = [orbit_rays(lp, a, dev) for a in np.arange(4) * np.pi / 2]
+    with torch.inference_mode():
+        targets = [teacher(r, teacher_grid, image_size=image_size)[2]
+                   for r in poses]
+    student, grid = model(0)
+    grid = [torch.nn.Parameter(g) for g in grid]
+    emb = student.harmonic_ray_embedding_linear
+    opt = torch.optim.Adam([
+        {"params": grid, "lr": 5e-2},
+        {"params": list(student.parameters()), "lr": 5e-3},
+    ])
+    torch.cuda.synchronize()
+
+    losses, step_ms = [], []
+    rfw.LAUNCHES = rbw.LAUNCHES = 0
+    for step in range(12):
+        i = step % len(poses)
+        before = rbw.LAUNCHES
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.zero_grad(set_to_none=True)
+        # the fit example's loss: MSE + 1e-3 * TV
+        _, _, rgb = student(poses[i], grid, image_size=image_size)
+        loss = (torch.mean((rgb - targets[i]) ** 2)
+                + 1e-3 * grid_utils.grid_tv_loss(grid))
+        loss.backward()
+        opt.step()
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        assert rbw.LAUNCHES == before + 1, "one backward launch per step"
+        for name, g in [(f"grid{k}", p.grad) for k, p in enumerate(grid)] + [
+            ("mlp_params", student.mlp_params.grad),
+            ("embedding.weight", emb.weight.grad),
+        ]:
+            assert g is not None and torch.isfinite(g).all(), name
+            assert float(g.abs().sum()) > 0.0, f"{name}: zero gradient"
+        losses.append(loss.item())
+    launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES}
+    print(f"  losses {[round(v, 6) for v in losses]}")
+    print(f"  kernel launches on the training path: {launches}")
+    assert launches == {"renderer_fw": 12, "renderer_bw": 12}, launches
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    print(f"  mean loss, first 4 steps {first:.6f}, last 4 steps {last:.6f}")
+    assert last < first, "the loss did not fall"
+    module_step_ms = statistics.median(step_ms[1:])
+    print(f"  module training step (fw + bw + Adam): median "
+          f"{module_step_ms:.3f} ms over steps 2-12  [{smi}]")
+
+    # the functional renderer's fw+bw step at the bench shape, on the
+    # inputs that the module's forward hands to the kernels
+    r0 = poses[0]
+    cfg, geom, diff = slice_march(lp, rmod, student, grid, r0)
+    diff = tuple(None if x is None else x.detach() for x in diff)
+    grid_flat, _, mlp, enc0 = diff
+    dp = student.get_decoder_params()
+    gen = torch.Generator().manual_seed(5)
+    n = len(r0)
+    proj = [torch.randn(s, generator=gen).to(dev)
+            for s in [(n,), (n,), (n, 3)]]
+    rays_enc = lp.Rays(r0.directions, r0.origins, r0.grid_idx, r0.near,
+                       r0.far, enc0)
+
+    def fw_bw(impl="cuda", num_samples=SLICE["num_samples"]):
+        return projected_grads(lp, rays_enc, [g.detach() for g in grid], dp,
+                               impl, proj, num_samples=num_samples,
+                               gain=student.gain)
+
+    step = cuda_ms(fw_bw, warmup=2, reps=7)
+    print(f"  fw+bw step of lightplane_renderer through R1 + R2: median "
+          f"{step:.3f} ms, {n / step * 1e3:.0f} rays/s  [{smi}]")
+    t0 = time.perf_counter()
+    fw_bw("torch")
+    torch.cuda.synchronize()
+    plain_step = 1e3 * (time.perf_counter() - t0)
+    print(f"  fw+bw step through the plain versions: {plain_step:.1f} ms "
+          f"(one run)  [{smi}]")
+
+    peaks = {}
+    for ns in (128, 256):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fw_bw(num_samples=ns)
+        torch.cuda.synchronize()
+        peaks[ns] = torch.cuda.max_memory_allocated()
+        print(f"  peak allocated, fw+bw step at {ns} samples: {peaks[ns]} "
+              f"bytes ({(peaks[ns] - base) / 2**20:.1f} MiB above the "
+              f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
+    assert peaks[256] <= 1.05 * peaks[128], peaks
+
+    # each kernel on its own at the slice shape, against its plain version
+    # (and the plain version's f64 run, for the record)
+    f64 = torch.float64
+    geom64 = tuple(x.to(f64) if torch.is_tensor(x) and x.is_floating_point()
+                   else x for x in geom)
+    diff64 = tuple(None if x is None else x.to(f64) for x in diff)
+    with torch.no_grad():
+        _, nlt, _ = rfw.render_fwd_cuda(cfg, geom, diff)
+        g_out = tuple(p.contiguous() for p in proj)
+        bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
+                                                    g_out))
+        fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff))
+        # compared on cotangents that skip the rays near a relu kink, as in
+        # phase 3b
+        keep = kink_margin(rmod, cfg, geom64, diff64) >= KINK_MARGIN
+        w = keep.float()
+        g_out = (g_out[0] * w, g_out[1] * w, g_out[2] * w[:, None])
+        g_k = rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out)
+        t0 = time.perf_counter()
+        g_p = rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+        torch.cuda.synchronize()
+        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        nlt64 = rfw.render_fwd_torch(cfg, geom64, diff64)[1]
+        g_r = rbw.render_bwd_torch(cfg, geom64, diff64, nlt64,
+                                   tuple(g.to(f64) for g in g_out))
+    print(f"  R2 alone: median {bw_ms:.3f} ms; its plain version "
+          f"{bw_plain_ms:.1f} ms (one run); R1 alone: median {fw_ms:.3f} ms"
+          f"  [{smi}]")
+    print(f"  R2 vs its plain version at the slice shape (the module's "
+          f"decoder after 12 steps; {n - int(keep.sum())} of {n} rays within "
+          f"{KINK_MARGIN:g} of a relu kink get no cotangent):")
+    pick = (0, 2, 3)
+    bw_err = grad_compare(("g_grid", "g_mlp", "g_enc"), [g_k[i] for i in pick],
+                          [g_p[i] for i in pick], [g_r[i] for i in pick])
+
+    (fl_fw, by_fw), (fl_bw, by_bw) = kernel_work(rmod, cfg, geom, grid_flat,
+                                                 mlp.numel())
+    b_fw, by_fw_kind = bound(fl_fw, by_fw)
+    b_bw, by_bw_kind = bound(fl_bw, by_bw)
+    print(f"  work: R1 {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.2f} MB -> bound "
+          f"{b_fw:.3f} ms ({by_fw_kind}); R2 {fl_bw / 1e9:.1f} GFLOP, "
+          f"{by_bw / 1e6:.2f} MB -> bound {b_bw:.3f} ms ({by_bw_kind})")
+    print(f"  R2 at {fl_bw / bw_ms / 1e9:.2f} TFLOP/s, "
+          f"{100 * b_bw / bw_ms:.1f}% of its bound  [{smi}]")
+    return launches, dict(fw_bound=(b_fw, by_fw_kind),
+                          bw=dict(ms=bw_ms, plain_ms=bw_plain_ms,
+                                  err=bw_err, bound=(b_bw, by_bw_kind)))
+
+
+# csrc/renderer_bw.cu's LIGHTPLANE_BW_ABLATE bits of each variant
+ABLATIONS = {"scalar_splat": 1, "no_splat": 2, "no_wgrad": 4, "neither": 6}
+
+
+def ablate(lp, smi):
+    """R2 as built and with parts switched off, each variant built with its
+    own -D, all builds started together; each timed twice in turn at the
+    slice shape by CUDA events."""
+    print("== ablation: R2 with parts switched off, at the slice shape")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import _build
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.utils import grid_utils
+
+    variants = {"shipped": ()}
+    variants.update({k: (f"LIGHTPLANE_BW_ABLATE={m}",)
+                     for k, m in ABLATIONS.items()})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(_build.library, variants.values()))
+    print(f"  built {len(variants)} variants in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(0)
+    module = lp.LightplaneRenderer(generator=gen, device=dev, **SLICE)
+    grid = grid_utils.init_3d_representation(gen, "triplane", 32,
+                                             SLICE["grid_chn"], device=dev)
+    rays = orbit_rays(lp, 0.0, dev)
+    cfg, geom, diff = slice_march(lp, rmod, module, grid, rays)
+    n = len(rays)
+    g_out = tuple(torch.randn(s, generator=gen).to(dev)
+                  for s in [(n,), (n,), (n, 3)])
+    times = {name: [] for name in variants}
+    with torch.no_grad():
+        nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
+        for _ in range(2):
+            for name, defines in variants.items():
+                times[name].append(cuda_ms(
+                    lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out,
+                                                defines),
+                    warmup=1, reps=5))
+    for name, ms in times.items():
+        print(f"  {name:13s} {' '.join(f'{t:.3f}' for t in ms)} ms "
+              f"(median {statistics.median(ms):.3f})  [{smi}]")
 
 
 def main():
@@ -337,11 +870,31 @@ def main():
     t0 = time.perf_counter()
     smi, name = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--ablate"]:
+        ablate(lp, smi)
+        return 0
     phase_parity(lp)
-    kernel = phase_slice(lp, smi)
+    phase_backward_parity(lp)
+    held_memory()
+    fw = phase_slice(lp, smi)
+    launches, train = phase_training(lp, smi)
     assert "jax" not in sys.modules, "the port imported jax"
+    b_fw, b_fw_kind = train["fw_bound"]
+    b_bw, b_bw_kind = train["bw"]["bound"]
+    kernels = [
+        dict(fw, launches=launches["renderer_fw"], bound_ms=b_fw,
+             bound_by=b_fw_kind, library_ms=None),
+        dict(name="renderer_bw", route="cuda",
+             source="lightplane_tpu_torch/csrc/renderer_bw.cu",
+             replaces="lightplane_tpu/ops/kernels/renderer_pallas.py:2798",
+             launches=launches["renderer_bw"],
+             max_abs_err=train["bw"]["err"], ms=train["bw"]["ms"],
+             plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
+             bound_by=b_bw_kind, library_ms=None),
+    ]
     print(f"== done in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,16 @@
 """lightplane_tpu_torch: the PyTorch / CUDA port of ``lightplane_tpu``.
 
-The renderer's forward path: ``lightplane_renderer`` and the
-``LightplaneRenderer`` module run the fused Emission-Absorption march in a
-hand-written CUDA kernel on NVIDIA Hopper GPUs (``csrc/renderer_fw.cu``,
-built with ``nvcc`` at first use) and in its plain PyTorch version on the
-CPU.  Names, layouts (channels-last grid-lists, the flat ``mlp_params``
-vector) and numerics follow the JAX package, which stays the reference.
-This package never imports JAX.
+The renderer, forward and backward: ``lightplane_renderer`` and the
+``LightplaneRenderer`` module run the fused Emission-Absorption march and
+its O(1)-in-samples recompute backward as hand-written CUDA kernels on
+NVIDIA Hopper GPUs (``csrc/renderer_fw.cu``, ``csrc/renderer_bw.cu``, built
+with ``nvcc`` at first use) and as their plain PyTorch versions on the CPU.
+The package trains: gradients reach the grid-list, the decoder's
+``mlp_params`` and the ray encoding (so the module's parameters), and
+``utils.grid_utils`` holds the fitting regularisers.  Factories build on
+the GPU unless asked for ``device="cpu"``.  Names, layouts (channels-last
+grid-lists, the flat ``mlp_params`` vector) and numerics follow the JAX
+package, which stays the reference.  This package never imports JAX.
 """
 
 from .ops.const import MIN_BLOCK_SIZE

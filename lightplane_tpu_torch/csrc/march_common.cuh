@@ -1,0 +1,402 @@
+// What the forward march (renderer_fw.cu) and the recompute backward
+// (renderer_bw.cu) share: the launch parameters and their host-side setup,
+// the counter RNG, the per-step geometry, the grid-list corner walk and the
+// padded dense layers of the decoder MLPs.
+//
+// Numerics follow the JAX scan path: the counter hash in uint32_t / int32_t
+// so that it is bit-exact with JAX's wrapping int32 arithmetic, and IEEE
+// expf / logf / log1pf / cosf (the sources must be compiled without
+// --use_fast_math).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lightplane {
+
+constexpr int kMaxGrids = 8;
+constexpr int kMaxLayers = 8;  // per MLP
+constexpr int kMaxTotalLayers = 3 * kMaxLayers;
+
+struct Params {
+  const float* origins;     // [R, 3]
+  const float* directions;  // [R, 3]
+  const float* near;        // [R]
+  const float* far;         // [R]
+  const int* grid_idx;      // [R]
+  const float* enc;         // [R, enc_chn]
+  const float* grid;        // [V_total, grid_chn]
+  const float* mlp;         // flat mlp_params
+
+  // forward outputs
+  float* depth;  // [R]
+  float* nlt;    // [R]
+  float* feat;   // [R, color_chn]
+
+  // backward inputs and outputs
+  const float* nlt_final;  // [R]
+  const float* g_depth;    // [R]
+  const float* g_nlt;      // [R]
+  const float* g_feat;     // [R, color_chn]
+  float* g_grid;           // [V_total, grid_chn], zero-filled by the caller
+  float* g_mlp;            // flat, like mlp
+  float* g_enc;            // [R, enc_chn]
+  float* g_mlp_partial;    // [blocks, n_layers_total * (W * W + W)]
+
+  int num_rays;
+  int num_grids;
+  int grid_chn;
+  long long grid_row_offset[kMaxGrids];
+  int grid_dims[kMaxGrids][4];  // B, D, H, W
+
+  int n_layers[3];  // trunk, opacity, color
+  int layer_in[kMaxTotalLayers];
+  int layer_out[kMaxTotalLayers];
+  int layer_w_off[kMaxTotalLayers];
+  int layer_b_off[kMaxTotalLayers];
+  int n_params;
+  int enc_chn;
+  int color_chn;
+
+  int num_samples;
+  int num_samples_inf;
+  float disparity_at_inf;
+  float gain;
+  int mask_out_of_bounds;
+  int contract_coords;
+  float noise_sigma;
+  int noise_seed;
+  int noise_stride;
+  int num_rays_noise;
+};
+
+// Fills everything but the tensors; returns a cudaError_t code.
+//   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
+//   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
+//   width: the padded activation width, 32 or 64
+inline int fill_params(Params& p, int num_rays, int num_grids,
+                       const int* grid_meta, int grid_chn, int n_t, int n_o,
+                       int n_c, const int* mlp_widths, int enc_chn,
+                       int color_chn, int width, int num_samples,
+                       int num_samples_inf, float disparity_at_inf, float gain,
+                       int mask_out_of_bounds, int contract_coords,
+                       float noise_sigma, int noise_seed, int noise_stride,
+                       int num_rays_noise) {
+  if (num_grids < 1 || num_grids > kMaxGrids || n_o < 1 || n_c < 1 ||
+      n_t > kMaxLayers || n_o > kMaxLayers || n_c > kMaxLayers ||
+      (width != 32 && width != 64))
+    return (int)cudaErrorInvalidValue;
+  p.num_rays = num_rays;
+  p.num_grids = num_grids;
+  p.grid_chn = grid_chn;
+  for (int g = 0; g < num_grids; ++g) {
+    p.grid_row_offset[g] = grid_meta[5 * g];
+    for (int k = 0; k < 4; ++k) p.grid_dims[g][k] = grid_meta[5 * g + 1 + k];
+  }
+  // per-layer widths and offsets into the flat parameter vector: each MLP
+  // is [W_0, ..., W_{L-1}, b_0, ..., b_{L-1}]; trunk, opacity, color
+  const int counts[3] = {n_t, n_o, n_c};
+  int layer = 0, w_at = 0, param_off = 0;
+  for (int m = 0; m < 3; ++m) {
+    p.n_layers[m] = counts[m];
+    const int* nh = mlp_widths + w_at;
+    int w_numel = 0;
+    for (int l = 0; l < counts[m]; ++l) w_numel += nh[l] * nh[l + 1];
+    int w_off = param_off, b_off = param_off + w_numel;
+    for (int l = 0; l < counts[m]; ++l, ++layer) {
+      p.layer_in[layer] = nh[l];
+      p.layer_out[layer] = nh[l + 1];
+      p.layer_w_off[layer] = w_off;
+      p.layer_b_off[layer] = b_off;
+      w_off += nh[l] * nh[l + 1];
+      b_off += nh[l + 1];
+    }
+    param_off = b_off;
+    w_at += counts[m] + (counts[m] > 0 ? 1 : 0);
+  }
+  p.n_params = param_off;
+  p.enc_chn = enc_chn;
+  p.color_chn = color_chn;
+  p.num_samples = num_samples;
+  p.num_samples_inf = num_samples_inf;
+  p.disparity_at_inf = disparity_at_inf;
+  p.gain = gain;
+  p.mask_out_of_bounds = mask_out_of_bounds;
+  p.contract_coords = contract_coords;
+  p.noise_sigma = noise_sigma;
+  p.noise_seed = noise_seed;
+  p.noise_stride = noise_stride;
+  p.num_rays_noise = num_rays_noise;
+  return (int)cudaSuccess;
+}
+
+// Stages every MLP layer in shared memory as a zero-padded [W, W] weight
+// tile (row i = input i) followed by W biases.  No barrier.
+template <int W>
+__device__ __forceinline__ void stage_layers(const Params& p, float* smem,
+                                             int n_total) {
+  constexpr int kLayer = W * W + W;
+  for (int l = 0; l < n_total; ++l) {
+    float* dst = smem + l * kLayer;
+    const int d_in = p.layer_in[l], d_out = p.layer_out[l];
+    const float* w_src = p.mlp + p.layer_w_off[l];
+    for (int k = threadIdx.x; k < W * W; k += blockDim.x) {
+      const int i = k / W, o = k % W;
+      dst[k] = (i < d_in && o < d_out) ? w_src[i * d_out + o] : 0.0f;
+    }
+    for (int o = threadIdx.x; o < W; o += blockDim.x)
+      dst[W * W + o] = o < d_out ? p.mlp[p.layer_b_off[l] + o] : 0.0f;
+  }
+}
+
+// ---- counter RNG (lightplane_tpu/ops/rand.py) ---------------------------
+// Multiplies and left shifts in uint32_t (wrapping), right shifts on int32_t
+// (arithmetic), as JAX's int32 operators behave.
+
+__device__ __forceinline__ int32_t hash_i32(int32_t x) {
+  x = (int32_t)((uint32_t)((x >> 16) ^ x) * 0x45D9F3Bu);
+  x = (int32_t)((uint32_t)((x >> 16) ^ x) * 0x45D9F3Bu);
+  return (x >> 16) ^ x;
+}
+
+__device__ __forceinline__ int32_t pair_hash(int32_t x, int32_t h) {
+  h = h ^ x;
+  return (int32_t)(((uint32_t)h << 24) + (uint32_t)h * 0x193u);
+}
+
+__device__ __forceinline__ float hash_to_unit(int32_t h) {
+  // JAX adds the f32 roundings of 2147483647.0 (= 2^31) and 3.0, then
+  // divides by the f32 rounding of 4294967298.0 (= 2^32).
+  return (((float)h + 2147483648.0f) + 3.0f) / 4294967296.0f;
+}
+
+__device__ __forceinline__ float int_to_randn(int32_t i1, int32_t i2,
+                                              int32_t seed) {
+  const int32_t prime = 105097564;
+  const int32_t seed1 = (int32_t)((uint32_t)seed + 1u);
+  const int32_t h1 = pair_hash(pair_hash(prime, seed), hash_i32(i1));
+  const int32_t h2 = pair_hash(pair_hash(prime, seed1), hash_i32(i2));
+  const float u1 = hash_to_unit(h1);
+  const float u2 = hash_to_unit(h2);
+  return sqrtf(-2.0f * logf(u1)) * cosf(6.28318530718f * u2);
+}
+
+// Injected opacity noise of `ray` at step `s` (get_sample_randn's counters).
+__device__ __forceinline__ float step_noise(const Params& p, int ray, int s) {
+  const uint32_t i1 = (uint32_t)p.noise_stride *
+                          (uint32_t)min(ray, p.num_rays_noise - 1) +
+                      (uint32_t)s + 1u;
+  const uint32_t i2 =
+      i1 + (uint32_t)max(p.num_rays_noise, 16) * (uint32_t)p.noise_stride;
+  return int_to_randn((int32_t)i1, (int32_t)i2, p.noise_seed) * p.noise_sigma;
+}
+
+// ---- per-step geometry (lightplane_tpu/ops/renderer.py) -----------------
+
+__device__ __forceinline__ float lin_depth(const Params& p, float near,
+                                          float far, float si) {
+  if (p.num_samples > 1)
+    return near + (far - near) * (si / (float)(p.num_samples - 1));
+  return near;
+}
+
+__device__ __forceinline__ float inf_depth(const Params& p, float far,
+                                          float si) {
+  const float frac = (si - (float)p.num_samples + 1.0f) /
+                     (float)p.num_samples_inf;
+  const float n_disp = p.disparity_at_inf * frac + (1.0f - frac);
+  return far * (1.0f / n_disp);
+}
+
+__device__ __forceinline__ float step_depth(const Params& p, float near,
+                                           float far, float si) {
+  if (p.num_samples_inf > 0 && !(si < (float)p.num_samples))
+    return inf_depth(p, far, si);
+  return lin_depth(p, near, far, si);
+}
+
+__device__ __forceinline__ float contract_one(float x, float n) {
+  const float a = fabsf(x);
+  const float safe_abs = a > 0.0f ? a : 1.0f;
+  if (fabsf(a - n) <= 1e-7f) return (2.0f - 1.0f / safe_abs) * (x / safe_abs);
+  return x / n;
+}
+
+// One ray's constants.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, near, far, delta0;
+  int b;
+};
+
+__device__ __forceinline__ Ray load_ray(const Params& p, int ray) {
+  Ray r;
+  r.ox = p.origins[3 * ray + 0];
+  r.oy = p.origins[3 * ray + 1];
+  r.oz = p.origins[3 * ray + 2];
+  r.dx = p.directions[3 * ray + 0];
+  r.dy = p.directions[3 * ray + 1];
+  r.dz = p.directions[3 * ray + 2];
+  r.near = p.near[ray];
+  r.far = p.far[ray];
+  r.b = p.grid_idx[ray];
+  const int ns = p.num_samples;
+  r.delta0 = ns > 1 ? (r.far - r.near) / (float)(ns - 1) : 1.0f;
+  return r;
+}
+
+// Depth t and step size delta of step s, and the (contracted) point.
+struct Step {
+  float t, delta, px, py, pz;
+  bool in_bounds;
+};
+
+__device__ __forceinline__ Step march_step(const Params& p, const Ray& r,
+                                           int s) {
+  Step st;
+  const float sf = (float)s;
+  st.t = step_depth(p, r.near, r.far, sf);
+  st.delta = sf < 1.0f ? r.delta0
+                       : st.t - step_depth(p, r.near, r.far, sf - 1.0f);
+  float px = r.ox + st.t * r.dx, py = r.oy + st.t * r.dy,
+        pz = r.oz + st.t * r.dz;
+  if (p.contract_coords) {
+    const float n = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
+    if (n > 1.0f) {
+      px = contract_one(px, n);
+      py = contract_one(py, n);
+      pz = contract_one(pz, n);
+    }
+    px = px / 2.0f;
+    py = py / 2.0f;
+    pz = pz / 2.0f;
+  }
+  st.px = px;
+  st.py = py;
+  st.pz = pz;
+  st.in_bounds = fabsf(px) <= 1.0f && fabsf(py) <= 1.0f && fabsf(pz) <= 1.0f;
+  return st;
+}
+
+// ---- grid-list corners (lightplane_tpu/ops/grid_sample.py) --------------
+
+__device__ __forceinline__ float grid_coord(float p, int size) {
+  return size > 1 ? ((p + 1.0f) * 0.5f) * (float)size - 0.5f : 0.0f;
+}
+
+// Calls f(row, weight) for every in-bounds linear-interpolation corner of
+// every sub-grid at the point of `st`, for batch b; `row` indexes the
+// flattened [V_total, grid_chn] grid-list.
+template <class F>
+__device__ __forceinline__ void for_each_corner(const Params& p, int b,
+                                                const Step& st, F&& f) {
+  for (int g = 0; g < p.num_grids; ++g) {
+    const int D = p.grid_dims[g][1];
+    const int H = p.grid_dims[g][2];
+    const int Wd = p.grid_dims[g][3];
+    const float fx = grid_coord(st.px, Wd);
+    const float fy = grid_coord(st.py, H);
+    const float fz = grid_coord(st.pz, D);
+    const float x0 = floorf(fx), y0 = floorf(fy), z0 = floorf(fz);
+    const float tx = fx - x0, ty = fy - y0, tz = fz - z0;
+    // a singleton axis maps to index 0 with weight 1; its second corner has
+    // weight 0 and is out of bounds, so it is skipped
+    const int nz = D > 1 ? 2 : 1, ny = H > 1 ? 2 : 1, nx = Wd > 1 ? 2 : 1;
+    for (int dz = 0; dz < nz; ++dz) {
+      const float cz = z0 + (float)dz;
+      if (!(cz >= 0.0f && cz < (float)D)) continue;
+      const float wz = dz ? tz : (1.0f - tz);
+      for (int dy = 0; dy < ny; ++dy) {
+        const float cy = y0 + (float)dy;
+        if (!(cy >= 0.0f && cy < (float)H)) continue;
+        const float wy = dy ? ty : (1.0f - ty);
+        for (int dx = 0; dx < nx; ++dx) {
+          const float cx = x0 + (float)dx;
+          if (!(cx >= 0.0f && cx < (float)Wd)) continue;
+          const float wx = dx ? tx : (1.0f - tx);
+          const long long row =
+              p.grid_row_offset[g] +
+              (((long long)b * D + (int)cz) * H + (int)cy) * (long long)Wd +
+              (int)cx;
+          f(row, wx * wy * wz);
+        }
+      }
+    }
+  }
+}
+
+// Adds the linear sample of every sub-grid at the point of `st` into
+// x[0:grid_chn).
+template <int W>
+__device__ __forceinline__ void sample_grids(const Params& p, int b,
+                                             const Step& st, float (&x)[W]) {
+  const int C = p.grid_chn;
+  const bool vec4 = (C & 3) == 0;
+  for_each_corner(p, b, st, [&](long long row, float w) {
+    const float* src = p.grid + row * C;
+    if (vec4) {
+      const float4* src4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+      for (int c4 = 0; c4 < W / 4; ++c4) {
+        if (c4 * 4 < C) {
+          const float4 v = __ldg(src4 + c4);
+          x[4 * c4 + 0] += w * v.x;
+          x[4 * c4 + 1] += w * v.y;
+          x[4 * c4 + 2] += w * v.z;
+          x[4 * c4 + 3] += w * v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        if (c < C) x[c] += w * __ldg(src + c);
+    }
+  });
+}
+
+// ---- decoder MLPs --------------------------------------------------------
+// A layer is a zero-padded [W, W] weight tile followed by W biases, in
+// shared memory (stage_layers).
+
+template <int W>
+__device__ __forceinline__ void dense_relu(const float* __restrict__ layer,
+                                           const float (&x)[W], float (&y)[W]) {
+  const float* bias = layer + W * W;
+#pragma unroll
+  for (int o = 0; o < W; ++o) y[o] = bias[o];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float xi = x[i];
+    const float4* row = reinterpret_cast<const float4*>(layer + i * W);
+#pragma unroll
+    for (int o4 = 0; o4 < W / 4; ++o4) {
+      const float4 w = row[o4];
+      y[4 * o4 + 0] += xi * w.x;
+      y[4 * o4 + 1] += xi * w.y;
+      y[4 * o4 + 2] += xi * w.z;
+      y[4 * o4 + 3] += xi * w.w;
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < W; ++o) y[o] = fmaxf(y[o], 0.0f);
+}
+
+// Output o of a layer with no activation (the heads' last layers).
+template <int W>
+__device__ __forceinline__ float dense_out(const float* __restrict__ layer,
+                                          const float (&x)[W], int o) {
+  float acc = layer[W * W + o];
+#pragma unroll
+  for (int i = 0; i < W; ++i) acc += x[i] * layer[i * W + o];
+  return acc;
+}
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+}  // namespace lightplane

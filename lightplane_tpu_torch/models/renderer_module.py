@@ -31,7 +31,8 @@ class LightplaneRenderer(nn.Module):
     Construction args match the Flax module's fields; ``use_naive_impl``
     switches to the materializing oracle.  ``generator`` seeds the decoder
     initialization; at call time an explicit ``generator`` drives near/far
-    jitter and draws a noise seed when none is given.
+    jitter and draws a noise seed when none is given.  The parameters live
+    on ``device``: the GPU unless the caller asks for ``"cpu"``.
     """
 
     def __init__(
@@ -59,7 +60,7 @@ class LightplaneRenderer(nn.Module):
         return_log_transmittance: bool = False,
         use_naive_impl: bool = False,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         self.num_samples = num_samples
@@ -91,12 +92,13 @@ class LightplaneRenderer(nn.Module):
             opacity_init_bias=opacity_init_bias,
             pad_color_channels_to_min_block_size=True,
             use_separate_color_grid=use_separate_color_grid,
+            device=device,
         )
         self._n_hidden_trunk = dp.n_hidden_trunk
         self._n_hidden_opacity = dp.n_hidden_opacity
         self._n_hidden_color = dp.n_hidden_color
         self.rays_encoding_dim = int(dp.n_hidden_color[0])
-        self.mlp_params = nn.Parameter(dp.mlp_params.to(device))
+        self.mlp_params = nn.Parameter(dp.mlp_params)
 
         self.harmonic_ray_embedding_linear = None
         if ray_embedding_num_harmonics is not None:

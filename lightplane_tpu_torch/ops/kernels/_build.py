@@ -1,12 +1,16 @@
 """Build-at-first-use and ``ctypes`` loading of the CUDA sources in
 ``lightplane_tpu_torch/csrc``.
 
-The ``*.cu`` files have a plain C interface, so ``nvcc`` compiles them into
-one shared library in a few seconds, without PyTorch's headers.  The library
-goes to ``build/kernels/`` at the repository root, named by a hash of the
-sources and the flags, so a changed source builds anew and an unchanged one
-loads the cached file.  Nothing is built or loaded on import: the first call
-to :func:`library` does it, and only a CUDA launch calls it.
+The ``*.cu`` files have a plain C interface, so ``nvcc`` compiles them
+without PyTorch's headers: one ``nvcc`` per source, all started together,
+then one link into a shared library.  The library goes to ``build/kernels/``
+at the repository root, named by a hash of the sources (``*.cu`` and
+``*.cuh``) and the flags, so a changed source builds anew and an unchanged
+one loads the cached file.  Nothing is built or loaded on import: the first
+call to :func:`library` does it, and only a CUDA launch calls it.
+``defines`` (``NAME=value`` strings, passed to ``nvcc`` as ``-D``) build a
+variant of the sources beside the default one; ``chip_smoke.py --ablate``
+uses them to switch parts of a kernel off.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +41,16 @@ _RENDER_FW_ARGTYPES = (
     + [_I, _I, _P, _I]   # num_rays, num_grids, grid_meta, grid_chn
     + [_I, _I, _I, _P]   # n_t, n_o, n_c, mlp_widths
     + [_I, _I, _I]       # enc_chn, color_chn, width
+    + [_I, _I, _F, _F]   # num_samples, num_samples_inf, disparity, gain
+    + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
+    + [_P]               # stream
+)
+# lightplane_render_bw (see csrc/renderer_bw.cu)
+_RENDER_BW_ARGTYPES = (
+    [_P] * 16            # origins .. mlp, nlt_final .. g_feat, g_grid .. partial
+    + [_I, _I, _P, _I]   # num_rays, num_grids, grid_meta, grid_chn
+    + [_I, _I, _I, _P]   # n_t, n_o, n_c, mlp_widths
+    + [_I, _I, _I, _I]   # enc_chn, color_chn, width, rays_per_block
     + [_I, _I, _F, _F]   # num_samples, num_samples_inf, disparity, gain
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
     + [_P]               # stream
@@ -62,49 +76,69 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def _cache_key(sources) -> str:
+def _cache_key(sources, flags) -> str:
     h = hashlib.sha256()
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources into ``build/kernels/liblightplane_<hash>.so``
-    unless that file exists; returns its path.  Raises with nvcc's stderr
-    when the build fails."""
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the stderr of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{err}"
+            )
+
+
+def build(defines=()) -> Path:
+    """Compile the sources, with ``-D`` for each of ``defines``, into
+    ``build/kernels/liblightplane_<hash>.so`` unless that file exists;
+    returns its path.  Raises with nvcc's stderr when the build fails."""
     sources = _sources()
-    out = BUILD_DIR / f"liblightplane_{_cache_key(sources)}.so"
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    key = _cache_key(sources + headers, flags)
+    out = BUILD_DIR / f"liblightplane_{key}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builders never see a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    # build in a private directory, then rename the library into place:
+    # concurrent builds never see a half-written file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        nvcc = _nvcc()
+        _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)])
+        lib = Path(tmp) / "lib.so"
+        _run_all([[nvcc, *flags, "-shared", "-o", str(lib),
+                   *map(str, objs)]])
+        os.replace(lib, out)
     return out
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process, with the
-    argument types of every entry point set."""
-    lib = ctypes.CDLL(str(build()))
+def library(defines=()) -> ctypes.CDLL:
+    """The kernel library built with ``defines``, loaded once per process,
+    with the argument types of every entry point set."""
+    lib = ctypes.CDLL(str(build(defines)))
     lib.lightplane_render_fw.argtypes = _RENDER_FW_ARGTYPES
     lib.lightplane_render_fw.restype = _I
     lib.lightplane_render_fw_smem_bytes.argtypes = [_I, _I, _I]
     lib.lightplane_render_fw_smem_bytes.restype = ctypes.c_longlong
+    lib.lightplane_render_bw.argtypes = _RENDER_BW_ARGTYPES
+    lib.lightplane_render_bw.restype = _I
+    lib.lightplane_render_bw_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.lightplane_render_bw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_cuda_error_string.argtypes = [_I]
     lib.lightplane_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,6 +17,7 @@ returns ``(depth [R], nlt [R], feat [R, cfg.out_chn])``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -70,10 +71,32 @@ def _kernel_width(cfg: _RenderCfg, grid_chn: int) -> int:
     )
 
 
-def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
-    """Launch the forward-march kernel on the current CUDA stream."""
-    global LAUNCHES
-    directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
+@dataclasses.dataclass(frozen=True)
+class LaunchArgs:
+    """What both march kernels take besides the tensors: sizes, the
+    padded width and the host-side tables of grid shapes and MLP widths."""
+
+    device: torch.device
+    R: int
+    C: int
+    n_t: int
+    n_o: int
+    n_c: int
+    C_enc: int
+    color_chn: int
+    width: int
+    grid_meta: ctypes.Array
+    mlp_widths: ctypes.Array
+
+    @property
+    def n_layers(self) -> int:
+        return self.n_t + self.n_o + self.n_c
+
+
+def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
+    """Check that the march kernels take these inputs (device, types,
+    shapes, MLP and grid layout) and raise on what they do not run."""
+    directions, origins, near, far, grid_idx, scaffold, _ = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
     if color_grid_flat is not None:
         raise NotImplementedError(
@@ -85,20 +108,9 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
             "scaffold gating in the CUDA renderer is not ported yet "
             "(ROADMAP queue 2, R3)"
         )
-    if torch.is_grad_enabled() and any(
-        t.requires_grad
-        for t in (directions, origins, near, far, grid_flat, mlp_params,
-                  rays_encoding)
-    ):
-        raise NotImplementedError(
-            "the CUDA renderer has no backward yet: the backward kernel (R2) "
-            "is a later PR; render under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
-
     device = directions.device
     if device.type != "cuda":
-        raise ValueError(f"render_fwd_cuda needs CUDA tensors, got {device}")
+        raise ValueError(f"{kernel} needs CUDA tensors, got {device}")
     R = directions.shape[0]
     V, C = grid_flat.shape
     n_t = max(len(cfg.n_hidden_trunk) - 1, 0)
@@ -144,22 +156,11 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
         raise ValueError("grid too large for int32 offsets")
     width = _kernel_width(cfg, C)
 
-    from ._build import library
-
-    lib = library()
-    smem = lib.lightplane_render_fw_smem_bytes(width, n_t + n_o + n_c,
-                                               color_chn)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"the MLP weights need {smem} bytes of shared memory per block, "
-            f"more than the {MAX_SMEM_BYTES} a Hopper block can have"
-        )
-
     offsets = grid_row_offsets(cfg.grid_sizes)
     if offsets[-1] != V or any(gs[-1] != C for gs in cfg.grid_sizes):
         raise ValueError("grid_sizes do not match the flat grid")
     if R:
-        # the kernel gathers rows of sub-grid batch grid_idx[ray]: an index
+        # the kernels gather rows of sub-grid batch grid_idx[ray]: an index
         # outside every sub-grid's batch would read outside the grid
         lo, hi = (int(v) for v in torch.aminmax(grid_idx))
         if lo < 0 or hi >= min(gs[0] for gs in cfg.grid_sizes):
@@ -167,22 +168,46 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
     meta = []
     for gs, off in zip(cfg.grid_sizes, offsets):
         meta += [off, gs[0], gs[1], gs[2], gs[3]]
-    meta_c = (ctypes.c_int * len(meta))(*meta)
     widths = cfg.n_hidden_trunk + cfg.n_hidden_opacity + cfg.n_hidden_color
-    widths_c = (ctypes.c_int * len(widths))(*widths)
+    return LaunchArgs(
+        device=device, R=R, C=C, n_t=n_t, n_o=n_o, n_c=n_c, C_enc=C_enc,
+        color_chn=color_chn, width=width,
+        grid_meta=(ctypes.c_int * len(meta))(*meta),
+        mlp_widths=(ctypes.c_int * len(widths))(*widths),
+    )
 
-    depth = torch.empty((R,), dtype=f32, device=device)
-    nlt = torch.empty((R,), dtype=f32, device=device)
-    feat = torch.empty((R, color_chn), dtype=f32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
+
+def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
+    """Launch the forward-march kernel on the current CUDA stream."""
+    global LAUNCHES
+    directions, origins, near, far, grid_idx, _, noise_seed = geom
+    grid_flat, _, mlp_params, rays_encoding = diff
+    a = launch_args(cfg, geom, diff, "render_fwd_cuda")
+
+    from ._build import library
+
+    lib = library()
+    smem = lib.lightplane_render_fw_smem_bytes(a.width, a.n_layers,
+                                               a.color_chn)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the MLP weights need {smem} bytes of shared memory per block, "
+            f"more than the {MAX_SMEM_BYTES} a Hopper block can have"
+        )
+
+    f32 = torch.float32
+    depth = torch.empty((a.R,), dtype=f32, device=a.device)
+    nlt = torch.empty((a.R,), dtype=f32, device=a.device)
+    feat = torch.empty((a.R, a.color_chn), dtype=f32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.lightplane_render_fw(
         origins.data_ptr(), directions.data_ptr(), near.data_ptr(),
         far.data_ptr(), grid_idx.data_ptr(), rays_encoding.data_ptr(),
         grid_flat.data_ptr(), mlp_params.data_ptr(),
         depth.data_ptr(), nlt.data_ptr(), feat.data_ptr(),
-        R, len(cfg.grid_sizes), meta_c, C,
-        n_t, n_o, n_c, widths_c,
-        C_enc, color_chn, width,
+        a.R, len(cfg.grid_sizes), a.grid_meta, a.C,
+        a.n_t, a.n_o, a.n_c, a.mlp_widths,
+        a.C_enc, a.color_chn, a.width,
         cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf, cfg.gain,
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
         cfg.inject_noise_sigma, int(noise_seed), cfg.noise_stride,
@@ -196,17 +221,22 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
     return depth, nlt, feat
 
 
+def check_impl(impl: str, on_cuda: bool, device) -> bool:
+    """Whether ``impl`` takes the plain version for tensors on ``device``;
+    raises for an unknown ``impl`` and for ``impl="cuda"`` on the CPU."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "torch" or (impl == "auto" and not on_cuda):
+        return True
+    if not on_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {device}")
+    return False
+
+
 def render_fwd(cfg: _RenderCfg, geom, diff, impl: str = "auto"):
     """Forward march: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (``impl="auto"``); ``impl="cuda"`` raises for CPU
     tensors and ``impl="torch"`` asks for the plain version explicitly."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    on_cuda = geom[0].is_cuda
-    if impl == "torch" or (impl == "auto" and not on_cuda):
+    if check_impl(impl, geom[0].is_cuda, geom[0].device):
         return render_fwd_torch(cfg, geom, diff)
-    if not on_cuda:
-        raise ValueError(
-            f"impl='cuda' needs CUDA tensors, got {geom[0].device}"
-        )
     return render_fwd_cuda(cfg, geom, diff)

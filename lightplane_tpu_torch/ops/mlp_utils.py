@@ -66,9 +66,10 @@ def _xavier_init_mlp_params(
     hidden_chn: int,
     output_chn: int,
     last_bias: float = 0.0,
-    device=None,
+    device="cuda",
 ):
-    """Xavier-uniform weights (relu gain), zero biases except the last."""
+    """Xavier-uniform weights (relu gain), zero biases except the last;
+    drawn on the CPU from ``generator``, then moved to ``device``."""
     weights, biases = [], []
     gain = math.sqrt(2.0)
     for l in range(n_layers):
@@ -93,9 +94,10 @@ def init_decoder_params(
     opacity_init_bias: float = 0.0,
     pad_color_channels_to_min_block_size: bool = True,
     use_separate_color_grid: bool = False,
-    device=None,
+    device="cuda",
 ) -> DecoderParams:
-    """Initialize the renderer decoder MLPs from an explicit generator.
+    """Initialize the renderer decoder MLPs from an explicit generator, on
+    ``device`` (the GPU unless the caller asks for ``"cpu"``).
 
     The layer shapes and the flat layout match
     ``lightplane_tpu.init_decoder_params``; the random values do not (the

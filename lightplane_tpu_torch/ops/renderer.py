@@ -1,16 +1,16 @@
-"""Fused Lightplane renderer, forward pass (counterpart of
+"""Fused Lightplane renderer (counterpart of
 ``lightplane_tpu/ops/renderer.py``).
 
-The forward march runs in the hand-written CUDA kernel
-(``csrc/renderer_fw.cu``) for CUDA tensors and in its plain PyTorch version
-(:func:`..kernels.renderer_fw.render_fwd_torch`) for CPU tensors.  Both keep
+The main march is a ``torch.autograd.Function`` (:class:`_RenderCore`, the
+port of the JAX ``_render_core`` custom VJP).  Its forward runs the
+hand-written CUDA kernel ``csrc/renderer_fw.cu`` for CUDA tensors and its
+plain PyTorch version for CPU tensors, and saves only the inputs and the
+final negative log transmittance.  Its backward recomputes the march far to
+near, in ``csrc/renderer_bw.cu`` or its plain version.  Both passes keep
 memory O(R), independent of ``num_samples``: no ``[R, S, ...]`` tensor is
 made.  The background samples (``num_samples_inf``) are split off the main
-march and run as a plain PyTorch loop chained from its negative log
-transmittance, as the JAX package does.
-
-The backward kernel is later work: on CUDA, inputs that require grad under
-grad mode raise.  On the CPU the plain path is differentiable by autograd.
+march and run as a plain PyTorch loop under ordinary autograd, chained from
+its negative log transmittance, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.autograd.function import once_differentiable
+
+from . import guards
 from .const import MIN_BLOCK_SIZE
 from .grid_sample import sample_grid_rep
 from .misc_utils import check_grid_and_color_grid, process_and_flatten_grid
@@ -204,6 +207,51 @@ def _march(cfg: _RenderCfg, geom, diff, steps, nlt):
     return depth, nlt, feat
 
 
+class _RenderCore(torch.autograd.Function):
+    """The main march with the O(1)-in-samples recompute backward.
+
+    ``apply(cfg, impl, directions, origins, near, far, grid_idx, scaffold,
+    noise_seed, grid_flat, color_grid_flat, mlp_params, rays_encoding)``
+    returns ``(depth, nlt, feat)``.  The ray geometry gets no gradient, as
+    in the JAX package.
+    """
+
+    @staticmethod
+    def forward(ctx, cfg, impl, directions, origins, near, far, grid_idx,
+                scaffold, noise_seed, grid_flat, color_grid_flat, mlp_params,
+                rays_encoding):
+        from .kernels.renderer_fw import render_fwd
+
+        geom = (directions, origins, near, far, grid_idx, scaffold,
+                noise_seed)
+        diff = (grid_flat, color_grid_flat, mlp_params, rays_encoding)
+        depth, nlt, feat = render_fwd(cfg, geom, diff, impl)
+        ctx.cfg, ctx.impl, ctx.noise_seed = cfg, impl, noise_seed
+        ctx.save_for_backward(directions, origins, near, far, grid_idx,
+                              scaffold, *diff, nlt)
+        return depth, nlt, feat
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_depth, g_nlt, g_feat):
+        from .kernels.renderer_bw import render_bwd
+
+        (directions, origins, near, far, grid_idx, scaffold, grid_flat,
+         color_grid_flat, mlp_params, rays_encoding, nlt) = ctx.saved_tensors
+        geom = (directions, origins, near, far, grid_idx, scaffold,
+                ctx.noise_seed)
+        diff = (grid_flat, color_grid_flat, mlp_params, rays_encoding)
+        g_out = tuple(g.contiguous() for g in (g_depth, g_nlt, g_feat))
+        grads = render_bwd(ctx.cfg, geom, diff, nlt, g_out, ctx.impl)
+        label = "renderer(cuda)" if directions.is_cuda else "renderer(torch)"
+        guards.assert_grads_finite(grads, label)
+        return (None,) * 9 + tuple(grads)
+
+
+def _render_core(cfg: _RenderCfg, geom, diff, impl: str):
+    return _RenderCore.apply(cfg, impl, *geom, *diff)
+
+
 def _render_tail(cfg: _RenderCfg, geom, diff, nlt_mid):
     """Background-sample tail: steps ``[num_samples, num_samples +
     num_samples_inf)``, chained from the main march's final negative log
@@ -244,9 +292,12 @@ def _image_tile_reorder(rays, R, image_size, grid_sizes, color_grid_sizes):
     return rays, torch.as_tensor(inv_np, device=device)
 
 
-def lightplane_renderer(
+def _march_inputs(
     rays: Rays,
-    grid: Union[Sequence[torch.Tensor], torch.Tensor],
+    grid_flat,
+    color_grid_flat,
+    grid_sizes,
+    color_grid_sizes,
     decoder_params: DecoderParams,
     num_samples: int,
     gain: float,
@@ -257,51 +308,15 @@ def lightplane_renderer(
     inject_noise_sigma: float = 0.0,
     inject_noise_seed: Optional[int] = None,
     scaffold: Optional[torch.Tensor] = None,
-    color_grid: Union[Sequence[torch.Tensor], torch.Tensor, None] = None,
-    grid_sizes=None,
-    color_grid_sizes=None,
-    impl: str = "auto",
-    tile_rays: Optional[int] = None,
-    image_size: Optional[Tuple[int, int]] = None,
-    w3_budget: Optional[Tuple[int, int, int]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused Emission-Absorption renderer, forward pass.
-
-    Same arguments and numerics as
-    ``lightplane_tpu.lightplane_renderer`` (see
-    :func:`lightplane_renderer_naive` for their meaning).
-
-    ``impl``: ``"auto"`` runs the CUDA kernel for CUDA tensors and the
-    plain PyTorch march for CPU tensors; ``"cuda"`` demands the kernel and
-    raises for CPU tensors; ``"torch"`` runs the plain march on any device.
-    ``tile_rays`` and ``w3_budget`` plan TPU kernels and are ignored.
-
-    ``image_size=(height, width)`` declares that ``rays`` are the raster
-    pixels of one image: they are rendered in the JAX package's tile order
-    (so the noise stream matches it) and the outputs come back in raster
-    order.
-
-    Returns:
-        ray_length_render: ``[R]`` expected ray-termination length.
-        negative_log_transmittance: ``[R]``.
-        feature_render: ``[R, color_chn]`` rendered features.
-    """
-    del tile_rays, w3_budget
-    from .kernels.renderer_fw import render_fwd
-
-    check_grid_and_color_grid(grid, color_grid, grid_sizes, color_grid_sizes)
-    grid_flat, color_grid_flat, grid_sizes, color_grid_sizes = (
-        process_and_flatten_grid(grid, color_grid, grid_sizes, color_grid_sizes)
-    )
-    R = rays.directions.shape[0]
-    rays, inv = _image_tile_reorder(
-        rays, R, image_size, grid_sizes, color_grid_sizes
-    )
+):
+    """``(cfg, geom, diff)`` of the whole march over ``rays`` (background
+    samples included), from :func:`lightplane_renderer`'s arguments and the
+    flattened grid-lists."""
     if inject_noise_sigma > 0.0 and inject_noise_seed is None:
         raise ValueError(
             "inject_noise_seed must be given when inject_noise_sigma > 0"
         )
-
+    R = rays.directions.shape[0]
     cfg = _RenderCfg(
         num_samples=int(num_samples),
         num_samples_inf=int(num_samples_inf),
@@ -323,7 +338,6 @@ def lightplane_renderer(
         num_rays_noise=R,
         out_chn=int(decoder_params.color_chn),
     )
-
     rays_encoding = rays.encoding
     if rays_encoding is None:
         rays_encoding = grid_flat.new_zeros((R, cfg.n_hidden_color[0]))
@@ -335,6 +349,68 @@ def lightplane_renderer(
     )
     diff = (grid_flat, color_grid_flat, decoder_params.mlp_params,
             rays_encoding)
+    return cfg, geom, diff
+
+
+def lightplane_renderer(
+    rays: Rays,
+    grid: Union[Sequence[torch.Tensor], torch.Tensor],
+    decoder_params: DecoderParams,
+    num_samples: int,
+    gain: float,
+    num_samples_inf: int = 0,
+    mask_out_of_bounds_samples: bool = False,
+    contract_coords: bool = False,
+    disparity_at_inf: float = 1e-5,
+    inject_noise_sigma: float = 0.0,
+    inject_noise_seed: Optional[int] = None,
+    scaffold: Optional[torch.Tensor] = None,
+    color_grid: Union[Sequence[torch.Tensor], torch.Tensor, None] = None,
+    grid_sizes=None,
+    color_grid_sizes=None,
+    impl: str = "auto",
+    tile_rays: Optional[int] = None,
+    image_size: Optional[Tuple[int, int]] = None,
+    w3_budget: Optional[Tuple[int, int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused Emission-Absorption renderer, differentiable with respect to
+    the grid-list, the decoder's ``mlp_params`` and ``rays.encoding``.
+
+    Same arguments and numerics as
+    ``lightplane_tpu.lightplane_renderer`` (see
+    :func:`lightplane_renderer_naive` for their meaning).
+
+    ``impl``: ``"auto"`` runs the CUDA kernels (forward and backward) for
+    CUDA tensors and the plain PyTorch marches for CPU tensors; ``"cuda"``
+    demands the kernels and raises for CPU tensors; ``"torch"`` runs the
+    plain marches on any device.
+    ``tile_rays`` and ``w3_budget`` plan TPU kernels and are ignored.
+
+    ``image_size=(height, width)`` declares that ``rays`` are the raster
+    pixels of one image: they are rendered in the JAX package's tile order
+    (so the noise stream matches it) and the outputs come back in raster
+    order.
+
+    Returns:
+        ray_length_render: ``[R]`` expected ray-termination length.
+        negative_log_transmittance: ``[R]``.
+        feature_render: ``[R, color_chn]`` rendered features.
+    """
+    del tile_rays, w3_budget
+    check_grid_and_color_grid(grid, color_grid, grid_sizes, color_grid_sizes)
+    grid_flat, color_grid_flat, grid_sizes, color_grid_sizes = (
+        process_and_flatten_grid(grid, color_grid, grid_sizes, color_grid_sizes)
+    )
+    R = rays.directions.shape[0]
+    rays, inv = _image_tile_reorder(
+        rays, R, image_size, grid_sizes, color_grid_sizes
+    )
+    cfg, geom, diff = _march_inputs(
+        rays, grid_flat, color_grid_flat, grid_sizes, color_grid_sizes,
+        decoder_params, num_samples, gain, num_samples_inf,
+        mask_out_of_bounds_samples, contract_coords, disparity_at_inf,
+        inject_noise_sigma, inject_noise_seed, scaffold,
+    )
 
     if cfg.num_samples_inf > 0 and cfg.num_samples > 0:
         # the main march keeps the unsplit noise counters; the tail is a
@@ -342,12 +418,12 @@ def lightplane_renderer(
         cfg_main = dataclasses.replace(
             cfg, num_samples_inf=0, noise_sample_stride=cfg.tot_num_samples,
         )
-        depth, nlt_mid, feat = render_fwd(cfg_main, geom, diff, impl)
+        depth, nlt_mid, feat = _render_core(cfg_main, geom, diff, impl)
         depth_t, nlt, feat_t = _render_tail(cfg, geom, diff, nlt_mid)
         depth = depth + depth_t
         feat = feat + feat_t
     else:
-        depth, nlt, feat = render_fwd(cfg, geom, diff, impl)
+        depth, nlt, feat = _render_core(cfg, geom, diff, impl)
 
     if decoder_params.color_chn < feat.shape[-1]:
         feat = feat[..., : decoder_params.color_chn]

@@ -33,12 +33,13 @@ def rays_to_torch(rays) -> lp.Rays:
 def decoder_to_torch(dp) -> lp.DecoderParams:
     return convert.decoder_params_from_numpy(
         np.asarray(dp.mlp_params), dp.n_hidden_trunk, dp.n_hidden_opacity,
-        dp.n_hidden_color, dp.color_chn,
+        dp.n_hidden_color, dp.color_chn, device="cpu",
     )
 
 
 def grid_to_torch(grid):
-    return convert.grid_list_from_numpy([np.asarray(g) for g in grid])
+    return convert.grid_list_from_numpy([np.asarray(g) for g in grid],
+                                        device="cpu")
 
 
 def compare_outputs(out_jax, out_torch, names=("depth", "nlt", "feat"),

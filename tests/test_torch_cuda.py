@@ -1,7 +1,7 @@
-"""The CUDA forward-march kernel against its plain PyTorch version, on the
-card.  Every test is marked ``cuda`` and skips where no CUDA device is
-available; the file imports neither JAX nor the JAX package, so it runs on
-a GPU machine without them:
+"""The CUDA forward-march and recompute-backward kernels against their plain
+PyTorch versions, on the card.  Every test is marked ``cuda`` and skips
+where no CUDA device is available; the file imports neither JAX nor the JAX
+package, so it runs on a GPU machine without them:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import lightplane_tpu_torch as lp
-from lightplane_tpu_torch.ops.kernels import renderer_fw
+from lightplane_tpu_torch.ops.kernels import renderer_bw, renderer_fw
 
 # f32 on both sides; the rounding differs (fused multiply-adds, summation
 # order, CUDA's expf/logf), so the bound is looser than the CPU tests' 1e-4
@@ -87,13 +87,69 @@ def test_kernel_matches_plain(cuda, case):
         assert err <= MAX_ABS * scale, f"{name}: max |diff| {err}"
 
 
+def _grads(rays, grid, dp, impl, proj, **kw):
+    """Gradients of ``sum(proj * outputs)`` w.r.t. the grid-list,
+    ``mlp_params`` and ``rays.encoding``."""
+    grid = [g.detach().clone().requires_grad_(True) for g in grid]
+    mlp = dp.mlp_params.detach().clone().requires_grad_(True)
+    enc = rays.encoding.detach().clone().requires_grad_(True)
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    dp = lp.DecoderParams(mlp, dp.n_hidden_trunk, dp.n_hidden_opacity,
+                          dp.n_hidden_color, dp.color_chn)
+    out = lp.lightplane_renderer(rays, grid, dp, impl=impl, **kw)
+    sum((o * p).sum() for o, p in zip(out, proj)).backward()
+    return [g.grad for g in grid] + [mlp.grad, enc.grad]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_kernel_matches_plain(cuda, case):
+    setup_kw, render_kw = CASES[case]
+    rays, grid, dp = _case(cuda, **setup_kw)
+    kw = dict(num_samples=32, gain=1.5, **render_kw)
+    gen = torch.Generator().manual_seed(1)
+    n = len(rays)
+    proj = [torch.randn(s, generator=gen).to(cuda)
+            for s in [(n,), (n,), (n, 3)]]
+    before = renderer_bw.LAUNCHES
+    g_k = _grads(rays, grid, dp, "cuda", proj, **kw)
+    torch.cuda.synchronize()
+    assert renderer_bw.LAUNCHES == before + 1
+    g_p = _grads(rays, grid, dp, "torch", proj, **kw)
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        assert a.shape == b.shape, i
+        # f32 rounding differs (atomics' order, fused multiply-adds): the
+        # bound scales with the gradient's magnitude
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * scale, f"grad {i}: max |diff| {err}"
+
+
+@pytest.mark.cuda
+def test_training_step_launches_each_kernel_once(cuda):
+    rays, grid, dp = _case(cuda, [(1, 1, 16, 16, 16), (1, 16, 1, 16, 16),
+                                  (1, 16, 16, 1, 16)], n_rays=300)
+    grid = [g.requires_grad_(True) for g in grid]
+    dp.mlp_params.requires_grad_(True)
+    fw, bw = renderer_fw.LAUNCHES, renderer_bw.LAUNCHES
+    depth, nlt, feat = lp.lightplane_renderer(rays, grid, dp, num_samples=24,
+                                              gain=1.0)
+    (feat.square().mean() + depth.mean()).backward()
+    torch.cuda.synchronize()
+    assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
+    for g in grid + [dp.mlp_params]:
+        assert torch.isfinite(g.grad).all() and g.grad.abs().sum() > 0
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_run(cuda):
     rays, grid, dp = _case(cuda, [(1, 8, 8, 8, 8)], n_rays=64)
     kw = dict(num_samples=8, gain=1.0)
+    # inputs that require grad run: the backward kernel exists
     dp.mlp_params.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="R2"):
-        lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
+    lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)[2].sum().backward()
+    assert torch.isfinite(dp.mlp_params.grad).all()
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="R3"):
             lp.lightplane_renderer(

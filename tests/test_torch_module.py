@@ -34,9 +34,10 @@ def _pair(seed, n_rays=48, module_kw=None, grid_type="triplane"):
     grid = random_grid(k_grid, 1, kw["grid_chn"], 8, grid_type, scale=0.5)
     flax_m = lt.LightplaneRenderer(**kw)
     variables = flax_m.init(k_init, rays, grid)
-    port_m = lp.LightplaneRenderer(**kw)
+    port_m = lp.LightplaneRenderer(device="cpu", **kw)
     port_m.load_state_dict(
-        convert.renderer_module_state_from_flax(jax.device_get(variables))
+        convert.renderer_module_state_from_flax(jax.device_get(variables),
+                                                device="cpu")
     )
     return flax_m, variables, port_m, rays, grid
 
@@ -68,7 +69,7 @@ def test_module_matches_flax(case):
 
 def test_module_naive_matches_fused():
     _, _, port_m, rays, grid = _pair(4, module_kw=dict(bg_color=0.5))
-    naive_m = lp.LightplaneRenderer(use_naive_impl=True,
+    naive_m = lp.LightplaneRenderer(use_naive_impl=True, device="cpu",
                                     **dict(MODULE, bg_color=0.5))
     naive_m.load_state_dict(port_m.state_dict())
     rt, gt = rays_to_torch(rays), grid_to_torch(grid)
@@ -82,7 +83,8 @@ def test_module_naive_matches_fused():
 def test_state_dict_from_flax_layout():
     _, variables, port_m, _, _ = _pair(5)
     params = jax.device_get(variables)["params"]
-    state = convert.renderer_module_state_from_flax({"params": params})
+    state = convert.renderer_module_state_from_flax({"params": params},
+                                                    device="cpu")
     kernel = np.asarray(params["harmonic_ray_embedding_linear"]["kernel"])
     assert kernel.shape == (21, 16)
     assert port_m.harmonic_ray_embedding_linear.in_features == 21
@@ -99,10 +101,10 @@ def test_module_generators():
     """Explicit generators make jitter and drawn noise seeds reproducible."""
     gen = torch.Generator().manual_seed(0)
     m = lp.LightplaneRenderer(generator=gen, rays_jitter_near_far=True,
-                              inject_noise_sigma=1.0, **MODULE)
+                              inject_noise_sigma=1.0, device="cpu", **MODULE)
     m2 = lp.LightplaneRenderer(generator=torch.Generator().manual_seed(0),
                                rays_jitter_near_far=True,
-                               inject_noise_sigma=1.0, **MODULE)
+                               inject_noise_sigma=1.0, device="cpu", **MODULE)
     torch.testing.assert_close(m.state_dict(), m2.state_dict())
     rays = rays_to_torch(random_rays(jax.random.PRNGKey(6), 16, 1))
     grid = grid_to_torch(random_grid(jax.random.PRNGKey(7), 1, 8, 6))
@@ -116,13 +118,14 @@ def test_module_generators():
 
 
 def test_ray_encoding_checks():
-    m = lp.LightplaneRenderer(**MODULE)
+    m = lp.LightplaneRenderer(device="cpu", **MODULE)
     rays = rays_to_torch(random_rays(jax.random.PRNGKey(8), 8, 1,
                                      encoding_dim=16))
     grid = grid_to_torch(random_grid(jax.random.PRNGKey(9), 1, 8, 6))
     with pytest.raises(ValueError, match="Set only one"):
         m(rays, grid)
-    m_enc = lp.LightplaneRenderer(ray_embedding_num_harmonics=None, **MODULE)
+    m_enc = lp.LightplaneRenderer(ray_embedding_num_harmonics=None,
+                                  device="cpu", **MODULE)
     with torch.no_grad():
         out = m_enc(rays, grid)
     assert out[2].shape == (8, 3)
@@ -135,7 +138,9 @@ def test_import_does_not_load_jax():
         "import sys\n"
         "import lightplane_tpu_torch, lightplane_tpu_torch.convert\n"
         "import lightplane_tpu_torch.ops.kernels.renderer_fw\n"
+        "import lightplane_tpu_torch.ops.kernels.renderer_bw\n"
         "import lightplane_tpu_torch.ops.kernels._build\n"
+        "import lightplane_tpu_torch.utils.grid_utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'lightplane_tpu')]\n"
         "assert not bad, bad\n"

@@ -123,7 +123,8 @@ def test_init_decoder_params_matches_layout(separate_color_grid):
               color_chn=3, opacity_init_bias=-2.0,
               use_separate_color_grid=separate_color_grid)
     dj = lt.init_decoder_params(jax.random.PRNGKey(0), **kw)
-    dt = lp.init_decoder_params(torch.Generator().manual_seed(0), **kw)
+    dt = lp.init_decoder_params(torch.Generator().manual_seed(0),
+                                device="cpu", **kw)
     assert (dt.n_hidden_trunk, dt.n_hidden_opacity, dt.n_hidden_color) == (
         dj.n_hidden_trunk, dj.n_hidden_opacity, dj.n_hidden_color
     )
