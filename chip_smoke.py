@@ -3,7 +3,7 @@
 NVIDIA Hopper GPU.
 
     python3 chip_smoke.py            # the phases below
-    python3 chip_smoke.py --ablate   # phases 1-2, then R2 with parts off
+    python3 chip_smoke.py --ablate   # phases 1-2, R2 and S1 with parts off
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -33,17 +33,44 @@ exits non-zero without its result line:
    R1 + R2 against targets a second model renders; the fw+bw step, each
    kernel and the plain versions are timed, and peak memory is read at 128
    and 256 samples.
+6. The splatter's forward kernel (S1) and adjoint (S2) vs their plain
+   versions on the card: the raw accumulators, the normalised grid and the
+   gradients of a fixed random-projection loss w.r.t. the encoding (and,
+   with the MLP, the input grid and ``mlp_params``), through
+   ``lightplane_splatter_raw`` / ``lightplane_(mlp_)splatter`` with
+   ``impl="cuda"`` and ``impl="torch"``.  Configs: the eight variants of
+   ``tests/test_splatter_parity.py`` at 4096 rays, 32 samples and 16^3
+   grids; the eight grid shapes of ``tests/test_splatter_sorted.py``; one
+   128^2 camera view at 96 samples into a 160^3 x 64ch voxel grid and into
+   a 3 x 128^2 x 32ch triplane; and phase 7's MLP splatter at its shapes
+   (MLP 32 -> 32 -> 64, the 64-wide kernels, from a 3 x 128^2 x 32ch input
+   triplane into 160^3 x 64ch) over one such view.
+7. The splatter at full width (``bench.py``'s splatter headline): 16 views
+   x 128^2 rays x 96 samples into one 160^3 x 64ch voxel grid.  The fw+bw
+   step of ``lightplane_splatter`` (loss ``sum(out^2)``), S1 and S2 alone and
+   their plain versions are timed, peak memory is read at 48 and 96
+   samples; then the ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over
+   the same rays with a 3 x 128^2 x 32ch input triplane.
+8. Lift-then-render (``bench.py``'s batched 512^2 memory workload): per-pixel
+   32-channel encodings of 2 and of 4 images are splatted into a 3 x 128^2
+   x 32ch triplane (96 samples) and rendered back (256 samples, decoder
+   2/2/2 with hidden 32); one backward reaches the encodings and the
+   decoder through R2 and S2.  Step time, peak memory, and the marginal
+   memory per image.
 
-Phases 4 and 5 each set the kernels' launch counts to 0 just before they
-run and read them just after.  The last lines are the card's name and power
-limit, a JSON line with every kernel (its launches on the training path, its
-error against the plain version, its time, the plain version's time and the
-least time the card could take) and the result line ``{"ok": true,
-"device": {...}}``.  Needs no network and no JAX.
+Phases 4, 5, 7 and 8 each set the kernels' launch counts to 0 just before
+they drive their path and read them just after.  Every phase prints its
+time.  The last lines are the card's name and power limit, a JSON line with
+every kernel (its launches on its main path, the training path of phase 5
+for R1 and R2 and the splatter step of phase 7 for S1 and S2, its error
+against the plain version, its time, the plain version's time and the least
+time the card could take) and the result line ``{"ok": true, "device":
+{...}}``.  Needs no network and no JAX.
 
-``--ablate`` builds variants of R2 with parts switched off (the
-``LIGHTPLANE_BW_ABLATE`` bits of ``csrc/renderer_bw.cu``), one build each,
-all started together, and times each twice in turn at the slice shape.
+``--ablate`` builds variants of the kernels with parts switched off (the
+``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build each,
+all started together, and times each twice in turn: R2 at the slice shape,
+S1 at the splatter headline.
 """
 
 import gc
@@ -812,31 +839,615 @@ def phase_training(lp, smi):
                                   err=bw_err, bound=(b_bw, by_bw_kind)))
 
 
-# csrc/renderer_bw.cu's LIGHTPLANE_BW_ABLATE bits of each variant
-ABLATIONS = {"scalar_splat": 1, "no_splat": 2, "no_wgrad": 4, "neither": 6}
+# ---- the splatter (phases 6-8) ------------------------------------------
+
+# bench.py's splatter headline (bench.py:328-357): 16 views of 128^2 rays,
+# 96 samples, one 160^3 x 64ch voxel grid
+SPLAT_VIEWS, SPLAT_VIEW_RES, SPLAT_SAMPLES = 16, 128, 96
+SPLAT_VOXEL = (1, 160, 160, 160, 64)
+# the splatter's kernels against their plain versions: compare_one's bounds
+# and max |d| <= 1e-3 x max |ref| of each tensor
+SPLAT_MAX_REL = 1e-3
+
+
+def tri_sizes(res, chn, batch=1):
+    return [(batch, 1, res, res, chn), (batch, res, 1, res, chn),
+            (batch, res, res, 1, chn)]
+
+
+def view_rays(lp, n_views, size, enc):
+    """Raster-order rays of the views of ``sphere_cameras(n_views, 2.5, 25
+    deg)``, ``size``^2 pixels each at focal ``size`` x 1.1, near 0.5, far 3.5
+    (``benchmarks/splatter_speed.py::make_rays``), on the card, with the
+    encoding ``enc``."""
+    from lightplane_tpu_torch.utils.cameras import camera_rays, sphere_cameras
+
+    cams = sphere_cameras(n_views, radius=2.5, elevation_deg=25.0)
+    o, d = zip(*[camera_rays(c, size, size, size * 1.1, 0.5, 3.5)
+                 for c in cams])
+    n = len(cams) * size * size
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device="cuda")
+
+    return lp.Rays(directions=t(np.concatenate(d)),
+                   origins=t(np.concatenate(o)),
+                   grid_idx=t(np.zeros(n), torch.int64),
+                   near=t(np.full(n, 0.5)), far=t(np.full(n, 3.5)),
+                   encoding=enc)
+
+
+def splat_case(lp, rng, n_rays, out_sizes, kind="shell", batch=1, mlp=None,
+               in_sizes=None):
+    """Rays (``shell``: aimed from a shell at z=-2 toward the origin, as
+    tests/utils.py::random_rays; ``sorted``: as
+    tests/test_splatter_sorted.py; ``view``: one 128^2 camera view), their
+    encodings, and with ``mlp = n_hidden`` a splatter MLP and a flat input
+    grid-list of ``in_sizes``, all made from ``rng`` on the card."""
+    dev = "cuda"
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    enc_chn = mlp[0] if mlp else out_sizes[0][-1]
+    enc = t(rng.standard_normal((n_rays, enc_chn)) * 0.1)
+    if kind == "view":
+        rays = view_rays(lp, 1, SPLAT_VIEW_RES, enc)
+    else:
+        origins = rng.standard_normal((n_rays, 3)) / 3.0
+        if kind == "shell":
+            origins = origins + np.array([0.0, 0.0, -2.0])
+            d = rng.standard_normal((n_rays, 3)) * 0.2 - origins
+            near = 0.1 + 0.05 * rng.random(n_rays)
+            far = 3.0 + 0.2 * rng.random(n_rays)
+        else:
+            d = rng.standard_normal((n_rays, 3)) * 0.3 - origins
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            near, far = np.full(n_rays, 0.1), np.full(n_rays, 3.0)
+        rays = lp.Rays(directions=t(d), origins=t(origins),
+                       grid_idx=t(rng.integers(0, batch, n_rays),
+                                  torch.int64),
+                       near=t(near), far=t(far), encoding=enc)
+    sp = igrid = None
+    if mlp:
+        gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+        sp = lp.init_splatter_params(gen, len(mlp) - 1, mlp[0], mlp[1],
+                                     mlp[-1])
+        v_in = sum(int(np.prod(g[:-1])) for g in in_sizes)
+        igrid = t(rng.standard_normal((v_in, mlp[0])) * 0.5)
+    return rays, sp, igrid
+
+
+def splat_call(lp, rays, out_sizes, kw, sp, igrid, in_sizes, impl,
+               raw=False):
+    """``lightplane_splatter_raw`` (``raw``), or the flat normalised grid of
+    ``lightplane_splatter`` / ``lightplane_mlp_splatter``."""
+    if raw:
+        return lp.lightplane_splatter_raw(
+            rays, out_sizes, sp, igrid, input_grid_sizes=in_sizes,
+            impl=impl, **kw)
+    if sp is None:
+        return lp.lightplane_splatter(rays, out_sizes, return_list=False,
+                                      impl=impl, **kw)
+    return lp.lightplane_mlp_splatter(
+        rays, out_sizes, sp, igrid, input_grid_sizes=in_sizes,
+        return_list=False, impl=impl, **kw)
+
+
+def splat_grads(lp, rays, out_sizes, kw, sp, igrid, in_sizes, impl, proj):
+    """Gradients of ``sum(proj * grid)`` w.r.t. the encoding and, with the
+    MLP, the input grid and ``mlp_params``."""
+    enc = rays.encoding.detach().clone().requires_grad_(True)
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    leaves = [enc]
+    if sp is not None:
+        igrid = igrid.detach().clone().requires_grad_(True)
+        sp = lp.SplatterParams(
+            sp.mlp_params.detach().clone().requires_grad_(True), sp.n_hidden)
+        leaves += [igrid, sp.mlp_params]
+    out = splat_call(lp, rays, out_sizes, kw, sp, igrid, in_sizes, impl)
+    (out * proj).sum().backward()
+    return [x.grad for x in leaves]
+
+
+def splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes, kw):
+    """Per ray, in f64, the smallest |x| / sum |terms of x| over the march
+    of every pre-activation that goes through a relu of the splatter MLP."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
+    from lightplane_tpu_torch.ops.mlp_utils import (
+        _flattened_one_mlp_params_to_list,
+    )
+
+    d = torch.float64
+    cfg = smod._SplatCfg(
+        kw["num_samples"], kw.get("num_samples_inf", 0),
+        kw.get("mask_out_of_bounds_samples", False),
+        kw.get("contract_coords", False), kw.get("disparity_at_inf", 1e-5),
+        tuple(out_sizes), tuple(in_sizes), sp.n_hidden)
+    geom = (rays.directions.to(d), rays.origins.to(d), rays.near.to(d),
+            rays.far.to(d), rays.grid_idx)
+    enc, grid = rays.encoding.to(d), igrid.to(d)
+    ws, bs = _flattened_one_mlp_params_to_list(sp.mlp_params.detach().to(d),
+                                               sp.n_hidden)
+    margin = torch.full_like(geom[2], float("inf"))
+    mask = cfg.mask_out_of_bounds_samples
+    with torch.no_grad():
+        for s in range(cfg.tot_num_samples):
+            pts = smod._march_points(cfg, geom, s)
+            x = sample_grid_rep(grid, cfg.input_grid_sizes, pts, geom[4],
+                                mask) + enc
+            terms = sample_grid_rep(grid.abs(), cfg.input_grid_sizes, pts,
+                                    geom[4], mask) + enc.abs()
+            for w, b in zip(ws[:-1], bs[:-1]):
+                pre = x @ w + b
+                terms = terms @ w.abs() + b.abs()
+                ratio = torch.where(terms > 0, pre.abs() / terms,
+                                    float("inf"))
+                margin = torch.minimum(margin, ratio.amin(-1))
+                x = terms = torch.relu(pre)
+    return margin
+
+
+def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
+                 in_sizes=None, seed=0):
+    """Hold S1 and S2 against their plain versions on one config; returns
+    the worst max |d| / max |ref|."""
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    n = len(rays)
+    if sp is not None:
+        keep = splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes,
+                                 kw) >= KINK_MARGIN
+        rays = rays[keep]
+        print(f"  {name}: {kw} ({n - len(rays)} of {n} rays within "
+              f"{KINK_MARGIN:g} of a relu kink left out)")
+    else:
+        print(f"  {name}: {kw}")
+    args = (lp, rays, out_sizes, kw, sp, igrid, in_sizes)
+    worst = 0.0
+
+    def check(label, a, b):
+        nonlocal worst
+        mx, _ = compare(label, a, b, max_rel=SPLAT_MAX_REL)
+        worst = max(worst, mx / max(float(b.abs().max()), 1e-30))
+
+    with torch.no_grad():
+        fw0, bw0 = sfw.LAUNCHES, sbw.LAUNCHES
+        feat_k, w_k = splat_call(*args, "cuda", raw=True)
+        torch.cuda.synchronize()
+        assert sfw.LAUNCHES == fw0 + 1, "the splat kernel did not run"
+        feat_p, w_p = splat_call(*args, "torch", raw=True)
+        check("feat", feat_k, feat_p)
+        check("w", w_k, w_p)
+        eps = 1e-5
+        check("grid", feat_k / w_k.clamp(min=eps), feat_p / w_p.clamp(min=eps))
+    gen = torch.Generator().manual_seed(seed)
+    proj = torch.randn(feat_p.shape, generator=gen).cuda()
+    g_k = splat_grads(*args, "cuda", proj)
+    torch.cuda.synchronize()
+    assert sbw.LAUNCHES == bw0 + 1, "the splat adjoint kernel did not run"
+    g_p = splat_grads(*args, "torch", proj)
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_k, g_p):
+        check(label, a, b)
+    return worst
+
+
+def phase_splat_parity(lp):
+    print("== phase 6: splatter kernels (S1, S2) vs plain PyTorch versions "
+          "on the card")
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    # tests/test_splatter_parity.py's variants at 4096 rays, 32 samples,
+    # 16^3 grids; the MLP 8 -> 16 -> 16 as there
+    vox, tri = [(2, 16, 16, 16, 16)], tri_sizes(16, 16, batch=2)
+    base = dict(num_samples=32)
+    variants = [
+        ("voxel", vox, {}, None),
+        ("triplane", tri, {}, None),
+        ("mask", vox, dict(mask_out_of_bounds_samples=True), None),
+        ("contract", vox, dict(contract_coords=True), None),
+        ("samples_inf3", vox, dict(num_samples_inf=3,
+                                   disparity_at_inf=1e-3), None),
+        ("rays3", vox, {}, None),
+        ("mlp", vox, {}, [(2, 16, 16, 16, 8)]),
+        ("mlp_triplane_mask", tri, dict(mask_out_of_bounds_samples=True),
+         tri_sizes(16, 8, batch=2)),
+    ]
+    for name, out_sizes, extra, in_sizes in variants:
+        mlp = (8, 16, 16) if in_sizes else None
+        n = 3 if name == "rays3" else 4096
+        rays, sp, igrid = splat_case(lp, rng, n, out_sizes, batch=2,
+                                     mlp=mlp, in_sizes=in_sizes)
+        worst = max(worst, splat_parity(lp, name, rays, out_sizes,
+                                        dict(base, **extra), sp, igrid,
+                                        in_sizes, seed=len(name)))
+    # the grid shapes of tests/test_splatter_sorted.py (the TPU's sorted
+    # kernel, S4), with its rays, at 4096 rays
+    sorted_shapes = [
+        ((1, 48, 40, 56, 8), 33, True, False),
+        ((1, 40, 36, 44, 4), 17, False, False),
+        ((1, 48, 48, 48, 8), 25, True, True),
+        ((1, 1, 48, 56, 8), 21, False, False),
+        ((1, 40, 1, 56, 8), 21, True, False),
+        ((1, 40, 48, 1, 8), 21, False, False),
+        ((3, 24, 20, 28, 8), 15, False, False),
+        ((2, 1, 48, 40, 4), 15, True, False),
+    ]
+    for gs, ns, moob, contract in sorted_shapes:
+        rays, _, _ = splat_case(lp, rng, 4096, [gs], kind="sorted",
+                                batch=gs[0])
+        kw = dict(num_samples=ns, mask_out_of_bounds_samples=moob,
+                  contract_coords=contract)
+        worst = max(worst, splat_parity(lp, f"sorted{gs}", rays, [gs], kw,
+                                        seed=ns))
+    # one 128^2 camera view into the headline voxel grid (the TPU's big-grid
+    # kernels, S3 and S4, served it) and into bench.py's 3 x 128^2 x 32ch
+    # lift triplane
+    kw = dict(num_samples=SPLAT_SAMPLES)
+    for name, out_sizes in (("view_voxel160_64ch", [SPLAT_VOXEL]),
+                            ("view_triplane128_32ch", tri_sizes(128, 32))):
+        rays, _, _ = splat_case(lp, rng, SPLAT_VIEW_RES ** 2, out_sizes,
+                                kind="view")
+        worst = max(worst, splat_parity(lp, name, rays, out_sizes, kw))
+        gc.collect()
+        torch.cuda.empty_cache()
+    # phase 7's MLP splatter at its shapes over one view: MLP 32 -> 32 -> 64
+    # (the 64-wide builds of S1, S2 and the weight-gradient sum), a 3 x 128^2
+    # x 32ch input triplane, the 160^3 x 64ch output grid
+    in_sizes = tri_sizes(128, 32)
+    rays, sp, igrid = splat_case(lp, rng, SPLAT_VIEW_RES ** 2, [SPLAT_VOXEL],
+                                 kind="view", mlp=(32, 32, 64),
+                                 in_sizes=in_sizes)
+    worst = max(worst, splat_parity(lp, "view_mlp64_voxel160_64ch", rays,
+                                    [SPLAT_VOXEL], kw, sp, igrid, in_sizes))
+    del rays, sp, igrid
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  all configs within bounds; worst max|d| / max|ref| "
+          f"{worst:.3e}")
+
+
+def splat_work(cfg, geom):
+    """(FLOPs, bytes) S1 and S2 (without the MLP) must do on these inputs,
+    from the corners this run's points need: each in-bounds output corner
+    costs S1 2C + 1 FLOPs (C multiply-adds into the row, 1 add into w) and
+    S2 2C (a multiply-add per gathered channel).  Bytes: every input read
+    once and every output written once (S1: the rays and encodings in, the
+    grids out; S2: the rays and the grid's gradient in, the encodings'
+    gradient out)."""
+    from lightplane_tpu_torch.ops import splatter as smod
+
+    R, C, V = geom[0].shape[0], cfg.out_chn, cfg.v_total
+    corners = 0.0
+    with torch.no_grad():
+        for s in range(cfg.tot_num_samples):
+            pts = smod._march_points(cfg, geom, s)
+            keep = torch.ones_like(pts[:, 0])
+            if cfg.mask_out_of_bounds_samples:
+                keep = (pts.abs() <= 1.0).all(-1).float()
+            for _, D, H, W, _ in cfg.output_grid_sizes:
+                n = keep
+                for k, size in enumerate((W, H, D)):
+                    if size == 1:
+                        continue
+                    f0 = torch.floor(((pts[:, k] + 1.0) * 0.5) * size - 0.5)
+                    n = n * (((f0 >= 0) & (f0 < size)).float()
+                             + ((f0 >= -1) & (f0 < size - 1)).float())
+                corners += float(n.sum())
+    geom_bytes = 4 * R * (3 + 3 + 1 + 1 + 1)
+    fw = (corners * (2 * C + 1), geom_bytes + 4 * R * C + 4 * V * (C + 1))
+    bw = (corners * 2 * C, geom_bytes + 4 * V * C + 4 * R * C)
+    return fw, bw
+
+
+def fwbw_step(lp, rays, out_sizes, kw):
+    """One fw+bw step of ``lightplane_splatter``: loss ``sum(out^2)``,
+    gradient w.r.t. the encoding."""
+    enc = rays.encoding.detach().requires_grad_(True)
+    r = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                rays.far, enc)
+    out = lp.lightplane_splatter(r, out_sizes, return_list=False, **kw)
+    out.square().sum().backward()
+    return enc.grad
+
+
+def device_breakdown(fn, smi, top=6):
+    """The device time of one run of ``fn`` by kernel, from
+    ``torch.profiler``; the busiest ``top`` kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the kernels' own rows (an operator's row repeats its kernels' time)
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.key, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    total = sum(t for _, t in rows)
+    if not total:
+        print("  device time by kernel: not measured (the profiler saw no "
+              "device time)")
+        return
+    print(f"  device time of one step by kernel (torch.profiler; "
+          f"{total / 1e3:.3f} ms in all)  [{smi}]:")
+    for key, t in rows[:top]:
+        print(f"    {t / 1e3:9.3f} ms  {key[:100]}")
+
+
+def phase_splat(lp, smi):
+    print(f"== phase 7: the splatter at full width, {SPLAT_VIEWS} x "
+          f"{SPLAT_VIEW_RES}^2 rays x {SPLAT_SAMPLES} samples into "
+          f"{SPLAT_VOXEL[1]}^3 x {SPLAT_VOXEL[-1]}ch")
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    gen = torch.Generator().manual_seed(7)
+    n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
+    enc = (torch.randn((n, SPLAT_VOXEL[-1]), generator=gen) * 0.1).cuda()
+    rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
+    out_sizes = [SPLAT_VOXEL]
+    kw = dict(num_samples=SPLAT_SAMPLES)
+    torch.cuda.synchronize()
+
+    # the main path: fw+bw steps of lightplane_splatter
+    steps = 8
+    sfw.LAUNCHES = sbw.LAUNCHES = 0
+    step_ms = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g = fwbw_step(lp, rays, out_sizes, kw)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    launches = {"splatter_fw": sfw.LAUNCHES, "splatter_bw": sbw.LAUNCHES}
+    print(f"  kernel launches over {steps} fw+bw steps: {launches}")
+    assert launches == {"splatter_fw": steps, "splatter_bw": steps}, launches
+    assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+    step = statistics.median(step_ms[2:])
+    print(f"  fw+bw step of lightplane_splatter through S1 + S2: median "
+          f"{step:.3f} ms over steps 3-{steps}, {n / step * 1e3:.0f} rays/s"
+          f"  [{smi}]")
+    device_breakdown(lambda: fwbw_step(lp, rays, out_sizes, kw), smi)
+
+    peaks = {}
+    for ns in (48, 96):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwbw_step(lp, rays, out_sizes, dict(kw, num_samples=ns))
+        torch.cuda.synchronize()
+        peaks[ns] = torch.cuda.max_memory_allocated()
+        print(f"  peak allocated, fw+bw step at {ns} samples: {peaks[ns]} "
+              f"bytes ({(peaks[ns] - base) / 2**20:.1f} MiB above the "
+              f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
+    assert abs(peaks[96] - peaks[48]) <= 0.05 * peaks[48], peaks
+
+    # each kernel on its own, and its plain version once, on these inputs
+    cfg = smod._SplatCfg(SPLAT_SAMPLES, 0, False, False, 1e-5,
+                         tuple(out_sizes), None, ())
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    diff = (enc, None, None)
+    with torch.no_grad():
+        fw_ms = cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), reps=5)
+        feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
+        g_out = (torch.randn(feat_k.shape, generator=gen) * 0.01).cuda()
+        bw_ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
+                        reps=5)
+        g_k = sbw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat_p, w_p = sfw.splat_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        print("  S1 vs its plain version at the headline:")
+        fw_err = max(compare("feat", feat_k, feat_p,
+                             max_rel=SPLAT_MAX_REL)[0],
+                     compare("w", w_k, w_p, max_rel=SPLAT_MAX_REL)[0])
+        del feat_k, w_k, feat_p, w_p
+        t0 = time.perf_counter()
+        g_p = sbw.splat_bwd_torch(cfg, geom, diff, g_out)[0]
+        torch.cuda.synchronize()
+        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        print("  S2 vs its plain version at the headline:")
+        bw_err = compare("g_enc", g_k, g_p, max_rel=SPLAT_MAX_REL)[0]
+    print(f"  S1 alone: median {fw_ms:.3f} ms, plain version "
+          f"{fw_plain_ms:.1f} ms (one run); S2 alone: median {bw_ms:.3f} ms,"
+          f" plain version {bw_plain_ms:.1f} ms (one run)  [{smi}]")
+    (fl_fw, by_fw), (fl_bw, by_bw) = splat_work(cfg, geom)
+    b_fw, b_fw_kind = bound(fl_fw, by_fw)
+    b_bw, b_bw_kind = bound(fl_bw, by_bw)
+    print(f"  work: S1 {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.1f} MB -> "
+          f"bound {b_fw:.3f} ms ({b_fw_kind}); S2 {fl_bw / 1e9:.1f} GFLOP, "
+          f"{by_bw / 1e6:.1f} MB -> bound {b_bw:.3f} ms ({b_bw_kind})")
+    del g_out, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_kernel_attrs()
+    mlp_splat_step(lp, rays, smi)
+    return launches, dict(
+        fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
+                bound=(b_fw, b_fw_kind)),
+        bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
+                bound=(b_bw, b_bw_kind)))
+
+
+def print_kernel_attrs():
+    """Registers and spilled bytes per thread of each splat kernel."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    for name, fn in (("S1", lib.lightplane_splat_fw_attrs),
+                     ("S2", lib.lightplane_splat_bw_attrs)):
+        for mlp, width in ((0, 0), (1, 32), (1, 64)):
+            assert fn(mlp, width, out) == 0
+            label = f"MLP W={width}" if mlp else "no MLP"
+            print(f"  {name} {label}: {out[0]} registers, {out[1]} bytes "
+                  f"spilled per thread")
+
+
+def mlp_splat_step(lp, rays, smi):
+    """The MLP splatter over the headline rays: fw+bw step with gradients
+    for the encoding, the input triplane and ``mlp_params``."""
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    gen = torch.Generator().manual_seed(8)
+    module = lp.LightplaneMLPSplatter(
+        num_samples=SPLAT_SAMPLES, grid_chn=SPLAT_VOXEL[-1],
+        input_grid_chn=32, mlp_hidden_chn=32, mlp_n_layers=2,
+        generator=gen)
+    n = len(rays)
+    enc = (torch.randn((n, 32), generator=gen) * 0.1).cuda()
+    igrid = [(torch.randn(s, generator=gen) * 0.1).cuda()
+             for s in tri_sizes(128, 32)]
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc.requires_grad_(True))
+    for g in igrid:
+        g.requires_grad_(True)
+
+    def step():
+        for x in [enc, module.mlp_params] + igrid:
+            x.grad = None
+        out = module(rays, [SPLAT_VOXEL], igrid, return_list=False)
+        out.square().sum().backward()
+
+    fw0, bw0 = sfw.LAUNCHES, sbw.LAUNCHES
+    step_ms = cuda_ms(step, warmup=1, reps=5)
+    assert (sfw.LAUNCHES - fw0, sbw.LAUNCHES - bw0) == (6, 6)
+    for x in [enc, module.mlp_params] + igrid:
+        assert torch.isfinite(x.grad).all() and float(x.grad.abs().sum()) > 0
+    print(f"  LightplaneMLPSplatter (MLP 32 -> 32 -> 64, 3 x 128^2 x 32ch "
+          f"input triplane): fw+bw step median {step_ms:.3f} ms, "
+          f"{n / step_ms * 1e3:.0f} rays/s  [{smi}]")
+
+
+def phase_lift_render(lp, smi):
+    print("== phase 8: lift-then-render, batches of 512^2 images: splat "
+          "into 3 x 128^2 x 32ch, render back at 256 samples")
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    size, chn, res = 512, 32, 128
+    gen = torch.Generator().manual_seed(9)
+    dp = lp.init_decoder_params(gen, n_layers_opacity=2, n_layers_trunk=2,
+                                n_layers_color=2, input_chn=chn,
+                                hidden_chn=32, color_chn=3,
+                                opacity_init_bias=-2.0)
+    mlp = dp.mlp_params.requires_grad_(True)
+    out_sizes = tri_sizes(res, chn)
+    peaks, times = {}, {}
+    for n_img in (2, 4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        n = n_img * size * size
+        enc = (torch.randn((n, chn), generator=gen) * 0.1).cuda()
+        rays = view_rays(lp, n_img, size, enc.requires_grad_(True))
+        zero_enc = torch.zeros((n, 32), device="cuda")
+        rays_render = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
+                              rays.near, rays.far, zero_enc)
+
+        def step():
+            enc.grad = mlp.grad = None
+            lifted = lp.lightplane_splatter(rays, out_sizes, num_samples=96)
+            depth, nlt, feat = lp.lightplane_renderer(
+                rays_render, lifted, dp, num_samples=256, gain=1.0)
+            loss = feat.square().sum() + nlt.sum() + depth.sum()
+            loss.backward()
+            return loss
+
+        step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sfw.LAUNCHES = sbw.LAUNCHES = rfw.LAUNCHES = rbw.LAUNCHES = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step()
+        end.record()
+        end.synchronize()
+        launches = dict(splatter_fw=sfw.LAUNCHES, renderer_fw=rfw.LAUNCHES,
+                        renderer_bw=rbw.LAUNCHES, splatter_bw=sbw.LAUNCHES)
+        assert set(launches.values()) == {1}, launches
+        times[n_img] = start.elapsed_time(end)
+        peaks[n_img] = torch.cuda.max_memory_allocated()
+        assert torch.isfinite(loss)
+        for name, x in (("encodings", enc), ("mlp_params", mlp)):
+            assert torch.isfinite(x.grad).all(), name
+            assert float(x.grad.abs().sum()) > 0, f"{name}: zero gradient"
+        print(f"  batch {n_img} ({n} rays): step {times[n_img]:.3f} ms; "
+              f"launches {launches}; peak allocated {peaks[n_img]} bytes "
+              f"({(peaks[n_img] - base) / 2**20:.1f} MiB above the "
+              f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
+        if n_img == 4:
+            device_breakdown(step, smi)
+        del rays, rays_render, enc, zero_enc
+    marginal = (peaks[4] - peaks[2]) / 2
+    print(f"  marginal peak memory per 512^2 image: {marginal:.0f} bytes "
+          f"({marginal / 2**20:.1f} MiB)  [{smi}]")
+
+
+# csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each variant: atomics
+# into the grid (R2's grid gradient, S1's splat) scalar or switched off, R2's
+# MLP weight-gradient pass switched off
+ABLATIONS = {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
+             "neither": 6}
+
+
+def time_variants(variants, fn, smi):
+    """Time ``fn(defines)`` for each variant, twice in turn, by CUDA
+    events, and print the times."""
+    times = {name: [] for name in variants}
+    with torch.no_grad():
+        for _ in range(2):
+            for name, defines in variants.items():
+                times[name].append(cuda_ms(lambda: fn(defines), warmup=1,
+                                           reps=5))
+    for name, ms in times.items():
+        print(f"  {name:14s} {' '.join(f'{t:.3f}' for t in ms)} ms "
+              f"(median {statistics.median(ms):.3f})  [{smi}]")
 
 
 def ablate(lp, smi):
-    """R2 as built and with parts switched off, each variant built with its
-    own -D, all builds started together; each timed twice in turn at the
-    slice shape by CUDA events."""
-    print("== ablation: R2 with parts switched off, at the slice shape")
+    """R2 at the slice shape and S1 at the splatter headline, as built and
+    with parts switched off; each variant built with its own -D, all builds
+    started together, each timed twice in turn by CUDA events."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops import splatter as smod
     from lightplane_tpu_torch.ops.kernels import _build
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
     from lightplane_tpu_torch.utils import grid_utils
 
-    variants = {"shipped": ()}
-    variants.update({k: (f"LIGHTPLANE_BW_ABLATE={m}",)
-                     for k, m in ABLATIONS.items()})
+    r2 = {"shipped": ()}
+    r2.update({k: (f"LIGHTPLANE_ABLATE={m}",) for k, m in ABLATIONS.items()})
+    s1 = {k: r2[k] for k in ("shipped", "scalar_atomics", "no_atomics")}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(variants)) as pool:
-        list(pool.map(_build.library, variants.values()))
-    print(f"  built {len(variants)} variants in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(r2)) as pool:
+        list(pool.map(_build.library, r2.values()))
+    print(f"  built {len(r2)} variants in {time.perf_counter() - t0:.1f} s")
+
+    print("== ablation: R2 with parts switched off, at the slice shape")
     dev = "cuda"
     gen = torch.Generator().manual_seed(0)
     module = lp.LightplaneRenderer(generator=gen, device=dev, **SLICE)
@@ -847,18 +1458,23 @@ def ablate(lp, smi):
     n = len(rays)
     g_out = tuple(torch.randn(s, generator=gen).to(dev)
                   for s in [(n,), (n,), (n, 3)])
-    times = {name: [] for name in variants}
     with torch.no_grad():
         nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
-        for _ in range(2):
-            for name, defines in variants.items():
-                times[name].append(cuda_ms(
-                    lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out,
-                                                defines),
-                    warmup=1, reps=5))
-    for name, ms in times.items():
-        print(f"  {name:13s} {' '.join(f'{t:.3f}' for t in ms)} ms "
-              f"(median {statistics.median(ms):.3f})  [{smi}]")
+    time_variants(r2, lambda d: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
+                                                    g_out, d), smi)
+
+    print("== ablation: S1 with parts switched off, at the splatter "
+          "headline")
+    n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
+    enc = (torch.randn((n, SPLAT_VOXEL[-1]), generator=gen) * 0.1).cuda()
+    rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
+    cfg = smod._SplatCfg(SPLAT_SAMPLES, 0, False, False, 1e-5,
+                         (SPLAT_VOXEL,), None, ())
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    time_variants(s1, lambda d: sfw.splat_fwd_cuda(cfg, geom,
+                                                   (enc, None, None), d),
+                  smi)
 
 
 def main():
@@ -868,17 +1484,30 @@ def main():
     import lightplane_tpu_torch as lp
 
     t0 = time.perf_counter()
-    smi, name = phase_device()
-    phase_build()
+
+    def timed(fn, *args):
+        """Run one phase, print its time and check that no JAX came in."""
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"   ({fn.__name__}: {time.perf_counter() - t:.1f} s)")
+        assert "jax" not in sys.modules, "the port imported jax"
+        return out
+
+    smi, name = timed(phase_device)
+    timed(phase_build)
     if sys.argv[1:] == ["--ablate"]:
         ablate(lp, smi)
         return 0
-    phase_parity(lp)
-    phase_backward_parity(lp)
+    timed(phase_parity, lp)
+    timed(phase_backward_parity, lp)
     held_memory()
-    fw = phase_slice(lp, smi)
-    launches, train = phase_training(lp, smi)
-    assert "jax" not in sys.modules, "the port imported jax"
+    fw = timed(phase_slice, lp, smi)
+    launches, train = timed(phase_training, lp, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(phase_splat_parity, lp)
+    splat_launches, splat = timed(phase_splat, lp, smi)
+    timed(phase_lift_render, lp, smi)
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     kernels = [
@@ -892,6 +1521,16 @@ def main():
              plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
              bound_by=b_bw_kind, library_ms=None),
     ]
+    for key, line in (("fw", 57), ("bw", 183)):
+        k = splat[key]
+        kernels.append(dict(
+            name=f"splatter_{key}", route="cuda",
+            source=f"lightplane_tpu_torch/csrc/splatter_{key}.cu",
+            replaces=f"lightplane_tpu/ops/kernels/splatter_pallas.py:{line}",
+            launches=splat_launches[f"splatter_{key}"],
+            max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound"][0], bound_by=k["bound"][1],
+            library_ms=None))
     print(f"== done in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,20 @@
 """lightplane_tpu_torch: the PyTorch / CUDA port of ``lightplane_tpu``.
 
-The renderer, forward and backward: ``lightplane_renderer`` and the
-``LightplaneRenderer`` module run the fused Emission-Absorption march and
-its O(1)-in-samples recompute backward as hand-written CUDA kernels on
-NVIDIA Hopper GPUs (``csrc/renderer_fw.cu``, ``csrc/renderer_bw.cu``, built
-with ``nvcc`` at first use) and as their plain PyTorch versions on the CPU.
-The package trains: gradients reach the grid-list, the decoder's
-``mlp_params`` and the ray encoding (so the module's parameters), and
-``utils.grid_utils`` holds the fitting regularisers.  Factories build on
-the GPU unless asked for ``device="cpu"``.  Names, layouts (channels-last
-grid-lists, the flat ``mlp_params`` vector) and numerics follow the JAX
+The renderer (3D -> 2D) and the splatter (2D -> 3D), forward and backward.
+``lightplane_renderer`` and the ``LightplaneRenderer`` module run the fused
+Emission-Absorption march and its O(1)-in-samples recompute backward;
+``lightplane_splatter``, ``lightplane_mlp_splatter`` (and
+``lightplane_splatter_raw``) and the ``LightplaneSplatter`` /
+``LightplaneMLPSplatter`` modules run the fused splat and its gather
+adjoint.  On NVIDIA Hopper GPUs each pass is a hand-written CUDA kernel
+(``csrc/renderer_fw.cu``, ``csrc/renderer_bw.cu``, ``csrc/splatter_fw.cu``,
+``csrc/splatter_bw.cu``, built with ``nvcc`` at first use); on the CPU it is
+the kernel's plain PyTorch version.  Gradients reach the grid-lists, the
+MLPs' flat ``mlp_params`` and the ray encodings, so a splat can be rendered
+back and trained end to end.  ``utils.grid_utils`` holds the fitting
+regularisers and ``utils.cameras`` pinhole rays.  Factories build on the GPU
+unless asked for ``device="cpu"``.  Names, layouts (channels-last
+grid-lists, the flat ``mlp_params`` vectors) and numerics follow the JAX
 package, which stays the reference.  This package never imports JAX.
 """
 
@@ -33,8 +38,11 @@ from .ops.misc_utils import (
 )
 from .ops.mlp_utils import (
     DecoderParams,
+    SplatterParams,
     init_decoder_params,
+    init_splatter_params,
     flatten_decoder_params,
+    flatten_splatter_params,
     flattened_decoder_params_to_list,
 )
 from .ops.rand import int_to_randn
@@ -44,6 +52,16 @@ from .ops.naive_renderer import (
     lightplane_eval_mlp_opacity_only,
 )
 from .ops.renderer import lightplane_renderer
+from .ops.naive_splatter import (
+    lightplane_splatter_naive,
+    lightplane_mlp_splatter_naive,
+)
+from .ops.splatter import (
+    lightplane_splatter,
+    lightplane_mlp_splatter,
+    lightplane_splatter_raw,
+)
 from .models.renderer_module import LightplaneRenderer
+from .models.splatter_module import LightplaneSplatter, LightplaneMLPSplatter
 
 __version__ = "0.1.0"

@@ -9,7 +9,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from .ops.mlp_utils import DecoderParams
+from .ops.mlp_utils import DecoderParams, SplatterParams
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,6 +50,23 @@ def renderer_module_state_from_flax(
             dense["bias"], device
         )
     return state
+
+
+def splatter_params_from_numpy(
+    mlp_params, n_hidden, device="cuda"
+) -> SplatterParams:
+    """A :class:`SplatterParams` holding the flat vector ``mlp_params``
+    (same layout in both packages)."""
+    return SplatterParams(_tensor(mlp_params, device), n_hidden)
+
+
+def mlp_splatter_module_state_from_flax(
+    variables, device="cuda"
+) -> Dict[str, torch.Tensor]:
+    """Map the Flax ``LightplaneMLPSplatter`` variables ``{"params":
+    {"mlp_params"}}`` to a ``state_dict`` of the port's
+    ``LightplaneMLPSplatter``."""
+    return {"mlp_params": _tensor(variables["params"]["mlp_params"], device)}
 
 
 def grid_list_from_numpy(

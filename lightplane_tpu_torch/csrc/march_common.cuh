@@ -1,12 +1,18 @@
-// What the forward march (renderer_fw.cu) and the recompute backward
-// (renderer_bw.cu) share: the launch parameters and their host-side setup,
+// What the renderer's forward march (renderer_fw.cu) and recompute backward
+// (renderer_bw.cu) and the splatter's two kernels (splatter_fw.cu,
+// splatter_bw.cu) share: the launch parameters and their host-side setup,
 // the counter RNG, the per-step geometry, the grid-list corner walk and the
-// padded dense layers of the decoder MLPs.
+// padded dense layers of the MLPs.
 //
 // Numerics follow the JAX scan path: the counter hash in uint32_t / int32_t
 // so that it is bit-exact with JAX's wrapping int32 arithmetic, and IEEE
 // expf / logf / log1pf / cosf (the sources must be compiled without
-// --use_fast_math).
+// --use_fast_math).  The step geometry (depth, point, grid coordinate) is
+// written with __fmul_rn / __fadd_rn, which nvcc does not contract into
+// fused multiply-adds, so it rounds as the plain versions' separate
+// elementwise operations do: a corner weight near a cell boundary, tiny
+// and so relatively sensitive to one rounding, is then the same in both,
+// and so is a splat normalised by a sum of such weights.
 
 #pragma once
 
@@ -18,6 +24,48 @@ namespace lightplane {
 constexpr int kMaxGrids = 8;
 constexpr int kMaxLayers = 8;  // per MLP
 constexpr int kMaxTotalLayers = 3 * kMaxLayers;
+
+// LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
+// switches parts of R2 (renderer_bw.cu) and S1 (splatter_fw.cu, without the
+// MLP) off to time them.  The shipped build has none of it.
+#ifndef LIGHTPLANE_ABLATE
+#define LIGHTPLANE_ABLATE 0
+#endif
+constexpr int kAblate = LIGHTPLANE_ABLATE;
+constexpr int kAblateScalarAtomics = 1;  // one scalar atomicAdd per channel
+constexpr int kAblateNoAtomics = 2;      // no atomics into the grid
+constexpr int kAblateNoWeightGrad = 4;   // no MLP weight-gradient pass (R2)
+
+// Whether the part `bit` runs.  A part switched off keeps a guard on data
+// `x` that never holds, so the compiler keeps the work that feeds it.
+__device__ __forceinline__ bool part_runs(int bit, float x) {
+  return !(kAblate & bit) || x == 1234.5f;
+}
+
+// Whether C channels are reduced as float4 atomics (16-byte rows).
+__device__ __forceinline__ bool float4_atomics(int C) {
+  return (C & 3) == 0 && !(kAblate & kAblateScalarAtomics);
+}
+
+// The sub-grid shapes of a grid-list and the row where each starts in the
+// flattened [V_total, C] tensor.
+struct GridMeta {
+  int num_grids;
+  long long row_offset[kMaxGrids];
+  int dims[kMaxGrids][4];  // B, D, H, W
+};
+
+// Fills m from host int[5 * num_grids], per sub-grid (row offset, B, D, H,
+// W); false for a sub-grid count outside 1..kMaxGrids.
+inline bool fill_grid_meta(GridMeta& m, int num_grids, const int* grid_meta) {
+  if (num_grids < 1 || num_grids > kMaxGrids) return false;
+  m.num_grids = num_grids;
+  for (int g = 0; g < num_grids; ++g) {
+    m.row_offset[g] = grid_meta[5 * g];
+    for (int k = 0; k < 4; ++k) m.dims[g][k] = grid_meta[5 * g + 1 + k];
+  }
+  return true;
+}
 
 struct Params {
   const float* origins;     // [R, 3]
@@ -45,12 +93,10 @@ struct Params {
   float* g_mlp_partial;    // [blocks, n_layers_total * (W * W + W)]
 
   int num_rays;
-  int num_grids;
+  GridMeta grids;  // of `grid`
   int grid_chn;
-  long long grid_row_offset[kMaxGrids];
-  int grid_dims[kMaxGrids][4];  // B, D, H, W
 
-  int n_layers[3];  // trunk, opacity, color
+  int n_layers[3];  // trunk, opacity, color (the splatter: its MLP, 0, 0)
   int layer_in[kMaxTotalLayers];
   int layer_out[kMaxTotalLayers];
   int layer_w_off[kMaxTotalLayers];
@@ -71,32 +117,11 @@ struct Params {
   int num_rays_noise;
 };
 
-// Fills everything but the tensors; returns a cudaError_t code.
-//   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
-//   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32 or 64
-inline int fill_params(Params& p, int num_rays, int num_grids,
-                       const int* grid_meta, int grid_chn, int n_t, int n_o,
-                       int n_c, const int* mlp_widths, int enc_chn,
-                       int color_chn, int width, int num_samples,
-                       int num_samples_inf, float disparity_at_inf, float gain,
-                       int mask_out_of_bounds, int contract_coords,
-                       float noise_sigma, int noise_seed, int noise_stride,
-                       int num_rays_noise) {
-  if (num_grids < 1 || num_grids > kMaxGrids || n_o < 1 || n_c < 1 ||
-      n_t > kMaxLayers || n_o > kMaxLayers || n_c > kMaxLayers ||
-      (width != 32 && width != 64))
-    return (int)cudaErrorInvalidValue;
-  p.num_rays = num_rays;
-  p.num_grids = num_grids;
-  p.grid_chn = grid_chn;
-  for (int g = 0; g < num_grids; ++g) {
-    p.grid_row_offset[g] = grid_meta[5 * g];
-    for (int k = 0; k < 4; ++k) p.grid_dims[g][k] = grid_meta[5 * g + 1 + k];
-  }
-  // per-layer widths and offsets into the flat parameter vector: each MLP
-  // is [W_0, ..., W_{L-1}, b_0, ..., b_{L-1}]; trunk, opacity, color
-  const int counts[3] = {n_t, n_o, n_c};
+// Per-layer widths and offsets into the flat parameter vector of up to
+// three MLPs of counts[m] layers each, whose n_hidden tuples follow each
+// other in mlp_widths; each MLP is [W_0, ..., W_{L-1}, b_0, ..., b_{L-1}].
+inline void fill_layers(Params& p, const int counts[3],
+                        const int* mlp_widths) {
   int layer = 0, w_at = 0, param_off = 0;
   for (int m = 0; m < 3; ++m) {
     p.n_layers[m] = counts[m];
@@ -116,14 +141,44 @@ inline int fill_params(Params& p, int num_rays, int num_grids,
     w_at += counts[m] + (counts[m] > 0 ? 1 : 0);
   }
   p.n_params = param_off;
-  p.enc_chn = enc_chn;
-  p.color_chn = color_chn;
+}
+
+// Fills the march schedule: samples, background, masking, contraction.
+inline void fill_march(Params& p, int num_samples, int num_samples_inf,
+                       float disparity_at_inf, int mask_out_of_bounds,
+                       int contract_coords) {
   p.num_samples = num_samples;
   p.num_samples_inf = num_samples_inf;
   p.disparity_at_inf = disparity_at_inf;
-  p.gain = gain;
   p.mask_out_of_bounds = mask_out_of_bounds;
   p.contract_coords = contract_coords;
+}
+
+// Fills everything but the tensors; returns a cudaError_t code.
+//   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
+//   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
+//   width: the padded activation width, 32 or 64
+inline int fill_params(Params& p, int num_rays, int num_grids,
+                       const int* grid_meta, int grid_chn, int n_t, int n_o,
+                       int n_c, const int* mlp_widths, int enc_chn,
+                       int color_chn, int width, int num_samples,
+                       int num_samples_inf, float disparity_at_inf, float gain,
+                       int mask_out_of_bounds, int contract_coords,
+                       float noise_sigma, int noise_seed, int noise_stride,
+                       int num_rays_noise) {
+  if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
+      n_c > kMaxLayers || (width != 32 && width != 64) ||
+      !fill_grid_meta(p.grids, num_grids, grid_meta))
+    return (int)cudaErrorInvalidValue;
+  p.num_rays = num_rays;
+  p.grid_chn = grid_chn;
+  const int counts[3] = {n_t, n_o, n_c};
+  fill_layers(p, counts, mlp_widths);
+  p.enc_chn = enc_chn;
+  p.color_chn = color_chn;
+  fill_march(p, num_samples, num_samples_inf, disparity_at_inf,
+             mask_out_of_bounds, contract_coords);
+  p.gain = gain;
   p.noise_sigma = noise_sigma;
   p.noise_seed = noise_seed;
   p.noise_stride = noise_stride;
@@ -197,7 +252,8 @@ __device__ __forceinline__ float step_noise(const Params& p, int ray, int s) {
 __device__ __forceinline__ float lin_depth(const Params& p, float near,
                                           float far, float si) {
   if (p.num_samples > 1)
-    return near + (far - near) * (si / (float)(p.num_samples - 1));
+    return __fadd_rn(near, __fmul_rn(far - near,
+                                     si / (float)(p.num_samples - 1)));
   return near;
 }
 
@@ -205,7 +261,8 @@ __device__ __forceinline__ float inf_depth(const Params& p, float far,
                                           float si) {
   const float frac = (si - (float)p.num_samples + 1.0f) /
                      (float)p.num_samples_inf;
-  const float n_disp = p.disparity_at_inf * frac + (1.0f - frac);
+  const float n_disp = __fadd_rn(__fmul_rn(p.disparity_at_inf, frac),
+                                 1.0f - frac);
   return far * (1.0f / n_disp);
 }
 
@@ -258,8 +315,9 @@ __device__ __forceinline__ Step march_step(const Params& p, const Ray& r,
   st.t = step_depth(p, r.near, r.far, sf);
   st.delta = sf < 1.0f ? r.delta0
                        : st.t - step_depth(p, r.near, r.far, sf - 1.0f);
-  float px = r.ox + st.t * r.dx, py = r.oy + st.t * r.dy,
-        pz = r.oz + st.t * r.dz;
+  float px = __fadd_rn(r.ox, __fmul_rn(st.t, r.dx)),
+        py = __fadd_rn(r.oy, __fmul_rn(st.t, r.dy)),
+        pz = __fadd_rn(r.oz, __fmul_rn(st.t, r.dz));
   if (p.contract_coords) {
     const float n = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
     if (n > 1.0f) {
@@ -281,19 +339,19 @@ __device__ __forceinline__ Step march_step(const Params& p, const Ray& r,
 // ---- grid-list corners (lightplane_tpu/ops/grid_sample.py) --------------
 
 __device__ __forceinline__ float grid_coord(float p, int size) {
-  return size > 1 ? ((p + 1.0f) * 0.5f) * (float)size - 0.5f : 0.0f;
+  return size > 1 ? __fmul_rn((p + 1.0f) * 0.5f, (float)size) - 0.5f : 0.0f;
 }
 
 // Calls f(row, weight) for every in-bounds linear-interpolation corner of
-// every sub-grid at the point of `st`, for batch b; `row` indexes the
-// flattened [V_total, grid_chn] grid-list.
+// every sub-grid of `m` at the point of `st`, for batch b; `row` indexes the
+// flattened [V_total, C] grid-list.
 template <class F>
-__device__ __forceinline__ void for_each_corner(const Params& p, int b,
+__device__ __forceinline__ void for_each_corner(const GridMeta& m, int b,
                                                 const Step& st, F&& f) {
-  for (int g = 0; g < p.num_grids; ++g) {
-    const int D = p.grid_dims[g][1];
-    const int H = p.grid_dims[g][2];
-    const int Wd = p.grid_dims[g][3];
+  for (int g = 0; g < m.num_grids; ++g) {
+    const int D = m.dims[g][1];
+    const int H = m.dims[g][2];
+    const int Wd = m.dims[g][3];
     const float fx = grid_coord(st.px, Wd);
     const float fy = grid_coord(st.py, H);
     const float fz = grid_coord(st.pz, D);
@@ -315,7 +373,7 @@ __device__ __forceinline__ void for_each_corner(const Params& p, int b,
           if (!(cx >= 0.0f && cx < (float)Wd)) continue;
           const float wx = dx ? tx : (1.0f - tx);
           const long long row =
-              p.grid_row_offset[g] +
+              m.row_offset[g] +
               (((long long)b * D + (int)cz) * H + (int)cy) * (long long)Wd +
               (int)cx;
           f(row, wx * wy * wz);
@@ -325,15 +383,23 @@ __device__ __forceinline__ void for_each_corner(const Params& p, int b,
   }
 }
 
-// Adds the linear sample of every sub-grid at the point of `st` into
-// x[0:grid_chn).
+// The corner walk of the renderer's grid-list.
+template <class F>
+__device__ __forceinline__ void for_each_corner(const Params& p, int b,
+                                                const Step& st, F&& f) {
+  for_each_corner(p.grids, b, st, f);
+}
+
+// Adds the linear sample of every sub-grid of the [V_total, C] grid-list
+// (`m`, `grid`) at the point of `st` into x[0:C), C <= W.  Rows are read as
+// float4 when C % 4 == 0 (the caller passes a 16-byte aligned `grid`).
 template <int W>
-__device__ __forceinline__ void sample_grids(const Params& p, int b,
+__device__ __forceinline__ void sample_grids(const GridMeta& m,
+                                             const float* grid, int C, int b,
                                              const Step& st, float (&x)[W]) {
-  const int C = p.grid_chn;
   const bool vec4 = (C & 3) == 0;
-  for_each_corner(p, b, st, [&](long long row, float w) {
-    const float* src = p.grid + row * C;
+  for_each_corner(m, b, st, [&](long long row, float w) {
+    const float* src = grid + row * C;
     if (vec4) {
       const float4* src4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
@@ -354,13 +420,21 @@ __device__ __forceinline__ void sample_grids(const Params& p, int b,
   });
 }
 
+// The renderer's sample of its grid-list into x[0:grid_chn).
+template <int W>
+__device__ __forceinline__ void sample_grids(const Params& p, int b,
+                                             const Step& st, float (&x)[W]) {
+  sample_grids<W>(p.grids, p.grid, p.grid_chn, b, st, x);
+}
+
 // ---- decoder MLPs --------------------------------------------------------
 // A layer is a zero-padded [W, W] weight tile followed by W biases, in
 // shared memory (stage_layers).
 
-template <int W>
-__device__ __forceinline__ void dense_relu(const float* __restrict__ layer,
-                                           const float (&x)[W], float (&y)[W]) {
+// y = x @ layer + bias, then relu when kRelu.
+template <int W, bool kRelu>
+__device__ __forceinline__ void dense(const float* __restrict__ layer,
+                                      const float (&x)[W], float (&y)[W]) {
   const float* bias = layer + W * W;
 #pragma unroll
   for (int o = 0; o < W; ++o) y[o] = bias[o];
@@ -377,8 +451,16 @@ __device__ __forceinline__ void dense_relu(const float* __restrict__ layer,
       y[4 * o4 + 3] += xi * w.w;
     }
   }
+  if (kRelu) {
 #pragma unroll
-  for (int o = 0; o < W; ++o) y[o] = fmaxf(y[o], 0.0f);
+    for (int o = 0; o < W; ++o) y[o] = fmaxf(y[o], 0.0f);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void dense_relu(const float* __restrict__ layer,
+                                           const float (&x)[W], float (&y)[W]) {
+  dense<W, true>(layer, x, y);
 }
 
 // Output o of a layer with no activation (the heads' last layers).

@@ -49,16 +49,15 @@
 // partial outer products in registers across steps, a smaller per-ray
 // footprint and warp-aggregated grid reductions are later work.
 //
-// LIGHTPLANE_BW_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
-// switches parts off for that timing: 1 = one scalar atomicAdd per grid
-// channel, 2 = no grid-gradient reductions, 4 = no MLP weight-gradient pass.
-// A part switched off keeps a data-dependent guard that never holds, so the
-// compiler keeps the work that feeds it.
+// The timings with parts switched off build it with march_common.cuh's
+// LIGHTPLANE_ABLATE: 1 = one scalar atomicAdd per grid channel, 2 = no
+// grid-gradient reductions, 4 = no MLP weight-gradient pass.
 //
 // Numerics: f32 throughout, IEEE transcendentals (no --use_fast_math).  The
 // grid gradient's atomics make its sums order-dependent from run to run.
 
 #include "march_common.cuh"
+#include "mlp_bwd.cuh"
 
 namespace {
 
@@ -66,93 +65,12 @@ using namespace lightplane;
 
 constexpr int kMaxRays = 128;  // rays (= threads) per block, at most
 
-#ifndef LIGHTPLANE_BW_ABLATE
-#define LIGHTPLANE_BW_ABLATE 0
-#endif
-constexpr int kAblate = LIGHTPLANE_BW_ABLATE;
-
 long long bw_smem_floats(int W, int rays, int n_total, int color_chn) {
   const long long n_slots = n_total - 1;
   return (long long)n_total * (W * W + W)          // padded layers
          + (n_slots + 2) * W * rays                // layer inputs, enc, g_enc
          + (long long)((color_chn + 3) / 4 * 4) * rays  // feature cotangent
          + (long long)W * (rays + 4);              // one layer's G
-}
-
-// g_in[i] = sum_o layer[i][o] * g_out[o]: the input gradient of a layer.
-template <int W>
-__device__ __forceinline__ void dense_bwd(const float* __restrict__ layer,
-                                          const float (&g_out)[W],
-                                          float (&g_in)[W]) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float4* row = reinterpret_cast<const float4*>(layer + i * W);
-    float a = 0.0f;
-#pragma unroll
-    for (int o4 = 0; o4 < W / 4; ++o4) {
-      const float4 w = row[o4];
-      a += w.x * g_out[4 * o4 + 0] + w.y * g_out[4 * o4 + 1] +
-           w.z * g_out[4 * o4 + 2] + w.w * g_out[4 * o4 + 3];
-    }
-    g_in[i] = a;
-  }
-}
-
-// The entries of a padded [W*W + W] layer gradient that thread `tid` of a
-// block of `rays` threads owns: columns o = tid % cols, + cols, ... and rows
-// [row0, row0 + rows), plus the bias of its columns when row0 == 0.
-struct Owned {
-  int cols, row0, rows;
-};
-
-template <int W>
-__device__ __forceinline__ Owned owned_entries(int rays, int tid) {
-  Owned e;
-  e.cols = min(W, rays);
-  const int groups = max(1, rays / W);
-  e.rows = W / groups;
-  e.row0 = (tid / e.cols) * e.rows;
-  return e;
-}
-
-// part[i][o] += sum_r X[i][r] * G[o][r] and part[W*W + o] += sum_r G[o][r]
-// over the block's rays, for the entries this thread owns.  X (and X2,
-// added to it when given) is [W][rays]; G is [W][rays + 4], a stride that
-// keeps a quarter-warp's float4 loads on distinct banks.
-template <int W>
-__device__ __forceinline__ void weight_grad(float* __restrict__ part,
-                                            const float* X, const float* X2,
-                                            const float* G, int rays,
-                                            int tid) {
-  const Owned e = owned_entries<W>(rays, tid);
-  for (int o = tid % e.cols; o < W; o += e.cols) {
-    const float* g_row = G + o * (rays + 4);
-    for (int i0 = e.row0; i0 < e.row0 + e.rows; i0 += 8) {
-      float acc[8], acc_b = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
-      for (int r = 0; r < rays; r += 4) {
-        const float4 g = *reinterpret_cast<const float4*>(g_row + r);
-        acc_b += (g.x + g.y) + (g.z + g.w);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          float4 x = *reinterpret_cast<const float4*>(X + (i0 + k) * rays + r);
-          if (X2 != nullptr) {
-            const float4 x2 =
-                *reinterpret_cast<const float4*>(X2 + (i0 + k) * rays + r);
-            x.x += x2.x;
-            x.y += x2.y;
-            x.z += x2.z;
-            x.w += x2.w;
-          }
-          acc[k] += x.x * g.x + x.y * g.y + x.z * g.z + x.w * g.w;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) part[(i0 + k) * W + o] += acc[k];
-      if (i0 == 0) part[W * W + o] += acc_b;
-    }
-  }
 }
 
 template <int W>
@@ -174,15 +92,7 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
       p.g_mlp_partial + (long long)blockIdx.x * n_total * kLayer;
 
   stage_layers<W>(p, smem, n_total);
-  {
-    const Owned e = owned_entries<W>(rays, tid);
-    for (int l = 0; l < n_total; ++l)
-      for (int o = tid % e.cols; o < W; o += e.cols) {
-        for (int i = e.row0; i < e.row0 + e.rows; ++i)
-          part[l * kLayer + i * W + o] = 0.0f;
-        if (e.row0 == 0) part[l * kLayer + W * W + o] = 0.0f;
-      }
-  }
+  zero_owned_partial<W>(part, n_total, rays, tid);
 
   // threads past the last ray march a copy of it with zero cotangents, so
   // every gradient they add to the block's sums is 0
@@ -287,7 +197,7 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
       const float* X = s_act + (L == color_first  ? n_t
                                 : L > color_first ? L - 1
                                                   : L) * W * rays;
-      if (!(kAblate & 4) || X[tid] == 1234.5f)
+      if (part_runs(kAblateNoWeightGrad, X[tid]))
         weight_grad<W>(part + L * kLayer, X,
                        L == color_first ? s_enc : nullptr, s_G, rays, tid);
       __syncthreads();
@@ -322,9 +232,9 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
 
     // ---- grid-gradient splat ----
     // (sm_90's float4 atomicAdd: one 16-byte reduction per 4 channels)
-    if (valid && sampled && (!(kAblate & 2) || G[0] == 1234.5f)) {
+    if (valid && sampled && part_runs(kAblateNoAtomics, G[0])) {
       const int C = p.grid_chn;
-      const bool vec4 = (C & 3) == 0 && !(kAblate & 1);
+      const bool vec4 = float4_atomics(C);
       for_each_corner(p, r.b, st, [&](long long row, float wgt) {
         float* dst = p.g_grid + row * C;
         if (vec4) {
@@ -347,33 +257,6 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
   if (valid)
     for (int c = 0; c < p.enc_chn; ++c)
       p.g_enc[(long long)ray * p.enc_chn + c] = s_genc[c * rays + tid];
-}
-
-// g_mlp[k] = the sum over blocks of the padded partial entry of flat index k.
-template <int W>
-__global__ void reduce_mlp_grad_kernel(const Params p, int n_blocks) {
-  constexpr int kLayer = W * W + W;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= p.n_params) return;
-  const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
-  int padded = 0;
-  for (int L = 0; L < n_total; ++L) {
-    const int d_in = p.layer_in[L], d_out = p.layer_out[L];
-    const int w_off = p.layer_w_off[L], b_off = p.layer_b_off[L];
-    if (k >= w_off && k < w_off + d_in * d_out) {
-      const int e = k - w_off;
-      padded = L * kLayer + (e / d_out) * W + e % d_out;
-      break;
-    }
-    if (k >= b_off && k < b_off + d_out) {
-      padded = L * kLayer + W * W + (k - b_off);
-      break;
-    }
-  }
-  const long long stride = (long long)n_total * kLayer;
-  float acc = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) acc += p.g_mlp_partial[b * stride + padded];
-  p.g_mlp[k] = acc;
 }
 
 template <int W>

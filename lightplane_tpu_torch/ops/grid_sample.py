@@ -1,5 +1,5 @@
-"""Trilinear/bilinear sampling of flattened grid-lists (counterpart of
-``lightplane_tpu/ops/grid_sample.py``).
+"""Trilinear/bilinear sampling and splatting of flattened grid-lists
+(counterpart of ``lightplane_tpu/ops/grid_sample.py``).
 
 One sampler handles voxel grids and planes: a singleton spatial axis maps
 its coordinate to index 0, so a ``[B, 1, H, W, C]`` plane is sampled
@@ -8,8 +8,9 @@ bilinearly in (x, y).  A point ``p = (x, y, z)`` in ``[-1, 1]^3`` indexes
 ``i = ((p + 1) / 2) * S - 0.5``.  Out-of-bounds corners get weight 0 and
 clamped indices (zeros padding); the sub-grids' samples are summed.
 
-Sampling is a gather of the corner rows, so everything here is
-differentiable by ordinary autograd.
+Sampling is a gather of the corner rows and splatting, its transpose, an
+``index_add`` into them, so everything here is differentiable by ordinary
+autograd.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ def grid_row_offsets(grid_sizes: GridSizes):
 
 
 def _corner_rows_and_weights(size, points, batch_idx, mode: str):
-    """Flat row indices and interpolation weights of the sampling corners of
-    one sub-grid, each ``[..., K]`` (K = 8 linear, 1 nearest)."""
+    """Flat row indices, interpolation weights and in-bounds flags of the
+    sampling corners of one sub-grid, each ``[..., K]`` (K = 8 linear, 1
+    nearest).  Out-of-bounds corners get weight 0 and a clamped row."""
     _, D, H, W, _ = size
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     zero = torch.zeros_like(x)
@@ -59,7 +61,7 @@ def _corner_rows_and_weights(size, points, batch_idx, mode: str):
     else:
         raise ValueError(f"unknown sampling mode {mode!r}")
 
-    rows, weights = [], []
+    rows, weights, valids = [], [], []
     for cx, cy, cz, w in corners:
         valid = (
             (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H) & (cz >= 0) & (cz < D)
@@ -69,7 +71,9 @@ def _corner_rows_and_weights(size, points, batch_idx, mode: str):
         czi = torch.clamp(cz, 0, D - 1).to(torch.int64)
         rows.append(((batch_idx * D + czi) * H + cyi) * W + cxi)
         weights.append(torch.where(valid, w, torch.zeros_like(w)))
-    return torch.stack(rows, dim=-1), torch.stack(weights, dim=-1)
+        valids.append(valid)
+    return (torch.stack(rows, dim=-1), torch.stack(weights, dim=-1),
+            torch.stack(valids, dim=-1))
 
 
 def sample_grid_rep(
@@ -102,7 +106,7 @@ def sample_grid_rep(
 
     out = None
     for gs, off in zip(grid_sizes, offsets[:-1]):
-        rows, weights = _corner_rows_and_weights(gs, points, bidx, mode)
+        rows, weights, _ = _corner_rows_and_weights(gs, points, bidx, mode)
         vals = grid_flat[(rows + off).reshape(-1)].reshape(
             rows.shape + (grid_flat.shape[-1],)
         )                                                    # [..., K, C]
@@ -112,6 +116,57 @@ def sample_grid_rep(
     if mask_out_of_bounds_samples:
         out = out * is_in_bounds(points).to(out.dtype)
     return out
+
+
+def splat_grid_rep(
+    features: torch.Tensor,
+    grid_flat_shape_or_acc,
+    grid_sizes: GridSizes,
+    points: torch.Tensor,
+    grid_idx: torch.Tensor,
+    mask_out_of_bounds_samples: bool = False,
+    inplace: bool = False,
+) -> torch.Tensor:
+    """Splat ``features`` at ``points`` into a flattened grid-list: the
+    transpose of :func:`sample_grid_rep` (linear mode), by ``index_add``.
+
+    Args:
+        features: ``[R, ..., C]`` values to splat.
+        grid_flat_shape_or_acc: a flat accumulator ``[V_total, C]`` to add
+            into, or an int ``V_total`` for a fresh zero accumulator.
+        grid_sizes, points, grid_idx, mask_out_of_bounds_samples: as in
+            :func:`sample_grid_rep`; masking multiplies the features by
+            :func:`is_in_bounds`.
+        inplace: add into the given accumulator in place (outside autograd:
+            the plain kernel versions) instead of returning a new tensor.
+
+    Returns:
+        the flat ``[V_total, C]`` accumulator with the splat added.  Corners
+        outside a sub-grid are dropped.
+    """
+    offsets = grid_row_offsets(grid_sizes)
+    C = features.shape[-1]
+    if isinstance(grid_flat_shape_or_acc, int):
+        acc = features.new_zeros((grid_flat_shape_or_acc, C))
+    else:
+        acc = grid_flat_shape_or_acc
+    bshape = points.shape[:-1]
+    bidx = grid_idx.to(torch.int64).reshape(
+        (grid_idx.shape[0],) + (1,) * (len(bshape) - 1)
+    ).expand(bshape)
+    feats = features
+    if mask_out_of_bounds_samples:
+        feats = feats * is_in_bounds(points).to(feats.dtype)
+
+    for gs, off in zip(grid_sizes, offsets[:-1]):
+        rows, weights, valid = _corner_rows_and_weights(gs, points, bidx,
+                                                        "linear")
+        contrib = weights[..., None] * feats[..., None, :]   # [..., K, C]
+        keep = valid.reshape(-1)
+        add = acc.index_add_ if inplace else acc.index_add
+        acc = add(0, (rows + off).reshape(-1)[keep],
+                  contrib.reshape(-1, C)[keep])
+    return acc
 
 
 def sample_grid_list(

@@ -56,6 +56,27 @@ _RENDER_BW_ARGTYPES = (
     + [_P]               # stream
 )
 
+# lightplane_splat_fw (see csrc/splatter_fw.cu)
+_SPLAT_FW_ARGTYPES = (
+    [_P] * 10            # origins .. mlp, feat, w
+    + [_I, _I, _P, _I]   # num_rays, num_out_grids, out_meta, out_chn
+    + [_I, _P, _I]       # num_in_grids, in_meta, in_chn
+    + [_I, _P, _I]       # n_layers, mlp_widths, width
+    + [_I, _I, _F, _I, _I]  # num_samples, num_samples_inf, disparity, mask,
+                            # contract
+    + [_P]               # stream
+)
+# lightplane_splat_bw (see csrc/splatter_bw.cu)
+_SPLAT_BW_ARGTYPES = (
+    [_P] * 13            # origins .. mlp, g_out, g_enc .. g_mlp_partial
+    + [_I, _I, _P, _I]   # num_rays, num_out_grids, out_meta, out_chn
+    + [_I, _P, _I]       # num_in_grids, in_meta, in_chn
+    + [_I, _P, _I, _I]   # n_layers, mlp_widths, width, rays_per_block
+    + [_I, _I, _F, _I, _I]  # num_samples, num_samples_inf, disparity, mask,
+                            # contract
+    + [_P]               # stream
+)
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -139,6 +160,18 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_render_bw.restype = _I
     lib.lightplane_render_bw_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lightplane_render_bw_smem_bytes.restype = ctypes.c_longlong
+    lib.lightplane_splat_fw.argtypes = _SPLAT_FW_ARGTYPES
+    lib.lightplane_splat_fw.restype = _I
+    lib.lightplane_splat_fw_smem_bytes.argtypes = [_I, _I]
+    lib.lightplane_splat_fw_smem_bytes.restype = ctypes.c_longlong
+    lib.lightplane_splat_bw.argtypes = _SPLAT_BW_ARGTYPES
+    lib.lightplane_splat_bw.restype = _I
+    lib.lightplane_splat_bw_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lightplane_splat_bw_smem_bytes.restype = ctypes.c_longlong
+    for attrs in (lib.lightplane_splat_fw_attrs,
+                  lib.lightplane_splat_bw_attrs):
+        attrs.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        attrs.restype = _I
     lib.lightplane_cuda_error_string.argtypes = [_I]
     lib.lightplane_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,12 +1,13 @@
-"""Decoder MLP parameter packing (counterpart of
+"""Decoder and splatter MLP parameter packing (counterpart of
 ``lightplane_tpu/ops/mlp_utils.py``).
 
 The renderer's trunk / opacity / color MLPs live in one flat 1-D
-``mlp_params`` vector plus per-MLP layer-width tuples ``n_hidden_*``.  The
-layout is identical to the JAX package's, so one array feeds both::
+``mlp_params`` vector plus per-MLP layer-width tuples ``n_hidden_*``; the
+splatter's single MLP in a flat vector plus ``n_hidden``.  The layout is
+identical to the JAX package's, so one array feeds both::
 
     [W_0.flatten(), ..., W_{L-1}.flatten(), b_0, ..., b_{L-1}]   per MLP
-    trunk, then opacity, then color
+    trunk, then opacity, then color (the decoder)
 
 with right-multiplying weights (``out = in @ W + b``, ``W`` is
 ``[d_in, d_out]`` row-major).  The color MLP's last layer is zero-padded up
@@ -57,6 +58,20 @@ class DecoderParams:
         self.n_hidden_trunk = _as_static_n_hidden(self.n_hidden_trunk)
         self.n_hidden_opacity = _as_static_n_hidden(self.n_hidden_opacity)
         self.n_hidden_color = _as_static_n_hidden(self.n_hidden_color)
+
+
+@dataclasses.dataclass
+class SplatterParams:
+    """Learnable parameters of the splatter MLP, which maps
+    ``input_grid[x] + rays.encoding`` to the vector splatted at ``x``:
+    the flat ``mlp_params`` vector and ``n_hidden = (c_in, h_1, ...,
+    c_out)``."""
+
+    mlp_params: torch.Tensor
+    n_hidden: NHidden
+
+    def __post_init__(self):
+        self.n_hidden = _as_static_n_hidden(self.n_hidden)
 
 
 def _xavier_init_mlp_params(
@@ -137,6 +152,25 @@ def init_decoder_params(
     )
 
 
+def init_splatter_params(
+    generator: Optional[torch.Generator],
+    n_layers: int,
+    input_chn: int = 32,
+    hidden_chn: int = 32,
+    out_chn: int = 16,
+    device="cuda",
+) -> SplatterParams:
+    """Initialize the splatter MLP from an explicit generator, on
+    ``device`` (the GPU unless the caller asks for ``"cpu"``).  The shapes
+    and the flat layout match ``lightplane_tpu.init_splatter_params``; the
+    random values do not."""
+    weights, biases = _xavier_init_mlp_params(
+        generator, n_layers, input_chn, hidden_chn, out_chn, device=device
+    )
+    mlp_params, n_hidden = flatten_splatter_params(weights, biases)
+    return SplatterParams(mlp_params, n_hidden)
+
+
 def _pad_color_mlp_params(weights, biases, n_pad):
     weights = list(weights)
     biases = list(biases)
@@ -188,6 +222,15 @@ def flatten_decoder_params(
         _get_n_hidden(weights_opacity),
         _get_n_hidden(weights_color),
     )
+
+
+def flatten_splatter_params(weights, biases):
+    """Flatten the splatter MLP: all weights, then all biases; returns
+    ``(mlp_params, n_hidden)``."""
+    mlp_params = torch.cat(
+        [t.reshape(-1) for group in (weights, biases) for t in group], dim=0
+    )
+    return mlp_params, _get_n_hidden(weights)
 
 
 def _mlp_numel(n_hidden: NHidden) -> int:

@@ -1,5 +1,6 @@
-"""The CUDA forward-march and recompute-backward kernels against their plain
-PyTorch versions, on the card.  Every test is marked ``cuda`` and skips
+"""The CUDA kernels (the renderer's forward march and recompute backward,
+the splatter's splat and adjoint) against their plain PyTorch versions, on
+the card.  Every test is marked ``cuda`` and skips
 where no CUDA device is available; the file imports neither JAX nor the JAX
 package, so it runs on a GPU machine without them:
 
@@ -11,7 +12,12 @@ import pytest
 import torch
 
 import lightplane_tpu_torch as lp
-from lightplane_tpu_torch.ops.kernels import renderer_bw, renderer_fw
+from lightplane_tpu_torch.ops.kernels import (
+    renderer_bw,
+    renderer_fw,
+    splatter_bw,
+    splatter_fw,
+)
 
 # f32 on both sides; the rounding differs (fused multiply-adds, summation
 # order, CUDA's expf/logf), so the bound is looser than the CPU tests' 1e-4
@@ -172,3 +178,113 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
                          rays.near, rays.far, rays.encoding)
         with pytest.raises(ValueError, match="grid_idx out of range"):
             lp.lightplane_renderer(rays_b, grid, dp, impl="cuda", **kw)
+
+
+def _tri(batch, res, chn):
+    return [(batch, 1, res, res, chn), (batch, res, 1, res, chn),
+            (batch, res, res, 1, chn)]
+
+
+SPLAT_CASES = {
+    "triplane_batch2_mask": dict(out_sizes=_tri(2, 12, 16), batch=2,
+                                 kw=dict(mask_out_of_bounds_samples=True)),
+    "voxel_6ch_samples_inf": dict(out_sizes=[(1, 10, 12, 14, 6)],
+                                  kw=dict(num_samples_inf=3,
+                                          disparity_at_inf=1e-3)),
+    "mlp_contract": dict(out_sizes=[(1, 12, 12, 12, 16)], mlp=(8, 16, 16),
+                         in_sizes=_tri(1, 12, 8),
+                         kw=dict(contract_coords=True)),
+    # the module's default MLP width: 64 output channels, the 64-wide builds
+    "mlp_64ch_out": dict(out_sizes=[(1, 10, 12, 14, 64)], mlp=(32, 32, 64),
+                         in_sizes=_tri(1, 12, 32), kw={}),
+}
+
+
+def _splat_case(device, out_sizes, batch=1, mlp=None, in_sizes=None,
+                n_rays=512, seed=0):
+    rng = np.random.default_rng(seed)
+    origins = rng.standard_normal((n_rays, 3)) / 3.0 + np.array([0, 0, -2.0])
+    directions = rng.standard_normal((n_rays, 3)) * 0.2 - origins
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    enc_chn = mlp[0] if mlp else out_sizes[0][-1]
+    rays = lp.Rays(
+        directions=t(directions), origins=t(origins),
+        grid_idx=t(rng.integers(0, batch, n_rays), torch.int64),
+        near=t(0.1 + 0.05 * rng.random(n_rays)),
+        far=t(3.0 + 0.2 * rng.random(n_rays)),
+        encoding=t(rng.standard_normal((n_rays, enc_chn)) * 0.1),
+    )
+    sp = igrid = None
+    if mlp:
+        sp = lp.init_splatter_params(torch.Generator().manual_seed(seed),
+                                     len(mlp) - 1, mlp[0], mlp[1], mlp[-1],
+                                     device=device)
+        igrid = [t(rng.standard_normal(s) * 0.5) for s in in_sizes]
+    return rays, sp, igrid
+
+
+def _splat_grads(rays, out_sizes, sp, igrid, impl, proj, **kw):
+    """The raw accumulators, and the gradients of ``sum(proj * grid)``
+    w.r.t. the encoding (and the input grid-list and ``mlp_params``)."""
+    enc = rays.encoding.detach().clone().requires_grad_(True)
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    leaves = [enc]
+    if sp is None:
+        raw = lp.lightplane_splatter_raw(rays, out_sizes, impl=impl, **kw)
+        out = lp.lightplane_splatter(rays, out_sizes, return_list=False,
+                                     impl=impl, **kw)
+    else:
+        igrid = [g.detach().clone().requires_grad_(True) for g in igrid]
+        sp = lp.SplatterParams(
+            sp.mlp_params.detach().clone().requires_grad_(True), sp.n_hidden)
+        leaves += igrid + [sp.mlp_params]
+        raw = lp.lightplane_splatter_raw(rays, out_sizes, sp, igrid,
+                                         impl=impl, **kw)
+        out = lp.lightplane_mlp_splatter(rays, out_sizes, sp, igrid,
+                                         return_list=False, impl=impl, **kw)
+    (out * proj).sum().backward()
+    return [t.detach() for t in raw] + [x.grad for x in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPLAT_CASES))
+def test_splat_kernels_match_plain(cuda, case):
+    c = dict(SPLAT_CASES[case])
+    kw = dict(num_samples=24, **c.pop("kw"))
+    rays, sp, igrid = _splat_case(cuda, **c)
+    out_sizes = c["out_sizes"]
+    V = sum(int(np.prod(s[:-1])) for s in out_sizes)
+    proj = torch.randn((V, out_sizes[0][-1]),
+                       generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES)
+    got = _splat_grads(rays, out_sizes, sp, igrid, "cuda", proj, **kw)
+    torch.cuda.synchronize()
+    # one splat for the raw call and one for the loss; one adjoint
+    assert (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+    want = _splat_grads(rays, out_sizes, sp, igrid, "torch", proj, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        # the atomics reorder the sums: the bound scales with the magnitude
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * max(1.0, float(b.abs().max())), (
+            f"output {i}: max |diff| {err}")
+
+
+@pytest.mark.cuda
+def test_splat_kernels_reject_what_they_do_not_run(cuda):
+    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 72, 16),
+                                  in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
+    with pytest.raises(ValueError, match="widths up to 64"):
+        lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
+                                   num_samples=8, impl="cuda")
+    rays, _, _ = _splat_case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
+    rays_b = lp.Rays(rays.directions, rays.origins, rays.grid_idx + 1,
+                     rays.near, rays.far, rays.encoding)
+    with pytest.raises(ValueError, match="grid_idx out of range"):
+        lp.lightplane_splatter(rays_b, [(1, 8, 8, 8, 16)], num_samples=8,
+                               impl="cuda")

@@ -139,8 +139,11 @@ def test_import_does_not_load_jax():
         "import lightplane_tpu_torch, lightplane_tpu_torch.convert\n"
         "import lightplane_tpu_torch.ops.kernels.renderer_fw\n"
         "import lightplane_tpu_torch.ops.kernels.renderer_bw\n"
+        "import lightplane_tpu_torch.ops.kernels.splatter_fw\n"
+        "import lightplane_tpu_torch.ops.kernels.splatter_bw\n"
         "import lightplane_tpu_torch.ops.kernels._build\n"
         "import lightplane_tpu_torch.utils.grid_utils\n"
+        "import lightplane_tpu_torch.utils.cameras\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'lightplane_tpu')]\n"
         "assert not bad, bad\n"
