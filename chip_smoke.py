@@ -13,8 +13,11 @@ exits non-zero without its result line:
 2. Build: ``nvcc`` compiles ``lightplane_tpu_torch/csrc/*.cu`` (cached under
    ``build/kernels/`` by a hash of the sources).
 3. The forward kernel (R1) vs its plain PyTorch version on the card, at
-   4096 rays and 48 samples, over nine configurations it supports.
-3b. The backward kernel (R2) vs its plain version on the same nine
+   4096 rays and 48 samples, over fourteen configurations it supports, five
+   of them the big shapes that the TPU's W3 sampler served (a 3 x 128^2
+   and a 3 x 100^2 triplane, a batch of two 32^3 grids, a contracted 32^3
+   grid, an 8^3 + 24^3 pyramid; all 16ch).
+3b. The backward kernel (R2) vs its plain version on the same fourteen
    configurations, with the JAX parity tests' N(0, 0.05) decoders:
    gradients of a fixed random-projection loss w.r.t. the grid-list,
    ``mlp_params`` and ``rays.encoding`` through
@@ -22,6 +25,11 @@ exits non-zero without its result line:
    First, on the triplane config with the initialiser's decoder, where f32
    gradients are rough at relu kinks, it prints how far each f32 version is
    from the f64 run and how close that ray came to a kink.
+3c. Scaffold gating (R3) and the relu-field colour grid (R1-rf) in R1 and
+   R2 vs their plain versions, on the triplane config: random, empty and
+   half-empty binary scaffolds, one from ``calculate_scaffold`` at 64^3, and
+   two relu-field configs (one with a scaffold); it prints how many gates
+   sit within 1e-6 of a rounding boundary, where an ulp flips a gate.
 4. Serving: the ``LightplaneRenderer`` module at the repository's headline
    render config (triplane 3 x 32^2 x 32ch, MLPs 2/2/2 with hidden 32,
    harmonic ray embedding, 256 samples) serves four 256 x 256 frames from
@@ -57,14 +65,24 @@ exits non-zero without its result line:
    2/2/2 with hidden 32); one backward reaches the encodings and the
    decoder through R2 and S2.  Step time, peak memory, and the marginal
    memory per image.
+9. Scene fitting: the port's trainer
+   (``lightplane_tpu_torch.examples.fit_single_scene.main``) at the JAX
+   app's default width (triplane 3 x 64^2 x 32ch, 128 samples, 4096 rays,
+   the synthetic scene) for 600 steps, with scaffold updates before and
+   after an upsample to 3 x 128^2 x 32ch at 256 samples: ms per step between
+   events, occupancy, eval PSNR and SSIM (the last must beat the first),
+   launches; 20 steps with and without the scaffold; a profiled step; R1
+   and R2 alone with the scaffold; then a relu-field model (density and
+   colour triplanes of 3 x 64^2 x 32ch) takes 12 Adam steps.
 
-Phases 4, 5, 7 and 8 each set the kernels' launch counts to 0 just before
-they drive their path and read them just after.  Every phase prints its
-time.  The last lines are the card's name and power limit, a JSON line with
-every kernel (its launches on its main path, the training path of phase 5
+Phases 4, 5, 7, 8 and 9 each set the kernels' launch counts to 0 just
+before they drive their path and read them just after.  Every phase prints
+its time.  The last lines are the card's name and power limit, a JSON line
+with every kernel (its launches on its main path, the trainer of phase 9
 for R1 and R2 and the splatter step of phase 7 for S1 and S2, its error
 against the plain version, its time, the plain version's time and the least
-time the card could take) and the result line ``{"ok": true, "device":
+time the card could take, and for R1 and R2 the same for the scaffold and
+relu-field branches) and the result line ``{"ok": true, "device":
 {...}}``.  Needs no network and no JAX.
 
 ``--ablate`` builds variants of the kernels with parts switched off (the
@@ -73,6 +91,7 @@ all started together, and times each twice in turn: R2 at the slice shape,
 S1 at the splatter headline.
 """
 
+import copy
 import gc
 import json
 import statistics
@@ -104,6 +123,12 @@ SLICE = dict(
 # the parity configs of phases 3 and 3b: (name, random_case kwargs,
 # renderer kwargs); voxel64_32ch is the 64^3 x 32ch grid beyond a TPU's VMEM
 _TRI = [(1, 1, 32, 32, 32), (1, 32, 1, 32, 32), (1, 32, 32, 1, 32)]
+
+
+def _tri16(res):
+    return [(1, 1, res, res, 16), (1, res, 1, res, 16), (1, res, res, 1, 16)]
+
+
 PARITY_CASES = [
     ("triplane", dict(grid_shapes=_TRI), {}),
     ("voxel_batch2", dict(grid_shapes=[(2, 16, 16, 16, 16)], batch=2), {}),
@@ -121,6 +146,16 @@ PARITY_CASES = [
     ("mlp_0_1_3",
      dict(grid_shapes=[(1, 16, 16, 16, 32)], layers=(0, 1, 3)), {}),
     ("voxel64_32ch", dict(grid_shapes=[(1, 64, 64, 64, 32)]), {}),
+    # the big shapes of tests/test_pallas_interpret.py::
+    # test_w3_big_shapes_match_scan, which the TPU's W3 sampler (R4) served
+    ("w3_triplane128", dict(grid_shapes=_tri16(128), hidden=16), {}),
+    ("w3_batched", dict(grid_shapes=[(2, 32, 32, 32, 16)], hidden=16,
+                        batch=2, grid_idx=1), {}),
+    ("w3_contracted", dict(grid_shapes=[(1, 32, 32, 32, 16)], hidden=16),
+     dict(contract_coords=True)),
+    ("w3_triplane100", dict(grid_shapes=_tri16(100), hidden=16), {}),
+    ("w3_pyramid", dict(grid_shapes=[(1, 8, 8, 8, 16), (1, 24, 24, 24, 16)],
+                        hidden=16), {}),
 ]
 
 
@@ -170,21 +205,26 @@ def cuda_ms(fn, warmup=2, reps=7):
 
 
 def random_case(lp, rng, n_rays, grid_shapes, hidden=32, layers=(2, 2, 2),
-                batch=1):
-    """Rays aimed from a shell at z=-2 toward the origin, a random
-    grid-list and a decoder, all made from ``rng`` on the card."""
+                batch=1, grid_idx=None, relu_field=False):
+    """Rays aimed from a shell at z=-2 toward the origin (every ray on batch
+    ``grid_idx`` when given), a random grid-list and a decoder (with
+    ``relu_field``, the separate colour grid's, with no trunk), all made
+    from ``rng`` on the card."""
     dev = "cuda"
     origins = rng.standard_normal((n_rays, 3)) / 3.0 + np.array([0, 0, -2.0])
     targets = rng.standard_normal((n_rays, 3)) * 0.2
     near = 0.1 + 0.05 * rng.random(n_rays)
     far = 3.0 + 0.2 * rng.random(n_rays)
-    grid_idx = rng.integers(0, batch, n_rays)
+    idx = rng.integers(0, batch, n_rays)
+    if grid_idx is not None:
+        idx = np.full(n_rays, grid_idx)
     chn = grid_shapes[0][-1]
     gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
     dp = lp.init_decoder_params(
         gen, n_layers_trunk=layers[0], n_layers_opacity=layers[1],
         n_layers_color=layers[2], input_chn=chn, hidden_chn=hidden,
-        color_chn=3, opacity_init_bias=-1.0, device=dev,
+        color_chn=3, opacity_init_bias=-1.0,
+        use_separate_color_grid=relu_field, device=dev,
     )
     enc = rng.standard_normal((n_rays, dp.n_hidden_color[0])) * 0.1
 
@@ -193,7 +233,7 @@ def random_case(lp, rng, n_rays, grid_shapes, hidden=32, layers=(2, 2, 2),
 
     rays = lp.Rays(
         directions=t(targets - origins), origins=t(origins),
-        grid_idx=t(grid_idx, torch.int64), near=t(near), far=t(far),
+        grid_idx=t(idx, torch.int64), near=t(near), far=t(far),
         encoding=t(enc),
     )
     grid = [t(rng.standard_normal(s) * 0.5) for s in grid_shapes]
@@ -396,12 +436,14 @@ def held_memory():
               f"cuBLAS's workspaces")
 
 
-def unsplit_march(lp, rmod, rays, grid, dp, **kw):
+def unsplit_march(lp, rmod, rays, grid, dp, color_grid=None, **kw):
     """``(cfg, geom, diff)`` of the whole march, background samples
     included, as ``lightplane_renderer(rays, grid, dp, **kw)`` builds them
     and one kernel launch runs it."""
-    grid_flat, _, sizes, _ = lp.process_and_flatten_grid(grid, None)
-    return rmod._march_inputs(rays, grid_flat, None, sizes, None, dp, **kw)
+    grid_flat, cgrid_flat, sizes, csizes = lp.process_and_flatten_grid(
+        grid, color_grid)
+    return rmod._march_inputs(rays, grid_flat, cgrid_flat, sizes, csizes, dp,
+                              **kw)
 
 
 def slice_march(lp, rmod, module, grid, rays):
@@ -421,15 +463,21 @@ def slice_march(lp, rmod, module, grid, rays):
     )
 
 
-def kernel_work(rmod, cfg, geom, grid_flat, mlp_numel):
+def kernel_work(rmod, cfg, geom, diff):
     """(FLOPs, bytes) the forward and the backward kernel must do on these
     inputs: decoder multiply-adds per ray-sample (each layer's real width,
     the heads' last layers only the outputs used), times 1 forward, times 3
     backward (recompute, input gradients, weight gradients); plus C
-    multiply-adds for every in-bounds sampling corner of this run's points
-    (once forward, twice backward: sample and splat).  Bytes: every input
+    multiply-adds for every in-bounds sampling corner of this run's points,
+    of the grid-list and the colour grid-list (once forward, twice
+    backward: sample and splat).  With a scaffold only the samples whose
+    gate is not 0 count: the others change nothing.  Bytes: every input
     read once and every output written once."""
-    directions, origins, near, far = geom[:4]
+    from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
+
+    directions, origins, near, far, grid_idx, scaffold = geom[:6]
+    grid_flat, cgrid_flat, mlp, _ = diff
+    mlp_numel = mlp.numel()
     R = directions.shape[0]
     C = grid_flat.shape[1]
     color_chn = cfg.out_chn
@@ -440,15 +488,22 @@ def kernel_work(rmod, cfg, geom, grid_flat, mlp_numel):
             # the colour head's last layer computes the rendered channels
             last_color = m == 2 and i == len(widths) - 2
             macs += a * (color_chn if last_color else b)
-    corners = 0
+    corners = samples = 0
+    all_sizes = cfg.grid_sizes + (cfg.color_grid_sizes or ())
     with torch.no_grad():
         for s in range(cfg.tot_num_samples):
             t, _ = rmod._step_depth_delta(cfg, near, far, s)
             pts = rmod._step_points(cfg, origins, directions, t)
-            keep = torch.ones_like(t)
+            occupied = torch.ones_like(t)
+            if scaffold is not None:
+                occupied = (sample_grid_rep(
+                    scaffold, (cfg.scaffold_size + (1,),), pts, grid_idx,
+                    True, mode="nearest")[:, 0] != 0).float()
+            samples += float(occupied.sum())
+            keep = occupied
             if cfg.mask_out_of_bounds_samples:
-                keep = (pts.abs() <= 1.0).all(-1).float()
-            for _, D, H, W, _ in cfg.grid_sizes:
+                keep = keep * (pts.abs() <= 1.0).all(-1).float()
+            for _, D, H, W, _ in all_sizes:
                 n = keep
                 for k, size in enumerate((W, H, D)):
                     if size == 1:
@@ -457,11 +512,14 @@ def kernel_work(rmod, cfg, geom, grid_flat, mlp_numel):
                     n = n * (((f0 >= 0) & (f0 < size)).float()
                              + ((f0 >= -1) & (f0 < size - 1)).float())
                 corners += float(n.sum())
-    samples = R * cfg.tot_num_samples
     flops_fw = 2.0 * (samples * macs + corners * C)
     flops_bw = 2.0 * (3 * samples * macs + 2 * corners * C)
     rays_bytes = 4 * R * (3 + 3 + 1 + 1 + 1 + cfg.n_hidden_color[0])
     params_bytes = 4 * (grid_flat.numel() + mlp_numel)
+    if cgrid_flat is not None:
+        params_bytes += 4 * cgrid_flat.numel()
+    if scaffold is not None:
+        rays_bytes += 4 * scaffold.numel()
     bytes_fw = rays_bytes + params_bytes + 4 * R * (2 + color_chn)
     # + nlt and the cotangents in, the gradients of the grid, the MLP and
     # the encodings out
@@ -479,7 +537,12 @@ def bound(flops, nbytes):
 
 def projected_grads(lp, rays, grid, dp, impl, proj, naive=False, **kw):
     """Gradients of ``sum(proj * outputs)`` w.r.t. the grid-list,
-    ``mlp_params`` and ``rays.encoding``."""
+    ``mlp_params``, ``rays.encoding`` and the colour grid-list (if
+    ``kw`` has one)."""
+    cgrid = [g.detach().clone().requires_grad_(True)
+             for g in kw.get("color_grid") or []]
+    if cgrid:
+        kw = dict(kw, color_grid=cgrid)
     grid = [g.detach().clone().requires_grad_(True) for g in grid]
     mlp = dp.mlp_params.detach().clone().requires_grad_(True)
     enc = rays.encoding.detach().clone().requires_grad_(True)
@@ -492,7 +555,8 @@ def projected_grads(lp, rays, grid, dp, impl, proj, naive=False, **kw):
     else:
         out = lp.lightplane_renderer(rays, grid, dp, impl=impl, **kw)
     sum((o * p).sum() for o, p in zip(out, proj)).backward()
-    return [g.grad for g in grid] + [mlp.grad, enc.grad]
+    return [g.grad for g in grid] + [mlp.grad, enc.grad] + [g.grad
+                                                            for g in cgrid]
 
 
 def as_f64(lp, rays, grid, dp, proj):
@@ -506,11 +570,23 @@ def as_f64(lp, rays, grid, dp, proj):
     return rays, [g.to(d) for g in grid], dp, [p.to(d) for p in proj]
 
 
+def kw_f64(kw):
+    """Renderer keyword arguments with their scaffold and colour grid-list
+    in float64."""
+    d = torch.float64
+    out = dict(kw)
+    if kw.get("scaffold") is not None:
+        out["scaffold"] = kw["scaffold"].to(d)
+    if kw.get("color_grid") is not None:
+        out["color_grid"] = [g.to(d) for g in kw["color_grid"]]
+    return out
+
+
 # The kernel and its plain version differ only in f32 rounding, but the
 # gradient of a relu MLP jumps where a pre-activation crosses 0: at a
 # pre-activation within rounding of 0, two f32 evaluations may take opposite
 # sides and a gradient moves by a whole term, up to several 1e-3 x max |g|
-# at these shapes (kink_check prints it).  So the nine configs give no
+# at these shapes (kink_check prints it).  So the configs give no
 # cotangent to the rays that come within KINK_MARGIN of a kink (measured in
 # f64, relative to the pre-activation's terms; f32 rounding is ~1e-7 of
 # them), and hold the kernel within compare_one's bounds and max |d| <=
@@ -547,7 +623,7 @@ def kink_margin(rmod, cfg, geom, diff, colour_only=False):
     )
 
     directions, origins, near, far, grid_idx = geom[:5]
-    grid_flat, _, mlp, enc = diff
+    grid_flat, cgrid_flat, mlp, enc = diff
     w_t, b_t, w_o, b_o, w_c, b_c = flattened_decoder_params_to_list(
         mlp, cfg.n_hidden_trunk, cfg.n_hidden_opacity, cfg.n_hidden_color)
     margin = torch.full_like(near, float("inf"))
@@ -575,6 +651,13 @@ def kink_margin(rmod, cfg, geom, diff, colour_only=False):
             x = relu(*dense(x, w, b), rest)
             terms = x
         trunk = x = relu(x, terms, rest)  # the feature's, with no trunk MLP
+        if cgrid_flat is not None:
+            # relu-field: relu of the colour grid sample feeds the colour head
+            trunk = relu(
+                sample_grid_rep(cgrid_flat, cfg.color_grid_sizes, pts,
+                                grid_idx, mask),
+                sample_grid_rep(cgrid_flat.abs(), cfg.color_grid_sizes, pts,
+                                grid_idx, mask))
         for w, b in zip(w_o[:-1], b_o[:-1]):
             x = relu(*dense(x, w, b), rest)
         x = trunk + enc
@@ -622,7 +705,8 @@ def phase_backward_parity(lp):
     worst = 0.0
     rng = np.random.default_rng(1)
     kink_check(lp, rmod, rng)
-    print(f"  the nine configs; rays within {KINK_MARGIN:g} of a relu kink "
+    print(f"  the {len(PARITY_CASES)} configs; rays within {KINK_MARGIN:g} of "
+          f"a relu kink "
           f"get no cotangent:")
     for name, case_kw, render_kw in PARITY_CASES:
         rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
@@ -677,6 +761,138 @@ def phase_backward_parity(lp):
                          [g_v[i] for i in pick], [g_w[i] for i in pick],
                          magnitude_scaled=True)
     print(f"  all configs within bounds; worst max|d| {worst:.3e}")
+
+
+def gate_boundary_count(rmod, cfg, geom):
+    """How many (ray, step) gates of the scaffold sit within 1e-6 (in
+    cells) of a half-cell rounding boundary, where an ulp of the point would
+    flip the nearest cell."""
+    directions, origins, near, far = geom[:4]
+    _, D, H, W = cfg.scaffold_size
+    n = 0
+    with torch.no_grad():
+        for s in range(cfg.tot_num_samples):
+            t, _ = rmod._step_depth_delta(cfg, near, far, s)
+            pts = rmod._step_points(cfg, origins, directions, t)
+            near_edge = torch.zeros_like(t, dtype=torch.bool)
+            for k, size in enumerate((W, H, D)):
+                if size > 1:
+                    f = ((pts[:, k] + 1.0) * 0.5) * size - 0.5
+                    near_edge |= (f - torch.floor(f) - 0.5).abs() < 1e-6
+            n += int(near_edge.sum())
+    return n
+
+
+def branch_cases(lp, rng):
+    """Phase 3c's configs: (name, rays, grid, decoder, renderer kwargs)."""
+    cases = []
+    for name in ("random", "empty", "halfz"):
+        rays, grid, dp = random_case(lp, rng, 4096, grid_shapes=_TRI)
+        sc = (torch.rand((1, 24, 20, 28), generator=torch.Generator()
+                         .manual_seed(int(rng.integers(1 << 30)))) > 0.5)
+        sc = sc.float().cuda()
+        if name == "empty":
+            sc.zero_()
+        elif name == "halfz":
+            sc[:, 12:] = 0.0
+        cases.append((f"scaffold_{name}", rays, grid, dp, dict(scaffold=sc)))
+    # a scaffold from calculate_scaffold at 64^3 over the config's own
+    # decoder and grid: the top 5% of the dense opacity, dilated by one cell
+    rays, grid, dp = random_case(lp, rng, 4096, grid_shapes=_TRI)
+    module = lp.LightplaneRenderer(
+        num_samples=48, color_chn=3, grid_chn=32, mlp_hidden_chn=32,
+        opacity_init_bias=-1.0, gain=1.5, device="cuda")
+    with torch.no_grad():
+        module.mlp_params.copy_(dp.mlp_params)
+        pts = torch.rand((64, 4096, 3), generator=torch.Generator()
+                         .manual_seed(3)).cuda() * 2.0 - 1.0
+        op = module.eval_opacity_at_points(pts, torch.zeros(
+            64, dtype=torch.int64, device="cuda"), grid)
+        threshold = float(torch.quantile(op.flatten(), 0.95))
+    sc = module.calculate_scaffold(grid, (1, 64, 64, 64), threshold=threshold,
+                                   dilate_scaffold=1)
+    cases.append(("scaffold_calculated_64", rays, grid, dp,
+                  dict(scaffold=sc, contract_coords=True)))
+    # the relu-field: a density and a colour triplane, no trunk MLP
+    for name, extra in (("relu_field", {}),
+                        ("relu_field_scaffold_mask",
+                         dict(mask_out_of_bounds_samples=True))):
+        rays, grid, dp = random_case(lp, rng, 4096, grid_shapes=_TRI,
+                                     layers=(0, 2, 2), relu_field=True)
+        cgrid = [torch.as_tensor(rng.standard_normal(s) * 0.5,
+                                 dtype=torch.float32, device="cuda")
+                 for s in _TRI]
+        kw = dict(color_grid=cgrid, **extra)
+        if extra:
+            kw["scaffold"] = (torch.rand((1, 32, 32, 32), generator=torch
+                                         .Generator().manual_seed(5)) > 0.3
+                              ).float().cuda()
+        cases.append((name, rays, grid, dp, kw))
+    return cases
+
+
+def phase_branch_parity(lp):
+    print("== phase 3c: scaffold gating (R3) and the relu-field colour grid "
+          "(R1-rf) in R1 and R2 vs their plain versions on the card")
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    rng = np.random.default_rng(31)
+    errs = {"scaffold": [0.0, 0.0], "relu_field": [0.0, 0.0]}
+    for name, rays, grid, dp, extra in branch_cases(lp, rng):
+        kw = dict(num_samples=48, gain=1.5, **extra)
+        kind = "relu_field" if "color_grid" in extra else "scaffold"
+        cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp, **kw)
+        line = f"  {name}:"
+        if cfg.scaffold_size is not None:
+            occ = float(extra["scaffold"].mean())
+            line += (f" scaffold {cfg.scaffold_size}, occupancy {occ:.3f}; "
+                     f"{gate_boundary_count(rmod, cfg, geom)} of "
+                     f"{len(rays) * cfg.tot_num_samples} (ray, step) gates "
+                     f"within 1e-6 of a rounding boundary")
+        print(line)
+        with torch.no_grad():
+            fw0 = rfw.LAUNCHES
+            out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
+            torch.cuda.synchronize()
+            assert rfw.LAUNCHES == fw0 + 1, "the forward kernel did not run"
+            out_p = lp.lightplane_renderer(rays, grid, dp, impl="torch", **kw)
+        for label, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+            errs[kind][0] = max(errs[kind][0], compare(label, a, b)[0])
+        # gradients on cotangents that skip the rays near a relu kink
+        gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+        n = len(rays)
+        proj = [torch.randn(s, generator=gen).cuda()
+                for s in [(n,), (n,), (n, 3)]]
+        rays64, grid64, dp64, _ = as_f64(lp, rays, grid, dp, proj)
+        kw64 = kw_f64(kw)
+        with torch.no_grad():
+            keep = kink_margin(rmod, *unsplit_march(
+                lp, rmod, rays64, grid64, dp64, **kw64)) >= KINK_MARGIN
+        w = keep.float()
+        proj = [p * (w if p.dim() == 1 else w[:, None]) for p in proj]
+        proj64 = [p.double() for p in proj]
+        bw0 = rbw.LAUNCHES
+        g_k = projected_grads(lp, rays, grid, dp, "cuda", proj, **kw)
+        torch.cuda.synchronize()
+        assert rbw.LAUNCHES == bw0 + 1, "the backward kernel did not run"
+        g_p = projected_grads(lp, rays, grid, dp, "torch", proj, **kw)
+        g_r = projected_grads(lp, rays64, grid64, dp64, "torch", proj64,
+                              **kw64)
+        names = ([f"g_grid{i}" for i in range(len(grid))] + ["g_mlp", "g_enc"]
+                 + [f"g_cgrid{i}" for i in range(len(extra.get("color_grid")
+                                                     or []))])
+        print(f"    gradients ({n - int(keep.sum())} of {n} rays within "
+              f"{KINK_MARGIN:g} of a relu kink get no cotangent):")
+        errs[kind][1] = max(errs[kind][1],
+                            grad_compare(names, g_k, g_p, g_r))
+        if name == "scaffold_empty":
+            assert all(float(x.abs().max()) == 0.0 for x in out_k + tuple(g_k))
+        else:
+            assert float(out_k[1].abs().max()) > 0.0
+    print(f"  all configs within bounds; worst max|d| (R1, R2): {errs}")
+    return errs
 
 
 def phase_training(lp, smi):
@@ -825,8 +1041,7 @@ def phase_training(lp, smi):
     bw_err = grad_compare(("g_grid", "g_mlp", "g_enc"), [g_k[i] for i in pick],
                           [g_p[i] for i in pick], [g_r[i] for i in pick])
 
-    (fl_fw, by_fw), (fl_bw, by_bw) = kernel_work(rmod, cfg, geom, grid_flat,
-                                                 mlp.numel())
+    (fl_fw, by_fw), (fl_bw, by_bw) = kernel_work(rmod, cfg, geom, diff)
     b_fw, by_fw_kind = bound(fl_fw, by_fw)
     b_bw, by_bw_kind = bound(fl_bw, by_bw)
     print(f"  work: R1 {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.2f} MB -> bound "
@@ -1404,6 +1619,298 @@ def phase_lift_render(lp, smi):
           f"({marginal / 2**20:.1f} MiB)  [{smi}]")
 
 
+# ---- scene fitting (phase 9) ---------------------------------------------
+
+# The JAX app's defaults (examples/fit_single_scene.py: triplane 3 x 64^2 x
+# 32ch, MLPs 2/2/2 with hidden 32, 128 samples, 4096 rays, opacity bias -5,
+# TV 1e-3, a 1 x 64^3 scaffold, the 24-view 64^2 synthetic scene) with a
+# schedule cut to 600 steps: scaffold updates at 200 and 400 around the
+# upsample at 300 (to 3 x 128^2 x 32ch, 256 samples), evals at 300 and 600,
+# both after the first scaffold update (see in_cube_psnr for why).
+FIT_ARGV = ["--n_iter", "600", "--upsample_steps", "300",
+            "--update_scaffold_steps", "200", "400", "--eval_rate", "300",
+            "--output_dir", "build/fit_smoke", "--seed", "0"]
+
+
+def timed_steps(fit, n, seed):
+    """Milliseconds of ``n`` training steps of ``fit`` (host clock, synced),
+    with the ray batches drawn from ``seed``."""
+    fit.batch_gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fit.step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def fit_state(fit):
+    """A copy of what a training step changes."""
+    return ([g.detach().clone() for g in fit.grid],
+            {k: v.clone() for k, v in fit.renderer.state_dict().items()},
+            copy.deepcopy(fit.opt.state_dict()), fit.sched.state_dict())
+
+
+def restore_fit(fit, state):
+    grid, module, opt, sched = state
+    with torch.no_grad():
+        for p, g in zip(fit.grid, grid):
+            p.copy_(g)
+    fit.renderer.load_state_dict(module)
+    fit.opt.load_state_dict(copy.deepcopy(opt))
+    fit.sched.load_state_dict(sched)
+
+
+def branch_kernel_times(lp, rmod, rfw, rbw, label, rays, grid, dp, kw, smi):
+    """R1 and R2 alone on one config (CUDA events), their plain versions
+    once, the kernels against them, and the bound from the samples this
+    run's data needs; returns the kernel line's numbers."""
+    cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp, **kw)
+    diff = tuple(None if x is None else x.detach() for x in diff)
+    n = len(rays)
+    gen = torch.Generator().manual_seed(11)
+    g_out = tuple(torch.randn(s, generator=gen).cuda()
+                  for s in [(n,), (n,), (n, 3)])
+    with torch.no_grad():
+        fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff))
+        out_k = rfw.render_fwd_cuda(cfg, geom, diff)
+        nlt = out_k[1]
+        bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
+                                                    g_out))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = rfw.render_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        fw_plain = 1e3 * (time.perf_counter() - t0)
+        f64 = torch.float64
+        geom64 = tuple(x.to(f64) if torch.is_tensor(x) and x.is_floating_point()
+                       else x for x in geom)
+        diff64 = tuple(None if x is None else x.to(f64) for x in diff)
+        keep = (kink_margin(rmod, cfg, geom64, diff64) >= KINK_MARGIN).float()
+        g_out = (g_out[0] * keep, g_out[1] * keep, g_out[2] * keep[:, None])
+        g_k = rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_p = rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+        torch.cuda.synchronize()
+        bw_plain = 1e3 * (time.perf_counter() - t0)
+        nlt64 = rfw.render_fwd_torch(cfg, geom64, diff64)[1]
+        g_r = rbw.render_bwd_torch(cfg, geom64, diff64, nlt64,
+                                   tuple(g.to(f64) for g in g_out))
+    print(f"  {label}: R1 vs its plain version:")
+    fw_err = max(compare(k, a, b)[0]
+                 for k, a, b in zip(("depth", "nlt", "feat"), out_k, out_p))
+    pick = [i for i, g in enumerate(g_k) if g is not None]
+    names = [("g_grid", "g_cgrid", "g_mlp", "g_enc")[i] for i in pick]
+    print(f"  {label}: R2 vs its plain version ({n - int(keep.sum())} of {n}"
+          f" rays within {KINK_MARGIN:g} of a relu kink get no cotangent):")
+    bw_err = grad_compare(names, [g_k[i] for i in pick],
+                          [g_p[i] for i in pick], [g_r[i] for i in pick])
+    (fl_fw, by_fw), (fl_bw, by_bw) = kernel_work(rmod, cfg, geom, diff)
+    b_fw, b_bw = bound(fl_fw, by_fw), bound(fl_bw, by_bw)
+    print(f"  {label}: R1 alone {fw_ms:.3f} ms (plain {fw_plain:.1f} ms, one "
+          f"run; bound {b_fw[0]:.3f} ms, {b_fw[1]}); R2 alone {bw_ms:.3f} ms "
+          f"(plain {bw_plain:.1f} ms; bound {b_bw[0]:.3f} ms, {b_bw[1]})"
+          f"  [{smi}]")
+    return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain, err=fw_err, bound=b_fw),
+                bw=dict(ms=bw_ms, plain_ms=bw_plain, err=bw_err, bound=b_bw))
+
+
+def in_cube_psnr():
+    """PSNR against image 0 of the synthetic scene of the same render with
+    the scene's density outside the [-1, 1] cube removed
+    (``examples/datasets.py::make_synthetic_scene``'s blobs and march): how
+    much of the image the blobs draw past the cube, where a scaffold gates
+    every sample, as the JAX package's does."""
+    from lightplane_tpu_torch.examples.datasets import make_synthetic_scene
+    from lightplane_tpu_torch.utils.cameras import camera_rays, sphere_cameras
+
+    ds = make_synthetic_scene()
+    rng = np.random.RandomState(0)  # the scene's own draws, seed 0
+    centers = rng.uniform(-0.5, 0.5, (6, 3)).astype(np.float32)
+    colors = rng.uniform(0.2, 1.0, (6, 3)).astype(np.float32)
+    radii = rng.uniform(0.15, 0.3, (6,)).astype(np.float32)
+    o, d = camera_rays(sphere_cameras(24, radius=3.0)[0], 64, 64, 64 * 1.2,
+                       ds.near, ds.far)
+    ts = np.linspace(ds.near, ds.far, 64, dtype=np.float32)
+    pts = o[:, None, :] + ts[None, :, None] * d[:, None, :]
+    blobs = [np.exp(-np.sum((pts - c) ** 2, -1) / (2 * r ** 2))
+             for c, r in zip(centers, radii)]
+    sigma = 25.0 * sum(blobs) * (np.abs(pts) <= 1.0).all(-1)
+    rgb = sum(b[..., None] * c for b, c in zip(blobs, colors)) / np.maximum(
+        sum(blobs)[..., None], 1e-6)
+    T = np.exp(-np.concatenate([np.zeros_like(sigma[:, :1]), np.cumsum(
+        sigma * (ts[1] - ts[0]), -1)], -1))
+    img = ((T[:, :-1] - T[:, 1:])[..., None] * rgb).sum(1) + T[:, -1:]
+    return float(-10.0 * np.log10(np.mean((img - ds.image(0)[2].reshape(
+        -1, 3)) ** 2)))
+
+
+def phase_fit(lp, smi):
+    print("== phase 9: scene fitting, the port's fit_single_scene at the JAX "
+          "app's default width")
+    from lightplane_tpu_torch.examples import fit_single_scene as app
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.utils import grid_utils
+
+    print(f"  argv: {' '.join(FIT_ARGV)}")
+    rfw.LAUNCHES = rbw.LAUNCHES = 0
+    fit = app.main(FIT_ARGV)
+    torch.cuda.synchronize()
+    launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES}
+    h = fit.history
+    print(f"  kernel launches over the fit: {launches}")
+    # one forward and one backward per step, one forward per eval render
+    assert launches == {"renderer_fw": 600 + len(h["evals"]),
+                        "renderer_bw": 600}, launches
+    for a, b, ms in h["segments"]:
+        print(f"  steps {a}-{b}: {ms:.3f} ms per step  [{smi}]")
+    print(f"  scaffold occupancy: {h['scaffolds']}; upsampled at "
+          f"{h['upsamples']}; evals (step, PSNR, SSIM): {h['evals']}")
+    assert [s for s, _ in h["scaffolds"]] == [200, 400]
+    assert [e[0] for e in h["evals"]] == [300, 600]
+    # every step after the first scaffold update, and every eval after it,
+    # renders with a scaffold
+    s0 = h["scaffolds"][0][0]
+    gated = 600 - (s0 + 1)
+    print(f"  of these, with a scaffold (steps {s0 + 1}-599 and the evals "
+          f"after step {s0}): R1 {gated + sum(e[0] > s0 + 1 for e in h['evals'])}"
+          f", R2 {gated}")
+    assert h["upsamples"] == [300]
+    assert [tuple(g.shape) for g in fit.grid] == tri_sizes(128, 32)
+    assert fit.num_samples == 256 and fit.scaffold.shape == (1, 64, 64, 64)
+    first, last = h["evals"][0][1], h["evals"][-1][1]
+    assert np.isfinite(last) and last > first, (first, last)
+    print(f"  image 0 rendered without the scene's density outside the "
+          f"[-1, 1] cube, where a scaffold gates every sample: PSNR "
+          f"{in_cube_psnr():.2f} against the target")
+
+    # what users of the scaffold pay or save: 20 steps at the fitted state,
+    # without and with the scaffold, from the same state and ray batches
+    state = fit_state(fit)
+    scaffold = fit.scaffold
+    times = {}
+    for label in ("no scaffold", "scaffold", "no scaffold ", "scaffold "):
+        fit.scaffold = scaffold if label.startswith("scaffold") else None
+        restore_fit(fit, state)
+        times.setdefault(label.strip(), []).append(timed_steps(fit, 20, 7))
+    restore_fit(fit, state)
+    fit.scaffold = scaffold
+    for label, ts in times.items():
+        print(f"  20 training steps at the fitted state, {label}: "
+              f"{' '.join(f'{t:.1f}' for t in ts)} ms  [{smi}]")
+
+    # the device's share of one step (torch.profiler) against its wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit.step()
+    torch.cuda.synchronize()
+    print(f"  one training step: {1e3 * (time.perf_counter() - t0):.3f} ms "
+          f"wall")
+    device_breakdown(fit.step, smi, top=8)
+
+    # R1 and R2 alone with the scaffold at the fitted state (the R3 row)
+    def batch_rays(n_batches):
+        idx = torch.cat([fit.sample_ray_idx(fit.sampling_mode())
+                         for _ in range(n_batches)])
+        r = fit.rays(idx)
+        with torch.no_grad():
+            enc = fit.renderer._get_ray_embedding(r.directions)
+        return lp.Rays(r.directions, r.origins, r.grid_idx, r.near, r.far,
+                       enc)
+
+    rays = batch_rays(1)
+    dp = fit.renderer.get_decoder_params()
+    dp = lp.DecoderParams(dp.mlp_params.detach(), dp.n_hidden_trunk,
+                          dp.n_hidden_opacity, dp.n_hidden_color,
+                          dp.color_chn)
+    grid = [g.detach() for g in fit.grid]
+    kw = dict(num_samples=fit.num_samples, gain=fit.renderer.gain)
+    scaffold_row = branch_kernel_times(
+        lp, rmod, rfw, rbw, "fitted, with the scaffold", rays, grid, dp,
+        dict(kw, scaffold=fit.scaffold), smi)
+    branch_kernel_times(lp, rmod, rfw, rbw, "fitted, without it", rays, grid,
+                        dp, kw, smi)
+    # 4096 rays make 32 blocks of 128 rays for 132 SMs: R1 and R2 at 1, 2
+    # and 4 batches, with the scaffold
+    for k in (1, 2, 4):
+        cfg, geom, diff = unsplit_march(lp, rmod, batch_rays(k), grid, dp,
+                                        scaffold=fit.scaffold, **kw)
+        m = geom[0].shape[0]
+        g_out = (torch.ones(m, device="cuda"), torch.ones(m, device="cuda"),
+                 torch.ones((m, 3), device="cuda"))
+        with torch.no_grad():
+            nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
+            fw_k = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff))
+            bw_k = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
+                                                       g_out))
+        print(f"  {m} rays ({-(-m // 128)} blocks of 128) with the scaffold: "
+              f"R1 {fw_k:.3f} ms, R2 {bw_k:.3f} ms  [{smi}]")
+    del fit, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a relu-field model trains too: density and colour triplanes of
+    # 3 x 64^2 x 32ch, 12 Adam steps of one 64^2 image of the scene
+    from lightplane_tpu_torch.examples.datasets import make_synthetic_scene
+
+    ds = make_synthetic_scene()
+    o, d, img = (torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+                 for a in ds.image(0))
+    n = o.shape[0]
+    rays = lp.Rays(d, o, torch.zeros(n, dtype=torch.int64, device="cuda"),
+                   torch.full((n,), ds.near, device="cuda"),
+                   torch.full((n,), ds.far, device="cuda"))
+    gen = torch.Generator().manual_seed(12)
+    module = lp.LightplaneRenderer(
+        num_samples=128, color_chn=3, grid_chn=32, mlp_hidden_chn=32,
+        use_separate_color_grid=True, bg_color=1.0, generator=gen,
+        device="cuda")
+    grid = [torch.nn.Parameter(g) for g in grid_utils.init_3d_representation(
+        gen, "triplane", 64, 32, device="cuda")]
+    cgrid = [torch.nn.Parameter(g) for g in grid_utils.init_3d_representation(
+        gen, "triplane", 64, 32, device="cuda")]
+    opt = torch.optim.Adam([{"params": grid + cgrid, "lr": 5e-2},
+                            {"params": list(module.parameters()),
+                             "lr": 5e-3}])
+    target = img.reshape(-1, 3)
+    losses = []
+    rfw.LAUNCHES = rbw.LAUNCHES = 0
+    for _ in range(12):
+        opt.zero_grad(set_to_none=True)
+        _, _, rgb = module(rays, grid, cgrid, image_size=(ds.height,
+                                                           ds.width))
+        loss = torch.mean((rgb - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    rf_launches = (rfw.LAUNCHES, rbw.LAUNCHES)
+    print(f"  relu-field (3 x 64^2 x 32ch density + colour triplanes, 128 "
+          f"samples): 12 Adam steps of one {ds.height}^2 image, losses "
+          f"{[round(v, 5) for v in losses]}; launches (R1, R2) {rf_launches}")
+    assert rf_launches == (12, 12), rf_launches
+    assert losses[-1] < losses[0], losses
+    for name, ps in (("grid", grid), ("color grid", cgrid)):
+        for p in ps:
+            assert torch.isfinite(p.grad).all(), name
+            assert float(p.grad.abs().sum()) > 0.0, f"{name}: zero gradient"
+    with torch.no_grad():
+        enc = module._get_ray_embedding(rays.directions)
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    dp = module.get_decoder_params()
+    dp = lp.DecoderParams(dp.mlp_params.detach(), dp.n_hidden_trunk,
+                          dp.n_hidden_opacity, dp.n_hidden_color,
+                          dp.color_chn)
+    rf_row = branch_kernel_times(
+        lp, rmod, rfw, rbw, "relu-field", rays, [g.detach() for g in grid],
+        dp, dict(num_samples=128, gain=module.gain,
+                 color_grid=[g.detach() for g in cgrid]), smi)
+    return launches, scaffold_row, rf_row
+
+
 # csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each variant: atomics
 # into the grid (R2's grid gradient, S1's splat) scalar or switched off, R2's
 # MLP weight-gradient pass switched off
@@ -1500,26 +2007,44 @@ def main():
         return 0
     timed(phase_parity, lp)
     timed(phase_backward_parity, lp)
+    branch_errs = timed(phase_branch_parity, lp)
     held_memory()
     fw = timed(phase_slice, lp, smi)
-    launches, train = timed(phase_training, lp, smi)
+    _, train = timed(phase_training, lp, smi)
     gc.collect()
     torch.cuda.empty_cache()
     timed(phase_splat_parity, lp)
     splat_launches, splat = timed(phase_splat, lp, smi)
     timed(phase_lift_render, lp, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fit_launches, scaffold_row, rf_row = timed(phase_fit, lp, smi)
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
+    # R1 and R2: launches on this slice's main path (the trainer, phase 9);
+    # times, errors and bounds at the render headline (phases 4, 5); the
+    # scaffold (R3) and relu-field (R1-rf) branches' worst errors (phase 3c)
+    # and times at phase 9's shapes
+    branches = {
+        key: dict(max_abs_err_scaffold=branch_errs["scaffold"][i],
+                  max_abs_err_relu_field=branch_errs["relu_field"][i],
+                  **{f"{label}_{k}": v
+                     for label, row in (("scaffold", scaffold_row),
+                                        ("relu_field", rf_row))
+                     for k, v in (("ms", row[key]["ms"]),
+                                  ("plain_ms", row[key]["plain_ms"]),
+                                  ("bound_ms", row[key]["bound"][0]))})
+        for i, key in enumerate(("fw", "bw"))}
     kernels = [
-        dict(fw, launches=launches["renderer_fw"], bound_ms=b_fw,
-             bound_by=b_fw_kind, library_ms=None),
+        dict(fw, launches=fit_launches["renderer_fw"], bound_ms=b_fw,
+             bound_by=b_fw_kind, library_ms=None, **branches["fw"]),
         dict(name="renderer_bw", route="cuda",
              source="lightplane_tpu_torch/csrc/renderer_bw.cu",
              replaces="lightplane_tpu/ops/kernels/renderer_pallas.py:2798",
-             launches=launches["renderer_bw"],
+             launches=fit_launches["renderer_bw"],
              max_abs_err=train["bw"]["err"], ms=train["bw"]["ms"],
              plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
-             bound_by=b_bw_kind, library_ms=None),
+             bound_by=b_bw_kind, library_ms=None, **branches["bw"]),
     ]
     for key, line in (("fw", 57), ("bw", 183)):
         k = splat[key]

@@ -11,8 +11,12 @@ adjoint.  On NVIDIA Hopper GPUs each pass is a hand-written CUDA kernel
 ``csrc/splatter_bw.cu``, built with ``nvcc`` at first use); on the CPU it is
 the kernel's plain PyTorch version.  Gradients reach the grid-lists, the
 MLPs' flat ``mlp_params`` and the ray encodings, so a splat can be rendered
-back and trained end to end.  ``utils.grid_utils`` holds the fitting
-regularisers and ``utils.cameras`` pinhole rays.  Factories build on the GPU
+back and trained end to end.  The renderer gates its march by an occupancy
+scaffold (``LightplaneRenderer.calculate_scaffold``) and takes a separate
+relu-field colour grid.  ``utils.grid_utils`` holds the fitting
+regularisers, ``utils.cameras`` pinhole rays, ``utils.metrics`` PSNR and
+SSIM, ``utils.io_utils`` PNG writing, and ``examples.fit_single_scene`` the
+scene-fitting trainer.  Factories build on the GPU
 unless asked for ``device="cpu"``.  Names, layouts (channels-last
 grid-lists, the flat ``mlp_params`` vectors) and numerics follow the JAX
 package, which stays the reference.  This package never imports JAX.

@@ -96,6 +96,17 @@ struct Params {
   GridMeta grids;  // of `grid`
   int grid_chn;
 
+  // The renderer's scaffold (R3): a [B, D, H, W] occupancy sampled at the
+  // nearest cell that multiplies each step's sigma and colour; null for none.
+  const float* scaffold;
+  int scaffold_dims[4];  // B, D, H, W
+  // The renderer's relu-field colour grid-list: [Vc_total, grid_chn],
+  // sampled at the same points as `grid`, relu'd into the colour head; null
+  // for none.  Its gradient (backward) is zero-filled by the caller.
+  const float* color_grid;
+  GridMeta cgrids;  // of `color_grid`
+  float* g_color_grid;
+
   int n_layers[3];  // trunk, opacity, color (the splatter: its MLP, 0, 0)
   int layer_in[kMaxTotalLayers];
   int layer_out[kMaxTotalLayers];
@@ -183,6 +194,25 @@ inline int fill_params(Params& p, int num_rays, int num_grids,
   p.noise_seed = noise_seed;
   p.noise_stride = noise_stride;
   p.num_rays_noise = num_rays_noise;
+  return (int)cudaSuccess;
+}
+
+// Fills the renderer's optional inputs (after fill_params): the scaffold
+// and its host int[4] shape (B, D, H, W), and the colour grid-list with its
+// host int[5 * num_color_grids] table (as fill_grid_meta's), each null for
+// none.  A colour grid takes no trunk MLP.  Returns a cudaError_t code.
+inline int fill_render_extras(Params& p, const float* scaffold,
+                              const int* scaffold_dims,
+                              const float* color_grid, int num_color_grids,
+                              const int* color_grid_meta) {
+  p.scaffold = scaffold;
+  if (scaffold != nullptr)
+    for (int k = 0; k < 4; ++k) p.scaffold_dims[k] = scaffold_dims[k];
+  p.color_grid = color_grid;
+  if (color_grid != nullptr &&
+      (p.n_layers[0] != 0 ||
+       !fill_grid_meta(p.cgrids, num_color_grids, color_grid_meta)))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
 
@@ -381,6 +411,29 @@ __device__ __forceinline__ void for_each_corner(const GridMeta& m, int b,
       }
     }
   }
+}
+
+// The scaffold's gate at the point of `st` for batch b (1 without a
+// scaffold), as the plain versions' nearest sample with out-of-bounds
+// masking (lightplane_tpu/ops/grid_sample.py, mode="nearest"): 0 outside
+// the [-1, 1] cube; else the cell at the rounded grid coordinate, rounded
+// half to even by rintf as torch.round and jnp.round do (roundf rounds
+// halves away from zero), 0 where that index falls outside the scaffold.
+__device__ __forceinline__ float scaffold_gate(const Params& p, int b,
+                                               const Step& st) {
+  if (p.scaffold == nullptr) return 1.0f;
+  if (!st.in_bounds) return 0.0f;
+  const int D = p.scaffold_dims[1], H = p.scaffold_dims[2],
+            Wd = p.scaffold_dims[3];
+  const float x = rintf(grid_coord(st.px, Wd));
+  const float y = rintf(grid_coord(st.py, H));
+  const float z = rintf(grid_coord(st.pz, D));
+  if (!(x >= 0.0f && x < (float)Wd && y >= 0.0f && y < (float)H &&
+        z >= 0.0f && z < (float)D))
+    return 0.0f;
+  return __ldg(p.scaffold +
+               (((long long)b * D + (int)z) * H + (int)y) * (long long)Wd +
+               (int)x);
 }
 
 // The corner walk of the renderer's grid-list.

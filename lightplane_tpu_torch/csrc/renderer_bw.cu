@@ -53,6 +53,20 @@
 // LIGHTPLANE_ABLATE: 1 = one scalar atomicAdd per grid channel, 2 = no
 // grid-gradient reductions, 4 = no MLP weight-gradient pass.
 //
+// The two optional branches of renderer_fw.cu, backward:
+//   - scaffold gating (R3): the gate multiplies sigma and the colour, so it
+//     scales their cotangents; a gated step leaves nlt unchanged, so the
+//     rewind stays exact when the step is skipped.  The weight-gradient pass
+//     has block barriers inside the step, so a step is skipped only when no
+//     ray of the block passes its gate (__syncthreads_or, as splatter_bw.cu
+//     skips a step); a gated ray in a running block samples nothing, adds
+//     zero to the weight-gradient partials and no grid atomics.  No
+//     gradient flows into the scaffold.
+//   - the relu-field colour grid (R1-rf): relu(colour grid sample) takes an
+//     extra layer-input slot; the colour head's input gradient goes through
+//     its relu mask into g_color_grid (float4 atomics, zero-filled by the
+//     caller) and the opacity head's through the grid sample's into g_grid.
+//
 // Numerics: f32 throughout, IEEE transcendentals (no --use_fast_math).  The
 // grid gradient's atomics make its sums order-dependent from run to run.
 
@@ -65,12 +79,39 @@ using namespace lightplane;
 
 constexpr int kMaxRays = 128;  // rays (= threads) per block, at most
 
-long long bw_smem_floats(int W, int rays, int n_total, int color_chn) {
-  const long long n_slots = n_total - 1;
+long long bw_smem_floats(int W, int rays, int n_total, int color_chn,
+                         bool color_grid) {
+  // the layer inputs, + relu of the colour grid sample
+  const long long n_slots = n_total - 1 + (color_grid ? 1 : 0);
   return (long long)n_total * (W * W + W)          // padded layers
          + (n_slots + 2) * W * rays                // layer inputs, enc, g_enc
          + (long long)((color_chn + 3) / 4 * 4) * rays  // feature cotangent
          + (long long)W * (rays + 4);              // one layer's G
+}
+
+// Adds corner_weight * g[0:C) into every in-bounds corner row of the
+// [V_total, C] grid-list gradient (m, dst) at the point of `st`, batch b:
+// one float4 reduction per 4 channels (sm_90) when C % 4 == 0.
+template <int W>
+__device__ __forceinline__ void splat_grad(const GridMeta& m, float* dst,
+                                           int C, int b, const Step& st,
+                                           const float (&g)[W]) {
+  const bool vec4 = float4_atomics(C);
+  for_each_corner(m, b, st, [&](long long row, float wgt) {
+    float* d = dst + row * C;
+    if (vec4) {
+#pragma unroll
+      for (int c4 = 0; c4 < W / 4; ++c4)
+        if (4 * c4 < C)
+          atomicAdd(reinterpret_cast<float4*>(d) + c4,
+                    make_float4(wgt * g[4 * c4], wgt * g[4 * c4 + 1],
+                                wgt * g[4 * c4 + 2], wgt * g[4 * c4 + 3]));
+    } else {
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        if (c < C) atomicAdd(d + c, wgt * g[c]);
+    }
+  });
 }
 
 template <int W>
@@ -81,7 +122,9 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int n_t = p.n_layers[0], n_o = p.n_layers[1], n_c = p.n_layers[2];
   const int n_total = n_t + n_o + n_c;
-  const int n_slots = n_total - 1;
+  const bool cgrid = p.color_grid != nullptr;
+  // the layer inputs, then relu of the colour grid sample (slot cslot)
+  const int n_slots = n_total - 1 + (cgrid ? 1 : 0);
   float* s_act = smem + n_total * kLayer;        // [n_slots][W][rays]
   float* s_enc = s_act + n_slots * W * rays;     // [W][rays]
   float* s_genc = s_enc + W * rays;              // [W][rays]
@@ -117,7 +160,10 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
   // layer k of the forward loop below (slot 0: the feature, or relu of it
   // with no trunk); layer L reads slot L, except the colour head, whose
   // first layer reads slot n_t (+ the encoding) and the others slot L - 1.
+  // With a colour grid the colour head's first layer reads slot cslot (+
+  // the encoding), relu of the colour grid sample.
   const int opacity_first = n_t, color_first = n_t + n_o;
+  const int cslot = cgrid ? n_total - 1 : n_t;
   const int opacity_end = n_t + n_o - 1;
   const int n_relu_layers = n_total - 2;
   const float* opacity_last = smem + opacity_end * kLayer;
@@ -129,11 +175,17 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
   float x[W], y[W];
   for (int s = tot - 1; s >= 0; --s) {
     const Step st = march_step(p, r, s);
+    // a step that no ray of the block passes is skipped by the whole block
+    // (every thread reaches the barriers below, or none does)
+    const float gate = scaffold_gate(p, r.b, st);
+    if (p.scaffold != nullptr && !__syncthreads_or(gate != 0.0f)) continue;
 
     // ---- forward recompute, keeping every layer's input ----
+    // (a gated ray samples nothing: its zero gate zeroes every cotangent)
 #pragma unroll
     for (int c = 0; c < W; ++c) x[c] = 0.0f;
-    const bool sampled = !p.mask_out_of_bounds || st.in_bounds;
+    const bool sampled =
+        gate != 0.0f && (!p.mask_out_of_bounds || st.in_bounds);
     if (sampled) sample_grids<W>(p, r.b, st, x);
     if (n_t == 0) {
 #pragma unroll
@@ -141,12 +193,21 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
     }
 #pragma unroll
     for (int c = 0; c < W; ++c) ACT(0, c) = x[c];
+    if (cgrid) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) y[c] = 0.0f;
+      if (sampled)
+        sample_grids<W>(p.cgrids, p.color_grid, p.grid_chn, r.b, st, y);
+#pragma unroll
+      for (int c = 0; c < W; ++c) ACT(cslot, c) = fmaxf(y[c], 0.0f);
+    }
     float opacity_raw = 0.0f;
     for (int j = 0;; ++j) {
       if (j == opacity_end) {
         opacity_raw = dense_out<W>(opacity_last, x, 0);
 #pragma unroll
-        for (int c = 0; c < W; ++c) x[c] = ACT(n_t, c) + s_enc[c * rays + tid];
+        for (int c = 0; c < W; ++c)
+          x[c] = ACT(cslot, c) + s_enc[c * rays + tid];
       }
       if (j == n_relu_layers) break;
       const int layer = j < opacity_end ? j : j + 1;
@@ -158,14 +219,15 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
       }
     }
     if (p.noise_sigma > 0.0f) opacity_raw += step_noise(p, ray, s);
-    const float sigma = p.gain * softplus(opacity_raw);
-    // the colours wait in this thread's column of s_G for the EA adjoint
-    // (every read of s_G by the last step's weight_grad is behind a barrier)
+    const float sigma = p.gain * softplus(opacity_raw) * gate;
+    // the colours (before the gate) wait in this thread's column of s_G for
+    // the EA adjoint (every read of s_G by the last step's weight_grad is
+    // behind a barrier)
     float g_feat_dot_color = 0.0f;
     for (int c = 0; c < p.color_chn; ++c) {
       const float col = sigmoid(dense_out<W>(color_last, x, c));
       s_G[c * gstride + tid] = col;
-      g_feat_dot_color += s_gfeat[c * rays + tid] * col;
+      g_feat_dot_color += s_gfeat[c * rays + tid] * (col * gate);
     }
 
     // ---- transmittance rewind + EA adjoint ----
@@ -176,17 +238,19 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
     const float g_sigma = (g_w * T - suffix + g_nlt) * st.delta;
     suffix += g_w * w;
     nlt_run = nlt_prev;
-    const float g_opacity = g_sigma * p.gain * sigmoid(opacity_raw);
+    const float g_opacity = g_sigma * p.gain * sigmoid(opacity_raw) * gate;
 
     // ---- decoder backward, last layer first ----
-    // G: gradient of the current layer's output (before its relu)
+    // G: gradient of the current layer's output (before its relu);
+    // g_trunk: the colour head's input gradient (with a colour grid, the
+    // gradient of its sample, through its relu)
     float G[W], g_trunk[W], g_in[W];
 #pragma unroll
     for (int c = 0; c < W; ++c) {
       float g = 0.0f;
       if (c < p.color_chn) {
         const float col = s_G[c * gstride + tid];
-        g = w * s_gfeat[c * rays + tid] * col * (1.0f - col);
+        g = w * s_gfeat[c * rays + tid] * gate * col * (1.0f - col);
       }
       G[c] = g;
     }
@@ -194,7 +258,7 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
 #pragma unroll
       for (int o = 0; o < W; ++o) s_G[o * gstride + tid] = G[o];
       __syncthreads();
-      const float* X = s_act + (L == color_first  ? n_t
+      const float* X = s_act + (L == color_first  ? cslot
                                 : L > color_first ? L - 1
                                                   : L) * W * rays;
       if (part_runs(kAblateNoWeightGrad, X[tid]))
@@ -207,15 +271,16 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
 #pragma unroll
         for (int c = 0; c < W; ++c) {
           s_genc[c * rays + tid] += g_in[c];
-          g_trunk[c] = g_in[c];
+          g_trunk[c] = !cgrid || ACT(cslot, c) > 0.0f ? g_in[c] : 0.0f;
           G[c] = c == 0 ? g_opacity : 0.0f;
         }
       } else if (L == opacity_first) {
         // the trunk output went through a relu (relu of the feature with
-        // no trunk MLP)
+        // no trunk MLP); with a colour grid only the opacity head reads it
 #pragma unroll
         for (int c = 0; c < W; ++c)
-          G[c] = ACT(n_t, c) > 0.0f ? g_trunk[c] + g_in[c] : 0.0f;
+          G[c] = ACT(n_t, c) > 0.0f ? (cgrid ? 0.0f : g_trunk[c]) + g_in[c]
+                                    : 0.0f;
         if (n_t == 0) break;  // G is the feature gradient
       } else if (L == 0) {
 #pragma unroll
@@ -230,26 +295,12 @@ __global__ void __launch_bounds__(kMaxRays) render_bw_kernel(const Params p) {
       }
     }
 
-    // ---- grid-gradient splat ----
-    // (sm_90's float4 atomicAdd: one 16-byte reduction per 4 channels)
+    // ---- grid-gradient splats ----
     if (valid && sampled && part_runs(kAblateNoAtomics, G[0])) {
-      const int C = p.grid_chn;
-      const bool vec4 = float4_atomics(C);
-      for_each_corner(p, r.b, st, [&](long long row, float wgt) {
-        float* dst = p.g_grid + row * C;
-        if (vec4) {
-#pragma unroll
-          for (int c4 = 0; c4 < W / 4; ++c4)
-            if (4 * c4 < C)
-              atomicAdd(reinterpret_cast<float4*>(dst) + c4,
-                        make_float4(wgt * G[4 * c4], wgt * G[4 * c4 + 1],
-                                    wgt * G[4 * c4 + 2], wgt * G[4 * c4 + 3]));
-        } else {
-#pragma unroll
-          for (int c = 0; c < W; ++c)
-            if (c < C) atomicAdd(dst + c, wgt * G[c]);
-        }
-      });
+      splat_grad<W>(p.grids, p.g_grid, p.grid_chn, r.b, st, G);
+      if (cgrid)
+        splat_grad<W>(p.cgrids, p.g_color_grid, p.grid_chn, r.b, st,
+                      g_trunk);
     }
   }
 #undef ACT
@@ -285,15 +336,18 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block of `rays` rays needs.
 long long lightplane_render_bw_smem_bytes(int width, int rays,
-                                          int n_layers_total, int color_chn) {
-  return 4LL * bw_smem_floats(width, rays, n_layers_total, color_chn);
+                                          int n_layers_total, int color_chn,
+                                          int has_color_grid) {
+  return 4LL * bw_smem_floats(width, rays, n_layers_total, color_chn,
+                              has_color_grid != 0);
 }
 
 // Launches the recompute backward on `stream`; returns a cudaError_t code.
 // Arguments as lightplane_render_fw's, plus the saved nlt_final and the
 // cotangents in, the gradients and the [blocks, layers * (W*W + W)] partial
-// buffer out, and `rays_per_block` (128, 64 or 32).  The caller validates
-// shapes, devices and limits and zero-fills g_grid.
+// buffer out, `rays_per_block` (128, 64 or 32), and with a colour grid its
+// gradient g_color_grid.  The caller validates shapes, devices and limits
+// and zero-fills g_grid and g_color_grid.
 int lightplane_render_bw(
     const float* origins, const float* directions, const float* near,
     const float* far, const int* grid_idx, const float* enc, const float* grid,
@@ -305,15 +359,20 @@ int lightplane_render_bw(
     int rays_per_block, int num_samples, int num_samples_inf,
     float disparity_at_inf, float gain, int mask_out_of_bounds,
     int contract_coords, float noise_sigma, int noise_seed, int noise_stride,
-    int num_rays_noise, void* stream) {
+    int num_rays_noise, const float* scaffold, const int* scaffold_dims,
+    const float* color_grid, int num_color_grids, const int* color_grid_meta,
+    float* g_color_grid, void* stream) {
   if (rays_per_block != 128 && rays_per_block != 64 && rays_per_block != 32)
     return (int)cudaErrorInvalidValue;
   Params p = {};
-  const int rc = fill_params(
+  int rc = fill_params(
       p, num_rays, num_grids, grid_meta, grid_chn, n_t, n_o, n_c, mlp_widths,
       enc_chn, color_chn, width, num_samples, num_samples_inf,
       disparity_at_inf, gain, mask_out_of_bounds, contract_coords,
       noise_sigma, noise_seed, noise_stride, num_rays_noise);
+  if (rc == (int)cudaSuccess)
+    rc = fill_render_extras(p, scaffold, scaffold_dims, color_grid,
+                            num_color_grids, color_grid_meta);
   if (rc != (int)cudaSuccess) return rc;
   p.origins = origins;
   p.directions = directions;
@@ -331,9 +390,11 @@ int lightplane_render_bw(
   p.g_mlp = g_mlp;
   p.g_enc = g_enc;
   p.g_mlp_partial = g_mlp_partial;
+  p.g_color_grid = g_color_grid;
 
   const size_t smem = (size_t)lightplane_render_bw_smem_bytes(
-      width, rays_per_block, n_t + n_o + n_c, color_chn);
+      width, rays_per_block, n_t + n_o + n_c, color_chn,
+      color_grid != nullptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = width == 32 ? launch<32>(p, rays_per_block, smem, s)
                                     : launch<64>(p, rays_per_block, smem, s);

@@ -27,6 +27,20 @@
 // CUDA cores; moving the MLPs onto the tensor cores (wgmma over a tile of
 // samples) is later work.
 //
+// Two optional branches (the TPU kernel's scaffold gates,
+// renderer_pallas.py::_scaffold_gate_base / _chunk_gates /
+// _scaffold_chunk_skip, and its `cinfos` colour grid):
+//   - scaffold gating (R3): each step's gate is the scaffold's value at the
+//     nearest cell (march_common.cuh::scaffold_gate) and multiplies sigma
+//     and the colour, as the plain version does; a step whose gate is 0
+//     changes nothing and is skipped, sampling and MLPs included.  With no
+//     barrier in the step loop the skip is per thread.  (The TPU kernel
+//     thresholds the gate at 0.5 and packs it into bits; the two agree on
+//     the binary scaffolds that calculate_scaffold makes.)
+//   - the relu-field colour grid (R1-rf): with no trunk MLP, the opacity
+//     head reads relu(grid sample) and the colour head relu(colour grid
+//     sample) + encoding, both grid-lists sampled at the same point.
+//
 // Numerics follow the JAX scan path: w = exp(-nlt) - exp(-nlt_new) as
 // written there, and the shared helpers of march_common.cuh (bit-exact
 // counter hash, IEEE transcendentals: no --use_fast_math).
@@ -71,29 +85,43 @@ __global__ void __launch_bounds__(kThreads)
   const float* opacity_last = smem + opacity_end * kLayer;
   const float* color_last = smem + (n_total - 1) * kLayer;
   const int tot = p.num_samples + p.num_samples_inf;
+  const bool cgrid = p.color_grid != nullptr;
 
   float nlt = 0.0f, depth = 0.0f;
   float x[W], y[W];
   for (int s = 0; s < tot; ++s) {
     const Step st = march_step(p, r, s);
+    const float gate = scaffold_gate(p, r.b, st);
+    if (gate == 0.0f) continue;  // sigma = colour = 0: nothing to add
 
+    const bool sampled = !p.mask_out_of_bounds || st.in_bounds;
 #pragma unroll
     for (int c = 0; c < W; ++c) x[c] = 0.0f;
-    if (!p.mask_out_of_bounds || st.in_bounds) sample_grids<W>(p, r.b, st, x);
+    if (sampled) sample_grids<W>(p, r.b, st, x);
 
     // The decoder's relu layers run in one loop, so the unrolled dense layer
     // is compiled once: j walks the trunk layers (relu after each, and
     // relu(feature) with no trunk layer), then the opacity head's hidden
     // layers, then the color head's hidden layers on trunk + encoding.  At
-    // j == trunk_end the trunk output is kept; at j == opacity_end the
-    // opacity head's last layer (no relu, output 0) reads x.
+    // j == trunk_end the trunk output is kept (with a colour grid, relu of
+    // its sample is kept instead); at j == opacity_end the opacity head's
+    // last layer (no relu, output 0) reads x.
     if (n_t == 0) {
 #pragma unroll
       for (int c = 0; c < W; ++c) x[c] = fmaxf(x[c], 0.0f);
     }
+    if (cgrid) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) y[c] = 0.0f;
+      if (sampled)
+        sample_grids<W>(p.cgrids, p.color_grid, p.grid_chn, r.b, st, y);
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        s_trunk[c * kThreads + tid] = fmaxf(y[c], 0.0f);
+    }
     float opacity_raw = 0.0f;
     for (int j = 0;; ++j) {
-      if (j == trunk_end) {
+      if (j == trunk_end && !cgrid) {
 #pragma unroll
         for (int c = 0; c < W; ++c) s_trunk[c * kThreads + tid] = x[c];
       }
@@ -112,14 +140,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < W; ++c) x[c] = y[c];
     }
     if (p.noise_sigma > 0.0f) opacity_raw += step_noise(p, ray, s);
-    const float sigma = p.gain * softplus(opacity_raw);
+    const float sigma = p.gain * softplus(opacity_raw) * gate;
 
     // Emission-Absorption
     const float nlt_new = nlt + sigma * st.delta;
     const float w = expf(-nlt) - expf(-nlt_new);
     depth += w * st.t;
     for (int c = 0; c < p.color_chn; ++c)
-      s_feat[c * kThreads + tid] += w * sigmoid(dense_out<W>(color_last, x, c));
+      s_feat[c * kThreads + tid] +=
+          w * (sigmoid(dense_out<W>(color_last, x, c)) * gate);
     nlt = nlt_new;
   }
 
@@ -157,6 +186,10 @@ long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
 //   width: the padded activation width, 32 or 64
+//   scaffold, scaffold_dims: the [B, D, H, W] scaffold and its host int[4]
+//     shape, or null
+//   color_grid, num_color_grids, color_grid_meta: the relu-field colour
+//     grid-list [Vc_total, grid_chn] and its table (as grid_meta's), or null
 // The caller validates shapes, devices and limits.
 int lightplane_render_fw(
     const float* origins, const float* directions, const float* near,
@@ -166,13 +199,18 @@ int lightplane_render_fw(
     int n_c, const int* mlp_widths, int enc_chn, int color_chn, int width,
     int num_samples, int num_samples_inf, float disparity_at_inf, float gain,
     int mask_out_of_bounds, int contract_coords, float noise_sigma,
-    int noise_seed, int noise_stride, int num_rays_noise, void* stream) {
+    int noise_seed, int noise_stride, int num_rays_noise,
+    const float* scaffold, const int* scaffold_dims, const float* color_grid,
+    int num_color_grids, const int* color_grid_meta, void* stream) {
   Params p = {};
-  const int rc = fill_params(
+  int rc = fill_params(
       p, num_rays, num_grids, grid_meta, grid_chn, n_t, n_o, n_c, mlp_widths,
       enc_chn, color_chn, width, num_samples, num_samples_inf,
       disparity_at_inf, gain, mask_out_of_bounds, contract_coords,
       noise_sigma, noise_seed, noise_stride, num_rays_noise);
+  if (rc == (int)cudaSuccess)
+    rc = fill_render_extras(p, scaffold, scaffold_dims, color_grid,
+                            num_color_grids, color_grid_meta);
   if (rc != (int)cudaSuccess) return rc;
   if (num_rays == 0) return (int)cudaSuccess;
   p.origins = origins;

@@ -2,8 +2,9 @@
 (counterpart of ``lightplane_tpu/models/renderer_module.py``).
 
 Owns the flat decoder MLP parameters and the harmonic ray-embedding linear
-layer, and adds background-color compositing, near/far jitter and the
-naive/fused switch around :func:`lightplane_renderer`.
+layer, and adds background-color compositing, near/far jitter, the
+naive/fused switch around :func:`lightplane_renderer`, pointwise decoder
+evaluation and the occupancy scaffold.
 """
 
 from __future__ import annotations
@@ -11,11 +12,16 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.misc_utils import if_not_none_else, process_and_flatten_grid
 from ..ops.mlp_utils import DecoderParams, init_decoder_params
-from ..ops.naive_renderer import lightplane_renderer_naive
+from ..ops.naive_renderer import (
+    lightplane_eval_mlp,
+    lightplane_eval_mlp_opacity_only,
+    lightplane_renderer_naive,
+)
 from ..ops.rays import (
     Rays,
     calc_harmonic_embedding,
@@ -164,6 +170,117 @@ class LightplaneRenderer(nn.Module):
             normed, self.ray_embedding_num_harmonics
         )
         return self.harmonic_ray_embedding_linear(harmonic_embed)
+
+    def eval_decoder_at_points(
+        self,
+        pts: torch.Tensor,
+        pts_to_grid_idx: torch.Tensor,
+        rays_encoding: Optional[torch.Tensor],
+        feature_grid,
+        color_feature_grid=None,
+        scaffold: Optional[torch.Tensor] = None,
+        gain: Optional[float] = None,
+        mask_out_of_bounds_samples: Optional[bool] = None,
+        contract_coords: Optional[bool] = None,
+        directions: Optional[torch.Tensor] = None,
+    ):
+        """The decoder at points ``[n_rays, n_pts, 3]``: returns ``(opacity
+        [n_rays, n_pts], color [n_rays, n_pts, C])``.  Without
+        ``rays_encoding`` the harmonic embedding of ``directions``
+        ``[n_rays, 3]`` is used."""
+        if pts.dim() != 3 or pts.shape[-1] != 3:
+            raise ValueError(f"pts must be [n_rays, n_pts, 3], got "
+                             f"{tuple(pts.shape)}")
+        if rays_encoding is None and directions is None:
+            raise ValueError("Must pass one of (rays_encoding, directions)")
+        grid_flat, color_grid_flat, grid_sizes, color_grid_sizes = (
+            process_and_flatten_grid(feature_grid, color_feature_grid)
+        )
+        return lightplane_eval_mlp(
+            points=pts,
+            grid_flat=grid_flat,
+            grid_sizes=grid_sizes,
+            ray_grid_idx=pts_to_grid_idx,
+            decoder_params=self.get_decoder_params(),
+            rays_encoding=self._get_ray_encoding(rays_encoding, directions),
+            gain=if_not_none_else(gain, self.gain),
+            mask_out_of_bounds_samples=if_not_none_else(
+                mask_out_of_bounds_samples, self.mask_out_of_bounds_samples
+            ),
+            scaffold=scaffold,
+            color_grid_flat=color_grid_flat,
+            color_grid_sizes=color_grid_sizes,
+            contract_coords=if_not_none_else(
+                contract_coords, self.contract_coords
+            ),
+        )
+
+    def eval_opacity_at_points(
+        self,
+        pts: torch.Tensor,
+        pts_to_grid_idx: torch.Tensor,
+        feature_grid,
+        scaffold: Optional[torch.Tensor] = None,
+        gain: Optional[float] = None,
+        mask_out_of_bounds_samples: Optional[bool] = None,
+        grid_sizes=None,
+    ) -> torch.Tensor:
+        """Opacity ``[n_rays, n_pts]`` at points ``[n_rays, n_pts, 3]``."""
+        grid_flat, _, grid_sizes, _ = process_and_flatten_grid(
+            feature_grid, None, grid_sizes, None
+        )
+        return lightplane_eval_mlp_opacity_only(
+            points=pts,
+            grid_flat=grid_flat,
+            grid_sizes=grid_sizes,
+            ray_grid_idx=pts_to_grid_idx,
+            decoder_params=self.get_decoder_params(),
+            gain=if_not_none_else(gain, self.gain),
+            mask_out_of_bounds_samples=if_not_none_else(
+                mask_out_of_bounds_samples, self.mask_out_of_bounds_samples
+            ),
+            scaffold=scaffold,
+        )
+
+    def calculate_scaffold(
+        self,
+        feature_grid,
+        scaffold_size: Tuple[int, int, int, int],
+        threshold: float = 1e-7,
+        grid_sizes=None,
+        dilate_scaffold: int = 2,
+    ) -> torch.Tensor:
+        """A binary occupancy scaffold ``[B, D, H, W]`` float32: the opacity
+        evaluated at the ``D x H x W`` lattice spanning the ``[-1, 1]`` cube
+        (corners included), dilated by a ``(2 * dilate_scaffold + 1)^3`` max
+        (a window that reaches past the edge sees only the cells inside) and
+        thresholded at ``threshold``.  Evaluated without autograd."""
+        B, D, H, W = (int(s) for s in scaffold_size)
+        device = self.mlp_params.device
+        zs, ys, xs = (torch.linspace(0.0, 1.0, n, device=device)
+                      for n in (D, H, W))
+        gz, gy, gx = torch.meshgrid(zs, ys, xs, indexing="ij")
+        dense_xyz = (torch.stack([gx, gy, gz], dim=-1) * 2.0 - 1.0).reshape(
+            D, H * W, 3)
+        with torch.no_grad():
+            scaffold = torch.stack([
+                self.eval_opacity_at_points(
+                    dense_xyz,
+                    torch.full((D,), b, dtype=torch.int64, device=device),
+                    feature_grid,
+                    gain=self.gain,
+                    mask_out_of_bounds_samples=self.mask_out_of_bounds_samples,
+                    grid_sizes=grid_sizes,
+                ).reshape(D, H, W)
+                for b in range(B)
+            ])
+            if dilate_scaffold > 0:
+                # max_pool3d pads with -inf: jax.lax.reduce_window's padding
+                scaffold = F.max_pool3d(
+                    scaffold[:, None], kernel_size=2 * dilate_scaffold + 1,
+                    stride=1, padding=dilate_scaffold,
+                )[:, 0]
+            return (scaffold > threshold).float()
 
     def forward(
         self,

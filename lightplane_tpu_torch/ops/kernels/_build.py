@@ -43,6 +43,7 @@ _RENDER_FW_ARGTYPES = (
     + [_I, _I, _I]       # enc_chn, color_chn, width
     + [_I, _I, _F, _F]   # num_samples, num_samples_inf, disparity, gain
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
+    + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
     + [_P]               # stream
 )
 # lightplane_render_bw (see csrc/renderer_bw.cu)
@@ -53,6 +54,8 @@ _RENDER_BW_ARGTYPES = (
     + [_I, _I, _I, _I]   # enc_chn, color_chn, width, rays_per_block
     + [_I, _I, _F, _F]   # num_samples, num_samples_inf, disparity, gain
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
+    + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
+    + [_P]               # g_color_grid
     + [_P]               # stream
 )
 
@@ -158,7 +161,7 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_render_fw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_render_bw.argtypes = _RENDER_BW_ARGTYPES
     lib.lightplane_render_bw.restype = _I
-    lib.lightplane_render_bw_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.lightplane_render_bw_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
     lib.lightplane_render_bw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_splat_fw.argtypes = _SPLAT_FW_ARGTYPES
     lib.lightplane_splat_fw.restype = _I

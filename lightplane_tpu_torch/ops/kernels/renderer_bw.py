@@ -93,8 +93,8 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
     """Launch the recompute-backward kernel on the current CUDA stream.
     ``defines`` pick a variant build of the kernel (``_build.library``)."""
     global LAUNCHES
-    directions, origins, near, far, grid_idx, _, noise_seed = geom
-    grid_flat, _, mlp_params, rays_encoding = diff
+    directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
+    grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
     a = launch_args(cfg, geom, diff, "render_bwd_cuda")
     g_depth, g_nlt, g_feat = g_out
     f32 = torch.float32
@@ -108,7 +108,8 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
     lib = library(defines)
     for rays_per_block in RAYS_PER_BLOCK:
         smem = lib.lightplane_render_bw_smem_bytes(
-            a.width, rays_per_block, a.n_layers, a.color_chn)
+            a.width, rays_per_block, a.n_layers, a.color_chn,
+            int(color_grid_flat is not None))
         if smem <= MAX_SMEM_BYTES:
             break
     else:
@@ -123,6 +124,8 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
     n_params = sum(map(_mlp_numel, (cfg.n_hidden_trunk, cfg.n_hidden_opacity,
                                     cfg.n_hidden_color)))
     g_grid = torch.zeros_like(grid_flat)
+    g_color_grid = (None if color_grid_flat is None
+                    else torch.zeros_like(color_grid_flat))
     g_mlp = torch.empty((n_params,), dtype=f32, device=a.device)
     g_enc = torch.empty_like(rays_encoding)
     # per-block partial sums of the padded MLP weight gradients; each block
@@ -145,13 +148,15 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
         cfg.inject_noise_sigma, int(noise_seed), cfg.noise_stride,
         cfg.num_rays_noise,
+        *a.extras(scaffold, color_grid_flat),
+        None if g_color_grid is None else g_color_grid.data_ptr(),
         stream,
     )
     if rc != 0:
         msg = lib.lightplane_cuda_error_string(rc).decode()
         raise RuntimeError(f"renderer_bw kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
-    return g_grid, None, g_mlp, g_enc
+    return g_grid, g_color_grid, g_mlp, g_enc
 
 
 def render_bwd(cfg: _RenderCfg, geom, diff, nlt_final, g_out,

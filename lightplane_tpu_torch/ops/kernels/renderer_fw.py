@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
+from typing import Optional
 
 import torch
 
@@ -57,6 +59,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _grid_table(grid_sizes, V: int, C: int, name: str) -> ctypes.Array:
+    """The kernels' table of a flat grid-list's sub-grids: (row offset, B,
+    D, H, W) each; raises where the sizes do not describe ``[V, C]``."""
+    if not 1 <= len(grid_sizes) <= MAX_GRIDS:
+        raise ValueError(f"the CUDA renderer takes 1..{MAX_GRIDS} sub-grids "
+                         f"per {name}")
+    if V * C >= 2**31:
+        raise ValueError(f"{name} too large for int32 offsets")
+    offsets = grid_row_offsets(grid_sizes)
+    if offsets[-1] != V or any(gs[-1] != C for gs in grid_sizes):
+        raise ValueError(f"{name} sizes do not match the flat {name}")
+    meta = []
+    for gs, off in zip(grid_sizes, offsets):
+        meta += [off, gs[0], gs[1], gs[2], gs[3]]
+    return (ctypes.c_int * len(meta))(*meta)
+
+
 def _kernel_width(cfg: _RenderCfg, grid_chn: int) -> int:
     widest = max(
         (grid_chn,) + cfg.n_hidden_trunk + cfg.n_hidden_opacity
@@ -87,27 +110,29 @@ class LaunchArgs:
     width: int
     grid_meta: ctypes.Array
     mlp_widths: ctypes.Array
+    # the scaffold's (B, D, H, W), or None
+    scaffold_dims: Optional[ctypes.Array]
+    # the colour grid-list's sub-grid count and table, or (0, None)
+    num_color_grids: int
+    color_grid_meta: Optional[ctypes.Array]
 
     @property
     def n_layers(self) -> int:
         return self.n_t + self.n_o + self.n_c
 
+    def extras(self, scaffold, color_grid_flat):
+        """The kernels' trailing arguments: the scaffold and its shape, the
+        colour grid-list and its table (null pointers for none)."""
+        return (_ptr(scaffold), self.scaffold_dims, _ptr(color_grid_flat),
+                self.num_color_grids, self.color_grid_meta)
+
 
 def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
     """Check that the march kernels take these inputs (device, types,
-    shapes, MLP and grid layout) and raise on what they do not run."""
+    shapes, MLP and grid layout, the scaffold and the colour grid) and raise
+    on what they do not run."""
     directions, origins, near, far, grid_idx, scaffold, _ = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
-    if color_grid_flat is not None:
-        raise NotImplementedError(
-            "the separate color grid (relu-field) branch of the CUDA renderer "
-            "is not ported yet (ROADMAP queue 2, R1 relu-field branch)"
-        )
-    if scaffold is not None:
-        raise NotImplementedError(
-            "scaffold gating in the CUDA renderer is not ported yet "
-            "(ROADMAP queue 2, R3)"
-        )
     device = directions.device
     if device.type != "cuda":
         raise ValueError(f"{kernel} needs CUDA tensors, got {device}")
@@ -127,6 +152,10 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
     _check(rays_encoding, "rays_encoding", f32, (R, C_enc), device)
     _check(grid_flat, "grid_flat", f32, (V, C), device)
     _check(mlp_params, "mlp_params", f32, (mlp_params.numel(),), device)
+    # the kernels read grid rows as float4 when C % 4 == 0
+    if C % 4 == 0 and any(t is not None and t.data_ptr() % 16
+                          for t in (grid_flat, color_grid_flat)):
+        raise ValueError("the CUDA renderer needs 16-byte aligned grids")
 
     head_in = cfg.n_hidden_trunk[-1] if n_t else C
     if n_t and cfg.n_hidden_trunk[0] != C:
@@ -136,8 +165,6 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
             "the opacity and color MLP inputs must be as wide as the trunk "
             "output"
         )
-    if not 1 <= len(cfg.grid_sizes) <= MAX_GRIDS:
-        raise ValueError(f"the CUDA renderer takes 1..{MAX_GRIDS} sub-grids")
     if min(n_o, n_c) < 1 or max(n_t, n_o, n_c) > MAX_LAYERS:
         raise ValueError(
             f"the CUDA renderer takes MLPs of 1..{MAX_LAYERS} layers "
@@ -152,36 +179,50 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
             f"mlp_params has {mlp_params.numel()} values, the MLP widths "
             f"need {n_params}"
         )
-    if V * C >= 2**31:
-        raise ValueError("grid too large for int32 offsets")
     width = _kernel_width(cfg, C)
+    grid_meta = _grid_table(cfg.grid_sizes, V, C, "grid")
+    batches = [gs[0] for gs in cfg.grid_sizes]
 
-    offsets = grid_row_offsets(cfg.grid_sizes)
-    if offsets[-1] != V or any(gs[-1] != C for gs in cfg.grid_sizes):
-        raise ValueError("grid_sizes do not match the flat grid")
+    color_meta = None
+    if color_grid_flat is not None:
+        # relu-field: the colour grid is sampled at the grid's points, with
+        # the grid's channel count, and there is no trunk MLP
+        if n_t:
+            raise ValueError("a separate color grid takes no trunk MLP")
+        Vc = color_grid_flat.shape[0]
+        _check(color_grid_flat, "color_grid_flat", f32, (Vc, C), device)
+        color_meta = _grid_table(cfg.color_grid_sizes, Vc, C, "color grid")
+        batches += [gs[0] for gs in cfg.color_grid_sizes]
+    scaffold_dims = None
+    if scaffold is not None:
+        if cfg.scaffold_size is None or len(cfg.scaffold_size) != 4:
+            raise ValueError("the scaffold must be [B, D, H, W]")
+        _check(scaffold, "scaffold", f32, (math.prod(cfg.scaffold_size), 1),
+               device)
+        scaffold_dims = (ctypes.c_int * 4)(*cfg.scaffold_size)
+        batches.append(cfg.scaffold_size[0])
     if R:
-        # the kernels gather rows of sub-grid batch grid_idx[ray]: an index
-        # outside every sub-grid's batch would read outside the grid
+        # the kernels gather rows of batch grid_idx[ray] of every sub-grid
+        # (and scaffold cell): an index outside a batch would read outside
         lo, hi = (int(v) for v in torch.aminmax(grid_idx))
-        if lo < 0 or hi >= min(gs[0] for gs in cfg.grid_sizes):
+        if lo < 0 or hi >= min(batches):
             raise ValueError(f"grid_idx out of range: [{lo}, {hi}]")
-    meta = []
-    for gs, off in zip(cfg.grid_sizes, offsets):
-        meta += [off, gs[0], gs[1], gs[2], gs[3]]
     widths = cfg.n_hidden_trunk + cfg.n_hidden_opacity + cfg.n_hidden_color
     return LaunchArgs(
         device=device, R=R, C=C, n_t=n_t, n_o=n_o, n_c=n_c, C_enc=C_enc,
-        color_chn=color_chn, width=width,
-        grid_meta=(ctypes.c_int * len(meta))(*meta),
+        color_chn=color_chn, width=width, grid_meta=grid_meta,
         mlp_widths=(ctypes.c_int * len(widths))(*widths),
+        scaffold_dims=scaffold_dims,
+        num_color_grids=0 if color_meta is None else len(cfg.color_grid_sizes),
+        color_grid_meta=color_meta,
     )
 
 
 def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
     """Launch the forward-march kernel on the current CUDA stream."""
     global LAUNCHES
-    directions, origins, near, far, grid_idx, _, noise_seed = geom
-    grid_flat, _, mlp_params, rays_encoding = diff
+    directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
+    grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
     a = launch_args(cfg, geom, diff, "render_fwd_cuda")
 
     from ._build import library
@@ -212,6 +253,7 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
         cfg.inject_noise_sigma, int(noise_seed), cfg.noise_stride,
         cfg.num_rays_noise,
+        *a.extras(scaffold, color_grid_flat),
         stream,
     )
     if rc != 0:

@@ -341,10 +341,11 @@ def _march_inputs(
     rays_encoding = rays.encoding
     if rays_encoding is None:
         rays_encoding = grid_flat.new_zeros((R, cfg.n_hidden_color[0]))
+    # the scaffold gates the march and gets no gradient
     geom = (
         rays.directions, rays.origins, rays.near, rays.far,
         rays.grid_idx.to(torch.int32),
-        scaffold.reshape(-1, 1) if scaffold is not None else None,
+        scaffold.detach().reshape(-1, 1) if scaffold is not None else None,
         int(inject_noise_seed) if inject_noise_seed is not None else 0,
     )
     diff = (grid_flat, color_grid_flat, decoder_params.mlp_params,

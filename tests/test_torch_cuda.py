@@ -1,6 +1,6 @@
 """The CUDA kernels (the renderer's forward march and recompute backward,
-the splatter's splat and adjoint) against their plain PyTorch versions, on
-the card.  Every test is marked ``cuda`` and skips
+with their scaffold and relu-field branches, the splatter's splat and
+adjoint) against their plain PyTorch versions, on the card.  Every test is marked ``cuda`` and skips
 where no CUDA device is available; the file imports neither JAX nor the JAX
 package, so it runs on a GPU machine without them:
 
@@ -132,6 +132,69 @@ def test_backward_kernel_matches_plain(cuda, case):
         assert err <= MAX_ABS * scale, f"grad {i}: max |diff| {err}"
 
 
+def _branch_case(device, branch):
+    """A scaffold (random binary, over a batch of 2) or a relu-field colour
+    grid-list on top of a triplane case."""
+    if branch == "scaffold":
+        rays, grid, dp = _case(device, _tri(2, 12, 8), batch=2, seed=3)
+        gen = torch.Generator().manual_seed(4)
+        scaffold = (torch.rand((2, 10, 9, 8), generator=gen) > 0.5).float()
+        return rays, grid, dp, dict(scaffold=scaffold.to(device),
+                                    contract_coords=True)
+    rays, grid, dp = _case(device, [(2, 8, 8, 8, 16)], batch=2,
+                           layers=(0, 2, 2), seed=5)
+    rng = np.random.default_rng(6)
+    cgrid = [torch.as_tensor(rng.standard_normal(s) * 0.5,
+                             dtype=torch.float32, device=device)
+             for s in _tri(2, 10, 16)]
+    return rays, grid, dp, dict(color_grid=cgrid,
+                                mask_out_of_bounds_samples=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["scaffold", "relu_field"])
+def test_branch_kernels_match_plain(cuda, branch):
+    """R1 and R2 with scaffold gating (R3) or the relu-field colour grid
+    (R1-rf): outputs and gradients (the colour grid's too)."""
+    rays, grid, dp, extra = _branch_case(cuda, branch)
+    kw = dict(num_samples=32, gain=1.5, **extra)
+    with torch.no_grad():
+        before = renderer_fw.LAUNCHES
+        out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
+        out_p = lp.lightplane_renderer(rays, grid, dp, impl="torch", **kw)
+        torch.cuda.synchronize()
+        assert renderer_fw.LAUNCHES == before + 1
+    for name, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS, f"{name}: max |diff| {err}"
+    assert float(out_p[1].abs().max()) > 0.0
+    gen = torch.Generator().manual_seed(1)
+    n = len(rays)
+    proj = [torch.randn(s, generator=gen).to(cuda)
+            for s in [(n,), (n,), (n, 3)]]
+    cgrid = extra.get("color_grid")
+
+    def grads(impl):
+        leaves = [g.detach().clone().requires_grad_(True)
+                  for g in cgrid or []]
+        k = dict(kw, color_grid=leaves or None)
+        return _grads(rays, grid, dp, impl, proj, **k) + [g.grad
+                                                          for g in leaves]
+
+    before = renderer_bw.LAUNCHES
+    g_k = grads("cuda")
+    torch.cuda.synchronize()
+    assert renderer_bw.LAUNCHES == before + 1
+    g_p = grads("torch")
+    assert len(g_k) == len(grid) + 2 + len(cgrid or [])
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        assert a.shape == b.shape, i
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * scale, f"grad {i}: max |diff| {err}"
+        assert float(b.abs().max()) > 0.0, f"grad {i} is zero"
+
+
 @pytest.mark.cuda
 def test_training_step_launches_each_kernel_once(cuda):
     rays, grid, dp = _case(cuda, [(1, 1, 16, 16, 16), (1, 16, 1, 16, 16),
@@ -156,12 +219,17 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
     dp.mlp_params.requires_grad_(True)
     lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)[2].sum().backward()
     assert torch.isfinite(dp.mlp_params.grad).all()
+    # so does a scaffold (R3), through both kernels
+    fw, bw = renderer_fw.LAUNCHES, renderer_bw.LAUNCHES
+    dp.mlp_params.grad = None
+    lp.lightplane_renderer(
+        rays, grid, dp, impl="cuda",
+        scaffold=torch.ones((1, 4, 4, 4), device=cuda), **kw,
+    )[2].sum().backward()
+    torch.cuda.synchronize()
+    assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
+    assert torch.isfinite(dp.mlp_params.grad).all()
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="R3"):
-            lp.lightplane_renderer(
-                rays, grid, dp, impl="cuda",
-                scaffold=torch.ones((1, 4, 4, 4), device=cuda), **kw,
-            )
         wide = lp.init_decoder_params(None, 2, 2, 2, input_chn=8,
                                       hidden_chn=72, device=cuda)
         enc = torch.zeros((64, 72), device=cuda)
@@ -178,6 +246,14 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
                          rays.near, rays.far, rays.encoding)
         with pytest.raises(ValueError, match="grid_idx out of range"):
             lp.lightplane_renderer(rays_b, grid, dp, impl="cuda", **kw)
+        # a grid_idx within the grid's batch of 2 but past the scaffold's
+        rays_1 = lp.Rays(rays.directions, rays.origins,
+                         torch.ones_like(rays.grid_idx), rays.near, rays.far,
+                         rays.encoding)
+        with pytest.raises(ValueError, match="grid_idx out of range"):
+            lp.lightplane_renderer(
+                rays_1, [torch.cat([g, g]) for g in grid], dp, impl="cuda",
+                scaffold=torch.ones((1, 4, 4, 4), device=cuda), **kw)
 
 
 def _tri(batch, res, chn):

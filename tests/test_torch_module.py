@@ -144,8 +144,12 @@ def test_import_does_not_load_jax():
         "import lightplane_tpu_torch.ops.kernels._build\n"
         "import lightplane_tpu_torch.utils.grid_utils\n"
         "import lightplane_tpu_torch.utils.cameras\n"
+        "import lightplane_tpu_torch.utils.metrics\n"
+        "import lightplane_tpu_torch.utils.io_utils\n"
+        "import lightplane_tpu_torch.examples.datasets\n"
+        "import lightplane_tpu_torch.examples.fit_single_scene\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'lightplane_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lightplane_tpu')]\n"
         "assert not bad, bad\n"
     )
     root = Path(__file__).resolve().parents[1]
