@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch / CUDA port (``lightplane_tpu_torch``) on one
 NVIDIA Hopper GPU.
 
-    python3 chip_smoke.py            # the phases below
-    python3 chip_smoke.py --ablate   # phases 1-2, R2 and S1 with parts off
+    python3 chip_smoke.py                # the phases below
+    python3 chip_smoke.py --only 3b,5,9  # phases 1, 2 and those named
+    python3 chip_smoke.py --ablate       # phases 1-2, R2, S1 with parts off
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -11,7 +12,9 @@ exits non-zero without its result line:
 1. Device: the card's name and power limit (``nvidia-smi``), its compute
    capability, which must be 9.0; TF32 is switched off.
 2. Build: ``nvcc`` compiles ``lightplane_tpu_torch/csrc/*.cu`` (cached under
-   ``build/kernels/`` by a hash of the sources).
+   ``build/kernels/`` by a hash of the sources), and at the same time R2's
+   relu-mask recording build (``-DLIGHTPLANE_RELU_MASKS=1``); registers and
+   spilled bytes per thread of every kernel.
 3. The forward kernel (R1) vs its plain PyTorch version on the card, at
    4096 rays and 48 samples, over fourteen configurations it supports, five
    of them the big shapes that the TPU's W3 sampler served (a 3 x 128^2
@@ -21,15 +24,20 @@ exits non-zero without its result line:
    configurations, with the JAX parity tests' N(0, 0.05) decoders:
    gradients of a fixed random-projection loss w.r.t. the grid-list,
    ``mlp_params`` and ``rays.encoding`` through
-   ``lightplane_renderer(impl="cuda")`` (R1 + R2) and ``impl="torch"``.
-   First, on the triplane config with the initialiser's decoder, where f32
-   gradients are rough at relu kinks, it prints how far each f32 version is
-   from the f64 run and how close that ray came to a kink.
+   ``lightplane_renderer(impl="cuda")`` (R1 + R2) and ``impl="torch"``, on
+   cotangents that skip the rays within KINK_MARGIN of a relu kink; then R2
+   alone on every ray's cotangent against its plain version under the relu
+   masks that the kernel took (``masked_r2_parity``), printing how many rays
+   the margin leaves out.  First, on the triplane config with the
+   initialiser's decoder, where f32 gradients are rough at relu kinks, it
+   prints how far each f32 version is from the f64 run and how close that
+   ray came to a kink.
 3c. Scaffold gating (R3) and the relu-field colour grid (R1-rf) in R1 and
    R2 vs their plain versions, on the triplane config: random, empty and
    half-empty binary scaffolds, one from ``calculate_scaffold`` at 64^3, and
    two relu-field configs (one with a scaffold); it prints how many gates
-   sit within 1e-6 of a rounding boundary, where an ulp flips a gate.
+   sit within 1e-6 of a rounding boundary, where an ulp flips a gate.  R2
+   is held as in 3b, end to end and under its masks.
 4. Serving: the ``LightplaneRenderer`` module at the repository's headline
    render config (triplane 3 x 32^2 x 32ch, MLPs 2/2/2 with hidden 32,
    harmonic ray embedding, 256 samples) serves four 256 x 256 frames from
@@ -39,8 +47,8 @@ exits non-zero without its result line:
 5. Training: the same model as ``nn.Module`` plus triplane
    ``nn.Parameter``s takes 12 Adam steps of one full frame each through
    R1 + R2 against targets a second model renders; the fw+bw step, each
-   kernel and the plain versions are timed, and peak memory is read at 128
-   and 256 samples.
+   kernel and the plain versions are timed, peak memory is read at 128
+   and 256 samples, and R2 is held under its masks at this shape.
 6. The splatter's forward kernel (S1) and adjoint (S2) vs their plain
    versions on the card: the raw accumulators, the normalised grid and the
    gradients of a fixed random-projection loss w.r.t. the encoding (and,
@@ -71,9 +79,13 @@ exits non-zero without its result line:
    the synthetic scene) for 600 steps, with scaffold updates before and
    after an upsample to 3 x 128^2 x 32ch at 256 samples: ms per step between
    events, occupancy, eval PSNR and SSIM (the last must beat the first),
-   launches; 20 steps with and without the scaffold; a profiled step; R1
-   and R2 alone with the scaffold; then a relu-field model (density and
-   colour triplanes of 3 x 64^2 x 32ch) takes 12 Adam steps.
+   launches; 20 steps with and without the scaffold; ms per step with and
+   without the host's grid_idx range check (``LIGHTPLANE_CHECK_GRID_IDX``)
+   and the host's share against a profiled step; R1 and R2 alone (R2 under
+   its masks) with and without the scaffold; R2 at 128, 64 and 32 rays per
+   block for 4096, 8192 and 16384 rays and at the size its wrapper picks;
+   then a relu-field model (density and colour triplanes of 3 x 64^2 x
+   32ch) takes 12 Adam steps.
 
 Phases 4, 5, 7, 8 and 9 each set the kernels' launch counts to 0 just
 before they drive their path and read them just after.  Every phase prints
@@ -85,6 +97,10 @@ time the card could take, and for R1 and R2 the same for the scaffold and
 relu-field branches) and the result line ``{"ok": true, "device":
 {...}}``.  Needs no network and no JAX.
 
+``--only`` runs phases 1 and 2 and the phases it names (for iterating on
+one kernel); it prints the result line but no kernels line, which needs
+every phase.
+
 ``--ablate`` builds variants of the kernels with parts switched off (the
 ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build each,
 all started together, and times each twice in turn: R2 at the slice shape,
@@ -94,6 +110,7 @@ S1 at the splatter headline.
 import copy
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -108,8 +125,10 @@ MAX_DIFF, MEAN_DIFF, MEAN_REL_DIFF = 0.1, 2e-3, 7e-4
 # order, fused multiply-adds, CUDA's expf/logf): both are f32 on the card.
 KERNEL_MAX_ABS = 1e-3
 
-# H100 SXM peaks (NVIDIA's data sheet): FP32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA's data sheet): FP32 on the CUDA cores, TF32 on the
+# tensor cores (dense), HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 IMAGE = 256
@@ -284,13 +303,20 @@ def phase_device():
 
 def phase_build():
     print("== phase 2: build")
-    from lightplane_tpu_torch.ops.kernels import _build
+    from concurrent.futures import ThreadPoolExecutor
 
+    from lightplane_tpu_torch.ops.kernels import _build
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+
+    # the shipped build and R2's relu-mask recording build, all their nvcc
+    # runs started together
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.library()
-    print(f"built {path.name} in {time.perf_counter() - t0:.1f} s "
+    with ThreadPoolExecutor(2) as pool:
+        paths = list(pool.map(_build.build, [(), rbw.RELU_MASKS_BUILD]))
+    print(f"built {paths[0].name} and the recording build {paths[1].name} "
+          f"in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    print_kernel_attrs()
 
 
 def phase_parity(lp):
@@ -472,7 +498,9 @@ def kernel_work(rmod, cfg, geom, diff):
     of the grid-list and the colour grid-list (once forward, twice
     backward: sample and splat).  With a scaffold only the samples whose
     gate is not 0 count: the others change nothing.  Bytes: every input
-    read once and every output written once."""
+    read once and every output written once.  Third, the backward's
+    weight-gradient FLOPs (one of its three decoder passes), which R2 runs
+    on the tensor cores at width 32 (``tf32_bound``)."""
     from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
 
     directions, origins, near, far, grid_idx, scaffold = geom[:6]
@@ -525,7 +553,7 @@ def kernel_work(rmod, cfg, geom, diff):
     # the encodings out
     bytes_bw = (rays_bytes + params_bytes + 4 * R * (3 + color_chn)
                 + params_bytes + 4 * R * cfg.n_hidden_color[0])
-    return (flops_fw, bytes_fw), (flops_bw, bytes_bw)
+    return (flops_fw, bytes_fw), (flops_bw, bytes_bw), 2.0 * samples * macs
 
 
 def bound(flops, nbytes):
@@ -533,6 +561,15 @@ def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def tf32_bound(flops, flops_wg, nbytes):
+    """R2's bound with its weight-gradient FLOPs ``flops_wg`` at the TF32
+    tensor-core peak, three times over (the 3xTF32 split), and the rest at
+    the FP32 peak: where that work runs since the tensor cores took it."""
+    t_ops = ((flops - flops_wg) / PEAK_FP32_FLOPS
+             + 3 * flops_wg / PEAK_TF32_FLOPS)
+    return 1e3 * max(t_ops, nbytes / PEAK_BYTES_PER_S)
 
 
 def projected_grads(lp, rays, grid, dp, impl, proj, naive=False, **kw):
@@ -696,18 +733,56 @@ def kink_check(lp, rmod, rng):
               f"margin {float(margin[i]):.2e}")
 
 
+def masked_r2_parity(rmod, rfw, rbw, cfg, geom, diff, g_out, scaled=False):
+    """R2 against its plain version on every ray's cotangent ``g_out``, the
+    plain version under the relu masks that the kernel's recomputed forward
+    took (its recording build), both from R1's ``nlt``; then the shipped
+    build against the recording one.  Prints how many rays lie within
+    KINK_MARGIN of a kink (the rays the end-to-end comparisons leave out);
+    returns the worst max |kernel - plain|."""
+    f64 = torch.float64
+    with torch.no_grad():
+        nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
+        g_m, masks = rbw.render_bwd_cuda_relu_masks(cfg, geom, diff, nlt,
+                                                    g_out)
+        g_s = rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out)
+        g_p = rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out,
+                                   relu_masks=masks)
+        geom64 = tuple(x.to(f64) if torch.is_tensor(x)
+                       and x.is_floating_point() else x for x in geom)
+        diff64 = tuple(None if x is None else x.to(f64) for x in diff)
+        near = int((kink_margin(rmod, cfg, geom64, diff64)
+                    < KINK_MARGIN).sum())
+    n = geom[0].shape[0]
+    print(f"    R2 vs its plain version under the kernel's relu masks, every "
+          f"ray's cotangent ({near} of {n} rays lie within {KINK_MARGIN:g} "
+          f"of a relu kink):")
+    names = ("g_grid", "g_cgrid", "g_mlp", "g_enc")
+    worst = 0.0
+    for name, a, b in zip(names, g_m, g_p):
+        if a is not None:
+            worst = max(worst, compare(name, a, b, magnitude_scaled=scaled,
+                                       max_rel=GRAD_MAX_REL)[0])
+    print("    the shipped build vs the recording build:")
+    for name, a, b in zip(names, g_s, g_m):
+        if a is not None:
+            compare(name, a, b, magnitude_scaled=scaled, max_rel=GRAD_MAX_REL)
+    return worst
+
+
 def phase_backward_parity(lp):
     print("== phase 3b: backward kernel vs plain PyTorch version on the card")
     from lightplane_tpu_torch.ops import renderer as rmod
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
-    worst = 0.0
+    worst = masked_worst = 0.0
     rng = np.random.default_rng(1)
     kink_check(lp, rmod, rng)
-    print(f"  the {len(PARITY_CASES)} configs; rays within {KINK_MARGIN:g} of "
-          f"a relu kink "
-          f"get no cotangent:")
+    print(f"  the {len(PARITY_CASES)} configs: end to end (R1 + R2 through "
+          f"lightplane_renderer) the rays within {KINK_MARGIN:g} of a relu "
+          f"kink get no cotangent; R2 alone, under the kernel's relu masks, "
+          f"every ray has one")
     for name, case_kw, render_kw in PARITY_CASES:
         rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
         kw = dict(num_samples=48, gain=1.5, **render_kw)
@@ -715,6 +790,7 @@ def phase_backward_parity(lp):
         n = len(rays)
         proj = [torch.randn(s, generator=gen).cuda()
                 for s in [(n,), (n,), (n, 3)]]
+        every_ray = tuple(p.contiguous() for p in proj)
         rays64, grid64, dp64, _ = as_f64(lp, rays, grid, dp, proj)
         with torch.no_grad():
             keep = kink_margin(rmod, *unsplit_march(
@@ -735,6 +811,9 @@ def phase_backward_parity(lp):
         # absolute bounds scale with them, as in the JAX parity tests
         scaled = "num_samples_inf" in render_kw
         worst = max(worst, grad_compare(names, g_k, g_p, g_r, scaled))
+        masked_worst = max(masked_worst, masked_r2_parity(
+            rmod, rfw, rbw, *unsplit_march(lp, rmod, rays, grid, dp, **kw),
+            every_ray, scaled))
         if name == "triplane":
             g_n = projected_grads(lp, rays, grid, dp, None, proj, naive=True,
                                   **kw)
@@ -760,7 +839,8 @@ def phase_backward_parity(lp):
             grad_compare(("g_grid", "g_mlp", "g_enc"), [g_u[i] for i in pick],
                          [g_v[i] for i in pick], [g_w[i] for i in pick],
                          magnitude_scaled=True)
-    print(f"  all configs within bounds; worst max|d| {worst:.3e}")
+    print(f"  all configs within bounds; worst max|d| {worst:.3e} end to "
+          f"end, {masked_worst:.3e} under the kernel's masks")
 
 
 def gate_boundary_count(rmod, cfg, geom):
@@ -865,6 +945,7 @@ def phase_branch_parity(lp):
         n = len(rays)
         proj = [torch.randn(s, generator=gen).cuda()
                 for s in [(n,), (n,), (n, 3)]]
+        every_ray = tuple(p.contiguous() for p in proj)
         rays64, grid64, dp64, _ = as_f64(lp, rays, grid, dp, proj)
         kw64 = kw_f64(kw)
         with torch.no_grad():
@@ -886,7 +967,9 @@ def phase_branch_parity(lp):
         print(f"    gradients ({n - int(keep.sum())} of {n} rays within "
               f"{KINK_MARGIN:g} of a relu kink get no cotangent):")
         errs[kind][1] = max(errs[kind][1],
-                            grad_compare(names, g_k, g_p, g_r))
+                            grad_compare(names, g_k, g_p, g_r),
+                            masked_r2_parity(rmod, rfw, rbw, cfg, geom, diff,
+                                             every_ray))
         if name == "scaffold_empty":
             assert all(float(x.abs().max()) == 0.0 for x in out_k + tuple(g_k))
         else:
@@ -1006,52 +1089,41 @@ def phase_training(lp, smi):
               f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
     assert peaks[256] <= 1.05 * peaks[128], peaks
 
-    # each kernel on its own at the slice shape, against its plain version
-    # (and the plain version's f64 run, for the record)
-    f64 = torch.float64
-    geom64 = tuple(x.to(f64) if torch.is_tensor(x) and x.is_floating_point()
-                   else x for x in geom)
-    diff64 = tuple(None if x is None else x.to(f64) for x in diff)
+    # each kernel on its own at the slice shape; R2 against its plain
+    # version under the kernel's relu masks, every ray's cotangent
     with torch.no_grad():
         _, nlt, _ = rfw.render_fwd_cuda(cfg, geom, diff)
         g_out = tuple(p.contiguous() for p in proj)
         bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
                                                     g_out))
         fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff))
-        # compared on cotangents that skip the rays near a relu kink, as in
-        # phase 3b
-        keep = kink_margin(rmod, cfg, geom64, diff64) >= KINK_MARGIN
-        w = keep.float()
-        g_out = (g_out[0] * w, g_out[1] * w, g_out[2] * w[:, None])
-        g_k = rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        g_p = rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+        rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
         torch.cuda.synchronize()
         bw_plain_ms = 1e3 * (time.perf_counter() - t0)
-        nlt64 = rfw.render_fwd_torch(cfg, geom64, diff64)[1]
-        g_r = rbw.render_bwd_torch(cfg, geom64, diff64, nlt64,
-                                   tuple(g.to(f64) for g in g_out))
     print(f"  R2 alone: median {bw_ms:.3f} ms; its plain version "
           f"{bw_plain_ms:.1f} ms (one run); R1 alone: median {fw_ms:.3f} ms"
           f"  [{smi}]")
-    print(f"  R2 vs its plain version at the slice shape (the module's "
-          f"decoder after 12 steps; {n - int(keep.sum())} of {n} rays within "
-          f"{KINK_MARGIN:g} of a relu kink get no cotangent):")
-    pick = (0, 2, 3)
-    bw_err = grad_compare(("g_grid", "g_mlp", "g_enc"), [g_k[i] for i in pick],
-                          [g_p[i] for i in pick], [g_r[i] for i in pick])
+    print("  R2 at the slice shape (the module's decoder after 12 steps):")
+    bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom, diff, g_out)
 
-    (fl_fw, by_fw), (fl_bw, by_bw) = kernel_work(rmod, cfg, geom, diff)
+    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg = kernel_work(rmod, cfg, geom,
+                                                       diff)
     b_fw, by_fw_kind = bound(fl_fw, by_fw)
     b_bw, by_bw_kind = bound(fl_bw, by_bw)
+    b_tc = tf32_bound(fl_bw, fl_wg, by_bw)
     print(f"  work: R1 {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.2f} MB -> bound "
           f"{b_fw:.3f} ms ({by_fw_kind}); R2 {fl_bw / 1e9:.1f} GFLOP, "
-          f"{by_bw / 1e6:.2f} MB -> bound {b_bw:.3f} ms ({by_bw_kind})")
+          f"{by_bw / 1e6:.2f} MB -> bound {b_bw:.3f} ms ({by_bw_kind}); with "
+          f"its {fl_wg / 1e9:.1f} GFLOP of weight gradient at the TF32 peak, "
+          f"three passes: {b_tc:.3f} ms")
     print(f"  R2 at {fl_bw / bw_ms / 1e9:.2f} TFLOP/s, "
           f"{100 * b_bw / bw_ms:.1f}% of its bound  [{smi}]")
     return launches, dict(fw_bound=(b_fw, by_fw_kind),
                           bw=dict(ms=bw_ms, plain_ms=bw_plain_ms,
-                                  err=bw_err, bound=(b_bw, by_bw_kind)))
+                                  err=bw_err, bound=(b_bw, by_bw_kind),
+                                  bound_tf32=b_tc))
 
 
 # ---- the splatter (phases 6-8) ------------------------------------------
@@ -1372,7 +1444,8 @@ def fwbw_step(lp, rays, out_sizes, kw):
 
 def device_breakdown(fn, smi, top=6):
     """The device time of one run of ``fn`` by kernel, from
-    ``torch.profiler``; the busiest ``top`` kernels."""
+    ``torch.profiler``; prints the busiest ``top`` kernels and returns the
+    total in ms (None where the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1389,11 +1462,12 @@ def device_breakdown(fn, smi, top=6):
     if not total:
         print("  device time by kernel: not measured (the profiler saw no "
               "device time)")
-        return
+        return None
     print(f"  device time of one step by kernel (torch.profiler; "
           f"{total / 1e3:.3f} ms in all)  [{smi}]:")
     for key, t in rows[:top]:
         print(f"    {t / 1e3:9.3f} ms  {key[:100]}")
+    return total / 1e3
 
 
 def phase_splat(lp, smi):
@@ -1489,7 +1563,6 @@ def phase_splat(lp, smi):
     del g_out, g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
-    print_kernel_attrs()
     mlp_splat_step(lp, rays, smi)
     return launches, dict(
         fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
@@ -1499,13 +1572,22 @@ def phase_splat(lp, smi):
 
 
 def print_kernel_attrs():
-    """Registers and spilled bytes per thread of each splat kernel."""
+    """Registers and spilled bytes per thread of each kernel build."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import _build
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
 
     lib = _build.library()
     out = (ctypes.c_int * 3)()
+    for name, fn in (("R1", lib.lightplane_render_fw_attrs),
+                     ("R2", lib.lightplane_render_bw_attrs),
+                     ("R2 recording masks", _build.library(
+                         rbw.RELU_MASKS_BUILD).lightplane_render_bw_attrs)):
+        for width in (32, 64):
+            assert fn(width, out) == 0
+            print(f"  {name} W={width}: {out[0]} registers, {out[1]} bytes "
+                  f"spilled per thread")
     for name, fn in (("S1", lib.lightplane_splat_fw_attrs),
                      ("S2", lib.lightplane_splat_bw_attrs)):
         for mlp, width in ((0, 0), (1, 32), (1, 64)):
@@ -1663,8 +1745,9 @@ def restore_fit(fit, state):
 
 def branch_kernel_times(lp, rmod, rfw, rbw, label, rays, grid, dp, kw, smi):
     """R1 and R2 alone on one config (CUDA events), their plain versions
-    once, the kernels against them, and the bound from the samples this
-    run's data needs; returns the kernel line's numbers."""
+    once, R1 against its plain version and R2 against its plain version
+    under the kernel's relu masks, and the bound from the samples this run's
+    data needs; returns the kernel line's numbers."""
     cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp, **kw)
     diff = tuple(None if x is None else x.detach() for x in diff)
     n = len(rays)
@@ -1682,38 +1765,38 @@ def branch_kernel_times(lp, rmod, rfw, rbw, label, rays, grid, dp, kw, smi):
         out_p = rfw.render_fwd_torch(cfg, geom, diff)
         torch.cuda.synchronize()
         fw_plain = 1e3 * (time.perf_counter() - t0)
-        f64 = torch.float64
-        geom64 = tuple(x.to(f64) if torch.is_tensor(x) and x.is_floating_point()
-                       else x for x in geom)
-        diff64 = tuple(None if x is None else x.to(f64) for x in diff)
-        keep = (kink_margin(rmod, cfg, geom64, diff64) >= KINK_MARGIN).float()
-        g_out = (g_out[0] * keep, g_out[1] * keep, g_out[2] * keep[:, None])
-        g_k = rbw.render_bwd_cuda(cfg, geom, diff, nlt, g_out)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        g_p = rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+        rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
         torch.cuda.synchronize()
         bw_plain = 1e3 * (time.perf_counter() - t0)
-        nlt64 = rfw.render_fwd_torch(cfg, geom64, diff64)[1]
-        g_r = rbw.render_bwd_torch(cfg, geom64, diff64, nlt64,
-                                   tuple(g.to(f64) for g in g_out))
     print(f"  {label}: R1 vs its plain version:")
     fw_err = max(compare(k, a, b)[0]
                  for k, a, b in zip(("depth", "nlt", "feat"), out_k, out_p))
-    pick = [i for i, g in enumerate(g_k) if g is not None]
-    names = [("g_grid", "g_cgrid", "g_mlp", "g_enc")[i] for i in pick]
-    print(f"  {label}: R2 vs its plain version ({n - int(keep.sum())} of {n}"
-          f" rays within {KINK_MARGIN:g} of a relu kink get no cotangent):")
-    bw_err = grad_compare(names, [g_k[i] for i in pick],
-                          [g_p[i] for i in pick], [g_r[i] for i in pick])
-    (fl_fw, by_fw), (fl_bw, by_bw) = kernel_work(rmod, cfg, geom, diff)
+    print(f"  {label}:")
+    bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom, diff, g_out)
+    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg = kernel_work(rmod, cfg, geom,
+                                                       diff)
     b_fw, b_bw = bound(fl_fw, by_fw), bound(fl_bw, by_bw)
+    b_tc = tf32_bound(fl_bw, fl_wg, by_bw)
     print(f"  {label}: R1 alone {fw_ms:.3f} ms (plain {fw_plain:.1f} ms, one "
           f"run; bound {b_fw[0]:.3f} ms, {b_fw[1]}); R2 alone {bw_ms:.3f} ms "
-          f"(plain {bw_plain:.1f} ms; bound {b_bw[0]:.3f} ms, {b_bw[1]})"
+          f"(plain {bw_plain:.1f} ms; bound {b_bw[0]:.3f} ms, {b_bw[1]}; "
+          f"{b_tc:.3f} ms with the weight gradient at the TF32 peak)"
           f"  [{smi}]")
     return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain, err=fw_err, bound=b_fw),
-                bw=dict(ms=bw_ms, plain_ms=bw_plain, err=bw_err, bound=b_bw))
+                bw=dict(ms=bw_ms, plain_ms=bw_plain, err=bw_err, bound=b_bw,
+                        bound_tf32=b_tc))
+
+
+def pick_size(rbw, cfg, geom, diff):
+    """The block size that R2's wrapper takes for these inputs."""
+    from lightplane_tpu_torch.ops.kernels import _build
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    a = rfw.launch_args(cfg, geom, diff, "pick_size")
+    smem = rbw.block_smem_bytes(_build.library(), a, diff[1] is not None)
+    return rbw.pick_rays_per_block(
+        a.R, smem, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def in_cube_psnr():
@@ -1802,14 +1885,29 @@ def phase_fit(lp, smi):
         print(f"  20 training steps at the fitted state, {label}: "
               f"{' '.join(f'{t:.1f}' for t in ts)} ms  [{smi}]")
 
-    # the device's share of one step (torch.profiler) against its wall time
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit.step()
-    torch.cuda.synchronize()
-    print(f"  one training step: {1e3 * (time.perf_counter() - t0):.3f} ms "
-          f"wall")
-    device_breakdown(fit.step, smi, top=8)
+    # the host's share of a step, with the kernels' grid_idx range check
+    # read back to the host at every launch (LIGHTPLANE_CHECK_GRID_IDX=1, as
+    # every launch did before the kernels checked the range themselves) and
+    # without it: ms per step over 20 steps (host clock, synced) against
+    # the device time of one step (torch.profiler)
+    shares = {}
+    for flag in ("1", "0", "1", "0"):
+        os.environ["LIGHTPLANE_CHECK_GRID_IDX"] = flag
+        restore_fit(fit, state)
+        wall = timed_steps(fit, 20, 9) / 20
+        shares.setdefault(flag, []).append(wall)
+    os.environ.pop("LIGHTPLANE_CHECK_GRID_IDX")
+    restore_fit(fit, state)
+    device_ms = device_breakdown(fit.step, smi, top=8)
+    for flag, label in (("1", "with the host range check"),
+                        ("0", "without it (the default)")):
+        wall = statistics.median(shares[flag])
+        share = (f"host share {100 * (1 - device_ms / wall):.1f}% against "
+                 f"{device_ms:.3f} ms of device time" if device_ms
+                 else "host share not measured")
+        print(f"  a step after the upsample, {label}: "
+              f"{' '.join(f'{t:.3f}' for t in shares[flag])} ms per step "
+              f"(20 steps each), {share}  [{smi}]")
 
     # R1 and R2 alone with the scaffold at the fitted state (the R3 row)
     def batch_rays(n_batches):
@@ -1833,21 +1931,31 @@ def phase_fit(lp, smi):
         dict(kw, scaffold=fit.scaffold), smi)
     branch_kernel_times(lp, rmod, rfw, rbw, "fitted, without it", rays, grid,
                         dp, kw, smi)
-    # 4096 rays make 32 blocks of 128 rays for 132 SMs: R1 and R2 at 1, 2
-    # and 4 batches, with the scaffold
+    # R1 and R2 at 1, 2 and 4 batches, with the scaffold; R2 at each block
+    # size, in turn, and at the one its wrapper picks
     for k in (1, 2, 4):
         cfg, geom, diff = unsplit_march(lp, rmod, batch_rays(k), grid, dp,
                                         scaffold=fit.scaffold, **kw)
         m = geom[0].shape[0]
         g_out = (torch.ones(m, device="cuda"), torch.ones(m, device="cuda"),
                  torch.ones((m, 3), device="cuda"))
+        sizes = rbw.RAYS_PER_BLOCK
+        bw_k = {r: [] for r in sizes}
         with torch.no_grad():
             nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
             fw_k = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff))
-            bw_k = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
-                                                       g_out))
-        print(f"  {m} rays ({-(-m // 128)} blocks of 128) with the scaffold: "
-              f"R1 {fw_k:.3f} ms, R2 {bw_k:.3f} ms  [{smi}]")
+            for r in sizes + sizes[::-1]:
+                bw_k[r].append(cuda_ms(lambda: rbw.render_bwd_cuda(
+                    cfg, geom, diff, nlt, g_out, rays_per_block=r)))
+            picked = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff,
+                                                         nlt, g_out))
+        by_size = ", ".join(
+            f"{r} rays/block ({-(-m // r)} blocks) "
+            f"{' '.join(f'{t:.3f}' for t in bw_k[r])}" for r in sizes)
+        print(f"  {m} rays with the scaffold: R1 {fw_k:.3f} ms; R2 "
+              f"{by_size} ms; as its wrapper picks "
+              f"({pick_size(rbw, cfg, geom, diff)} rays/block) {picked:.3f} "
+              f"ms  [{smi}]")
     del fit, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1984,12 +2092,32 @@ def ablate(lp, smi):
                   smi)
 
 
+PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9")
+
+
+def parse_only(argv):
+    """The phases that ``--only A,B,...`` names (1 and 2 always run), or
+    every phase without the switch."""
+    if not argv:
+        return set(PHASES)
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit("usage: chip_smoke.py [--ablate | --only PHASES]")
+    only = set(argv[1].split(",")) | {"1", "2"}
+    unknown = only - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; phases are "
+                         f"{', '.join(PHASES)}")
+    return only
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import lightplane_tpu_torch as lp
 
+    ablation = sys.argv[1:] == ["--ablate"]
+    only = set() if ablation else parse_only(sys.argv[1:])
     t0 = time.perf_counter()
 
     def timed(fn, *args):
@@ -2002,23 +2130,49 @@ def main():
 
     smi, name = timed(phase_device)
     timed(phase_build)
-    if sys.argv[1:] == ["--ablate"]:
+    if ablation:
         ablate(lp, smi)
         return 0
-    timed(phase_parity, lp)
-    timed(phase_backward_parity, lp)
-    branch_errs = timed(phase_branch_parity, lp)
-    held_memory()
-    fw = timed(phase_slice, lp, smi)
-    _, train = timed(phase_training, lp, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    timed(phase_splat_parity, lp)
-    splat_launches, splat = timed(phase_splat, lp, smi)
-    timed(phase_lift_render, lp, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    fit_launches, scaffold_row, rf_row = timed(phase_fit, lp, smi)
+    out = {}
+    for phase, fn, args in (
+        ("3", phase_parity, (lp,)),
+        ("3b", phase_backward_parity, (lp,)),
+        ("3c", phase_branch_parity, (lp,)),
+        ("4", phase_slice, (lp, smi)),
+        ("5", phase_training, (lp, smi)),
+        ("6", phase_splat_parity, (lp,)),
+        ("7", phase_splat, (lp, smi)),
+        ("8", phase_lift_render, (lp, smi)),
+        ("9", phase_fit, (lp, smi)),
+    ):
+        if phase not in only:
+            continue
+        if phase == "4":
+            held_memory()
+        out[phase] = timed(fn, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"== done in {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    if only == set(PHASES):
+        print(json.dumps({"kernels": kernel_lines(out)}))
+    else:
+        print(f"(phases {', '.join(p for p in PHASES if p in only)} only: "
+              f"no kernels line)")
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": name,
+                   "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+def kernel_lines(out):
+    """The ``kernels`` line from the phases' results."""
+    branch_errs, fw = out["3c"], out["4"]
+    _, train = out["5"]
+    splat_launches, splat = out["7"]
+    fit_launches, scaffold_row, rf_row = out["9"]
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);
@@ -2044,7 +2198,9 @@ def main():
              launches=fit_launches["renderer_bw"],
              max_abs_err=train["bw"]["err"], ms=train["bw"]["ms"],
              plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
-             bound_by=b_bw_kind, library_ms=None, **branches["bw"]),
+             bound_by=b_bw_kind, library_ms=None,
+             bound_tf32_ms=train["bw"]["bound_tf32"],
+             **branches["bw"]),
     ]
     for key, line in (("fw", 57), ("bw", 183)):
         k = splat[key]
@@ -2056,15 +2212,7 @@ def main():
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound"][0], bound_by=k["bound"][1],
             library_ms=None))
-    print(f"== done in {time.perf_counter() - t0:.1f} s")
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": name,
-                   "count": torch.cuda.device_count()},
-    }))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -67,6 +67,13 @@ inline bool fill_grid_meta(GridMeta& m, int num_grids, const int* grid_meta) {
   return true;
 }
 
+// The smallest batch of the sub-grids of m, and `limit`.
+inline int min_batch(const GridMeta& m, int limit) {
+  for (int g = 0; g < m.num_grids; ++g)
+    limit = m.dims[g][0] < limit ? m.dims[g][0] : limit;
+  return limit;
+}
+
 struct Params {
   const float* origins;     // [R, 3]
   const float* directions;  // [R, 3]
@@ -90,11 +97,23 @@ struct Params {
   float* g_grid;           // [V_total, grid_chn], zero-filled by the caller
   float* g_mlp;            // flat, like mlp
   float* g_enc;            // [R, enc_chn]
-  float* g_mlp_partial;    // [blocks, n_layers_total * (W * W + W)]
+  float* g_mlp_partial;    // [blocks, n_layers_total * per-layer partials]
+  // R2 only: whether the block keeps its weight-gradient sums in shared
+  // memory (else in its row of g_mlp_partial), and the relu masks that its
+  // recording build writes (renderer_bw.cu, LIGHTPLANE_RELU_MASKS), with
+  // the number of relu'd vectors per step
+  int acc_in_smem;
+  uint32_t* relu_masks;
+  int n_mask_vecs;
 
   int num_rays;
   GridMeta grids;  // of `grid`
   int grid_chn;
+  // The smallest batch of every grid-list (and scaffold) the kernel reads:
+  // a ray whose grid_idx lies outside [0, num_batches) samples and splats
+  // nothing (load_ray), so no index the caller passes reads or writes
+  // outside a grid.
+  int num_batches;
 
   // The renderer's scaffold (R3): a [B, D, H, W] occupancy sampled at the
   // nearest cell that multiplies each step's sigma and colour; null for none.
@@ -183,6 +202,7 @@ inline int fill_params(Params& p, int num_rays, int num_grids,
     return (int)cudaErrorInvalidValue;
   p.num_rays = num_rays;
   p.grid_chn = grid_chn;
+  p.num_batches = min_batch(p.grids, p.grids.dims[0][0]);
   const int counts[3] = {n_t, n_o, n_c};
   fill_layers(p, counts, mlp_widths);
   p.enc_chn = enc_chn;
@@ -206,13 +226,17 @@ inline int fill_render_extras(Params& p, const float* scaffold,
                               const float* color_grid, int num_color_grids,
                               const int* color_grid_meta) {
   p.scaffold = scaffold;
-  if (scaffold != nullptr)
+  if (scaffold != nullptr) {
     for (int k = 0; k < 4; ++k) p.scaffold_dims[k] = scaffold_dims[k];
+    if (scaffold_dims[0] < p.num_batches) p.num_batches = scaffold_dims[0];
+  }
   p.color_grid = color_grid;
-  if (color_grid != nullptr &&
-      (p.n_layers[0] != 0 ||
-       !fill_grid_meta(p.cgrids, num_color_grids, color_grid_meta)))
-    return (int)cudaErrorInvalidValue;
+  if (color_grid != nullptr) {
+    if (p.n_layers[0] != 0 ||
+        !fill_grid_meta(p.cgrids, num_color_grids, color_grid_meta))
+      return (int)cudaErrorInvalidValue;
+    p.num_batches = min_batch(p.cgrids, p.num_batches);
+  }
   return (int)cudaSuccess;
 }
 
@@ -233,6 +257,19 @@ __device__ __forceinline__ void stage_layers(const Params& p, float* smem,
     for (int o = threadIdx.x; o < W; o += blockDim.x)
       dst[W * W + o] = o < d_out ? p.mlp[p.layer_b_off[l] + o] : 0.0f;
   }
+}
+
+// Kernel attributes for the report: registers per thread, local (spilled)
+// bytes per thread, the most threads a block may have.
+template <class K>
+inline int kernel_attrs(K kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  return (int)cudaSuccess;
 }
 
 // ---- counter RNG (lightplane_tpu/ops/rand.py) ---------------------------
@@ -310,7 +347,8 @@ __device__ __forceinline__ float contract_one(float x, float n) {
   return x / n;
 }
 
-// One ray's constants.
+// One ray's constants; b is its batch, -1 where grid_idx lies outside
+// [0, num_batches): such a ray samples, gates and splats nothing.
 struct Ray {
   float ox, oy, oz, dx, dy, dz, near, far, delta0;
   int b;
@@ -326,7 +364,9 @@ __device__ __forceinline__ Ray load_ray(const Params& p, int ray) {
   r.dz = p.directions[3 * ray + 2];
   r.near = p.near[ray];
   r.far = p.far[ray];
-  r.b = p.grid_idx[ray];
+  // an index outside every grid's batch marks the ray as reading nothing
+  const int b = p.grid_idx[ray];
+  r.b = b >= 0 && b < p.num_batches ? b : -1;
   const int ns = p.num_samples;
   r.delta0 = ns > 1 ? (r.far - r.near) / (float)(ns - 1) : 1.0f;
   return r;
@@ -373,11 +413,13 @@ __device__ __forceinline__ float grid_coord(float p, int size) {
 }
 
 // Calls f(row, weight) for every in-bounds linear-interpolation corner of
-// every sub-grid of `m` at the point of `st`, for batch b; `row` indexes the
-// flattened [V_total, C] grid-list.
+// every sub-grid of `m` at the point of `st`, for batch b (none for b < 0,
+// a ray whose grid_idx was out of range); `row` indexes the flattened
+// [V_total, C] grid-list.
 template <class F>
 __device__ __forceinline__ void for_each_corner(const GridMeta& m, int b,
                                                 const Step& st, F&& f) {
+  if (b < 0) return;
   for (int g = 0; g < m.num_grids; ++g) {
     const int D = m.dims[g][1];
     const int H = m.dims[g][2];
@@ -418,11 +460,12 @@ __device__ __forceinline__ void for_each_corner(const GridMeta& m, int b,
 // masking (lightplane_tpu/ops/grid_sample.py, mode="nearest"): 0 outside
 // the [-1, 1] cube; else the cell at the rounded grid coordinate, rounded
 // half to even by rintf as torch.round and jnp.round do (roundf rounds
-// halves away from zero), 0 where that index falls outside the scaffold.
+// halves away from zero), 0 where that index falls outside the scaffold
+// and for b < 0 (a ray whose grid_idx was out of range).
 __device__ __forceinline__ float scaffold_gate(const Params& p, int b,
                                                const Step& st) {
   if (p.scaffold == nullptr) return 1.0f;
-  if (!st.in_bounds) return 0.0f;
+  if (!st.in_bounds || b < 0) return 0.0f;
   const int D = p.scaffold_dims[1], H = p.scaffold_dims[2],
             Wd = p.scaffold_dims[3];
   const float x = rintf(grid_coord(st.px, Wd));

@@ -3,7 +3,10 @@
 // adjoint (splatter_bw.cu): a layer's input gradient per thread, and its
 // weight gradient as a sum over the block's rays of outer products, kept in
 // a per-block row of partial sums that a second kernel reduces into the
-// flat, unpadded gradient (see renderer_bw.cu for the design).
+// flat, unpadded gradient (see renderer_bw.cu for the design).  Two forms of
+// the weight gradient: on the CUDA cores (weight_grad, any W; the row is
+// the padded [W*W + W] layer) and, for W = 32, on the tensor cores
+// (tc_weight_grad, tc_bias_grad; the row holds mma fragments, tc_index).
 
 #pragma once
 
@@ -49,13 +52,13 @@ __device__ __forceinline__ Owned owned_entries(int rays, int tid) {
 
 // part[i][o] += sum_r X[i][r] * G[o][r] and part[W*W + o] += sum_r G[o][r]
 // over the block's rays, for the entries this thread owns.  X (and X2,
-// added to it when given) is [W][rays]; G is [W][rays + 4], a stride that
-// keeps a quarter-warp's float4 loads on distinct banks.
+// added to it when given) is [W][xstride]; G is [W][rays + 4], a stride
+// that keeps a quarter-warp's float4 loads on distinct banks.
 template <int W>
 __device__ __forceinline__ void weight_grad(float* __restrict__ part,
                                             const float* X, const float* X2,
-                                            const float* G, int rays,
-                                            int tid) {
+                                            const float* G, int xstride,
+                                            int rays, int tid) {
   const Owned e = owned_entries<W>(rays, tid);
   for (int o = tid % e.cols; o < W; o += e.cols) {
     const float* g_row = G + o * (rays + 4);
@@ -68,10 +71,11 @@ __device__ __forceinline__ void weight_grad(float* __restrict__ part,
         acc_b += (g.x + g.y) + (g.z + g.w);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          float4 x = *reinterpret_cast<const float4*>(X + (i0 + k) * rays + r);
+          float4 x =
+              *reinterpret_cast<const float4*>(X + (i0 + k) * xstride + r);
           if (X2 != nullptr) {
             const float4 x2 =
-                *reinterpret_cast<const float4*>(X2 + (i0 + k) * rays + r);
+                *reinterpret_cast<const float4*>(X2 + (i0 + k) * xstride + r);
             x.x += x2.x;
             x.y += x2.y;
             x.z += x2.z;
@@ -103,30 +107,156 @@ __device__ __forceinline__ void zero_owned_partial(float* __restrict__ part,
     }
 }
 
-// g_mlp[k] = the sum over blocks of the padded partial entry of flat index k.
-template <int W>
+// ---- the weight gradient on the tensor cores, W = 32 -------------------
+// A layer's padded 32 x 32 gradient X^T G is eight 16 x 8 tiles (two along
+// the input channel i, four along the output o) of mma.sync m16n8k8
+// accumulators.  The block keeps them, per layer, as [tile][lane][4] floats
+// in the register order of PTX's accumulator fragment, followed by one row
+// of 32 bias sums per warp: kTcLayer floats.
+
+constexpr int kTcWarps = 4;                        // warps of a 128-ray block
+constexpr int kTcLayer = 32 * 32 + kTcWarps * 32;  // tiles, per-warp biases
+
+// Where weight (i, o) of a layer lies in its tiles: tile 4 * (i / 16) +
+// o / 8; lane 4 * (i % 8) + (o % 8) / 2; register 2 * (i % 16 / 8) + o % 2.
+__host__ __device__ __forceinline__ int tc_index(int i, int o) {
+  const int tile = (i >> 4) * 4 + (o >> 3);
+  const int lane = (i & 7) * 4 + ((o & 7) >> 1);
+  const int reg = ((i >> 3) & 1) * 2 + (o & 1);
+  return (tile * 32 + lane) * 4 + reg;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (the "3xTF32" split): hi * hi + hi * lo + lo * hi
+// keeps the product to ~2^-21 of its size where TF32 alone keeps ~2^-11.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));  // exact: x and hi share the top
+}
+
+// d += a * b, one m16n8k8 TF32 product accumulated in f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += X^T G over the block's `rays` rays for one layer (acc: its
+// kTcLayer floats), by the warp `warp` of lane `lane`.  X (plus X2 when
+// given) is [32][stride] and G [32][stride] in shared memory, ray-major, so
+// both are K-major for the product; stride = rays + 4 puts the eight rows
+// of a fragment load on banks 4 apart, and with the four columns a warp's
+// 32 loads hit 32 banks.  The eight tiles go as four pairs that share their
+// X fragment (tiles 4 * mt + nt, nt + 1), pair k to warp k % warps; each
+// k-step of 8 rays splits both operands into TF32 hi and lo parts and
+// issues three MMAs per tile, the small terms first.
+__device__ __forceinline__ void tc_weight_grad(float* acc, const float* X,
+                                               const float* X2,
+                                               const float* G, int stride,
+                                               int rays, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int pair = warp; pair < 4; pair += rays >> 5) {
+    const int mt = pair >> 1, nt = (pair & 1) * 2;
+    float4* c = reinterpret_cast<float4*>(acc) + (mt * 4 + nt) * 32 + lane;
+    const float4 c0 = c[0], c1 = c[32];
+    float d[2][4] = {{c0.x, c0.y, c0.z, c0.w}, {c1.x, c1.y, c1.z, c1.w}};
+    const int xo = (mt * 16 + g) * stride + t;  // a0's element (row g, col t)
+    const int go = (nt * 8 + g) * stride + t;   // b0's element (row t, col g)
+#pragma unroll 2
+    for (int k = 0; k < rays; k += 8) {
+      // a0: (g, t); a1: (g + 8, t); a2: (g, t + 4); a3: (g + 8, t + 4)
+      const int ia[4] = {xo + k, xo + 8 * stride + k, xo + k + 4,
+                         xo + 8 * stride + k + 4};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_tf32(X2 != nullptr ? X[ia[j]] + X2[ia[j]] : X[ia[j]], ah[j],
+                   al[j]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        // b0: (t, g); b1: (t + 4, g) of the K x N operand G^T
+        const float* gp = G + go + n * 8 * stride + k;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(gp[0], bh0, bl0);
+        split_tf32(gp[4], bh1, bl1);
+        mma_tf32(d[n], al, bh0, bh1);
+        mma_tf32(d[n], ah, bl0, bl1);
+        mma_tf32(d[n], ah, bh0, bh1);
+      }
+    }
+    c[0] = make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
+    c[32] = make_float4(d[1][0], d[1][1], d[1][2], d[1][3]);
+  }
+}
+
+// One stage of the butterfly below: a lane with bit kHalf set keeps the
+// upper half of v[0, 2 kHalf) and sends the lower half to its partner, and
+// both add what they get into v[0, kHalf).
+template <int kHalf>
+__device__ __forceinline__ void butterfly_stage(float (&v)[32], int lane) {
+  const bool upper = (lane & kHalf) != 0;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const float send = upper ? v[j] : v[j + kHalf];
+    const float keep = upper ? v[j + kHalf] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kHalf);
+  }
+}
+
+// acc[32 * 32 + 32 * warp + lane] += the sum of v[lane] over the warp's 32
+// lanes: a halving butterfly (31 shuffles) that leaves lane o the sum of
+// entry o.  v is consumed.
+__device__ __forceinline__ void tc_bias_grad(float* acc, float (&v)[32],
+                                             int warp, int lane) {
+  butterfly_stage<16>(v, lane);
+  butterfly_stage<8>(v, lane);
+  butterfly_stage<4>(v, lane);
+  butterfly_stage<2>(v, lane);
+  butterfly_stage<1>(v, lane);
+  acc[32 * 32 + 32 * warp + lane] += v[0];
+}
+
+// g_mlp[k] = the sum over blocks of the partial entry of flat index k: in
+// the padded [W*W + W] layer (kTc false) or in the tensor cores' tiles and
+// per-warp bias rows (kTc, W = 32).
+template <int W, bool kTc>
 __global__ void reduce_mlp_grad_kernel(const Params p, int n_blocks) {
-  constexpr int kLayer = W * W + W;
+  constexpr int kLayer = kTc ? kTcLayer : W * W + W;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= p.n_params) return;
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
-  int padded = 0;
+  int entry = 0, n_sums = 1, step = 0;
   for (int L = 0; L < n_total; ++L) {
     const int d_in = p.layer_in[L], d_out = p.layer_out[L];
     const int w_off = p.layer_w_off[L], b_off = p.layer_b_off[L];
     if (k >= w_off && k < w_off + d_in * d_out) {
-      const int e = k - w_off;
-      padded = L * kLayer + (e / d_out) * W + e % d_out;
+      const int i = (k - w_off) / d_out, o = (k - w_off) % d_out;
+      entry = L * kLayer + (kTc ? tc_index(i, o) : i * W + o);
       break;
     }
     if (k >= b_off && k < b_off + d_out) {
-      padded = L * kLayer + W * W + (k - b_off);
+      entry = L * kLayer + W * W + (k - b_off);
+      if (kTc) {  // one bias row per warp
+        n_sums = kTcWarps;
+        step = 32;
+      }
       break;
     }
   }
   const long long stride = (long long)n_total * kLayer;
   float acc = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) acc += p.g_mlp_partial[b * stride + padded];
+  for (int b = 0; b < n_blocks; ++b)
+    for (int w = 0; w < n_sums; ++w)
+      acc += p.g_mlp_partial[b * stride + entry + w * step];
   p.g_mlp[k] = acc;
 }
 

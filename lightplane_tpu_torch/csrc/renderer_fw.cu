@@ -233,6 +233,13 @@ int lightplane_render_fw(
   return (int)e;
 }
 
+// Registers, spilled bytes and the thread limit of the kernel at `width`,
+// into out[3]; a cudaError_t code.
+int lightplane_render_fw_attrs(int width, int* out) {
+  return width == 32 ? kernel_attrs(render_fw_kernel<32>, out)
+                     : kernel_attrs(render_fw_kernel<64>, out);
+}
+
 const char* lightplane_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

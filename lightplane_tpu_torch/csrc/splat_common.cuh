@@ -40,10 +40,12 @@ inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
       n_layers < 0 || n_layers > kMaxLayers)
     return (int)cudaErrorInvalidValue;
   p.num_rays = num_rays;
+  p.num_batches = min_batch(sp.out, sp.out.dims[0][0]);
   if (n_layers > 0) {
     if ((width != 32 && width != 64) ||
         !fill_grid_meta(p.grids, num_in_grids, in_meta))
       return (int)cudaErrorInvalidValue;
+    p.num_batches = min_batch(p.grids, p.num_batches);
     const int counts[3] = {n_layers, 0, 0};
     fill_layers(p, counts, mlp_widths);
     p.grid_chn = in_chn;
@@ -83,19 +85,6 @@ __device__ __forceinline__ bool touches(const GridMeta& g, int b,
   bool any = false;
   for_each_corner(g, b, st, [&](long long, float) { any = true; });
   return any;
-}
-
-// Kernel attributes for the report: registers per thread, local (spilled)
-// bytes per thread, the most threads a block may have.
-template <class K>
-inline int kernel_attrs(K kernel, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = a.maxThreadsPerBlock;
-  return (int)cudaSuccess;
 }
 
 }  // namespace lightplane

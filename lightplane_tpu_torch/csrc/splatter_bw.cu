@@ -192,7 +192,7 @@ __global__ void __launch_bounds__(kMaxRays)
       for (int o = 0; o < W; ++o) s_G[o * gstride + tid] = G[o];
       __syncthreads();
       weight_grad<W>(part + l * kLayer, s_act + l * W * rays, nullptr, s_G,
-                     rays, tid);
+                     rays, rays, tid);
       __syncthreads();
       dense_bwd<W>(smem + l * kLayer, G, g_in);
       if (l == 0) break;
@@ -232,8 +232,8 @@ cudaError_t launch_mlp(const SplatParams& sp, int rays, size_t smem_bytes,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  reduce_mlp_grad_kernel<W><<<(sp.m.n_params + 255) / 256, 256, 0, stream>>>(
-      sp.m, blocks);
+  reduce_mlp_grad_kernel<W, false>
+      <<<(sp.m.n_params + 255) / 256, 256, 0, stream>>>(sp.m, blocks);
   return cudaGetLastError();
 }
 

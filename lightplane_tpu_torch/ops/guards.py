@@ -1,12 +1,17 @@
-"""Debug-gated numerical guards (counterpart of
-``lightplane_tpu/ops/guards.py``).
+"""Debug-gated guards (counterpart of ``lightplane_tpu/ops/guards.py``).
 
-The reference asserts every gradient is finite after each backward pass
-(``lightplane_renderer.py:719-722``).  On a GPU that check synchronises the
-host with the device, so it is opt-in: set ``LIGHTPLANE_CHECK_GRADS=1`` and
-every fused-operator backward counts the non-finite values of the gradients
-it produced and raises ``FloatingPointError`` if there are any.  With the
-flag unset the guard does nothing.
+Each check reads a value back from the device and so synchronises the host
+with it; each is opt-in and does nothing with its flag unset.
+
+- ``LIGHTPLANE_CHECK_GRADS=1``: the reference asserts every gradient is
+  finite after each backward pass (``lightplane_renderer.py:719-722``);
+  every fused-operator backward then counts the non-finite values of the
+  gradients it produced and raises ``FloatingPointError`` if there are any.
+- ``LIGHTPLANE_CHECK_GRID_IDX=1``: every launch of the march and splat
+  kernels checks that each ray's ``grid_idx`` lies in ``[0, batches)`` and
+  raises ``ValueError`` if not.  Without it the kernels keep memory safe on
+  their own: a ray whose index lies outside samples and splats nothing
+  (``csrc/march_common.cuh::load_ray``).
 """
 
 from __future__ import annotations
@@ -16,8 +21,26 @@ import os
 import torch
 
 
+def _flag(name: str) -> bool:
+    return os.environ.get(name, "0") not in ("", "0")
+
+
 def check_grads_enabled() -> bool:
-    return os.environ.get("LIGHTPLANE_CHECK_GRADS", "0") not in ("", "0")
+    return _flag("LIGHTPLANE_CHECK_GRADS")
+
+
+def check_grid_idx(grid_idx: torch.Tensor, batches: int, kernel: str):
+    """When ``LIGHTPLANE_CHECK_GRID_IDX=1``, raise ``ValueError`` if an entry
+    of ``grid_idx`` lies outside ``[0, batches)``; with the flag unset read
+    nothing back."""
+    if not _flag("LIGHTPLANE_CHECK_GRID_IDX") or grid_idx.numel() == 0:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(grid_idx))
+    if lo < 0 or hi >= batches:
+        raise ValueError(
+            f"{kernel}: grid_idx out of range: [{lo}, {hi}] outside "
+            f"[0, {batches}) (LIGHTPLANE_CHECK_GRID_IDX=1)"
+        )
 
 
 def assert_grads_finite(grads, label: str):

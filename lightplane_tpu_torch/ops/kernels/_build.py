@@ -9,8 +9,9 @@ at the repository root, named by a hash of the sources (``*.cu`` and
 one loads the cached file.  Nothing is built or loaded on import: the first
 call to :func:`library` does it, and only a CUDA launch calls it.
 ``defines`` (``NAME=value`` strings, passed to ``nvcc`` as ``-D``) build a
-variant of the sources beside the default one; ``chip_smoke.py --ablate``
-uses them to switch parts of a kernel off.
+variant of the sources beside the default one: ``chip_smoke.py --ablate``
+uses them to switch parts of a kernel off, and R2's relu-mask recording
+build (``renderer_bw.RELU_MASKS_BUILD``) is one.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ _RENDER_BW_ARGTYPES = (
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
     + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
     + [_P]               # g_color_grid
+    + [_P]               # relu_masks (the recording build's)
     + [_P]               # stream
 )
 
@@ -163,6 +165,8 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_render_bw.restype = _I
     lib.lightplane_render_bw_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
     lib.lightplane_render_bw_smem_bytes.restype = ctypes.c_longlong
+    lib.lightplane_render_bw_partial_floats.argtypes = [_I, _I]
+    lib.lightplane_render_bw_partial_floats.restype = ctypes.c_longlong
     lib.lightplane_splat_fw.argtypes = _SPLAT_FW_ARGTYPES
     lib.lightplane_splat_fw.restype = _I
     lib.lightplane_splat_fw_smem_bytes.argtypes = [_I, _I]
@@ -174,6 +178,10 @@ def library(defines=()) -> ctypes.CDLL:
     for attrs in (lib.lightplane_splat_fw_attrs,
                   lib.lightplane_splat_bw_attrs):
         attrs.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        attrs.restype = _I
+    for attrs in (lib.lightplane_render_fw_attrs,
+                  lib.lightplane_render_bw_attrs):
+        attrs.argtypes = [_I, ctypes.POINTER(_I)]
         attrs.restype = _I
     lib.lightplane_cuda_error_string.argtypes = [_I]
     lib.lightplane_cuda_error_string.restype = ctypes.c_char_p

@@ -17,11 +17,23 @@ samples.  Every function takes ``(cfg, geom, diff, nlt_final, g_out)`` with
 ``geom`` and ``diff`` as in ``renderer_fw``, ``g_out = (g_depth [R], g_nlt
 [R], g_feat [R, cfg.out_chn])``, and returns ``(g_grid_flat, g_color_grid_flat,
 g_mlp_params, g_rays_encoding)``.
+
+The relu masks.  Where a relu's input lies within rounding of 0, the kernel
+and the plain version may take opposite branches and a gradient jumps by a
+whole term.  To hold the kernel to the plain version on every ray, a
+variant build of it (``render_bwd_cuda_relu_masks``) records the branch of
+every unit of every relu'd vector at every (ray, step) as one bit, into an
+int32 tensor ``[R, steps, vectors, width // 32]`` (``mask_shape``), and
+``render_bwd_torch(..., relu_masks=)`` replays them: ``x * mask`` in place
+of ``relu(x)``.  ``relu_masks_torch`` records the plain forward's own.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from ..mlp_utils import _mlp_numel
 from ..renderer import (
@@ -31,7 +43,13 @@ from ..renderer import (
     _step_noise,
     _step_points,
 )
-from .renderer_fw import MAX_SMEM_BYTES, _check, check_impl, launch_args
+from .renderer_fw import (
+    MAX_SMEM_BYTES,
+    _check,
+    _kernel_width,
+    check_impl,
+    launch_args,
+)
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it.
@@ -41,10 +59,72 @@ LAUNCHES = 0
 # ray's activations in shared memory, so wide or deep MLPs take fewer rays.
 RAYS_PER_BLOCK = (128, 64, 32)
 
+# An SM's shared memory (228 KB on Hopper) and what the driver reserves of
+# it per block, for pick_rays_per_block's count of blocks per SM
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 
-def render_bwd_torch(cfg: _RenderCfg, geom, diff, nlt_final, g_out):
+# The build that records the relu masks (csrc/renderer_bw.cu)
+RELU_MASKS_BUILD = ("LIGHTPLANE_RELU_MASKS=1",)
+
+
+def mask_shape(cfg: _RenderCfg, R: int, grid_chn: int):
+    """Shape of the relu masks of ``R`` rays: ``[R, steps, vectors, words]``
+    with one bit per unit of the kernel's padded width (32 or 64)."""
+    n_t = max(len(cfg.n_hidden_trunk) - 1, 0)
+    n_total = n_t + len(cfg.n_hidden_opacity) - 1 + len(cfg.n_hidden_color) - 1
+    vectors = (n_total - 2 + (n_t == 0)
+               + (cfg.color_grid_sizes is not None))
+    return (R, cfg.tot_num_samples, vectors,
+            _kernel_width(cfg, grid_chn) // 32)
+
+
+_BITS = torch.arange(32, dtype=torch.int32)
+
+
+def pack_masks(bits: torch.Tensor, words: int) -> torch.Tensor:
+    """``[..., units]`` booleans as ``[..., words]`` int32, bit c of word w
+    for unit 32 w + c (units past ``bits``' last are 0)."""
+    bits = F.pad(bits.to(torch.int64), (0, 32 * words - bits.shape[-1]))
+    bits = bits.reshape(*bits.shape[:-1], words, 32)
+    v = (bits << _BITS.to(bits.device, torch.int64)).sum(-1)
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def unpack_masks(words: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_masks``: ``[..., words]`` int32 as
+    ``[..., 32 * words]`` 0/1 floats."""
+    bits = (words[..., None] >> _BITS.to(words.device)) & 1
+    return bits.reshape(*words.shape[:-1], -1).float()
+
+
+def relu_masks_torch(cfg: _RenderCfg, geom, diff):
+    """The relu masks that the plain forward takes, in the kernel's layout
+    (``mask_shape``)."""
+    directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
+    R = directions.shape[0]
+    shape = mask_shape(cfg, R, diff[0].shape[1])
+    out = torch.zeros(shape, dtype=torch.int32, device=directions.device)
+    for s in range(cfg.tot_num_samples):
+        t, _ = _step_depth_delta(cfg, near, far, s)
+        pts = _step_points(cfg, origins, directions, t)
+        noise = (_step_noise(cfg, s, R, noise_seed, directions.device)
+                 if cfg.inject_noise_sigma > 0.0 else None)
+
+        def relu(k, x):
+            out[:, s, k] = pack_masks(x > 0, shape[3])
+            return F.relu(x)
+
+        _step_decoder(cfg, pts, *diff, grid_idx, scaffold, noise, relu=relu)
+    return out
+
+
+def render_bwd_torch(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
+                     relu_masks=None):
     """Plain PyTorch reverse march; each step's decoder is differentiated by
-    ``torch.autograd.grad`` (the per-step ``jax.vjp``)."""
+    ``torch.autograd.grad`` (the per-step ``jax.vjp``).  Given
+    ``relu_masks`` (``mask_shape``), each step's decoder applies them in
+    place of its relus."""
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     g_depth, g_nlt, g_feat = g_out
     R = directions.shape[0]
@@ -63,9 +143,13 @@ def render_bwd_torch(cfg: _RenderCfg, geom, diff, nlt_final, g_out):
             if cfg.inject_noise_sigma > 0.0
             else None
         )
+        relu = {}
+        if relu_masks is not None:
+            m = unpack_masks(relu_masks[:, s]).to(nlt_final.dtype)
+            relu = dict(relu=lambda k, x, m=m: x * m[:, k, : x.shape[-1]])
         with torch.enable_grad():
             sigma, color = _step_decoder(cfg, pts, *leaves, grid_idx,
-                                         scaffold, noise)
+                                         scaffold, noise, **relu)
             color = color[:, : cfg.out_chn]
 
         # transmittance rewind + EA adjoint
@@ -88,10 +172,56 @@ def render_bwd_torch(cfg: _RenderCfg, geom, diff, nlt_final, g_out):
     return tuple(None if t is None else next(it) for t in leaves)
 
 
-def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
-                    defines=()):
-    """Launch the recompute-backward kernel on the current CUDA stream.
-    ``defines`` pick a variant build of the kernel (``_build.library``)."""
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def pick_rays_per_block(num_rays: int, smem_bytes, num_sms: int,
+                        max_smem: int = MAX_SMEM_BYTES):
+    """The kernel's block size for ``num_rays`` rays, given ``smem_bytes[r]``,
+    the shared memory a block of ``r`` rays needs, and the card's SM count;
+    None where no size of ``RAYS_PER_BLOCK`` fits in ``max_smem``.
+
+    The rule: the fewest waves, a wave being as many blocks as the SMs hold
+    at once (each SM as many as fit in its shared memory, SM_SMEM_BYTES
+    less BLOCK_RESERVED_BYTES per block, which binds before the registers
+    do); of the sizes with the fewest, 64 rays, else 32, else 128.
+
+    Why, from R2 timed at each size with the scene fitter's model on an H100
+    (132 SMs, 700 W; ``chip_smoke.py`` phase 9, PERF.md): one block of
+    128 or 64 rays fits per SM, and two of 32.  A ray's steps run in order
+    on one thread, so the kernel takes about one ray's serial time per wave
+    whatever the block count: 11.9-12.0 / 11.0-11.1 / 11.1 ms at 128 / 64 /
+    32 rays per block for 4096 rays (one wave each), 12.2 / 11.8 / 12.0-12.1
+    ms for 8192 (one wave each), and 12.7-12.9 ms at 128 rays for 16384
+    (128 blocks, one wave) against 20.5-21.2 ms at 64 or 32 (two waves).
+    At equal waves, 64-ray blocks were the fastest or tied in two runs.
+    The render headline's 65,536 rays keep 128 (4 waves, against 8)."""
+    fits = [r for r in RAYS_PER_BLOCK if smem_bytes[r] <= max_smem]
+
+    def waves(r):
+        blocks = -(-num_rays // r)
+        per_sm = max(1, SM_SMEM_BYTES // (smem_bytes[r]
+                                          + BLOCK_RESERVED_BYTES))
+        return -(-blocks // (num_sms * per_sm))
+
+    if not fits:
+        return None
+    least = min(map(waves, fits))
+    return next(r for r in (64, 32, 128) if r in fits and waves(r) == least)
+
+
+def block_smem_bytes(lib, a, has_color_grid: bool):
+    """The shared memory a block needs, by rays per block, for the inputs
+    of ``launch_args`` result ``a``."""
+    return {r: lib.lightplane_render_bw_smem_bytes(
+        a.width, r, a.n_layers, a.color_chn, int(has_color_grid))
+        for r in RAYS_PER_BLOCK}
+
+
+def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
+               rays_per_block, relu_masks):
     global LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
@@ -106,21 +236,22 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
     from ._build import library
 
     lib = library(defines)
-    for rays_per_block in RAYS_PER_BLOCK:
-        smem = lib.lightplane_render_bw_smem_bytes(
-            a.width, rays_per_block, a.n_layers, a.color_chn,
-            int(color_grid_flat is not None))
-        if smem <= MAX_SMEM_BYTES:
-            break
-    else:
-        raise ValueError(
-            f"the backward kernel needs {smem} bytes of shared memory per "
-            f"block of {rays_per_block} rays at these MLP widths, more than "
-            f"the {MAX_SMEM_BYTES} a Hopper block can have"
-        )
+    smem = block_smem_bytes(lib, a, color_grid_flat is not None)
+    if rays_per_block is None:
+        rays_per_block = pick_rays_per_block(
+            a.R, smem, _sm_count(a.device.index or 0))
+        if rays_per_block is None:
+            raise ValueError(
+                f"the backward kernel needs {smem[RAYS_PER_BLOCK[-1]]} bytes "
+                f"of shared memory per block of {RAYS_PER_BLOCK[-1]} rays at "
+                f"these MLP widths, more than the {MAX_SMEM_BYTES} a Hopper "
+                f"block can have"
+            )
+    elif smem.get(rays_per_block, MAX_SMEM_BYTES + 1) > MAX_SMEM_BYTES:
+        raise ValueError(f"rays_per_block must be one of {RAYS_PER_BLOCK} "
+                         f"and fit in shared memory, got {rays_per_block}")
 
     n_blocks = -(-a.R // rays_per_block)
-    padded_layer = a.width * a.width + a.width
     n_params = sum(map(_mlp_numel, (cfg.n_hidden_trunk, cfg.n_hidden_opacity,
                                     cfg.n_hidden_color)))
     g_grid = torch.zeros_like(grid_flat)
@@ -128,10 +259,12 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
                     else torch.zeros_like(color_grid_flat))
     g_mlp = torch.empty((n_params,), dtype=f32, device=a.device)
     g_enc = torch.empty_like(rays_encoding)
-    # per-block partial sums of the padded MLP weight gradients; each block
+    # per-block partial sums of the MLP weight gradients; each block
     # initialises its own row, and a second kernel sums the rows into g_mlp
-    partials = torch.empty((max(n_blocks, 1), a.n_layers * padded_layer),
-                           dtype=f32, device=a.device)
+    partials = torch.empty(
+        (max(n_blocks, 1),
+         lib.lightplane_render_bw_partial_floats(a.width, a.n_layers)),
+        dtype=f32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.lightplane_render_bw(
         origins.data_ptr(), directions.data_ptr(), near.data_ptr(),
@@ -150,6 +283,7 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
         cfg.num_rays_noise,
         *a.extras(scaffold, color_grid_flat),
         None if g_color_grid is None else g_color_grid.data_ptr(),
+        None if relu_masks is None else relu_masks.data_ptr(),
         stream,
     )
     if rc != 0:
@@ -157,6 +291,28 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
         raise RuntimeError(f"renderer_bw kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
     return g_grid, g_color_grid, g_mlp, g_enc
+
+
+def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
+                    defines=(), rays_per_block=None):
+    """Launch the recompute-backward kernel on the current CUDA stream.
+    ``defines`` pick a variant build of the kernel (``_build.library``);
+    ``rays_per_block`` (128, 64 or 32) overrides ``pick_rays_per_block``."""
+    return _launch_bw(cfg, geom, diff, nlt_final, g_out, defines,
+                      rays_per_block, None)
+
+
+def render_bwd_cuda_relu_masks(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
+                               rays_per_block=None):
+    """The kernel's recording build (``RELU_MASKS_BUILD``): returns its
+    gradients, as ``render_bwd_cuda``'s, and the relu masks its recomputed
+    forward took (``mask_shape``; zero at steps that no ray of a block
+    passes the scaffold at, where every cotangent is 0)."""
+    shape = mask_shape(cfg, geom[0].shape[0], diff[0].shape[1])
+    masks = torch.zeros(shape, dtype=torch.int32, device=geom[0].device)
+    grads = _launch_bw(cfg, geom, diff, nlt_final, g_out, RELU_MASKS_BUILD,
+                       rays_per_block, masks)
+    return grads, masks
 
 
 def render_bwd(cfg: _RenderCfg, geom, diff, nlt_final, g_out,

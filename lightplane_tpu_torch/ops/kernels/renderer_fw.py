@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from .. import guards
 from ..grid_sample import grid_row_offsets
 from ..mlp_utils import _mlp_numel
 from ..renderer import _march, _RenderCfg
@@ -130,7 +131,10 @@ class LaunchArgs:
 def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
     """Check that the march kernels take these inputs (device, types,
     shapes, MLP and grid layout, the scaffold and the colour grid) and raise
-    on what they do not run."""
+    on what they do not run.  Nothing is read back from the device: a ray
+    whose ``grid_idx`` lies outside every grid's batch samples nothing in
+    the kernels, and ``LIGHTPLANE_CHECK_GRID_IDX=1`` raises for it
+    (``guards.check_grid_idx``)."""
     directions, origins, near, far, grid_idx, scaffold, _ = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
     device = directions.device
@@ -201,12 +205,7 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
                device)
         scaffold_dims = (ctypes.c_int * 4)(*cfg.scaffold_size)
         batches.append(cfg.scaffold_size[0])
-    if R:
-        # the kernels gather rows of batch grid_idx[ray] of every sub-grid
-        # (and scaffold cell): an index outside a batch would read outside
-        lo, hi = (int(v) for v in torch.aminmax(grid_idx))
-        if lo < 0 or hi >= min(batches):
-            raise ValueError(f"grid_idx out of range: [{lo}, {hi}]")
+    guards.check_grid_idx(grid_idx, min(batches), kernel)
     widths = cfg.n_hidden_trunk + cfg.n_hidden_opacity + cfg.n_hidden_color
     return LaunchArgs(
         device=device, R=R, C=C, n_t=n_t, n_o=n_o, n_c=n_c, C_enc=C_enc,

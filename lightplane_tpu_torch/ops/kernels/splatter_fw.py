@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 
+from .. import guards
 from ..grid_sample import grid_row_offsets, splat_grid_rep
 from ..mlp_utils import _mlp_numel
 from ..splatter import _march_points, _SplatCfg, _step_fused_feature
@@ -102,7 +103,10 @@ class SplatLaunchArgs:
 
 def splat_launch_args(cfg: _SplatCfg, geom, diff, kernel: str):
     """Check that the splat kernels take these inputs (device, types,
-    shapes, grid and MLP layout) and raise on what they do not run."""
+    shapes, grid and MLP layout) and raise on what they do not run.  As
+    ``renderer_fw.launch_args``, nothing is read back from the device: an
+    out-of-range ``grid_idx`` splats nothing, and
+    ``LIGHTPLANE_CHECK_GRID_IDX=1`` raises for it."""
     directions, origins, near, far, grid_idx = geom
     encoding, input_grid_flat, mlp_params = diff
     device = directions.device
@@ -145,12 +149,7 @@ def splat_launch_args(cfg: _SplatCfg, geom, diff, kernel: str):
         widths = (ctypes.c_int * len(cfg.n_hidden))(*cfg.n_hidden)
     else:
         _check(encoding, "encoding", f32, (R, C), device)
-    if R:
-        # the kernels index rows of sub-grid batch grid_idx[ray]: an index
-        # outside every sub-grid's batch would reach outside the grids
-        lo, hi = (int(v) for v in torch.aminmax(grid_idx))
-        if lo < 0 or hi >= min(batches):
-            raise ValueError(f"grid_idx out of range: [{lo}, {hi}]")
+    guards.check_grid_idx(grid_idx, min(batches), kernel)
     return SplatLaunchArgs(
         device=device, R=R, C=C, C_in=C_in, n_layers=n_layers,
         n_params=n_params, width=width, out_meta=out_meta, in_meta=in_meta,

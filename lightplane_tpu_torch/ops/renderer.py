@@ -106,6 +106,10 @@ def _step_noise(cfg: _RenderCfg, s: int, num_rays: int, seed: int, device):
     return int_to_randn(i1, i2, seed) * cfg.inject_noise_sigma
 
 
+def _relu(k: int, x):
+    return F.relu(x)
+
+
 def _step_decoder(
     cfg: _RenderCfg,
     pts,                # [R, 3] (already contracted if requested)
@@ -116,8 +120,16 @@ def _step_decoder(
     grid_idx,           # [R]
     scaffold,           # [B*D*H*W, 1] flat or None
     noise,              # [R] or None
+    relu=_relu,
 ):
-    """Sample and decode one march step: returns (sigma [R], color [R, C])."""
+    """Sample and decode one march step: returns (sigma [R], color [R, C]).
+
+    ``relu(k, x)`` computes the decoder's k-th relu'd vector (``F.relu`` by
+    default).  They are numbered in order: the trunk's layers (with no
+    trunk, the relu of the feature), the opacity head's hidden layers, the
+    colour head's hidden layers, and last, with a colour grid, the relu of
+    its sample: the order of the backward kernel's recorded masks
+    (``kernels/renderer_bw.py``)."""
     (w_t, b_t, w_o, b_o, w_c, b_c) = flattened_decoder_params_to_list(
         mlp_params, cfg.n_hidden_trunk, cfg.n_hidden_opacity,
         cfg.n_hidden_color,
@@ -126,34 +138,41 @@ def _step_decoder(
         grid_flat, cfg.grid_sizes, pts, grid_idx,
         cfg.mask_out_of_bounds_samples,
     )
+    k = 0
     if color_grid_flat is None:
         x = feat
         for l in range(len(w_t)):
             x = x @ w_t[l] + b_t[l]
             if l < len(w_t) - 1:
-                x = F.relu(x)
-        trunk = F.relu(x)
+                x = relu(k, x)
+                k += 1
+        trunk = relu(k, x)
+        k += 1
         opacity_in, color_in = trunk, trunk
     else:
         # relu-field: separate color grid, no trunk MLP
-        opacity_in = F.relu(feat)
-        color_in = F.relu(
+        opacity_in = relu(k, feat)
+        k += 1
+        color_in = relu(
+            len(w_o) + len(w_c) - 1,  # the last vector
             sample_grid_rep(
                 color_grid_flat, cfg.color_grid_sizes, pts, grid_idx,
                 cfg.mask_out_of_bounds_samples,
-            )
+            ),
         )
     x = opacity_in
     for l in range(len(w_o)):
         x = x @ w_o[l] + b_o[l]
         if l < len(w_o) - 1:
-            x = F.relu(x)
+            x = relu(k, x)
+            k += 1
     opacity_raw = x[..., 0]
     x = color_in + rays_encoding
     for l in range(len(w_c)):
         x = x @ w_c[l] + b_c[l]
         if l < len(w_c) - 1:
-            x = F.relu(x)
+            x = relu(k, x)
+            k += 1
     log_color = x
 
     if noise is not None:

@@ -242,18 +242,105 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
                                  dp.n_hidden_color, dp.color_chn)
         with pytest.raises(ValueError, match="mlp_params has"):
             lp.lightplane_renderer(rays, grid, short, impl="cuda", **kw)
-        rays_b = lp.Rays(rays.directions, rays.origins, rays.grid_idx + 1,
-                         rays.near, rays.far, rays.encoding)
-        with pytest.raises(ValueError, match="grid_idx out of range"):
-            lp.lightplane_renderer(rays_b, grid, dp, impl="cuda", **kw)
-        # a grid_idx within the grid's batch of 2 but past the scaffold's
-        rays_1 = lp.Rays(rays.directions, rays.origins,
-                         torch.ones_like(rays.grid_idx), rays.near, rays.far,
-                         rays.encoding)
-        with pytest.raises(ValueError, match="grid_idx out of range"):
-            lp.lightplane_renderer(
-                rays_1, [torch.cat([g, g]) for g in grid], dp, impl="cuda",
-                scaffold=torch.ones((1, 4, 4, 4), device=cuda), **kw)
+
+
+@pytest.mark.cuda
+def test_kernels_with_bad_grid_idx(cuda, monkeypatch):
+    """A ray whose grid_idx lies outside every grid's batch renders and
+    splats nothing, and no launch reads a value back unless
+    LIGHTPLANE_CHECK_GRID_IDX=1, which raises for it."""
+    rays, grid, dp = _case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
+    out = [(1, 8, 8, 8, 16)]  # the encoding's 16 channels, splatted
+    kw = dict(num_samples=8, gain=1.0)
+    bad = rays.grid_idx.clone()
+    bad[::2] = 1
+    bad[1::4] = -3
+    rays_b = lp.Rays(rays.directions, rays.origins, bad, rays.near, rays.far,
+                     rays.encoding)
+    monkeypatch.delenv("LIGHTPLANE_CHECK_GRID_IDX", raising=False)
+    grid_p = [g.clone().requires_grad_(True) for g in grid]
+    depth, nlt, feat = lp.lightplane_renderer(rays_b, grid_p, dp, impl="cuda",
+                                              **kw)
+    (feat.sum() + depth.sum()).backward()
+    torch.cuda.synchronize()
+    good = bad == 0
+    ref = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
+    # the good rays render as before; the bad ones see an empty grid
+    assert torch.allclose(nlt[good], ref[1][good], atol=1e-6)
+    empty = lp.lightplane_renderer(rays, [torch.zeros_like(g) for g in grid],
+                                   dp, impl="cuda", **kw)
+    assert torch.allclose(nlt[~good], empty[1][~good], atol=1e-6)
+    assert all(torch.isfinite(g.grad).all() for g in grid_p)
+    splat = lp.lightplane_splatter(rays_b, out, num_samples=8,
+                                   return_list=False, impl="cuda")
+    splat_good = lp.lightplane_splatter(
+        lp.Rays(rays.directions[good], rays.origins[good], bad[good],
+                rays.near[good], rays.far[good], rays.encoding[good]),
+        out, num_samples=8, return_list=False, impl="cuda")
+    assert torch.allclose(splat, splat_good, atol=1e-5)
+    # the opt-in host check
+    monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
+    with pytest.raises(ValueError, match="grid_idx out of range"):
+        lp.lightplane_renderer(rays_b, grid, dp, impl="cuda", **kw)
+    with pytest.raises(ValueError, match="grid_idx out of range"):
+        lp.lightplane_splatter(rays_b, out, num_samples=8, impl="cuda")
+    # a grid_idx within the grid's batch of 2 but past the scaffold's
+    rays_1 = lp.Rays(rays.directions, rays.origins,
+                     torch.ones_like(rays.grid_idx), rays.near, rays.far,
+                     rays.encoding)
+    with pytest.raises(ValueError, match="grid_idx out of range"):
+        lp.lightplane_renderer(
+            rays_1, [torch.cat([g, g]) for g in grid], dp, impl="cuda",
+            scaffold=torch.ones((1, 4, 4, 4), device=cuda), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, rays_per_block", [
+    ("triplane", 128), ("triplane", 64), ("triplane", 32),
+    ("relu_field_scaffold", 128), ("relu_field_scaffold", 32),
+    # too deep for the weight-gradient sums in shared memory: they stay in
+    # the block's row of the partial buffer
+    ("deep_8_8_8", 32),
+])
+def test_backward_kernel_matches_plain_under_its_masks(cuda, case,
+                                                        rays_per_block):
+    """R2 (tensor-core weight gradient at width 32) against its plain
+    version under the relu masks its recording build took, on every ray's
+    cotangent."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+
+    if case == "triplane":
+        rays, grid, dp = _case(cuda, _tri(1, 16, 32), n_rays=600, hidden=32)
+        extra = {}
+    elif case == "deep_8_8_8":
+        rays, grid, dp = _case(cuda, _tri(1, 12, 32), n_rays=300, hidden=32,
+                               layers=(8, 8, 8))
+        extra = {}
+    else:
+        rays, grid, dp, extra = _branch_case(cuda, "relu_field")
+        extra["scaffold"] = (torch.rand(
+            (2, 8, 8, 8), generator=torch.Generator().manual_seed(2)) > 0.4
+        ).float().to(cuda)
+    flat = lp.process_and_flatten_grid(grid, extra.pop("color_grid", None))
+    cfg, geom, diff = rmod._march_inputs(rays, *flat, dp, num_samples=32,
+                                         gain=1.5, **extra)
+    gen = torch.Generator().manual_seed(1)
+    n = len(rays)
+    g_out = tuple(torch.randn(s, generator=gen).to(cuda)
+                  for s in [(n,), (n,), (n, 3)])
+    with torch.no_grad():
+        nlt = renderer_fw.render_fwd_cuda(cfg, geom, diff)[1]
+        got, masks = renderer_bw.render_bwd_cuda_relu_masks(
+            cfg, geom, diff, nlt, g_out, rays_per_block=rays_per_block)
+        want = renderer_bw.render_bwd_torch(cfg, geom, diff, nlt, g_out,
+                                            relu_masks=masks)
+    assert masks.shape == renderer_bw.mask_shape(cfg, n, diff[0].shape[1])
+    assert int(masks.count_nonzero()) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None:
+            continue
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * float(b.abs().max()), f"grad {i}: {err}"
 
 
 def _tri(batch, res, chn):
@@ -352,7 +439,8 @@ def test_splat_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
-def test_splat_kernels_reject_what_they_do_not_run(cuda):
+def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
+    monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
     rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 72, 16),
                                   in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
     with pytest.raises(ValueError, match="widths up to 64"):

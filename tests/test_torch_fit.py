@@ -234,6 +234,29 @@ def test_trainer_runs_on_cpu_and_restores(tmp_path):
                                fit.render_image(0)[0], rtol=0, atol=0)
 
 
+def test_trainer_image_mode_smoke(tmp_path):
+    """Whole-image training (``--ray_sampling image``): two steps on the
+    procedural scene, each one raster-order image rendered in the tile order
+    (``image_size``), as the JAX app's smoke test runs it
+    (``tests/test_examples_utils.py::test_fit_app_image_mode_smoke``)
+    without the perceptual term, which the port refuses."""
+    out = tmp_path / "img"
+    fit = tfit.main(["--device", "cpu", "--dataset_type", "synthetic",
+                     "--n_iter", "2", "--ray_sampling", "image",
+                     "--grid_resolution", "8", "--grid_channels", "16",
+                     "--num_samples", "8", "--eval_rate", "1000",
+                     "--impl", "scan", "--output_dir", str(out)])
+    assert (out / "ckpt_000002.pt").exists()
+    assert [e[0] for e in fit.history["evals"]] == [2]
+    assert np.isfinite(fit.history["evals"][0][1])
+    # one step draws one whole image and trains on every pixel of it
+    before = [g.detach().clone() for g in fit.grid]
+    loss, mse = fit.step()
+    assert np.isfinite(float(loss)) and 0.0 < float(mse) < float(loss)
+    assert all(not torch.equal(a, b.detach())
+               for a, b in zip(before, fit.grid))
+
+
 def test_trainer_flags(tmp_path):
     """The JAX app's JSON configs and ``--impl`` spellings carry over; the
     perceptual loss is refused; 'auto' sampling draws 512-pixel spans on a

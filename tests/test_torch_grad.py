@@ -82,6 +82,45 @@ def test_renderer_grads_match_jax_scan(case):
                     magnitude_scaled="num_samples_inf" in kw)
 
 
+@pytest.mark.parametrize("case", ["triplane", "mask_oob", "noise",
+                                  "no_trunk", "contract"])
+def test_grads_under_own_relu_masks_match_jax_scan(case):
+    """The plain reverse march replaying the relu masks that its forward
+    takes (the masks R2's recording build writes on the card) against
+    ``jax.grad`` of ``impl="scan"``."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_fw
+
+    setup_kw, render_kw = RENDER_CASES[case]
+    rays, grid, dp = _setup(61, **dict(setup_kw, n_rays=48))
+    kw = dict(num_samples=10, gain=1.5, **render_kw)
+    proj = _projections(3, len(rays))
+
+    def loss_j(grid, mlp_params, enc):
+        r = dataclasses.replace(rays, encoding=enc)
+        d = dataclasses.replace(dp, mlp_params=mlp_params)
+        out = lt.lightplane_renderer(r, grid, d, impl="scan", **kw)
+        return sum(jnp.sum(o * p) for o, p in zip(out, proj))
+
+    g_grid, g_mlp, g_enc = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2)))(
+        grid, dp.mlp_params, rays.encoding)
+    flat, _, sizes, _ = lp.process_and_flatten_grid(grid_to_torch(grid),
+                                                    None)
+    cfg, geom, diff = rmod._march_inputs(rays_to_torch(rays), flat, None,
+                                         sizes, None, decoder_to_torch(dp),
+                                         **kw)
+    nlt = renderer_fw.render_fwd_torch(cfg, geom, diff)[1]
+    masks = renderer_bw.relu_masks_torch(cfg, geom, diff)
+    got = renderer_bw.render_bwd_torch(
+        cfg, geom, diff, nlt, tuple(torch.from_numpy(p) for p in proj),
+        relu_masks=masks)
+    want_grid = lp.process_and_flatten_grid(
+        [torch.from_numpy(np.array(g)) for g in g_grid], None)[0]
+    compare_outputs([want_grid.numpy(), g_mlp, g_enc],
+                    [got[0], got[2], got[3]],
+                    names=["g_grid", "g_mlp", "g_enc"])
+
+
 MODULE = dict(num_samples=10, color_chn=3, grid_chn=8, mlp_hidden_chn=16,
               opacity_init_bias=-1.0, bg_color=0.3)
 
