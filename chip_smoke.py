@@ -4,7 +4,8 @@ NVIDIA Hopper GPU.
 
     python3 chip_smoke.py                # the phases below
     python3 chip_smoke.py --only 3b,5,9  # phases 1, 2 and those named
-    python3 chip_smoke.py --ablate       # phases 1-2, R2, S1 with parts off
+    python3 chip_smoke.py --ablate       # phases 1-2, R1, R2, S1 with parts off
+    python3 chip_smoke.py --ablate R1    # phases 1-2, R1 with parts off
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -12,15 +13,16 @@ exits non-zero without its result line:
 1. Device: the card's name and power limit (``nvidia-smi``), its compute
    capability, which must be 9.0; TF32 is switched off.
 2. Build: ``nvcc`` compiles ``lightplane_tpu_torch/csrc/*.cu`` (cached under
-   ``build/kernels/`` by a hash of the sources), and at the same time R2's
-   relu-mask recording build (``-DLIGHTPLANE_RELU_MASKS=1``); registers and
-   spilled bytes per thread of every kernel.
+   ``build/kernels/`` by a hash of the sources), and at the same time the
+   relu-mask recording build of R2 and S2 (``-DLIGHTPLANE_RELU_MASKS=1``);
+   registers and spilled bytes per thread of every kernel.
 3. The forward kernel (R1) vs its plain PyTorch version on the card, at
-   4096 rays and 48 samples, over fourteen configurations it supports, five
+   4096 rays and 48 samples, over fifteen configurations it supports, five
    of them the big shapes that the TPU's W3 sampler served (a 3 x 128^2
    and a 3 x 100^2 triplane, a batch of two 32^3 grids, a contracted 32^3
-   grid, an 8^3 + 24^3 pyramid; all 16ch).
-3b. The backward kernel (R2) vs its plain version on the same fourteen
+   grid, an 8^3 + 24^3 pyramid; all 16ch), one at 37 samples (R1 marches
+   32-sample chunks).
+3b. The backward kernel (R2) vs its plain version on the same fifteen
    configurations, with the JAX parity tests' N(0, 0.05) decoders:
    gradients of a fixed random-projection loss w.r.t. the grid-list,
    ``mlp_params`` and ``rays.encoding`` through
@@ -50,11 +52,14 @@ exits non-zero without its result line:
    kernel and the plain versions are timed, peak memory is read at 128
    and 256 samples, and R2 is held under its masks at this shape.
 6. The splatter's forward kernel (S1) and adjoint (S2) vs their plain
-   versions on the card: the raw accumulators, the normalised grid and the
-   gradients of a fixed random-projection loss w.r.t. the encoding (and,
-   with the MLP, the input grid and ``mlp_params``), through
+   versions on the card, every ray: the raw accumulators, the normalised
+   grid and the gradients of a fixed random-projection loss w.r.t. the
+   encoding (and, with the MLP, the input grid and ``mlp_params``), through
    ``lightplane_splatter_raw`` / ``lightplane_(mlp_)splatter`` with
-   ``impl="cuda"`` and ``impl="torch"``.  Configs: the eight variants of
+   ``impl="cuda"`` and ``impl="torch"``; with the MLP those end-to-end
+   gradients leave out the rays within KINK_MARGIN of a relu kink (and say
+   so), and S2 alone is held on every ray against its plain version
+   replaying the relu masks the kernel took.  Configs: the eight variants of
    ``tests/test_splatter_parity.py`` at 4096 rays, 32 samples and 16^3
    grids; the eight grid shapes of ``tests/test_splatter_sorted.py``; one
    128^2 camera view at 96 samples into a 160^3 x 64ch voxel grid and into
@@ -101,10 +106,11 @@ relu-field branches) and the result line ``{"ok": true, "device":
 one kernel); it prints the result line but no kernels line, which needs
 every phase.
 
-``--ablate`` builds variants of the kernels with parts switched off (the
-``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build each,
-all started together, and times each twice in turn: R2 at the slice shape,
-S1 at the splatter headline.
+``--ablate [R1,R2,S1]`` builds variants of the kernels with parts switched
+off (the ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build
+each, all started together, and times each twice in turn: R1 at the slice
+shape and at phase 9's trainer shape (without the fit: ``trainer_march``),
+R2 at the slice shape, S1 at the splatter headline.
 """
 
 import copy
@@ -159,6 +165,8 @@ PARITY_CASES = [
      dict(inject_noise_sigma=1.0, inject_noise_seed=3)),
     ("samples_inf8", dict(grid_shapes=_TRI),
      dict(num_samples_inf=8, disparity_at_inf=1e-3)),
+    # R1 marches 32 samples a chunk: a count that is not a multiple of 32
+    ("samples_37", dict(grid_shapes=_TRI), dict(num_samples=37)),
     ("mlp_1_3_2_h64",
      dict(grid_shapes=[(1, 16, 16, 16, 16)], hidden=64, layers=(1, 3, 2)),
      {}),
@@ -329,7 +337,7 @@ def phase_parity(lp):
     with torch.inference_mode():
         for name, case_kw, render_kw in PARITY_CASES:
             rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
-            kw = dict(num_samples=48, gain=1.5, **render_kw)
+            kw = {**dict(num_samples=48, gain=1.5), **render_kw}
             out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
             out_p = lp.lightplane_renderer(rays, grid, dp, impl="torch", **kw)
             torch.cuda.synchronize()
@@ -500,7 +508,9 @@ def kernel_work(rmod, cfg, geom, diff):
     gate is not 0 count: the others change nothing.  Bytes: every input
     read once and every output written once.  Third, the backward's
     weight-gradient FLOPs (one of its three decoder passes), which R2 runs
-    on the tensor cores at width 32 (``tf32_bound``)."""
+    on the tensor cores at width 32, and fourth, the forward's FLOPs in the
+    dense layers that R1 runs on the tensor cores, all but the heads' last
+    ones (``tf32_bound``)."""
     from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
 
     directions, origins, near, far, grid_idx, scaffold = geom[:6]
@@ -509,13 +519,14 @@ def kernel_work(rmod, cfg, geom, diff):
     R = directions.shape[0]
     C = grid_flat.shape[1]
     color_chn = cfg.out_chn
-    macs = 0
+    macs = macs_tc = 0
     for m, widths in enumerate((cfg.n_hidden_trunk, cfg.n_hidden_opacity,
                                 cfg.n_hidden_color)):
         for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
             # the colour head's last layer computes the rendered channels
-            last_color = m == 2 and i == len(widths) - 2
-            macs += a * (color_chn if last_color else b)
+            last = m > 0 and i == len(widths) - 2
+            macs += a * (color_chn if last and m == 2 else b)
+            macs_tc += 0 if last else a * b
     corners = samples = 0
     all_sizes = cfg.grid_sizes + (cfg.color_grid_sizes or ())
     with torch.no_grad():
@@ -553,7 +564,8 @@ def kernel_work(rmod, cfg, geom, diff):
     # the encodings out
     bytes_bw = (rays_bytes + params_bytes + 4 * R * (3 + color_chn)
                 + params_bytes + 4 * R * cfg.n_hidden_color[0])
-    return (flops_fw, bytes_fw), (flops_bw, bytes_bw), 2.0 * samples * macs
+    return ((flops_fw, bytes_fw), (flops_bw, bytes_bw), 2.0 * samples * macs,
+            2.0 * samples * macs_tc)
 
 
 def bound(flops, nbytes):
@@ -563,12 +575,13 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
-def tf32_bound(flops, flops_wg, nbytes):
-    """R2's bound with its weight-gradient FLOPs ``flops_wg`` at the TF32
-    tensor-core peak, three times over (the 3xTF32 split), and the rest at
-    the FP32 peak: where that work runs since the tensor cores took it."""
-    t_ops = ((flops - flops_wg) / PEAK_FP32_FLOPS
-             + 3 * flops_wg / PEAK_TF32_FLOPS)
+def tf32_bound(flops, flops_tc, nbytes):
+    """A kernel's bound with the FLOPs it runs on the tensor cores,
+    ``flops_tc`` (R2's weight gradient, R1's dense layers), at the TF32
+    peak, three times over (the 3xTF32 split), and the rest at the FP32
+    peak: where that work runs since the tensor cores took it."""
+    t_ops = ((flops - flops_tc) / PEAK_FP32_FLOPS
+             + 3 * flops_tc / PEAK_TF32_FLOPS)
     return 1e3 * max(t_ops, nbytes / PEAK_BYTES_PER_S)
 
 
@@ -785,7 +798,7 @@ def phase_backward_parity(lp):
           f"every ray has one")
     for name, case_kw, render_kw in PARITY_CASES:
         rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
-        kw = dict(num_samples=48, gain=1.5, **render_kw)
+        kw = {**dict(num_samples=48, gain=1.5), **render_kw}
         gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
         n = len(rays)
         proj = [torch.randn(s, generator=gen).cuda()
@@ -1108,19 +1121,23 @@ def phase_training(lp, smi):
     print("  R2 at the slice shape (the module's decoder after 12 steps):")
     bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom, diff, g_out)
 
-    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg = kernel_work(rmod, cfg, geom,
-                                                       diff)
+    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg, fl_tc = kernel_work(
+        rmod, cfg, geom, diff)
     b_fw, by_fw_kind = bound(fl_fw, by_fw)
     b_bw, by_bw_kind = bound(fl_bw, by_bw)
+    b_fw_tc = tf32_bound(fl_fw, fl_tc, by_fw)
     b_tc = tf32_bound(fl_bw, fl_wg, by_bw)
     print(f"  work: R1 {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.2f} MB -> bound "
-          f"{b_fw:.3f} ms ({by_fw_kind}); R2 {fl_bw / 1e9:.1f} GFLOP, "
-          f"{by_bw / 1e6:.2f} MB -> bound {b_bw:.3f} ms ({by_bw_kind}); with "
-          f"its {fl_wg / 1e9:.1f} GFLOP of weight gradient at the TF32 peak, "
-          f"three passes: {b_tc:.3f} ms")
-    print(f"  R2 at {fl_bw / bw_ms / 1e9:.2f} TFLOP/s, "
-          f"{100 * b_bw / bw_ms:.1f}% of its bound  [{smi}]")
-    return launches, dict(fw_bound=(b_fw, by_fw_kind),
+          f"{b_fw:.3f} ms ({by_fw_kind}); with its {fl_tc / 1e9:.1f} GFLOP "
+          f"of dense layers at the TF32 peak, three passes: {b_fw_tc:.3f} ms")
+    print(f"  R2 {fl_bw / 1e9:.1f} GFLOP, {by_bw / 1e6:.2f} MB -> bound "
+          f"{b_bw:.3f} ms ({by_bw_kind}); with its {fl_wg / 1e9:.1f} GFLOP of "
+          f"weight gradient at the TF32 peak, three passes: {b_tc:.3f} ms")
+    print(f"  R1 at {fl_fw / fw_ms / 1e9:.2f} TFLOP/s, "
+          f"{100 * b_fw_tc / fw_ms:.1f}% of its TF32 bound; R2 at "
+          f"{fl_bw / bw_ms / 1e9:.2f} TFLOP/s, {100 * b_bw / bw_ms:.1f}% of "
+          f"its bound  [{smi}]")
+    return launches, dict(fw_bound=(b_fw, by_fw_kind), fw_bound_tf32=b_fw_tc,
                           bw=dict(ms=bw_ms, plain_ms=bw_plain_ms,
                                   err=bw_err, bound=(b_bw, by_bw_kind),
                                   bound_tf32=b_tc))
@@ -1249,11 +1266,7 @@ def splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes, kw):
     )
 
     d = torch.float64
-    cfg = smod._SplatCfg(
-        kw["num_samples"], kw.get("num_samples_inf", 0),
-        kw.get("mask_out_of_bounds_samples", False),
-        kw.get("contract_coords", False), kw.get("disparity_at_inf", 1e-5),
-        tuple(out_sizes), tuple(in_sizes), sp.n_hidden)
+    cfg = splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes)[0]
     geom = (rays.directions.to(d), rays.origins.to(d), rays.near.to(d),
             rays.far.to(d), rays.grid_idx)
     enc, grid = rays.encoding.to(d), igrid.to(d)
@@ -1278,22 +1291,37 @@ def splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes, kw):
     return margin
 
 
+def splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes):
+    """``(cfg, geom, diff)`` of the splat, as ``lightplane_(mlp_)splatter``
+    hands them to S1 and S2 (``igrid`` already flat)."""
+    cfg = smod._SplatCfg(
+        kw["num_samples"], kw.get("num_samples_inf", 0),
+        kw.get("mask_out_of_bounds_samples", False),
+        kw.get("contract_coords", False), kw.get("disparity_at_inf", 1e-5),
+        tuple(out_sizes), None if sp is None else tuple(in_sizes),
+        () if sp is None else tuple(sp.n_hidden))
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    diff = (rays.encoding, igrid, None if sp is None else sp.mlp_params)
+    return cfg, geom, diff
+
+
 def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
                  in_sizes=None, seed=0):
-    """Hold S1 and S2 against their plain versions on one config; returns
-    the worst max |d| / max |ref|."""
+    """Hold S1 and S2 against their plain versions on one config, every ray:
+    S1's raw accumulators and normalised grid; the gradients of a projection
+    of the normalised grid end to end (S1 + S2 under autograd); and with the
+    MLP, S2 alone against its plain version replaying the relu masks that
+    the kernel took (its recording build), then the shipped build against
+    the recording one.  With the MLP the end-to-end gradients leave out the
+    rays within KINK_MARGIN of a relu kink, where f32 gradients jump, and
+    say so.  Returns the worst max |d| / max |ref|."""
+    from lightplane_tpu_torch.ops import splatter as smod
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
     n = len(rays)
-    if sp is not None:
-        keep = splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes,
-                                 kw) >= KINK_MARGIN
-        rays = rays[keep]
-        print(f"  {name}: {kw} ({n - len(rays)} of {n} rays within "
-              f"{KINK_MARGIN:g} of a relu kink left out)")
-    else:
-        print(f"  {name}: {kw}")
+    print(f"  {name}: {kw}")
     args = (lp, rays, out_sizes, kw, sp, igrid, in_sizes)
     worst = 0.0
 
@@ -1303,7 +1331,7 @@ def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
         worst = max(worst, mx / max(float(b.abs().max()), 1e-30))
 
     with torch.no_grad():
-        fw0, bw0 = sfw.LAUNCHES, sbw.LAUNCHES
+        fw0 = sfw.LAUNCHES
         feat_k, w_k = splat_call(*args, "cuda", raw=True)
         torch.cuda.synchronize()
         assert sfw.LAUNCHES == fw0 + 1, "the splat kernel did not run"
@@ -1314,11 +1342,38 @@ def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
         check("grid", feat_k / w_k.clamp(min=eps), feat_p / w_p.clamp(min=eps))
     gen = torch.Generator().manual_seed(seed)
     proj = torch.randn(feat_p.shape, generator=gen).cuda()
-    g_k = splat_grads(*args, "cuda", proj)
+    e2e = args
+    if sp is not None:
+        keep = splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes,
+                                 kw) >= KINK_MARGIN
+        e2e = (lp, rays[keep]) + args[2:]
+        print(f"    end to end, the {n - int(keep.sum())} of {n} rays within "
+              f"{KINK_MARGIN:g} of a relu kink left out:")
+    bw0 = sbw.LAUNCHES
+    g_k = splat_grads(*e2e, "cuda", proj)
     torch.cuda.synchronize()
     assert sbw.LAUNCHES == bw0 + 1, "the splat adjoint kernel did not run"
-    g_p = splat_grads(*args, "torch", proj)
+    g_p = splat_grads(*e2e, "torch", proj)
     for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_k, g_p):
+        check(label, a, b)
+    if sp is None:
+        return worst
+    # S2 alone, every ray, on the cotangent that the normalised grid's
+    # projection sends to the raw accumulator
+    cfg, geom, diff = splat_march(smod, rays, out_sizes, kw, sp, igrid,
+                                  in_sizes)
+    with torch.no_grad():
+        g_feat = proj / w_p.clamp(min=eps)
+        g_m, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom, diff, g_feat)
+        g_s = sbw.splat_bwd_cuda(cfg, geom, diff, g_feat)
+        g_r = sbw.splat_bwd_torch(cfg, geom, diff, g_feat, relu_masks=masks)
+    assert int(masks.count_nonzero()) > 0
+    print(f"    S2 alone vs its plain version under the kernel's relu masks, "
+          f"all {n} rays:")
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_m, g_r):
+        check(label, a, b)
+    print("    the shipped build vs the recording build:")
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_s, g_m):
         check(label, a, b)
     return worst
 
@@ -1589,7 +1644,9 @@ def print_kernel_attrs():
             print(f"  {name} W={width}: {out[0]} registers, {out[1]} bytes "
                   f"spilled per thread")
     for name, fn in (("S1", lib.lightplane_splat_fw_attrs),
-                     ("S2", lib.lightplane_splat_bw_attrs)):
+                     ("S2", lib.lightplane_splat_bw_attrs),
+                     ("S2 recording masks", _build.library(
+                         rbw.RELU_MASKS_BUILD).lightplane_splat_bw_attrs)):
         for mlp, width in ((0, 0), (1, 32), (1, 64)):
             assert fn(mlp, width, out) == 0
             label = f"MLP W={width}" if mlp else "no MLP"
@@ -1774,16 +1831,19 @@ def branch_kernel_times(lp, rmod, rfw, rbw, label, rays, grid, dp, kw, smi):
                  for k, a, b in zip(("depth", "nlt", "feat"), out_k, out_p))
     print(f"  {label}:")
     bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom, diff, g_out)
-    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg = kernel_work(rmod, cfg, geom,
-                                                       diff)
+    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg, fl_tc = kernel_work(
+        rmod, cfg, geom, diff)
     b_fw, b_bw = bound(fl_fw, by_fw), bound(fl_bw, by_bw)
+    b_fw_tc = tf32_bound(fl_fw, fl_tc, by_fw)
     b_tc = tf32_bound(fl_bw, fl_wg, by_bw)
     print(f"  {label}: R1 alone {fw_ms:.3f} ms (plain {fw_plain:.1f} ms, one "
-          f"run; bound {b_fw[0]:.3f} ms, {b_fw[1]}); R2 alone {bw_ms:.3f} ms "
+          f"run; bound {b_fw[0]:.3f} ms, {b_fw[1]}; {b_fw_tc:.3f} ms with "
+          f"the dense layers at the TF32 peak); R2 alone {bw_ms:.3f} ms "
           f"(plain {bw_plain:.1f} ms; bound {b_bw[0]:.3f} ms, {b_bw[1]}; "
           f"{b_tc:.3f} ms with the weight gradient at the TF32 peak)"
           f"  [{smi}]")
-    return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain, err=fw_err, bound=b_fw),
+    return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain, err=fw_err, bound=b_fw,
+                        bound_tf32=b_fw_tc),
                 bw=dict(ms=bw_ms, plain_ms=bw_plain, err=bw_err, bound=b_bw,
                         bound_tf32=b_tc))
 
@@ -2019,16 +2079,21 @@ def phase_fit(lp, smi):
     return launches, scaffold_row, rf_row
 
 
-# csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each variant: atomics
-# into the grid (R2's grid gradient, S1's splat) scalar or switched off, R2's
-# MLP weight-gradient pass switched off
-ABLATIONS = {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
-             "neither": 6}
+# csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each kernel's variants:
+# R1's grid sampling or decoder MLP switched off; atomics into the grid (R2's
+# grid gradient, S1's splat) scalar or switched off; R2's MLP weight-gradient
+# pass switched off
+ABLATIONS = {
+    "R1": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
+    "R2": {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
+           "neither": 6},
+    "S1": {"scalar_atomics": 1, "no_atomics": 2},
+}
 
 
 def time_variants(variants, fn, smi):
-    """Time ``fn(defines)`` for each variant, twice in turn, by CUDA
-    events, and print the times."""
+    """Time ``fn(arg)`` for each variant's ``arg`` (its defines, or warps
+    per block), twice in turn, by CUDA events, and print the times."""
     times = {name: [] for name in variants}
     with torch.no_grad():
         for _ in range(2):
@@ -2040,10 +2105,55 @@ def time_variants(variants, fn, smi):
               f"(median {statistics.median(ms):.3f})  [{smi}]")
 
 
-def ablate(lp, smi):
-    """R2 at the slice shape and S1 at the splatter headline, as built and
-    with parts switched off; each variant built with its own -D, all builds
-    started together, each timed twice in turn by CUDA events."""
+def trainer_march(lp, rmod, gen):
+    """``(cfg, geom, diff)`` at phase 9's shape after the upsample, without
+    the 600-step fit: 4096 rays of the synthetic scene in 8 x 8 patches (the
+    trainer's sampling past 8192 cells per plane), a 3 x 128^2 x 32ch
+    triplane and the trainer's decoder from its initialiser, 256 samples,
+    and the fitted run's scaffold, a 1 x 64^3 one of occupancy 1.000 (PERF.md
+    section 5), so that every sample outside the [-1, 1] cube is gated."""
+    from lightplane_tpu_torch.examples.datasets import make_synthetic_scene
+    from lightplane_tpu_torch.utils import grid_utils
+
+    dev = "cuda"
+    ds = make_synthetic_scene()
+    patch, n = 8, 4096
+    rng = np.random.default_rng(0)
+    k = n // patch ** 2
+    img = rng.integers(0, ds.n_images, k)
+    py = rng.integers(0, ds.height // patch, k) * patch
+    px = rng.integers(0, ds.width // patch, k) * patch
+    r = np.arange(patch)
+    idx = (img[:, None, None] * ds.height * ds.width
+           + (py[:, None, None] + r[None, :, None]) * ds.width
+           + px[:, None, None] + r[None, None, :]).reshape(-1)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    module = lp.LightplaneRenderer(
+        num_samples=256, color_chn=3, grid_chn=32, mlp_hidden_chn=32,
+        opacity_init_bias=-5.0, bg_color=1.0, generator=gen, device=dev)
+    grid = grid_utils.init_3d_representation(gen, "triplane", 128, 32,
+                                             device=dev)
+    directions = t(ds.directions[idx])
+    with torch.no_grad():
+        enc = module._get_ray_embedding(directions)
+    rays = lp.Rays(directions, t(ds.origins[idx]),
+                   torch.zeros(n, dtype=torch.int64, device=dev),
+                   torch.full((n,), ds.near, device=dev),
+                   torch.full((n,), ds.far, device=dev), enc)
+    return unsplit_march(
+        lp, rmod, rays, grid, module.get_decoder_params(), num_samples=256,
+        gain=module.gain, scaffold=torch.ones((1, 64, 64, 64), device=dev))
+
+
+def ablate(lp, smi, kernels):
+    """``kernels`` (of R1, R2, S1) as built and with parts switched off: R1
+    at the render headline and at phase 9's trainer shape, R2 at the
+    headline, S1 at the splatter headline; each variant built with its own
+    -D, all builds started together, each timed twice in turn by CUDA
+    events."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lightplane_tpu_torch.ops import renderer as rmod
@@ -2054,15 +2164,15 @@ def ablate(lp, smi):
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
     from lightplane_tpu_torch.utils import grid_utils
 
-    r2 = {"shipped": ()}
-    r2.update({k: (f"LIGHTPLANE_ABLATE={m}",) for k, m in ABLATIONS.items()})
-    s1 = {k: r2[k] for k in ("shipped", "scalar_atomics", "no_atomics")}
+    variants = {k: dict(shipped=(), **{
+        name: (f"LIGHTPLANE_ABLATE={bits}",)
+        for name, bits in ABLATIONS[k].items()}) for k in kernels}
+    builds = {d for v in variants.values() for d in v.values()}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(r2)) as pool:
-        list(pool.map(_build.library, r2.values()))
-    print(f"  built {len(r2)} variants in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(_build.library, builds))
+    print(f"  built {len(builds)} variants in {time.perf_counter() - t0:.1f} s")
 
-    print("== ablation: R2 with parts switched off, at the slice shape")
     dev = "cuda"
     gen = torch.Generator().manual_seed(0)
     module = lp.LightplaneRenderer(generator=gen, device=dev, **SLICE)
@@ -2070,26 +2180,44 @@ def ablate(lp, smi):
                                              SLICE["grid_chn"], device=dev)
     rays = orbit_rays(lp, 0.0, dev)
     cfg, geom, diff = slice_march(lp, rmod, module, grid, rays)
-    n = len(rays)
-    g_out = tuple(torch.randn(s, generator=gen).to(dev)
-                  for s in [(n,), (n,), (n, 3)])
-    with torch.no_grad():
-        nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
-    time_variants(r2, lambda d: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
-                                                    g_out, d), smi)
-
-    print("== ablation: S1 with parts switched off, at the splatter "
-          "headline")
-    n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
-    enc = (torch.randn((n, SPLAT_VOXEL[-1]), generator=gen) * 0.1).cuda()
-    rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
-    cfg = smod._SplatCfg(SPLAT_SAMPLES, 0, False, False, 1e-5,
-                         (SPLAT_VOXEL,), None, ())
-    geom = (rays.directions, rays.origins, rays.near, rays.far,
-            rays.grid_idx.to(torch.int32))
-    time_variants(s1, lambda d: sfw.splat_fwd_cuda(cfg, geom,
-                                                   (enc, None, None), d),
-                  smi)
+    if "R1" in variants:
+        print("== ablation: R1 with parts switched off, at the render "
+              "headline")
+        time_variants(variants["R1"],
+                      lambda d: rfw.render_fwd_cuda(cfg, geom, diff, d), smi)
+        print("== ablation: R1 with parts switched off, at the trainer's "
+              "shape (4096 rays, 3 x 128^2 x 32ch, 256 samples, scaffold)")
+        tr = trainer_march(lp, rmod, gen)
+        time_variants(variants["R1"],
+                      lambda d: rfw.render_fwd_cuda(*tr, d), smi)
+        print("== R1 as built by warps (rays) per block, at both shapes")
+        for label, args in (("headline", (cfg, geom, diff)),
+                            ("trainer", tr)):
+            time_variants(
+                {f"{label} {w} warps": w for w in rfw.WARPS_PER_BLOCK},
+                lambda w: rfw.render_fwd_cuda(*args, warps_per_block=w),
+                smi)
+    if "R2" in variants:
+        print("== ablation: R2 with parts switched off, at the slice shape")
+        n = len(rays)
+        g_out = tuple(torch.randn(s, generator=gen).to(dev)
+                      for s in [(n,), (n,), (n, 3)])
+        with torch.no_grad():
+            nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
+        time_variants(variants["R2"], lambda d: rbw.render_bwd_cuda(
+            cfg, geom, diff, nlt, g_out, d), smi)
+    if "S1" in variants:
+        print("== ablation: S1 with parts switched off, at the splatter "
+              "headline")
+        n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
+        enc = (torch.randn((n, SPLAT_VOXEL[-1]), generator=gen) * 0.1).cuda()
+        rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
+        cfg = smod._SplatCfg(SPLAT_SAMPLES, 0, False, False, 1e-5,
+                             (SPLAT_VOXEL,), None, ())
+        geom = (rays.directions, rays.origins, rays.near, rays.far,
+                rays.grid_idx.to(torch.int32))
+        time_variants(variants["S1"], lambda d: sfw.splat_fwd_cuda(
+            cfg, geom, (enc, None, None), d), smi)
 
 
 PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9")
@@ -2116,7 +2244,13 @@ def main():
         return 1
     import lightplane_tpu_torch as lp
 
-    ablation = sys.argv[1:] == ["--ablate"]
+    ablation = sys.argv[1:2] == ["--ablate"]
+    if ablation:
+        kernels = sys.argv[2].split(",") if len(sys.argv) > 2 else ABLATIONS
+        unknown = set(kernels) - set(ABLATIONS)
+        if unknown or len(sys.argv) > 3:
+            raise SystemExit(f"usage: chip_smoke.py --ablate [KERNELS], "
+                             f"KERNELS of {', '.join(ABLATIONS)}")
     only = set() if ablation else parse_only(sys.argv[1:])
     t0 = time.perf_counter()
 
@@ -2131,7 +2265,7 @@ def main():
     smi, name = timed(phase_device)
     timed(phase_build)
     if ablation:
-        ablate(lp, smi)
+        ablate(lp, smi, [k for k in ABLATIONS if k in kernels])
         return 0
     out = {}
     for phase, fn, args in (
@@ -2187,11 +2321,13 @@ def kernel_lines(out):
                                         ("relu_field", rf_row))
                      for k, v in (("ms", row[key]["ms"]),
                                   ("plain_ms", row[key]["plain_ms"]),
-                                  ("bound_ms", row[key]["bound"][0]))})
+                                  ("bound_ms", row[key]["bound"][0]),
+                                  ("bound_tf32_ms", row[key]["bound_tf32"]))})
         for i, key in enumerate(("fw", "bw"))}
     kernels = [
         dict(fw, launches=fit_launches["renderer_fw"], bound_ms=b_fw,
-             bound_by=b_fw_kind, library_ms=None, **branches["fw"]),
+             bound_by=b_fw_kind, library_ms=None,
+             bound_tf32_ms=train["fw_bound_tf32"], **branches["fw"]),
         dict(name="renderer_bw", route="cuda",
              source="lightplane_tpu_torch/csrc/renderer_bw.cu",
              replaces="lightplane_tpu/ops/kernels/renderer_pallas.py:2798",

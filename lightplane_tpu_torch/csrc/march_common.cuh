@@ -26,8 +26,9 @@ constexpr int kMaxLayers = 8;  // per MLP
 constexpr int kMaxTotalLayers = 3 * kMaxLayers;
 
 // LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
-// switches parts of R2 (renderer_bw.cu) and S1 (splatter_fw.cu, without the
-// MLP) off to time them.  The shipped build has none of it.
+// switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu) and S1
+// (splatter_fw.cu, without the MLP) off to time them.  The shipped build
+// has none of it.
 #ifndef LIGHTPLANE_ABLATE
 #define LIGHTPLANE_ABLATE 0
 #endif
@@ -35,6 +36,8 @@ constexpr int kAblate = LIGHTPLANE_ABLATE;
 constexpr int kAblateScalarAtomics = 1;  // one scalar atomicAdd per channel
 constexpr int kAblateNoAtomics = 2;      // no atomics into the grid
 constexpr int kAblateNoWeightGrad = 4;   // no MLP weight-gradient pass (R2)
+constexpr int kAblateNoSampling = 8;     // no grid-list sampling (R1)
+constexpr int kAblateNoMlp = 16;         // no decoder MLP (R1)
 
 // Whether the part `bit` runs.  A part switched off keeps a guard on data
 // `x` that never holds, so the compiler keeps the work that feeds it.
@@ -99,9 +102,9 @@ struct Params {
   float* g_enc;            // [R, enc_chn]
   float* g_mlp_partial;    // [blocks, n_layers_total * per-layer partials]
   // R2 only: whether the block keeps its weight-gradient sums in shared
-  // memory (else in its row of g_mlp_partial), and the relu masks that its
-  // recording build writes (renderer_bw.cu, LIGHTPLANE_RELU_MASKS), with
-  // the number of relu'd vectors per step
+  // memory (else in its row of g_mlp_partial).  R2 and S2: the relu masks
+  // that their recording builds write (mlp_bwd.cuh::record_mask,
+  // LIGHTPLANE_RELU_MASKS), with the number of relu'd vectors per step
   int acc_in_smem;
   uint32_t* relu_masks;
   int n_mask_vecs;
@@ -568,6 +571,39 @@ __device__ __forceinline__ float dense_out(const float* __restrict__ layer,
   for (int i = 0; i < W; ++i) acc += x[i] * layer[i * W + o];
   return acc;
 }
+
+// ---- the tensor cores: mma.sync m16n8k8 in TF32 ---------------------------
+// A's fragment: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); B's (K x N): b0 (k t, n g), b1 (t + 4, g); the accumulators: d0
+// (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1), for lane
+// 4 g + t.  R1 (renderer_fw.cu) runs its dense layers on them, R2 its weight
+// gradient (mlp_bwd.cuh).
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (the "3xTF32" split): hi * hi + hi * lo + lo * hi
+// keeps the product to ~2^-21 of its size where TF32 alone keeps ~2^-11.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));  // exact: x and hi share the top
+}
+
+// d += a * b, one m16n8k8 TF32 product accumulated in f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- activations ----------------------------------------------------------
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));

@@ -7,12 +7,38 @@
 // the weight gradient: on the CUDA cores (weight_grad, any W; the row is
 // the padded [W*W + W] layer) and, for W = 32, on the tensor cores
 // (tc_weight_grad, tc_bias_grad; the row holds mma fragments, tc_index).
+// Both kernels' recording builds (LIGHTPLANE_RELU_MASKS=1) write the relu
+// branches their recomputed forward took (record_mask).
 
 #pragma once
 
 #include "march_common.cuh"
 
+#ifndef LIGHTPLANE_RELU_MASKS
+#define LIGHTPLANE_RELU_MASKS 0
+#endif
+
 namespace lightplane {
+
+constexpr bool kReluMasks = LIGHTPLANE_RELU_MASKS != 0;
+
+// The recording build: bit c of word w of relu'd vector k of (ray, step s)
+// is v[32 w + c] > 0, the branch the recomputed forward took.  The masks
+// are [R, tot, p.n_mask_vecs, W / 32] words.
+template <int W>
+__device__ __forceinline__ void record_mask(const Params& p, int ray, int s,
+                                            int tot, int k,
+                                            const float (&v)[W]) {
+  uint32_t* dst = p.relu_masks +
+                  (((long long)ray * tot + s) * p.n_mask_vecs + k) * (W / 32);
+#pragma unroll
+  for (int w = 0; w < W / 32; ++w) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) m |= (v[32 * w + c] > 0.0f ? 1u : 0u) << c;
+    dst[w] = m;
+  }
+}
 
 // g_in[i] = sum_o layer[i][o] * g_out[o]: the input gradient of a layer.
 template <int W>
@@ -124,30 +150,6 @@ __host__ __device__ __forceinline__ int tc_index(int i, int o) {
   const int lane = (i & 7) * 4 + ((o & 7) >> 1);
   const int reg = ((i >> 3) & 1) * 2 + (o & 1);
   return (tile * 32 + lane) * 4 + reg;
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (the "3xTF32" split): hi * hi + hi * lo + lo * hi
-// keeps the product to ~2^-21 of its size where TF32 alone keeps ~2^-11.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));  // exact: x and hi share the top
-}
-
-// d += a * b, one m16n8k8 TF32 product accumulated in f32.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // acc += X^T G over the block's `rays` rays for one layer (acc: its

@@ -89,17 +89,12 @@
 #include "march_common.cuh"
 #include "mlp_bwd.cuh"
 
-#ifndef LIGHTPLANE_RELU_MASKS
-#define LIGHTPLANE_RELU_MASKS 0
-#endif
-
 namespace {
 
 using namespace lightplane;
 
 constexpr int kMaxRays = 128;  // rays (= threads) per block, at most
 constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
-constexpr bool kReluMasks = LIGHTPLANE_RELU_MASKS != 0;
 
 // Floats of a block's row of g_mlp_partial per layer.
 long long partial_layer_floats(int W) {
@@ -148,23 +143,6 @@ __device__ __forceinline__ void splat_grad(const GridMeta& m, float* dst,
         if (c < C) atomicAdd(d + c, wgt * g[c]);
     }
   });
-}
-
-// The recording build: bit c of word w of relu'd vector k of (ray, step s)
-// is v[32 w + c] > 0, the branch the recomputed forward took.
-template <int W>
-__device__ __forceinline__ void record_mask(const Params& p, int ray, int s,
-                                            int tot, int k,
-                                            const float (&v)[W]) {
-  uint32_t* dst = p.relu_masks +
-                  (((long long)ray * tot + s) * p.n_mask_vecs + k) * (W / 32);
-#pragma unroll
-  for (int w = 0; w < W / 32; ++w) {
-    uint32_t m = 0;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) m |= (v[32 * w + c] > 0.0f ? 1u : 0u) << c;
-    dst[w] = m;
-  }
 }
 
 template <int W>

@@ -25,6 +25,14 @@
 // Masked steps (mask_out_of_bounds and the point outside [-1, 1]^3) get no
 // gradient, as in the JAX package.
 //
+// LIGHTPLANE_RELU_MASKS=1 builds the variant that records, per ray and
+// step, one bit per unit of every relu'd vector of the recomputed MLP
+// forward (x > 0; mlp_bwd.cuh::record_mask), as R2's recording build does,
+// so the plain version can be held to it on every ray: a relu input within
+// rounding of 0 can otherwise send the two down different branches
+// (splatter_bw.py::splat_bwd_cuda_relu_masks).  A step that the whole
+// block skips (no ray has a non-zero g_vec) records nothing.
+//
 // What bounds it.  Without the MLP, at bench.py's splatter headline
 // (262,144 rays, 96 samples, 160^3 x 64ch) it gathers ~1.1e8 corner rows
 // of 256 bytes from a 1.05 GB gradient grid: the gather's sectors from L2
@@ -136,6 +144,7 @@ __global__ void __launch_bounds__(kMaxRays)
 
   const int tot = p.num_samples + p.num_samples_inf;
   const bool out_vec4 = (C & 3) == 0;
+  const bool record = kReluMasks && valid;
   float x[W], y[W], G[W], g_in[W];
   for (int s = 0; s < tot; ++s) {
     const Step st = march_step(p, r, s);
@@ -184,6 +193,7 @@ __global__ void __launch_bounds__(kMaxRays)
         x[c] = y[c];
         ACT(l + 1, c) = y[c];
       }
+      if (record) record_mask<W>(p, ray, s, tot, l, y);
     }
 
     // ---- MLP backward, last layer first ----
@@ -259,8 +269,10 @@ int lightplane_splat_bw_attrs(int mlp, int width, int* out) {
 // Arguments as lightplane_splat_fw's, with g_out [V_out, out_chn] in and
 // g_enc [R, enc_chn], the input grid's gradient (zero-filled by the
 // caller), g_mlp and the [blocks, n_layers * (W*W + W)] partial buffer out
-// (the last three only with the MLP), and `rays_per_block` (128, 64 or 32)
-// for the MLP adjoint.
+// (the last three only with the MLP), `rays_per_block` (128, 64 or 32)
+// for the MLP adjoint, and for the recording build the zero-filled [R,
+// steps, n_layers - 1, width / 32] mask words (null otherwise, and without
+// the MLP).
 int lightplane_splat_bw(
     const float* origins, const float* directions, const float* near,
     const float* far, const int* grid_idx, const float* enc,
@@ -270,9 +282,11 @@ int lightplane_splat_bw(
     int num_in_grids, const int* in_meta, int in_chn, int n_layers,
     const int* mlp_widths, int width, int rays_per_block, int num_samples,
     int num_samples_inf, float disparity_at_inf, int mask_out_of_bounds,
-    int contract_coords, void* stream) {
+    int contract_coords, uint32_t* relu_masks, void* stream) {
   if (n_layers > 0 && rays_per_block != 128 && rays_per_block != 64 &&
       rays_per_block != 32)
+    return (int)cudaErrorInvalidValue;
+  if ((relu_masks != nullptr) != (kReluMasks && n_layers > 0))
     return (int)cudaErrorInvalidValue;
   SplatParams sp = {};
   const int rc = fill_splat_params(
@@ -293,6 +307,8 @@ int lightplane_splat_bw(
   p.g_grid = g_input_grid;
   p.g_mlp = g_mlp;
   p.g_mlp_partial = g_mlp_partial;
+  p.relu_masks = relu_masks;
+  p.n_mask_vecs = n_layers - 1;
   sp.g_out = g_out;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -10,8 +10,8 @@ one loads the cached file.  Nothing is built or loaded on import: the first
 call to :func:`library` does it, and only a CUDA launch calls it.
 ``defines`` (``NAME=value`` strings, passed to ``nvcc`` as ``-D``) build a
 variant of the sources beside the default one: ``chip_smoke.py --ablate``
-uses them to switch parts of a kernel off, and R2's relu-mask recording
-build (``renderer_bw.RELU_MASKS_BUILD``) is one.
+uses them to switch parts of a kernel off, and the relu-mask recording
+build of R2 and S2 (``renderer_bw.RELU_MASKS_BUILD``) is one.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ _RENDER_FW_ARGTYPES = (
     [_P] * 11            # origins .. feat
     + [_I, _I, _P, _I]   # num_rays, num_grids, grid_meta, grid_chn
     + [_I, _I, _I, _P]   # n_t, n_o, n_c, mlp_widths
-    + [_I, _I, _I]       # enc_chn, color_chn, width
+    + [_I, _I, _I, _I]   # enc_chn, color_chn, width, warps
     + [_I, _I, _F, _F]   # num_samples, num_samples_inf, disparity, gain
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
     + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
@@ -79,6 +79,7 @@ _SPLAT_BW_ARGTYPES = (
     + [_I, _P, _I, _I]   # n_layers, mlp_widths, width, rays_per_block
     + [_I, _I, _F, _I, _I]  # num_samples, num_samples_inf, disparity, mask,
                             # contract
+    + [_P]               # relu_masks (the recording build's)
     + [_P]               # stream
 )
 
@@ -159,7 +160,7 @@ def library(defines=()) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(defines)))
     lib.lightplane_render_fw.argtypes = _RENDER_FW_ARGTYPES
     lib.lightplane_render_fw.restype = _I
-    lib.lightplane_render_fw_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lightplane_render_fw_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lightplane_render_fw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_render_bw.argtypes = _RENDER_BW_ARGTYPES
     lib.lightplane_render_bw.restype = _I

@@ -35,10 +35,13 @@ IMPLS = ("auto", "cuda", "torch")
 # a run went through the kernel.
 LAUNCHES = 0
 
-MAX_GRIDS = 8          # kMaxGrids in renderer_fw.cu
-MAX_LAYERS = 8         # kMaxLayers in renderer_fw.cu (per MLP)
+MAX_GRIDS = 8          # kMaxGrids in march_common.cuh
+MAX_LAYERS = 8         # kMaxLayers in march_common.cuh (per MLP)
 WIDTHS = (32, 64)      # the kernel's compiled activation widths
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
+# Warps (one ray each) per block the forward kernel may take, most first:
+# each warp keeps two [32, W + 4] tiles in shared memory beside the MLP.
+WARPS_PER_BLOCK = (4, 2, 1)
 
 
 def render_fwd_torch(cfg: _RenderCfg, geom, diff):
@@ -217,8 +220,27 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
     )
 
 
-def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
-    """Launch the forward-march kernel on the current CUDA stream."""
+def pick_warps_per_block(smem_bytes, max_smem: int = MAX_SMEM_BYTES):
+    """The forward kernel's warps per block, given ``smem_bytes[w]``, the
+    shared memory a block of ``w`` warps needs: the most of
+    ``WARPS_PER_BLOCK`` that fit in ``max_smem``, None where none does.
+    Four warps fit every MLP of width 32 the kernel takes (24 layers: 127
+    KB); width-64 MLPs take four up to 11 layers in all and fewer beyond,
+    down to one (14 layers).  More warps were faster on an H100
+    (``chip_smoke.py --ablate R1``, PERF.md): at the render headline and
+    the trainer's shape four took 8.109 and 0.607 ms, two 9.735 and 0.776,
+    one 13.581 and 1.012; eight, on an earlier build, were slower than four
+    (12.67 against 10.95 ms at the headline: fewer blocks fit an SM)."""
+    return next((w for w in WARPS_PER_BLOCK if smem_bytes[w] <= max_smem),
+                None)
+
+
+def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
+                    warps_per_block=None):
+    """Launch the forward-march kernel on the current CUDA stream.
+    ``defines`` pick a variant build of the kernel (``_build.library``);
+    ``warps_per_block`` (of ``WARPS_PER_BLOCK``) overrides
+    ``pick_warps_per_block``."""
     global LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
@@ -226,14 +248,20 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
 
     from ._build import library
 
-    lib = library()
-    smem = lib.lightplane_render_fw_smem_bytes(a.width, a.n_layers,
-                                               a.color_chn)
-    if smem > MAX_SMEM_BYTES:
+    lib = library(defines)
+    smem = {w: lib.lightplane_render_fw_smem_bytes(a.width, a.n_layers,
+                                                   a.color_chn, w)
+            for w in WARPS_PER_BLOCK}
+    warps = warps_per_block or pick_warps_per_block(smem)
+    if warps is None:
         raise ValueError(
-            f"the MLP weights need {smem} bytes of shared memory per block, "
-            f"more than the {MAX_SMEM_BYTES} a Hopper block can have"
+            f"the MLP weights need {smem[1]} bytes of shared memory per "
+            f"block of one warp, more than the {MAX_SMEM_BYTES} a Hopper "
+            f"block can have"
         )
+    if smem.get(warps, MAX_SMEM_BYTES + 1) > MAX_SMEM_BYTES:
+        raise ValueError(f"warps_per_block must be one of {WARPS_PER_BLOCK} "
+                         f"and fit in shared memory, got {warps}")
 
     f32 = torch.float32
     depth = torch.empty((a.R,), dtype=f32, device=a.device)
@@ -247,7 +275,7 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff):
         depth.data_ptr(), nlt.data_ptr(), feat.data_ptr(),
         a.R, len(cfg.grid_sizes), a.grid_meta, a.C,
         a.n_t, a.n_o, a.n_c, a.mlp_widths,
-        a.C_enc, a.color_chn, a.width,
+        a.C_enc, a.color_chn, a.width, warps,
         cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf, cfg.gain,
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
         cfg.inject_noise_sigma, int(noise_seed), cfg.noise_stride,

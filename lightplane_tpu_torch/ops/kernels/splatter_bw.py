@@ -17,6 +17,16 @@ No per-sample activation is kept: memory is independent of the number of
 samples.  Every function takes ``(cfg, geom, diff, g_feat_grid)`` with
 ``geom`` and ``diff`` as in ``splatter_fw`` and returns ``(g_encoding,
 g_input_grid_flat, g_mlp_params)``, the last two None without an MLP.
+
+The relu masks, as R2's (``renderer_bw.py``).  Where a relu's input lies
+within rounding of 0, the kernel and the plain version may take opposite
+branches and a gradient jumps by a whole term.  The kernel's recording
+build (``splat_bwd_cuda_relu_masks``; the same build as R2's) writes the
+branch of every unit of every hidden layer's output at every (ray, step) as
+one bit, into an int32 tensor ``[R, steps, layers - 1, width // 32]``
+(``mask_shape``), and ``splat_bwd_torch(..., relu_masks=)`` replays them:
+``x * mask`` in place of ``relu(x)``.  ``relu_masks_torch`` records the
+plain forward's own.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ import torch
 
 from ..grid_sample import sample_grid_rep
 from ..splatter import _march_points, _SplatCfg, _step_fused_feature
-from .renderer_fw import MAX_SMEM_BYTES, _check, check_impl
+from .renderer_bw import RELU_MASKS_BUILD, pack_masks, unpack_masks
+from .renderer_fw import MAX_SMEM_BYTES, WIDTHS, _check, check_impl
 from .splatter_fw import _ptr, aligned, splat_launch_args
 
 # Number of kernel launches in this process; the kernel path adds one per
@@ -37,9 +48,37 @@ LAUNCHES = 0
 RAYS_PER_BLOCK = (128, 64, 32)
 
 
-def splat_bwd_torch(cfg: _SplatCfg, geom, diff, g_feat_grid):
+def mask_shape(cfg: _SplatCfg, R: int):
+    """Shape of the relu masks of ``R`` rays through the splatter MLP:
+    ``[R, steps, layers - 1, words]`` with one bit per unit of the kernel's
+    padded width (32 or 64)."""
+    width = next(w for w in WIDTHS if max(cfg.n_hidden) <= w)
+    return (R, cfg.tot_num_samples, len(cfg.n_hidden) - 2, width // 32)
+
+
+def relu_masks_torch(cfg: _SplatCfg, geom, diff):
+    """The relu masks that the plain forward takes, in the kernel's layout
+    (``mask_shape``)."""
+    grid_idx = geom[4]
+    shape = mask_shape(cfg, geom[0].shape[0])
+    out = torch.zeros(shape, dtype=torch.int32, device=geom[0].device)
+    for s in range(cfg.tot_num_samples):
+        pts = _march_points(cfg, geom, s)
+
+        def relu(k, x):
+            out[:, s, k] = pack_masks(x > 0, shape[3])
+            return torch.relu(x)
+
+        _step_fused_feature(cfg, pts, *diff, grid_idx, relu=relu)
+    return out
+
+
+def splat_bwd_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
+                    relu_masks=None):
     """Plain PyTorch adjoint march; with an MLP each step is differentiated
-    by ``torch.autograd.grad`` (the per-step ``jax.vjp``)."""
+    by ``torch.autograd.grad`` (the per-step ``jax.vjp``).  Given
+    ``relu_masks`` (``mask_shape``), each step's MLP applies them in place
+    of its relus."""
     grid_idx = geom[4]
     encoding = diff[0]
     if not cfg.n_hidden:
@@ -56,15 +95,19 @@ def splat_bwd_torch(cfg: _SplatCfg, geom, diff, g_feat_grid):
         pts = _march_points(cfg, geom, s)
         g_vec = sample_grid_rep(g_feat_grid, cfg.output_grid_sizes, pts,
                                 grid_idx, cfg.mask_out_of_bounds_samples)
+        relu = {}
+        if relu_masks is not None:
+            m = unpack_masks(relu_masks[:, s]).to(encoding.dtype)
+            relu = dict(relu=lambda k, x, m=m: x * m[:, k, : x.shape[-1]])
         with torch.enable_grad():
-            vec = _step_fused_feature(cfg, pts, *leaves, grid_idx)
+            vec = _step_fused_feature(cfg, pts, *leaves, grid_idx, **relu)
         for acc, d in zip(grads, torch.autograd.grad(vec, leaves, g_vec)):
             acc += d
     return tuple(grads)
 
 
-def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid):
-    """Launch the splat adjoint kernel on the current CUDA stream."""
+def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
+               relu_masks):
     global LAUNCHES
     directions, origins, near, far, grid_idx = geom
     a = splat_launch_args(cfg, geom, diff, "splat_bwd_cuda")
@@ -75,7 +118,7 @@ def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid):
 
     from ._build import library
 
-    lib = library()
+    lib = library(defines)
     rays_per_block = 0
     f32 = torch.float32
     g_enc = torch.empty_like(encoding)
@@ -110,13 +153,31 @@ def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid):
         a.n_layers, a.mlp_widths, a.width, rays_per_block,
         cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf,
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
-        stream,
+        _ptr(relu_masks), stream,
     )
     if rc != 0:
         msg = lib.lightplane_cuda_error_string(rc).decode()
         raise RuntimeError(f"splatter_bw kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
     return g_enc, g_igrid, g_mlp
+
+
+def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid):
+    """Launch the splat adjoint kernel on the current CUDA stream."""
+    return _launch_bw(cfg, geom, diff, g_feat_grid, (), None)
+
+
+def splat_bwd_cuda_relu_masks(cfg: _SplatCfg, geom, diff, g_feat_grid):
+    """The kernel's recording build (``RELU_MASKS_BUILD``), with an MLP:
+    returns its gradients, as ``splat_bwd_cuda``'s, and the relu masks its
+    recomputed forward took (``mask_shape``; zero at steps that the whole
+    block skipped, where every ray's g_vec is 0)."""
+    if not cfg.n_hidden:
+        raise ValueError("the relu masks need the splatter MLP")
+    masks = torch.zeros(mask_shape(cfg, geom[0].shape[0]), dtype=torch.int32,
+                        device=geom[0].device)
+    grads = _launch_bw(cfg, geom, diff, g_feat_grid, RELU_MASKS_BUILD, masks)
+    return grads, masks
 
 
 def splat_bwd(cfg: _SplatCfg, geom, diff, g_feat_grid, impl: str = "auto"):

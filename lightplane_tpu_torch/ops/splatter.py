@@ -66,11 +66,17 @@ class _SplatCfg:
         return int(self.output_grid_sizes[0][-1])
 
 
+def _relu(k: int, x):
+    return torch.relu(x)
+
+
 def _step_fused_feature(cfg: _SplatCfg, pts, encoding, input_grid_flat,
-                        mlp_params, grid_idx):
+                        mlp_params, grid_idx, relu=_relu):
     """The splat vector of one step: the ray's encoding, or with an MLP
     ``MLP(input_grid[pts] + encoding)`` (relu after every layer but the
-    last)."""
+    last).  ``relu(k, x)`` computes the output of hidden layer k
+    (``torch.relu`` by default; the adjoint's relu-mask replay,
+    ``kernels/splatter_bw.py``, passes its own)."""
     if len(cfg.n_hidden) == 0:
         return encoding
     weights, biases = _flattened_one_mlp_params_to_list(mlp_params,
@@ -82,7 +88,7 @@ def _step_fused_feature(cfg: _SplatCfg, pts, encoding, input_grid_flat,
     for l in range(len(weights)):
         x = x @ weights[l] + biases[l]
         if l < len(weights) - 1:
-            x = torch.relu(x)
+            x = relu(l, x)
     return x
 
 

@@ -93,6 +93,59 @@ def test_kernel_matches_plain(cuda, case):
         assert err <= MAX_ABS * scale, f"{name}: max |diff| {err}"
 
 
+# The forward kernel's edges: a warp marches 32 samples at a time, so
+# sample counts that are not a multiple of 32, chunks that the scaffold
+# shuts whole or in part, and the width-64 and no-trunk layer orders
+_TRI16 = [(1, 1, 16, 16, 16), (1, 16, 1, 16, 16), (1, 16, 16, 1, 16)]
+FW_EDGES = {
+    "samples_37": (dict(grid_shapes=_TRI16), dict(num_samples=37)),
+    "samples_37_inf8": (dict(grid_shapes=_TRI16),
+                        dict(num_samples=37, num_samples_inf=8,
+                             disparity_at_inf=1e-3)),
+    "scaffold_all_shut": (dict(grid_shapes=_TRI16), dict(scaffold=0.0)),
+    "scaffold_part_shut": (dict(grid_shapes=_TRI16), dict(scaffold=0.5)),
+    "scaffold_all_open": (dict(grid_shapes=_TRI16), dict(scaffold=1.0)),
+    "w64_layers_1_3_2": (dict(grid_shapes=[(1, 12, 12, 12, 40)], hidden=48,
+                              layers=(1, 3, 2)), {}),
+    "w32_layers_0_1_3": (dict(grid_shapes=[(1, 12, 12, 12, 16)],
+                              layers=(0, 1, 3)), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FW_EDGES))
+def test_forward_kernel_edges(cuda, case):
+    """R1 against its plain version where its 32-sample chunks meet the
+    march's edges; a chunk whose gates are all shut adds exactly 0."""
+    setup_kw, render_kw = FW_EDGES[case]
+    rays, grid, dp = _case(cuda, **setup_kw)
+    kw = dict(num_samples=70, gain=1.5)
+    kw.update(render_kw)
+    fill = kw.pop("scaffold", None)
+    if fill is not None:
+        # 70 samples: the rays leave the [-1, 1] cube, outside which a
+        # scaffold gates every sample, before their third chunk, which is
+        # shut whole; the first two are shut in part
+        sc = torch.full((1, 8, 8, 8), 1.0 if fill else 0.0, device=cuda)
+        if fill == 0.5:
+            sc[:, :4] = 0.0
+        kw["scaffold"] = sc
+    before = renderer_fw.LAUNCHES
+    with torch.no_grad():
+        out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
+        out_p = lp.lightplane_renderer(rays, grid, dp, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert renderer_fw.LAUNCHES == before + 1
+    for name, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+        scale = max(1.0, float(b.abs().max()))  # nlt ~ 1e3 with background
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * scale, f"{name}: max |diff| {err}"
+        if fill == 0.0:
+            assert float(a.abs().max()) == 0.0, name
+    if fill:
+        assert float(out_k[1].max()) > 0.0
+
+
 def _grads(rays, grid, dp, impl, proj, **kw):
     """Gradients of ``sum(proj * outputs)`` w.r.t. the grid-list,
     ``mlp_params`` and ``rays.encoding``."""
@@ -436,6 +489,41 @@ def test_splat_kernels_match_plain(cuda, case):
         err = float((a - b).abs().max())
         assert err <= MAX_ABS * max(1.0, float(b.abs().max())), (
             f"output {i}: max |diff| {err}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out"])
+def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
+    """S2 with the MLP against its plain version under the relu masks its
+    recording build took, on every ray, and the shipped build against the
+    recording one."""
+    from lightplane_tpu_torch.ops import splatter as smod
+
+    c = dict(SPLAT_CASES[case])
+    kw = dict(num_samples=24, **c.pop("kw"))
+    rays, sp, igrid = _splat_case(cuda, **c)
+    out_sizes, in_sizes = c["out_sizes"], c["in_sizes"]
+    cfg = smod._SplatCfg(
+        kw["num_samples"], 0, False, kw.get("contract_coords", False), 1e-5,
+        tuple(out_sizes), tuple(in_sizes), tuple(sp.n_hidden))
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    diff = (rays.encoding, torch.cat([g.reshape(-1, g.shape[-1])
+                                      for g in igrid]), sp.mlp_params)
+    g_out = torch.randn((cfg.v_total, cfg.out_chn),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.no_grad():
+        got, masks = splatter_bw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
+                                                           g_out)
+        shipped = splatter_bw.splat_bwd_cuda(cfg, geom, diff, g_out)
+        want = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out,
+                                           relu_masks=masks)
+    assert masks.shape == splatter_bw.mask_shape(cfg, len(rays))
+    assert int(masks.count_nonzero()) > 0
+    for i, (a, b, c_) in enumerate(zip(got, want, shipped)):
+        bound = MAX_ABS * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, f"grad {i}"
+        assert float((c_ - a).abs().max()) <= bound, f"grad {i}, shipped"
 
 
 @pytest.mark.cuda
