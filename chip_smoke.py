@@ -65,19 +65,24 @@ exits non-zero without its result line:
    128^2 camera view at 96 samples into a 160^3 x 64ch voxel grid and into
    a 3 x 128^2 x 32ch triplane; and phase 7's MLP splatter at its shapes
    (MLP 32 -> 32 -> 64, the 64-wide kernels, from a 3 x 128^2 x 32ch input
-   triplane into 160^3 x 64ch) over one such view.
+   triplane into 160^3 x 64ch) over one such view.  On every config S1's
+   plan kernels are held exactly (integers, each brick's runs sorted)
+   against their plain version (``splat_plan_torch``), and three more
+   configs hold S1 and its plan with bricks of 2 x 3 x 2 cells (a triplane,
+   the MLP with masking, 6 channels with contraction).
 7. The splatter at full width (``bench.py``'s splatter headline): 16 views
    x 128^2 rays x 96 samples into one 160^3 x 64ch voxel grid.  The fw+bw
    step of ``lightplane_splatter`` (loss ``sum(out^2)``), S1 and S2 alone and
-   their plain versions are timed, peak memory is read at 48 and 96
-   samples; then the ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over
-   the same rays with a 3 x 128^2 x 32ch input triplane.
+   their plain versions are timed, S1's plan alone too, with its brick,
+   runs and bytes; peak memory is read at 48 and 96 samples; then the
+   ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over the same rays with a
+   3 x 128^2 x 32ch input triplane, its step's device time by kernel.
 8. Lift-then-render (``bench.py``'s batched 512^2 memory workload): per-pixel
    32-channel encodings of 2 and of 4 images are splatted into a 3 x 128^2
    x 32ch triplane (96 samples) and rendered back (256 samples, decoder
    2/2/2 with hidden 32); one backward reaches the encodings and the
    decoder through R2 and S2.  Step time, peak memory, and the marginal
-   memory per image.
+   memory per image; S1's time alone at 4 images.
 9. Scene fitting: the port's trainer
    (``lightplane_tpu_torch.examples.fit_single_scene.main``) at the JAX
    app's default width (triplane 3 x 64^2 x 32ch, 128 samples, 4096 rays,
@@ -110,7 +115,9 @@ every phase.
 off (the ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build
 each, all started together, and times each twice in turn: R1 at the slice
 shape and at phase 9's trainer shape (without the fit: ``trainer_march``),
-R2 at the slice shape, S1 at the splatter headline.
+R2 at the slice shape, S1 at the splatter headline and at lift-then-render's
+splat: its plan alone, plan and tile sums without the flush, as built; and
+as built with the bricks that fit 1, 2, 3 or 4 blocks on an SM.
 """
 
 import copy
@@ -1306,6 +1313,29 @@ def splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes):
     return cfg, geom, diff
 
 
+def plan_parity(cfg, geom, diff, bricks=None):
+    """Hold S1's plan kernels (count, prefix sum, fill) exactly against
+    their plain version: the counts and offsets per brick, and the runs in
+    each brick once sorted (the kernel's order within a brick is its
+    atomics')."""
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    bricks = sfw.pick_bricks(cfg) if bricks is None else bricks
+    shape = sfw.plan_shape(cfg, bricks, geom[0].shape[0])
+    with torch.no_grad():
+        plain = sfw.splat_plan_torch(cfg, geom, bricks)
+        for g in range(len(bricks)):
+            counts, offsets, runs = sfw.splat_plan_cuda(cfg, geom, diff,
+                                                        bricks, grid=g)
+            got = sfw.canonical_runs(counts, offsets, runs)
+            c_p, o_p, r_p = sfw.plan_slice(*plain, shape, g)
+            assert torch.equal(counts, c_p), f"plan {g}: counts differ"
+            assert torch.equal(offsets, o_p), f"plan {g}: offsets differ"
+            assert torch.equal(got, r_p), f"plan {g}: runs differ"
+    print(f"    plan: bricks {bricks}, {shape.n_bricks} bricks, "
+          f"{plain[2].shape[0]} runs, equal to its plain version")
+
+
 def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
                  in_sizes=None, seed=0):
     """Hold S1 and S2 against their plain versions on one config, every ray:
@@ -1324,6 +1354,7 @@ def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
     print(f"  {name}: {kw}")
     args = (lp, rays, out_sizes, kw, sp, igrid, in_sizes)
     worst = 0.0
+    plan_parity(*splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes))
 
     def check(label, a, b):
         nonlocal worst
@@ -1381,6 +1412,8 @@ def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
 def phase_splat_parity(lp):
     print("== phase 6: splatter kernels (S1, S2) vs plain PyTorch versions "
           "on the card")
+    from lightplane_tpu_torch.ops import splatter as smod
+
     rng = np.random.default_rng(6)
     worst = 0.0
     # tests/test_splatter_parity.py's variants at 4096 rays, 32 samples,
@@ -1449,8 +1482,74 @@ def phase_splat_parity(lp):
     del rays, sp, igrid
     gc.collect()
     torch.cuda.empty_cache()
+    # S1 with bricks smaller than it picks, so that every ray crosses many
+    # and the halo rows of neighbouring bricks overlap in the flush; with
+    # and without the MLP, and with C % 4 != 0 (scalar reductions)
+    for name, out_sizes, extra, mlp, chn in (
+            ("small_bricks_triplane", tri, {}, None, 16),
+            ("small_bricks_mlp_mask", vox,
+             dict(mask_out_of_bounds_samples=True), (8, 16, 16), 16),
+            ("small_bricks_6ch_contract", [(2, 16, 16, 16, 6)],
+             dict(contract_coords=True), None, 6)):
+        in_sizes = [(2, 16, 16, 16, 8)] if mlp else None
+        rays, sp, igrid = splat_case(lp, rng, 4096, out_sizes, batch=2,
+                                     mlp=mlp, in_sizes=in_sizes)
+        kw = dict(base, **extra)
+        march = splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes)
+        worst = max(worst, small_brick_parity(name, *march),
+                    sliced_parity(name, *march))
     print(f"  all configs within bounds; worst max|d| / max|ref| "
           f"{worst:.3e}")
+
+
+def small_brick_parity(name, cfg, geom, diff):
+    """S1 and its plan with 2 x 3 x 2 bricks against the plain versions;
+    returns max |d| / max |ref|."""
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    bricks = tuple(tuple(c if size > 1 else 1
+                         for c, size in zip((2, 3, 2), gs[1:4]))
+                   for gs in cfg.output_grid_sizes)
+    print(f"  {name}: bricks {bricks}")
+    plan_parity(cfg, geom, diff, bricks)
+    worst = 0.0
+    with torch.no_grad():
+        got = sfw.splat_fwd_cuda(cfg, geom, diff, bricks=bricks)
+        want = sfw.splat_fwd_torch(cfg, geom, diff)
+    for label, a, b in zip(("feat", "w"), got, want):
+        mx, _ = compare(label, a, b, max_rel=SPLAT_MAX_REL)
+        worst = max(worst, mx / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def sliced_parity(name, cfg, geom, diff):
+    """S1 with run lists of at most 1000 rays' runs, so that it plans and
+    splats the rays in slices (``splatter_fw.ray_slices``), against the
+    plain version; returns max |d| / max |ref|."""
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    bricks = sfw.pick_bricks(cfg)
+    per_ray = [sfw.plan_shape(sfw._sub_cfg(cfg, g), (b,), 1).capacity
+               for g, b in enumerate(bricks)]
+    kept = sfw.PLAN_MAX_RUNS
+    sfw.PLAN_MAX_RUNS = 1000 * min(per_ray)
+    try:
+        slices = [len(sfw.ray_slices(cfg, g, b, geom[0].shape[0]))
+                  for g, b in enumerate(bricks)]
+        assert min(slices) > 1, slices
+        with torch.no_grad():
+            plans = sfw.PLAN_LAUNCHES
+            got = sfw.splat_fwd_cuda(cfg, geom, diff)
+            assert sfw.PLAN_LAUNCHES - plans == sum(slices)
+            want = sfw.splat_fwd_torch(cfg, geom, diff)
+    finally:
+        sfw.PLAN_MAX_RUNS = kept
+    print(f"  {name}: the rays in {slices} slices per sub-grid")
+    worst = 0.0
+    for label, a, b in zip(("feat", "w"), got, want):
+        mx, _ = compare(label, a, b, max_rel=SPLAT_MAX_REL)
+        worst = max(worst, mx / max(float(b.abs().max()), 1e-30))
+    return worst
 
 
 def splat_work(cfg, geom):
@@ -1543,7 +1642,7 @@ def phase_splat(lp, smi):
 
     # the main path: fw+bw steps of lightplane_splatter
     steps = 8
-    sfw.LAUNCHES = sbw.LAUNCHES = 0
+    sfw.LAUNCHES = sbw.LAUNCHES = sfw.PLAN_LAUNCHES = 0
     step_ms = []
     for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1554,8 +1653,10 @@ def phase_splat(lp, smi):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
     launches = {"splatter_fw": sfw.LAUNCHES, "splatter_bw": sbw.LAUNCHES}
-    print(f"  kernel launches over {steps} fw+bw steps: {launches}")
+    print(f"  kernel launches over {steps} fw+bw steps: {launches}, S1's "
+          f"plan {sfw.PLAN_LAUNCHES}")
     assert launches == {"splatter_fw": steps, "splatter_bw": steps}, launches
+    assert sfw.PLAN_LAUNCHES == steps, sfw.PLAN_LAUNCHES
     assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
     step = statistics.median(step_ms[2:])
     print(f"  fw+bw step of lightplane_splatter through S1 + S2: median "
@@ -1577,14 +1678,59 @@ def phase_splat(lp, smi):
               f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
     assert abs(peaks[96] - peaks[48]) <= 0.05 * peaks[48], peaks
 
-    # each kernel on its own, and its plain version once, on these inputs
-    cfg = smod._SplatCfg(SPLAT_SAMPLES, 0, False, False, 1e-5,
-                         tuple(out_sizes), None, ())
+    # S1's own peak: its accumulators and one plan, whose run list grows
+    # with the samples up to PLAN_MAX_RUNS runs and then splits the rays
     geom = (rays.directions, rays.origins, rays.near, rays.far,
             rays.grid_idx.to(torch.int32))
     diff = (enc, None, None)
+    for ns in (48, 96, 192):
+        cfg = smod._SplatCfg(ns, 0, False, False, 1e-5, tuple(out_sizes),
+                             None, ())
+        bricks = sfw.pick_bricks(cfg)
+        shape = sfw.plan_shape(cfg, bricks, n)
+        n_slices = len(sfw.ray_slices(cfg, 0, bricks[0], n))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            out = sfw.splat_fwd_cuda(cfg, geom, diff)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        # feat and w, one run list, and at most 12 int32 arrays of a brick
+        # each (two slices' counts, offsets, item starts and temporaries)
+        cap = (4 * cfg.v_total * (cfg.out_chn + 1)
+               + 8 * min(shape.capacity, sfw.PLAN_MAX_RUNS)
+               + 48 * (shape.n_bricks + 1) + 2**22)
+        print(f"  peak allocated by S1 alone at {ns} samples: {peak} bytes "
+              f"above the {base} held before it; run list bound "
+              f"{8 * shape.capacity} bytes in {n_slices} slice(s) of at "
+              f"most {8 * sfw.PLAN_MAX_RUNS}  [{smi}]")
+        assert peak <= cap, (ns, peak, cap)
+
+    # each kernel on its own, and its plain version once, on these inputs
+    cfg = smod._SplatCfg(SPLAT_SAMPLES, 0, False, False, 1e-5,
+                         tuple(out_sizes), None, ())
+    bricks = sfw.pick_bricks(cfg)
+    shape = sfw.plan_shape(cfg, bricks, n)
     with torch.no_grad():
         fw_ms = cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), reps=5)
+        plan_ms = cuda_ms(lambda: sfw.splat_plan_cuda(cfg, geom, diff),
+                          reps=5)
+        counts = sfw.splat_plan_cuda(cfg, geom, diff)[0]
+        n_runs = int(counts.sum())
+        rows = max(sfw._tile_rows(gs, b) for gs, b in zip(out_sizes, bricks))
+        smem = sfw.splat_smem_bytes(0, 0, rows, SPLAT_VOXEL[-1],
+                                    sfw._stage_chn(cfg))
+        print(f"  S1's plan: bricks {bricks}, {shape.n_bricks} bricks, "
+              f"{n_runs} runs ({n_runs / n:.1f} a ray, {int(counts.max())} "
+              f"in the fullest brick); run list {8 * shape.capacity} bytes "
+              f"(capacity {shape.capacity}), counts and offsets "
+              f"{4 * (3 * shape.n_bricks + 2)} bytes; a block's shared "
+              f"memory {smem} bytes ({sfw.SPLAT_WARPS} warps); the plan "
+              f"alone median {plan_ms:.3f} ms  [{smi}]")
+        del counts
         feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
         g_out = (torch.randn(feat_k.shape, generator=gen) * 0.01).cuda()
         bw_ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
@@ -1621,7 +1767,7 @@ def phase_splat(lp, smi):
     mlp_splat_step(lp, rays, smi)
     return launches, dict(
         fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
-                bound=(b_fw, b_fw_kind)),
+                bound=(b_fw, b_fw_kind), plan_ms=plan_ms, runs=n_runs),
         bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
                 bound=(b_bw, b_bw_kind)))
 
@@ -1643,6 +1789,9 @@ def print_kernel_attrs():
             assert fn(width, out) == 0
             print(f"  {name} W={width}: {out[0]} registers, {out[1]} bytes "
                   f"spilled per thread")
+    assert lib.lightplane_splat_fw_attrs(2, 0, out) == 0
+    print(f"  S1 plan (fill pass): {out[0]} registers, {out[1]} bytes spilled "
+          f"per thread")
     for name, fn in (("S1", lib.lightplane_splat_fw_attrs),
                      ("S2", lib.lightplane_splat_bw_attrs),
                      ("S2 recording masks", _build.library(
@@ -1688,6 +1837,19 @@ def mlp_splat_step(lp, rays, smi):
     print(f"  LightplaneMLPSplatter (MLP 32 -> 32 -> 64, 3 x 128^2 x 32ch "
           f"input triplane): fw+bw step median {step_ms:.3f} ms, "
           f"{n / step_ms * 1e3:.0f} rays/s  [{smi}]")
+    device_breakdown(step, smi)
+
+
+def lift_s1_ms(lp, rays, out_sizes):
+    """S1's time alone on lift-then-render's splat."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    cfg, geom, _ = splat_march(smod, rays, out_sizes,
+                               dict(num_samples=96), None, None, None)
+    diff = (rays.encoding.detach(), None, None)
+    with torch.no_grad():
+        return cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), reps=5)
 
 
 def phase_lift_render(lp, smi):
@@ -1752,6 +1914,9 @@ def phase_lift_render(lp, smi):
               f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
         if n_img == 4:
             device_breakdown(step, smi)
+            s1_ms = lift_s1_ms(lp, rays, out_sizes)
+            print(f"  S1 alone at batch 4 (splat into 3 x {res}^2 x {chn}ch, "
+                  f"96 samples): median {s1_ms:.3f} ms  [{smi}]")
         del rays, rays_render, enc, zero_enc
     marginal = (peaks[4] - peaks[2]) / 2
     print(f"  marginal peak memory per 512^2 image: {marginal:.0f} bytes "
@@ -2080,14 +2245,14 @@ def phase_fit(lp, smi):
 
 
 # csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each kernel's variants:
-# R1's grid sampling or decoder MLP switched off; atomics into the grid (R2's
-# grid gradient, S1's splat) scalar or switched off; R2's MLP weight-gradient
-# pass switched off
+# R1's grid sampling or decoder MLP switched off; R2's grid-gradient atomics
+# scalar or switched off, its MLP weight-gradient pass switched off; S1's
+# plan alone (no splat pass), or plan and tile sums without the flush
 ABLATIONS = {
     "R1": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
     "R2": {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
            "neither": 6},
-    "S1": {"scalar_atomics": 1, "no_atomics": 2},
+    "S1": {"plan_alone": 32, "no_flush": 64},
 }
 
 
@@ -2218,6 +2383,30 @@ def ablate(lp, smi, kernels):
                 rays.grid_idx.to(torch.int32))
         time_variants(variants["S1"], lambda d: sfw.splat_fwd_cuda(
             cfg, geom, (enc, None, None), d), smi)
+        print("== S1 with parts switched off, at lift-then-render's splat "
+              "(4 x 512^2 rays, 96 samples, 3 x 128^2 x 32ch)")
+        n4 = 4 * 512 * 512
+        enc4 = (torch.randn((n4, 32), generator=gen) * 0.1).cuda()
+        rays4 = view_rays(lp, 4, 512, enc4)
+        cfg4, geom4, diff4 = splat_march(smod, rays4, tri_sizes(128, 32),
+                                         dict(num_samples=96), None, None,
+                                         None)
+        time_variants(variants["S1"], lambda d: sfw.splat_fwd_cuda(
+            cfg4, geom4, diff4, d), smi)
+        for label, args in (("the splatter headline",
+                             (cfg, geom, (enc, None, None))),
+                            ("lift-then-render's splat",
+                             (cfg4, geom4, diff4))):
+            print(f"== S1 as built by brick, the largest that lets 1, 2, 3 "
+                  f"or 4 blocks share an SM, at {label}")
+            sweep = {}
+            for k in range(1, 5):
+                bricks = sfw.pick_bricks(args[0],
+                                         budget=228 * 1024 // k - 1024)
+                sweep.setdefault(f"{bricks[0]}", bricks)
+            time_variants(sweep, lambda b: sfw.splat_fwd_cuda(
+                *args, bricks=b), smi)
+        del rays4, enc4, geom4, diff4
 
 
 PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9")
@@ -2347,7 +2536,9 @@ def kernel_lines(out):
             launches=splat_launches[f"splatter_{key}"],
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound"][0], bound_by=k["bound"][1],
-            library_ms=None))
+            library_ms=None,
+            **({"plan_ms": k["plan_ms"], "runs": k["runs"]}
+               if key == "fw" else {})))
     return kernels
 
 

@@ -27,17 +27,18 @@ constexpr int kMaxTotalLayers = 3 * kMaxLayers;
 
 // LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
 // switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu) and S1
-// (splatter_fw.cu, without the MLP) off to time them.  The shipped build
-// has none of it.
+// (splatter_fw.cu) off to time them.  The shipped build has none of it.
 #ifndef LIGHTPLANE_ABLATE
 #define LIGHTPLANE_ABLATE 0
 #endif
 constexpr int kAblate = LIGHTPLANE_ABLATE;
-constexpr int kAblateScalarAtomics = 1;  // one scalar atomicAdd per channel
-constexpr int kAblateNoAtomics = 2;      // no atomics into the grid
+constexpr int kAblateScalarAtomics = 1;  // scalar atomicAdd per channel (R2)
+constexpr int kAblateNoAtomics = 2;      // no atomics into the grid (R2)
 constexpr int kAblateNoWeightGrad = 4;   // no MLP weight-gradient pass (R2)
 constexpr int kAblateNoSampling = 8;     // no grid-list sampling (R1)
 constexpr int kAblateNoMlp = 16;         // no decoder MLP (R1)
+constexpr int kAblateNoSplat = 32;       // the plan alone, no splat pass (S1)
+constexpr int kAblateNoFlush = 64;       // no flush of the tiles (S1)
 
 // Whether the part `bit` runs.  A part switched off keeps a guard on data
 // `x` that never holds, so the compiler keeps the work that feeds it.
@@ -413,6 +414,31 @@ __device__ __forceinline__ Step march_step(const Params& p, const Ray& r,
 
 __device__ __forceinline__ float grid_coord(float p, int size) {
   return size > 1 ? __fmul_rn((p + 1.0f) * 0.5f, (float)size) - 0.5f : 0.0f;
+}
+
+// The linear-interpolation cell of sub-grid g of `m` that holds the point
+// of `st`: its lower corner (x0, y0, z0; -1 in the lower border half-cell)
+// and the point's fractions in it, by for_each_corner's arithmetic.  S1
+// keys and splats its samples by it.  for_each_corner keeps its own copy:
+// calling this made S2 slower at the splat headline on an H100 (PERF.md,
+// section 6).
+struct Cell {
+  float x0, y0, z0, tx, ty, tz;
+};
+
+__device__ __forceinline__ Cell grid_cell(const GridMeta& m, int g,
+                                          const Step& st) {
+  const float fx = grid_coord(st.px, m.dims[g][3]);
+  const float fy = grid_coord(st.py, m.dims[g][2]);
+  const float fz = grid_coord(st.pz, m.dims[g][1]);
+  Cell c;
+  c.x0 = floorf(fx);
+  c.y0 = floorf(fy);
+  c.z0 = floorf(fz);
+  c.tx = fx - c.x0;
+  c.ty = fy - c.y0;
+  c.tz = fz - c.z0;
+  return c;
 }
 
 // Calls f(row, weight) for every in-bounds linear-interpolation corner of

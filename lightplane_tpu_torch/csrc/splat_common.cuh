@@ -1,6 +1,6 @@
 // What the splatter's forward (splatter_fw.cu) and adjoint (splatter_bw.cu)
-// share: their launch parameters and host-side setup, and the atomic add of
-// a weighted register vector into a row of a grid.
+// share: their launch parameters and host-side setup; and the adjoint's
+// atomic add of a weighted register vector into a row of a grid.
 
 #pragma once
 
@@ -77,14 +77,6 @@ __device__ __forceinline__ void atomic_add_row(float* dst, int C, float wgt,
     for (int c = 0; c < W; ++c)
       if (c < C) atomicAdd(dst + c, wgt * v[c]);
   }
-}
-
-// Whether the point of `st` has an in-bounds corner in the grid-list `g`.
-__device__ __forceinline__ bool touches(const GridMeta& g, int b,
-                                        const Step& st) {
-  bool any = false;
-  for_each_corner(g, b, st, [&](long long, float) { any = true; });
-  return any;
 }
 
 }  // namespace lightplane

@@ -8,41 +8,74 @@
 // included) and the splat vector, the ray's encoding or with the MLP
 // MLP(input_grid[point] + encoding) (relu after every layer but the last),
 // and adds corner_weight * vec into the output grid-list feat [V, C] and
-// corner_weight into the weight grid w [V] in the same pass: one pass with
-// the C+1 fused weight channel.  Masked steps (mask_out_of_bounds and the
-// point outside [-1, 1]^3) splat nothing; corners outside a sub-grid are
-// dropped.
-//
-// Design.  One thread marches one ray; 128 rays per block.  The TPU kernels
-// turn the scatter into stencil matmuls (a TPU has no atomic scatter), bin
-// and sort the samples by octet for grids beyond VMEM, and relayout the
-// 128-lane accumulator into [V, C]; here every corner is an atomicAdd
-// straight into the [V, C] grid in device memory: one sm_90 float4
-// reduction per 4 channels (rows stay 16-byte aligned because w lives in
-// its own buffer, not as a 65th channel), and one scalar atomicAdd per
-// channel where C % 4 != 0.  Without the MLP the encoding row is read from
-// device memory (L1) at each corner, so any C runs.  With the MLP the block
-// stages its layers in shared memory as zero-padded W x W tiles (W = 32 or
-// 64) and the thread runs them on register arrays; a step whose point has
-// no in-bounds corner skips the MLP.
+// corner_weight into the weight grid w [V]: the C+1 fused weight channel.
+// Masked steps (mask_out_of_bounds and the point outside [-1, 1]^3) splat
+// nothing; corners outside a sub-grid are dropped.
 //
 // What bounds it.  At bench.py's splatter headline (262,144 rays, 96
-// samples, one 160^3 x 64ch voxel grid) the kernel issues ~1.1e8 corner
-// updates of 16 float4 reductions and one scalar each into a 1.05 GB grid,
-// 20x the 50 MB L2: the atomics' read-modify-writes in L2 and device
-// memory bound it, far above the least time for its bytes (the grid
-// written once, 0.34 ms) and its 2 FLOPs per channel per corner.  Timed
-// with parts switched off on an H100 (700 W, `chip_smoke.py --ablate`):
-// 46.6 ms as built, 105.5 ms with one scalar atomicAdd per channel, 0.95 ms
-// with no atomics: the reductions are ~98% of the kernel.  Aggregating a
-// warp's updates to shared rows, or sorting samples by cell before the
-// reduction, is later work.
+// samples, one 160^3 x 64ch voxel grid, 1.05 GB, 20x the 50 MB L2) the
+// splat makes ~1.1e8 corner updates of 65 floats.  Made one by one into the
+// grid in device memory, as a thread per ray did before, every update is a
+// read-modify-write of a 256-byte row that is almost never in L2: ~28 GB of
+// reductions, 98% of that kernel's time.  So the updates are summed on chip
+// first, in the manner of the TPU's sorted splat (splatter_sorted.py:1-40):
+//
+// 1. Bricks.  Each output sub-grid is cut into bricks of bz x by x bx cells
+//    (the wrapper picks them, splatter_fw.py::pick_bricks: the largest
+//    that let three blocks of four warps share an SM, BLOCK_SMEM_BUDGET,
+//    after the brick sweep of PERF.md, section 6).  A sample's key in a sub-grid is the
+//    brick that holds its cell's lower corner, clamped into the grid, so
+//    that the border half-cells fall into the border bricks; the brick's
+//    tile of (bz+1)(by+1)(bx+1) rows then holds every corner of the sample.
+// 2. The plan, a counting sort of runs (consecutive steps of one ray with
+//    one key in one sub-grid): a count pass and, after a prefix sum over
+//    the bricks (torch.cumsum in the wrapper, as the JAX package builds its
+//    plan in XLA), a fill pass that writes each run as (ray, first step |
+//    last step << 16) into its brick's segment.  Both march a ray per
+//    thread with march_common.cuh's geometry, so a run's key and the splat
+//    pass's corners agree to the bit, and aggregate their integer atomics
+//    over the warp's lanes that close a run of one brick at one step.  The
+//    list is allocated from a bound the host knows from the shapes
+//    (splatter_fw.py::plan_shape), so nothing is read back: per ray, the
+//    lesser of the step count and the bricks a straight ray can cross (the
+//    step count with contraction or background steps).  With the small
+//    bricks that three blocks an SM allow, that is the step count at the
+//    splat headline, so a list is O(rays x samples); the wrapper splits the
+//    rays so that no list holds more than PLAN_MAX_RUNS runs, which caps the
+//    plan's memory.  A run past the bound traps the fill pass.
+// 3. The splat, one output sub-grid per launch (so that the run list holds
+//    one sub-grid's runs).  A work item is a brick and a slice of at most K
+//    of its runs; a resident wave of blocks of four warps walks the items,
+//    every warp its own items in its own tile of rows of C channels and the
+//    weight, so that it adds with plain shared-memory loads and stores:
+//    float atomicAdd on shared memory is a compare-and-swap loop on sm_90
+//    (ATOMS.CAST.SPIN), and when a block's warps shared one tile those
+//    loops took 8.5 of S1's 19.8 ms on an H100 (PERF.md, section 6).  A
+//    warp takes 32 runs at a time, a lane per run: the lanes load their
+//    records and rays together, copy the runs' encodings into shared memory
+//    (cp.async; read once per run), and march their runs' steps together,
+//    each working out its step's corner rows and weights; then per step the
+//    warp adds weight x value into the step's corner rows, lanes over pairs
+//    of columns (lane l owns columns 2l and 2l + 1 of a pass of 64
+//    channels, one 8-byte access; the weight is a column of value 1),
+//    every corner's load issued before any store.  At the end of the item
+//    every row it touched is flushed into feat and w with float4
+//    reductions (scalar where C % 4 != 0) and zeroed: reductions, because
+//    halo rows and the slices of one brick overlap.  A touched row costs
+//    one reduction per item instead of one per corner.
+// 4. The MLP variant, on the same plan and tile: per step the warp samples
+//    the input grid-list (lanes over channels) and runs the MLP from layers
+//    staged in shared memory (stage_layers), lanes over output units, the
+//    inputs broadcast by shuffles.  A sample has one run per output
+//    sub-grid, so a triplane output runs its MLP once per plane.
 //
 // The timings with parts switched off build it with march_common.cuh's
-// LIGHTPLANE_ABLATE: 1 = one scalar atomicAdd per channel, 2 = no atomics
-// (the march and the corner walk alone).
+// LIGHTPLANE_ABLATE: 32 = the plan alone (no splat pass), 64 = plan and
+// tile accumulation without the flush.
 //
-// Numerics: f32; the atomics make the sums order-dependent from run to run.
+// Numerics: f32; the fill pass's atomics order the runs of a brick, and the
+// flush's reductions the items, differently from run to run, so the sums
+// are order-dependent.
 
 #include "splat_common.cuh"
 
@@ -50,120 +83,529 @@ namespace {
 
 using namespace lightplane;
 
-constexpr int kThreads = 128;
+constexpr int kPlanThreads = 128;
+constexpr int kWarps = 4;  // warps per block of the splat pass
+constexpr int kSplatThreads = 32 * kWarps;
+constexpr int kBatch = 32;  // runs a warp marches together, a lane each
+constexpr unsigned kAll = 0xffffffffu;
 
-// Splat of the encoding itself (no MLP), any channel count.
-__global__ void __launch_bounds__(kThreads)
-    splat_fw_enc_kernel(const SplatParams sp) {
+// The bricks of the output grid-list and the buffers of the plan.
+struct Plan {
+  int brick[kMaxGrids][3];   // cells per brick along D, H, W
+  int nb[kMaxGrids][3];      // bricks along D, H, W
+  int first[kMaxGrids + 1];  // the first brick id of each sub-grid; the
+                             // last entry is the number of bricks
+  int* counts;               // count pass: runs per brick, zero-filled
+  int* cursor;               // fill pass: runs written per brick, zero-filled
+  const int* offsets;        // [bricks + 1]: the first run of each brick
+  int2* runs;                // [capacity]: (ray, first step | last << 16)
+  long long capacity;
+  const int* item_start;     // [bricks + 1]: the first work item of each
+  int runs_per_item;         // K
+  int max_rows;              // tile rows of the largest brick
+  int stage;                 // staged channels of a run's encoding
+  int warp_floats;           // floats of a warp's region of shared memory
+};
+
+// Tile extent of a brick of `cells` cells along an axis of `size` cells: its
+// cells and the upper corner of the last (none for a singleton axis).
+__host__ __device__ __forceinline__ int tile_extent(int cells, int size) {
+  return size > 1 ? cells + 1 : 1;
+}
+
+// The brick of sub-grid g that holds the lower corner of the point of `st`
+// for batch b, clamped into the grid, or -1 where the point has no
+// in-bounds corner in it (the lower corner outside [-1, size - 1]).
+__device__ __forceinline__ int brick_of(const GridMeta& m, const Plan& pl,
+                                        int g, int b, const Step& st) {
+  const Cell c = grid_cell(m, g, st);
+  const int D = m.dims[g][1], H = m.dims[g][2], W = m.dims[g][3];
+  if (!(c.z0 >= -1.0f && c.z0 <= (float)(D - 1) && c.y0 >= -1.0f &&
+        c.y0 <= (float)(H - 1) && c.x0 >= -1.0f && c.x0 <= (float)(W - 1)))
+    return -1;
+  const int kz = max((int)c.z0, 0) / pl.brick[g][0];
+  const int ky = max((int)c.y0, 0) / pl.brick[g][1];
+  const int kx = max((int)c.x0, 0) / pl.brick[g][2];
+  return pl.first[g] +
+         ((b * pl.nb[g][0] + kz) * pl.nb[g][1] + ky) * pl.nb[g][2] + kx;
+}
+
+// The plan's passes: a thread per ray cuts each sub-grid's march into runs
+// and counts them per brick (kFill false) or writes them into their
+// bricks' segments (kFill true).  Every lane walks every step, so the lanes
+// that close a run at a step do so together and aggregate per brick.
+template <bool kFill>
+__global__ void __launch_bounds__(kPlanThreads)
+    splat_plan_kernel(const SplatParams sp, const Plan pl) {
   const Params& p = sp.m;
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  if (ray >= p.num_rays) return;
-  const Ray r = load_ray(p, ray);
-  const int C = sp.out_chn;
-  const bool vec4 = float4_atomics(C);
-  const float* enc = p.enc + (long long)ray * C;
+  const int ray = blockIdx.x * kPlanThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  Ray r = {};
+  r.b = -1;
+  if (ray < p.num_rays) r = load_ray(p, ray);
   const int tot = p.num_samples + p.num_samples_inf;
-  for (int s = 0; s < tot; ++s) {
-    const Step st = march_step(p, r, s);
-    if (p.mask_out_of_bounds && !st.in_bounds) continue;
-    for_each_corner(sp.out, r.b, st, [&](long long row, float wgt) {
-      if (!part_runs(kAblateNoAtomics, wgt)) return;
-      float* dst = sp.feat + row * C;
-      if (vec4) {
-        const float4* src4 = reinterpret_cast<const float4*>(enc);
-        float4* dst4 = reinterpret_cast<float4*>(dst);
-        for (int c4 = 0; c4 < C / 4; ++c4) {
-          const float4 e = __ldg(src4 + c4);
-          atomicAdd(dst4 + c4, make_float4(wgt * e.x, wgt * e.y, wgt * e.z,
-                                           wgt * e.w));
-        }
-      } else {
-        for (int c = 0; c < C; ++c) atomicAdd(dst + c, wgt * __ldg(enc + c));
+  for (int g = 0; g < sp.out.num_grids; ++g) {
+    int cur = -1, s0 = 0;
+    for (int s = 0; s <= tot; ++s) {
+      int key = -1;
+      if (s < tot && r.b >= 0) {
+        const Step st = march_step(p, r, s);
+        if (!(p.mask_out_of_bounds && !st.in_bounds))
+          key = brick_of(sp.out, pl, g, r.b, st);
       }
-      atomicAdd(sp.w + row, wgt);
-    });
-  }
-}
-
-// Splat of MLP(input_grid[point] + encoding).
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-    splat_fw_mlp_kernel(const SplatParams sp) {
-  extern __shared__ __align__(16) float smem[];
-  const Params& p = sp.m;
-  constexpr int kLayer = W * W + W;
-  const int L = p.n_layers[0];
-  stage_layers<W>(p, smem, L);
-  __syncthreads();
-
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  if (ray >= p.num_rays) return;
-  const Ray r = load_ray(p, ray);
-  const int C = sp.out_chn, C_in = p.grid_chn;
-  const float* enc = p.enc + (long long)ray * C_in;
-  const int tot = p.num_samples + p.num_samples_inf;
-  float x[W], y[W];
-  for (int s = 0; s < tot; ++s) {
-    const Step st = march_step(p, r, s);
-    if (p.mask_out_of_bounds && !st.in_bounds) continue;
-    if (!touches(sp.out, r.b, st)) continue;
-#pragma unroll
-    for (int c = 0; c < W; ++c) x[c] = c < C_in ? __ldg(enc + c) : 0.0f;
-    sample_grids<W>(p.grids, p.grid, C_in, r.b, st, x);
-    // one call site of the unrolled layer: relu after all but the last
-    for (int l = 0; l < L; ++l) {
-      dense<W, false>(smem + l * kLayer, x, y);
-      const bool relu = l < L - 1;
-#pragma unroll
-      for (int c = 0; c < W; ++c) x[c] = relu ? fmaxf(y[c], 0.0f) : y[c];
+      const bool close = cur >= 0 && key != cur;
+      const unsigned closing = __ballot_sync(kAll, close);
+      if (close) {
+        const unsigned peers = __match_any_sync(closing, cur);
+        const int leader = __ffs(peers) - 1;
+        const int n = __popc(peers);
+        if (kFill) {
+          int base = 0;
+          if (lane == leader) base = atomicAdd(pl.cursor + cur, n);
+          base = __shfl_sync(peers, base, leader);
+          const long long at = (long long)pl.offsets[cur] + base +
+                               __popc(peers & ((1u << lane) - 1u));
+          // plan_shape's bound holds the runs; a run past it is a fault
+          // of that bound, and fails loudly rather than splat wrong
+          if (at >= pl.capacity) __trap();
+          pl.runs[at] =
+              make_int2(ray, (int)((unsigned)s0 | ((unsigned)(s - 1) << 16)));
+        } else if (lane == leader) {
+          atomicAdd(pl.counts + cur, n);
+        }
+      }
+      if (key != cur) {
+        cur = key;
+        s0 = s;
+      }
     }
-    for_each_corner(sp.out, r.b, st, [&](long long row, float wgt) {
-      atomic_add_row<W>(sp.feat + row * C, C, wgt, x);
-      atomicAdd(sp.w + row, wgt);
-    });
   }
 }
 
-long long fw_smem_bytes(int width, int n_layers) {
-  return 4LL * n_layers * (width * width + width);
+// The channel slices of 32 a lane holds: 2 (C <= 64 per pass) without the
+// MLP, W / 32 with it.
+template <int W>
+constexpr int kSlices = W == 32 ? 1 : 2;
+
+// The warp's splat vector of the step `st` into v (lane c owns channels c
+// and c + 32): MLP(input_grid[point] + encoding), the encoding held in e.
+template <int W>
+__device__ __forceinline__ void mlp_vector(const Params& p,
+                                           const float* layers, int b,
+                                           const Step& st,
+                                           const float (&e)[kSlices<W>],
+                                           float (&v)[kSlices<W>]) {
+  constexpr int kS = kSlices<W>;
+  constexpr int kLayer = W * W + W;
+  const int lane = threadIdx.x & 31;
+  const int C_in = p.grid_chn;
+  float x[kS];
+#pragma unroll
+  for (int k = 0; k < kS; ++k) x[k] = e[k];
+  for_each_corner(p.grids, b, st, [&](long long row, float wgt) {
+    const float* src = p.grid + row * C_in;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      const int c = lane + 32 * k;
+      if (c < C_in) x[k] += wgt * __ldg(src + c);
+    }
+  });
+  const int L = p.n_layers[0];
+  for (int l = 0; l < L; ++l) {
+    const float* lay = layers + l * kLayer;
+    float y[kS];
+#pragma unroll
+    for (int k = 0; k < kS; ++k) y[k] = lay[W * W + lane + 32 * k];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const float xi = __shfl_sync(kAll, x[i / 32], i % 32);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) y[k] += xi * lay[i * W + lane + 32 * k];
+    }
+    const bool relu = l < L - 1;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) x[k] = relu ? fmaxf(y[k], 0.0f) : y[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kS; ++k) v[k] = x[k];
+}
+
+// Floats of a tile row: C channels and the weight, rounded up to an even
+// count so that a lane's pair of columns is one 8-byte access.
+__host__ __device__ __forceinline__ int row_floats(int C) {
+  return (C + 2) & ~1;
+}
+
+// Floats of one warp's region of shared memory: its tile of `rows` rows
+// and the staged encodings of a batch of runs (`stage` channels each),
+// rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int warp_floats(int rows, int C,
+                                                    int stage) {
+  return (rows * row_floats(C) + kBatch * stage + 3) & ~3;
+}
+
+// Channels of a run's staged encoding: one or two slices of 32 (a pass of
+// at most 64 of the encoding's E channels).
+__host__ __device__ __forceinline__ int stage_chn(int E) {
+  return E <= 32 ? 32 : 64;
+}
+
+// dst = *src (4 bytes), or 0 where !ok (src is then not read), copied from
+// device memory into shared memory without passing through registers
+// (cp.async).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// A tile row's weight column starts at -0.0 and every weight added to it is
+// >= +0, so a row that no step touched still holds the bits of -0.0.
+constexpr float kUntouched = -0.0f;
+
+__device__ __forceinline__ bool touched(float w) {
+  return __float_as_uint(w) != 0x80000000u;
+}
+
+// The splat pass: a resident wave of blocks of kWarps warps; every warp
+// walks its own work items and sums each brick's slice of runs in its own
+// tile, then flushes the rows it touched.  W = 0 splats the encoding, in
+// passes of 64 channels; W = 32 or 64 the MLP's output (its layers staged
+// once per block).  kC = 8 corners per step for a voxel grid, 4 for a
+// plane (and a line or a point, whose missing corners are out of bounds);
+// kT = 2 where the weight lies past a pass's 32 pairs of channels (C >=
+// 64): lane 0 adds it apart; else 1.
+template <int W, int kC, int kT>
+__global__ void __launch_bounds__(kSplatThreads)
+    splat_fw_kernel(const SplatParams sp, const Plan pl) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kS = kSlices<W>;
+  const Params& p = sp.m;
+  const GridMeta& out = sp.out;
+  const int C = sp.out_chn;
+  const int C1 = row_floats(C);
+  const int L = W ? p.n_layers[0] : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int E = W ? p.enc_chn : C;  // the encoding's channels
+  const int SC = pl.stage;
+  float* tile = smem + L * (W * W + W) + warp * pl.warp_floats;
+  float* stage = tile + pl.max_rows * C1;
+  if constexpr (W > 0) stage_layers<W>(p, smem, L);
+  for (int i = lane; i < pl.max_rows * C1; i += 32)
+    tile[i] = i % C1 == C ? kUntouched : 0.0f;  // the padding stays 0
+  __syncthreads();  // the layers; after it the warps never wait on another
+
+  const int n_bricks = pl.first[out.num_grids];
+  const int n_items = __ldg(pl.item_start + n_bricks);
+  const int passes = W ? 1 : (C + 63) / 64;
+  const bool vec4 = (C & 3) == 0;
+  for (int item = blockIdx.x * kWarps + warp; item < n_items;
+       item += gridDim.x * kWarps) {
+    // the brick: the last one whose items start at or before `item`, by
+    // a search that cuts the range 32 ways a step, a probe per lane
+    int brick = 0, hi = n_bricks;
+    while (hi - brick > 1) {
+      const int step = (hi - brick + 31) / 32;
+      const int at = brick + lane * step;
+      const unsigned le = __ballot_sync(
+          kAll, at < hi && __ldg(pl.item_start + at) <= item);
+      brick += (31 - __clz(le)) * step;
+      hi = min(brick + step, hi);
+    }
+    int g = 0;
+    while (brick >= pl.first[g + 1]) ++g;
+    const int D = out.dims[g][1], H = out.dims[g][2], Wd = out.dims[g][3];
+    int id = brick - pl.first[g];
+    const int kx = id % pl.nb[g][2];
+    id /= pl.nb[g][2];
+    const int ky = id % pl.nb[g][1];
+    id /= pl.nb[g][1];
+    const int kz = id % pl.nb[g][0];
+    const int b = id / pl.nb[g][0];
+    const int oz = kz * pl.brick[g][0], oy = ky * pl.brick[g][1],
+              ox = kx * pl.brick[g][2];
+    const int ey = tile_extent(pl.brick[g][1], H),
+              ex = tile_extent(pl.brick[g][2], Wd);
+    const int ez = tile_extent(pl.brick[g][0], D);
+    const long long first_run =
+        (long long)__ldg(pl.offsets + brick) +
+        (long long)(item - __ldg(pl.item_start + brick)) * pl.runs_per_item;
+    const long long end_run = min(first_run + pl.runs_per_item,
+                                  (long long)__ldg(pl.offsets + brick + 1));
+
+    for (long long batch = first_run; batch < end_run; batch += kBatch) {
+      // a lane per run: its record and its ray
+      const int n_runs = (int)min((long long)kBatch, end_run - batch);
+      int ray = 0, s0 = 0, len = 0;
+      Ray r = {};
+      if (lane < n_runs) {
+        const int2 rec = pl.runs[batch + lane];
+        ray = rec.x;
+        s0 = rec.y & 0xffff;
+        len = ((rec.y >> 16) & 0xffff) - s0 + 1;
+        r = load_ray(p, ray);
+      }
+      const int max_len = __reduce_max_sync(kAll, len);
+      for (int pass = 0; pass < passes; ++pass) {
+        const int c0 = 64 * pass;
+        // the batch's encodings (this pass's channels), read once a run:
+        // every copy in flight at once, straight into shared memory
+        for (int j = 0; j < n_runs; ++j) {
+          const long long at = (long long)__shfl_sync(kAll, ray, j) * E;
+          for (int c = lane; c < SC; c += 32)
+            copy_async(stage + j * SC + c,
+                       c0 + c < E ? p.enc + at + c0 + c : p.enc,
+                       c0 + c < E);
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
+        // the pass's columns, in pairs: 64 channels at most, then (pass 0)
+        // the weight at column C; lane l owns the pair at column c0 + 2l
+        // and, where C >= 64 (kT = 2), lane 0 the weight
+        const int cend = min(c0 + 64, C);
+        const int a = c0 + 2 * lane;
+        const bool own = a < cend || (pass == 0 && a <= C && C <= a + 1);
+        const bool own_w = kT > 1 && pass == 0 && lane == 0;
+        for (int step = 0; step < max_len; ++step) {
+          // a lane per run: its step's corners in the tile, each as the
+          // offset of its row (-1 where out of the grid) and its weight
+          int crow[kC];
+          float cw[kC];
+          float px = 0.0f, py = 0.0f, pz = 0.0f;
+          const bool has = step < len;
+          if (has) {
+            const Step st = march_step(p, r, s0 + step);
+            const Cell cell = grid_cell(out, g, st);
+            const int z0 = (int)cell.z0 - oz, y0 = (int)cell.y0 - oy,
+                      x0 = (int)cell.x0 - ox;
+#pragma unroll
+            for (int q = 0; q < kC; ++q) {
+              // corner q's bits go to the axes that are not singletons,
+              // x first
+              int bit = 0;
+              const int dx = Wd > 1 ? q >> bit++ & 1 : 0;
+              const int dy = H > 1 ? q >> bit++ & 1 : 0;
+              const int dz = D > 1 ? q >> bit++ & 1 : 0;
+              const int lz = z0 + dz, ly = y0 + dy, lx = x0 + dx;
+              const bool ok = (q >> bit) == 0 && oz + lz >= 0 &&
+                              oz + lz < D && oy + ly >= 0 && oy + ly < H &&
+                              ox + lx >= 0 && ox + lx < Wd;
+              const float wz = dz ? cell.tz : (1.0f - cell.tz);
+              const float wy = dy ? cell.ty : (1.0f - cell.ty);
+              const float wx = dx ? cell.tx : (1.0f - cell.tx);
+              cw[q] = wx * wy * wz;
+              crow[q] = ok ? ((lz * ey + ly) * ex + lx) * C1 : -1;
+            }
+            px = st.px;
+            py = st.py;
+            pz = st.pz;
+          }
+          for (unsigned todo = __ballot_sync(kAll, has); todo;
+               todo &= todo - 1) {
+            const int j = __ffs(todo) - 1;
+            int at[kC];
+            float wgt[kC];
+#pragma unroll
+            for (int q = 0; q < kC; ++q) {
+              at[q] = __shfl_sync(kAll, crow[q], j);
+              wgt[q] = __shfl_sync(kAll, cw[q], j);
+            }
+            // the values of the lane's pair of columns: channels, the
+            // weight's 1, padding's 0
+            float x0 = 0.0f, x1 = 0.0f;
+            if constexpr (W > 0) {
+              float e[kS], o[kS];
+#pragma unroll
+              for (int k = 0; k < kS; ++k)
+                e[k] = lane + 32 * k < SC ? stage[j * SC + lane + 32 * k]
+                                          : 0.0f;
+              Step st = {};
+              st.px = __shfl_sync(kAll, px, j);
+              st.py = __shfl_sync(kAll, py, j);
+              st.pz = __shfl_sync(kAll, pz, j);
+              mlp_vector<W>(p, smem, b, st, e, o);
+              // unit c lives on lane c % 32, slice c / 32
+              const float u0 = __shfl_sync(kAll, o[0], (2 * lane) & 31);
+              const float u1 = __shfl_sync(kAll, o[0], (2 * lane + 1) & 31);
+              x0 = u0;
+              x1 = u1;
+              if constexpr (kS > 1) {
+                const float w0 = __shfl_sync(kAll, o[1], (2 * lane) & 31);
+                const float w1 =
+                    __shfl_sync(kAll, o[1], (2 * lane + 1) & 31);
+                if (lane >= 16) {
+                  x0 = w0;
+                  x1 = w1;
+                }
+              }
+            } else if (2 * lane < SC) {
+              const float2 xv =
+                  *reinterpret_cast<const float2*>(stage + j * SC + 2 * lane);
+              x0 = xv.x;
+              x1 = xv.y;
+            }
+            if (a >= cend) x0 = pass == 0 && a == C ? 1.0f : 0.0f;
+            if (a + 1 >= cend) x1 = pass == 0 && a + 1 == C ? 1.0f : 0.0f;
+            // the rows of one step differ: every load goes out before any
+            // add and store
+            float2 acc[kC];
+            float acc_w[kC];
+#pragma unroll
+            for (int q = 0; q < kC; ++q) {
+              if (at[q] >= 0 && own)
+                acc[q] = *reinterpret_cast<float2*>(tile + at[q] + a);
+              if (at[q] >= 0 && own_w) acc_w[q] = tile[at[q] + C];
+            }
+#pragma unroll
+            for (int q = 0; q < kC; ++q) {
+              if (at[q] >= 0 && own)
+                *reinterpret_cast<float2*>(tile + at[q] + a) = make_float2(
+                    acc[q].x + wgt[q] * x0, acc[q].y + wgt[q] * x1);
+              if (at[q] >= 0 && own_w) tile[at[q] + C] = acc_w[q] + wgt[q];
+            }
+          }
+        }
+        __syncwarp();  // before the next pass or batch restages
+      }
+    }
+
+    // flush every row this item touched into feat and w, and zero it: a
+    // lane per row finds the touched rows, then lanes over channels reduce
+    // each of them
+    const int rows = ez * ey * ex;
+    for (int r0 = 0; r0 < rows; r0 += 32) {
+      const int row = r0 + lane;
+      const float wv = row < rows ? tile[row * C1 + C] : kUntouched;
+      const int lx = row % ex, ly = (row / ex) % ey, lz = row / (ex * ey);
+      const long long grow =
+          out.row_offset[g] +
+          (((long long)b * D + oz + lz) * H + oy + ly) * (long long)Wd + ox +
+          lx;
+      for (unsigned todo = __ballot_sync(kAll, touched(wv)); todo;
+           todo &= todo - 1) {
+        const int j = __ffs(todo) - 1;
+        const long long gr = __shfl_sync(kAll, grow, j);
+        float* t = tile + (r0 + j) * C1;
+        if (vec4) {
+          for (int c4 = lane; c4 < C / 4; c4 += 32) {
+            float* src = t + 4 * c4;
+            const float4 fv = make_float4(src[0], src[1], src[2], src[3]);
+            src[0] = src[1] = src[2] = src[3] = 0.0f;
+            if (part_runs(kAblateNoFlush, fv.x))
+              atomicAdd(reinterpret_cast<float4*>(sp.feat + gr * C) + c4, fv);
+          }
+        } else {
+          for (int c = lane; c < C; c += 32) {
+            const float fv = t[c];
+            t[c] = 0.0f;
+            if (part_runs(kAblateNoFlush, fv))
+              atomicAdd(sp.feat + gr * C + c, fv);
+          }
+        }
+      }
+      if (touched(wv)) {
+        tile[row * C1 + C] = kUntouched;
+        if (part_runs(kAblateNoFlush, wv)) atomicAdd(sp.w + grow, wv);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Bytes of dynamic shared memory of a splat block: the MLP's layers, then
+// each warp's region.
+long long splat_smem_bytes(int width, int n_layers, int max_rows, int C,
+                           int stage) {
+  return 4LL * (n_layers * (width * width + width) +
+                kWarps * warp_floats(max_rows, C, stage));
+}
+
+template <int W, int kC, int kT>
+cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
+                         long long max_items, cudaStream_t stream) {
+  const size_t smem = (size_t)splat_smem_bytes(
+      W, W ? sp.m.n_layers[0] : 0, pl.max_rows, sp.out_chn, pl.stage);
+  cudaError_t e = cudaFuncSetAttribute(
+      splat_fw_kernel<W, kC, kT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, splat_fw_kernel<W, kC, kT>, kSplatThreads, smem);
+  if (e != cudaSuccess) return e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long resident = (long long)per_sm * sms;
+  const long long wanted = (max_items + kWarps - 1) / kWarps;
+  const long long blocks = resident < wanted ? resident : wanted;
+  if (blocks < 1) return cudaSuccess;
+  splat_fw_kernel<W, kC, kT>
+      <<<(int)blocks, kSplatThreads, smem, stream>>>(sp, pl);
+  return cudaGetLastError();
+}
+
+// The splat pass with kC corners a step (8 where the sub-grid has no
+// singleton axis) and kT = 2 where C >= 64 (the weight apart).
+template <int W, int kT>
+cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
+                         long long max_items, cudaStream_t stream) {
+  const int* d = sp.out.dims[0];
+  return d[1] > 1 && d[2] > 1 && d[3] > 1
+             ? launch_splat<W, 8, kT>(sp, pl, max_items, stream)
+             : launch_splat<W, 4, kT>(sp, pl, max_items, stream);
 }
 
 template <int W>
-cudaError_t launch_mlp(const SplatParams& sp, size_t smem_bytes,
-                       cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        splat_fw_mlp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (sp.m.num_rays + kThreads - 1) / kThreads;
-  splat_fw_mlp_kernel<W><<<blocks, kThreads, smem_bytes, stream>>>(sp);
-  return cudaGetLastError();
+cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
+                         long long max_items, cudaStream_t stream) {
+  // W = 32 bounds the output at 32 channels
+  if (W != 32 && sp.out_chn >= 64)
+    return launch_splat<W, W == 32 ? 1 : 2>(sp, pl, max_items, stream);
+  return launch_splat<W, 1>(sp, pl, max_items, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the MLP kernel needs.
-long long lightplane_splat_fw_smem_bytes(int width, int n_layers) {
-  return fw_smem_bytes(width, n_layers);
+// Bytes of dynamic shared memory one block of the splat pass needs.
+//   in_chn: the encoding's channels with the MLP (n_layers > 0)
+long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
+                                         int max_rows, int out_chn,
+                                         int in_chn) {
+  const int E = n_layers ? in_chn : (out_chn < 64 ? out_chn : 64);
+  return splat_smem_bytes(width, n_layers, max_rows, out_chn, stage_chn(E));
 }
 
-// Registers, spilled bytes and the thread limit of the kernel without the
-// MLP (mlp = 0) or with it at `width`, into out[3]; a cudaError_t code.
+// Registers, spilled bytes and the thread limit of the splat pass (its
+// voxel-grid build) without the MLP (mlp = 0) or with it at `width` (mlp =
+// 1), or of the plan's fill pass (mlp = 2), into out[3]; a cudaError_t
+// code.
 int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
-  if (!mlp) return kernel_attrs(splat_fw_enc_kernel, out);
-  return width == 32 ? kernel_attrs(splat_fw_mlp_kernel<32>, out)
-                     : kernel_attrs(splat_fw_mlp_kernel<64>, out);
+  if (mlp == 2) return kernel_attrs(splat_plan_kernel<true>, out);
+  if (!mlp) return kernel_attrs(splat_fw_kernel<0, 8, 2>, out);
+  return width == 32 ? kernel_attrs(splat_fw_kernel<32, 8, 1>, out)
+                     : kernel_attrs(splat_fw_kernel<64, 8, 2>, out);
 }
 
-// Launches the splat forward on `stream`; returns a cudaError_t code.
+// Launches one stage of the splat forward on `stream`; returns a
+// cudaError_t code.
 //   out_meta, in_meta: host int[5 * n], per sub-grid (row offset, B, D, H, W)
 //   n_layers: the MLP's layer count, 0 without it (input_grid, mlp, in_meta
 //     and mlp_widths are then not read)
 //   mlp_widths: host int[n_layers + 1]; width: 32 or 64
+//   bricks: host int[3 * num_out_grids], cells per brick along D, H, W
+//   stage: 0 counts the runs per brick into counts [bricks] (zero-filled);
+//     1 writes them at offsets [bricks + 1] (the exclusive prefix sum of
+//     the counts, with the total last) into runs [capacity] (int2), cursor
+//     [bricks] zero-filled; 2 splats them, K = runs_per_item runs a work
+//     item, item_start [bricks + 1] the exclusive prefix sum of each
+//     brick's items, at most max_items items
 // The caller validates shapes, devices, alignment and limits, and
 // zero-fills feat [V_out, out_chn] and w [V_out].
 int lightplane_splat_fw(
@@ -174,6 +616,9 @@ int lightplane_splat_fw(
     int num_in_grids, const int* in_meta, int in_chn, int n_layers,
     const int* mlp_widths, int width, int num_samples, int num_samples_inf,
     float disparity_at_inf, int mask_out_of_bounds, int contract_coords,
+    const int* bricks, int stage, int* counts, int* cursor,
+    const int* offsets, void* runs, long long capacity,
+    const int* item_start, int runs_per_item, long long max_items,
     void* stream) {
   SplatParams sp = {};
   const int rc = fill_splat_params(
@@ -181,6 +626,37 @@ int lightplane_splat_fw(
       in_chn, n_layers, mlp_widths, width, num_samples, num_samples_inf,
       disparity_at_inf, mask_out_of_bounds, contract_coords);
   if (rc != (int)cudaSuccess) return rc;
+  if (stage < 0 || stage > 2 || num_samples + num_samples_inf > 0xffff ||
+      runs_per_item < 1)
+    return (int)cudaErrorInvalidValue;
+  Plan pl = {};
+  pl.first[0] = 0;
+  for (int g = 0; g < num_out_grids; ++g) {
+    long long n = sp.out.dims[g][0];
+    for (int k = 0; k < 3; ++k) {
+      const int size = sp.out.dims[g][1 + k], cells = bricks[3 * g + k];
+      if (cells < 1 || (size == 1 && cells != 1))
+        return (int)cudaErrorInvalidValue;
+      pl.brick[g][k] = cells;
+      pl.nb[g][k] = (size + cells - 1) / cells;
+      n *= pl.nb[g][k];
+    }
+    const int rows = tile_extent(bricks[3 * g], sp.out.dims[g][1]) *
+                     tile_extent(bricks[3 * g + 1], sp.out.dims[g][2]) *
+                     tile_extent(bricks[3 * g + 2], sp.out.dims[g][3]);
+    pl.max_rows = rows > pl.max_rows ? rows : pl.max_rows;
+    if (pl.first[g] + n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    pl.first[g + 1] = pl.first[g] + (int)n;
+  }
+  pl.counts = counts;
+  pl.cursor = cursor;
+  pl.offsets = offsets;
+  pl.runs = static_cast<int2*>(runs);
+  pl.capacity = capacity;
+  pl.item_start = item_start;
+  pl.runs_per_item = runs_per_item;
+  pl.stage = stage_chn(n_layers ? in_chn : (out_chn < 64 ? out_chn : 64));
+  pl.warp_floats = warp_floats(pl.max_rows, out_chn, pl.stage);
   if (num_rays == 0) return (int)cudaSuccess;
   Params& p = sp.m;
   p.origins = origins;
@@ -195,14 +671,19 @@ int lightplane_splat_fw(
   sp.w = w;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_layers == 0) {
-    const int blocks = (num_rays + kThreads - 1) / kThreads;
-    splat_fw_enc_kernel<<<blocks, kThreads, 0, s>>>(sp);
+  if (stage < 2) {
+    const int blocks = (num_rays + kPlanThreads - 1) / kPlanThreads;
+    if (stage == 0)
+      splat_plan_kernel<false><<<blocks, kPlanThreads, 0, s>>>(sp, pl);
+    else
+      splat_plan_kernel<true><<<blocks, kPlanThreads, 0, s>>>(sp, pl);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)fw_smem_bytes(width, n_layers);
-  const cudaError_t e = width == 32 ? launch_mlp<32>(sp, smem, s)
-                                    : launch_mlp<64>(sp, smem, s);
+  if (kAblate & kAblateNoSplat) return (int)cudaSuccess;
+  cudaError_t e;
+  if (n_layers == 0) e = launch_splat<0>(sp, pl, max_items, s);
+  else if (width == 32) e = launch_splat<32>(sp, pl, max_items, s);
+  else e = launch_splat<64>(sp, pl, max_items, s);
   return (int)e;
 }
 

@@ -69,6 +69,10 @@ _SPLAT_FW_ARGTYPES = (
     + [_I, _P, _I]       # n_layers, mlp_widths, width
     + [_I, _I, _F, _I, _I]  # num_samples, num_samples_inf, disparity, mask,
                             # contract
+    + [_P, _I]           # bricks, stage
+    + [_P, _P, _P, _P, ctypes.c_longlong]  # counts, cursor, offsets, runs,
+                                           # capacity
+    + [_P, _I, ctypes.c_longlong]  # item_start, runs_per_item, max_items
     + [_P]               # stream
 )
 # lightplane_splat_bw (see csrc/splatter_bw.cu)
@@ -170,7 +174,7 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_render_bw_partial_floats.restype = ctypes.c_longlong
     lib.lightplane_splat_fw.argtypes = _SPLAT_FW_ARGTYPES
     lib.lightplane_splat_fw.restype = _I
-    lib.lightplane_splat_fw_smem_bytes.argtypes = [_I, _I]
+    lib.lightplane_splat_fw_smem_bytes.argtypes = [_I] * 5
     lib.lightplane_splat_fw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_splat_bw.argtypes = _SPLAT_BW_ARGTYPES
     lib.lightplane_splat_bw.restype = _I

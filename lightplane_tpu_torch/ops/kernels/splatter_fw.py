@@ -1,17 +1,22 @@
 """The splatter's forward kernel (S1): its wrapper, its plain PyTorch version
-and the dispatch between them.
+and the dispatch between them, and the plan of runs by brick that the
+kernel splats by, with its own plain version.
 
 ``splat_fwd_cuda`` launches ``csrc/splatter_fw.cu`` (which replaces
-``lightplane_tpu/ops/kernels/splatter_pallas.py::_build_fw_kernel``);
-``splat_fwd_torch`` is the same march as a plain PyTorch loop over steps
+``lightplane_tpu/ops/kernels/splatter_pallas.py::_build_fw_kernel``):
+the plan's count pass, a prefix sum, its fill pass, then the splat pass that
+sums each brick's runs in shared memory and flushes the touched rows.
+``splat_fwd_torch`` is the same splat as a plain PyTorch loop over steps
 (the port of the JAX scan core ``_splat_fwd_impl``).  ``splat_fwd`` sends
 CUDA tensors to the kernel and CPU tensors to the plain version; there is no
-fallback from one to the other.
+fallback from one to the other.  ``splat_plan_cuda`` and
+``splat_plan_torch`` give the plan itself (``canonical_runs`` puts the
+kernel's runs in the plain version's order).
 
 Every function takes ``(cfg, geom, diff)``: ``geom = (directions, origins,
 near, far, grid_idx)`` and ``diff = (encoding, input_grid_flat,
-mlp_params)`` (the last two None without an MLP), and returns the raw
-accumulators ``(feat [V, C], w [V, 1])``.
+mlp_params)`` (the last two None without an MLP), and the splat returns the
+raw accumulators ``(feat [V, C], w [V, 1])``.
 """
 
 from __future__ import annotations
@@ -36,8 +41,29 @@ from .renderer_fw import (
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it, so a caller can reset it and show that
-# a run went through the kernel.
+# a run went through the kernel.  LAUNCHES counts splats (their plans and
+# splat passes), PLAN_LAUNCHES plans (one per output sub-grid and slice of
+# rays of a splat, and any asked for alone).
 LAUNCHES = 0
+PLAN_LAUNCHES = 0
+
+# Shared memory of a splat block (the MLP's layers, then per warp a tile of
+# rows of C channels and the weight, and a batch of staged encodings) that
+# lets three blocks share an SM (228 KB, 1 KB of it reserved per block):
+# the splat pass is bound by latency, and at the splat headline and
+# lift-then-render's splat this beat the bricks for one or two blocks an SM
+# (PERF.md, section 6)
+BLOCK_SMEM_BUDGET = 228 * 1024 // 3 - 1024
+SPLAT_WARPS = 4    # warps per block of the splat pass (kWarps)
+RUN_BATCH = 32     # runs a warp marches together (kBatch)
+# K: the runs of one work item, a brick's slice
+RUNS_PER_ITEM = 1024
+# a run stores its first and last step in 16 bits each
+MAX_STEPS = 0xFFFF
+# The most runs one plan's list holds (256 MiB): a splat whose rays' bound
+# (plan_shape) exceeds it plans and splats its rays in slices, so that the
+# list stops growing with the rays and the samples
+PLAN_MAX_RUNS = 1 << 25
 
 
 def splat_fwd_torch(cfg: _SplatCfg, geom, diff):
@@ -57,6 +83,200 @@ def splat_fwd_torch(cfg: _SplatCfg, geom, diff):
                        pts, grid_idx, cfg.mask_out_of_bounds_samples,
                        inplace=True)
     return acc[:, :C].contiguous(), acc[:, C:].contiguous()
+
+
+def _mlp_width(cfg: _SplatCfg) -> int:
+    """The MLP's padded activation width (0 without an MLP or beyond the
+    widest build; ``splat_launch_args`` raises for the latter)."""
+    if not cfg.n_hidden:
+        return 0
+    return next((w for w in WIDTHS if max(cfg.n_hidden) <= w), 0)
+
+
+def _tile_rows(grid_size, brick) -> int:
+    """Rows of a brick's tile: its cells and the upper corner of the last
+    along each axis that is not a singleton."""
+    rows = 1
+    for size, cells in zip(grid_size[1:4], brick):
+        rows *= cells + 1 if size > 1 else 1
+    return rows
+
+
+def _stage_chn(cfg: _SplatCfg) -> int:
+    """Channels of a run's staged encoding (``stage_chn``): the MLP's input,
+    or a pass of at most 64 of the output's, in slices of 32."""
+    E = cfg.n_hidden[0] if cfg.n_hidden else min(cfg.out_chn, 64)
+    return 32 if E <= 32 else 64
+
+
+def splat_smem_bytes(width: int, n_layers: int, rows: int, C: int,
+                     stage: int) -> int:
+    """Shared memory of a splat block: the MLP's layers, then per warp a
+    tile of ``rows`` rows of C channels and the weight (an even count of
+    floats) and a batch of staged encodings of ``stage`` channels, rounded
+    up to 16 bytes (as ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
+    row = (C + 2) & ~1
+    warp = -(-(rows * row + RUN_BATCH * stage) // 4) * 4
+    return 4 * (n_layers * (width * width + width) + SPLAT_WARPS * warp)
+
+
+def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET):
+    """The brick, cells along (D, H, W), of each output sub-grid: from 2
+    cells along each axis that is not a singleton, the axis with the fewest
+    cells (the later on a tie) doubles while the block's shared memory stays
+    within ``budget`` and the brick within the grid.  Raises where even the
+    smallest brick exceeds a block's shared memory."""
+    C = cfg.out_chn
+    width = _mlp_width(cfg)
+    n_layers = len(cfg.n_hidden) - 1 if width else 0
+    stage = _stage_chn(cfg)
+
+    def smem(gs, brick):
+        return splat_smem_bytes(width, n_layers, _tile_rows(gs, brick), C,
+                                stage)
+
+    bricks = []
+    for gs in cfg.output_grid_sizes:
+        dims = gs[1:4]
+        brick = [2 if d > 1 else 1 for d in dims]
+        if smem(gs, brick) > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"the CUDA splatter needs {smem(gs, brick)} bytes of shared "
+                f"memory for the smallest brick of {C} channels, more than "
+                f"the {MAX_SMEM_BYTES} a Hopper block has")
+        while True:
+            grow = [k for k in range(3) if 1 < dims[k] and brick[k] < dims[k]]
+            if not grow:
+                break
+            k = min(reversed(grow), key=lambda k: brick[k])
+            bigger = list(brick)
+            bigger[k] *= 2
+            if smem(gs, bigger) > budget:
+                break
+            brick = bigger
+        bricks.append(tuple(brick))
+    return tuple(bricks)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanShape:
+    """The bricks of an output grid-list and the bound on its runs."""
+
+    nb: tuple          # bricks along (D, H, W), per sub-grid
+    first: tuple       # the first brick id of each sub-grid, then the total
+    capacity: int      # runs the list can hold
+
+    @property
+    def n_bricks(self):
+        return self.first[-1]
+
+
+def plan_shape(cfg: _SplatCfg, bricks, n_rays: int) -> PlanShape:
+    """Brick counts and the capacity of the run list, from the shapes
+    alone.  A run is one ray's consecutive steps with one brick in one
+    sub-grid.  Without contraction and background steps the steps walk a
+    straight segment in order, so each axis's brick index only moves one way
+    and the steps with an in-bounds corner (and, with masking, inside the
+    cube) form one interval: a ray makes at most 1 + sum(bricks - 1 per
+    axis) runs in a sub-grid.  Background depths need not grow by the step
+    in f32 and contraction bends the path, so with either the bound is the
+    step count; always at most the step count."""
+    steps = cfg.tot_num_samples
+    nb, first, capacity = [], [0], 0
+    straight = not cfg.contract_coords and cfg.num_samples_inf == 0
+    for gs, brick in zip(cfg.output_grid_sizes, bricks):
+        n = tuple(-(-size // cells) for size, cells in zip(gs[1:4], brick))
+        nb.append(n)
+        first.append(first[-1] + gs[0] * n[0] * n[1] * n[2])
+        per_ray = steps
+        if straight:
+            per_ray = min(steps, 1 + sum(k - 1 for k in n))
+        capacity += n_rays * per_ray
+    return PlanShape(tuple(nb), tuple(first), capacity)
+
+
+def ray_slices(cfg: _SplatCfg, g: int, brick, n_rays: int):
+    """The slices ``(start, stop)`` of the rays that ``splat_fwd_cuda``
+    plans and splats one after another in output sub-grid ``g``: each
+    slice's run list (``plan_shape``) holds at most ``PLAN_MAX_RUNS`` runs,
+    and each slice but the last is a multiple of 32 rays."""
+    per_ray = plan_shape(_sub_cfg(cfg, g), (brick,), 1).capacity
+    step = max(32, PLAN_MAX_RUNS // max(per_ray, 1) // 32 * 32)
+    return [(lo, min(lo + step, n_rays)) for lo in range(0, n_rays, step)]
+
+
+def _brick_keys(gs, brick, nb, first, pts, grid_idx, live):
+    """Per ray, the brick of sub-grid ``gs`` that holds the lower corner of
+    its point, clamped into the grid, or -1 where the point has no in-bounds
+    corner there or ``live`` is false."""
+    coords = []
+    for size, p, cells in zip(gs[1:4], (pts[:, 2], pts[:, 1], pts[:, 0]),
+                              brick):
+        f = ((p + 1.0) * 0.5) * size - 0.5 if size > 1 else torch.zeros_like(p)
+        f0 = torch.floor(f)
+        live = live & (f0 >= -1) & (f0 <= size - 1)
+        coords.append(f0)
+    k = [torch.where(live, f0, torch.zeros_like(f0)).clamp(min=0).long()
+         // cells for f0, cells in zip(coords, brick)]
+    key = first + ((grid_idx * nb[0] + k[0]) * nb[1] + k[1]) * nb[2] + k[2]
+    return torch.where(live, key, torch.full_like(key, -1))
+
+
+def splat_plan_torch(cfg: _SplatCfg, geom, bricks):
+    """Plain PyTorch version of the plan's two passes: ``(counts [bricks]
+    int32, offsets [bricks + 1] int32, runs [N, 3] int64)``, the runs as
+    (ray, first step, last step), grouped by brick in order of (ray, first
+    step).  A ray whose ``grid_idx`` lies outside every grid's batch makes
+    no runs."""
+    directions, _, _, _, grid_idx = geom
+    R, S = directions.shape[0], cfg.tot_num_samples
+    shape = plan_shape(cfg, bricks, R)
+    sizes = tuple(cfg.output_grid_sizes) + tuple(cfg.input_grid_sizes or ())
+    gi = grid_idx.long()
+    live = (gi >= 0) & (gi < min(gs[0] for gs in sizes))
+    G = len(cfg.output_grid_sizes)
+    keys = torch.full((G, R, S), -1, dtype=torch.int64,
+                      device=directions.device)
+    for s in range(S):
+        pts = _march_points(cfg, geom, s)
+        ok = live
+        if cfg.mask_out_of_bounds_samples:
+            ok = ok & (pts.abs() <= 1.0).all(-1)
+        for g, (gs, brick) in enumerate(zip(cfg.output_grid_sizes, bricks)):
+            keys[g, :, s] = _brick_keys(gs, brick, shape.nb[g],
+                                        shape.first[g], pts, gi, ok)
+    runs, run_keys = [], []
+    none = torch.full((R, 1), -1, dtype=torch.int64, device=keys.device)
+    for k in keys:
+        prev = torch.cat([none, k[:, :-1]], 1)
+        nxt = torch.cat([k[:, 1:], none], 1)
+        starts = ((k >= 0) & (k != prev)).nonzero()   # (ray, step), in order
+        ends = ((k >= 0) & (k != nxt)).nonzero()
+        runs.append(torch.stack([starts[:, 0], starts[:, 1], ends[:, 1]], 1))
+        run_keys.append(k[starts[:, 0], starts[:, 1]])
+    runs, run_keys = torch.cat(runs), torch.cat(run_keys)
+    order = torch.argsort((run_keys * R + runs[:, 0]) * S + runs[:, 1])
+    counts = torch.bincount(run_keys, minlength=shape.n_bricks)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return counts.int(), offsets.int(), runs[order]
+
+
+def canonical_runs(counts, offsets, runs):
+    """The kernel's run list ``runs`` ([capacity, 2] int32: ray, first step
+    | last step << 16, in an order its atomics chose within each brick) as
+    ``splat_plan_torch`` gives it: [N, 3] int64 (ray, first step, last
+    step), grouped by brick in order of (ray, first step)."""
+    counts = counts.long()
+    n = int(offsets[-1])
+    raw = runs[:n].long()
+    brick = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    out = torch.stack([raw[:, 0], raw[:, 1] & 0xFFFF,
+                       (raw[:, 1] >> 16) & 0xFFFF], 1)
+    R = int(out[:, 0].max()) + 1 if n else 1
+    order = torch.argsort((brick * R + out[:, 0]) * (MAX_STEPS + 1)
+                          + out[:, 1])
+    return out[order]
 
 
 def _grid_meta(grid_sizes, rows: int, chn: int, name: str):
@@ -149,6 +369,9 @@ def splat_launch_args(cfg: _SplatCfg, geom, diff, kernel: str):
         widths = (ctypes.c_int * len(cfg.n_hidden))(*cfg.n_hidden)
     else:
         _check(encoding, "encoding", f32, (R, C), device)
+    if cfg.tot_num_samples > MAX_STEPS:
+        raise ValueError(f"the CUDA splatter takes up to {MAX_STEPS} steps "
+                         f"per ray, got {cfg.tot_num_samples}")
     guards.check_grid_idx(grid_idx, min(batches), kernel)
     return SplatLaunchArgs(
         device=device, R=R, C=C, C_in=C_in, n_layers=n_layers,
@@ -161,42 +384,132 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=()):
-    """Launch the splat forward kernel on the current CUDA stream.
-    ``defines`` pick a variant build of the kernel (``_build.library``)."""
-    global LAUNCHES
+def _sub_cfg(cfg: _SplatCfg, g: int) -> _SplatCfg:
+    """``cfg`` with output sub-grid ``g`` alone."""
+    return dataclasses.replace(cfg,
+                               output_grid_sizes=(cfg.output_grid_sizes[g],))
+
+
+def plan_slice(counts, offsets, runs, shape: PlanShape, g: int):
+    """The part of a plan of every output sub-grid (``splat_plan_torch``)
+    that is sub-grid ``g``'s: its counts, its offsets from 0 and its runs,
+    as the plan of that sub-grid alone gives them."""
+    lo, hi = shape.first[g], shape.first[g + 1]
+    first, last = int(offsets[lo]), int(offsets[hi])
+    return counts[lo:hi], offsets[lo:hi + 1] - first, runs[first:last]
+
+
+def _launch(lib, stage, cfg, geom, diff, a, g, brick, feat=None, w=None,
+            counts=None, cursor=None, offsets=None, runs=None, capacity=0,
+            item_start=None, max_items=0):
+    """One stage of ``lightplane_splat_fw`` (0 count, 1 fill, 2 splat) for
+    output sub-grid ``g`` with bricks of ``brick`` cells, over the rays of
+    ``geom`` (all of them or a slice), on the current CUDA stream; raises
+    when the launch fails."""
     directions, origins, near, far, grid_idx = geom
-    a = splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
-    encoding, input_grid_flat, mlp_params = (aligned(t) for t in diff)
-
-    from ._build import library
-
-    lib = library(defines)
-    if a.n_layers:
-        smem = lib.lightplane_splat_fw_smem_bytes(a.width, a.n_layers)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(
-                f"the splatter MLP needs {smem} bytes of shared memory per "
-                f"block, more than the {MAX_SMEM_BYTES} a Hopper block has")
-    feat = torch.zeros((cfg.v_total, a.C), dtype=torch.float32,
-                       device=a.device)
-    w = torch.zeros((cfg.v_total, 1), dtype=torch.float32, device=a.device)
+    encoding, input_grid_flat, mlp_params = diff
+    meta = (ctypes.c_int * 5)(*a.out_meta[5 * g:5 * g + 5])
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.lightplane_splat_fw(
         origins.data_ptr(), directions.data_ptr(), near.data_ptr(),
         far.data_ptr(), grid_idx.data_ptr(), encoding.data_ptr(),
-        _ptr(input_grid_flat), _ptr(mlp_params),
-        feat.data_ptr(), w.data_ptr(),
-        a.R, len(cfg.output_grid_sizes), a.out_meta, a.C,
+        _ptr(input_grid_flat), _ptr(mlp_params), _ptr(feat), _ptr(w),
+        directions.shape[0], 1, meta, a.C,
         len(cfg.input_grid_sizes or ()), a.in_meta, a.C_in,
         a.n_layers, a.mlp_widths, a.width,
         cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf,
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
-        stream,
+        (ctypes.c_int * 3)(*brick), stage, _ptr(counts), _ptr(cursor),
+        _ptr(offsets), _ptr(runs), capacity, _ptr(item_start),
+        RUNS_PER_ITEM, max_items, stream,
     )
     if rc != 0:
         msg = lib.lightplane_cuda_error_string(rc).decode()
-        raise RuntimeError(f"splatter_fw kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(
+            f"splatter_fw kernel launch (stage {stage}) failed: {msg} ({rc})")
+
+
+def _plan_cuda(lib, cfg, geom, diff, a, g, brick):
+    """Sub-grid ``g``'s plan of the rays of ``geom``: the count pass, the
+    prefix sum of the counts and the fill pass; ``(shape, counts, offsets,
+    runs)``.  Nothing is read back."""
+    global PLAN_LAUNCHES
+    shape = plan_shape(_sub_cfg(cfg, g), (brick,), geom[0].shape[0])
+    if shape.capacity >= 2**31 or shape.n_bricks >= 2**31:
+        raise ValueError("too many runs or bricks for the CUDA splatter's "
+                         "int32 plan")
+    counts = torch.zeros(shape.n_bricks, dtype=torch.int32, device=a.device)
+    _launch(lib, 0, cfg, geom, diff, a, g, brick, counts=counts)
+    offsets = torch.zeros(shape.n_bricks + 1, dtype=torch.int32,
+                          device=a.device)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    cursor = torch.zeros_like(counts)
+    runs = torch.empty((max(shape.capacity, 1), 2), dtype=torch.int32,
+                       device=a.device)
+    _launch(lib, 1, cfg, geom, diff, a, g, brick, cursor=cursor,
+            offsets=offsets, runs=runs, capacity=shape.capacity)
+    PLAN_LAUNCHES += 1
+    return shape, counts, offsets, runs
+
+
+def splat_plan_cuda(cfg: _SplatCfg, geom, diff, bricks=None, grid=0):
+    """The plan's kernels alone, for output sub-grid ``grid`` and every
+    ray in one list, on the current CUDA stream: ``(counts [bricks] int32,
+    offsets [bricks + 1] int32, runs [capacity, 2] int32)``, each brick's
+    runs in the order its atomics chose (``canonical_runs`` orders them;
+    ``plan_slice`` cuts the plain version's plan of every sub-grid to
+    match).  ``bricks`` default to ``pick_bricks(cfg)``."""
+    a = splat_launch_args(cfg, geom, diff, "splat_plan_cuda")
+    diff = tuple(aligned(t) for t in diff)
+    from ._build import library
+
+    bricks = pick_bricks(cfg) if bricks is None else tuple(bricks)
+    _, counts, offsets, runs = _plan_cuda(library(), cfg, geom, diff, a,
+                                          grid, bricks[grid])
+    return counts, offsets, runs
+
+
+def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=(), bricks=None):
+    """Launch the splat forward on the current CUDA stream, one output
+    sub-grid and slice of rays (``ray_slices``) after another, so that a
+    run list holds at most one sub-grid's runs and ``PLAN_MAX_RUNS``: its
+    plan (``_plan_cuda``), the work items' prefix sum, and the splat pass.
+    ``defines`` pick a variant build of the kernel
+    (``_build.library``); ``bricks`` (cells along D, H, W per output
+    sub-grid) default to ``pick_bricks(cfg)``."""
+    global LAUNCHES
+    a = splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
+    diff = tuple(aligned(t) for t in diff)
+
+    from ._build import library
+
+    lib = library(defines)
+    bricks = pick_bricks(cfg) if bricks is None else tuple(bricks)
+    rows = max(_tile_rows(gs, b)
+               for gs, b in zip(cfg.output_grid_sizes, bricks))
+    smem = lib.lightplane_splat_fw_smem_bytes(a.width, a.n_layers, rows, a.C,
+                                              a.C_in)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the splatter needs {smem} bytes of shared memory per block, "
+            f"more than the {MAX_SMEM_BYTES} a Hopper block has")
+    feat = torch.zeros((cfg.v_total, a.C), dtype=torch.float32,
+                       device=a.device)
+    w = torch.zeros((cfg.v_total, 1), dtype=torch.float32, device=a.device)
+    for g, brick in enumerate(bricks):
+        for lo, hi in ray_slices(cfg, g, brick, a.R):
+            geom_s = tuple(t[lo:hi] for t in geom)
+            diff_s = (diff[0][lo:hi],) + diff[1:]
+            shape, counts, offsets, runs = _plan_cuda(lib, cfg, geom_s,
+                                                      diff_s, a, g, brick)
+            items = (counts + (RUNS_PER_ITEM - 1)) // RUNS_PER_ITEM
+            item_start = torch.zeros_like(offsets)
+            item_start[1:] = torch.cumsum(items, 0, dtype=torch.int32)
+            max_items = shape.n_bricks + -(-shape.capacity // RUNS_PER_ITEM)
+            _launch(lib, 2, cfg, geom_s, diff_s, a, g, brick, feat=feat, w=w,
+                    offsets=offsets, runs=runs, capacity=shape.capacity,
+                    item_start=item_start, max_items=max_items)
+            del runs
     LAUNCHES += 1
     return feat, w
 

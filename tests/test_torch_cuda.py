@@ -540,3 +540,119 @@ def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
     with pytest.raises(ValueError, match="grid_idx out of range"):
         lp.lightplane_splatter(rays_b, [(1, 8, 8, 8, 16)], num_samples=8,
                                impl="cuda")
+
+
+def _splat_geom(device, out_sizes, n_rays, num_samples=24, seed=0, **kw):
+    """``(cfg, geom, diff)`` of a splat without MLP, as
+    ``lightplane_splatter`` hands them to S1."""
+    from lightplane_tpu_torch.ops import splatter as smod
+
+    rays, _, _ = _splat_case(device, out_sizes, batch=out_sizes[0][0],
+                             n_rays=n_rays, seed=seed)
+    cfg = smod._SplatCfg(num_samples, kw.get("num_samples_inf", 0),
+                         kw.get("mask_out_of_bounds_samples", False),
+                         kw.get("contract_coords", False),
+                         kw.get("disparity_at_inf", 1e-3),
+                         tuple(out_sizes), None, ())
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    return cfg, geom, (rays.encoding, None, None)
+
+
+# S1's shapes: (output sizes, rays, march keywords, bricks or None for the
+# wrapper's pick); "crowded" sends 4096 rays through an 8^3 grid of one
+# brick, which then holds more runs than a work item takes (RUNS_PER_ITEM)
+S1_CASES = {
+    "voxel": ([(1, 20, 18, 16, 16)], 2048, {}, None),
+    "triplane": (_tri(1, 24, 32), 2048, {}, None),
+    "batched_mask": ([(3, 12, 12, 12, 8)], 2048,
+                     dict(mask_out_of_bounds_samples=True), (2, 3, 4)),
+    "chn6_samples_inf": ([(1, 10, 12, 14, 6)], 2048,
+                         dict(num_samples_inf=3), (3, 2, 2)),
+    "crowded": ([(1, 8, 8, 8, 16)], 4096, {}, (8, 8, 8)),
+}
+
+
+def _grid_bricks(bricks, out_sizes):
+    """``bricks`` (cells along D, H, W) for each output sub-grid, 1 along
+    its singleton axes; None stays None."""
+    if bricks is None:
+        return None
+    return tuple(tuple(c if size > 1 else 1 for c, size in zip(bricks, gs[1:4]))
+                 for gs in out_sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(S1_CASES))
+def test_splat_fwd_kernel_matches_plain(cuda, case):
+    """S1 (plan, prefix sums, splat by bricks) against ``splat_fwd_torch``:
+    the raw accumulators within 1e-3 x max |ref|."""
+    out_sizes, n, kw, bricks = S1_CASES[case]
+    cfg, geom, diff = _splat_geom(cuda, out_sizes, n, **kw)
+    bricks = _grid_bricks(bricks, out_sizes)
+    if case == "crowded":
+        counts = splatter_fw.splat_plan_cuda(cfg, geom, diff, bricks)[0]
+        assert int(counts.max()) > splatter_fw.RUNS_PER_ITEM
+    before = splatter_fw.LAUNCHES
+    with torch.no_grad():
+        got = splatter_fw.splat_fwd_cuda(cfg, geom, diff, bricks=bricks)
+        want = splatter_fw.splat_fwd_torch(cfg, geom, diff)
+    torch.cuda.synchronize()
+    assert splatter_fw.LAUNCHES == before + 1
+    for name, a, b in zip(("feat", "w"), got, want):
+        assert a.shape == b.shape, name
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * float(b.abs().max()), f"{name}: {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(S1_CASES))
+def test_splat_plan_kernels_match_plain(cuda, case):
+    """The plan's count and fill passes equal ``splat_plan_torch`` exactly
+    once each brick's runs are sorted."""
+    out_sizes, n, kw, bricks = S1_CASES[case]
+    cfg, geom, diff = _splat_geom(cuda, out_sizes, n, **kw)
+    bricks = _grid_bricks(bricks, out_sizes) or splatter_fw.pick_bricks(cfg)
+    shape = splatter_fw.plan_shape(cfg, bricks, n)
+    with torch.no_grad():
+        plain = splatter_fw.splat_plan_torch(cfg, geom, bricks)
+        for g in range(len(out_sizes)):
+            counts, offsets, runs = splatter_fw.splat_plan_cuda(
+                cfg, geom, diff, bricks, grid=g)
+            want = splatter_fw.plan_slice(*plain, shape, g)
+            assert torch.equal(counts, want[0])
+            assert torch.equal(offsets, want[1])
+            # the runs fit the list sized from the shapes (the fill pass
+            # traps where they do not)
+            assert int(offsets[-1]) <= runs.shape[0]
+            got = splatter_fw.canonical_runs(counts, offsets, runs)
+            assert torch.equal(got, want[2])
+            assert got.shape[0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["voxel", "triplane", "batched_mask"])
+def test_splat_fwd_kernel_in_ray_slices_matches_plain(cuda, case,
+                                                      monkeypatch):
+    """S1 with run lists of at most 500 rays' runs plans and splats each
+    sub-grid's rays in slices (``ray_slices``), and still matches
+    ``splat_fwd_torch``."""
+    out_sizes, n, kw, bricks = S1_CASES[case]
+    cfg, geom, diff = _splat_geom(cuda, out_sizes, n, **kw)
+    bricks = _grid_bricks(bricks, out_sizes) or splatter_fw.pick_bricks(cfg)
+    per_ray = max(splatter_fw.plan_shape(splatter_fw._sub_cfg(cfg, g), (b,),
+                                         1).capacity
+                  for g, b in enumerate(bricks))
+    monkeypatch.setattr(splatter_fw, "PLAN_MAX_RUNS", 500 * per_ray)
+    slices = sum(len(splatter_fw.ray_slices(cfg, g, b, n))
+                 for g, b in enumerate(bricks))
+    assert slices > len(bricks)
+    plans = splatter_fw.PLAN_LAUNCHES
+    with torch.no_grad():
+        got = splatter_fw.splat_fwd_cuda(cfg, geom, diff, bricks=bricks)
+        want = splatter_fw.splat_fwd_torch(cfg, geom, diff)
+    torch.cuda.synchronize()
+    assert splatter_fw.PLAN_LAUNCHES - plans == slices
+    for name, a, b in zip(("feat", "w"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * float(b.abs().max()), f"{name}: {err}"
