@@ -4,8 +4,8 @@ NVIDIA Hopper GPU.
 
     python3 chip_smoke.py                # the phases below
     python3 chip_smoke.py --only 3b,5,9  # phases 1, 2 and those named
-    python3 chip_smoke.py --ablate       # phases 1-2, R1, R2, S1 with parts off
-    python3 chip_smoke.py --ablate R1    # phases 1-2, R1 with parts off
+    python3 chip_smoke.py --ablate       # phases 1-2, R1, R2, S1, S2 with parts off
+    python3 chip_smoke.py --ablate S2    # phases 1-2, S2 with parts off
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -67,22 +67,30 @@ exits non-zero without its result line:
    (MLP 32 -> 32 -> 64, the 64-wide kernels, from a 3 x 128^2 x 32ch input
    triplane into 160^3 x 64ch) over one such view.  On every config S1's
    plan kernels are held exactly (integers, each brick's runs sorted)
-   against their plain version (``splat_plan_torch``), and three more
-   configs hold S1 and its plan with bricks of 2 x 3 x 2 cells (a triplane,
-   the MLP with masking, 6 channels with contraction).
+   against their plain version (``splat_plan_torch``); S2 is held alone on
+   every ray, and on every config without the MLP so is S2 with one (its
+   "twin": an 8 -> 16 -> C MLP from an 8-channel input grid-list of the
+   output's shapes), under its relu masks, with the plan of its pass B over
+   the input grid-list held exactly.  Three more configs hold S1 and its
+   plan with bricks of 2 x 3 x 2 cells (a triplane, the MLP with masking, 6
+   channels with contraction), S1 with its rays in slices, and S2 with the
+   MLP (there, or on the twin) with its rays in slices.
 7. The splatter at full width (``bench.py``'s splatter headline): 16 views
    x 128^2 rays x 96 samples into one 160^3 x 64ch voxel grid.  The fw+bw
    step of ``lightplane_splatter`` (loss ``sum(out^2)``), S1 and S2 alone and
    their plain versions are timed, S1's plan alone too, with its brick,
-   runs and bytes; peak memory is read at 48 and 96 samples; then the
-   ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over the same rays with a
-   3 x 128^2 x 32ch input triplane, its step's device time by kernel.
+   runs and bytes; peak memory is read at 48 and 96 samples; S2 with the
+   MLP alone at the MLP splatter's shapes (its time, its plain version's,
+   its error, its bounds, its own peak memory at 48, 96 and 192 samples);
+   then the ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over the same
+   rays with a 3 x 128^2 x 32ch input triplane, its step's device time by
+   kernel.
 8. Lift-then-render (``bench.py``'s batched 512^2 memory workload): per-pixel
    32-channel encodings of 2 and of 4 images are splatted into a 3 x 128^2
    x 32ch triplane (96 samples) and rendered back (256 samples, decoder
    2/2/2 with hidden 32); one backward reaches the encodings and the
    decoder through R2 and S2.  Step time, peak memory, and the marginal
-   memory per image; S1's time alone at 4 images.
+   memory per image; S1's and S2's times alone at 4 images.
 9. Scene fitting: the port's trainer
    (``lightplane_tpu_torch.examples.fit_single_scene.main``) at the JAX
    app's default width (triplane 3 x 64^2 x 32ch, 128 samples, 4096 rays,
@@ -101,7 +109,8 @@ Phases 4, 5, 7, 8 and 9 each set the kernels' launch counts to 0 just
 before they drive their path and read them just after.  Every phase prints
 its time.  The last lines are the card's name and power limit, a JSON line
 with every kernel (its launches on its main path, the trainer of phase 9
-for R1 and R2 and the splatter step of phase 7 for S1 and S2, its error
+for R1 and R2, the splatter step of phase 7 for S1 and S2 and its MLP
+splatter step for S2 with the MLP, its error
 against the plain version, its time, the plain version's time and the least
 time the card could take, and for R1 and R2 the same for the scaffold and
 relu-field branches) and the result line ``{"ok": true, "device":
@@ -111,13 +120,15 @@ relu-field branches) and the result line ``{"ok": true, "device":
 one kernel); it prints the result line but no kernels line, which needs
 every phase.
 
-``--ablate [R1,R2,S1]`` builds variants of the kernels with parts switched
+``--ablate [R1,R2,S1,S2]`` builds variants of the kernels with parts switched
 off (the ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build
 each, all started together, and times each twice in turn: R1 at the slice
 shape and at phase 9's trainer shape (without the fit: ``trainer_march``),
 R2 at the slice shape, S1 at the splatter headline and at lift-then-render's
 splat: its plan alone, plan and tile sums without the flush, as built; and
-as built with the bricks that fit 1, 2, 3 or 4 blocks on an SM.
+as built with the bricks that fit 1, 2, 3 or 4 blocks on an SM; S2 at the
+splatter headline and at the MLP splatter step: without the input grid's
+gradient, without the MLP's weight gradient, the gather alone, as built.
 """
 
 import copy
@@ -1313,27 +1324,31 @@ def splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes):
     return cfg, geom, diff
 
 
-def plan_parity(cfg, geom, diff, bricks=None):
+def plan_parity(cfg, geom, diff, bricks=None, inputs=False):
     """Hold S1's plan kernels (count, prefix sum, fill) exactly against
     their plain version: the counts and offsets per brick, and the runs in
     each brick once sorted (the kernel's order within a brick is its
-    atomics')."""
+    atomics').  With ``inputs``, the plan over the input grid-list that
+    S2's pass B splats by."""
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
-    bricks = sfw.pick_bricks(cfg) if bricks is None else bricks
-    shape = sfw.plan_shape(cfg, bricks, geom[0].shape[0])
+    sizes = cfg.input_grid_sizes if inputs else None
+    if bricks is None:
+        bricks = sfw.pick_bricks(cfg, grid_sizes=sizes)
+    shape = sfw.plan_shape(cfg, bricks, geom[0].shape[0], sizes)
     with torch.no_grad():
-        plain = sfw.splat_plan_torch(cfg, geom, bricks)
+        plain = sfw.splat_plan_torch(cfg, geom, bricks, sizes)
         for g in range(len(bricks)):
-            counts, offsets, runs = sfw.splat_plan_cuda(cfg, geom, diff,
-                                                        bricks, grid=g)
+            counts, offsets, runs = sfw.splat_plan_cuda(
+                cfg, geom, diff, bricks, grid=g, inputs=inputs)
             got = sfw.canonical_runs(counts, offsets, runs)
             c_p, o_p, r_p = sfw.plan_slice(*plain, shape, g)
             assert torch.equal(counts, c_p), f"plan {g}: counts differ"
             assert torch.equal(offsets, o_p), f"plan {g}: offsets differ"
             assert torch.equal(got, r_p), f"plan {g}: runs differ"
-    print(f"    plan: bricks {bricks}, {shape.n_bricks} bricks, "
-          f"{plain[2].shape[0]} runs, equal to its plain version")
+    print(f"    {'pass B plan (input grid-list)' if inputs else 'plan'}: "
+          f"bricks {bricks}, {shape.n_bricks} bricks, {plain[2].shape[0]} "
+          f"runs, equal to its plain version")
 
 
 def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
@@ -1387,25 +1402,72 @@ def splat_parity(lp, name, rays, out_sizes, kw, sp=None, igrid=None,
     g_p = splat_grads(*e2e, "torch", proj)
     for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_k, g_p):
         check(label, a, b)
-    if sp is None:
-        return worst
     # S2 alone, every ray, on the cotangent that the normalised grid's
-    # projection sends to the raw accumulator
+    # projection sends to the raw accumulator; without the MLP, also S2
+    # with one (its twin: an 8 -> 16 -> C MLP from an 8-channel input
+    # grid-list of the output's shapes) on the projection itself
     cfg, geom, diff = splat_march(smod, rays, out_sizes, kw, sp, igrid,
                                   in_sizes)
+    g_feat = proj / w_p.clamp(min=eps)
+    if sp is None:
+        with torch.no_grad():
+            g_s = sbw.splat_bwd_cuda(cfg, geom, diff, g_feat)[0]
+            g_r = sbw.splat_bwd_torch(cfg, geom, diff, g_feat)[0]
+        print(f"    S2 alone vs its plain version, all {n} rays:")
+        check("g_enc", g_s, g_r)
+        cfg, geom, diff = mlp_twin(lp, cfg, geom, seed)
+        g_feat = proj
+        print("    its MLP twin (8 -> 16 -> C, 8-channel input grid-list of "
+              "the output's shapes), on the projection as g_out:")
+    worst = max(worst, s2_alone(cfg, geom, diff, g_feat, scaled=sp is None))
+    return worst
+
+
+def mlp_twin(lp, cfg, geom, seed):
+    """``(cfg, geom, diff)`` of a splat of no MLP, given an 8 -> 16 -> C
+    MLP and an 8-channel input grid-list of the output's shapes, made from
+    ``seed`` on the card."""
+    import dataclasses
+
+    gen = torch.Generator().manual_seed(seed)
+    C = cfg.out_chn
+    in_sizes = tuple(tuple(gs[:4]) + (8,) for gs in cfg.output_grid_sizes)
+    sp = lp.init_splatter_params(gen, 2, 8, 16, C)
+    cfg = dataclasses.replace(cfg, input_grid_sizes=in_sizes,
+                              n_hidden=tuple(sp.n_hidden))
+    R = geom[0].shape[0]
+    enc = (torch.randn((R, 8), generator=gen) * 0.1).cuda()
+    igrid = (torch.randn((cfg.v_total, 8), generator=gen) * 0.5).cuda()
+    return cfg, geom, (enc, igrid, sp.mlp_params)
+
+
+def s2_alone(cfg, geom, diff, g_feat, scaled=False):
+    """S2 with the MLP alone on every ray against its plain version
+    replaying the relu masks that the kernel took (its recording build),
+    then the shipped build against the recording one, and pass B's plan
+    over the input grid-list exactly; returns the worst max |d| / max
+    |ref|.  ``scaled`` scales compare_one's absolute bounds by the
+    gradients' magnitude, for a unit cotangent summed over every step of
+    many rays (g_mlp ~1e3 at a 128^2 view of 96 steps, where f32 sums in two
+    orders differ by ~1e-4 of it; the 1e-3 x max |ref| bound holds as is)."""
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+
+    plan_parity(cfg, geom, diff, inputs=True)
     with torch.no_grad():
-        g_feat = proj / w_p.clamp(min=eps)
         g_m, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom, diff, g_feat)
         g_s = sbw.splat_bwd_cuda(cfg, geom, diff, g_feat)
         g_r = sbw.splat_bwd_torch(cfg, geom, diff, g_feat, relu_masks=masks)
     assert int(masks.count_nonzero()) > 0
     print(f"    S2 alone vs its plain version under the kernel's relu masks, "
-          f"all {n} rays:")
+          f"all {geom[0].shape[0]} rays:")
+    worst = 0.0
     for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_m, g_r):
-        check(label, a, b)
+        mx, _ = compare(label, a, b, max_rel=SPLAT_MAX_REL,
+                        magnitude_scaled=scaled)
+        worst = max(worst, mx / max(float(b.abs().max()), 1e-30))
     print("    the shipped build vs the recording build:")
     for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), g_s, g_m):
-        check(label, a, b)
+        compare(label, a, b, max_rel=SPLAT_MAX_REL, magnitude_scaled=scaled)
     return worst
 
 
@@ -1498,6 +1560,9 @@ def phase_splat_parity(lp):
         march = splat_march(smod, rays, out_sizes, kw, sp, igrid, in_sizes)
         worst = max(worst, small_brick_parity(name, *march),
                     sliced_parity(name, *march))
+        if not mlp:
+            march = mlp_twin(lp, *march[:2], seed=chn)
+        worst = max(worst, sliced_adjoint_parity(name, *march))
     print(f"  all configs within bounds; worst max|d| / max|ref| "
           f"{worst:.3e}")
 
@@ -1552,25 +1617,57 @@ def sliced_parity(name, cfg, geom, diff):
     return worst
 
 
-def splat_work(cfg, geom):
-    """(FLOPs, bytes) S1 and S2 (without the MLP) must do on these inputs,
-    from the corners this run's points need: each in-bounds output corner
-    costs S1 2C + 1 FLOPs (C multiply-adds into the row, 1 add into w) and
-    S2 2C (a multiply-add per gathered channel).  Bytes: every input read
-    once and every output written once (S1: the rays and encodings in, the
-    grids out; S2: the rays and the grid's gradient in, the encodings'
-    gradient out)."""
+def sliced_adjoint_parity(name, cfg, geom, diff):
+    """S2 with the MLP, its staging and pass B's run lists capped at a few
+    hundred rays each, so that it runs its passes over slices of the rays
+    (``splatter_bw.adjoint_slices``), against its plain version under the
+    kernel's relu masks; returns max |d| / max |ref|."""
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    bricks = sfw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+    per_ray = max(4 * cfg.tot_num_samples * cfg.n_hidden[0],
+                  8 * max(sfw.plan_shape(cfg, (b,), 1, (gs,)).capacity
+                          for gs, b in zip(cfg.input_grid_sizes, bricks)))
+    kept = sfw.PLAN_MAX_RUNS
+    sfw.PLAN_MAX_RUNS = 300 * per_ray // 8
+    gen = torch.Generator().manual_seed(3)
+    g_feat = torch.randn((cfg.v_total, cfg.out_chn), generator=gen).cuda()
+    try:
+        slices = len(sbw.adjoint_slices(cfg, bricks, geom[0].shape[0]))
+        assert slices > 1, slices
+        with torch.no_grad():
+            got, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
+                                                       g_feat)
+            want = sbw.splat_bwd_torch(cfg, geom, diff, g_feat,
+                                       relu_masks=masks)
+    finally:
+        sfw.PLAN_MAX_RUNS = kept
+    print(f"  {name}: S2 with the MLP over the rays in {slices} slices, "
+          f"under its relu masks:")
+    worst = 0.0
+    # a unit cotangent summed over every step: bounds scaled as s2_alone's
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), got, want):
+        mx, _ = compare(label, a, b, max_rel=SPLAT_MAX_REL,
+                        magnitude_scaled=True)
+        worst = max(worst, mx / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def grid_corners_needed(cfg, geom, sizes):
+    """In-bounds linear-interpolation corners of the grid-list ``sizes``
+    over this run's sampled steps, and the sampled steps that have one."""
     from lightplane_tpu_torch.ops import splatter as smod
 
-    R, C, V = geom[0].shape[0], cfg.out_chn, cfg.v_total
-    corners = 0.0
+    corners = steps = 0.0
     with torch.no_grad():
         for s in range(cfg.tot_num_samples):
             pts = smod._march_points(cfg, geom, s)
             keep = torch.ones_like(pts[:, 0])
             if cfg.mask_out_of_bounds_samples:
                 keep = (pts.abs() <= 1.0).all(-1).float()
-            for _, D, H, W, _ in cfg.output_grid_sizes:
+            step = torch.zeros_like(keep)
+            for _, D, H, W, _ in sizes:
                 n = keep
                 for k, size in enumerate((W, H, D)):
                     if size == 1:
@@ -1579,6 +1676,45 @@ def splat_work(cfg, geom):
                     n = n * (((f0 >= 0) & (f0 < size)).float()
                              + ((f0 >= -1) & (f0 < size - 1)).float())
                 corners += float(n.sum())
+                step = step + n
+            steps += float((step > 0).sum())
+    return corners, steps
+
+
+def splat_mlp_work(cfg, geom):
+    """(FLOPs, FLOPs on the tensor cores, bytes) S2 with the MLP must do on
+    these inputs: per sampled step with an output corner the MLP's products,
+    2 d_in d_out FLOPs each, on the tensor cores: every layer's input
+    gradient and weight gradient, and the forward of every layer but the
+    last (its output has no relu, so the adjoint needs only its input); per
+    in-bounds output corner 2C (the gather of g_out) and per input corner
+    4 C_in (the sample and the splat of g_in).  Bytes: every input read
+    once (rays, encodings, g_out, the input grid-list, the MLP) and every
+    output written once (g_enc, the input grid's gradient, g_mlp)."""
+    R, C, C_in = geom[0].shape[0], cfg.out_chn, cfg.n_hidden[0]
+    v_in = sum(int(np.prod(gs[:-1])) for gs in cfg.input_grid_sizes)
+    n_params = sum(a * b + b for a, b in zip(cfg.n_hidden, cfg.n_hidden[1:]))
+    out_corners, steps = grid_corners_needed(cfg, geom,
+                                             cfg.output_grid_sizes)
+    in_corners, _ = grid_corners_needed(cfg, geom, cfg.input_grid_sizes)
+    macs = [a * b for a, b in zip(cfg.n_hidden, cfg.n_hidden[1:])]
+    flops_tc = steps * 2.0 * (3 * sum(macs) - macs[-1])
+    flops = flops_tc + out_corners * 2 * C + in_corners * 4 * C_in
+    nbytes = 4 * (R * 9 + R * C_in + cfg.v_total * C + v_in * C_in
+                  + n_params + R * C_in + v_in * C_in + n_params)
+    return flops, flops_tc, nbytes
+
+
+def splat_work(cfg, geom):
+    """(FLOPs, bytes) S1 and S2 (without the MLP) must do on these inputs,
+    from the corners this run's points need: each in-bounds output corner
+    costs S1 2C + 1 FLOPs (C multiply-adds into the row, 1 add into w) and
+    S2 2C (a multiply-add per gathered channel).  Bytes: every input read
+    once and every output written once (S1: the rays and encodings in, the
+    grids out; S2: the rays and the grid's gradient in, the encodings'
+    gradient out)."""
+    R, C, V = geom[0].shape[0], cfg.out_chn, cfg.v_total
+    corners, _ = grid_corners_needed(cfg, geom, cfg.output_grid_sizes)
     geom_bytes = 4 * R * (3 + 3 + 1 + 1 + 1)
     fw = (corners * (2 * C + 1), geom_bytes + 4 * R * C + 4 * V * (C + 1))
     bw = (corners * 2 * C, geom_bytes + 4 * V * C + 4 * R * C)
@@ -1764,12 +1900,87 @@ def phase_splat(lp, smi):
     del g_out, g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
-    mlp_splat_step(lp, rays, smi)
+    mlp = s2_mlp_alone(lp, smod, rays, gen, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mlp["launches"] = mlp_splat_step(lp, rays, smi)
     return launches, dict(
         fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
                 bound=(b_fw, b_fw_kind), plan_ms=plan_ms, runs=n_runs),
         bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
-                bound=(b_bw, b_bw_kind)))
+                bound=(b_bw, b_bw_kind)),
+        bw_mlp=mlp)
+
+
+def s2_mlp_alone(lp, smod, rays, gen, smi):
+    """S2 with the MLP alone at the MLP splatter's shapes over the headline
+    rays: its time, its plain version's (one run), its error against the
+    plain version replaying the recording build's relu masks, its bounds,
+    and its own peak memory at 48, 96 and 192 samples (its staging and
+    pass B's run lists stop growing at PLAN_MAX_RUNS' bytes)."""
+    import dataclasses
+
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    cfg, geom, diff = mlp_splat_march(lp, smod, rays, gen)
+    n = geom[0].shape[0]
+    g_out = (torch.randn((cfg.v_total, cfg.out_chn), generator=gen)
+             * 0.01).cuda()
+    peaks = {}
+    for ns in (48, 96, 192):
+        cfg_n = dataclasses.replace(cfg, num_samples=ns)
+        bricks = sfw.pick_bricks(cfg_n, grid_sizes=cfg_n.input_grid_sizes)
+        slices = len(sbw.adjoint_slices(cfg_n, bricks, n))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            out = sbw.splat_bwd_cuda(cfg_n, geom, diff, g_out)
+        torch.cuda.synchronize()
+        peaks[ns] = torch.cuda.max_memory_allocated() - base
+        del out
+        print(f"  peak allocated by S2 with the MLP alone at {ns} samples: "
+              f"{peaks[ns]} bytes above the {base} held before it, the rays "
+              f"in {slices} slice(s)  [{smi}]")
+    # the staged g_in and g_vec and pass B's run list, each within
+    # PLAN_MAX_RUNS' bytes, and 128 MiB for the outputs and the rest
+    cap = 3 * 8 * sfw.PLAN_MAX_RUNS + 2**27
+    assert max(peaks.values()) <= cap, (peaks, cap)
+    assert abs(peaks[192] - peaks[96]) <= 0.05 * peaks[96], peaks
+    with torch.no_grad():
+        ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
+                     warmup=1, reps=5)
+        got = sbw.splat_bwd_cuda(cfg, geom, diff, g_out)
+        rec, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom, diff, g_out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sbw.splat_bwd_torch(cfg, geom, diff, g_out)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        want = sbw.splat_bwd_torch(cfg, geom, diff, g_out, relu_masks=masks)
+    print("  S2 with the MLP vs its plain version under the recording "
+          "build's relu masks, at the MLP splatter's shapes:")
+    err = 0.0
+    # sums over 2.5e7 steps: bounds scaled as s2_alone's
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), got, want):
+        err = max(err, compare(label, a, b, max_rel=SPLAT_MAX_REL,
+                               magnitude_scaled=True)[0])
+    print("  the recording build vs the shipped one:")
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), rec, got):
+        compare(label, a, b, max_rel=SPLAT_MAX_REL, magnitude_scaled=True)
+    del got, rec, masks, want
+    flops, flops_tc, nbytes = splat_mlp_work(cfg, geom)
+    b_ms, b_kind = bound(flops, nbytes)
+    b_tf32 = tf32_bound(flops, flops_tc, nbytes)
+    print(f"  S2 with the MLP alone: median {ms:.3f} ms, plain version "
+          f"{plain_ms:.1f} ms (one run); work {flops / 1e9:.1f} GFLOP "
+          f"({flops_tc / 1e9:.1f} on the tensor cores), {nbytes / 1e6:.1f} "
+          f"MB -> bound {b_ms:.3f} ms ({b_kind}), {b_tf32:.3f} ms with the "
+          f"MLP in 3xTF32  [{smi}]")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=(b_ms, b_kind),
+                bound_tf32=b_tf32)
 
 
 def print_kernel_attrs():
@@ -1801,11 +2012,27 @@ def print_kernel_attrs():
             label = f"MLP W={width}" if mlp else "no MLP"
             print(f"  {name} {label}: {out[0]} registers, {out[1]} bytes "
                   f"spilled per thread")
+            if name == "S2":
+                assert out[1] == 0, f"{name} {label} spills"
+    for kind, label in ((2, "g_vec gather (with the MLP)"),
+                        (3, "gather of 16 or 32 channels")):
+        assert lib.lightplane_splat_bw_attrs(kind, 0, out) == 0
+        print(f"  S2's {label}: {out[0]} registers, {out[1]} bytes spilled "
+              f"per thread")
+        assert out[1] == 0, f"S2's {label} spills"
+    conf = (ctypes.c_int * 4)()
+    widths = (ctypes.c_int * 3)(32, 32, SPLAT_VOXEL[-1])
+    assert lib.lightplane_splat_bw_mlp_config(64, 2, widths, conf) == 0
+    print(f"  S2 pass A at the MLP splatter's MLP (32 -> 32 -> "
+          f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
+          f"resident, {conf[3]} bytes of shared memory a block, rows of "
+          f"{conf[2]} partial sums")
 
 
 def mlp_splat_step(lp, rays, smi):
     """The MLP splatter over the headline rays: fw+bw step with gradients
-    for the encoding, the input triplane and ``mlp_params``."""
+    for the encoding, the input triplane and ``mlp_params``; returns S2's
+    launches over the six timed steps (the counts set to 0 just before)."""
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
@@ -1829,27 +2056,37 @@ def mlp_splat_step(lp, rays, smi):
         out = module(rays, [SPLAT_VOXEL], igrid, return_list=False)
         out.square().sum().backward()
 
-    fw0, bw0 = sfw.LAUNCHES, sbw.LAUNCHES
+    step()  # warm-up
+    torch.cuda.synchronize()
+    sfw.LAUNCHES = sbw.LAUNCHES = 0
     step_ms = cuda_ms(step, warmup=1, reps=5)
-    assert (sfw.LAUNCHES - fw0, sbw.LAUNCHES - bw0) == (6, 6)
+    launches = (sfw.LAUNCHES, sbw.LAUNCHES)
+    assert launches == (6, 6), launches
     for x in [enc, module.mlp_params] + igrid:
         assert torch.isfinite(x.grad).all() and float(x.grad.abs().sum()) > 0
     print(f"  LightplaneMLPSplatter (MLP 32 -> 32 -> 64, 3 x 128^2 x 32ch "
           f"input triplane): fw+bw step median {step_ms:.3f} ms, "
-          f"{n / step_ms * 1e3:.0f} rays/s  [{smi}]")
-    device_breakdown(step, smi)
+          f"{n / step_ms * 1e3:.0f} rays/s; launches (S1, S2) {launches} "
+          f"[{smi}]")
+    device_breakdown(step, smi, top=10)
+    return launches[1]
 
 
-def lift_s1_ms(lp, rays, out_sizes):
-    """S1's time alone on lift-then-render's splat."""
+def lift_splat_ms(lp, rays, out_sizes):
+    """S1's and S2's times alone on lift-then-render's splat."""
     from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
     cfg, geom, _ = splat_march(smod, rays, out_sizes,
                                dict(num_samples=96), None, None, None)
     diff = (rays.encoding.detach(), None, None)
     with torch.no_grad():
-        return cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), reps=5)
+        s1 = cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), reps=5)
+        g_out = torch.randn((cfg.v_total, cfg.out_chn), device="cuda")
+        s2 = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
+                     reps=5)
+    return s1, s2
 
 
 def phase_lift_render(lp, smi):
@@ -1914,9 +2151,10 @@ def phase_lift_render(lp, smi):
               f"{base / 2**20:.1f} MiB held before it)  [{smi}]")
         if n_img == 4:
             device_breakdown(step, smi)
-            s1_ms = lift_s1_ms(lp, rays, out_sizes)
-            print(f"  S1 alone at batch 4 (splat into 3 x {res}^2 x {chn}ch, "
-                  f"96 samples): median {s1_ms:.3f} ms  [{smi}]")
+            s1_ms, s2_ms = lift_splat_ms(lp, rays, out_sizes)
+            print(f"  alone at batch 4 (splat into 3 x {res}^2 x {chn}ch, "
+                  f"96 samples): S1 median {s1_ms:.3f} ms, S2 median "
+                  f"{s2_ms:.3f} ms  [{smi}]")
         del rays, rays_render, enc, zero_enc
     marginal = (peaks[4] - peaks[2]) / 2
     print(f"  marginal peak memory per 512^2 image: {marginal:.0f} bytes "
@@ -2247,12 +2485,15 @@ def phase_fit(lp, smi):
 # csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each kernel's variants:
 # R1's grid sampling or decoder MLP switched off; R2's grid-gradient atomics
 # scalar or switched off, its MLP weight-gradient pass switched off; S1's
-# plan alone (no splat pass), or plan and tile sums without the flush
+# plan alone (no splat pass), or plan and tile sums without the flush; S2
+# without the input grid's gradient, without the MLP's weight gradient, or
+# the gather of the output gradient alone
 ABLATIONS = {
     "R1": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
     "R2": {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
            "neither": 6},
     "S1": {"plan_alone": 32, "no_flush": 64},
+    "S2": {"no_scatter": 128, "no_wgrad": 256, "gather_only": 512},
 }
 
 
@@ -2314,9 +2555,10 @@ def trainer_march(lp, rmod, gen):
 
 
 def ablate(lp, smi, kernels):
-    """``kernels`` (of R1, R2, S1) as built and with parts switched off: R1
-    at the render headline and at phase 9's trainer shape, R2 at the
-    headline, S1 at the splatter headline; each variant built with its own
+    """``kernels`` (of R1, R2, S1, S2) as built and with parts switched off:
+    R1 at the render headline and at phase 9's trainer shape, R2 at the
+    headline, S1 at the splatter headline, S2 there and at the MLP
+    splatter step; each variant built with its own
     -D, all builds started together, each timed twice in turn by CUDA
     events."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2326,6 +2568,7 @@ def ablate(lp, smi, kernels):
     from lightplane_tpu_torch.ops.kernels import _build
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
     from lightplane_tpu_torch.utils import grid_utils
 
@@ -2407,6 +2650,40 @@ def ablate(lp, smi, kernels):
             time_variants(sweep, lambda b: sfw.splat_fwd_cuda(
                 *args, bricks=b), smi)
         del rays4, enc4, geom4, diff4
+    if "S2" in variants:
+        print("== ablation: S2 with parts switched off, at the splatter "
+              "headline (no MLP: the variants build the same gather)")
+        n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
+        enc = (torch.randn((n, SPLAT_VOXEL[-1]), generator=gen) * 0.1).cuda()
+        rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
+        cfg, geom, diff = splat_march(smod, rays, [SPLAT_VOXEL],
+                                      dict(num_samples=SPLAT_SAMPLES), None,
+                                      None, None)
+        g_out = (torch.randn((cfg.v_total, cfg.out_chn), generator=gen)
+                 * 0.01).cuda()
+        time_variants(variants["S2"], lambda d: sbw.splat_bwd_cuda(
+            cfg, geom, diff, g_out, d), smi)
+        print("== ablation: S2 with parts switched off, at the MLP splatter "
+              "step (MLP 32 -> 32 -> 64, 3 x 128^2 x 32ch input triplane)")
+        cfg, geom, diff = mlp_splat_march(lp, smod, rays, gen)
+        time_variants(variants["S2"], lambda d: sbw.splat_bwd_cuda(
+            cfg, geom, diff, g_out, d), smi)
+        del rays, enc, geom, diff, g_out
+
+
+def mlp_splat_march(lp, smod, rays, gen):
+    """``(cfg, geom, diff)`` of phase 7's MLP splatter over ``rays``: MLP 32
+    -> 32 -> 64 from ``gen``, 32-channel encodings and a 3 x 128^2 x 32ch
+    input triplane, into the headline's 160^3 x 64ch grid."""
+    in_sizes = tri_sizes(128, 32)
+    sp = lp.init_splatter_params(gen, 2, 32, 32, SPLAT_VOXEL[-1])
+    enc = (torch.randn((len(rays), 32), generator=gen) * 0.1).cuda()
+    v_in = sum(int(np.prod(g[:-1])) for g in in_sizes)
+    igrid = (torch.randn((v_in, 32), generator=gen) * 0.1).cuda()
+    rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx, rays.near,
+                   rays.far, enc)
+    return splat_march(smod, rays, [SPLAT_VOXEL],
+                       dict(num_samples=SPLAT_SAMPLES), sp, igrid, in_sizes)
 
 
 PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9")
@@ -2539,6 +2816,17 @@ def kernel_lines(out):
             library_ms=None,
             **({"plan_ms": k["plan_ms"], "runs": k["runs"]}
                if key == "fw" else {})))
+    # S2 with the MLP: launches on the MLP splatter's six timed steps, the
+    # rest at its shapes alone (phase 7)
+    k = splat["bw_mlp"]
+    kernels.append(dict(
+        name="splatter_bw_mlp", route="cuda",
+        source="lightplane_tpu_torch/csrc/splatter_bw.cu",
+        replaces="lightplane_tpu/ops/kernels/splatter_pallas.py:183",
+        launches=k["launches"], max_abs_err=k["err"], ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound"][0],
+        bound_by=k["bound"][1], bound_tf32_ms=k["bound_tf32"],
+        library_ms=None))
     return kernels
 
 

@@ -26,8 +26,9 @@ constexpr int kMaxLayers = 8;  // per MLP
 constexpr int kMaxTotalLayers = 3 * kMaxLayers;
 
 // LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
-// switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu) and S1
-// (splatter_fw.cu) off to time them.  The shipped build has none of it.
+// switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu), S1
+// (splatter_fw.cu) and S2 (splatter_bw.cu) off to time them.  The shipped
+// build has none of it.
 #ifndef LIGHTPLANE_ABLATE
 #define LIGHTPLANE_ABLATE 0
 #endif
@@ -39,6 +40,9 @@ constexpr int kAblateNoSampling = 8;     // no grid-list sampling (R1)
 constexpr int kAblateNoMlp = 16;         // no decoder MLP (R1)
 constexpr int kAblateNoSplat = 32;       // the plan alone, no splat pass (S1)
 constexpr int kAblateNoFlush = 64;       // no flush of the tiles (S1)
+constexpr int kAblateS2NoScatter = 128;  // no input-grid gradient (S2)
+constexpr int kAblateS2NoWeightGrad = 256;  // no MLP weight gradient (S2)
+constexpr int kAblateS2GatherOnly = 512;    // neither MLP nor scatter (S2)
 
 // Whether the part `bit` runs.  A part switched off keeps a guard on data
 // `x` that never holds, so the compiler keeps the work that feeds it.

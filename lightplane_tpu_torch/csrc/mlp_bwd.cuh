@@ -1,14 +1,24 @@
-// The backward of the padded per-thread MLPs of march_common.cuh, shared by
+// The backward of the MLPs of march_common.cuh and warp_chunk.cuh, shared by
 // the renderer's recompute backward (renderer_bw.cu) and the splatter's
 // adjoint (splatter_bw.cu): a layer's input gradient per thread, and its
 // weight gradient as a sum over the block's rays of outer products, kept in
 // a per-block row of partial sums that a second kernel reduces into the
 // flat, unpadded gradient (see renderer_bw.cu for the design).  Two forms of
 // the weight gradient: on the CUDA cores (weight_grad, any W; the row is
-// the padded [W*W + W] layer) and, for W = 32, on the tensor cores
-// (tc_weight_grad, tc_bias_grad; the row holds mma fragments, tc_index).
-// Both kernels' recording builds (LIGHTPLANE_RELU_MASKS=1) write the relu
-// branches their recomputed forward took (record_mask).
+// the padded [W*W + W] layer) and on the tensor cores (R2's tc_weight_grad
+// and tc_bias_grad at W = 32, the row holding mma fragments, tc_index;
+// S2's tc_weight_grad_rows at W = 32 and 64, over a warp's chunk of
+// samples).  Both kernels' recording builds (LIGHTPLANE_RELU_MASKS=1)
+// write the relu branches their recomputed forward took (record_mask).
+//
+// The two tensor-core forms keep their sums in different rows, so each has
+// its own reduce: R2's pads every layer to 32 x 32 with a bias row per warp
+// (kTcLayer floats a layer, read by reduce_mlp_grad_kernel<32, true>);
+// S2's holds each layer at its own M- and N-tiles (splatter_bw.cu's
+// MlpLayout, read by its reduce_partial_kernel).  They stay apart until
+// R2's redesign moves R2 onto MlpLayout and tc_weight_grad_rows; then
+// tc_weight_grad, tc_bias_grad and the padded reduce go (ROADMAP.md,
+// queue 2).
 
 #pragma once
 
@@ -24,11 +34,11 @@ constexpr bool kReluMasks = LIGHTPLANE_RELU_MASKS != 0;
 
 // The recording build: bit c of word w of relu'd vector k of (ray, step s)
 // is v[32 w + c] > 0, the branch the recomputed forward took.  The masks
-// are [R, tot, p.n_mask_vecs, W / 32] words.
-template <int W>
+// are [R, tot, p.n_mask_vecs, W / 32] words.  v is the vector's W values
+// in registers (R2) or a row of a tile in shared memory (S2).
+template <int W, class V>
 __device__ __forceinline__ void record_mask(const Params& p, int ray, int s,
-                                            int tot, int k,
-                                            const float (&v)[W]) {
+                                            int tot, int k, const V& v) {
   uint32_t* dst = p.relu_masks +
                   (((long long)ray * tot + s) * p.n_mask_vecs + k) * (W / 32);
 #pragma unroll
@@ -143,10 +153,12 @@ __device__ __forceinline__ void zero_owned_partial(float* __restrict__ part,
 constexpr int kTcWarps = 4;                        // warps of a 128-ray block
 constexpr int kTcLayer = 32 * 32 + kTcWarps * 32;  // tiles, per-warp biases
 
-// Where weight (i, o) of a layer lies in its tiles: tile 4 * (i / 16) +
-// o / 8; lane 4 * (i % 8) + (o % 8) / 2; register 2 * (i % 16 / 8) + o % 2.
-__host__ __device__ __forceinline__ int tc_index(int i, int o) {
-  const int tile = (i >> 4) * 4 + (o >> 3);
+// Where weight (i, o) of a layer lies in its tiles, n_tiles of them along
+// o (4 for R2's padded 32 x 32 layer): tile n_tiles * (i / 16) + o / 8;
+// lane 4 * (i % 8) + (o % 8) / 2; register 2 * (i % 16 / 8) + o % 2.
+__host__ __device__ __forceinline__ int tc_index(int i, int o,
+                                                 int n_tiles = 4) {
+  const int tile = (i >> 4) * n_tiles + (o >> 3);
   const int lane = (i & 7) * 4 + ((o & 7) >> 1);
   const int reg = ((i >> 3) & 1) * 2 + (o & 1);
   return (tile * 32 + lane) * 4 + reg;
@@ -197,6 +209,78 @@ __device__ __forceinline__ void tc_weight_grad(float* acc, const float* X,
     }
     c[0] = make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
     c[32] = make_float4(d[1][0], d[1][1], d[1][2], d[1][3]);
+  }
+}
+
+// acc += X^T G over a chunk's 32 samples (splatter_bw.cu, S2): X and G
+// are [32][W + 4] tiles in shared memory, sample-major (row j = sample j,
+// as warp_chunk.cuh's mma_rows writes them), so both operands are read
+// transposed against tc_weight_grad's.  The layer's gradient is mi M-tiles
+// of 16 inputs by no N-tiles of 8 outputs, kept in acc as [tile][lane][4]
+// accumulator fragments (tc_index(i, o, no)), each lane its own four
+// floats of every tile: one warp's sums, read and written by it alone.
+// Per M-tile the no accumulators start at 0 and stay in registers over the
+// 4 k-steps of 8 samples, then are added to the sums in f32: the tensor
+// cores' f32 accumulation does not round to nearest, so a running sum kept
+// as their C operand would drift by ~2^-23 of itself at every MMA.  Each
+// k-step splits both operands into TF32 hi and lo parts and issues three
+// MMAs per tile, the small terms first, term by term across the tiles.
+template <int W>
+__device__ __forceinline__ void tc_weight_grad_rows(float* acc, const float* X,
+                                                    const float* G, int mi,
+                                                    int no, int lane) {
+  constexpr int S = W + 4, NT = W / 8;
+  const int g = lane >> 2, t = lane & 3;
+  for (int mt = 0; mt < mi; ++mt) {
+    float4* c = reinterpret_cast<float4*>(acc) + mt * no * 32 + lane;
+    float d[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[nt][e] = 0.0f;
+#pragma unroll 1
+    for (int ks = 0; ks < 4; ++ks) {
+      // A = X^T: a0 (i g, sample t), a1 (g + 8, t), a2 (g, t + 4),
+      // a3 (g + 8, t + 4)
+      const float* a = X + (ks * 8 + t) * S + mt * 16 + g;
+      uint32_t ah[4], al[4];
+      split_tf32(a[0], ah[0], al[0]);
+      split_tf32(a[8], ah[1], al[1]);
+      split_tf32(a[4 * S], ah[2], al[2]);
+      split_tf32(a[4 * S + 8], ah[3], al[3]);
+      // B = G: b0 (sample t, o g), b1 (t + 4, g); a tile's three products
+      // depend on each other, so they go as three sweeps over the tiles
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= no) continue;
+        const float* b = G + (ks * 8 + t) * S + nt * 8 + g;
+        split_tf32(b[0], bh[nt][0], bl[nt][0]);
+        split_tf32(b[4 * S], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= no) continue;
+          if (term == 0) mma_tf32(d[nt], al, bh[nt][0], bh[nt][1]);
+          if (term == 1) mma_tf32(d[nt], ah, bl[nt][0], bl[nt][1]);
+          if (term == 2) mma_tf32(d[nt], ah, bh[nt][0], bh[nt][1]);
+        }
+    }
+    // the sums' loads stay behind the MMAs: hoisted above them, they would
+    // hold 4 no more registers through the loop
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= no) continue;
+      float4 v = c[nt * 32];
+      v.x += d[nt][0];
+      v.y += d[nt][1];
+      v.z += d[nt][2];
+      v.w += d[nt][3];
+      c[nt * 32] = v;
+    }
   }
 }
 

@@ -92,23 +92,13 @@
 // The timings with parts switched off build it with march_common.cuh's
 // LIGHTPLANE_ABLATE: 8 = no grid sampling, 16 = no decoder MLP.
 
-#include "march_common.cuh"
+#include "warp_chunk.cuh"
 
 namespace {
 
 using namespace lightplane;
 
 constexpr int kMaxWarps = 4;
-
-// B fragment order of a [W, W] layer (input i, output o): per N-tile nt and
-// k-step ks, lane 4 g + t holds (k t, n g) and (k t + 4, n g) of the tile as
-// one float2.
-template <int W>
-__device__ __forceinline__ int frag_index(int i, int o) {
-  const int ks = i >> 3, hi = (i >> 2) & 1, t = i & 3;
-  const int nt = o >> 3, g = o & 7;
-  return (((nt * (W / 8) + ks) * 32 + g * 4 + t) << 1) + hi;
-}
 
 // Floats of a head's last layer in shared memory: its [W, n_out] weights
 // (row i = input i) and n_out biases, rounded up to 16 bytes.
@@ -144,7 +134,7 @@ __device__ __forceinline__ void stage_fw_layers(const Params& p, float* smem,
     float* dst = smem + (l < opacity_end ? l : l - 1) * kLayer;
     for (int k = threadIdx.x; k < W * W; k += blockDim.x) {
       const int i = k / W, o = k % W;
-      dst[frag_index<W>(i, o)] =
+      dst[frag_index(i, o, W / 8)] =
           (i < d_in && o < d_out) ? w_src[i * d_out + o] : 0.0f;
     }
     for (int o = threadIdx.x; o < W; o += blockDim.x)
@@ -163,50 +153,6 @@ __device__ __forceinline__ float last_out(const float* __restrict__ layer,
 #pragma unroll
   for (int i = 0; i < W; ++i) acc += x[i] * layer[i * n_out + o];
   return acc;
-}
-
-// The corners of sub-grid g of m at the point of st, batch b >= 0, with
-// march_common.cuh::for_each_corner's arithmetic: corner k = 4 dz + 2 dy +
-// dx (k ascending is that walk's order) has row[k] and weight wt[k];
-// row[k] = -1 where the corner lies outside the grid or on the far side of
-// a singleton axis.  Unrolled, so both arrays stay in registers.
-__device__ __forceinline__ void grid_corners(const GridMeta& m, int g, int b,
-                                             const Step& st, int (&row)[8],
-                                             float (&wt)[8]) {
-  const int D = m.dims[g][1], H = m.dims[g][2], Wd = m.dims[g][3];
-  const float fx = grid_coord(st.px, Wd);
-  const float fy = grid_coord(st.py, H);
-  const float fz = grid_coord(st.pz, D);
-  const float x0 = floorf(fx), y0 = floorf(fy), z0 = floorf(fz);
-  const float tx = fx - x0, ty = fy - y0, tz = fz - z0;
-  const int nz = D > 1 ? 2 : 1, ny = H > 1 ? 2 : 1, nx = Wd > 1 ? 2 : 1;
-#pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const float cz = z0 + (float)dz;
-    const float wz = dz ? tz : (1.0f - tz);
-    const bool in_z = dz < nz && cz >= 0.0f && cz < (float)D;
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float cy = y0 + (float)dy;
-      const float wy = dy ? ty : (1.0f - ty);
-      const bool in_y = dy < ny && cy >= 0.0f && cy < (float)H;
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const float cx = x0 + (float)dx;
-        const float wx = dx ? tx : (1.0f - tx);
-        const bool in = in_z && in_y && dx < nx && cx >= 0.0f &&
-                        cx < (float)Wd;
-        const int k = 4 * dz + 2 * dy + dx;
-        row[k] = -1;
-        if (in)
-          row[k] = (int)(m.row_offset[g] +
-                         (((long long)b * D + (int)cz) * H + (int)cy) *
-                             (long long)Wd +
-                         (int)cx);
-        wt[k] = wx * wy * wz;
-      }
-    }
-  }
 }
 
 // Row j of `tile` (stride W + 4) gets the linear sample of every sub-grid of
@@ -296,82 +242,14 @@ __device__ __forceinline__ void gather_chunk(const GridMeta& m,
   }
 }
 
-// X = relu(X @ layer + bias) for the chunk's 32 samples on the tensor cores
-// in 3xTF32 (layer in fragment order, stage_fw_layers), and the same rows
-// into T when given.  At W = 32 both M-tiles go in one pass, sharing each
-// B fragment's split; at W = 64 one M-tile per pass, so the accumulators
-// stay at W/2 registers.
+// X = relu(X @ layer + bias) for the chunk's 32 samples (R1's dense
+// layers: a zero-padded [W, W] layer in fragment order, then W biases), and
+// the same rows into T when given.
 template <int W>
 __device__ __forceinline__ void mma_layer(const float* __restrict__ layer,
                                           float* X, float* T, int lane) {
-  constexpr int S = W + 4, KS = W / 8, NT = W / 8;
-  constexpr int kMT = W == 32 ? 2 : 1;
-  const int g = lane >> 2, t = lane & 3;
-  const float* bias = layer + W * W;
-  const float2* frag = reinterpret_cast<const float2*>(layer);
-#pragma unroll
-  for (int m0 = 0; m0 < 2; m0 += kMT) {
-    float d[kMT][NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float b0 = bias[nt * 8 + 2 * t], b1 = bias[nt * 8 + 2 * t + 1];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        d[mt][nt][0] = b0;
-        d[mt][nt][1] = b1;
-        d[mt][nt][2] = b0;
-        d[mt][nt][3] = b1;
-      }
-    }
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ah[kMT][4], al[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const float* a = X + ((m0 + mt) * 16 + g) * S + ks * 8 + t;
-        split_tf32(a[0], ah[mt][0], al[mt][0]);
-        split_tf32(a[8 * S], ah[mt][1], al[mt][1]);
-        split_tf32(a[4], ah[mt][2], al[mt][2]);
-        split_tf32(a[8 * S + 4], ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 bv = frag[(nt * KS + ks) * 32 + lane];
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(bv.x, bh0, bl0);
-        split_tf32(bv.y, bh1, bl1);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_tf32(d[mt][nt], al[mt], bh0, bh1);
-          mma_tf32(d[mt][nt], ah[mt], bl0, bl1);
-          mma_tf32(d[mt][nt], ah[mt], bh0, bh1);
-        }
-      }
-    }
-    __syncwarp();  // every lane's reads of these rows are done
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int at = ((m0 + mt) * 16 + g) * S + nt * 8 + 2 * t;
-        const float y0 = fmaxf(d[mt][nt][0], 0.0f);
-        const float y1 = fmaxf(d[mt][nt][1], 0.0f);
-        const float y2 = fmaxf(d[mt][nt][2], 0.0f);
-        const float y3 = fmaxf(d[mt][nt][3], 0.0f);
-        X[at] = y0;
-        X[at + 1] = y1;
-        X[at + 8 * S] = y2;
-        X[at + 8 * S + 1] = y3;
-        if (T != nullptr) {
-          T[at] = y0;
-          T[at + 1] = y1;
-          T[at + 8 * S] = y2;
-          T[at + 8 * S + 1] = y3;
-        }
-      }
-    }
-  }
-  __syncwarp();
+  mma_rows<W>(X, reinterpret_cast<const float2*>(layer), layer + W * W,
+              W / 8, W / 8, true, nullptr, X, T, lane);
 }
 
 // Row `lane` of the tile X (stride W + 4) into registers, as float4s (a

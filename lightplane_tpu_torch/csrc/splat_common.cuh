@@ -1,6 +1,5 @@
 // What the splatter's forward (splatter_fw.cu) and adjoint (splatter_bw.cu)
-// share: their launch parameters and host-side setup; and the adjoint's
-// atomic add of a weighted register vector into a row of a grid.
+// share: their launch parameters and host-side setup.
 
 #pragma once
 
@@ -20,6 +19,8 @@ struct SplatParams {
   float* feat;          // forward: [V_out, out_chn], zero-filled by the caller
   float* w;             // forward: [V_out], zero-filled by the caller
   const float* g_out;   // adjoint: the gradient of feat, [V_out, out_chn]
+  float* stage;         // adjoint with the MLP: g_in [R, steps, enc_chn]
+  float* gvec;          // adjoint with the MLP: g_vec [R, steps, out_chn]
 };
 
 // Fills everything but the tensors; returns a cudaError_t code.
@@ -57,26 +58,6 @@ inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
              mask_out_of_bounds, contract_coords);
   sp.out_chn = out_chn;
   return (int)cudaSuccess;
-}
-
-// dst[0:C) += wgt * v[0:C) with atomics, C <= W: one float4 reduction
-// (sm_90) per 4 channels when C % 4 == 0 (the caller passes a 16-byte
-// aligned grid), else one scalar atomicAdd per channel.
-template <int W>
-__device__ __forceinline__ void atomic_add_row(float* dst, int C, float wgt,
-                                               const float (&v)[W]) {
-  if ((C & 3) == 0) {
-#pragma unroll
-    for (int c4 = 0; c4 < W / 4; ++c4)
-      if (4 * c4 < C)
-        atomicAdd(reinterpret_cast<float4*>(dst) + c4,
-                  make_float4(wgt * v[4 * c4], wgt * v[4 * c4 + 1],
-                              wgt * v[4 * c4 + 2], wgt * v[4 * c4 + 3]));
-  } else {
-#pragma unroll
-    for (int c = 0; c < W; ++c)
-      if (c < C) atomicAdd(dst + c, wgt * v[c]);
-  }
 }
 
 }  // namespace lightplane

@@ -68,10 +68,18 @@
 //    staged in shared memory (stage_layers), lanes over output units, the
 //    inputs broadcast by shuffles.  A sample has one run per output
 //    sub-grid, so a triplane output runs its MLP once per plane.
+// 5. The per-step variant (kSteps), the adjoint's pass B (splatter_bw.cu):
+//    the value splatted at step s of a run's ray is row ray * steps + s of
+//    the "encoding" (the staged MLP input gradient), not the ray's row, so
+//    each run's lane copies its run's row of the next step into one of two
+//    staging buffers while the warp splats the current step; there is no
+//    weight column to flush, and its work items are smaller (the wrapper's
+//    RUNS_PER_ITEM_STEPS), since a slice of rays fills few bricks.
 //
 // The timings with parts switched off build it with march_common.cuh's
 // LIGHTPLANE_ABLATE: 32 = the plan alone (no splat pass), 64 = plan and
-// tile accumulation without the flush.
+// tile accumulation without the flush; S2's bits 128 and 512 leave out the
+// per-step splat (pass B).
 //
 // Numerics: f32; the fill pass's atomics order the runs of a brick, and the
 // flush's reductions the items, differently from run to run, so the sums
@@ -236,12 +244,19 @@ __host__ __device__ __forceinline__ int row_floats(int C) {
   return (C + 2) & ~1;
 }
 
+// Floats of a warp's tile of `rows` rows, rounded up to 16 bytes (the
+// staging area after it takes 16-byte copies).
+__host__ __device__ __forceinline__ int tile_floats(int rows, int C) {
+  return (rows * row_floats(C) + 3) & ~3;
+}
+
 // Floats of one warp's region of shared memory: its tile of `rows` rows
-// and the staged encodings of a batch of runs (`stage` channels each),
-// rounded up to 16 bytes.
+// and the staged encodings of a batch of runs (`stage` floats each: the
+// channels of one run, two steps' worth in the per-step variant), a
+// multiple of 16 bytes.
 __host__ __device__ __forceinline__ int warp_floats(int rows, int C,
                                                     int stage) {
-  return (rows * row_floats(C) + kBatch * stage + 3) & ~3;
+  return tile_floats(rows, C) + ((kBatch * stage + 3) & ~3);
 }
 
 // Channels of a run's staged encoding: one or two slices of 32 (a pass of
@@ -261,6 +276,16 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
                : "memory");
 }
 
+// dst[0:4) = src[0:4) (16 bytes, both aligned to it), or 0 where !ok (src
+// is then not read), by cp.async.
+__device__ __forceinline__ void copy_async16(float* dst, const float* src,
+                                             bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
 // A tile row's weight column starts at -0.0 and every weight added to it is
 // >= +0, so a row that no step touched still holds the bits of -0.0.
 constexpr float kUntouched = -0.0f;
@@ -276,8 +301,9 @@ __device__ __forceinline__ bool touched(float w) {
 // once per block).  kC = 8 corners per step for a voxel grid, 4 for a
 // plane (and a line or a point, whose missing corners are out of bounds);
 // kT = 2 where the weight lies past a pass's 32 pairs of channels (C >=
-// 64): lane 0 adds it apart; else 1.
-template <int W, int kC, int kT>
+// 64): lane 0 adds it apart; else 1.  kSteps (W = 0): the per-step values
+// of the adjoint's pass B, and no flush of the weight column.
+template <int W, int kC, int kT, bool kSteps = false>
 __global__ void __launch_bounds__(kSplatThreads)
     splat_fw_kernel(const SplatParams sp, const Plan pl) {
   extern __shared__ __align__(16) float smem[];
@@ -291,7 +317,7 @@ __global__ void __launch_bounds__(kSplatThreads)
   const int E = W ? p.enc_chn : C;  // the encoding's channels
   const int SC = pl.stage;
   float* tile = smem + L * (W * W + W) + warp * pl.warp_floats;
-  float* stage = tile + pl.max_rows * C1;
+  float* stage = tile + tile_floats(pl.max_rows, C);
   if constexpr (W > 0) stage_layers<W>(p, smem, L);
   for (int i = lane; i < pl.max_rows * C1; i += 32)
     tile[i] = i % C1 == C ? kUntouched : 0.0f;  // the padding stays 0
@@ -352,7 +378,7 @@ __global__ void __launch_bounds__(kSplatThreads)
         const int c0 = 64 * pass;
         // the batch's encodings (this pass's channels), read once a run:
         // every copy in flight at once, straight into shared memory
-        for (int j = 0; j < n_runs; ++j) {
+        for (int j = 0; j < n_runs && !kSteps; ++j) {
           const long long at = (long long)__shfl_sync(kAll, ray, j) * E;
           for (int c = lane; c < SC; c += 32)
             copy_async(stage + j * SC + c,
@@ -368,7 +394,39 @@ __global__ void __launch_bounds__(kSplatThreads)
         const int a = c0 + 2 * lane;
         const bool own = a < cend || (pass == 0 && a <= C && C <= a + 1);
         const bool own_w = kT > 1 && pass == 0 && lane == 0;
+        // kSteps: each live run's value of step `st` (row ray * steps +
+        // s0 + st of the encoding, E <= 64 channels) into its row of buffer
+        // st % 2 of the staging area, copied by the run's own lane 16 bytes
+        // at a time (4 where E % 4 != 0), as one group of copies
+        const float* vrow0 =
+            p.enc +
+            ((long long)ray * (p.num_samples + p.num_samples_inf) + s0) * E;
+        auto stage_step = [&](int st) {
+          float* row = stage + (st & 1) * kBatch * SC + lane * SC;
+          const float* src = vrow0 + (long long)st * E;
+          if (st < len && (E & 3) == 0)
+            for (int c = 0; c < SC; c += 4)
+              copy_async16(row + c, c < E ? src + c : p.enc, c < E);
+          else if (st < len)
+            for (int c = 0; c < SC; ++c)
+              copy_async(row + c, c < E ? src + c : p.enc, c < E);
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+        };
+        if constexpr (kSteps) stage_step(0);
         for (int step = 0; step < max_len; ++step) {
+          const float* vals = stage;
+          if constexpr (kSteps) {
+            // the next step's copies go out before this step's are waited
+            // for: its buffer's reads ended with the step before this one
+            if (step + 1 < max_len) {
+              stage_step(step + 1);
+              asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+            } else {
+              asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+            }
+            __syncwarp();
+            vals = stage + (step & 1) * kBatch * SC;
+          }
           // a lane per run: its step's corners in the tile, each as the
           // offset of its row (-1 where out of the grid) and its weight
           int crow[kC];
@@ -442,7 +500,7 @@ __global__ void __launch_bounds__(kSplatThreads)
               }
             } else if (2 * lane < SC) {
               const float2 xv =
-                  *reinterpret_cast<const float2*>(stage + j * SC + 2 * lane);
+                  *reinterpret_cast<const float2*>(vals + j * SC + 2 * lane);
               x0 = xv.x;
               x1 = xv.y;
             }
@@ -466,6 +524,7 @@ __global__ void __launch_bounds__(kSplatThreads)
               if (at[q] >= 0 && own_w) tile[at[q] + C] = acc_w[q] + wgt[q];
             }
           }
+          if constexpr (kSteps) __syncwarp();  // before the next step's copies
         }
         __syncwarp();  // before the next pass or batch restages
       }
@@ -507,7 +566,8 @@ __global__ void __launch_bounds__(kSplatThreads)
       }
       if (touched(wv)) {
         tile[row * C1 + C] = kUntouched;
-        if (part_runs(kAblateNoFlush, wv)) atomicAdd(sp.w + grow, wv);
+        if (!kSteps && part_runs(kAblateNoFlush, wv))
+          atomicAdd(sp.w + grow, wv);
       }
     }
     __syncwarp();
@@ -522,19 +582,20 @@ long long splat_smem_bytes(int width, int n_layers, int max_rows, int C,
                 kWarps * warp_floats(max_rows, C, stage));
 }
 
-template <int W, int kC, int kT>
+template <int W, int kC, int kT, bool kSteps>
 cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
                          long long max_items, cudaStream_t stream) {
   const size_t smem = (size_t)splat_smem_bytes(
-      W, W ? sp.m.n_layers[0] : 0, pl.max_rows, sp.out_chn, pl.stage);
+      W, W ? sp.m.n_layers[0] : 0, pl.max_rows, sp.out_chn,
+      pl.stage * (kSteps ? 2 : 1));
   cudaError_t e = cudaFuncSetAttribute(
-      splat_fw_kernel<W, kC, kT>,
+      splat_fw_kernel<W, kC, kT, kSteps>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0, dev = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, splat_fw_kernel<W, kC, kT>, kSplatThreads, smem);
+      &per_sm, splat_fw_kernel<W, kC, kT, kSteps>, kSplatThreads, smem);
   if (e != cudaSuccess) return e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -544,29 +605,30 @@ cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
   const long long wanted = (max_items + kWarps - 1) / kWarps;
   const long long blocks = resident < wanted ? resident : wanted;
   if (blocks < 1) return cudaSuccess;
-  splat_fw_kernel<W, kC, kT>
+  splat_fw_kernel<W, kC, kT, kSteps>
       <<<(int)blocks, kSplatThreads, smem, stream>>>(sp, pl);
   return cudaGetLastError();
 }
 
 // The splat pass with kC corners a step (8 where the sub-grid has no
 // singleton axis) and kT = 2 where C >= 64 (the weight apart).
-template <int W, int kT>
+template <int W, int kT, bool kSteps>
 cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
                          long long max_items, cudaStream_t stream) {
   const int* d = sp.out.dims[0];
   return d[1] > 1 && d[2] > 1 && d[3] > 1
-             ? launch_splat<W, 8, kT>(sp, pl, max_items, stream)
-             : launch_splat<W, 4, kT>(sp, pl, max_items, stream);
+             ? launch_splat<W, 8, kT, kSteps>(sp, pl, max_items, stream)
+             : launch_splat<W, 4, kT, kSteps>(sp, pl, max_items, stream);
 }
 
-template <int W>
+template <int W, bool kSteps = false>
 cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
                          long long max_items, cudaStream_t stream) {
   // W = 32 bounds the output at 32 channels
   if (W != 32 && sp.out_chn >= 64)
-    return launch_splat<W, W == 32 ? 1 : 2>(sp, pl, max_items, stream);
-  return launch_splat<W, 1>(sp, pl, max_items, stream);
+    return launch_splat<W, W == 32 ? 1 : 2, kSteps>(sp, pl, max_items,
+                                                    stream);
+  return launch_splat<W, 1, kSteps>(sp, pl, max_items, stream);
 }
 
 }  // namespace
@@ -606,6 +668,10 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //     [bricks] zero-filled; 2 splats them, K = runs_per_item runs a work
 //     item, item_start [bricks + 1] the exclusive prefix sum of each
 //     brick's items, at most max_items items
+//   step_values: 1 splats row ray * steps + s of enc at step s (the
+//     adjoint's pass B; no MLP, w not written), 0 the ray's row
+//   batch_limit: > 0 caps the batches a ray's grid_idx may index (the
+//     adjoint's pass B passes the output grid-list's too), 0 none
 // The caller validates shapes, devices, alignment and limits, and
 // zero-fills feat [V_out, out_chn] and w [V_out].
 int lightplane_splat_fw(
@@ -619,7 +685,7 @@ int lightplane_splat_fw(
     const int* bricks, int stage, int* counts, int* cursor,
     const int* offsets, void* runs, long long capacity,
     const int* item_start, int runs_per_item, long long max_items,
-    void* stream) {
+    int step_values, int batch_limit, void* stream) {
   SplatParams sp = {};
   const int rc = fill_splat_params(
       sp, num_rays, num_out_grids, out_meta, out_chn, num_in_grids, in_meta,
@@ -627,8 +693,10 @@ int lightplane_splat_fw(
       disparity_at_inf, mask_out_of_bounds, contract_coords);
   if (rc != (int)cudaSuccess) return rc;
   if (stage < 0 || stage > 2 || num_samples + num_samples_inf > 0xffff ||
-      runs_per_item < 1)
+      runs_per_item < 1 || (step_values && (n_layers || out_chn > 64)))
     return (int)cudaErrorInvalidValue;
+  if (batch_limit > 0 && batch_limit < sp.m.num_batches)
+    sp.m.num_batches = batch_limit;
   Plan pl = {};
   pl.first[0] = 0;
   for (int g = 0; g < num_out_grids; ++g) {
@@ -656,7 +724,8 @@ int lightplane_splat_fw(
   pl.item_start = item_start;
   pl.runs_per_item = runs_per_item;
   pl.stage = stage_chn(n_layers ? in_chn : (out_chn < 64 ? out_chn : 64));
-  pl.warp_floats = warp_floats(pl.max_rows, out_chn, pl.stage);
+  pl.warp_floats =
+      warp_floats(pl.max_rows, out_chn, pl.stage * (step_values ? 2 : 1));
   if (num_rays == 0) return (int)cudaSuccess;
   Params& p = sp.m;
   p.origins = origins;
@@ -681,7 +750,11 @@ int lightplane_splat_fw(
   }
   if (kAblate & kAblateNoSplat) return (int)cudaSuccess;
   cudaError_t e;
-  if (n_layers == 0) e = launch_splat<0>(sp, pl, max_items, s);
+  if (step_values) {
+    if (kAblate & (kAblateS2NoScatter | kAblateS2GatherOnly))
+      return (int)cudaSuccess;
+    e = launch_splat<0, true>(sp, pl, max_items, s);
+  } else if (n_layers == 0) e = launch_splat<0>(sp, pl, max_items, s);
   else if (width == 32) e = launch_splat<32>(sp, pl, max_items, s);
   else e = launch_splat<64>(sp, pl, max_items, s);
   return (int)e;

@@ -73,16 +73,19 @@ _SPLAT_FW_ARGTYPES = (
     + [_P, _P, _P, _P, ctypes.c_longlong]  # counts, cursor, offsets, runs,
                                            # capacity
     + [_P, _I, ctypes.c_longlong]  # item_start, runs_per_item, max_items
+    + [_I, _I]           # step_values, batch_limit
     + [_P]               # stream
 )
 # lightplane_splat_bw (see csrc/splatter_bw.cu)
 _SPLAT_BW_ARGTYPES = (
-    [_P] * 13            # origins .. mlp, g_out, g_enc .. g_mlp_partial
+    [_P] * 14            # origins .. mlp, g_out, g_enc, g_mlp, partial,
+                         # stage, g_vec
     + [_I, _I, _P, _I]   # num_rays, num_out_grids, out_meta, out_chn
     + [_I, _P, _I]       # num_in_grids, in_meta, in_chn
-    + [_I, _P, _I, _I]   # n_layers, mlp_widths, width, rays_per_block
+    + [_I, _P, _I, _I]   # n_layers, mlp_widths, width, rows
     + [_I, _I, _F, _I, _I]  # num_samples, num_samples_inf, disparity, mask,
                             # contract
+    + [_I]               # part
     + [_P]               # relu_masks (the recording build's)
     + [_P]               # stream
 )
@@ -178,8 +181,9 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_splat_fw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_splat_bw.argtypes = _SPLAT_BW_ARGTYPES
     lib.lightplane_splat_bw.restype = _I
-    lib.lightplane_splat_bw_smem_bytes.argtypes = [_I, _I, _I]
-    lib.lightplane_splat_bw_smem_bytes.restype = ctypes.c_longlong
+    lib.lightplane_splat_bw_mlp_config.argtypes = [_I, _I, _P,
+                                                   ctypes.POINTER(_I)]
+    lib.lightplane_splat_bw_mlp_config.restype = _I
     for attrs in (lib.lightplane_splat_fw_attrs,
                   lib.lightplane_splat_bw_attrs):
         attrs.argtypes = [_I, _I, ctypes.POINTER(_I)]

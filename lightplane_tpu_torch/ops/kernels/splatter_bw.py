@@ -1,20 +1,29 @@
-"""The splatter's adjoint kernel (S2): its wrapper, its plain PyTorch version
-and the dispatch between them.
+"""The splatter's adjoint kernel (S2): its wrapper, its plain PyTorch
+versions and the dispatch between them.
 
 ``splat_bwd_cuda`` launches ``csrc/splatter_bw.cu`` (which replaces
-``lightplane_tpu/ops/kernels/splatter_pallas.py::_build_bw_kernel``);
-``splat_bwd_torch`` is the same march as a plain PyTorch loop over steps
-(the port of the JAX scan core's ``_splat_bwd``).  ``splat_bwd`` sends CUDA
-tensors to the kernel and CPU tensors to the plain version; there is no
-fallback from one to the other.
+``lightplane_tpu/ops/kernels/splatter_pallas.py::_build_bw_kernel``):
+without the MLP one gather; with it, slice by slice of the rays
+(``adjoint_slices``), the gather staging every step's ``g_vec``, pass A (a
+warp per ray: the recomputed MLP and its backward, the MLP input gradient
+``g_in`` of every step staged) and pass B (S1's planned splat of the
+staged ``g_in`` over the input grid-list,
+``splatter_fw.splat_by_plan_cuda``), then the sum of the per-block weight
+gradients.  ``splat_bwd_torch`` is the same adjoint as a plain PyTorch loop
+over steps (the port of the JAX scan core's ``_splat_bwd``), the
+reference; ``splat_bwd_two_pass_torch`` is the kernel's two-pass design in
+plain PyTorch, for the tests.  ``splat_bwd`` sends CUDA tensors to the
+kernel and CPU tensors to ``splat_bwd_torch``; there is no fallback from
+one to the other.
 
 The adjoint of a splat is a gather: each step samples the incoming
 gradient of the feature grid at the ray's point (``g_vec``).  Without an
 MLP the encoding's gradient is the sum of ``g_vec`` over the steps; with
 one, each step's MLP is recomputed and differentiated, and its input
 gradient is summed into the encoding's and splatted into the input grid's.
-No per-sample activation is kept: memory is independent of the number of
-samples.  Every function takes ``(cfg, geom, diff, g_feat_grid)`` with
+No per-sample activation is kept by ``splat_bwd_torch``; the kernel's
+staging buffer and run lists are capped by ``splatter_fw.PLAN_MAX_RUNS``, so
+its memory stops growing with the rays and the samples.  Every function takes ``(cfg, geom, diff, g_feat_grid)`` with
 ``geom`` and ``diff`` as in ``splatter_fw`` and returns ``(g_encoding,
 g_input_grid_flat, g_mlp_params)``, the last two None without an MLP.
 
@@ -31,21 +40,25 @@ plain forward's own.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import grid_sample as tgs
 from ..grid_sample import sample_grid_rep
 from ..splatter import _march_points, _SplatCfg, _step_fused_feature
+from . import splatter_fw as sfw
 from .renderer_bw import RELU_MASKS_BUILD, pack_masks, unpack_masks
-from .renderer_fw import MAX_SMEM_BYTES, WIDTHS, _check, check_impl
-from .splatter_fw import _ptr, aligned, splat_launch_args
+from .renderer_fw import WIDTHS, _check, check_impl
 
-# Number of kernel launches in this process; the kernel path adds one per
-# launch and nothing else changes it.
+# Number of adjoints launched in this process: the kernel path adds one per
+# adjoint (its passes, slices and sums together) and nothing else changes
+# it.
 LAUNCHES = 0
 
-# Rays per block the MLP adjoint may take, widest first: the block keeps
-# every ray's layer inputs in shared memory.
-RAYS_PER_BLOCK = (128, 64, 32)
+# The most output channels the gather without the MLP takes: 16 registers
+# a lane (csrc/splatter_bw.cu, kEncRegs).
+MAX_ENC_CHN = 512
 
 
 def mask_shape(cfg: _SplatCfg, R: int):
@@ -106,72 +119,192 @@ def splat_bwd_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
     return tuple(grads)
 
 
+def _slices(lo, hi, per_ray):
+    """``[lo, hi)`` cut into slices of at most ``PLAN_MAX_RUNS`` runs'
+    bytes at ``per_ray`` bytes a ray, each but the last a multiple of 32
+    rays."""
+    step = max(32, 8 * sfw.PLAN_MAX_RUNS // max(per_ray, 1) // 32 * 32)
+    return [(a, min(a + step, hi)) for a in range(lo, hi, step)]
+
+
+def adjoint_slices(cfg: _SplatCfg, bricks, n_rays: int):
+    """The slices ``(start, stop)`` of the rays that the MLP adjoint runs
+    pass B over: each slice's staged ``g_in`` ([rays, steps, C_in] f32) and
+    each of its run lists over an input sub-grid (``splatter_fw.plan_shape``,
+    8 bytes a run, ``bricks`` per input sub-grid) within ``PLAN_MAX_RUNS``
+    runs' bytes; each slice but the last a multiple of 32 rays."""
+    steps, C_in = cfg.tot_num_samples, cfg.n_hidden[0]
+    runs = max(sfw.plan_shape(cfg, (b,), 1, (gs,)).capacity
+               for gs, b in zip(cfg.input_grid_sizes, bricks))
+    return _slices(0, n_rays, max(4 * steps * C_in, 8 * runs))
+
+
+def gvec_slices(cfg: _SplatCfg, lo: int, hi: int):
+    """The slices of ``[lo, hi)`` (a slice of ``adjoint_slices``) that the
+    gather and pass A run over: each one's staged ``g_vec`` ([rays, steps,
+    C] f32) within ``PLAN_MAX_RUNS`` runs' bytes."""
+    return _slices(lo, hi, 4 * cfg.tot_num_samples * cfg.out_chn)
+
+
+def splat_bwd_two_pass_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
+                             relu_masks=None):
+    """The kernel's two-pass design in plain PyTorch, slice by slice of the
+    rays (``adjoint_slices``): pass A differentiates each step's MLP
+    (``torch.autograd.grad``), sums the encoding's and the MLP's gradients
+    and stages each step's MLP input gradient ``g_in``; pass B splats the
+    staged rows run by run of the plan over each input sub-grid
+    (``splatter_fw.splat_plan_torch``), as the kernel's pass B does.
+    ``relu_masks`` as ``splat_bwd_torch``'s.  Without the MLP it is
+    ``splat_bwd_torch``."""
+    if not cfg.n_hidden:
+        return splat_bwd_torch(cfg, geom, diff, g_feat_grid)
+    encoding, input_grid_flat, mlp_params = diff
+    steps, C_in = cfg.tot_num_samples, cfg.n_hidden[0]
+    in_sizes = cfg.input_grid_sizes
+    mask = cfg.mask_out_of_bounds_samples
+    rows = tgs.grid_row_offsets(in_sizes)
+    bricks = sfw.pick_bricks(cfg, grid_sizes=in_sizes)
+    g_enc = torch.zeros_like(encoding)
+    g_grid = torch.zeros_like(input_grid_flat)
+    g_mlp = torch.zeros_like(mlp_params)
+    mlp = mlp_params.detach().requires_grad_(True)
+    for lo, hi in adjoint_slices(cfg, bricks, encoding.shape[0]):
+        geom_s = tuple(t[lo:hi] for t in geom)
+        enc = encoding[lo:hi].detach().requires_grad_(True)
+        stage = encoding.new_zeros((hi - lo, steps, C_in))
+        for s in range(steps):  # pass A
+            pts = _march_points(cfg, geom_s, s)
+            g_vec = sample_grid_rep(g_feat_grid, cfg.output_grid_sizes, pts,
+                                    geom_s[4], mask)
+            relu = {}
+            if relu_masks is not None:
+                m = unpack_masks(relu_masks[lo:hi, s]).to(encoding.dtype)
+                relu = dict(relu=lambda k, x, m=m: x * m[:, k, : x.shape[-1]])
+            with torch.enable_grad():
+                vec = _step_fused_feature(cfg, pts, enc, input_grid_flat,
+                                          mlp, geom_s[4], **relu)
+            g_in, d_mlp = torch.autograd.grad(vec, (enc, mlp), g_vec)
+            stage[:, s] = g_in
+            g_mlp += d_mlp
+        g_enc[lo:hi] = stage.sum(1)
+        for g, (gs, brick) in enumerate(zip(in_sizes, bricks)):  # pass B
+            counts, _, runs = sfw.splat_plan_torch(cfg, geom_s, (brick,),
+                                                   (gs,))
+            lens = runs[:, 2] - runs[:, 1] + 1
+            ray = torch.repeat_interleave(runs[:, 0], lens)
+            first = torch.repeat_interleave(lens.cumsum(0) - lens, lens)
+            step = torch.repeat_interleave(runs[:, 1], lens) + (
+                torch.arange(int(lens.sum()), device=lens.device) - first)
+            for s in range(steps):
+                sel = ray[step == s]
+                if not sel.numel():
+                    continue
+                sub = tuple(t[sel] for t in geom_s)
+                tgs.splat_grid_rep(stage[sel, s], g_grid[rows[g]:rows[g + 1]],
+                                   (gs,), _march_points(cfg, sub, s), sub[4],
+                                   mask, inplace=True)
+    return g_enc, g_grid, g_mlp
+
+
 def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
                relu_masks):
     global LAUNCHES
-    directions, origins, near, far, grid_idx = geom
-    a = splat_launch_args(cfg, geom, diff, "splat_bwd_cuda")
+    a = sfw.splat_launch_args(cfg, geom, diff, "splat_bwd_cuda")
     _check(g_feat_grid, "g_feat_grid", torch.float32, (cfg.v_total, a.C),
            a.device)
-    encoding, input_grid_flat, mlp_params = (aligned(t) for t in diff)
-    g_feat_grid = aligned(g_feat_grid)
+    encoding, input_grid_flat, mlp_params = (sfw.aligned(t) for t in diff)
+    g_feat_grid = sfw.aligned(g_feat_grid)
 
     from ._build import library
 
     lib = library(defines)
-    rays_per_block = 0
-    f32 = torch.float32
-    g_enc = torch.empty_like(encoding)
-    g_igrid = g_mlp = partials = None
-    if a.n_layers:
-        for rays_per_block in RAYS_PER_BLOCK:
-            smem = lib.lightplane_splat_bw_smem_bytes(a.width, rays_per_block,
-                                                      a.n_layers)
-            if smem <= MAX_SMEM_BYTES:
-                break
-        else:
-            raise ValueError(
-                f"the splatter's adjoint needs {smem} bytes of shared memory "
-                f"per block of {rays_per_block} rays at these MLP widths, "
-                f"more than the {MAX_SMEM_BYTES} a Hopper block can have")
-        n_blocks = -(-a.R // rays_per_block)
-        padded_layer = a.width * a.width + a.width
-        g_igrid = torch.zeros_like(input_grid_flat)
-        g_mlp = torch.empty((a.n_params,), dtype=f32, device=a.device)
-        # per-block partial sums of the padded MLP weight gradients; each
-        # block initialises its own row, and a second kernel sums the rows
-        partials = torch.empty((max(n_blocks, 1), a.n_layers * padded_layer),
-                               dtype=f32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.lightplane_splat_bw(
-        origins.data_ptr(), directions.data_ptr(), near.data_ptr(),
-        far.data_ptr(), grid_idx.data_ptr(), encoding.data_ptr(),
-        _ptr(input_grid_flat), _ptr(mlp_params), g_feat_grid.data_ptr(),
-        g_enc.data_ptr(), _ptr(g_igrid), _ptr(g_mlp), _ptr(partials),
-        a.R, len(cfg.output_grid_sizes), a.out_meta, a.C,
-        len(cfg.input_grid_sizes or ()), a.in_meta, a.C_in,
-        a.n_layers, a.mlp_widths, a.width, rays_per_block,
-        cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf,
-        int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
-        _ptr(relu_masks), stream,
-    )
+    f32 = torch.float32
+    ptr = sfw._ptr
+
+    def run(part, geom_s, enc, g_enc=None, rows=0, stage=None,
+            partial=None, g_mlp=None, masks=None, g_vec=None):
+        directions, origins, near, far, grid_idx = geom_s
+        rc = lib.lightplane_splat_bw(
+            origins.data_ptr(), directions.data_ptr(), near.data_ptr(),
+            far.data_ptr(), grid_idx.data_ptr(), enc.data_ptr(),
+            ptr(input_grid_flat), ptr(mlp_params), g_feat_grid.data_ptr(),
+            ptr(g_enc), ptr(g_mlp), ptr(partial), ptr(stage), ptr(g_vec),
+            directions.shape[0], len(cfg.output_grid_sizes), a.out_meta,
+            a.C, len(cfg.input_grid_sizes or ()), a.in_meta, a.C_in,
+            a.n_layers, a.mlp_widths, a.width, rows,
+            cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf,
+            int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
+            part, ptr(masks), stream,
+        )
+        if rc != 0:
+            msg = lib.lightplane_cuda_error_string(rc).decode()
+            raise RuntimeError(
+                f"splatter_bw kernel launch (part {part}) failed: {msg} "
+                f"({rc})")
+
+    if not a.n_layers:
+        if a.C > MAX_ENC_CHN:
+            raise ValueError(f"the CUDA splatter's adjoint takes up to "
+                             f"{MAX_ENC_CHN} channels, got {a.C}")
+        g_enc = torch.empty_like(encoding)
+        run(0, geom, encoding, g_enc)
+        LAUNCHES += 1
+        return g_enc, None, None
+
+    conf = (ctypes.c_int * 4)()
+    rc = lib.lightplane_splat_bw_mlp_config(a.width, a.n_layers,
+                                            a.mlp_widths, conf)
     if rc != 0:
-        msg = lib.lightplane_cuda_error_string(rc).decode()
-        raise RuntimeError(f"splatter_bw kernel launch failed: {msg} ({rc})")
+        raise ValueError(
+            f"the splatter's adjoint needs {conf[3]} bytes of shared memory "
+            f"for one warp at these MLP widths, more than a Hopper block "
+            f"has ({lib.lightplane_cuda_error_string(rc).decode()})")
+    rows, row_floats = conf[1], conf[2]
+    g_enc = torch.empty_like(encoding)
+    g_grid = torch.zeros_like(input_grid_flat)
+    g_mlp = torch.empty((a.n_params,), dtype=f32, device=a.device)
+    # the blocks' rows of weight-gradient sums, added to by every slice
+    partial = torch.zeros((rows, row_floats), dtype=f32, device=a.device)
+    in_sizes = cfg.input_grid_sizes
+    bricks = sfw.pick_bricks(cfg, grid_sizes=in_sizes)
+    b_args = sfw.list_args(cfg, a, input_grid_flat.shape[0])
+    limit = sfw.batch_limit(cfg)
+    for lo, hi in adjoint_slices(cfg, bricks, a.R):
+        geom_s = tuple(t[lo:hi] for t in geom)
+        stage = torch.empty((hi - lo, cfg.tot_num_samples, a.C_in),
+                            dtype=f32, device=a.device)
+        g_vec = None
+        for glo, ghi in gvec_slices(cfg, lo, hi):
+            if g_vec is None:
+                g_vec = torch.empty((ghi - glo, cfg.tot_num_samples, a.C),
+                                    dtype=f32, device=a.device)
+            run(1, tuple(t[glo:ghi] for t in geom), encoding[glo:ghi],
+                g_enc[glo:ghi], rows, stage[glo - lo:ghi - lo], partial,
+                masks=None if relu_masks is None else relu_masks[glo:ghi],
+                g_vec=g_vec)
+        del g_vec
+        for g, brick in enumerate(bricks):
+            sfw.splat_by_plan_cuda(lib, cfg, geom_s, (stage, None, None),
+                                   b_args, g, brick, g_grid, None, in_sizes,
+                                   limit)
+        del stage
+    run(2, geom, encoding, rows=rows, partial=partial, g_mlp=g_mlp)
     LAUNCHES += 1
-    return g_enc, g_igrid, g_mlp
+    return g_enc, g_grid, g_mlp
 
 
-def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid):
-    """Launch the splat adjoint kernel on the current CUDA stream."""
-    return _launch_bw(cfg, geom, diff, g_feat_grid, (), None)
+def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid, defines=()):
+    """Launch the splat adjoint on the current CUDA stream; ``defines``
+    pick a variant build (``_build.library``)."""
+    return _launch_bw(cfg, geom, diff, g_feat_grid, tuple(defines), None)
 
 
 def splat_bwd_cuda_relu_masks(cfg: _SplatCfg, geom, diff, g_feat_grid):
     """The kernel's recording build (``RELU_MASKS_BUILD``), with an MLP:
     returns its gradients, as ``splat_bwd_cuda``'s, and the relu masks its
-    recomputed forward took (``mask_shape``; zero at steps that the whole
-    block skipped, where every ray's g_vec is 0)."""
+    recomputed forward took (``mask_shape``; zero in the chunks of 32 steps
+    that a ray's warp skipped, where its g_vec is 0 at every step)."""
     if not cfg.n_hidden:
         raise ValueError("the relu masks need the splatter MLP")
     masks = torch.zeros(mask_shape(cfg, geom[0].shape[0]), dtype=torch.int32,

@@ -56,8 +56,11 @@ PLAN_LAUNCHES = 0
 BLOCK_SMEM_BUDGET = 228 * 1024 // 3 - 1024
 SPLAT_WARPS = 4    # warps per block of the splat pass (kWarps)
 RUN_BATCH = 32     # runs a warp marches together (kBatch)
-# K: the runs of one work item, a brick's slice
+# K: the runs of one work item, a brick's slice; the adjoint's pass B
+# splats a slice of rays into few bricks, so it takes smaller items to give
+# every warp of the card some
 RUNS_PER_ITEM = 1024
+RUNS_PER_ITEM_STEPS = 64
 # a run stores its first and last step in 16 bits each
 MAX_STEPS = 0xFFFF
 # The most runs one plan's list holds (256 MiB): a splat whose rays' bound
@@ -113,30 +116,40 @@ def splat_smem_bytes(width: int, n_layers: int, rows: int, C: int,
                      stage: int) -> int:
     """Shared memory of a splat block: the MLP's layers, then per warp a
     tile of ``rows`` rows of C channels and the weight (an even count of
-    floats) and a batch of staged encodings of ``stage`` channels, rounded
-    up to 16 bytes (as ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
+    floats) and a batch of staged encodings of ``stage`` channels, each
+    rounded up to 16 bytes (as ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
     row = (C + 2) & ~1
-    warp = -(-(rows * row + RUN_BATCH * stage) // 4) * 4
+    warp = -(-rows * row // 4) * 4 + -(-RUN_BATCH * stage // 4) * 4
     return 4 * (n_layers * (width * width + width) + SPLAT_WARPS * warp)
 
 
-def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET):
-    """The brick, cells along (D, H, W), of each output sub-grid: from 2
-    cells along each axis that is not a singleton, the axis with the fewest
-    cells (the later on a tie) doubles while the block's shared memory stays
-    within ``budget`` and the brick within the grid.  Raises where even the
-    smallest brick exceeds a block's shared memory."""
-    C = cfg.out_chn
-    width = _mlp_width(cfg)
+def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET,
+                grid_sizes=None):
+    """The brick, cells along (D, H, W), of each output sub-grid (or of each
+    sub-grid of ``grid_sizes``, splatted without the MLP: the adjoint's
+    pass B over the input grid-list): from 2 cells along each axis that is
+    not a singleton, the axis with the fewest cells (the later on a tie)
+    doubles while the block's shared memory stays within ``budget`` and the
+    brick within the grid.  Raises where even the smallest brick exceeds a
+    block's shared memory."""
+    if grid_sizes is None:
+        grid_sizes = cfg.output_grid_sizes
+        C = cfg.out_chn
+        width = _mlp_width(cfg)
+        stage = _stage_chn(cfg)
+    else:
+        # pass B stages two steps' values of a batch of runs
+        C = int(grid_sizes[0][-1])
+        width = 0
+        stage = 2 * (32 if C <= 32 else 64)
     n_layers = len(cfg.n_hidden) - 1 if width else 0
-    stage = _stage_chn(cfg)
 
     def smem(gs, brick):
         return splat_smem_bytes(width, n_layers, _tile_rows(gs, brick), C,
                                 stage)
 
     bricks = []
-    for gs in cfg.output_grid_sizes:
+    for gs in grid_sizes:
         dims = gs[1:4]
         brick = [2 if d > 1 else 1 for d in dims]
         if smem(gs, brick) > MAX_SMEM_BYTES:
@@ -171,20 +184,22 @@ class PlanShape:
         return self.first[-1]
 
 
-def plan_shape(cfg: _SplatCfg, bricks, n_rays: int) -> PlanShape:
-    """Brick counts and the capacity of the run list, from the shapes
-    alone.  A run is one ray's consecutive steps with one brick in one
-    sub-grid.  Without contraction and background steps the steps walk a
-    straight segment in order, so each axis's brick index only moves one way
-    and the steps with an in-bounds corner (and, with masking, inside the
-    cube) form one interval: a ray makes at most 1 + sum(bricks - 1 per
-    axis) runs in a sub-grid.  Background depths need not grow by the step
+def plan_shape(cfg: _SplatCfg, bricks, n_rays: int,
+               grid_sizes=None) -> PlanShape:
+    """Brick counts and the capacity of the run list of the output
+    grid-list (or of ``grid_sizes``), from the shapes alone.  A run is one
+    ray's consecutive steps with one brick in one sub-grid.  Without
+    contraction and background steps the steps walk a straight segment in
+    order, so each axis's brick index only moves one way and the steps with
+    an in-bounds corner (and, with masking, inside the cube) form one
+    interval: a ray makes at most 1 + sum(bricks - 1 per axis) runs in a
+    sub-grid.  Background depths need not grow by the step
     in f32 and contraction bends the path, so with either the bound is the
     step count; always at most the step count."""
     steps = cfg.tot_num_samples
     nb, first, capacity = [], [0], 0
     straight = not cfg.contract_coords and cfg.num_samples_inf == 0
-    for gs, brick in zip(cfg.output_grid_sizes, bricks):
+    for gs, brick in zip(grid_sizes or cfg.output_grid_sizes, bricks):
         n = tuple(-(-size // cells) for size, cells in zip(gs[1:4], brick))
         nb.append(n)
         first.append(first[-1] + gs[0] * n[0] * n[1] * n[2])
@@ -200,7 +215,8 @@ def ray_slices(cfg: _SplatCfg, g: int, brick, n_rays: int):
     plans and splats one after another in output sub-grid ``g``: each
     slice's run list (``plan_shape``) holds at most ``PLAN_MAX_RUNS`` runs,
     and each slice but the last is a multiple of 32 rays."""
-    per_ray = plan_shape(_sub_cfg(cfg, g), (brick,), 1).capacity
+    per_ray = plan_shape(cfg, (brick,), 1,
+                         (cfg.output_grid_sizes[g],)).capacity
     step = max(32, PLAN_MAX_RUNS // max(per_ray, 1) // 32 * 32)
     return [(lo, min(lo + step, n_rays)) for lo in range(0, n_rays, step)]
 
@@ -222,19 +238,21 @@ def _brick_keys(gs, brick, nb, first, pts, grid_idx, live):
     return torch.where(live, key, torch.full_like(key, -1))
 
 
-def splat_plan_torch(cfg: _SplatCfg, geom, bricks):
-    """Plain PyTorch version of the plan's two passes: ``(counts [bricks]
-    int32, offsets [bricks + 1] int32, runs [N, 3] int64)``, the runs as
-    (ray, first step, last step), grouped by brick in order of (ray, first
-    step).  A ray whose ``grid_idx`` lies outside every grid's batch makes
-    no runs."""
+def splat_plan_torch(cfg: _SplatCfg, geom, bricks, grid_sizes=None):
+    """Plain PyTorch version of the plan's two passes over the output
+    grid-list (or ``grid_sizes``): ``(counts [bricks] int32, offsets
+    [bricks + 1] int32, runs [N, 3] int64)``, the runs as (ray, first step,
+    last step), grouped by brick in order of (ray, first step).  A ray whose
+    ``grid_idx`` lies outside the batch of any grid of ``cfg`` (output or
+    input) makes no runs."""
     directions, _, _, _, grid_idx = geom
     R, S = directions.shape[0], cfg.tot_num_samples
-    shape = plan_shape(cfg, bricks, R)
+    grids = tuple(grid_sizes or cfg.output_grid_sizes)
+    shape = plan_shape(cfg, bricks, R, grids)
     sizes = tuple(cfg.output_grid_sizes) + tuple(cfg.input_grid_sizes or ())
     gi = grid_idx.long()
     live = (gi >= 0) & (gi < min(gs[0] for gs in sizes))
-    G = len(cfg.output_grid_sizes)
+    G = len(grids)
     keys = torch.full((G, R, S), -1, dtype=torch.int64,
                       device=directions.device)
     for s in range(S):
@@ -242,7 +260,7 @@ def splat_plan_torch(cfg: _SplatCfg, geom, bricks):
         ok = live
         if cfg.mask_out_of_bounds_samples:
             ok = ok & (pts.abs() <= 1.0).all(-1)
-        for g, (gs, brick) in enumerate(zip(cfg.output_grid_sizes, bricks)):
+        for g, (gs, brick) in enumerate(zip(grids, bricks)):
             keys[g, :, s] = _brick_keys(gs, brick, shape.nb[g],
                                         shape.first[g], pts, gi, ok)
     runs, run_keys = [], []
@@ -399,13 +417,31 @@ def plan_slice(counts, offsets, runs, shape: PlanShape, g: int):
     return counts[lo:hi], offsets[lo:hi + 1] - first, runs[first:last]
 
 
+def list_args(cfg: _SplatCfg, a: SplatLaunchArgs, rows: int):
+    """``a`` for a splat of no MLP into the input grid-list of ``cfg``
+    (``rows`` rows): the adjoint's pass B, and its plan."""
+    sizes = cfg.input_grid_sizes
+    C = int(sizes[0][-1])
+    return dataclasses.replace(
+        a, C=C, C_in=0, n_layers=0, n_params=0, width=0,
+        out_meta=_grid_meta(sizes, rows, C, "the input grid-list"),
+        in_meta=None, mlp_widths=None)
+
+
+def batch_limit(cfg: _SplatCfg) -> int:
+    """The batches that every grid-list of ``cfg`` has."""
+    sizes = tuple(cfg.output_grid_sizes) + tuple(cfg.input_grid_sizes or ())
+    return min(gs[0] for gs in sizes)
+
+
 def _launch(lib, stage, cfg, geom, diff, a, g, brick, feat=None, w=None,
             counts=None, cursor=None, offsets=None, runs=None, capacity=0,
-            item_start=None, max_items=0):
+            item_start=None, max_items=0, step_values=False, limit=0):
     """One stage of ``lightplane_splat_fw`` (0 count, 1 fill, 2 splat) for
-    output sub-grid ``g`` with bricks of ``brick`` cells, over the rays of
-    ``geom`` (all of them or a slice), on the current CUDA stream; raises
-    when the launch fails."""
+    sub-grid ``g`` of ``a``'s grid-list with bricks of ``brick`` cells, over
+    the rays of ``geom`` (all of them or a slice), on the current CUDA
+    stream; ``step_values`` and ``limit`` as the C entry's step_values and
+    batch_limit.  Raises when the launch fails."""
     directions, origins, near, far, grid_idx = geom
     encoding, input_grid_flat, mlp_params = diff
     meta = (ctypes.c_int * 5)(*a.out_meta[5 * g:5 * g + 5])
@@ -421,7 +457,8 @@ def _launch(lib, stage, cfg, geom, diff, a, g, brick, feat=None, w=None,
         int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
         (ctypes.c_int * 3)(*brick), stage, _ptr(counts), _ptr(cursor),
         _ptr(offsets), _ptr(runs), capacity, _ptr(item_start),
-        RUNS_PER_ITEM, max_items, stream,
+        RUNS_PER_ITEM_STEPS if step_values else RUNS_PER_ITEM, max_items,
+        int(step_values), limit, stream,
     )
     if rc != 0:
         msg = lib.lightplane_cuda_error_string(rc).decode()
@@ -429,17 +466,20 @@ def _launch(lib, stage, cfg, geom, diff, a, g, brick, feat=None, w=None,
             f"splatter_fw kernel launch (stage {stage}) failed: {msg} ({rc})")
 
 
-def _plan_cuda(lib, cfg, geom, diff, a, g, brick):
-    """Sub-grid ``g``'s plan of the rays of ``geom``: the count pass, the
-    prefix sum of the counts and the fill pass; ``(shape, counts, offsets,
-    runs)``.  Nothing is read back."""
+def _plan_cuda(lib, cfg, geom, diff, a, g, brick, grid_sizes=None, limit=0):
+    """Sub-grid ``g``'s plan of the rays of ``geom``, of the output
+    grid-list or of ``grid_sizes`` (then ``a`` is ``list_args``' and
+    ``limit`` its ``batch_limit``; such a plan is not counted in
+    PLAN_LAUNCHES): the count pass, the prefix sum of the counts and the
+    fill pass; ``(shape, counts, offsets, runs)``.  Nothing is read back."""
     global PLAN_LAUNCHES
-    shape = plan_shape(_sub_cfg(cfg, g), (brick,), geom[0].shape[0])
+    sizes = grid_sizes or cfg.output_grid_sizes
+    shape = plan_shape(cfg, (brick,), geom[0].shape[0], (sizes[g],))
     if shape.capacity >= 2**31 or shape.n_bricks >= 2**31:
         raise ValueError("too many runs or bricks for the CUDA splatter's "
                          "int32 plan")
     counts = torch.zeros(shape.n_bricks, dtype=torch.int32, device=a.device)
-    _launch(lib, 0, cfg, geom, diff, a, g, brick, counts=counts)
+    _launch(lib, 0, cfg, geom, diff, a, g, brick, counts=counts, limit=limit)
     offsets = torch.zeros(shape.n_bricks + 1, dtype=torch.int32,
                           device=a.device)
     offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
@@ -447,25 +487,34 @@ def _plan_cuda(lib, cfg, geom, diff, a, g, brick):
     runs = torch.empty((max(shape.capacity, 1), 2), dtype=torch.int32,
                        device=a.device)
     _launch(lib, 1, cfg, geom, diff, a, g, brick, cursor=cursor,
-            offsets=offsets, runs=runs, capacity=shape.capacity)
-    PLAN_LAUNCHES += 1
+            offsets=offsets, runs=runs, capacity=shape.capacity, limit=limit)
+    if grid_sizes is None:
+        PLAN_LAUNCHES += 1
     return shape, counts, offsets, runs
 
 
-def splat_plan_cuda(cfg: _SplatCfg, geom, diff, bricks=None, grid=0):
-    """The plan's kernels alone, for output sub-grid ``grid`` and every
-    ray in one list, on the current CUDA stream: ``(counts [bricks] int32,
+def splat_plan_cuda(cfg: _SplatCfg, geom, diff, bricks=None, grid=0,
+                    inputs=False):
+    """The plan's kernels alone, for output sub-grid ``grid`` (with
+    ``inputs``, input sub-grid ``grid``: the adjoint's pass B) and every ray
+    in one list, on the current CUDA stream: ``(counts [bricks] int32,
     offsets [bricks + 1] int32, runs [capacity, 2] int32)``, each brick's
     runs in the order its atomics chose (``canonical_runs`` orders them;
     ``plan_slice`` cuts the plain version's plan of every sub-grid to
-    match).  ``bricks`` default to ``pick_bricks(cfg)``."""
+    match).  ``bricks`` default to ``pick_bricks``'."""
     a = splat_launch_args(cfg, geom, diff, "splat_plan_cuda")
     diff = tuple(aligned(t) for t in diff)
     from ._build import library
 
-    bricks = pick_bricks(cfg) if bricks is None else tuple(bricks)
+    sizes, limit = None, 0
+    if inputs:
+        sizes, limit = cfg.input_grid_sizes, batch_limit(cfg)
+        a = list_args(cfg, a, diff[1].shape[0])
+    if bricks is None:
+        bricks = pick_bricks(cfg, grid_sizes=sizes)
     _, counts, offsets, runs = _plan_cuda(library(), cfg, geom, diff, a,
-                                          grid, bricks[grid])
+                                          grid, tuple(bricks)[grid], sizes,
+                                          limit)
     return counts, offsets, runs
 
 
@@ -500,18 +549,29 @@ def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=(), bricks=None):
         for lo, hi in ray_slices(cfg, g, brick, a.R):
             geom_s = tuple(t[lo:hi] for t in geom)
             diff_s = (diff[0][lo:hi],) + diff[1:]
-            shape, counts, offsets, runs = _plan_cuda(lib, cfg, geom_s,
-                                                      diff_s, a, g, brick)
-            items = (counts + (RUNS_PER_ITEM - 1)) // RUNS_PER_ITEM
-            item_start = torch.zeros_like(offsets)
-            item_start[1:] = torch.cumsum(items, 0, dtype=torch.int32)
-            max_items = shape.n_bricks + -(-shape.capacity // RUNS_PER_ITEM)
-            _launch(lib, 2, cfg, geom_s, diff_s, a, g, brick, feat=feat, w=w,
-                    offsets=offsets, runs=runs, capacity=shape.capacity,
-                    item_start=item_start, max_items=max_items)
-            del runs
+            splat_by_plan_cuda(lib, cfg, geom_s, diff_s, a, g, brick, feat, w)
     LAUNCHES += 1
     return feat, w
+
+
+def splat_by_plan_cuda(lib, cfg, geom, diff, a, g, brick, feat, w,
+                       grid_sizes=None, limit=0):
+    """Plan the rays of ``geom`` in sub-grid ``g`` (``_plan_cuda``), sum the
+    work items' prefix and splat by the plan into ``feat`` (and ``w``),
+    all on the current CUDA stream.  With ``grid_sizes`` (the adjoint's
+    pass B: ``a`` from ``list_args``, no ``w``) each step splats its own
+    row of ``diff[0]``, ``[rays, steps, C]``."""
+    shape, counts, offsets, runs = _plan_cuda(lib, cfg, geom, diff, a, g,
+                                              brick, grid_sizes, limit)
+    k = RUNS_PER_ITEM if grid_sizes is None else RUNS_PER_ITEM_STEPS
+    items = (counts + (k - 1)) // k
+    item_start = torch.zeros_like(offsets)
+    item_start[1:] = torch.cumsum(items, 0, dtype=torch.int32)
+    max_items = shape.n_bricks + -(-shape.capacity // k)
+    _launch(lib, 2, cfg, geom, diff, a, g, brick, feat=feat, w=w,
+            offsets=offsets, runs=runs, capacity=shape.capacity,
+            item_start=item_start, max_items=max_items,
+            step_values=grid_sizes is not None, limit=limit)
 
 
 def splat_fwd(cfg: _SplatCfg, geom, diff, impl: str = "auto"):

@@ -656,3 +656,120 @@ def test_splat_fwd_kernel_in_ray_slices_matches_plain(cuda, case,
     for name, a, b in zip(("feat", "w"), got, want):
         err = float((a - b).abs().max())
         assert err <= MAX_ABS * float(b.abs().max()), f"{name}: {err}"
+
+
+def _adjoint_march(device, case, n_rays=512):
+    """``(cfg, geom, diff)`` of a SPLAT_CASES case as the splatter hands
+    them to S2, and a random cotangent of the raw features."""
+    from lightplane_tpu_torch.ops import splatter as smod
+
+    c = dict(SPLAT_CASES[case])
+    kw = c.pop("kw")
+    rays, sp, igrid = _splat_case(device, n_rays=n_rays, **c)
+    out_sizes, in_sizes = c["out_sizes"], c.get("in_sizes")
+    cfg = smod._SplatCfg(
+        24, kw.get("num_samples_inf", 0),
+        kw.get("mask_out_of_bounds_samples", False),
+        kw.get("contract_coords", False), kw.get("disparity_at_inf", 1e-5),
+        tuple(out_sizes), None if sp is None else tuple(in_sizes),
+        () if sp is None else tuple(sp.n_hidden))
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    diff = (rays.encoding, None, None)
+    if sp is not None:
+        diff = (rays.encoding, torch.cat([g.reshape(-1, g.shape[-1])
+                                          for g in igrid]), sp.mlp_params)
+    g_out = torch.randn((cfg.v_total, cfg.out_chn),
+                        generator=torch.Generator().manual_seed(1)).to(device)
+    return cfg, geom, diff, g_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chn", [3, 6, 16, 32, 64, 100, 128, 200])
+def test_splat_adjoint_gather_matches_plain(cuda, chn):
+    """S2 without the MLP (lanes own scalars, pairs or quads of a row;
+    several rays a warp below 64 channels, passes over the row above 128)
+    against ``splat_bwd_torch`` on every ray, and bit-identical across two
+    runs."""
+    from lightplane_tpu_torch.ops import splatter as smod
+
+    out_sizes = [(2, 9, 10, 11, chn)]
+    rays, _, _ = _splat_case(cuda, out_sizes, batch=2, n_rays=300)
+    cfg = smod._SplatCfg(20, 2, True, False, 1e-3, tuple(out_sizes), None,
+                         ())
+    geom = (rays.directions, rays.origins, rays.near, rays.far,
+            rays.grid_idx.to(torch.int32))
+    diff = (rays.encoding, None, None)
+    g_out = torch.randn((cfg.v_total, chn),
+                        generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = splatter_bw.LAUNCHES
+    with torch.no_grad():
+        got = splatter_bw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
+        again = splatter_bw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
+        want = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out)[0]
+    torch.cuda.synchronize()
+    assert splatter_bw.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max())
+    assert err <= MAX_ABS * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out"])
+def test_splat_adjoint_in_ray_slices(cuda, case, monkeypatch):
+    """S2 with the MLP with its staging and run lists capped at ~100 rays,
+    so that it runs pass A and pass B over slices of the rays, against its
+    plain version under its relu masks; g_enc and g_mlp bit-identical
+    across two runs."""
+    cfg, geom, diff, g_out = _adjoint_march(cuda, case)
+    bricks = splatter_fw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+    monkeypatch.setattr(splatter_fw, "PLAN_MAX_RUNS",
+                        100 * cfg.tot_num_samples * cfg.n_hidden[0] // 2)
+    slices = splatter_bw.adjoint_slices(cfg, bricks, geom[0].shape[0])
+    assert len(slices) > 2
+    with torch.no_grad():
+        got, masks = splatter_bw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
+                                                           g_out)
+        again, _ = splatter_bw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
+                                                         g_out)
+        want = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out,
+                                           relu_masks=masks)
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * float(b.abs().max()), f"grad {i}: {err}"
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out"])
+def test_splat_adjoint_plan_over_the_input_grids(cuda, case):
+    """Pass B's plan over the input grid-list equals ``splat_plan_torch``
+    exactly once each brick's runs are sorted."""
+    cfg, geom, diff, _ = _adjoint_march(cuda, case)
+    sizes = cfg.input_grid_sizes
+    bricks = splatter_fw.pick_bricks(cfg, grid_sizes=sizes)
+    shape = splatter_fw.plan_shape(cfg, bricks, geom[0].shape[0], sizes)
+    with torch.no_grad():
+        plain = splatter_fw.splat_plan_torch(cfg, geom, bricks, sizes)
+        for g in range(len(sizes)):
+            counts, offsets, runs = splatter_fw.splat_plan_cuda(
+                cfg, geom, diff, bricks, grid=g, inputs=True)
+            want = splatter_fw.plan_slice(*plain, shape, g)
+            assert torch.equal(counts, want[0])
+            assert torch.equal(offsets, want[1])
+            got = splatter_fw.canonical_runs(counts, offsets, runs)
+            assert torch.equal(got, want[2]) and got.shape[0] > 0
+
+
+@pytest.mark.cuda
+def test_splat_adjoint_does_not_spill(cuda):
+    """Neither S2's gathers nor its pass A at W = 32 or 64 spills."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import _build
+
+    out = (ctypes.c_int * 3)()
+    lib = _build.library()
+    for mlp, width in ((0, 0), (1, 32), (1, 64), (2, 0), (3, 0)):
+        assert lib.lightplane_splat_bw_attrs(mlp, width, out) == 0
+        assert out[1] == 0, (mlp, width, out[0], out[1])

@@ -11,7 +11,7 @@ import torch
 
 import lightplane_tpu_torch as lp
 from lightplane_tpu_torch.ops import splatter as smod
-from lightplane_tpu_torch.ops.kernels import splatter_bw
+from lightplane_tpu_torch.ops.kernels import splatter_bw, splatter_fw
 
 torch.set_num_threads(1)
 
@@ -121,3 +121,65 @@ def test_masks_need_the_mlp():
                          ())
     with pytest.raises(ValueError, match="splatter MLP"):
         splatter_bw.splat_bwd_cuda_relu_masks(cfg, None, None, None)
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_two_pass_adjoint_matches_the_reference(case, monkeypatch):
+    """The kernel's two-pass design in plain PyTorch (pass A staging each
+    step's MLP input gradient, pass B splatting it by the plan over the
+    input grid-list) equals ``splat_bwd_torch``, whole and with the rays in
+    slices of 32, and under the same relu masks."""
+    cfg, geom, diff, g_out = _splat(**MASK_CASES[case], R=72)
+    want = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out)
+    masks = splatter_bw.relu_masks_torch(cfg, geom, diff)
+    masks[::5] = 0  # a branch that the forward did not take
+    want_m = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out,
+                                         relu_masks=masks)
+    got = splatter_bw.splat_bwd_two_pass_torch(cfg, geom, diff, g_out)
+    monkeypatch.setattr(splatter_fw, "PLAN_MAX_RUNS", 1)
+    bricks = splatter_fw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+    assert len(splatter_bw.adjoint_slices(cfg, bricks, 72)) == 3
+    sliced = splatter_bw.splat_bwd_two_pass_torch(cfg, geom, diff, g_out,
+                                                  relu_masks=masks)
+    for a, b, c, d in zip(want, got, want_m, sliced):
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+        assert float((c - d).abs().max()) <= 1e-5 * scale
+    assert float((want_m[2] - want[2]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("steps, C_in, sizes, contract, want", [
+    # 32 channels in and out: 12,288 bytes of staged g_in a ray at 96 steps
+    # outweigh its run lists over the 128^2 planes
+    (96, 32, _tri(1, 128, 32), False, 21824),
+    (192, 32, _tri(1, 128, 32), False, 10912),
+    # one channel and contraction (a run a step): the run lists bound it
+    (64, 1, ((1, 64, 64, 64, 1),), True, 524288),
+])
+def test_adjoint_slices_cap_staging_and_run_lists(steps, C_in, sizes,
+                                                  contract, want):
+    """Each slice's staged g_in and its run lists over the input sub-grids,
+    and each of its sub-slices' staged g_vec, stay within PLAN_MAX_RUNS
+    runs' bytes; the slices cover the rays, all but the last a multiple of
+    32 rays."""
+    cfg = smod._SplatCfg(steps, 0, False, contract, 1e-5,
+                         ((1, 8, 8, 8, C_in),), tuple(sizes),
+                         (C_in, 32, C_in))
+    bricks = splatter_fw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+    R = 1_000_000
+    slices = splatter_bw.adjoint_slices(cfg, bricks, R)
+    assert slices[0] == (0, want)
+    assert slices[-1][1] == R
+    cap = 8 * splatter_fw.PLAN_MAX_RUNS
+    for (a, b), (c, _) in zip(slices, slices[1:] + [(R, None)]):
+        assert b == c and a % 32 == 0
+        assert 4 * (b - a) * steps * C_in <= cap
+        for gs, brick in zip(cfg.input_grid_sizes, bricks):
+            runs = splatter_fw.plan_shape(cfg, (brick,), b - a, (gs,))
+            assert 8 * runs.capacity <= cap
+        # the gather and pass A over sub-slices of it: their staged g_vec
+        sub = splatter_bw.gvec_slices(cfg, a, b)
+        assert sub[0][0] == a and sub[-1][1] == b
+        for (d, e), (f, _) in zip(sub, sub[1:] + [(b, None)]):
+            assert e == f and (d - a) % 32 == 0
+            assert 4 * (e - d) * steps * cfg.out_chn <= cap

@@ -101,27 +101,30 @@ def _cfg(out_sizes, kw, in_sizes=None, n_hidden=()):
         tuple(n_hidden))
 
 
-def _case_bricks(cfg, bricks):
+def _case_bricks(cfg, bricks, sizes=None):
     if bricks is None:
-        return sfw.pick_bricks(cfg)
+        return sfw.pick_bricks(cfg, grid_sizes=sizes)
     return tuple(tuple(c if size > 1 else 1
                        for c, size in zip(bricks, gs[1:4]))
-                 for gs in cfg.output_grid_sizes)
+                 for gs in sizes or cfg.output_grid_sizes)
 
 
-def _brute_force_bricks(cfg, geom, bricks, shape):
-    """Per sub-grid, [R, S]: the brick each sample must lie in, or -1 where
-    it splats nothing there.  Keys each sample on its own from the corners
-    that ``splat_grid_rep`` adds into (``_corner_rows_and_weights``): the
-    brick of the least in-bounds corner along each axis, for the batch of
-    its ray."""
+def _brute_force_bricks(cfg, geom, bricks, shape, sizes=None):
+    """Per sub-grid of the output grid-list (or of ``sizes``), [R, S]: the
+    brick each sample must lie in, or -1 where it splats nothing there.
+    Keys each sample on its own from the corners that ``splat_grid_rep``
+    adds into (``_corner_rows_and_weights``): the brick of the least
+    in-bounds corner along each axis, for the batch of its ray (one that
+    every grid-list of ``cfg`` has)."""
     directions, _, _, _, grid_idx = geom
     R, S = directions.shape[0], cfg.tot_num_samples
-    batches = min(gs[0] for gs in cfg.output_grid_sizes)
+    sizes = sizes or cfg.output_grid_sizes
+    batches = min(gs[0] for gs in tuple(cfg.output_grid_sizes)
+                  + tuple(cfg.input_grid_sizes or ()))
     gi = grid_idx.long()
     live = (gi >= 0) & (gi < batches)
     out = []
-    for g, (gs, brick) in enumerate(zip(cfg.output_grid_sizes, bricks)):
+    for g, (gs, brick) in enumerate(zip(sizes, bricks)):
         _, D, H, W, _ = gs
         want = torch.full((R, S), -1, dtype=torch.int64)
         for s in range(S):
@@ -165,9 +168,16 @@ def test_plan_matches_brute_force(case):
         gi[1::7] = -1
         geom = geom[:4] + (gi,)
     cfg = _cfg(out_sizes, kw)
-    bricks = _case_bricks(cfg, bricks)
-    shape = sfw.plan_shape(cfg, bricks, R)
-    counts, offsets, runs = sfw.splat_plan_torch(cfg, geom, bricks)
+    _check_plan(cfg, geom, _case_bricks(cfg, bricks))
+
+
+def _check_plan(cfg, geom, bricks, sizes=None):
+    """``splat_plan_torch`` of the output grid-list (or of ``sizes``)
+    against the brute force: every sample in the run of its brick, runs
+    maximal, in canonical order and within the list's bound."""
+    R = geom[0].shape[0]
+    shape = sfw.plan_shape(cfg, bricks, R, sizes)
+    counts, offsets, runs = sfw.splat_plan_torch(cfg, geom, bricks, sizes)
     S = cfg.tot_num_samples
     N = runs.shape[0]
     assert counts.dtype == offsets.dtype == torch.int32
@@ -184,7 +194,7 @@ def test_plan_matches_brute_force(case):
     assert bool((order[1:] > order[:-1]).all())
     g_of = torch.searchsorted(torch.tensor(shape.first[1:]), brick,
                               right=True)
-    want = _brute_force_bricks(cfg, geom, bricks, shape)
+    want = _brute_force_bricks(cfg, geom, bricks, shape, sizes)
     assert any(bool((w >= 0).any()) for w in want), "no sample splats"
     for g, w in enumerate(want):
         sel = g_of == g
@@ -211,6 +221,29 @@ def test_plan_matches_brute_force(case):
         bound = min(S, 1 + sum(n - 1 for n in shape.nb[g])) if straight \
             else S
         assert int(per_ray.max()) <= bound
+
+
+# the MLP splatter's input grid-lists, which the adjoint's pass B plans
+# over: (output sizes, input sizes, rays' batches, march keywords); in
+# "batched" the output grid-list's two batches limit the rays' three
+INPUT_CASES = {
+    "voxel": ([(1, 10, 12, 8, 4)], [(1, 9, 11, 13, 8)], 1,
+              dict(num_samples=20, mask_out_of_bounds_samples=True)),
+    "triplane": (_tri(1, 12, 4), _tri(1, 14, 8), 1,
+                 dict(num_samples=18, contract_coords=True)),
+    "batched": ([(2, 10, 10, 10, 4)], [(3, 7, 9, 8, 8)], 3,
+                dict(num_samples=16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INPUT_CASES))
+def test_plan_over_input_grids_matches_brute_force(case):
+    out_sizes, in_sizes, batch, kw = INPUT_CASES[case]
+    geom = _rays(np.random.default_rng(4), 1024, batch, "shell")
+    cfg = _cfg(out_sizes, kw, in_sizes, (8, 16, 4))
+    sizes = cfg.input_grid_sizes
+    for bricks in (None, (2, 3, 2)):
+        _check_plan(cfg, geom, _case_bricks(cfg, bricks, sizes), sizes)
 
 
 @pytest.mark.parametrize("case", ["triplane_batch2_mask", "voxel_and_plane"])
