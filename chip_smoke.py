@@ -104,13 +104,31 @@ exits non-zero without its result line:
    block for 4096, 8192 and 16384 rays and at the size its wrapper picks;
    then a relu-field model (density and colour triplanes of 3 x 64^2 x
    32ch) takes 12 Adam steps.
+10. Fitting from files: 8 views of the synthetic scene at 800 x 800
+   (NeRF-synthetic's size) written as RGBA PNGs in NeRF-synthetic and in
+   NSVF layout (one process a view) into a temporary directory and loaded
+   through ``auto_dataset``: both layouts give the written pixels exactly
+   and the same rays within 1e-6, and a ``downsample=2`` load (400 x 400)
+   is timed, without PIL; ``perceptual_loss`` of two 800^2 images on the
+   card, with the random extractor and with random VGG16 weights behind
+   ``LIGHTPLANE_VGG_WEIGHTS``, value and gradient against the same code on
+   the CPU, with cuDNN in TF32 and in f32 (``PERCEPTUAL_TOL``; VGG's
+   gradient given the card's max-pool winners and relu masks, the
+   decisions that differ from the CPU's counted), and ``calc_lpips``;
+   then the port's trainer on the NeRF-synthetic directory
+   in whole-image mode with the perceptual term at the JAX app's default
+   width (640,000 rays a step, a scaffold update, three evals: the last
+   PSNR must beat the first), cuDNN at PyTorch's default (TF32): ms per
+   step, launches of R1, R2 and R3, a step's device time by part (R1, R2,
+   the convolutions, the rest), the host's share and a step's peak memory.
 
-Phases 4, 5, 7, 8 and 9 each set the kernels' launch counts to 0 just
+Phases 4, 5, 7, 8, 9 and 10 each set the kernels' launch counts to 0 just
 before they drive their path and read them just after.  Every phase prints
 its time.  The last lines are the card's name and power limit, a JSON line
 with every kernel (its launches on its main path, the trainer of phase 9
-for R1 and R2, the splatter step of phase 7 for S1 and S2 and its MLP
-splatter step for S2 with the MLP, its error
+for R1 and R2 and also phase 10's fit from files, the splatter step of
+phase 7 for S1 and S2 and its MLP splatter step for S2 with the MLP, its
+error
 against the plain version, its time, the plain version's time and the least
 time the card could take, and for R1 and R2 the same for the scaffold and
 relu-field branches) and the result line ``{"ok": true, "device":
@@ -1732,19 +1750,23 @@ def fwbw_step(lp, rays, out_sizes, kw):
     return enc.grad
 
 
-def device_breakdown(fn, smi, top=6):
-    """The device time of one run of ``fn`` by kernel, from
-    ``torch.profiler``; prints the busiest ``top`` kernels and returns the
-    total in ms (None where the profiler saw no device time)."""
+def device_breakdown(fn, smi, top=6, runs=1, groups=()):
+    """The device time of one run of ``fn`` by kernel (the mean of ``runs``
+    runs), from ``torch.profiler``; prints the busiest ``top`` kernels and,
+    given ``groups`` (``(label, name fragments)`` pairs), the time of each
+    group's kernels (a kernel whose lower-cased name holds one of the
+    fragments; the rest under "rest"); returns the total in ms (None where
+    the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
     # the kernels' own rows (an operator's row repeats its kernels' time)
     cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((e.key, e.self_device_time_total)
+    rows = sorted(((e.key, e.self_device_time_total / runs)
                    for e in prof.key_averages()
                    if e.device_type == cuda and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
@@ -1753,10 +1775,21 @@ def device_breakdown(fn, smi, top=6):
         print("  device time by kernel: not measured (the profiler saw no "
               "device time)")
         return None
-    print(f"  device time of one step by kernel (torch.profiler; "
+    print(f"  device time of one step by kernel (torch.profiler"
+          f"{f', mean of {runs} steps' if runs > 1 else ''}; "
           f"{total / 1e3:.3f} ms in all)  [{smi}]:")
     for key, t in rows[:top]:
         print(f"    {t / 1e3:9.3f} ms  {key[:100]}")
+    if groups:
+        sums = {label: 0.0 for label, _ in groups}
+        sums["rest"] = 0.0
+        for key, t in rows:
+            label = next((label for label, frags in groups
+                          if any(f in key.lower() for f in frags)), "rest")
+            sums[label] += t
+        print("  by part: " + ", ".join(
+            f"{label} {t / 1e3:.3f} ms ({100 * t / total:.1f}%)"
+            for label, t in sums.items()))
     return total / 1e3
 
 
@@ -2303,9 +2336,11 @@ def phase_fit(lp, smi):
 
     print(f"  argv: {' '.join(FIT_ARGV)}")
     rfw.LAUNCHES = rbw.LAUNCHES = 0
+    rfw.SCAFFOLD_LAUNCHES = rbw.SCAFFOLD_LAUNCHES = 0
     fit = app.main(FIT_ARGV)
     torch.cuda.synchronize()
     launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES}
+    gated = (rfw.SCAFFOLD_LAUNCHES, rbw.SCAFFOLD_LAUNCHES)
     h = fit.history
     print(f"  kernel launches over the fit: {launches}")
     # one forward and one backward per step, one forward per eval render
@@ -2317,13 +2352,11 @@ def phase_fit(lp, smi):
           f"{h['upsamples']}; evals (step, PSNR, SSIM): {h['evals']}")
     assert [s for s, _ in h["scaffolds"]] == [200, 400]
     assert [e[0] for e in h["evals"]] == [300, 600]
+    print(f"  of these, passed a scaffold (R3): R1 {gated[0]}, R2 "
+          f"{gated[1]}")
     # every step after the first scaffold update, and every eval after it,
     # renders with a scaffold
-    s0 = h["scaffolds"][0][0]
-    gated = 600 - (s0 + 1)
-    print(f"  of these, with a scaffold (steps {s0 + 1}-599 and the evals "
-          f"after step {s0}): R1 {gated + sum(e[0] > s0 + 1 for e in h['evals'])}"
-          f", R2 {gated}")
+    assert gated == scaffold_schedule(600, h), (gated, h["scaffolds"])
     assert h["upsamples"] == [300]
     assert [tuple(g.shape) for g in fit.grid] == tri_sizes(128, 32)
     assert fit.num_samples == 256 and fit.scaffold.shape == (1, 64, 64, 64)
@@ -2480,6 +2513,404 @@ def phase_fit(lp, smi):
         dp, dict(num_samples=128, gain=module.gain,
                  color_grid=[g.detach() for g in cgrid]), smi)
     return launches, scaffold_row, rf_row
+
+
+# ---- fitting from files (phase 10) ---------------------------------------
+
+# Views of the synthetic scene at NeRF-synthetic's own size, written as a
+# dataset directory; a view is many seconds of numpy, so one process a view.
+FILES_VIEWS = 8
+FILES_SIZE = 800
+# The JAX app's default width (as phase 9) in whole-image mode with the
+# perceptual term, one 800^2 image (640,000 rays) a step: a scaffold update
+# after step 39, evals after steps 40, 80 and 120, all with the scaffold.
+FILES_STEPS = 120
+FILES_ARGV = ["--ray_sampling", "image", "--perceptual_weight", "0.05",
+              "--n_iter", str(FILES_STEPS), "--update_scaffold_steps", "39",
+              "--eval_rate", "40", "--output_dir", "build/fit_files",
+              "--seed", "0"]
+# The perceptual loss on the card against the same code on the CPU in f32:
+# bounds on (|d value| / |value|, mean |d grad| / mean |grad|, max |d grad|
+# / max |grad|) for each cuDNN precision.  In f32 the two differ in
+# summation order and cuDNN's algorithms only.  TF32 (PyTorch's default for
+# cuDNN, what a user's process runs) rounds each convolution's inputs to 10
+# mantissa bits (2^-11 relative), which moves a value by ~1e-4 of itself
+# and a gradient, through ~2 x 7 convolutions of sums that cancel, by ~1e-3
+# of its mean.  Discrete decisions taken on near-ties move whole gradient
+# entries instead: a relu whose pre-activation rounding moves across 0, a
+# 2x2 max pool whose winner changes.  The random extractor (3 relus,
+# average pooling) is held as it stands, its max to 0.1 of the largest for
+# its relus.  VGG's max pools and 7 relus decide otherwise often enough
+# (at 800^2 on an H100, ~3% of the windows and ~1e-4 of the relus in TF32)
+# to move its gradient by 0.18 of its mean, so its gradient is held against
+# the CPU given the card's pool winners and relu masks (``vgg_maps``), and
+# printed as it stands, with the decisions that differ counted.
+PERCEPTUAL_TOL = {"f32": (1e-4, 1e-4, 0.1), "tf32": (1e-2, 1e-2, 0.1)}
+# the step's device time in parts, by kernel name: R2 is its march and the
+# sum of its blocks' weight-gradient rows; cuDNN's convolution kernels are
+# named for their tiles (sm90_xmma_..., cutlass_...)
+FIT_PARTS = (("R1", ("render_fw_kernel",)),
+             ("R2", ("render_bw_kernel", "reduce_mlp_grad_kernel")),
+             ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                               "xmma", "cutlass", "implicit", "winograd",
+                               "nchw", "nhwc")))
+
+
+def scaffold_schedule(n_iter, h):
+    """R1's and R2's launches that a trainer run of ``n_iter`` steps with
+    history ``h`` passes a scaffold: the steps after the first scaffold
+    update, and the evals made after it (an eval after step ``s`` is
+    recorded as ``s + 1``)."""
+    s0 = h["scaffolds"][0][0]
+    gated = n_iter - (s0 + 1)
+    return gated + sum(e[0] > s0 for e in h["evals"]), gated
+
+
+def write_scene_files(root, n_views, size):
+    """``n_views`` views of the synthetic scene at ``size``^2 as RGBA PNGs
+    (the colour over black divided by the opacity, as Blender writes them),
+    in NeRF-synthetic layout under ``root/nerf`` and NSVF layout under
+    ``root/nsvf``; returns the written pixels and the two directories."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from lightplane_tpu_torch.examples.datasets import synthetic_view
+    from lightplane_tpu_torch.utils.cameras import sphere_cameras
+    from lightplane_tpu_torch.utils.io_utils import save_image, to_uint8
+
+    c2ws = sphere_cameras(n_views, radius=3.0)
+    with ProcessPoolExecutor(min(n_views, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")
+                             ) as pool:
+        views = list(pool.map(synthetic_view, c2ws, [size] * n_views))
+    nerf, nsvf = os.path.join(root, "nerf"), os.path.join(root, "nsvf")
+    for d in ("pose", "rgb"):
+        os.makedirs(os.path.join(nsvf, d))
+    frames, pixels = [], []
+    for i, (c2w, (img, alpha)) in enumerate(zip(c2ws, views)):
+        a = alpha[..., None]
+        color = np.clip((img - (1.0 - a)) / np.maximum(a, 1e-6), 0.0, 1.0)
+        px = to_uint8(np.concatenate([color, a], axis=-1))
+        pixels.append(px)
+        path = os.path.join(nerf, "train", f"r_{i}.png")
+        save_image(path, px)
+        shutil.copy(path, os.path.join(nsvf, "rgb", f"0_{i:04d}.png"))
+        np.savetxt(os.path.join(nsvf, "pose", f"0_{i:04d}.txt"), c2w)
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+    with open(os.path.join(nerf, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 2 * float(np.arctan(0.5 / 1.2)),
+                   "frames": frames}, f)
+    with open(os.path.join(nsvf, "intrinsics.txt"), "w") as f:
+        f.write(f"{1.2 * size} {size / 2} {size / 2} 0.\n0. 0. 0.\n1.\n")
+    return pixels, nerf, nsvf
+
+
+def vgg_maps(fn, img_chw, blocks, decisions=None):
+    """``VGG16Features.forward`` of ``fn`` step by step: ``(the block maps,
+    the maps each 2x2 max pool took, (each pool's winners, each relu's
+    mask))``, a winner the index of its window's max in the map, as
+    ``max_pool2d`` returns it, a mask where the relu passes.  With
+    ``decisions`` given, each pool is a gather at its winners and each relu
+    a product with its mask (a relu where the mask is None): the same
+    function up to rounding, with the gradient routed as those decisions
+    route it."""
+    import torch.nn.functional as F
+
+    from lightplane_tpu_torch.utils.nnfm_loss import _VGG16_CFG
+
+    x = fn.normalize(img_chw)
+    feats, pre, winners, masks, li = [], [], [], [], 0
+    for bi in range(max(blocks) + 1):
+        for _ in _VGG16_CFG[bi]:
+            x = F.conv2d(x, getattr(fn, f"w{li}"), getattr(fn, f"b{li}"),
+                         padding=1)
+            m = None if decisions is None else decisions[1][li]
+            if m is None:
+                m, x = x > 0, F.relu(x)
+            else:
+                x = x * m
+            masks.append(m)
+            li += 1
+        if bi in blocks:
+            feats.append(x[0])
+        if bi == max(blocks):
+            break
+        pre.append(x)
+        if decisions is None:
+            x, i = F.max_pool2d(x, 2, return_indices=True)
+        else:
+            i = decisions[0][bi]
+            x = x.flatten(2).gather(2, i.flatten(2)).view(i.shape)
+        winners.append(i)
+    return feats, pre, (winners, masks)
+
+
+class _GivenDecisions:
+    """A ``features_fn`` for ``perceptual_loss`` that runs ``vgg_maps``
+    with the decisions of each image in turn (the prediction's, then the
+    target's)."""
+
+    def __init__(self, fn, decisions):
+        self.fn, self.decisions = fn, list(decisions)
+
+    def __call__(self, img_chw, blocks):
+        return vgg_maps(self.fn, img_chw, blocks, self.decisions.pop(0))[0]
+
+
+def pool_flips(pre_cpu, pre_card, cpu, card):
+    """Each max pool's windows whose winner on the card differs from the
+    CPU's (``pre_*``: the maps the pools took, ``cpu`` and ``card``: the
+    winners): ``(windows, differing, of them ties on the CPU, largest gap,
+    unexplained)``.  A tie is a window whose four CPU values are equal; the
+    gap, the CPU's winner's value less the card's winner's, over the map's
+    RMS; a differing winner is explained where the gap is within the two
+    maps' own differences at the two pixels (as it must be if the card's
+    pool took its own map's max)."""
+    import torch.nn.functional as F
+
+    out = []
+    for x, xg, ic, ig in zip(pre_cpu, pre_card, cpu, card):
+        xg, ig = xg.cpu(), ig.cpu()
+        diff = ic != ig
+        xf, d = x.flatten(2), (xg - x).abs().flatten(2)
+        gap = (xf.gather(2, ic.flatten(2))
+               - xf.gather(2, ig.flatten(2))).view(ic.shape)[diff]
+        slack = (d.gather(2, ic.flatten(2))
+                 + d.gather(2, ig.flatten(2))).view(ic.shape)[diff]
+        spread = (F.max_pool2d(x, 2) + F.max_pool2d(-x, 2))[diff]
+        rms = float(x.square().mean().sqrt())
+        out.append((ic.numel(), int(diff.sum()), int((spread == 0).sum()),
+                    float(gap.max()) / rms if gap.numel() else 0.0,
+                    int((gap > slack + 1e-6 * rms).sum())))
+    return out
+
+
+def perceptual_parity(label, kind, pred, tgt, fn_gpu, fn_cpu, blocks, smi):
+    """``perceptual_loss(pred, tgt)`` and its gradient w.r.t. ``pred`` on
+    the card, with cuDNN in TF32 and in f32, against the CPU in f32, within
+    ``PERCEPTUAL_TOL[precision]``; prints each error and the fw+bw time.
+    For VGG (``kind == "vgg"``) the gradient is held against the CPU given
+    the card's max-pool winners and relu masks (``vgg_maps``), and the
+    windows and relus that decide otherwise than on the CPU are counted."""
+    from lightplane_tpu_torch.utils.metrics import perceptual_loss
+
+    def run(p, t, fn):
+        p = p.detach().clone().requires_grad_(True)
+        v = perceptual_loss(p, t, fn, blocks=blocks)
+        v.backward()
+        return float(v.detach()), p.grad.double().cpu().numpy()
+
+    def errors(v, g, v_ref, g_ref):
+        d = np.abs(g - g_ref)
+        return (abs(v - v_ref) / abs(v_ref),
+                float(d.mean()) / float(np.abs(g_ref).mean()),
+                float(d.max()) / float(np.abs(g_ref).max()))
+
+    images = (pred, tgt)
+    v_ref, g_ref = run(pred.cpu(), tgt.cpu(), fn_cpu)
+    if kind == "vgg":
+        with torch.no_grad():
+            cpu = [vgg_maps(fn_cpu, im.cpu().permute(2, 0, 1), blocks)[1:]
+                   for im in images]
+    held = []
+    try:
+        for prec, tf32 in (("tf32", True), ("f32", False)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            v, g = run(pred, tgt, fn_gpu)
+            d_val, d_mean, d_max = errors(v, g, v_ref, g_ref)
+            ms = cuda_ms(lambda: run(pred, tgt, fn_gpu), warmup=1, reps=5)
+            print(f"  {label}, blocks {blocks}, convolutions in {prec}: value "
+                  f"{v:.6f} (CPU f32 {v_ref:.6f}, rel {d_val:.2e}); "
+                  f"gradient max |d| {d_max:.2e} x max |g|, mean |d| "
+                  f"{d_mean:.2e} x mean |g|; fw+bw {ms:.3f} ms  [{smi}]")
+            if kind == "vgg":
+                card, unexplained = [], 0
+                for name, im, (pre, (wc, mc)) in zip(("prediction", "target"),
+                                                     images, cpu):
+                    with torch.no_grad():
+                        _, pre_g, (wg, mg) = vgg_maps(
+                            fn_gpu, im.permute(2, 0, 1), blocks)
+                    for k, (n, nd, ties, gap, bad) in enumerate(
+                            pool_flips(pre, pre_g, wc, wg)):
+                        unexplained += bad
+                        print(f"    {name}, pool {k}: {nd} of {n} windows "
+                              f"take another winner than on the CPU, {ties} "
+                              f"of them ties there, {bad} not explained by "
+                              f"the maps' difference; largest gap {gap:.2e} "
+                              f"x the map's RMS")
+                    flips = [int((a != b.cpu()).sum()) for a, b in zip(mc, mg)]
+                    print(f"    {name}, relus passing on one side only, by "
+                          f"layer: {flips} of {[a.numel() for a in mc]}")
+                    card.append(([w.cpu() for w in wg],
+                                 [m.cpu() for m in mg]))
+                    del pre_g
+                assert unexplained == 0, (label, prec, unexplained)
+                _, g_w = run(pred.cpu(), tgt.cpu(), _GivenDecisions(
+                    fn_cpu, [(w, [None] * len(m)) for w, m in card]))
+                _, d_w_mean, d_w_max = errors(v, g, v_ref, g_w)
+                _, g_d = run(pred.cpu(), tgt.cpu(), _GivenDecisions(
+                    fn_cpu, card))
+                _, d_mean, d_max = errors(v, g, v_ref, g_d)
+                print(f"    against the CPU given the card's pool winners: "
+                      f"gradient max |d| {d_w_max:.2e} x max |g|, mean |d| "
+                      f"{d_w_mean:.2e} x mean |g|; given its winners and "
+                      f"relu masks: max |d| {d_max:.2e}, mean |d| "
+                      f"{d_mean:.2e}")
+            held.append((prec, d_val, d_mean, d_max))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False   # phase 1's setting
+    for prec, *errs in held:
+        for err, tol in zip(errs, PERCEPTUAL_TOL[prec]):
+            assert err <= tol, (label, prec, errs)
+
+
+def phase_fit_files(lp, smi):
+    print(f"== phase 10: fitting from files, {FILES_VIEWS} views at "
+          f"{FILES_SIZE}^2 through the dataset loaders, whole-image steps "
+          f"with the perceptual term")
+    import importlib.util
+    import tempfile
+
+    from lightplane_tpu_torch.examples import fit_single_scene as app
+    from lightplane_tpu_torch.examples.datasets import auto_dataset
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.utils import metrics, nnfm_loss
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    pil_before = "PIL" in sys.modules
+    print(f"  PIL importable on this machine: {has_pil}")
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the dataset, in two layouts, through auto_dataset
+        t0 = time.perf_counter()
+        pixels, nerf, nsvf = write_scene_files(tmp, FILES_VIEWS, FILES_SIZE)
+        print(f"  wrote {FILES_VIEWS} RGBA views of {FILES_SIZE}^2 in "
+              f"NeRF-synthetic and NSVF layout in "
+              f"{time.perf_counter() - t0:.1f} s ({FILES_VIEWS} processes)")
+        want = []
+        for px in pixels:   # the written pixels, composited over white
+            a = px.astype(np.float32) / 255.0
+            want.append((a[..., :3] * a[..., 3:] + (1.0 - a[..., 3:]))
+                        .reshape(-1, 3))
+        want = np.concatenate(want)
+        loaded = {}
+        for name, root in (("nerf", nerf), ("nsvf", nsvf)):
+            t0 = time.perf_counter()
+            ds = loaded[name] = auto_dataset(root)
+            print(f"  auto_dataset({name}): {ds.n_images} images "
+                  f"{ds.height}x{ds.width}, {ds.origins.shape[0]} rays, near "
+                  f"{ds.near} far {ds.far}, in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            assert (ds.n_images, ds.height, ds.width) == (
+                FILES_VIEWS, FILES_SIZE, FILES_SIZE)
+            assert np.array_equal(ds.gt, want), f"{name}: pixels differ"
+        d_rays = max(float(np.abs(getattr(loaded["nerf"], f)
+                                  - getattr(loaded["nsvf"], f)).max())
+                     for f in ("origins", "directions"))
+        print(f"  both layouts load the written pixels exactly; their rays "
+              f"differ by at most {d_rays:.2e}")
+        assert d_rays <= 1e-6, d_rays
+        t0 = time.perf_counter()
+        half = auto_dataset(nerf, downsample=2)
+        print(f"  auto_dataset(nerf, downsample=2): {half.n_images} images "
+              f"{half.height}x{half.width}, {half.origins.shape[0]} rays, in "
+              f"{time.perf_counter() - t0:.2f} s (LANCZOS in numpy)")
+        assert (half.height, half.width) == (FILES_SIZE // 2,
+                                             FILES_SIZE // 2)
+        assert pil_before or "PIL" not in sys.modules, "a PNG load used PIL"
+
+        # 2. the perceptual loss of two 800^2 images on the card
+        pred = torch.as_tensor(loaded["nerf"].image(0)[2], device="cuda")
+        tgt = torch.as_tensor(loaded["nsvf"].image(1)[2], device="cuda")
+        del half, loaded
+        perceptual_parity(
+            "random conv features", "random", pred, tgt,
+            nnfm_loss.random_conv_features_fn(device="cuda"),
+            nnfm_loss.random_conv_features_fn(device="cpu"), (0, 1, 2), smi)
+        rng = np.random.default_rng(10)
+        weights, c_in, i = {}, 3, 0
+        for widths in nnfm_loss._VGG16_CFG:
+            for w in widths:
+                weights[f"conv{i}_w"] = (rng.standard_normal(
+                    (w, c_in, 3, 3)) * np.sqrt(2.0 / (9 * c_in))).astype(
+                        np.float32)
+                weights[f"conv{i}_b"] = np.zeros(w, np.float32)
+                c_in, i = w, i + 1
+        vgg_path = os.path.join(tmp, "vgg16_random.npz")
+        np.savez(vgg_path, **weights)
+        os.environ["LIGHTPLANE_VGG_WEIGHTS"] = vgg_path
+        try:
+            perceptual_parity(
+                "random VGG16 (LIGHTPLANE_VGG_WEIGHTS)", "vgg", pred, tgt,
+                metrics._vgg_features_fn(vgg_path, "cuda"),
+                metrics._vgg_features_fn(vgg_path, "cpu"), (0, 1, 2), smi)
+            ref = metrics.calc_lpips(pred.cpu(), tgt.cpu())
+            for prec, tf32 in (("tf32", True), ("f32", False)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                got = metrics.calc_lpips(pred, tgt)
+                torch.backends.cudnn.allow_tf32 = False
+                rel = abs(got - ref) / abs(ref)
+                print(f"  calc_lpips through LIGHTPLANE_VGG_WEIGHTS (random "
+                      f"VGG16, five blocks), cuDNN in {prec}: {got:.6f} "
+                      f"(CPU f32 {ref:.6f}, rel {rel:.2e})")
+                assert rel <= PERCEPTUAL_TOL[prec][0], (prec, rel)
+        finally:
+            os.environ.pop("LIGHTPLANE_VGG_WEIGHTS")
+        del pred, tgt
+
+        # 3. the port's trainer on the NeRF-synthetic directory, with cuDNN
+        # at PyTorch's default (TF32), as a user's process runs it
+        argv = ["--dataset_path", nerf] + FILES_ARGV
+        print(f"  argv: {' '.join(argv[2:])} (the dataset in a temporary "
+              f"directory); convolutions in TF32 (PyTorch's default)")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            rfw.LAUNCHES = rbw.LAUNCHES = 0
+            rfw.SCAFFOLD_LAUNCHES = rbw.SCAFFOLD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            fit = app.main(argv)
+            torch.cuda.synchronize()
+            launches = {"renderer_fw": rfw.LAUNCHES,
+                        "renderer_bw": rbw.LAUNCHES,
+                        "scaffold": (rfw.SCAFFOLD_LAUNCHES,
+                                     rbw.SCAFFOLD_LAUNCHES)}
+            print(f"  the fit took {time.perf_counter() - t0:.1f} s, the "
+                  f"dataset's load included")
+            h = fit.history
+            print(f"  kernel launches over the fit: {launches} (scaffold: "
+                  f"R1's and R2's launches passed a scaffold, R3)")
+            assert launches == {"renderer_fw": FILES_STEPS + len(h["evals"]),
+                                "renderer_bw": FILES_STEPS,
+                                "scaffold": scaffold_schedule(FILES_STEPS, h)
+                                }, (launches, h["scaffolds"])
+            for a, b, ms in h["segments"]:
+                print(f"  steps {a}-{b}: {ms:.3f} ms per step  [{smi}]")
+            print(f"  scaffold occupancy: {h['scaffolds']}; evals (step, "
+                  f"PSNR, SSIM): {h['evals']}")
+            first, last = h["evals"][0], h["evals"][-1]
+            assert np.isfinite(last[1]) and last[1] > first[1], (first, last)
+
+            # a step's device time by part, the host's share, peak memory
+            device_ms = device_breakdown(fit.step, smi, top=14, runs=3,
+                                         groups=FIT_PARTS)
+            wall = timed_steps(fit, 5, 13) / 5
+            share = (f"host share {100 * (1 - device_ms / wall):.1f}%"
+                     if device_ms else "host share not measured")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fit.step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            print(f"  a step at the fitted state: {wall:.3f} ms (5 steps, "
+                  f"host clock), {share}; peak allocated {peak} bytes, "
+                  f"{peak - base} above the {base} held before it  [{smi}]")
+        finally:
+            torch.backends.cudnn.allow_tf32 = False   # phase 1's setting
+    del fit
+    return launches
 
 
 # csrc/march_common.cuh's LIGHTPLANE_ABLATE bits of each kernel's variants:
@@ -2686,7 +3117,7 @@ def mlp_splat_march(lp, smod, rays, gen):
                        dict(num_samples=SPLAT_SAMPLES), sp, igrid, in_sizes)
 
 
-PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9")
+PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9", "10")
 
 
 def parse_only(argv):
@@ -2744,6 +3175,7 @@ def main():
         ("7", phase_splat, (lp, smi)),
         ("8", phase_lift_render, (lp, smi)),
         ("9", phase_fit, (lp, smi)),
+        ("10", phase_fit_files, (lp, smi)),
     ):
         if phase not in only:
             continue
@@ -2773,6 +3205,7 @@ def kernel_lines(out):
     _, train = out["5"]
     splat_launches, splat = out["7"]
     fit_launches, scaffold_row, rf_row = out["9"]
+    files_launches = out["10"]
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);
@@ -2791,13 +3224,18 @@ def kernel_lines(out):
                                   ("bound_tf32_ms", row[key]["bound_tf32"]))})
         for i, key in enumerate(("fw", "bw"))}
     kernels = [
-        dict(fw, launches=fit_launches["renderer_fw"], bound_ms=b_fw,
+        dict(fw, launches=fit_launches["renderer_fw"],
+             launches_fit_files=files_launches["renderer_fw"],
+             launches_fit_files_scaffold=files_launches["scaffold"][0],
+             bound_ms=b_fw,
              bound_by=b_fw_kind, library_ms=None,
              bound_tf32_ms=train["fw_bound_tf32"], **branches["fw"]),
         dict(name="renderer_bw", route="cuda",
              source="lightplane_tpu_torch/csrc/renderer_bw.cu",
              replaces="lightplane_tpu/ops/kernels/renderer_pallas.py:2798",
              launches=fit_launches["renderer_bw"],
+             launches_fit_files=files_launches["renderer_bw"],
+             launches_fit_files_scaffold=files_launches["scaffold"][1],
              max_abs_err=train["bw"]["err"], ms=train["bw"]["ms"],
              plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
              bound_by=b_bw_kind, library_ms=None,

@@ -14,8 +14,12 @@ MLPs' flat ``mlp_params`` and the ray encodings, so a splat can be rendered
 back and trained end to end.  The renderer gates its march by an occupancy
 scaffold (``LightplaneRenderer.calculate_scaffold``) and takes a separate
 relu-field colour grid.  ``utils.grid_utils`` holds the fitting
-regularisers, ``utils.cameras`` pinhole rays, ``utils.metrics`` PSNR and
-SSIM, ``utils.io_utils`` PNG writing, and ``examples.fit_single_scene`` the
+regularisers, ``utils.cameras`` pinhole rays, ``utils.metrics`` PSNR, SSIM,
+LPIPS and the perceptual loss, ``utils.nnfm_loss`` the style losses and
+their feature extractors, ``utils.io_utils`` PNG reading and writing and
+video, ``utils.profiling`` device timers and memory, ``utils.visualize``
+plotly pictures of rays, ``examples.datasets`` the NeRF-synthetic, LLFF,
+NSVF and CO3D loaders, and ``examples.fit_single_scene`` the
 scene-fitting trainer.  Factories build on the GPU
 unless asked for ``device="cpu"``.  Names, layouts (channels-last
 grid-lists, the flat ``mlp_params`` vectors) and numerics follow the JAX
@@ -35,6 +39,7 @@ from .ops.misc_utils import (
     flatten_grid,
     unflatten_grid,
     if_not_none_else,
+    pad_feature_to_block_size,
     is_in_bounds,
     check_grid,
     check_grid_and_color_grid,
@@ -48,14 +53,16 @@ from .ops.mlp_utils import (
     flatten_decoder_params,
     flatten_splatter_params,
     flattened_decoder_params_to_list,
+    flattened_triton_decoder_to_list,
+    get_triton_function_input_dims,
 )
-from .ops.rand import int_to_randn
+from .ops.rand import int_to_randn, int_to_randn_naive
 from .ops.naive_renderer import (
     lightplane_renderer_naive,
     lightplane_eval_mlp,
     lightplane_eval_mlp_opacity_only,
 )
-from .ops.renderer import lightplane_renderer
+from .ops.renderer import lightplane_renderer, suggest_w3_budget
 from .ops.naive_splatter import (
     lightplane_splatter_naive,
     lightplane_mlp_splatter_naive,
@@ -67,5 +74,6 @@ from .ops.splatter import (
 )
 from .models.renderer_module import LightplaneRenderer
 from .models.splatter_module import LightplaneSplatter, LightplaneMLPSplatter
+from .utils.visualize import visualize_rays_plotly
 
 __version__ = "0.1.0"

@@ -5,9 +5,18 @@ Fits a triplane or voxel grid and the decoder MLPs to posed images with MSE
 + TV + L1 losses: Adam over two learning-rate groups with exponential
 decay, coarse-to-fine grid up-sampling, scaffold updates
 (``LightplaneRenderer.calculate_scaffold``), evaluation renders with PSNR
-and SSIM, and ``torch.save`` checkpoints.  With no ``--dataset_path`` it
-fits a procedural synthetic scene (no download).  On a GPU every step runs
-the CUDA march kernels; ``--device cpu`` runs their plain PyTorch versions.
+and SSIM, and ``torch.save`` checkpoints.  ``--dataset_path`` names a
+NeRF-synthetic, LLFF, NSVF or CO3D directory (``examples/datasets.py``);
+without it the trainer fits a procedural synthetic scene (no download).
+``--ray_sampling image`` trains on one whole image a step, and
+``--perceptual_weight`` adds the perceptual loss of that image
+(``utils/metrics.py::perceptual_loss``, on the fixed random conv features
+of ``utils/nnfm_loss.py::random_conv_features_fn``).  On a GPU every step
+runs the CUDA march kernels; ``--device cpu`` runs their plain PyTorch
+versions.
+
+As in the JAX app, ``--downsample`` is parsed and not passed to the
+loader: images load at their full size.
 
 Usage::
 
@@ -15,6 +24,9 @@ Usage::
     python -m lightplane_tpu_torch.examples.fit_single_scene --device cpu \\
         --n_iter 100 --grid_resolution 8 --grid_channels 16 \\
         --mlp_hidden_chn 16 --num_samples 16 --rays_per_batch 256
+    python -m lightplane_tpu_torch.examples.fit_single_scene \\
+        --dataset_path path/to/nerf_synthetic/lego --ray_sampling image \\
+        --perceptual_weight 0.05
     python -m lightplane_tpu_torch.examples.fit_single_scene \\
         --config examples/config/synthetic_overfit.json
 
@@ -43,7 +55,8 @@ from ..utils.grid_utils import (
     init_3d_representation,
 )
 from ..utils.io_utils import colorize_depth, save_image
-from ..utils.metrics import calc_psnr, calc_ssim
+from ..utils.metrics import calc_psnr, calc_ssim, perceptual_loss
+from ..utils.nnfm_loss import random_conv_features_fn
 from .datasets import auto_dataset
 
 # --impl values: the port's, and the JAX app's spellings of the same paths
@@ -99,8 +112,8 @@ def parse_args(argv=None):
                         "'random': i.i.d. pixels; 'image': one whole image "
                         "per step")
     p.add_argument("--perceptual_weight", type=float, default=0.0,
-                   help="weight of the perceptual image loss; not ported "
-                        "yet, so it must be 0")
+                   help="weight of the perceptual loss of each whole image "
+                        "(with --ray_sampling image)")
     p.add_argument("--lr_grid", type=float, default=5e-2)
     p.add_argument("--lr_mlp", type=float, default=5e-3)
     p.add_argument("--lr_decay_iters", type=int, default=3000)
@@ -130,11 +143,6 @@ def parse_args(argv=None):
         args = p.parse_args(argv)
     if args.impl not in IMPLS:
         raise ValueError(f"--impl must be one of {sorted(IMPLS)}")
-    if args.perceptual_weight > 0:
-        raise NotImplementedError(
-            "--perceptual_weight needs the perceptual loss (nnfm_loss), "
-            "which is not ported to lightplane_tpu_torch yet (ROADMAP)"
-        )
     return args
 
 
@@ -192,7 +200,10 @@ class SceneFit:
         self.device = torch.device(args.device)
         self.impl = IMPLS[args.impl]
         print(f"[fit] loading dataset ({args.dataset_type})")
-        ds = auto_dataset(args.dataset_path, args.dataset_type)
+        # the span, patch and image batches need one raster size, so a CO3D
+        # load resizes every frame to the first one's, as the JAX app's does
+        ds = auto_dataset(args.dataset_path, args.dataset_type,
+                          keep_frame_sizes=False)
         self.ds = ds
         print(f"[fit] {ds.n_images} images {ds.height}x{ds.width},"
               f" near={ds.near:.2f} far={ds.far:.2f}")
@@ -211,6 +222,9 @@ class SceneFit:
             self.load(args.init_ckpt)
         self.opt, self.sched = make_optimizer(args, self.grid, self.renderer)
         self.scaffold = None
+        # the perceptual term's feature extractor, built once on the device
+        self.features_fn = (random_conv_features_fn(device=self.device)
+                            if args.perceptual_weight > 0 else None)
 
     # ---- ray batches ----
 
@@ -261,21 +275,34 @@ class SceneFit:
 
     # ---- the schedule ----
 
-    def train_step(self, idx: torch.Tensor, image_size=None):
-        """One Adam step on the rays ``idx`` (a whole raster-order image
-        with ``image_size``); returns the loss and the MSE, on the device."""
+    def loss(self, idx: torch.Tensor, image_size=None):
+        """The training loss of the rays ``idx`` and its MSE: MSE, plus
+        ``--perceptual_weight`` times the perceptual loss where ``idx`` is a
+        whole raster-order image of ``image_size``, plus the TV and L1
+        terms of the grid."""
         args = self.args
-        self.opt.zero_grad(set_to_none=True)
         _, _, rgb = self.renderer(
             self.rays(idx), self.grid, scaffold=self.scaffold,
             num_samples=self.num_samples, image_size=image_size,
             impl=self.impl)
         mse = torch.mean((rgb - self.gt[idx]) ** 2)
         loss = mse
+        if image_size is not None and self.features_fn is not None:
+            pred = rgb.reshape(*image_size, 3)
+            tgt = self.gt[idx].reshape(*image_size, 3)
+            loss = loss + args.perceptual_weight * perceptual_loss(
+                pred, tgt, self.features_fn)
         if args.tv_weight > 0:
             loss = loss + args.tv_weight * grid_tv_loss(self.grid)
         if args.l1_weight > 0:
             loss = loss + args.l1_weight * grid_l1_loss(self.grid)
+        return loss, mse
+
+    def train_step(self, idx: torch.Tensor, image_size=None):
+        """One Adam step on the rays ``idx`` (a whole raster-order image
+        with ``image_size``); returns the loss and the MSE, on the device."""
+        self.opt.zero_grad(set_to_none=True)
+        loss, mse = self.loss(idx, image_size)
         loss.backward()
         self.opt.step()
         self.sched.step()

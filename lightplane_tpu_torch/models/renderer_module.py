@@ -16,7 +16,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.misc_utils import if_not_none_else, process_and_flatten_grid
-from ..ops.mlp_utils import DecoderParams, init_decoder_params
+from ..ops.mlp_utils import (
+    DecoderParams,
+    flattened_decoder_params_to_list,
+    init_decoder_params,
+)
 from ..ops.naive_renderer import (
     lightplane_eval_mlp,
     lightplane_eval_mlp_opacity_only,
@@ -134,6 +138,16 @@ class LightplaneRenderer(nn.Module):
             self._n_hidden_opacity,
             self._n_hidden_color,
             color_chn=self.color_chn,
+        )
+
+    def get_decoder_params_list(self):
+        """``(w_trunk, b_trunk, w_opacity, b_opacity, w_color, b_color)``
+        of the flat ``mlp_params``."""
+        return flattened_decoder_params_to_list(
+            self.mlp_params,
+            self._n_hidden_trunk,
+            self._n_hidden_opacity,
+            self._n_hidden_color,
         )
 
     def _process_bg_color(self, bg_color) -> torch.Tensor:

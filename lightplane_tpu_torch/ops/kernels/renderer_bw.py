@@ -52,8 +52,10 @@ from .renderer_fw import (
 )
 
 # Number of kernel launches in this process; the kernel path adds one per
-# launch and nothing else changes it.
+# launch and nothing else changes it; SCAFFOLD_LAUNCHES, the launches that
+# were passed a scaffold.
 LAUNCHES = 0
+SCAFFOLD_LAUNCHES = 0
 
 # Rays per block the kernel may take, widest first: the block keeps every
 # ray's activations in shared memory, so wide or deep MLPs take fewer rays.
@@ -222,7 +224,7 @@ def block_smem_bytes(lib, a, has_color_grid: bool):
 
 def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
                rays_per_block, relu_masks):
-    global LAUNCHES
+    global LAUNCHES, SCAFFOLD_LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
     a = launch_args(cfg, geom, diff, "render_bwd_cuda")
@@ -290,6 +292,7 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
         msg = lib.lightplane_cuda_error_string(rc).decode()
         raise RuntimeError(f"renderer_bw kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
+    SCAFFOLD_LAUNCHES += scaffold is not None
     return g_grid, g_color_grid, g_mlp, g_enc
 
 

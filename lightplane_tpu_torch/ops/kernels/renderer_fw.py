@@ -32,8 +32,10 @@ IMPLS = ("auto", "cuda", "torch")
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it, so a caller can reset it and show that
-# a run went through the kernel.
+# a run went through the kernel.  SCAFFOLD_LAUNCHES counts the launches that
+# were passed a scaffold (the occupancy gate), in the same way.
 LAUNCHES = 0
+SCAFFOLD_LAUNCHES = 0
 
 MAX_GRIDS = 8          # kMaxGrids in march_common.cuh
 MAX_LAYERS = 8         # kMaxLayers in march_common.cuh (per MLP)
@@ -241,7 +243,7 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
     ``defines`` pick a variant build of the kernel (``_build.library``);
     ``warps_per_block`` (of ``WARPS_PER_BLOCK``) overrides
     ``pick_warps_per_block``."""
-    global LAUNCHES
+    global LAUNCHES, SCAFFOLD_LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
     a = launch_args(cfg, geom, diff, "render_fwd_cuda")
@@ -287,6 +289,7 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
         msg = lib.lightplane_cuda_error_string(rc).decode()
         raise RuntimeError(f"renderer_fw kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
+    SCAFFOLD_LAUNCHES += scaffold is not None
     return depth, nlt, feat
 
 

@@ -45,6 +45,16 @@ def if_not_none_else(x: Any, y: Any) -> Any:
     return x if x is not None else y
 
 
+def pad_feature_to_block_size(feature: torch.Tensor, block_size: int):
+    """Zero-pad the leading (ray) dim of a feature tensor to a multiple of
+    ``block_size``."""
+    n_pad = -feature.shape[0] % block_size
+    if n_pad > 0:
+        feature = torch.cat(
+            [feature, feature.new_zeros((n_pad,) + tuple(feature.shape[1:]))])
+    return feature
+
+
 def is_in_bounds(points: torch.Tensor) -> torch.Tensor:
     """True where a point lies inside the [-1, 1] cube (all dims)."""
     return torch.all(points.abs() <= 1.0, dim=-1, keepdim=True)

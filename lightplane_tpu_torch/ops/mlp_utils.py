@@ -291,3 +291,66 @@ def flattened_decoder_params_to_list(
         weights_opacity, biases_opacity,
         weights_color, biases_color,
     )
+
+
+def flattened_triton_decoder_to_list(
+    mlp_params: torch.Tensor,
+    n_layers_trunk: int,
+    n_layers_opacity: int,
+    n_layers_color: int,
+    input_chn: int,
+    hidden_chn: int,
+    color_chn: int,
+):
+    """:func:`flattened_decoder_params_to_list` of MLPs given by their layer
+    counts and widths (trunk ``input_chn -> hidden_chn``, opacity head
+    ``hidden_chn -> 1``, colour head ``hidden_chn -> color_chn``)."""
+
+    def _make(d_in, d_hidden, d_out, n_layers):
+        if n_layers == 0:
+            return ()
+        return tuple([d_in] + [d_hidden] * (n_layers - 1) + [d_out])
+
+    return flattened_decoder_params_to_list(
+        mlp_params,
+        _make(input_chn, hidden_chn, hidden_chn, n_layers_trunk),
+        _make(hidden_chn, hidden_chn, 1, n_layers_opacity),
+        _make(hidden_chn, hidden_chn, color_chn, n_layers_color),
+    )
+
+
+def get_triton_function_input_dims(
+    n_hidden_trunk,
+    n_hidden_opacity,
+    n_hidden_color,
+):
+    """The hidden widths, layer counts and render channels of the three
+    MLPs: ``(dim_hidden_trunk, dim_hidden_opacity, dim_hidden_color,
+    n_layers_trunk, n_layers_opacity, n_layers_color,
+    num_render_channels)``."""
+    n_hidden_trunk = _as_static_n_hidden(n_hidden_trunk)
+    n_hidden_opacity = _as_static_n_hidden(n_hidden_opacity)
+    n_hidden_color = _as_static_n_hidden(n_hidden_color)
+    if len(n_hidden_trunk) == 0:
+        mlp_n_layers_trunk = 0
+        mlp_dim_hidden_trunk = 0
+    else:
+        mlp_dim_hidden_trunk = n_hidden_trunk[1]
+        assert all(h == mlp_dim_hidden_trunk for h in n_hidden_trunk[1:])
+        mlp_n_layers_trunk = len(n_hidden_trunk) - 1
+    mlp_dim_hidden_opacity = n_hidden_opacity[1]
+    mlp_dim_hidden_color = n_hidden_color[1]
+    if len(n_hidden_opacity) > 3:
+        assert all(h == mlp_dim_hidden_opacity
+                   for h in n_hidden_opacity[1:-1])
+    if len(n_hidden_color) > 3:
+        assert all(h == mlp_dim_hidden_color for h in n_hidden_color[1:-1])
+    return (
+        mlp_dim_hidden_trunk,
+        mlp_dim_hidden_opacity,
+        mlp_dim_hidden_color,
+        mlp_n_layers_trunk,
+        len(n_hidden_opacity) - 1,
+        len(n_hidden_color) - 1,
+        n_hidden_color[-1],
+    )

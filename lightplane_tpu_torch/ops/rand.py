@@ -70,6 +70,11 @@ def int_to_randn(x1, x2, seed) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
 
 
+# The JAX package's name for the same generator (the reference's plain
+# PyTorch mirror of its kernel's RNG); one function serves both here.
+int_to_randn_naive = int_to_randn
+
+
 def get_sample_randn(num_samples: int, num_rays: int, seed, device=None):
     """Per-(ray, step) noise table ``[num_rays, num_samples]``:
     ``i1 = ray * S + step + 1``, ``i2 = i1 + max(R, 16) * S``."""

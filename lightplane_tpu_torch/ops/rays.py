@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,15 @@ class Rays:
 
     def __getitem__(self, key) -> "Rays":
         return self._map(lambda v: v[key])
+
+    def pad_to_block_size(self, block_size: int) -> Tuple["Rays", int]:
+        """The rays with zero rays appended up to a multiple of
+        ``block_size``, and the number appended."""
+        n_pad = -len(self) % block_size
+        if n_pad == 0:
+            return self, 0
+        return self._map(lambda v: torch.cat(
+            [v, v.new_zeros((n_pad,) + tuple(v.shape[1:]))])), n_pad
 
     def to(self, device) -> "Rays":
         """Place all fields on ``device``."""

@@ -450,3 +450,27 @@ def lightplane_renderer(
     if inv is not None:
         depth, nlt, feat = depth[inv], nlt[inv], feat[inv]
     return depth, nlt, feat
+
+
+def suggest_w3_budget(
+    rays: Rays,
+    grid,
+    decoder_params: DecoderParams,
+    num_samples: int,
+    num_samples_inf: int = 0,
+    disparity_at_inf: float = 1e-5,
+    contract_coords: bool = False,
+    color_grid=None,
+    grid_sizes=None,
+    color_grid_sizes=None,
+    tile_rays: Optional[int] = None,
+    image_size: Optional[Tuple[int, int]] = None,
+    candidates=None,
+) -> None:
+    """Always ``None``.  The JAX package's function picks a window budget
+    for its TPU kernel's big-grid sampler (``w3_budget``), which moves
+    tiles of the grid into the TPU core's local memory.  The CUDA kernels
+    read the grid where it lies and take no budget, and ``None`` is what
+    the JAX function returns for a configuration that needs none; the
+    arguments are the JAX function's, accepted and not read."""
+    return None

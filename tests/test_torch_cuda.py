@@ -211,12 +211,15 @@ def test_branch_kernels_match_plain(cuda, branch):
     (R1-rf): outputs and gradients (the colour grid's too)."""
     rays, grid, dp, extra = _branch_case(cuda, branch)
     kw = dict(num_samples=32, gain=1.5, **extra)
+    gated = int(branch == "scaffold")
     with torch.no_grad():
         before = renderer_fw.LAUNCHES
+        sc_before = renderer_fw.SCAFFOLD_LAUNCHES
         out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
         out_p = lp.lightplane_renderer(rays, grid, dp, impl="torch", **kw)
         torch.cuda.synchronize()
         assert renderer_fw.LAUNCHES == before + 1
+        assert renderer_fw.SCAFFOLD_LAUNCHES == sc_before + gated
     for name, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
         err = float((a - b).abs().max())
         assert err <= MAX_ABS, f"{name}: max |diff| {err}"
@@ -235,9 +238,11 @@ def test_branch_kernels_match_plain(cuda, branch):
                                                           for g in leaves]
 
     before = renderer_bw.LAUNCHES
+    sc_before = renderer_bw.SCAFFOLD_LAUNCHES
     g_k = grads("cuda")
     torch.cuda.synchronize()
     assert renderer_bw.LAUNCHES == before + 1
+    assert renderer_bw.SCAFFOLD_LAUNCHES == sc_before + gated
     g_p = grads("torch")
     assert len(g_k) == len(grid) + 2 + len(cgrid or [])
     for i, (a, b) in enumerate(zip(g_k, g_p)):

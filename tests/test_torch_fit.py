@@ -1,15 +1,21 @@
 """The PyTorch port's scene-fitting pieces against the JAX package: PSNR and
 SSIM, the synthetic scene, the optimiser and its learning-rate schedule, the
-image writers, and a CPU run of the port's trainer
+image writers, a CPU run of the port's trainer
 (``lightplane_tpu_torch.examples.fit_single_scene``) with a scaffold
-update, an upsample, evals, checkpoints and a restore.
+update, an upsample, evals, checkpoints and a restore, and the slice of
+fitting a scene from files: one whole-image loss (MSE + 0.05 x perceptual
++ TV) of a NeRF-synthetic directory and its gradients against the JAX
+app's, and two steps of the trainer on that directory.
 
 Tolerances: PSNR within 1e-4, SSIM within 1e-5 (f32 on both sides, sums in
 another order); the synthetic scene within 1e-5 (the same numpy code on the
 port's copy of the cameras); Adam within ``compare_one``'s bounds and
 ``max |diff| <= 1e-6`` after three updates of O(1e-2); three training steps
 of the trainer against the JAX app's: losses within 1e-6, the grid within
-``compare_one``'s bounds and 1e-4.
+``compare_one``'s bounds and 1e-4; the whole-image loss within 1e-5 and its
+grid and MLP gradients within ``compare_one``'s bounds, 1e-4 and 1e-4 x
+their largest entry (f32 through the march and the conv features in
+another order).
 """
 
 import json
@@ -33,6 +39,8 @@ from lightplane_tpu_torch.examples import datasets as tds  # noqa: E402
 from lightplane_tpu_torch.examples import fit_single_scene as tfit  # noqa: E402
 from lightplane_tpu_torch.ops.kernels import renderer_bw, renderer_fw  # noqa: E402
 from lightplane_tpu_torch.utils import io_utils, metrics  # noqa: E402
+from lightplane_tpu_torch.utils import nnfm_loss as tnn  # noqa: E402
+from lightplane_tpu_torch.utils.cameras import sphere_cameras  # noqa: E402
 
 from .port_utils import compare_outputs  # noqa: E402
 
@@ -73,7 +81,8 @@ def test_synthetic_scene_matches_jax():
         want.height, want.width, want.n_images, want.near, want.far)
     o, d, img = got.image(2)
     np.testing.assert_array_equal(img, want.image(2)[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a directory without the layout's files
+    with pytest.raises(FileNotFoundError, match="transforms_train"):
         tds.auto_dataset("/", "nerf")
 
 
@@ -239,7 +248,8 @@ def test_trainer_image_mode_smoke(tmp_path):
     procedural scene, each one raster-order image rendered in the tile order
     (``image_size``), as the JAX app's smoke test runs it
     (``tests/test_examples_utils.py::test_fit_app_image_mode_smoke``)
-    without the perceptual term, which the port refuses."""
+    without the perceptual term (``test_trainer_fits_a_dataset_directory``
+    adds it)."""
     out = tmp_path / "img"
     fit = tfit.main(["--device", "cpu", "--dataset_type", "synthetic",
                      "--n_iter", "2", "--ray_sampling", "image",
@@ -259,7 +269,7 @@ def test_trainer_image_mode_smoke(tmp_path):
 
 def test_trainer_flags(tmp_path):
     """The JAX app's JSON configs and ``--impl`` spellings carry over; the
-    perceptual loss is refused; 'auto' sampling draws 512-pixel spans on a
+    perceptual weight is taken; 'auto' sampling draws 512-pixel spans on a
     small grid and 8 x 8 patches once a sub-grid passes 8192 cells."""
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({"impl": "scan", "n_iter": 7,
@@ -268,8 +278,8 @@ def test_trainer_flags(tmp_path):
     assert (args.impl, args.n_iter, tfit.IMPLS[args.impl]) == (
         "scan", 7, "torch")
     assert tfit.IMPLS["pallas"] == "cuda"
-    with pytest.raises(NotImplementedError, match="perceptual"):
-        tfit.parse_args(["--perceptual_weight", "0.1"])
+    assert tfit.parse_args(["--perceptual_weight", "0.1"]).perceptual_weight \
+        == 0.1
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps({"not_a_flag": 1}))
     with pytest.raises(ValueError, match="invalid config keys"):
@@ -285,3 +295,124 @@ def test_trainer_flags(tmp_path):
     assert idx.shape == (4, 8, 8)
     assert bool((idx[:, :, 1:] - idx[:, :, :-1] == 1).all())
     assert bool((idx[:, 1:, 0] - idx[:, :-1, 0] == 64).all())
+
+
+def _write_nerf_scene(root, n_views=2, size=16):
+    """Views of the synthetic scene in NeRF-synthetic layout: RGBA PNGs
+    (colour over black divided by the opacity, as Blender writes them) and
+    ``transforms_train.json``."""
+    frames = []
+    for i, c2w in enumerate(sphere_cameras(n_views, radius=3.0)):
+        img, alpha = tds.synthetic_view(c2w, size)
+        a = alpha[..., None]
+        color = np.clip((img - (1.0 - a)) / np.maximum(a, 1e-6), 0.0, 1.0)
+        io_utils.save_image(os.path.join(root, "train", f"r_{i}.png"),
+                            np.concatenate([color, a], axis=-1))
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": np.asarray(c2w).tolist()})
+    with open(os.path.join(root, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 2 * float(np.arctan(0.5 / 1.2)),
+                   "frames": frames}, f)
+
+
+def _jax_kernels():
+    key, kernels, c_in = jax.random.PRNGKey(17), [], 3
+    for w in (64, 128, 256):
+        key, k = jax.random.split(key)
+        kernels.append(np.asarray(
+            jax.random.normal(k, (w, c_in, 3, 3)) * np.sqrt(2.0 / (9 * c_in))))
+        c_in = w
+    return kernels
+
+
+def test_image_loss_with_perceptual_term_matches_jax(tmp_path):
+    """One whole-image loss, MSE + 0.05 x perceptual + 1e-3 x TV, of image 1
+    of a NeRF-synthetic directory loaded by both packages' loaders, with the
+    same grid, decoder and feature extractor: the port's plain versions
+    against the JAX app's renderer (the Flax module, whose ``impl="auto"``
+    is the scan path on the CPU) and ``perceptual_loss``."""
+    import fit_single_scene as japp
+    from lightplane_tpu.utils.nnfm_loss import random_conv_features_fn
+    from utils.datasets import load_nerf_synthetic
+
+    scene = tmp_path / "scene"
+    _write_nerf_scene(str(scene))
+    argv = ["--device", "cpu", "--dataset_path", str(scene),
+            "--ray_sampling", "image", "--perceptual_weight", "0.05",
+            "--grid_resolution", "8", "--grid_channels", "16",
+            "--mlp_hidden_chn", "16", "--num_samples", "8",
+            "--opacity_init_bias", "-1", "--output_dir", str(tmp_path / "o")]
+    fit = tfit.SceneFit(tfit.parse_args(argv))
+    jds = load_nerf_synthetic(str(scene))
+    np.testing.assert_array_equal(fit.ds.gt, jds.gt)
+    for name in ("origins", "directions"):
+        np.testing.assert_allclose(getattr(fit.ds, name), getattr(jds, name),
+                                   atol=1e-6, rtol=0)
+    assert (fit.ds.near, fit.ds.far) == (jds.near, jds.far) == (2.0, 6.0)
+
+    renderer = japp.build_renderer(japp.parse_args(argv[2:]))
+    params = {"grid": [jnp.asarray(g.detach().numpy()) for g in fit.grid]}
+    params["mlp"] = renderer.init(jax.random.PRNGKey(5), _jax_rays(
+        fit.rays(torch.arange(4))), params["grid"], num_samples=2)["params"]
+    fit.renderer.load_state_dict(convert.renderer_module_state_from_flax(
+        {"params": jax.device_get(params["mlp"])}, device="cpu"))
+    fit.features_fn = tnn.random_conv_features_fn(kernels=_jax_kernels(),
+                                                  device="cpu")
+    jfn = random_conv_features_fn()
+
+    h, w = jds.height, jds.width
+    idx = np.arange(h * w) + h * w
+    rays = _jax_rays(fit.rays(torch.from_numpy(idx)))
+    tgt = jnp.asarray(jds.gt[idx]).reshape(h, w, 3)
+
+    def loss_fn(params):
+        _, _, rgb = renderer.apply({"params": params["mlp"]}, rays,
+                                   params["grid"], num_samples=8,
+                                   image_size=(h, w))
+        pred = rgb.reshape(h, w, 3)
+        return (jnp.mean((pred - tgt) ** 2)
+                + 0.05 * jmetrics.perceptual_loss(pred, tgt, jfn)
+                + 1e-3 * jgu.grid_tv_loss(params["grid"]))
+
+    want, g = jax.jit(jax.value_and_grad(loss_fn))(params)
+    loss, mse = fit.loss(torch.from_numpy(idx), image_size=(h, w))
+    loss.backward()
+    loss, mse = float(loss.detach()), float(mse.detach())
+    assert loss > mse > 0.0
+    assert abs(loss - float(want)) <= 1e-5
+    compare_outputs(g["grid"], [p.grad for p in fit.grid],
+                    names=("g0", "g1", "g2"))
+    compare_outputs([g["mlp"]["mlp_params"],
+                     np.asarray(g["mlp"]["harmonic_ray_embedding_linear"][
+                         "kernel"]).T],
+                    [fit.renderer.mlp_params.grad,
+                     fit.renderer.harmonic_ray_embedding_linear.weight.grad],
+                    names=("mlp_params", "embedding"))
+    # and within 1e-4 of each gradient's largest entry (grid ~1e-3)
+    for a, b in zip(g["grid"] + [g["mlp"]["mlp_params"]],
+                    [p.grad for p in fit.grid] + [fit.renderer.mlp_params.grad]):
+        a = np.asarray(a)
+        assert np.abs(a - b.numpy()).max() <= 1e-4 * np.abs(a).max()
+
+
+def test_trainer_fits_a_dataset_directory(tmp_path):
+    """Two whole-image steps of the trainer on a NeRF-synthetic directory
+    with the perceptual term, as the JAX app's smoke test runs it
+    (``tests/test_examples_utils.py::test_fit_app_image_mode_smoke``), and
+    an eval of image 0 of that directory."""
+    scene = tmp_path / "scene"
+    _write_nerf_scene(str(scene), n_views=3)
+    out = tmp_path / "out"
+    fit = tfit.main(["--device", "cpu", "--dataset_path", str(scene),
+                     "--n_iter", "2", "--ray_sampling", "image",
+                     "--perceptual_weight", "0.05", "--grid_resolution", "8",
+                     "--grid_channels", "16", "--num_samples", "8",
+                     "--eval_rate", "1000", "--impl", "scan",
+                     "--output_dir", str(out)])
+    assert isinstance(fit.features_fn, tnn.RandomConvFeatures)
+    assert fit.ds.n_images == 3 and (fit.ds.height, fit.ds.width) == (16, 16)
+    assert (out / "ckpt_000002.pt").exists()
+    step, psnr, ssim = fit.history["evals"][0]
+    assert step == 2 and np.isfinite(psnr) and 0.0 < ssim <= 1.0
+    loss, mse = fit.step()
+    assert np.isfinite(float(loss)) and 0.0 < float(mse) < float(loss)

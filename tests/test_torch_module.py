@@ -146,6 +146,9 @@ def test_import_does_not_load_jax():
         "import lightplane_tpu_torch.utils.cameras\n"
         "import lightplane_tpu_torch.utils.metrics\n"
         "import lightplane_tpu_torch.utils.io_utils\n"
+        "import lightplane_tpu_torch.utils.nnfm_loss\n"
+        "import lightplane_tpu_torch.utils.profiling\n"
+        "import lightplane_tpu_torch.utils.visualize\n"
         "import lightplane_tpu_torch.examples.datasets\n"
         "import lightplane_tpu_torch.examples.fit_single_scene\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
