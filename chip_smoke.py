@@ -121,18 +121,33 @@ exits non-zero without its result line:
    PSNR must beat the first), cuDNN at PyTorch's default (TF32): ms per
    step, launches of R1, R2 and R3, a step's device time by part (R1, R2,
    the convolutions, the rest), the host's share and a step's peak memory.
+11. Data parallel (``lightplane_tpu_torch.parallel``) over two workloads:
+   the render headline's fw+bw (phase 4's widths, one 256^2 frame, a
+   random projection of the outputs as the loss) and
+   ``__graft_entry__.py::dryrun_multichip``'s training step at
+   lift-then-render's width (2 images of 512^2 with 32-channel encodings
+   lifted by the MLP splatter, 32 -> 32 -> 32 from a 3 x 128^2 x 32ch input
+   triplane, into 3 x 128^2 x 32ch at 96 samples, rendered back at 256
+   samples, one Adam step).  First a gloo world of two ranks, spawned, both
+   on ``cuda:0`` with the kernels phase 2 built, each on half the rays:
+   each rank's outputs and loss against the single-process call within
+   KERNEL_MAX_ABS and every gradient within DP_GRAD_MAX_REL x max |g|,
+   every group's gradient finite and non-zero, each rank's launches of R1,
+   R2, S1 and S2 counted; then a world of one NCCL rank in this process:
+   the same checks, its launches, and both workloads timed against the
+   plain single-process call in turns (the wrapper's overhead).
 
-Phases 4, 5, 7, 8, 9 and 10 each set the kernels' launch counts to 0 just
-before they drive their path and read them just after.  Every phase prints
-its time.  The last lines are the card's name and power limit, a JSON line
-with every kernel (its launches on its main path, the trainer of phase 9
-for R1 and R2 and also phase 10's fit from files, the splatter step of
-phase 7 for S1 and S2 and its MLP splatter step for S2 with the MLP, its
-error
-against the plain version, its time, the plain version's time and the least
-time the card could take, and for R1 and R2 the same for the scaffold and
-relu-field branches) and the result line ``{"ok": true, "device":
-{...}}``.  Needs no network and no JAX.
+Phases 4, 5, 7, 8, 9, 10 and 11 each set the kernels' launch counts to 0
+just before they drive their path and read them just after.  Every phase
+prints its time.  The last lines are the card's name and power limit, a
+JSON line with every kernel (its launches on its main path, the trainer of
+phase 9 for R1 and R2 and also phase 10's fit from files and phase 11's
+data-parallel path, the splatter step of phase 7 for S1 and S2 and its MLP
+splatter step for S2 with the MLP, its error against the plain version,
+its time, the plain version's time and the least time the card could take,
+and for R1 and R2 the same for the scaffold and relu-field branches) and
+the result line ``{"ok": true, "device": {...}}``.  Needs no network and no
+JAX.
 
 ``--only`` runs phases 1 and 2 and the phases it names (for iterating on
 one kernel); it prints the result line but no kernels line, which needs
@@ -3117,7 +3132,448 @@ def mlp_splat_march(lp, smod, rays, gen):
                        dict(num_samples=SPLAT_SAMPLES), sp, igrid, in_sizes)
 
 
-PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9", "10")
+# ---- data parallel (phase 11) ---------------------------------------------
+
+DP_WORLD = 2
+# the phase takes about a minute; a rank that outlives this has hung
+DP_JOIN_TIMEOUT_S = 300
+# data-parallel vs single-process gradients: the same kernels, so only the
+# order of the atomics and of the ranks' sum differ
+DP_GRAD_MAX_REL = 1e-3
+LIFT_IMAGES, LIFT_SIZE, LIFT_RES, LIFT_CHN = 2, 512, 128, 32
+LIFT_SPLAT_SAMPLES = 96
+# the NCCL world's timings: rounds in turns, each the median of DP_REPS
+DP_ROUNDS, DP_REPS = 2, 5
+
+
+def dp_kernel_counts():
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    return rfw, rbw, sfw, sbw
+
+
+def dp_reset_counts():
+    for mod in dp_kernel_counts():
+        mod.LAUNCHES = 0
+    dp_kernel_counts()[3].MLP_LAUNCHES = 0
+
+
+def dp_read_counts():
+    """The launches of R1, R2, S1, S2 without the MLP and S2 with it, as
+    their wrappers counted them."""
+    rfw, rbw, sfw, sbw = dp_kernel_counts()
+    return dict(renderer_fw=rfw.LAUNCHES, renderer_bw=rbw.LAUNCHES,
+                splatter_fw=sfw.LAUNCHES,
+                splatter_bw=sbw.LAUNCHES - sbw.MLP_LAUNCHES,
+                splatter_bw_mlp=sbw.MLP_LAUNCHES)
+
+
+def dp_rows(mesh, n):
+    if mesh is None:
+        return slice(0, n)
+    per = n // mesh.size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def dp_render_workload(lp, mesh):
+    """The render headline's fw+bw on this rank's rows of the rays (all of
+    them without a mesh: the single-process call): one 256 x 256 orbit
+    frame, a 3 x 32^2 x 32ch triplane, 256 samples, MLPs 2/2/2 at width
+    32, the loss a fixed random projection of the outputs.  Returns
+    ``(step, result)``: ``step()`` runs one fw+bw, ``result(out)`` this
+    rank's outputs and the grid-list's and ``mlp_params``' gradients."""
+    from lightplane_tpu_torch import parallel
+
+    gen = torch.Generator().manual_seed(21)
+    dp = lp.init_decoder_params(
+        gen, n_layers_opacity=2, n_layers_trunk=2, n_layers_color=2,
+        input_chn=SLICE["grid_chn"], hidden_chn=SLICE["mlp_hidden_chn"],
+        color_chn=3, opacity_init_bias=-2.0)
+    grid = [(torch.randn(s, generator=gen) * 0.1).cuda().requires_grad_(True)
+            for s in _TRI]
+    mlp = dp.mlp_params.requires_grad_(True)
+    rays = orbit_rays(lp, 0.3, "cuda")
+    n = len(rays)
+    rows = dp_rows(mesh, n)
+    proj = [torch.randn(s, generator=gen).cuda()[rows]
+            for s in [(n,), (n,), (n, 3)]]
+    kw = dict(num_samples=SLICE["num_samples"], gain=1.0)
+    if mesh is None:
+        render = lambda: lp.lightplane_renderer(rays, grid, dp, **kw)  # noqa
+    else:
+        local = parallel.shard_rays(rays, mesh)
+        dp_render = parallel.data_parallel_renderer(mesh, **kw)
+        render = lambda: dp_render(local, grid, dp)  # noqa: E731
+
+    def step():
+        for x in grid + [mlp]:
+            x.grad = None
+        out = render()
+        sum((o * p).sum() for o, p in zip(out, proj)).backward()
+        return out
+
+    def result(out):
+        return dict(out=[o.detach() for o in out],
+                    grid=[g.grad for g in grid], mlp=mlp.grad)
+
+    return step, result
+
+
+def lift_inputs(lp):
+    """``(rays, out_sizes, igrid, sp, dp)`` of phase 11's lift step, made
+    from seed 22 on the card: the view rays of 2 images at 512^2 with
+    per-pixel 32-channel encodings, the grid-lists' sizes 3 x 128^2 x 32ch,
+    the splatter's prior input grid-list, its MLP (32 -> 32 -> 32) and the
+    decoder (2/2/2 at width 32)."""
+    gen = torch.Generator().manual_seed(22)
+    n = LIFT_IMAGES * LIFT_SIZE * LIFT_SIZE
+    chn = LIFT_CHN
+    enc = (torch.randn((n, chn), generator=gen) * 0.1).cuda()
+    out_sizes = tri_sizes(LIFT_RES, chn)
+    igrid = [(torch.randn(s, generator=gen) * 0.1).cuda() for s in out_sizes]
+    sp = lp.init_splatter_params(gen, 2, chn, chn, chn)
+    dp = lp.init_decoder_params(gen, n_layers_opacity=2, n_layers_trunk=2,
+                                n_layers_color=2, input_chn=chn,
+                                hidden_chn=32, color_chn=3,
+                                opacity_init_bias=-2.0)
+    rays = view_rays(lp, LIFT_IMAGES, LIFT_SIZE, enc)
+    return rays, out_sizes, igrid, sp, dp
+
+
+def dp_splat_workload(lp, mesh):
+    """The lift step's encodings splatted without the MLP into its
+    3 x 128^2 x 32ch grid-list at 96 samples, fw+bw, the loss a fixed
+    random projection of the splatted grid; this rank's rows of the rays
+    (all without a mesh).  Returns ``(step, result)``: ``step()`` runs one
+    fw+bw, ``result(out)`` the splatted grid-list (the same on every rank)
+    and the gradient of this rank's encodings."""
+    from lightplane_tpu_torch import parallel
+
+    rays, out_sizes, _, _, _ = lift_inputs(lp)
+    enc = rays.encoding.requires_grad_(True)
+    n = len(rays)
+    gen = torch.Generator().manual_seed(23)
+    proj = [torch.randn(s, generator=gen).cuda() for s in out_sizes]
+    kw = dict(num_samples=LIFT_SPLAT_SAMPLES)
+    if mesh is None:
+        splat = lambda: lp.lightplane_splatter(rays, out_sizes, **kw)  # noqa
+    else:
+        local = parallel.shard_rays(rays, mesh)
+        dp_splat = parallel.data_parallel_splatter(mesh, **kw)
+        splat = lambda: dp_splat(local, out_sizes)  # noqa: E731
+
+    def step():
+        enc.grad = None
+        out = splat()
+        sum((o * p).sum() for o, p in zip(out, proj)).backward()
+        return out
+
+    def result(out):
+        return dict(splat=[o.detach() for o in out],
+                    enc=[enc.grad[dp_rows(mesh, n)]])
+
+    return step, result
+
+
+def dp_lift_workload(lp, mesh):
+    """``__graft_entry__.py::dryrun_multichip`` at lift-then-render's width:
+    the inputs of ``lift_inputs`` lifted by the MLP splatter into
+    3 x 128^2 x 32ch at 96 samples, rendered back at 256 samples, the loss
+    the mean of the squared colours plus 1e-4 of the mean squared nlt over
+    all the rays, then one Adam step.  This rank's rows of the rays (all
+    without a mesh).  Returns ``(step, result)``: ``step()`` runs one
+    training step and returns this rank's share of the loss;
+    ``result(loss)`` the loss summed over the ranks and the gradients of
+    the four groups (the encodings' rows of this rank)."""
+    from lightplane_tpu_torch import parallel
+
+    rays, out_sizes, igrid, sp, dp = lift_inputs(lp)
+    enc = rays.encoding.requires_grad_(True)
+    n = len(rays)
+    for x in igrid + [sp.mlp_params, dp.mlp_params]:
+        x.requires_grad_(True)
+    render_rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
+                          rays.near, rays.far)
+    splat_kw = dict(num_samples=LIFT_SPLAT_SAMPLES)
+    render_kw = dict(num_samples=256, gain=1.0)
+    if mesh is None:
+        splat = lambda: lp.lightplane_mlp_splatter(  # noqa: E731
+            rays, out_sizes, sp, igrid, **splat_kw)
+        render = lambda g: lp.lightplane_renderer(  # noqa: E731
+            render_rays, g, dp, **render_kw)
+    else:
+        local, local_render = (parallel.shard_rays(r, mesh)
+                               for r in (rays, render_rays))
+        dp_splat = parallel.data_parallel_splatter(mesh, use_mlp=True,
+                                                   **splat_kw)
+        dp_render = parallel.data_parallel_renderer(mesh, **render_kw)
+        splat = lambda: dp_splat(local, out_sizes, mlp_params=sp,  # noqa
+                                 input_grid=igrid)
+        render = lambda g: dp_render(local_render, g, dp)  # noqa: E731
+    groups = dict(grid=igrid, mlp=[dp.mlp_params], splat_mlp=[sp.mlp_params],
+                  enc=[enc])
+    opt = torch.optim.Adam([x for xs in groups.values() for x in xs],
+                           lr=1e-3)
+
+    def step():
+        opt.zero_grad()
+        _, nlt, feat = render(splat())
+        loss = feat.square().sum() / (3 * n) + 1e-4 * nlt.square().sum() / n
+        loss.backward()
+        opt.step()
+        return loss
+
+    def result(loss):
+        total = loss.detach().clone()
+        if mesh is not None:
+            torch.distributed.all_reduce(total)
+        grads = {name: [x.grad for x in xs] for name, xs in groups.items()}
+        grads["enc"] = [grads["enc"][0][dp_rows(mesh, n)]]
+        for name, gs in grads.items():
+            assert all(torch.isfinite(g).all() for g in gs), name
+            assert sum(float(g.abs().sum()) for g in gs) > 0, (
+                f"{name}: no gradient")
+        return dict(loss=total, **grads)
+
+    return step, result
+
+
+DP_WORKLOADS = (("render", dp_render_workload), ("splat", dp_splat_workload),
+                ("lift", dp_lift_workload))
+
+
+def dp_results(lp, mesh):
+    """Every workload once on ``mesh`` (single-process without): their
+    results and the launches of R1, R2, S1 and S2 (the counts set to 0
+    just before)."""
+    dp_reset_counts()
+    out = {}
+    for name, workload in DP_WORKLOADS:
+        step, result = workload(lp, mesh)
+        out[name] = result(step())
+    torch.cuda.synchronize()
+    return out, dp_read_counts()
+
+
+def dp_splat_parity(lp):
+    """Hold the splats of phase 11's path against their plain versions on
+    the path's own inputs (``lift_inputs``), every ray: S1 without and with
+    the MLP on its raw sums; on a fixed random cotangent, S2 without the
+    MLP, and S2 with it under the recording build's relu masks with its
+    bounds scaled by the gradients' magnitude (``s2_alone``, as phase 7
+    holds it).  All within SPLAT_MAX_REL x max |ref|, and compare_one's
+    bounds scaled by the magnitude where the sums are large."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.misc_utils import flatten_grid
+
+    rays, out_sizes, igrid, sp, _ = lift_inputs(lp)
+    igrid = flatten_grid(igrid)[0]
+    kw = dict(num_samples=LIFT_SPLAT_SAMPLES)
+    gen = torch.Generator().manual_seed(24)
+    for label, mlp in (("without the MLP", None), ("with the MLP", sp)):
+        args = ((lp, rays, out_sizes, kw, None, None, None) if mlp is None
+                else (lp, rays, out_sizes, kw, sp, igrid, out_sizes))
+        print(f"  S1 {label} vs its plain version on the lift step's "
+              f"{len(rays)} rays:")
+        with torch.no_grad():
+            feat_k, w_k = splat_call(*args, "cuda", raw=True)
+            feat_p, w_p = splat_call(*args, "torch", raw=True)
+            # raw sums of 5e7 samples over 3 x 128^2 cells: a cell's weight
+            # reaches thousands, so compare_one's absolute bounds scale with
+            # the magnitude (as s2_alone's); the relative bound holds as is
+            for name, a, b in (("feat", feat_k, feat_p), ("w", w_k, w_p)):
+                mx, _ = compare(name, a, b, max_rel=SPLAT_MAX_REL,
+                                magnitude_scaled=True)
+                print(f"    {name}: max |d| / max |ref| "
+                      f"{mx / float(b.abs().max()):.3e}")
+            g_feat = (torch.randn(feat_k.shape, generator=gen) * 0.01).cuda()
+        del feat_k, w_k, feat_p, w_p
+        cfg, geom, diff = splat_march(smod, *args[1:])
+        if mlp is None:
+            print(f"  S2 {label} vs its plain version:")
+            with torch.no_grad():
+                g_k = sbw.splat_bwd_cuda(cfg, geom, diff, g_feat)[0]
+                g_p = sbw.splat_bwd_torch(cfg, geom, diff, g_feat)[0]
+            compare("g_enc", g_k, g_p, max_rel=SPLAT_MAX_REL)
+            del g_k, g_p
+        else:
+            s2_alone(cfg, geom, diff, g_feat, scaled=True)
+        del g_feat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [to_cpu(v) for v in x]
+    return x
+
+
+def dp_rank(rank, store, out_path):
+    """One rank of phase 11's gloo world, on ``cuda:0`` with the other:
+    every workload on this rank's half of the rays, with the kernels that
+    phase 2 built."""
+    import torch.distributed as dist
+
+    import lightplane_tpu_torch as lp
+    from lightplane_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=DP_WORLD)
+    try:
+        mesh = parallel.make_mesh(["cuda:0"] * DP_WORLD)
+        results, launches = dp_results(lp, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert all(v > 0 for v in launches.values()), launches
+    assert "jax" not in sys.modules, "the port imported jax"
+    torch.save(dict(to_cpu(results), launches=launches), out_path)
+
+
+def dp_compare(label, got, ref, mesh_rows):
+    """A data-parallel run's results against the single-process ones:
+    outputs (this rank's rows), the splatted grid-list (every rank's) and
+    the loss within KERNEL_MAX_ABS, gradients within DP_GRAD_MAX_REL x
+    max |g|."""
+    for name, g in got.items():
+        want = ref[name]
+        if name == "out":
+            for k, (a, b) in enumerate(zip(g, want)):
+                compare(f"{label} out{k}", a.cuda(), b[mesh_rows])
+        elif name == "splat":
+            for k, (a, b) in enumerate(zip(g, want)):
+                compare(f"{label} grid{k}", a.cuda(), b)
+        elif name == "loss":
+            compare(f"{label} loss", g.cuda().reshape(1), want.reshape(1))
+        elif name == "enc":
+            compare(f"{label} g_enc", g[0].cuda(), want[0][mesh_rows],
+                    max_rel=DP_GRAD_MAX_REL)
+        else:
+            for k, (a, b) in enumerate(zip(g if isinstance(g, list) else [g],
+                                           want if isinstance(want, list)
+                                           else [want])):
+                compare(f"{label} g_{name}{k}", a.cuda(), b,
+                        max_rel=DP_GRAD_MAX_REL)
+
+
+def _build_dir():
+    """The kernels' build directory (phase 11's stores and results go
+    there, in temporary directories)."""
+    from lightplane_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return _build.BUILD_DIR
+
+
+def phase_data_parallel(lp, smi):
+    print("== phase 11: data parallel, the render headline, a splat and a "
+          "lift-then-render training step over a 2-rank gloo world on one "
+          "card, then a 1-rank NCCL world")
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lightplane_tpu_torch import parallel
+
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as tmp:
+        ctx = torch.multiprocessing.get_context("spawn")
+        paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        procs = [ctx.Process(target=dp_rank,
+                             args=(r, os.path.join(tmp, "store"), paths[r]))
+                 for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            # the single-process references, while the ranks start
+            ref, ref_launches = dp_results(lp, None)
+            deadline = time.monotonic() + DP_JOIN_TIMEOUT_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        assert not hung, f"ranks {hung} hung past {DP_JOIN_TIMEOUT_S} s"
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * DP_WORLD, f"ranks exited with {codes}"
+        ranks = [torch.load(path, weights_only=False) for path in paths]
+    print(f"  gloo world of {DP_WORLD} on cuda:0: "
+          f"{time.perf_counter() - t0:.1f} s from spawn to join; "
+          f"single-process launches {ref_launches}")
+    sizes = dict(render=IMAGE * IMAGE,
+                 splat=LIFT_IMAGES * LIFT_SIZE * LIFT_SIZE,
+                 lift=LIFT_IMAGES * LIFT_SIZE * LIFT_SIZE)
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: launches {res['launches']}")
+        for name, n in sizes.items():
+            rows = slice(r * n // DP_WORLD, (r + 1) * n // DP_WORLD)
+            dp_compare(f"rank {r} {name}", res[name], ref[name], rows)
+    print(f"  loss of the lift step: {float(ref['lift']['loss']):.6f}")
+    # the single-process path's splats against their plain versions, so
+    # that the path is not held only against itself
+    dp_splat_parity(lp)
+
+    # a 1-rank NCCL world in this process: the same path, timed
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh()
+            assert mesh.device == torch.device("cuda", 0), mesh.device
+            got, launches = dp_results(lp, mesh)
+            assert all(v > 0 for v in launches.values()), launches
+            print(f"  NCCL world of 1: launches {launches}")
+            for name, n in sizes.items():
+                dp_compare(f"nccl {name}", got[name], ref[name], slice(0, n))
+            del got, ref
+            times = {}
+            for name, workload in DP_WORKLOADS:
+                steps = dict(plain=workload(lp, None)[0],
+                             data_parallel=workload(lp, mesh)[0])
+                times[name] = {k: [] for k in steps}
+                # in turns: plain, data-parallel, data-parallel, plain, ...
+                for rnd in range(DP_ROUNDS):
+                    order = list(steps) if rnd % 2 == 0 else list(steps)[::-1]
+                    for k in order:
+                        times[name][k].append(cuda_ms(steps[k], warmup=1,
+                                                      reps=DP_REPS))
+                del steps
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    for name, label in (("render", "render headline fw+bw"),
+                        ("splat", "splat fw+bw (no MLP)"),
+                        ("lift", "lift-then-render step (MLP splat, "
+                                 "render, Adam)")):
+        t = times[name]
+        plain_ms, dp_ms = (statistics.median(t[k])
+                           for k in ("plain", "data_parallel"))
+        rounds = {k: " ".join(f"{x:.3f}" for x in v) for k, v in t.items()}
+        print(f"  {label}: data-parallel {dp_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, the wrapper's overhead "
+              f"{dp_ms - plain_ms:.3f} ms (NCCL world of 1; the median of "
+              f"{DP_ROUNDS} rounds in turns, each the median of {DP_REPS}: "
+              f"data-parallel {rounds['data_parallel']}, plain "
+              f"{rounds['plain']} ms)  [{smi}]")
+    return dict(launches=launches, times=times)
+
+
+PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9", "10",
+          "11")
 
 
 def parse_only(argv):
@@ -3176,6 +3632,7 @@ def main():
         ("8", phase_lift_render, (lp, smi)),
         ("9", phase_fit, (lp, smi)),
         ("10", phase_fit_files, (lp, smi)),
+        ("11", phase_data_parallel, (lp, smi)),
     ):
         if phase not in only:
             continue
@@ -3206,6 +3663,9 @@ def kernel_lines(out):
     splat_launches, splat = out["7"]
     fit_launches, scaffold_row, rf_row = out["9"]
     files_launches = out["10"]
+    # phase 11's launches (the NCCL world's drive of its three workloads),
+    # S2's without and with the MLP counted apart
+    dp_launches = out["11"]["launches"]
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);
@@ -3227,6 +3687,7 @@ def kernel_lines(out):
         dict(fw, launches=fit_launches["renderer_fw"],
              launches_fit_files=files_launches["renderer_fw"],
              launches_fit_files_scaffold=files_launches["scaffold"][0],
+             launches_data_parallel=dp_launches["renderer_fw"],
              bound_ms=b_fw,
              bound_by=b_fw_kind, library_ms=None,
              bound_tf32_ms=train["fw_bound_tf32"], **branches["fw"]),
@@ -3236,6 +3697,7 @@ def kernel_lines(out):
              launches=fit_launches["renderer_bw"],
              launches_fit_files=files_launches["renderer_bw"],
              launches_fit_files_scaffold=files_launches["scaffold"][1],
+             launches_data_parallel=dp_launches["renderer_bw"],
              max_abs_err=train["bw"]["err"], ms=train["bw"]["ms"],
              plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
              bound_by=b_bw_kind, library_ms=None,
@@ -3249,6 +3711,7 @@ def kernel_lines(out):
             source=f"lightplane_tpu_torch/csrc/splatter_{key}.cu",
             replaces=f"lightplane_tpu/ops/kernels/splatter_pallas.py:{line}",
             launches=splat_launches[f"splatter_{key}"],
+            launches_data_parallel=dp_launches[f"splatter_{key}"],
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound"][0], bound_by=k["bound"][1],
             library_ms=None,
@@ -3261,7 +3724,9 @@ def kernel_lines(out):
         name="splatter_bw_mlp", route="cuda",
         source="lightplane_tpu_torch/csrc/splatter_bw.cu",
         replaces="lightplane_tpu/ops/kernels/splatter_pallas.py:183",
-        launches=k["launches"], max_abs_err=k["err"], ms=k["ms"],
+        launches=k["launches"],
+        launches_data_parallel=dp_launches["splatter_bw_mlp"],
+        max_abs_err=k["err"], ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound"][0],
         bound_by=k["bound"][1], bound_tf32_ms=k["bound_tf32"],
         library_ms=None))

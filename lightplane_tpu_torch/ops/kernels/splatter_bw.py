@@ -53,8 +53,10 @@ from .renderer_fw import WIDTHS, _check, check_impl
 
 # Number of adjoints launched in this process: the kernel path adds one per
 # adjoint (its passes, slices and sums together) and nothing else changes
-# it.
+# it.  MLP_LAUNCHES counts the adjoints with the splatter MLP, in the same
+# way.
 LAUNCHES = 0
+MLP_LAUNCHES = 0
 
 # The most output channels the gather without the MLP takes: 16 registers
 # a lane (csrc/splatter_bw.cu, kEncRegs).
@@ -208,7 +210,7 @@ def splat_bwd_two_pass_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
 
 def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
                relu_masks):
-    global LAUNCHES
+    global LAUNCHES, MLP_LAUNCHES
     a = sfw.splat_launch_args(cfg, geom, diff, "splat_bwd_cuda")
     _check(g_feat_grid, "g_feat_grid", torch.float32, (cfg.v_total, a.C),
            a.device)
@@ -291,6 +293,7 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
         del stage
     run(2, geom, encoding, rows=rows, partial=partial, g_mlp=g_mlp)
     LAUNCHES += 1
+    MLP_LAUNCHES += 1
     return g_enc, g_grid, g_mlp
 
 

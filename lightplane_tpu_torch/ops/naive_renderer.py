@@ -167,26 +167,36 @@ def lightplane_eval_mlp_opacity_only(
     mask_out_of_bounds_samples: bool = False,
     inject_opacity_noise: Optional[torch.Tensor] = None,
     scaffold: Optional[torch.Tensor] = None,
+    checkpointing: bool = False,
     contract_coords: bool = False,
 ) -> torch.Tensor:
-    """Opacity-only decoder evaluation ``[R, N]``."""
-    (w_t, b_t, w_o, b_o, _wc, _bc) = flattened_decoder_params_to_list(
-        decoder_params.mlp_params,
-        decoder_params.n_hidden_trunk,
-        decoder_params.n_hidden_opacity,
-        decoder_params.n_hidden_color,
-    )
+    """Opacity-only decoder evaluation ``[R, N]``; ``checkpointing`` as in
+    :func:`lightplane_eval_mlp`."""
     if contract_coords:
         points = _contract_pi(points)
-    feature_sampled = sample_grid_rep(
-        grid_flat, grid_sizes, points, ray_grid_idx,
-        mask_out_of_bounds_samples,
-    )
-    feature_trunk = F.relu(_eval_mlp(feature_sampled, w_t, b_t))
-    opacity_raw = _eval_mlp(feature_trunk, w_o, b_o)[..., 0]
-    if inject_opacity_noise is not None:
-        opacity_raw = opacity_raw + inject_opacity_noise
-    opacity = gain * F.softplus(opacity_raw)
+
+    def _decoder(points, grid_flat, inject_opacity_noise, mlp_params):
+        (w_t, b_t, w_o, b_o, _wc, _bc) = flattened_decoder_params_to_list(
+            mlp_params,
+            decoder_params.n_hidden_trunk,
+            decoder_params.n_hidden_opacity,
+            decoder_params.n_hidden_color,
+        )
+        feature_sampled = sample_grid_rep(
+            grid_flat, grid_sizes, points, ray_grid_idx,
+            mask_out_of_bounds_samples,
+        )
+        feature_trunk = F.relu(_eval_mlp(feature_sampled, w_t, b_t))
+        opacity_raw = _eval_mlp(feature_trunk, w_o, b_o)[..., 0]
+        if inject_opacity_noise is not None:
+            opacity_raw = opacity_raw + inject_opacity_noise
+        return gain * F.softplus(opacity_raw)
+
+    args = (points, grid_flat, inject_opacity_noise, decoder_params.mlp_params)
+    if checkpointing:
+        opacity = checkpoint(_decoder, *args, use_reentrant=False)
+    else:
+        opacity = _decoder(*args)
     if scaffold is not None:
         scaffold_value = sample_grid_rep(
             scaffold.reshape(-1, 1),

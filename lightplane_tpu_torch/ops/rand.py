@@ -75,10 +75,11 @@ def int_to_randn(x1, x2, seed) -> torch.Tensor:
 int_to_randn_naive = int_to_randn
 
 
-def get_sample_randn(num_samples: int, num_rays: int, seed, device=None):
+def get_sample_randn(num_samples: int, num_rays: int, seed,
+                     min_block: int = MIN_BLOCK_SIZE, device=None):
     """Per-(ray, step) noise table ``[num_rays, num_samples]``:
-    ``i1 = ray * S + step + 1``, ``i2 = i1 + max(R, 16) * S``."""
-    num_rays_pad = max(num_rays, MIN_BLOCK_SIZE)
+    ``i1 = ray * S + step + 1``, ``i2 = i1 + max(R, min_block) * S``."""
+    num_rays_pad = max(num_rays, min_block)
     ray = torch.arange(num_rays, dtype=torch.int64, device=device)
     step = torch.arange(num_samples, dtype=torch.int64, device=device)
     i1 = _wrap32(num_samples * ray[:, None] + step[None] + 1)

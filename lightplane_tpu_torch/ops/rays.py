@@ -64,9 +64,14 @@ class Rays:
         return self._map(lambda v: torch.cat(
             [v, v.new_zeros((n_pad,) + tuple(v.shape[1:]))])), n_pad
 
-    def to(self, device) -> "Rays":
-        """Place all fields on ``device``."""
-        return self._map(lambda v: v.to(device))
+    def to(self, device, copy: bool = False) -> "Rays":
+        """Place all fields on ``device`` (copied even where they already
+        lie there when ``copy``)."""
+        return self._map(lambda v: v.to(device, copy=copy))
+
+    def clone(self) -> "Rays":
+        """A copy of every field."""
+        return self._map(torch.clone)
 
 
 def calc_harmonic_embedding(

@@ -1,9 +1,9 @@
 """Image IO (counterpart of ``lightplane_tpu/utils/io_utils.py``), with
 numpy and the standard library only: ``save_image`` writes PNG and
 ``read_png`` reads it (``zlib``, ``struct``), and ``colorize_depth`` maps
-depth through a small built-in colour table, so neither PIL, imageio nor
-matplotlib is needed.  ``write_video`` imports imageio when it is called,
-as the JAX package's does."""
+depth through matplotlib's "magma" table, copied as numbers, so neither
+PIL, imageio nor matplotlib is needed.  ``write_video`` imports imageio
+when it is called, as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -14,44 +14,62 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ._magma import MAGMA_DATA
+
 
 def to_uint8(img) -> np.ndarray:
     return (np.clip(np.asarray(img), 0.0, 1.0) * 255).astype(np.uint8)
 
 
-# Nine stops of matplotlib's "magma" (at 0, 1/8, ..., 1), linearly
-# interpolated between: close to the JAX package's matplotlib colour map,
-# not equal to it.
-_MAGMA = np.array([
-    [0.001462, 0.000466, 0.013866],
-    [0.113094, 0.065492, 0.276784],
-    [0.316654, 0.071690, 0.485380],
-    [0.512831, 0.148179, 0.507648],
-    [0.716387, 0.214982, 0.475290],
-    [0.904281, 0.319610, 0.388137],
-    [0.986700, 0.535582, 0.382210],
-    [0.996898, 0.769591, 0.534892],
-    [0.987053, 0.991438, 0.749504],
-], np.float32)
+# matplotlib's "magma" as numbers, so the default map needs no matplotlib;
+# float64, as matplotlib keeps it, so the bytes come out the same
+_MAGMA = np.array(MAGMA_DATA, np.float64)
+
+
+def _colormap(name: str):
+    """``x in [0, 1] -> [..., 3]`` float RGB of the colour map ``name``."""
+    if name == "magma":
+        return lambda x: _listed(_MAGMA, x)
+    try:
+        import matplotlib
+    except ImportError:
+        raise ValueError(
+            f"colour map {name!r} needs matplotlib, which does not import; "
+            "only 'magma' is built in"
+        ) from None
+    return lambda x: matplotlib.colormaps[name](x)[..., :3]
+
+
+def _listed(table: np.ndarray, x) -> np.ndarray:
+    """Look ``x`` up in a colour table as matplotlib's ``ListedColormap``
+    does: entry ``int(x * N)``, 1.0 on the last entry, NaN black."""
+    n = len(table)
+    xa = np.array(x, copy=True)
+    xa *= n
+    xa[xa == n] = n - 1
+    bad = np.isnan(xa)
+    idx = np.clip(np.where(bad, 0, xa).astype(int), 0, n - 1)
+    rgb = table[idx]
+    rgb[bad] = 0.0
+    return rgb
 
 
 def colorize_depth(
     depth,
     near: Optional[float] = None,
     far: Optional[float] = None,
+    cmap: str = "magma",
 ) -> np.ndarray:
     """An ``[H, W, 3]`` uint8 picture of a depth image: depth normalised
     between its 1st and 99th percentiles (or ``near`` and ``far``) and
-    mapped through a nine-stop approximation of the "magma" colour map."""
+    mapped through the colour map ``cmap``.  "magma" is built in; any other
+    map needs matplotlib, and without it raises ``ValueError``."""
+    colormap = _colormap(cmap)
     d = np.asarray(depth, np.float32)
     lo = np.percentile(d, 1) if near is None else near
     hi = np.percentile(d, 99) if far is None else far
     dn = np.clip((d - lo) / max(hi - lo, 1e-8), 0, 1)
-    pos = dn * (len(_MAGMA) - 1)
-    i0 = np.minimum(np.floor(pos).astype(np.int64), len(_MAGMA) - 2)
-    f = (pos - i0)[..., None]
-    rgb = _MAGMA[i0] * (1.0 - f) + _MAGMA[i0 + 1] * f
-    return (rgb * 255).astype(np.uint8)
+    return (colormap(dn) * 255).astype(np.uint8)
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:

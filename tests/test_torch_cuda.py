@@ -481,12 +481,15 @@ def test_splat_kernels_match_plain(cuda, case):
     V = sum(int(np.prod(s[:-1])) for s in out_sizes)
     proj = torch.randn((V, out_sizes[0][-1]),
                        generator=torch.Generator().manual_seed(1)).to(cuda)
-    before = (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES)
+    before = (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES,
+              splatter_bw.MLP_LAUNCHES)
     got = _splat_grads(rays, out_sizes, sp, igrid, "cuda", proj, **kw)
     torch.cuda.synchronize()
-    # one splat for the raw call and one for the loss; one adjoint
-    assert (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES) == (
-        before[0] + 2, before[1] + 1)
+    # one splat for the raw call and one for the loss; one adjoint, counted
+    # also as one with the MLP when the case has one
+    assert (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES,
+            splatter_bw.MLP_LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + (sp is not None))
     want = _splat_grads(rays, out_sizes, sp, igrid, "torch", proj, **kw)
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape, i
@@ -707,13 +710,14 @@ def test_splat_adjoint_gather_matches_plain(cuda, chn):
     diff = (rays.encoding, None, None)
     g_out = torch.randn((cfg.v_total, chn),
                         generator=torch.Generator().manual_seed(2)).to(cuda)
-    before = splatter_bw.LAUNCHES
+    before = (splatter_bw.LAUNCHES, splatter_bw.MLP_LAUNCHES)
     with torch.no_grad():
         got = splatter_bw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
         again = splatter_bw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
         want = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out)[0]
     torch.cuda.synchronize()
-    assert splatter_bw.LAUNCHES == before + 2
+    assert (splatter_bw.LAUNCHES, splatter_bw.MLP_LAUNCHES) == (
+        before[0] + 2, before[1])
     assert torch.equal(got, again)
     err = float((got - want).abs().max())
     assert err <= MAX_ABS * float(want.abs().max()), err

@@ -169,10 +169,12 @@ def test_splatter_matches_jax(variant):
     want, g_want = fwd_bwd(*args_j)
 
     args_t = [to_torch(a).requires_grad_(True) for a in args_j]
-    before = (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES)
+    before = (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES,
+              splatter_bw.MLP_LAUNCHES)
     got = _port_splat(rays, out_sizes, kw, sp, in_sizes, *args_t)
     (got * torch.from_numpy(proj)).sum().backward()
-    assert (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES) == before
+    assert (splatter_fw.LAUNCHES, splatter_bw.LAUNCHES,
+            splatter_bw.MLP_LAUNCHES) == before
     compare_outputs([want], [got], names=["grid"])
     names = ["g_enc", "g_input_grid", "g_mlp"][:len(args_j)]
     # gradients are bounded relative to their magnitude (max(1, max |g|))
