@@ -136,8 +136,22 @@ exits non-zero without its result line:
    R2, S1 and S2 counted; then a world of one NCCL rank in this process:
    the same checks, its launches, and both workloads timed against the
    plain single-process call in turns (the wrapper's overhead).
+12. The kernels' wide builds (padded widths 96 and 128: decoder and grid
+   widths past 64). (a) R1 and R2 at the render headline with a 2/2/2
+   decoder at hidden 128: timed, with their plain versions and the fw+bw
+   step, held on 4096 of the frame's rays (R2 under its relu masks); (b)
+   the port's trainer with ``--mlp_hidden_chn 128`` for 200 steps (phase
+   9's scene and width, a scaffold update after step 50, evals after steps
+   100 and 200): the loss of a fixed batch must fall, the eval PSNR rise,
+   and R1, R2 and R3 launch; (c) ``LightplaneMLPSplatter`` 32 -> 128 -> 128
+   from a 3 x 128^2 x 32ch prior into 3 x 128^2 x 128ch over phase 7's
+   rays: one fw+bw step, then S1 and S2 with the MLP timed and held on
+   every ray; (d) the widths in between on phase 3's shapes: R1 and R2 at
+   hidden 72, hidden 96, a 96-channel grid, and hidden 128 with the
+   relu-field colour grid and a scaffold; S1 and S2 with the MLP at hidden
+   72 and into 100 channels.
 
-Phases 4, 5, 7, 8, 9, 10 and 11 each set the kernels' launch counts to 0
+Phases 4, 5, 7, 8, 9, 10, 11 and 12 each set the kernels' launch counts to 0
 just before they drive their path and read them just after.  Every phase
 prints its time.  The last lines are the card's name and power limit, a
 JSON line with every kernel (its launches on its main path, the trainer of
@@ -145,7 +159,9 @@ phase 9 for R1 and R2 and also phase 10's fit from files and phase 11's
 data-parallel path, the splatter step of phase 7 for S1 and S2 and its MLP
 splatter step for S2 with the MLP, its error against the plain version,
 its time, the plain version's time and the least time the card could take,
-and for R1 and R2 the same for the scaffold and relu-field branches) and
+for R1 and R2 the same for the scaffold and relu-field branches, and for
+R1, R2, S1 and S2 with the MLP the same for the wide build at 128, phase
+12's ``wide_128_*`` keys) and
 the result line ``{"ok": true, "device": {...}}``.  Needs no network and no
 JAX.
 
@@ -2075,6 +2091,36 @@ def print_kernel_attrs():
           f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
           f"resident, {conf[3]} bytes of shared memory a block, rows of "
           f"{conf[2]} partial sums")
+    # the wide builds (W = 96, 128: csrc/renderer_wide.cu, the wide S1 and
+    # pass A of S2)
+    masks = _build.library(rbw.RELU_MASKS_BUILD)
+    for name, fn in (("R1", lib.lightplane_render_fw_attrs),
+                     ("R2", lib.lightplane_render_bw_attrs),
+                     ("R2 recording masks", masks.lightplane_render_bw_attrs),
+                     ("S1 MLP", lambda w, o: lib.lightplane_splat_fw_attrs(
+                         1, w, o)),
+                     ("S2 MLP", lambda w, o: lib.lightplane_splat_bw_attrs(
+                         1, w, o)),
+                     ("S2 MLP recording masks",
+                      lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
+        for width in (96, 128):
+            assert fn(width, out) == 0
+            print(f"  {name} W={width} (wide build): {out[0]} registers, "
+                  f"{out[1]} bytes spilled per thread")
+    widths = (ctypes.c_int * 3)(*WIDE_SPLAT_MLP)
+    assert lib.lightplane_splat_bw_mlp_config(128, 2, widths, conf) == 0
+    mlp = " -> ".join(map(str, WIDE_SPLAT_MLP))
+    print(f"  S2 pass A at phase 12's MLP splat ({mlp}, W = 128): "
+          f"{conf[0]} warps a block, {conf[1]} "
+          f"rows of {conf[2]} partial sums (a warp's each), {conf[3]} bytes "
+          f"of shared memory a block")
+    head = (32, 128, 128, 128, 128, 1, 128, 128, 3)
+    widths = (ctypes.c_int * len(head))(*head)
+    assert lib.lightplane_render_bw_wide_config(128, 2, 2, 2, widths, 0,
+                                                conf) == 0
+    print(f"  R2 at phase 12's decoder (2/2/2, hidden 128): {conf[0]} warps a "
+          f"block, {conf[1]} rows of {conf[2]} partial sums (a warp's each), "
+          f"{conf[3]} bytes of shared memory a block")
 
 
 def mlp_splat_step(lp, rays, smi):
@@ -3572,8 +3618,389 @@ def phase_data_parallel(lp, smi):
     return dict(launches=launches, times=times)
 
 
+# ---- widths up to 128 (phase 12) -------------------------------------------
+
+# The render headline (phases 4 and 5: 256^2 rays, triplane 3 x 32^2 x 32ch,
+# 256 samples, MLPs 2/2/2, 3 colours) with a decoder 128 wide, then 96: the
+# kernels' wide builds (parity at 96 is the sweep's, part d)
+WIDE_HIDDEN = (128, 96)
+# R1 and R2 held against their plain versions on this many of the frame's
+# rays, every (n / WIDE_SUBSET)-th
+WIDE_SUBSET = 4096
+# Phase 9's trainer at the JAX app's default width but a 128-wide decoder,
+# cut to 200 steps: a scaffold update after step 50, so that the scaffold
+# gates (R3) the last 150 steps, and evals after steps 100 and 200, both
+# with the scaffold (in_cube_psnr says why a scaffold lowers the PSNR)
+WIDE_FIT_STEPS = 200
+WIDE_FIT_ARGV = ["--mlp_hidden_chn", "128", "--n_iter", str(WIDE_FIT_STEPS),
+                 "--update_scaffold_steps", "50", "--eval_rate", "100",
+                 "--output_dir", "build/fit_wide", "--seed", "0"]
+# The MLP splat into a 128-channel grid: MLP 32 -> 128 -> 128 from a
+# 3 x 128^2 x 32ch prior into 3 x 128^2 x 128ch (25.2 MB), over phase 7's
+# rays (16 views x 128^2, 96 samples); then 32 -> 96 -> 96 into 96
+# channels, timed only
+WIDE_SPLAT_MLP = (32, 128, 128)
+# The widths in between, on phase 3's shapes (4096 rays, 48 samples):
+# (name, random_case kwargs, renderer kwargs); then the MLP splat
+WIDE_SWEEP = [
+    ("hidden72", dict(grid_shapes=_TRI, hidden=72), {}),
+    ("hidden96", dict(grid_shapes=_TRI, hidden=96), {}),
+    ("grid96_hidden32", dict(grid_shapes=[(1, 16, 16, 16, 96)]), {}),
+    ("hidden128_relu_field_scaffold",
+     dict(grid_shapes=_TRI, hidden=128, layers=(0, 2, 2), relu_field=True),
+     dict(mask_out_of_bounds_samples=True)),
+]
+WIDE_SWEEP_SPLAT = [("mlp_32_72_16", (32, 72, 16), tri_sizes(32, 16)),
+                    ("mlp_32_32_100", (32, 32, 100), [(1, 24, 24, 24, 100)])]
+
+
+def ray_subset(geom, diff, idx):
+    """The march inputs of the rays ``idx`` (geom's per-ray tensors and the
+    encoding; the grids, the MLP and the scaffold as they are)."""
+    geom = tuple(x[idx] for x in geom[:5]) + tuple(geom[5:])
+    return geom, diff[:3] + (diff[3][idx],)
+
+
+def wide_headline(lp, smi, hidden=128):
+    """(a): R1 and R2 at the render headline with a ``hidden``-wide decoder;
+    held against their plain versions at 128 only."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(0)
+    module = lp.LightplaneRenderer(generator=gen, device=dev,
+                                   **dict(SLICE, mlp_hidden_chn=hidden))
+    res, chn = 32, SLICE["grid_chn"]
+    grid = [(torch.randn(s, generator=gen) * 0.1).to(dev)
+            for s in [(1, 1, res, res, chn), (1, res, 1, res, chn),
+                      (1, res, res, 1, chn)]]
+    r0 = orbit_rays(lp, 0.0, dev)
+    cfg, geom, diff = slice_march(lp, rmod, module, grid, r0)
+    assert rfw._kernel_width(cfg, chn) == hidden
+    check = hidden == 128
+    n = len(r0)
+    gen = torch.Generator().manual_seed(5)
+    g_out = tuple(torch.randn(s, generator=gen).to(dev)
+                  for s in [(n,), (n,), (n, 3)])
+    dp = module.get_decoder_params()
+    rays_enc = lp.Rays(r0.directions, r0.origins, r0.grid_idx, r0.near,
+                       r0.far, diff[3])
+    proj = [g.clone() for g in g_out]
+    reps = (5, 3) if check else (3, 1)
+    with torch.no_grad():
+        rfw.LAUNCHES = rbw.LAUNCHES = 0
+        fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff),
+                        warmup=1, reps=reps[0])
+        nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
+        bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
+                                                    g_out), warmup=1,
+                        reps=reps[1])
+        assert (rfw.LAUNCHES, rbw.LAUNCHES) == (reps[0] + 2, reps[1] + 1), (
+            rfw.LAUNCHES, rbw.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rfw.render_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+        torch.cuda.synchronize()
+        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+    step = ""
+    if check:
+        step_ms = cuda_ms(lambda: projected_grads(
+            lp, rays_enc, grid, dp, "cuda", proj,
+            num_samples=cfg.num_samples, gain=module.gain), warmup=1, reps=2)
+        step = f"; fw+bw step through R1 + R2 {step_ms:.3f} ms"
+    print(f"  (a) render headline, decoder 2/2/2 at hidden {hidden} (W = "
+          f"{hidden}): R1 median {fw_ms:.3f} ms, plain {fw_plain_ms:.1f} ms "
+          f"(one run); R2 median {bw_ms:.3f} ms, plain {bw_plain_ms:.1f} ms "
+          f"(one run){step}  [{smi}]")
+    fw_err = bw_err = None
+    if check:
+        fw_err, bw_err = wide_headline_parity(rmod, rfw, rbw, cfg, geom,
+                                              diff, g_out)
+    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg, fl_tc = kernel_work(
+        rmod, cfg, geom, diff)
+    b_fw, by_fw_kind = bound(fl_fw, by_fw)
+    b_bw, by_bw_kind = bound(fl_bw, by_bw)
+    b_fw_tc = tf32_bound(fl_fw, fl_tc, by_fw)
+    # the wide R2 runs all three decoder passes on the tensor cores: the
+    # forward's dense layers, and every layer's input and weight gradients
+    b_bw_tc = tf32_bound(fl_bw, fl_tc + 2 * fl_wg, by_bw)
+    print(f"    work: R1 {fl_fw / 1e9:.1f} GFLOP ({fl_tc / 1e9:.1f} of dense "
+          f"layers) -> bound {b_fw:.3f} ms ({by_fw_kind}), {b_fw_tc:.3f} ms "
+          f"with the dense layers in 3xTF32; R2 {fl_bw / 1e9:.1f} GFLOP -> "
+          f"bound {b_bw:.3f} ms ({by_bw_kind}), {b_bw_tc:.3f} ms with its "
+          f"{(fl_tc + 2 * fl_wg) / 1e9:.1f} GFLOP of products in 3xTF32  "
+          f"[{smi}]")
+    return dict(
+        fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
+                bound=(b_fw, by_fw_kind), bound_tf32=b_fw_tc),
+        bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
+                bound=(b_bw, by_bw_kind), bound_tf32=b_bw_tc))
+
+
+def wide_headline_parity(rmod, rfw, rbw, cfg, geom, diff, g_out):
+    """R1 and R2 (under its relu masks) against their plain versions on
+    WIDE_SUBSET of the frame's rays, evenly spread; their worst max |d|."""
+    n = geom[0].shape[0]
+    idx = torch.arange(0, n, n // WIDE_SUBSET,
+                       device=geom[0].device)[:WIDE_SUBSET]
+    geom_s, diff_s = ray_subset(geom, diff, idx)
+    with torch.no_grad():
+        out_k = rfw.render_fwd_cuda(cfg, geom_s, diff_s)
+        out_p = rfw.render_fwd_torch(cfg, geom_s, diff_s)
+    print(f"    R1 vs its plain version on {WIDE_SUBSET} of the frame's rays:")
+    fw_err = max(compare(label, a, b)[0]
+                 for label, a, b in zip(("depth", "nlt", "feat"), out_k, out_p))
+    bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom_s, diff_s,
+                              tuple(g[idx].contiguous() for g in g_out))
+    return fw_err, bw_err
+
+
+def wide_fit(lp, smi):
+    """(b): the port's trainer with ``--mlp_hidden_chn 128``; returns the
+    launches of R1, R2 and R3 (those passed a scaffold) over the fit."""
+    from lightplane_tpu_torch.examples import fit_single_scene as app
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    print(f"  (b) argv: {' '.join(WIDE_FIT_ARGV)}")
+    # the loss of a fixed batch of rays at the seed's initial state and
+    # after the fit (forward only; outside the launch count)
+    fit0 = app.SceneFit(app.parse_args(WIDE_FIT_ARGV))
+    gen = torch.Generator().manual_seed(11)
+    idx = torch.randint(0, fit0.origins.shape[0], (4096,),
+                        generator=gen).cuda()
+    with torch.no_grad():
+        loss0 = float(fit0.loss(idx)[0])
+    del fit0
+    rfw.LAUNCHES = rbw.LAUNCHES = 0
+    rfw.SCAFFOLD_LAUNCHES = rbw.SCAFFOLD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fit = app.main(WIDE_FIT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES,
+                "scaffold": (rfw.SCAFFOLD_LAUNCHES, rbw.SCAFFOLD_LAUNCHES)}
+    h = fit.history
+    with torch.no_grad():
+        loss1 = float(fit.loss(idx)[0])
+    for a, b, ms in h["segments"]:
+        print(f"    steps {a}-{b}: {ms:.3f} ms per step  [{smi}]")
+    print(f"    {wall:.1f} s for the fit; launches {launches}; scaffold "
+          f"occupancy {h['scaffolds']}; evals (step, PSNR, SSIM) "
+          f"{h['evals']}; loss of a fixed batch of 4096 rays {loss0:.6f} "
+          f"at the start, {loss1:.6f} at the end")
+    assert launches["renderer_fw"] == WIDE_FIT_STEPS + len(h["evals"])
+    assert launches["renderer_bw"] == WIDE_FIT_STEPS
+    assert min(launches["scaffold"]) > 0, launches
+    assert [e[0] for e in h["evals"]] == [100, 200]
+    first, last = h["evals"][0][1], h["evals"][-1][1]
+    assert np.isfinite(last) and last > first, (first, last)
+    assert loss1 < loss0, (loss0, loss1)
+    return launches
+
+
+def splat_mlp_fw_work(cfg, geom):
+    """(FLOPs, bytes) S1 with the MLP must do on these inputs: per sampled
+    step with an output corner the MLP once (2 d_in d_out FLOPs a layer)
+    and its input sample (2 C_in a corner), per in-bounds output corner
+    2C + 1 (the channels and the weight).  Bytes: every input read once
+    (rays, encodings, the input grid-list, the MLP) and every output written
+    once (the feature and weight grids)."""
+    R, C, C_in = geom[0].shape[0], cfg.out_chn, cfg.n_hidden[0]
+    v_in = sum(int(np.prod(gs[:-1])) for gs in cfg.input_grid_sizes)
+    n_params = sum(a * b + b for a, b in zip(cfg.n_hidden, cfg.n_hidden[1:]))
+    out_corners, steps = grid_corners_needed(cfg, geom,
+                                             cfg.output_grid_sizes)
+    in_corners, _ = grid_corners_needed(cfg, geom, cfg.input_grid_sizes)
+    macs = sum(a * b for a, b in zip(cfg.n_hidden, cfg.n_hidden[1:]))
+    flops = steps * 2.0 * macs + in_corners * 2 * C_in + out_corners * (
+        2 * C + 1)
+    nbytes = 4 * (R * 9 + R * C_in + v_in * C_in + n_params
+                  + cfg.v_total * (C + 1))
+    return flops, nbytes
+
+
+def wide_splat(lp, smi, width=128):
+    """(c): S1 and S2 with the MLP 32 -> width -> width into a grid of
+    ``width`` channels over phase 7's rays; at 128 also one fw+bw step of
+    the module (its launches) and both held against their plain versions
+    on every ray."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    check = width == 128
+    gen = torch.Generator().manual_seed(12)
+    n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
+    c_in, hidden, c_out = WIDE_SPLAT_MLP[0], width, width
+    enc = (torch.randn((n, c_in), generator=gen) * 0.1).cuda()
+    rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
+    in_sizes, out_sizes = tri_sizes(128, c_in), tri_sizes(128, c_out)
+    module = lp.LightplaneMLPSplatter(
+        num_samples=SPLAT_SAMPLES, grid_chn=c_out, input_grid_chn=c_in,
+        mlp_hidden_chn=hidden, mlp_n_layers=2, generator=gen)
+    igrid = [(torch.randn(s, generator=gen) * 0.1).cuda().requires_grad_(True)
+             for s in in_sizes]
+    launches = (0, 0)
+    if check:
+        enc.requires_grad_(True)
+        sfw.LAUNCHES = sbw.LAUNCHES = sbw.MLP_LAUNCHES = 0
+        out = module(rays, out_sizes, igrid, return_list=False)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        launches = (sfw.LAUNCHES, sbw.MLP_LAUNCHES)
+        assert launches == (1, 1), launches
+        for x in [enc, module.mlp_params] + igrid:
+            assert (torch.isfinite(x.grad).all()
+                    and float(x.grad.abs().sum()) > 0)
+        del out
+    print(f"  (c) LightplaneMLPSplatter, MLP 32 -> {width} -> {width} (W = "
+          f"{width}), 3 x 128^2 x 32ch prior into 3 x 128^2 x {width}ch, {n} "
+          f"rays x {SPLAT_SAMPLES} samples" + (
+              f": one fw+bw step, launches (S1, S2 with the MLP) {launches}"
+              if check else ""))
+    sp = lp.SplatterParams(module.mlp_params.detach(), module._n_hidden)
+    igrid_flat = torch.cat([g.detach().reshape(-1, c_in) for g in igrid])
+    cfg, geom, diff = splat_march(smod, lp.Rays(
+        rays.directions, rays.origins, rays.grid_idx, rays.near, rays.far,
+        enc.detach()), out_sizes, dict(num_samples=SPLAT_SAMPLES), sp,
+        igrid_flat, in_sizes)
+    assert sfw._mlp_width(cfg) == width
+    g_out = (torch.randn((cfg.v_total, c_out), generator=gen) * 0.01).cuda()
+    reps = 3 if check else 1
+    fw_err = bw_err = None
+    with torch.no_grad():
+        fw_ms = cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff),
+                        warmup=1, reps=reps)
+        bw_ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
+                        warmup=1, reps=reps)
+        feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat_p, w_p = sfw.splat_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        if check:
+            # sums of up to ~1e3 weights a cell (25M steps into 3 x 128^2
+            # cells): compare_one's absolute bounds scaled by the
+            # magnitude, as s2_alone's; the 1e-3 x max |ref| bound as it is
+            print("    S1 with the MLP vs its plain version, every ray:")
+            fw_err = max(compare("feat", feat_k, feat_p,
+                                 max_rel=SPLAT_MAX_REL,
+                                 magnitude_scaled=True)[0],
+                         compare("w", w_k, w_p, max_rel=SPLAT_MAX_REL,
+                                 magnitude_scaled=True)[0])
+        del feat_k, w_k, feat_p, w_p
+        masks = got = shipped = None
+        if check:
+            got, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
+                                                       g_out)
+            shipped = sbw.splat_bwd_cuda(cfg, geom, diff, g_out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sbw.splat_bwd_torch(cfg, geom, diff, g_out, relu_masks=masks)
+        torch.cuda.synchronize()
+        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+    if check:
+        print("    S2 with the MLP vs its plain version under the recording "
+              "build's relu masks, every ray:")
+        bw_err = 0.0
+        # sums over 2.5e7 steps: bounds scaled as s2_alone's
+        for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), got, want):
+            bw_err = max(bw_err, compare(label, a, b, max_rel=SPLAT_MAX_REL,
+                                         magnitude_scaled=True)[0])
+        print("    the shipped build vs the recording build:")
+        for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), shipped, got):
+            compare(label, a, b, max_rel=SPLAT_MAX_REL,
+                    magnitude_scaled=True)
+    del got, masks, shipped, want
+    fl_fw, by_fw = splat_mlp_fw_work(cfg, geom)
+    b_fw = bound(fl_fw, by_fw)
+    fl_bw, fl_tc, by_bw = splat_mlp_work(cfg, geom)
+    b_bw = bound(fl_bw, by_bw)
+    b_bw_tc = tf32_bound(fl_bw, fl_tc, by_bw)
+    masked = ", under the masks" if check else ""
+    print(f"    S1 with the MLP: median {fw_ms:.3f} ms, plain {fw_plain_ms:.1f}"
+          f" ms (one run); work {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.1f} MB"
+          f" -> bound {b_fw[0]:.3f} ms ({b_fw[1]})  [{smi}]")
+    print(f"    S2 with the MLP: median {bw_ms:.3f} ms, plain {bw_plain_ms:.1f}"
+          f" ms (one run{masked}); work {fl_bw / 1e9:.1f} GFLOP "
+          f"({fl_tc / 1e9:.1f} on the tensor cores), {by_bw / 1e6:.1f} MB -> "
+          f"bound {b_bw[0]:.3f} ms ({b_bw[1]}), {b_bw_tc:.3f} ms with the "
+          f"MLP in 3xTF32  [{smi}]")
+    return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
+                        bound=b_fw, launches=launches[0]),
+                bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
+                        bound=b_bw, bound_tf32=b_bw_tc,
+                        launches=launches[1]))
+
+
+def wide_sweep(lp):
+    """(d): R1 and R2, then S1 and S2 with the MLP, at the widths between,
+    on phase 3's shapes; returns the worst errors by kernel."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    rng = np.random.default_rng(12)
+    errs = dict(fw=0.0, bw=0.0, splat=0.0)
+    for name, case_kw, render_kw in WIDE_SWEEP:
+        rays, grid, dp = random_case(lp, rng, 4096, **case_kw)
+        kw = dict(num_samples=48, gain=1.5, **render_kw)
+        if case_kw.get("relu_field"):
+            kw["color_grid"] = [torch.as_tensor(
+                rng.standard_normal(s) * 0.5, dtype=torch.float32,
+                device="cuda") for s in case_kw["grid_shapes"]]
+            kw["scaffold"] = (torch.rand((1, 32, 32, 32), generator=torch
+                                         .Generator().manual_seed(5)) > 0.3
+                              ).float().cuda()
+        cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp, **kw)
+        width = rfw._kernel_width(cfg, grid[0].shape[-1])
+        print(f"  (d) {name}: W = {width}")
+        assert width in (96, 128)
+        with torch.no_grad():
+            fw0 = rfw.LAUNCHES
+            out_k = rfw.render_fwd_cuda(cfg, geom, diff)
+            torch.cuda.synchronize()
+            assert rfw.LAUNCHES == fw0 + 1
+            out_p = rfw.render_fwd_torch(cfg, geom, diff)
+        for label, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+            errs["fw"] = max(errs["fw"], compare(label, a, b)[0])
+        gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+        n = len(rays)
+        g_out = tuple(torch.randn(s, generator=gen).cuda()
+                      for s in [(n,), (n,), (n, 3)])
+        errs["bw"] = max(errs["bw"], masked_r2_parity(
+            rmod, rfw, rbw, cfg, geom, diff, g_out))
+    for name, mlp, out_sizes in WIDE_SWEEP_SPLAT:
+        in_sizes = tri_sizes(32, mlp[0])
+        rays, sp, igrid = splat_case(lp, rng, 4096, out_sizes, mlp=mlp,
+                                     in_sizes=in_sizes)
+        errs["splat"] = max(errs["splat"], splat_parity(
+            lp, f"(d) {name}", rays, out_sizes, dict(num_samples=48), sp,
+            igrid, in_sizes))
+    return errs
+
+
+def phase_wide(lp, smi):
+    print("== phase 12: the kernels' wide builds (W = 96, 128): decoder and "
+          "grid widths past 64")
+    headline = {w: wide_headline(lp, smi, w) for w in WIDE_HIDDEN}
+    fit = wide_fit(lp, smi)
+    splat = {w: wide_splat(lp, smi, w) for w in WIDE_HIDDEN}
+    sweep = wide_sweep(lp)
+    print(f"  worst max|d| in the sweep: {sweep}")
+    return dict(headline=headline, fit=fit, splat=splat, sweep=sweep)
+
+
 PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9", "10",
-          "11")
+          "11", "12")
 
 
 def parse_only(argv):
@@ -3633,6 +4060,7 @@ def main():
         ("9", phase_fit, (lp, smi)),
         ("10", phase_fit_files, (lp, smi)),
         ("11", phase_data_parallel, (lp, smi)),
+        ("12", phase_wide, (lp, smi)),
     ):
         if phase not in only:
             continue
@@ -3666,6 +4094,45 @@ def kernel_lines(out):
     # phase 11's launches (the NCCL world's drive of its three workloads),
     # S2's without and with the MLP counted apart
     dp_launches = out["11"]["launches"]
+    # phase 12's wide builds (W = 128 and 96): times and bounds at the
+    # render headline and the MLP splat into 128 (96) channels, errors at
+    # 128 there, launches on the scene fit at hidden 128 and on the MLP
+    # splatter's step; the worst errors of the sweep over the widths in
+    # between (96 and 128)
+    wide = out["12"]
+
+    def wide_keys(part, key, launches, sweep_err=None):
+        keys = {}
+        for w in WIDE_HIDDEN:
+            k = wide[part][w][key]
+            keys.update({f"wide_{w}_ms": k["ms"],
+                         f"wide_{w}_plain_ms": k["plain_ms"],
+                         f"wide_{w}_bound_ms": k["bound"][0],
+                         f"wide_{w}_bound_by": k["bound"][1],
+                         f"wide_{w}_bound_tf32_ms": k.get("bound_tf32")})
+        k = wide[part][128][key]
+        keys.update(wide_128_max_abs_err=k["err"],
+                    wide_128_launches=launches)
+        if sweep_err is not None:
+            keys["wide_sweep_max_abs_err"] = sweep_err
+        return keys
+
+    wide_fit = wide["fit"]
+    wide_rows = {
+        "renderer_fw": wide_keys("headline", "fw", wide_fit["renderer_fw"],
+                                 wide["sweep"]["fw"]),
+        "renderer_bw": wide_keys("headline", "bw", wide_fit["renderer_bw"],
+                                 wide["sweep"]["bw"]),
+        "splatter_fw": wide_keys("splat", "fw",
+                                 wide["splat"][128]["fw"]["launches"]),
+        "splatter_bw_mlp": dict(
+            wide_keys("splat", "bw", wide["splat"][128]["bw"]["launches"]),
+            wide_sweep_max_rel_err=wide["sweep"]["splat"]),
+    }
+    wide_rows["renderer_fw"]["wide_128_launches_scaffold"] = (
+        wide_fit["scaffold"][0])
+    wide_rows["renderer_bw"]["wide_128_launches_scaffold"] = (
+        wide_fit["scaffold"][1])
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);
@@ -3690,7 +4157,8 @@ def kernel_lines(out):
              launches_data_parallel=dp_launches["renderer_fw"],
              bound_ms=b_fw,
              bound_by=b_fw_kind, library_ms=None,
-             bound_tf32_ms=train["fw_bound_tf32"], **branches["fw"]),
+             bound_tf32_ms=train["fw_bound_tf32"], **branches["fw"],
+             **wide_rows["renderer_fw"]),
         dict(name="renderer_bw", route="cuda",
              source="lightplane_tpu_torch/csrc/renderer_bw.cu",
              replaces="lightplane_tpu/ops/kernels/renderer_pallas.py:2798",
@@ -3702,7 +4170,7 @@ def kernel_lines(out):
              plain_ms=train["bw"]["plain_ms"], bound_ms=b_bw,
              bound_by=b_bw_kind, library_ms=None,
              bound_tf32_ms=train["bw"]["bound_tf32"],
-             **branches["bw"]),
+             **branches["bw"], **wide_rows["renderer_bw"]),
     ]
     for key, line in (("fw", 57), ("bw", 183)):
         k = splat[key]
@@ -3715,8 +4183,8 @@ def kernel_lines(out):
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound"][0], bound_by=k["bound"][1],
             library_ms=None,
-            **({"plan_ms": k["plan_ms"], "runs": k["runs"]}
-               if key == "fw" else {})))
+            **({"plan_ms": k["plan_ms"], "runs": k["runs"],
+                **wide_rows["splatter_fw"]} if key == "fw" else {})))
     # S2 with the MLP: launches on the MLP splatter's six timed steps, the
     # rest at its shapes alone (phase 7)
     k = splat["bw_mlp"]
@@ -3729,7 +4197,7 @@ def kernel_lines(out):
         max_abs_err=k["err"], ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound"][0],
         bound_by=k["bound"][1], bound_tf32_ms=k["bound_tf32"],
-        library_ms=None))
+        library_ms=None, **wide_rows["splatter_bw_mlp"]))
     return kernels
 
 

@@ -21,8 +21,8 @@
 
 namespace lightplane {
 
-constexpr int kMaxGrids = 8;
-constexpr int kMaxLayers = 8;  // per MLP
+constexpr int kMaxGrids = 16;
+constexpr int kMaxLayers = 16;  // per MLP
 constexpr int kMaxTotalLayers = 3 * kMaxLayers;
 
 // LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
@@ -192,10 +192,17 @@ inline void fill_march(Params& p, int num_samples, int num_samples_inf,
   p.contract_coords = contract_coords;
 }
 
+// The padded activation widths the kernels are built for: 32 and 64 keep
+// every MLP layer in shared memory; 96 and 128 are the wide builds
+// (wide_mlp.cuh), which read the layers from device memory.
+inline bool known_width(int width) {
+  return width == 32 || width == 64 || width == 96 || width == 128;
+}
+
 // Fills everything but the tensors; returns a cudaError_t code.
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32 or 64
+//   width: the padded activation width, 32, 64, 96 or 128
 inline int fill_params(Params& p, int num_rays, int num_grids,
                        const int* grid_meta, int grid_chn, int n_t, int n_o,
                        int n_c, const int* mlp_widths, int enc_chn,
@@ -205,7 +212,7 @@ inline int fill_params(Params& p, int num_rays, int num_grids,
                        float noise_sigma, int noise_seed, int noise_stride,
                        int num_rays_noise) {
   if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
-      n_c > kMaxLayers || (width != 32 && width != 64) ||
+      n_c > kMaxLayers || !known_width(width) ||
       !fill_grid_meta(p.grids, num_grids, grid_meta))
     return (int)cudaErrorInvalidValue;
   p.num_rays = num_rays;

@@ -86,8 +86,7 @@
 // atomics make its sums order-dependent from run to run; g_mlp and g_enc
 // are not.
 
-#include "march_common.cuh"
-#include "mlp_bwd.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -422,14 +421,36 @@ long long lightplane_render_bw_partial_floats(int width, int n_layers_total) {
 // Registers, spilled bytes and the thread limit of the kernel at `width`,
 // into out[3]; a cudaError_t code.
 int lightplane_render_bw_attrs(int width, int* out) {
+  if (width > 64) return render_bw_wide_attrs(width, out);
   return width == 32 ? kernel_attrs(render_bw_kernel<32>, out)
                      : kernel_attrs(render_bw_kernel<64>, out);
+}
+
+// The wide build's (W = 96 or 128, renderer_wide.cu) launch at these MLP
+// widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]) and with a
+// colour grid or not: out[0] warps per block, out[1] the rows of
+// g_mlp_partial (one per warp of the resident wave; the caller zero-fills
+// them), out[2] the floats of a row, out[3] a block's shared memory in
+// bytes; a cudaError_t code (cudaErrorInvalidValue where one warp's tiles
+// exceed a block's shared memory).
+int lightplane_render_bw_wide_config(int width, int n_t, int n_o, int n_c,
+                                     const int* mlp_widths,
+                                     int has_color_grid, int* out) {
+  if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
+      n_c > kMaxLayers || (width != 96 && width != 128))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  const int counts[3] = {n_t, n_o, n_c};
+  fill_layers(p, counts, mlp_widths);
+  return render_bw_wide_config(p, width, has_color_grid != 0, out);
 }
 
 // Launches the recompute backward on `stream`; returns a cudaError_t code.
 // Arguments as lightplane_render_fw's, plus the saved nlt_final and the
 // cotangents in, the gradients and the [blocks, partial floats] buffer out,
-// `rays_per_block` (128, 64 or 32), with a colour grid its gradient
+// `rays_per_block` (128, 64 or 32; not read by the wide build, whose
+// g_mlp_partial has lightplane_render_bw_wide_config's rows, zero-filled),
+// with a colour grid its gradient
 // g_color_grid, and for the recording build the zero-filled
 // [R, steps, vectors, width / 32] mask words (null otherwise).  The caller
 // validates shapes, devices and limits and zero-fills g_grid and
@@ -483,6 +504,9 @@ int lightplane_render_bw(
   p.n_mask_vecs = n_total - 2 + (n_t == 0 ? 1 : 0) + (color_grid ? 1 : 0);
   const bool cg = color_grid != nullptr;
   p.acc_in_smem = acc_fits(width, rays_per_block, n_total, color_chn, cg);
+  if (width > 64)
+    return (int)launch_render_bw_wide(p, width,
+                                      static_cast<cudaStream_t>(stream));
 
   const size_t smem = (size_t)lightplane_render_bw_smem_bytes(
       width, rays_per_block, n_total, color_chn, cg);

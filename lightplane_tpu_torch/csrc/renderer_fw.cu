@@ -92,7 +92,7 @@
 // The timings with parts switched off build it with march_common.cuh's
 // LIGHTPLANE_ABLATE: 8 = no grid sampling, 16 = no decoder MLP.
 
-#include "warp_chunk.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -153,93 +153,6 @@ __device__ __forceinline__ float last_out(const float* __restrict__ layer,
 #pragma unroll
   for (int i = 0; i < W; ++i) acc += x[i] * layer[i * n_out + o];
   return acc;
-}
-
-// Row j of `tile` (stride W + 4) gets the linear sample of every sub-grid of
-// the [V, C] grid-list (m, grid) at sample j's point, for the samples of the
-// chunk whose bit is set in `taken`, and 0 for the others (and in channels
-// C..W-1).  With `relu` the sum goes through a relu; `tile2`, when given,
-// gets the same rows.  `st` is the lane's own sample, b the ray's batch (< 0:
-// nothing is read).  The warp reads four samples' rows at a time: lane
-// 8 q + u sums channels 4u..4u+3 (and 32 more at W = 64) of sample 4 i + q,
-// corner by corner in march_common.cuh::sample_grids's order onto the
-// row's sum so far, and gets each corner's row and weight from the
-// sample's lane by a shuffle.
-template <int W>
-__device__ __forceinline__ void gather_chunk(const GridMeta& m,
-                                             const float* __restrict__ grid,
-                                             int C, int b, const Step& st,
-                                             uint32_t taken, bool relu,
-                                             float* tile, float* tile2,
-                                             int lane) {
-  constexpr int S = W + 4, V = W / 32;
-  const int q = lane >> 3, u = lane & 7;
-  const bool vec4 = (C & 3) == 0;
-  if (b < 0) taken = 0u;
-  for (int g = 0; g < m.num_grids; ++g) {
-    int row[8];
-    float wt[8];
-    grid_corners(m, g, b, st, row, wt);
-    if (!((taken >> lane) & 1u)) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) row[k] = -1;
-    }
-    // the corners that no sample of this sub-grid has (singleton axes)
-    const int nz = m.dims[g][1] > 1 ? 2 : 1, ny = m.dims[g][2] > 1 ? 2 : 1,
-              nx = m.dims[g][3] > 1 ? 2 : 1;
-    const bool last = g == m.num_grids - 1;
-#pragma unroll 2
-    for (int i = 0; i < 8; ++i) {
-      float4 acc[V];
-      float* at = tile + (4 * i + q) * S + 4 * u;
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        acc[v] = g == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                        : *reinterpret_cast<const float4*>(at + 32 * v);
-      if ((taken >> (4 * i)) & 0xfu) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          if ((k >> 2) >= nz || ((k >> 1) & 1) >= ny || (k & 1) >= nx)
-            continue;
-          const int r = __shfl_sync(0xffffffffu, row[k], 4 * i + q);
-          const float w = __shfl_sync(0xffffffffu, wt[k], 4 * i + q);
-          if (r < 0) continue;
-          const float* src = grid + (long long)r * C;
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c = 32 * v + 4 * u;
-            if (c >= C) continue;
-            float4 x;
-            if (vec4) {
-              x = __ldg(reinterpret_cast<const float4*>(src + c));
-            } else {
-              x.x = __ldg(src + c);
-              x.y = c + 1 < C ? __ldg(src + c + 1) : 0.0f;
-              x.z = c + 2 < C ? __ldg(src + c + 2) : 0.0f;
-              x.w = c + 3 < C ? __ldg(src + c + 3) : 0.0f;
-            }
-            acc[v].x += w * x.x;
-            acc[v].y += w * x.y;
-            acc[v].z += w * x.z;
-            acc[v].w += w * x.w;
-          }
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        float4 a = acc[v];
-        if (last && relu) {
-          a.x = fmaxf(a.x, 0.0f);
-          a.y = fmaxf(a.y, 0.0f);
-          a.z = fmaxf(a.z, 0.0f);
-          a.w = fmaxf(a.w, 0.0f);
-        }
-        *reinterpret_cast<float4*>(at + 32 * v) = a;
-        if (last && tile2 != nullptr)
-          *reinterpret_cast<float4*>(tile2 + (at - tile) + 32 * v) = a;
-      }
-    }
-  }
 }
 
 // X = relu(X @ layer + bias) for the chunk's 32 samples (R1's dense
@@ -458,16 +371,19 @@ cudaError_t launch(const Params& p, int warps, size_t smem_bytes,
 extern "C" {
 
 // Bytes of dynamic shared memory one block of `warps` warps (1, 2 or 4)
-// needs: the padded layers and each warp's two [32][W + 4] tiles.
+// needs: the padded layers and each warp's two [32][W + 4] tiles (the wide
+// builds, W = 96 and 128, the tiles alone: renderer_wide.cu).
 long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
                                           int color_chn, int warps) {
+  if (width > 64) return render_fw_wide_smem_bytes(width, warps);
   return fw_smem_bytes(width, n_layers_total, color_chn, warps);
 }
 
 // Launches the forward march on `stream`; returns a cudaError_t code.
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32 or 64
+//   width: the padded activation width, 32 or 64, or 96 or 128 (the wide
+//     build, renderer_wide.cu)
 //   warps: rays (warps) per block, 1, 2 or 4
 //   scaffold, scaffold_dims: the [B, D, H, W] scaffold and its host int[4]
 //     shape, or null
@@ -510,9 +426,10 @@ int lightplane_render_fw(
   p.nlt = nlt;
   p.feat = feat;
 
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width > 64) return (int)launch_render_fw_wide(p, width, warps, s);
   const size_t smem =
       (size_t)fw_smem_bytes(width, n_t + n_o + n_c, color_chn, warps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = width == 32 ? launch<32>(p, warps, smem, s)
                                     : launch<64>(p, warps, smem, s);
   return (int)e;
@@ -521,6 +438,7 @@ int lightplane_render_fw(
 // Registers, spilled bytes and the thread limit of the kernel at `width`,
 // into out[3]; a cudaError_t code.
 int lightplane_render_fw_attrs(int width, int* out) {
+  if (width > 64) return render_fw_wide_attrs(width, out);
   return width == 32 ? kernel_attrs(render_fw_kernel<32>, out)
                      : kernel_attrs(render_fw_kernel<64>, out);
 }

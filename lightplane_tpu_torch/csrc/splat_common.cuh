@@ -28,7 +28,7 @@ struct SplatParams {
 //   n_layers: the MLP's layer count, 0 without an MLP (then the input
 //     grid-list and mlp_widths are not read)
 //   mlp_widths: host int[n_layers + 1], the MLP's n_hidden
-//   width: the padded activation width, 32 or 64 (with an MLP)
+//   width: the padded activation width, 32, 64, 96 or 128 (with an MLP)
 inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
                              const int* out_meta, int out_chn,
                              int num_in_grids, const int* in_meta, int in_chn,
@@ -43,7 +43,7 @@ inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
   p.num_rays = num_rays;
   p.num_batches = min_batch(sp.out, sp.out.dims[0][0]);
   if (n_layers > 0) {
-    if ((width != 32 && width != 64) ||
+    if (!known_width(width) ||
         !fill_grid_meta(p.grids, num_in_grids, in_meta))
       return (int)cudaErrorInvalidValue;
     p.num_batches = min_batch(p.grids, p.num_batches);

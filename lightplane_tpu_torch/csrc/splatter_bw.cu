@@ -89,9 +89,8 @@
 // gradient sums are order-dependent from run to run (pass B's reductions),
 // g_enc and g_mlp are not.
 
-#include "mlp_bwd.cuh"
 #include "splat_common.cuh"
-#include "warp_chunk.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -526,6 +525,165 @@ __global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
   }
 }
 
+// ---- with the MLP at W = 96 and 128: the wide pass A ----------------------
+// The same pass A, but no layer fits a block's shared memory beside its
+// warps' tiles (at W = 128 a 128 x 128 layer is 64 KB, staged twice, and one
+// warp's sums of a 32 -> 128 -> 128 MLP 83 KB): the products read the
+// layers from device memory (wide_mlp.cuh::wide_mma_rows) and each warp
+// adds its chunk's weight-gradient sums into its own row of g_mlp_partial
+// in device memory (wide_weight_grad, MlpLayout's sums), the resident
+// wave's warps a row each, zero-filled by the caller; reduce_partial_kernel
+// sums them.
+
+// Floats of one warp's tiles in the wide pass A: X_0 .. X_{L-1} and G.
+__host__ __device__ __forceinline__ long long wide_warp_floats(int W,
+                                                               int n_layers) {
+  return (long long)(n_layers + 1) * 32 * (W + 4);
+}
+
+// Rows j < n of src [.., C] into rows j of the [32][W + 4] tile, plus
+// `add`, zeros past n and C: load_rows's layout, four rows a lane at a
+// time (load_rows's eight would hold 32 float4s a lane at W = 128).
+template <int W>
+__device__ __forceinline__ void load_rows_wide(float* tile, const float* src,
+                                               int n, int C,
+                                               const float4* add, int lane) {
+  constexpr int S = W + 4, V = W / 32;
+  const int q = lane >> 3, u = lane & 7;
+#pragma unroll
+  for (int i0 = 0; i0 < 8; i0 += 4) {
+    float4 x[4][V];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int j = 4 * (i0 + i) + q, c = 32 * v + 4 * u;
+        const float* at = src + (long long)j * C + c;
+        x[i][v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (j < n && (C & 3) == 0 && c < C) {
+          x[i][v] = __ldg(reinterpret_cast<const float4*>(at));
+        } else if (j < n) {
+          x[i][v].x = c < C ? __ldg(at) : 0.0f;
+          x[i][v].y = c + 1 < C ? __ldg(at + 1) : 0.0f;
+          x[i][v].z = c + 2 < C ? __ldg(at + 2) : 0.0f;
+          x[i][v].w = c + 3 < C ? __ldg(at + 3) : 0.0f;
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float4 y = x[i][v];
+        if (add != nullptr) {
+          y.x += add[v].x;
+          y.y += add[v].y;
+          y.z += add[v].z;
+          y.w += add[v].w;
+        }
+        *reinterpret_cast<float4*>(tile + (4 * (i0 + i) + q) * S + 32 * v +
+                                   4 * u) = y;
+      }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
+    splat_bw_mlp_wide_kernel(const SplatParams sp, const MlpLayout ml) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int S = W + 4, kTile = 32 * S, V = W / 32;
+  const Params& p = sp.m;
+  const int L = p.n_layers[0];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5,
+            lane = threadIdx.x & 31;
+  const int wf = (int)wide_warp_floats(W, L);
+  float* tiles = smem + warp * wf;  // X_0 .. X_{L-1}, G
+  for (int i = lane; i < wf; i += 32) tiles[i] = 0.0f;
+  __syncwarp();
+  float* Gt = tiles + L * kTile;
+  float* sums = p.g_mlp_partial +
+                (long long)(blockIdx.x * warps + warp) * ml.sum_floats;
+#define X(l) (tiles + (l) * kTile)
+
+  const int C = sp.out_chn, C_in = p.grid_chn;
+  const int tot = p.num_samples + p.num_samples_inf;
+  const int u = lane & 7;
+  const int groups = (p.num_rays + warps - 1) / warps;
+  const int per_block = (groups + gridDim.x - 1) / gridDim.x;
+  const int group_end = min(groups, (blockIdx.x + 1) * per_block);
+  for (int group = blockIdx.x * per_block; group < group_end; ++group) {
+    const int ray = group * warps + warp;
+    if (ray >= p.num_rays) break;
+    float4 e[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float* src = p.enc + (long long)ray * C_in + 32 * v + 4 * u;
+      const int c = 32 * v + 4 * u;
+      e[v] = make_float4(c < C_in ? src[0] : 0.0f,
+                         c + 1 < C_in ? src[1] : 0.0f,
+                         c + 2 < C_in ? src[2] : 0.0f,
+                         c + 3 < C_in ? src[3] : 0.0f);
+    }
+    float genc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) genc[v] = 0.0f;
+    for (int c0 = 0; c0 < tot; c0 += 32) {
+      const int s = c0 + lane, n = min(32, tot - c0);
+      float* staged = sp.stage + ((long long)ray * tot + c0) * C_in;
+      load_rows_wide<W>(Gt, sp.gvec + ((long long)ray * tot + c0) * C, n, C,
+                        nullptr, lane);
+      load_rows_wide<W>(X(0), staged, n, C_in, e, lane);
+      __syncwarp();
+      bool nonzero = false;
+      {
+        const float4* row = reinterpret_cast<const float4*>(Gt + lane * S);
+#pragma unroll
+        for (int k = 0; k < W / 4; ++k) {
+          const float4 g = row[k];
+          nonzero |= g.x != 0.0f || g.y != 0.0f || g.z != 0.0f || g.w != 0.0f;
+        }
+      }
+      if (!__any_sync(kAll, nonzero)) {
+        for (int j = 0; j < n; ++j)
+          for (int c = lane; c < C_in; c += 32) staged[j * C_in + c] = 0.0f;
+        __syncwarp();  // the lanes' reads of Gt are done
+        continue;
+      }
+
+      // the forward, recomputed, each layer's input kept
+      for (int l = 0; l + 1 < L; ++l) {
+        relu_layer<W>(p, l, X(l), X(l + 1), nullptr, lane);
+        if (kReluMasks && s < tot)
+          record_mask<W>(p, ray, s, tot, l, X(l + 1) + lane * S);
+      }
+
+      // the backward, last layer first: G_l is Gt, then X_{l+1}'s tile
+      const float* G = Gt;
+      for (int l = L - 1; l >= 0; --l) {
+        wide_weight_grad<W>(sums + ml.sums[l], X(l), G, p.layer_in[l],
+                            p.layer_out[l], lane);
+        // G_{l-1} = (G_l W_l^T) * (X_l > 0) over X_l; at l = 0, g_in
+        layer_input_grad<W>(p, l, G, l > 0 ? X(l) : nullptr, nullptr, X(l),
+                            lane);
+        G = X(l);
+      }
+
+      // g_in, now in X_0: into g_enc and the staging rows
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        for (int j = 0; j < 32; ++j) genc[v] += X(0)[j * S + 32 * v + lane];
+      for (int j = 0; j < n; ++j)
+        for (int c = lane; c < C_in; c += 32)
+          staged[j * C_in + c] = X(0)[j * S + c];
+      __syncwarp();  // the tiles are free for the next chunk
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (32 * v + lane < C_in)
+        p.g_enc[(long long)ray * C_in + 32 * v + lane] = genc[v];
+  }
+#undef X
+}
+
 // g_mlp[k] = the sum over the `rows` rows of g_mlp_partial of the entry of
 // flat parameter k (MlpLayout's sums).
 __global__ void reduce_partial_kernel(const Params p, const MlpLayout ml,
@@ -579,6 +737,51 @@ cudaError_t mlp_config(const Params& p, const MlpLayout& ml, int* warps,
   return cudaSuccess;
 }
 
+// The wide pass A's warps per block (the most, up to kMaxWarpsA, whose
+// tiles one block's shared memory holds), its shared memory and its
+// resident wave of blocks.
+template <int W>
+cudaError_t mlp_wide_config(const Params& p, int* warps, size_t* smem,
+                            int* wave) {
+  const int L = p.n_layers[0];
+  *warps = kMaxWarpsA;
+  while (*warps > 1 && 4 * *warps * wide_warp_floats(W, L) > kMaxSmemBytes)
+    --*warps;
+  *smem = (size_t)(4 * *warps * wide_warp_floats(W, L));
+  if ((long long)*smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      splat_bw_mlp_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)*smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, splat_bw_mlp_wide_kernel<W>, 32 * *warps, *smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *wave = sms * per_sm;
+  return cudaSuccess;
+}
+
+// The wide pass A over the rays, a warp's row of sums each among `rows`.
+template <int W>
+cudaError_t launch_mlp_wide(const SplatParams& sp, const MlpLayout& ml,
+                            int rows, cudaStream_t stream) {
+  int warps = 0, wave = 0;
+  size_t smem = 0;
+  cudaError_t e = mlp_wide_config<W>(sp.m, &warps, &smem, &wave);
+  if (e != cudaSuccess) return e;
+  const long long groups = (sp.m.num_rays + warps - 1) / warps;
+  long long blocks = groups < wave ? groups : wave;
+  if (blocks * warps > rows) blocks = rows / warps;
+  if (blocks < 1) return cudaSuccess;
+  splat_bw_mlp_wide_kernel<W>
+      <<<(int)blocks, 32 * warps, smem, stream>>>(sp, ml);
+  return cudaGetLastError();
+}
+
 template <int W>
 cudaError_t launch_mlp(const SplatParams& sp, const MlpLayout& ml, int rows,
                        cudaStream_t stream) {
@@ -622,14 +825,15 @@ cudaError_t launch_gather(const SplatParams& sp, cudaStream_t s) {
 
 extern "C" {
 
-// For the MLP adjoint at `width` (32 or 64) of n_layers layers of
+// For the MLP adjoint at `width` (32, 64, 96 or 128) of n_layers layers of
 // mlp_widths (host int[n_layers + 1]): out[0] the warps per block of pass
-// A, out[1] its resident wave of blocks (the rows of g_mlp_partial that
-// the caller zero-fills), out[2] the floats of a row, out[3] a block's
-// shared memory in bytes; a cudaError_t code.
+// A, out[1] the rows of g_mlp_partial that the caller zero-fills (its
+// resident wave of blocks; at 96 and 128 that wave's warps), out[2] the
+// floats of a row, out[3] a block's shared memory in bytes; a cudaError_t
+// code.
 int lightplane_splat_bw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
-  if (n_layers < 1 || n_layers > kMaxLayers || (width != 32 && width != 64))
+  if (n_layers < 1 || n_layers > kMaxLayers || !known_width(width))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_layers, 0, 0};
@@ -638,10 +842,12 @@ int lightplane_splat_bw_mlp_config(int width, int n_layers,
   int warps = 0, wave = 0;
   size_t smem = 0;
   const cudaError_t e =
-      width == 32 ? mlp_config<32>(p, ml, &warps, &smem, &wave)
-                  : mlp_config<64>(p, ml, &warps, &smem, &wave);
+      width == 32   ? mlp_config<32>(p, ml, &warps, &smem, &wave)
+      : width == 64 ? mlp_config<64>(p, ml, &warps, &smem, &wave)
+      : width == 96 ? mlp_wide_config<96>(p, &warps, &smem, &wave)
+                    : mlp_wide_config<128>(p, &warps, &smem, &wave);
   out[0] = warps;
-  out[1] = wave;
+  out[1] = width > 64 ? wave * warps : wave;
   out[2] = ml.sum_floats;
   out[3] = (int)smem;
   return (int)e;
@@ -655,6 +861,8 @@ int lightplane_splat_bw_attrs(int mlp, int width, int* out) {
   if (!mlp) return kernel_attrs(splat_bw_enc_kernel<8, false>, out);
   if (mlp == 2) return kernel_attrs(splat_bw_enc_kernel<8, true>, out);
   if (mlp == 3) return kernel_attrs(splat_bw_enc_kernel<16, false>, out);
+  if (width == 96) return kernel_attrs(splat_bw_mlp_wide_kernel<96>, out);
+  if (width == 128) return kernel_attrs(splat_bw_mlp_wide_kernel<128>, out);
   return width == 32 ? kernel_attrs(splat_bw_mlp_kernel<32>, out)
                      : kernel_attrs(splat_bw_mlp_kernel<64>, out);
 }
@@ -734,8 +942,11 @@ int lightplane_splat_bw(
     return (int)cudaGetLastError();
   }
   if (num_rays == 0) return (int)cudaSuccess;
-  const cudaError_t e = width == 32 ? launch_mlp<32>(sp, ml, rows, s)
-                                    : launch_mlp<64>(sp, ml, rows, s);
+  const cudaError_t e =
+      width == 32   ? launch_mlp<32>(sp, ml, rows, s)
+      : width == 64 ? launch_mlp<64>(sp, ml, rows, s)
+      : width == 96 ? launch_mlp_wide<96>(sp, ml, rows, s)
+                    : launch_mlp_wide<128>(sp, ml, rows, s);
   return (int)e;
 }
 

@@ -193,10 +193,14 @@ __global__ void __launch_bounds__(kPlanThreads)
 // The channel slices of 32 a lane holds: 2 (C <= 64 per pass) without the
 // MLP, W / 32 with it.
 template <int W>
-constexpr int kSlices = W == 32 ? 1 : 2;
+constexpr int kSlices = W == 32 ? 1 : W <= 64 ? 2 : W / 32;
 
-// The warp's splat vector of the step `st` into v (lane c owns channels c
-// and c + 32): MLP(input_grid[point] + encoding), the encoding held in e.
+// The warp's splat vector of the step `st` into v (lane c owns channels c,
+// c + 32, ...): MLP(input_grid[point] + encoding), the encoding held in e.
+// The wide builds (W = 96, 128) read the layers from device memory
+// (p.mlp, unpadded; a 128-wide layer is 64 KB, so the block's warps share
+// it in L1), each layer's own widths, in the same order: the bias, then
+// the products by ascending input.
 template <int W>
 __device__ __forceinline__ void mlp_vector(const Params& p,
                                            const float* layers, int b,
@@ -219,6 +223,52 @@ __device__ __forceinline__ void mlp_vector(const Params& p,
     }
   });
   const int L = p.n_layers[0];
+  if constexpr (W > 64) {
+    for (int l = 0; l < L; ++l) {
+      const int d_in = p.layer_in[l], d_out = p.layer_out[l];
+      const float* w = p.mlp + p.layer_w_off[l];
+      const float* bias = p.mlp + p.layer_b_off[l];
+      float y[kS];
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        const int o = lane + 32 * k;
+        y[k] = o < d_out ? __ldg(bias + o) : 0.0f;
+      }
+      // per slice of 32 inputs, eight inputs at a time: their weights'
+      // loads issued together ahead of the products (predicated: 0 past
+      // the layer's widths, where adding x * 0 leaves the sum as it is),
+      // so their latencies overlap; the eight-input loop stays rolled, so
+      // one group's weights are live at a time
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        if (32 * q >= d_in) break;
+#pragma unroll 1
+        for (int i1 = 0; i1 < 32; i1 += 8) {
+          float wv[8][kS];
+#pragma unroll
+          for (int ii = 0; ii < 8; ++ii)
+#pragma unroll
+            for (int k = 0; k < kS; ++k) {
+              const int i = 32 * q + i1 + ii, o = lane + 32 * k;
+              wv[ii][k] = i < d_in && o < d_out ? __ldg(w + i * d_out + o)
+                                                : 0.0f;
+            }
+#pragma unroll
+          for (int ii = 0; ii < 8; ++ii) {
+            const float xi = __shfl_sync(kAll, x[q], i1 + ii);
+#pragma unroll
+            for (int k = 0; k < kS; ++k) y[k] += xi * wv[ii][k];
+          }
+        }
+      }
+      const bool relu = l < L - 1;
+#pragma unroll
+      for (int k = 0; k < kS; ++k) x[k] = relu ? fmaxf(y[k], 0.0f) : y[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kS; ++k) v[k] = x[k];
+    return;
+  }
   for (int l = 0; l < L; ++l) {
     const float* lay = layers + l * kLayer;
     float y[kS];
@@ -260,9 +310,10 @@ __host__ __device__ __forceinline__ int warp_floats(int rows, int C,
 }
 
 // Channels of a run's staged encoding: one or two slices of 32 (a pass of
-// at most 64 of the encoding's E channels).
+// at most 64 of the encoding's E channels); the wide MLP builds' input, E
+// rounded up to 32.
 __host__ __device__ __forceinline__ int stage_chn(int E) {
-  return E <= 32 ? 32 : 64;
+  return E <= 32 ? 32 : E <= 64 ? 64 : (E + 31) / 32 * 32;
 }
 
 // dst = *src (4 bytes), or 0 where !ok (src is then not read), copied from
@@ -298,8 +349,10 @@ __device__ __forceinline__ bool touched(float w) {
 // walks its own work items and sums each brick's slice of runs in its own
 // tile, then flushes the rows it touched.  W = 0 splats the encoding, in
 // passes of 64 channels; W = 32 or 64 the MLP's output (its layers staged
-// once per block).  kC = 8 corners per step for a voxel grid, 4 for a
-// plane (and a line or a point, whose missing corners are out of bounds);
+// once per block); W = 96 or 128 the MLP's output (its layers read from
+// device memory), run once a step and splatted in passes of 64 channels.
+// kC = 8 corners per step for a voxel grid, 4 for a plane (and a line or a
+// point, whose missing corners are out of bounds);
 // kT = 2 where the weight lies past a pass's 32 pairs of channels (C >=
 // 64): lane 0 adds it apart; else 1.  kSteps (W = 0): the per-step values
 // of the adjoint's pass B, and no flush of the weight column.
@@ -316,9 +369,10 @@ __global__ void __launch_bounds__(kSplatThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int E = W ? p.enc_chn : C;  // the encoding's channels
   const int SC = pl.stage;
-  float* tile = smem + L * (W * W + W) + warp * pl.warp_floats;
+  float* tile =
+      smem + (W > 64 ? 0 : L * (W * W + W)) + warp * pl.warp_floats;
   float* stage = tile + tile_floats(pl.max_rows, C);
-  if constexpr (W > 0) stage_layers<W>(p, smem, L);
+  if constexpr (W > 0 && W <= 64) stage_layers<W>(p, smem, L);
   for (int i = lane; i < pl.max_rows * C1; i += 32)
     tile[i] = i % C1 == C ? kUntouched : 0.0f;  // the padding stays 0
   __syncthreads();  // the layers; after it the warps never wait on another
@@ -395,21 +449,23 @@ __global__ void __launch_bounds__(kSplatThreads)
         const bool own = a < cend || (pass == 0 && a <= C && C <= a + 1);
         const bool own_w = kT > 1 && pass == 0 && lane == 0;
         // kSteps: each live run's value of step `st` (row ray * steps +
-        // s0 + st of the encoding, E <= 64 channels) into its row of buffer
-        // st % 2 of the staging area, copied by the run's own lane 16 bytes
-        // at a time (4 where E % 4 != 0), as one group of copies
+        // s0 + st of the encoding, the pass's <= 64 channels) into its row
+        // of buffer st % 2 of the staging area, copied by the run's own
+        // lane 16 bytes at a time (4 where E % 4 != 0), as one group of
+        // copies
         const float* vrow0 =
             p.enc +
             ((long long)ray * (p.num_samples + p.num_samples_inf) + s0) * E;
         auto stage_step = [&](int st) {
           float* row = stage + (st & 1) * kBatch * SC + lane * SC;
-          const float* src = vrow0 + (long long)st * E;
+          const float* src = vrow0 + (long long)st * E + c0;
           if (st < len && (E & 3) == 0)
             for (int c = 0; c < SC; c += 4)
-              copy_async16(row + c, c < E ? src + c : p.enc, c < E);
+              copy_async16(row + c, c0 + c < E ? src + c : p.enc,
+                           c0 + c < E);
           else if (st < len)
             for (int c = 0; c < SC; ++c)
-              copy_async(row + c, c < E ? src + c : p.enc, c < E);
+              copy_async(row + c, c0 + c < E ? src + c : p.enc, c0 + c < E);
           asm volatile("cp.async.commit_group;\n" ::: "memory");
         };
         if constexpr (kSteps) stage_step(0);
@@ -469,6 +525,59 @@ __global__ void __launch_bounds__(kSplatThreads)
             for (int q = 0; q < kC; ++q) {
               at[q] = __shfl_sync(kAll, crow[q], j);
               wgt[q] = __shfl_sync(kAll, cw[q], j);
+            }
+            if constexpr (W > 64) {
+              // the MLP once a step, its output splatted in passes of 64
+              // channels, lane l the pair of columns 64 pass + 2 l, the
+              // weight (column C) as the narrower builds add it
+              float e[kS], o[kS];
+#pragma unroll
+              for (int k = 0; k < kS; ++k)
+                e[k] = lane + 32 * k < SC ? stage[j * SC + lane + 32 * k]
+                                          : 0.0f;
+              Step st = {};
+              st.px = __shfl_sync(kAll, px, j);
+              st.py = __shfl_sync(kAll, py, j);
+              st.pz = __shfl_sync(kAll, pz, j);
+              mlp_vector<W>(p, smem, b, st, e, o);
+              for (int q0 = 0; q0 < C; q0 += 64) {
+                const int ap = q0 + 2 * lane;
+                const int cend_p = min(q0 + 64, C);
+                const bool own_p =
+                    ap < cend_p || (q0 == 0 && ap <= C && C <= ap + 1);
+                const bool own_wp = kT > 1 && q0 == 0 && lane == 0;
+                // unit c lives on lane c % 32, slice c / 32
+                float y0 = 0.0f, y1 = 0.0f;
+#pragma unroll
+                for (int k = 0; k < kS; ++k) {
+                  const float u0 = __shfl_sync(kAll, o[k], (2 * lane) & 31);
+                  const float u1 =
+                      __shfl_sync(kAll, o[k], (2 * lane + 1) & 31);
+                  if (32 * k == (ap & ~31)) {
+                    y0 = u0;
+                    y1 = u1;
+                  }
+                }
+                if (ap >= cend_p) y0 = q0 == 0 && ap == C ? 1.0f : 0.0f;
+                if (ap + 1 >= cend_p) y1 = q0 == 0 && ap + 1 == C ? 1.0f : 0.0f;
+                float2 acc[kC];
+                float acc_w[kC];
+#pragma unroll
+                for (int q = 0; q < kC; ++q) {
+                  if (at[q] >= 0 && own_p)
+                    acc[q] = *reinterpret_cast<float2*>(tile + at[q] + ap);
+                  if (at[q] >= 0 && own_wp) acc_w[q] = tile[at[q] + C];
+                }
+#pragma unroll
+                for (int q = 0; q < kC; ++q) {
+                  if (at[q] >= 0 && own_p)
+                    *reinterpret_cast<float2*>(tile + at[q] + ap) =
+                        make_float2(acc[q].x + wgt[q] * y0,
+                                    acc[q].y + wgt[q] * y1);
+                  if (at[q] >= 0 && own_wp) tile[at[q] + C] = acc_w[q] + wgt[q];
+                }
+              }
+              continue;
             }
             // the values of the lane's pair of columns: channels, the
             // weight's 1, padding's 0
@@ -574,11 +683,11 @@ __global__ void __launch_bounds__(kSplatThreads)
   }
 }
 
-// Bytes of dynamic shared memory of a splat block: the MLP's layers, then
-// each warp's region.
+// Bytes of dynamic shared memory of a splat block: the MLP's layers (none
+// in the wide builds), then each warp's region.
 long long splat_smem_bytes(int width, int n_layers, int max_rows, int C,
                            int stage) {
-  return 4LL * (n_layers * (width * width + width) +
+  return 4LL * ((width > 64 ? 0 : n_layers * (width * width + width)) +
                 kWarps * warp_floats(max_rows, C, stage));
 }
 
@@ -651,6 +760,8 @@ long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
 int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
   if (mlp == 2) return kernel_attrs(splat_plan_kernel<true>, out);
   if (!mlp) return kernel_attrs(splat_fw_kernel<0, 8, 2>, out);
+  if (width == 96) return kernel_attrs(splat_fw_kernel<96, 8, 2>, out);
+  if (width == 128) return kernel_attrs(splat_fw_kernel<128, 8, 2>, out);
   return width == 32 ? kernel_attrs(splat_fw_kernel<32, 8, 1>, out)
                      : kernel_attrs(splat_fw_kernel<64, 8, 2>, out);
 }
@@ -660,7 +771,7 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //   out_meta, in_meta: host int[5 * n], per sub-grid (row offset, B, D, H, W)
 //   n_layers: the MLP's layer count, 0 without it (input_grid, mlp, in_meta
 //     and mlp_widths are then not read)
-//   mlp_widths: host int[n_layers + 1]; width: 32 or 64
+//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96 or 128
 //   bricks: host int[3 * num_out_grids], cells per brick along D, H, W
 //   stage: 0 counts the runs per brick into counts [bricks] (zero-filled);
 //     1 writes them at offsets [bricks + 1] (the exclusive prefix sum of
@@ -669,7 +780,8 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //     item, item_start [bricks + 1] the exclusive prefix sum of each
 //     brick's items, at most max_items items
 //   step_values: 1 splats row ray * steps + s of enc at step s (the
-//     adjoint's pass B; no MLP, w not written), 0 the ray's row
+//     adjoint's pass B; no MLP, w not written; in passes of 64 channels),
+//     0 the ray's row
 //   batch_limit: > 0 caps the batches a ray's grid_idx may index (the
 //     adjoint's pass B passes the output grid-list's too), 0 none
 // The caller validates shapes, devices, alignment and limits, and
@@ -693,7 +805,7 @@ int lightplane_splat_fw(
       disparity_at_inf, mask_out_of_bounds, contract_coords);
   if (rc != (int)cudaSuccess) return rc;
   if (stage < 0 || stage > 2 || num_samples + num_samples_inf > 0xffff ||
-      runs_per_item < 1 || (step_values && (n_layers || out_chn > 64)))
+      runs_per_item < 1 || (step_values && n_layers))
     return (int)cudaErrorInvalidValue;
   if (batch_limit > 0 && batch_limit < sp.m.num_batches)
     sp.m.num_batches = batch_limit;
@@ -756,7 +868,9 @@ int lightplane_splat_fw(
     e = launch_splat<0, true>(sp, pl, max_items, s);
   } else if (n_layers == 0) e = launch_splat<0>(sp, pl, max_items, s);
   else if (width == 32) e = launch_splat<32>(sp, pl, max_items, s);
-  else e = launch_splat<64>(sp, pl, max_items, s);
+  else if (width == 64) e = launch_splat<64>(sp, pl, max_items, s);
+  else if (width == 96) e = launch_splat<96>(sp, pl, max_items, s);
+  else e = launch_splat<128>(sp, pl, max_items, s);
   return (int)e;
 }
 

@@ -1,6 +1,8 @@
 // What the warp-cooperative kernels of the renderer's forward march
-// (renderer_fw.cu, R1) and the splatter's adjoint (splatter_bw.cu, S2)
-// share: the corners of a step in one sub-grid (grid_corners), and dense
+// (renderer_fw.cu, R1; renderer_wide.cu, its wide build and R2's) and the
+// splatter's adjoint (splatter_bw.cu, S2) share: the corners of a step in
+// one sub-grid (grid_corners), the gather of a chunk's grid samples into a
+// tile (gather_chunk), and dense
 // layers over a [32][W + 4] tile of a chunk's 32 steps in shared memory
 // (row j = step j) on the tensor cores (mma.sync m16n8k8, 3xTF32,
 // mma_rows), their weights staged in shared memory in the B fragments'
@@ -62,6 +64,93 @@ __device__ __forceinline__ void grid_corners(const GridMeta& m, int g, int b,
                              (long long)Wd +
                          (int)cx);
         wt[k] = wx * wy * wz;
+      }
+    }
+  }
+}
+
+// Row j of `tile` (stride W + 4) gets the linear sample of every sub-grid of
+// the [V, C] grid-list (m, grid) at sample j's point, for the samples of the
+// chunk whose bit is set in `taken`, and 0 for the others (and in channels
+// C..W-1).  With `relu` the sum goes through a relu; `tile2`, when given,
+// gets the same rows.  `st` is the lane's own sample, b the ray's batch (< 0:
+// nothing is read).  The warp reads four samples' rows at a time: lane
+// 8 q + u sums channels 32 v + 4u .. + 3 (v < W / 32) of sample 4 i + q,
+// corner by corner in march_common.cuh::sample_grids's order onto the
+// row's sum so far, and gets each corner's row and weight from the
+// sample's lane by a shuffle.
+template <int W>
+__device__ __forceinline__ void gather_chunk(const GridMeta& m,
+                                             const float* __restrict__ grid,
+                                             int C, int b, const Step& st,
+                                             uint32_t taken, bool relu,
+                                             float* tile, float* tile2,
+                                             int lane) {
+  constexpr int S = W + 4, V = W / 32;
+  const int q = lane >> 3, u = lane & 7;
+  const bool vec4 = (C & 3) == 0;
+  if (b < 0) taken = 0u;
+  for (int g = 0; g < m.num_grids; ++g) {
+    int row[8];
+    float wt[8];
+    grid_corners(m, g, b, st, row, wt);
+    if (!((taken >> lane) & 1u)) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) row[k] = -1;
+    }
+    // the corners that no sample of this sub-grid has (singleton axes)
+    const int nz = m.dims[g][1] > 1 ? 2 : 1, ny = m.dims[g][2] > 1 ? 2 : 1,
+              nx = m.dims[g][3] > 1 ? 2 : 1;
+    const bool last = g == m.num_grids - 1;
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      float4 acc[V];
+      float* at = tile + (4 * i + q) * S + 4 * u;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        acc[v] = g == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                        : *reinterpret_cast<const float4*>(at + 32 * v);
+      if ((taken >> (4 * i)) & 0xfu) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if ((k >> 2) >= nz || ((k >> 1) & 1) >= ny || (k & 1) >= nx)
+            continue;
+          const int r = __shfl_sync(0xffffffffu, row[k], 4 * i + q);
+          const float w = __shfl_sync(0xffffffffu, wt[k], 4 * i + q);
+          if (r < 0) continue;
+          const float* src = grid + (long long)r * C;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const int c = 32 * v + 4 * u;
+            if (c >= C) continue;
+            float4 x;
+            if (vec4) {
+              x = __ldg(reinterpret_cast<const float4*>(src + c));
+            } else {
+              x.x = __ldg(src + c);
+              x.y = c + 1 < C ? __ldg(src + c + 1) : 0.0f;
+              x.z = c + 2 < C ? __ldg(src + c + 2) : 0.0f;
+              x.w = c + 3 < C ? __ldg(src + c + 3) : 0.0f;
+            }
+            acc[v].x += w * x.x;
+            acc[v].y += w * x.y;
+            acc[v].z += w * x.z;
+            acc[v].w += w * x.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float4 a = acc[v];
+        if (last && relu) {
+          a.x = fmaxf(a.x, 0.0f);
+          a.y = fmaxf(a.y, 0.0f);
+          a.z = fmaxf(a.z, 0.0f);
+          a.w = fmaxf(a.w, 0.0f);
+        }
+        *reinterpret_cast<float4*>(at + 32 * v) = a;
+        if (last && tile2 != nullptr)
+          *reinterpret_cast<float4*>(tile2 + (at - tile) + 32 * v) = a;
       }
     }
   }

@@ -175,6 +175,9 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_render_bw_smem_bytes.restype = ctypes.c_longlong
     lib.lightplane_render_bw_partial_floats.argtypes = [_I, _I]
     lib.lightplane_render_bw_partial_floats.restype = ctypes.c_longlong
+    lib.lightplane_render_bw_wide_config.argtypes = [
+        _I, _I, _I, _I, _P, _I, ctypes.POINTER(_I)]
+    lib.lightplane_render_bw_wide_config.restype = _I
     lib.lightplane_splat_fw.argtypes = _SPLAT_FW_ARGTYPES
     lib.lightplane_splat_fw.restype = _I
     lib.lightplane_splat_fw_smem_bytes.argtypes = [_I] * 5

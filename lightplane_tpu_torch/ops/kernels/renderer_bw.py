@@ -72,7 +72,8 @@ RELU_MASKS_BUILD = ("LIGHTPLANE_RELU_MASKS=1",)
 
 def mask_shape(cfg: _RenderCfg, R: int, grid_chn: int):
     """Shape of the relu masks of ``R`` rays: ``[R, steps, vectors, words]``
-    with one bit per unit of the kernel's padded width (32 or 64)."""
+    with one bit per unit of the kernel's padded width (32, 64, 96 or
+    128)."""
     n_t = max(len(cfg.n_hidden_trunk) - 1, 0)
     n_total = n_t + len(cfg.n_hidden_opacity) - 1 + len(cfg.n_hidden_color) - 1
     vectors = (n_total - 2 + (n_t == 0)
@@ -222,6 +223,25 @@ def block_smem_bytes(lib, a, has_color_grid: bool):
         for r in RAYS_PER_BLOCK}
 
 
+def wide_partial_rows(lib, a, has_color_grid: bool):
+    """The wide build's (width 96 or 128) partial-sum buffer, ``(rows,
+    floats a row)``: a row per warp of its resident wave.  Raises where one
+    warp's tiles (every layer input of a 32-step chunk) exceed a block's
+    shared memory."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    rc = lib.lightplane_render_bw_wide_config(
+        a.width, a.n_t, a.n_o, a.n_c, a.mlp_widths, int(has_color_grid), out)
+    if rc != 0:
+        raise ValueError(
+            f"the backward kernel needs {out[3]} bytes of shared memory per "
+            f"warp at width {a.width} with {a.n_layers} layers, more than "
+            f"the {MAX_SMEM_BYTES} a Hopper block can have "
+            f"({lib.lightplane_cuda_error_string(rc).decode()})")
+    return out[1], out[2]
+
+
 def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
                rays_per_block, relu_masks):
     global LAUNCHES, SCAFFOLD_LAUNCHES
@@ -238,22 +258,39 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
     from ._build import library
 
     lib = library(defines)
-    smem = block_smem_bytes(lib, a, color_grid_flat is not None)
-    if rays_per_block is None:
-        rays_per_block = pick_rays_per_block(
-            a.R, smem, _sm_count(a.device.index or 0))
+    if a.width > 64:
+        # the wide build: a warp per ray, each warp of the resident wave its
+        # own row of weight-gradient sums, zero-filled here; a second kernel
+        # sums the rows into g_mlp.  rays_per_block is not read.
+        rows, row_floats = wide_partial_rows(lib, a,
+                                             color_grid_flat is not None)
+        partials = torch.zeros((rows, row_floats), dtype=f32, device=a.device)
+        rays_per_block = RAYS_PER_BLOCK[-1]
+    else:
+        smem = block_smem_bytes(lib, a, color_grid_flat is not None)
         if rays_per_block is None:
-            raise ValueError(
-                f"the backward kernel needs {smem[RAYS_PER_BLOCK[-1]]} bytes "
-                f"of shared memory per block of {RAYS_PER_BLOCK[-1]} rays at "
-                f"these MLP widths, more than the {MAX_SMEM_BYTES} a Hopper "
-                f"block can have"
-            )
-    elif smem.get(rays_per_block, MAX_SMEM_BYTES + 1) > MAX_SMEM_BYTES:
-        raise ValueError(f"rays_per_block must be one of {RAYS_PER_BLOCK} "
-                         f"and fit in shared memory, got {rays_per_block}")
+            rays_per_block = pick_rays_per_block(
+                a.R, smem, _sm_count(a.device.index or 0))
+            if rays_per_block is None:
+                raise ValueError(
+                    f"the backward kernel needs {smem[RAYS_PER_BLOCK[-1]]} "
+                    f"bytes of shared memory per block of "
+                    f"{RAYS_PER_BLOCK[-1]} rays at these MLP widths, more "
+                    f"than the {MAX_SMEM_BYTES} a Hopper block can have"
+                )
+        elif smem.get(rays_per_block, MAX_SMEM_BYTES + 1) > MAX_SMEM_BYTES:
+            raise ValueError(f"rays_per_block must be one of "
+                             f"{RAYS_PER_BLOCK} and fit in shared memory, "
+                             f"got {rays_per_block}")
+        # per-block partial sums of the MLP weight gradients; each block
+        # initialises its own row, and a second kernel sums the rows into
+        # g_mlp
+        n_blocks = -(-a.R // rays_per_block)
+        partials = torch.empty(
+            (max(n_blocks, 1),
+             lib.lightplane_render_bw_partial_floats(a.width, a.n_layers)),
+            dtype=f32, device=a.device)
 
-    n_blocks = -(-a.R // rays_per_block)
     n_params = sum(map(_mlp_numel, (cfg.n_hidden_trunk, cfg.n_hidden_opacity,
                                     cfg.n_hidden_color)))
     g_grid = torch.zeros_like(grid_flat)
@@ -261,12 +298,6 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
                     else torch.zeros_like(color_grid_flat))
     g_mlp = torch.empty((n_params,), dtype=f32, device=a.device)
     g_enc = torch.empty_like(rays_encoding)
-    # per-block partial sums of the MLP weight gradients; each block
-    # initialises its own row, and a second kernel sums the rows into g_mlp
-    partials = torch.empty(
-        (max(n_blocks, 1),
-         lib.lightplane_render_bw_partial_floats(a.width, a.n_layers)),
-        dtype=f32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.lightplane_render_bw(
         origins.data_ptr(), directions.data_ptr(), near.data_ptr(),

@@ -37,9 +37,12 @@ IMPLS = ("auto", "cuda", "torch")
 LAUNCHES = 0
 SCAFFOLD_LAUNCHES = 0
 
-MAX_GRIDS = 8          # kMaxGrids in march_common.cuh
-MAX_LAYERS = 8         # kMaxLayers in march_common.cuh (per MLP)
-WIDTHS = (32, 64)      # the kernel's compiled activation widths
+MAX_GRIDS = 16         # kMaxGrids in march_common.cuh
+MAX_LAYERS = 16        # kMaxLayers in march_common.cuh (per MLP)
+# The kernels' compiled activation widths: 32 and 64 keep the MLP's layers
+# in shared memory, 96 and 128 (the wide builds, csrc/renderer_wide.cu and
+# csrc/wide_mlp.cuh) read them from device memory
+WIDTHS = (32, 64, 96, 128)
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # Warps (one ray each) per block the forward kernel may take, most first:
 # each warp keeps two [32, W + 4] tiles in shared memory beside the MLP.
@@ -87,6 +90,9 @@ def _grid_table(grid_sizes, V: int, C: int, name: str) -> ctypes.Array:
 
 
 def _kernel_width(cfg: _RenderCfg, grid_chn: int) -> int:
+    """The padded activation width the kernels run at: the narrowest of
+    ``WIDTHS`` that holds the grid's channels and every MLP layer (a width
+    between two is zero-padded up); raises above the widest."""
     widest = max(
         (grid_chn,) + cfg.n_hidden_trunk + cfg.n_hidden_opacity
         + cfg.n_hidden_color

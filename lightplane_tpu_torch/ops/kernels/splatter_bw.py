@@ -66,7 +66,7 @@ MAX_ENC_CHN = 512
 def mask_shape(cfg: _SplatCfg, R: int):
     """Shape of the relu masks of ``R`` rays through the splatter MLP:
     ``[R, steps, layers - 1, words]`` with one bit per unit of the kernel's
-    padded width (32 or 64)."""
+    padded width (32, 64, 96 or 128)."""
     width = next(w for w in WIDTHS if max(cfg.n_hidden) <= w)
     return (R, cfg.tot_num_samples, len(cfg.n_hidden) - 2, width // 32)
 

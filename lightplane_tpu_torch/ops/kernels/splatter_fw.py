@@ -89,8 +89,9 @@ def splat_fwd_torch(cfg: _SplatCfg, geom, diff):
 
 
 def _mlp_width(cfg: _SplatCfg) -> int:
-    """The MLP's padded activation width (0 without an MLP or beyond the
-    widest build; ``splat_launch_args`` raises for the latter)."""
+    """The MLP's padded activation width, the narrowest of ``WIDTHS`` that
+    holds every layer (0 without an MLP or beyond the widest build;
+    ``splat_launch_args`` raises for the latter)."""
     if not cfg.n_hidden:
         return 0
     return next((w for w in WIDTHS if max(cfg.n_hidden) <= w), 0)
@@ -109,18 +110,20 @@ def _stage_chn(cfg: _SplatCfg) -> int:
     """Channels of a run's staged encoding (``stage_chn``): the MLP's input,
     or a pass of at most 64 of the output's, in slices of 32."""
     E = cfg.n_hidden[0] if cfg.n_hidden else min(cfg.out_chn, 64)
-    return 32 if E <= 32 else 64
+    return 32 if E <= 32 else 64 if E <= 64 else -(-E // 32) * 32
 
 
 def splat_smem_bytes(width: int, n_layers: int, rows: int, C: int,
                      stage: int) -> int:
-    """Shared memory of a splat block: the MLP's layers, then per warp a
-    tile of ``rows`` rows of C channels and the weight (an even count of
-    floats) and a batch of staged encodings of ``stage`` channels, each
-    rounded up to 16 bytes (as ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
+    """Shared memory of a splat block: the MLP's layers (none at widths 96
+    and 128, which read them from device memory), then per warp a tile of
+    ``rows`` rows of C channels and the weight (an even count of floats) and
+    a batch of staged encodings of ``stage`` channels, each rounded up to 16
+    bytes (as ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
     row = (C + 2) & ~1
     warp = -(-rows * row // 4) * 4 + -(-RUN_BATCH * stage // 4) * 4
-    return 4 * (n_layers * (width * width + width) + SPLAT_WARPS * warp)
+    layers = 0 if width > 64 else n_layers * (width * width + width)
+    return 4 * (layers + SPLAT_WARPS * warp)
 
 
 def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET,
@@ -333,7 +336,7 @@ class SplatLaunchArgs:
     C_in: int        # MLP input channels (the encoding's), 0 without an MLP
     n_layers: int    # 0 without an MLP
     n_params: int
-    width: int       # 32 or 64 with an MLP, 0 without
+    width: int       # 32, 64, 96 or 128 with an MLP, 0 without
     out_meta: ctypes.Array
     in_meta: object  # ctypes.Array, or None without an MLP
     mlp_widths: object

@@ -60,6 +60,26 @@ def _case(device, grid_shapes, batch=1, n_rays=512, layers=(2, 2, 2),
 
 
 CASES = {
+    # the wide builds: a 96-wide decoder (hidden 72 padded up) with noise,
+    # and a 128-channel grid under a 32-wide decoder
+    "wide_hidden72_noise": (
+        dict(grid_shapes=[(1, 1, 12, 12, 8), (1, 12, 12, 1, 8)], hidden=72),
+        dict(inject_noise_sigma=1.0, inject_noise_seed=3),
+    ),
+    "wide_grid128_mask": (
+        dict(grid_shapes=[(1, 10, 10, 10, 128)], hidden=32),
+        dict(mask_out_of_bounds_samples=True),
+    ),
+    # one-layer heads over a 98-channel grid (W = 128; rows not a multiple
+    # of 4 floats: the scalar gather and reductions), and no trunk at W = 96
+    "wide_layers_1_1_1_grid98": (
+        dict(grid_shapes=[(1, 10, 10, 10, 98)], hidden=40, layers=(1, 1, 1)),
+        {},
+    ),
+    "wide_layers_0_1_1": (
+        dict(grid_shapes=[(1, 12, 12, 12, 80)], hidden=80, layers=(0, 1, 1)),
+        {},
+    ),
     "mixed_batch2_mask_noise": (
         dict(grid_shapes=[(2, 8, 8, 8, 8), (2, 1, 8, 8, 8)], batch=2),
         dict(mask_out_of_bounds_samples=True, inject_noise_sigma=1.0,
@@ -185,21 +205,22 @@ def test_backward_kernel_matches_plain(cuda, case):
         assert err <= MAX_ABS * scale, f"grad {i}: max |diff| {err}"
 
 
-def _branch_case(device, branch):
+def _branch_case(device, branch, chn=16):
     """A scaffold (random binary, over a batch of 2) or a relu-field colour
-    grid-list on top of a triplane case."""
+    grid-list on top of a triplane case (the grids and the decoder ``chn``
+    wide)."""
     if branch == "scaffold":
         rays, grid, dp = _case(device, _tri(2, 12, 8), batch=2, seed=3)
         gen = torch.Generator().manual_seed(4)
         scaffold = (torch.rand((2, 10, 9, 8), generator=gen) > 0.5).float()
         return rays, grid, dp, dict(scaffold=scaffold.to(device),
                                     contract_coords=True)
-    rays, grid, dp = _case(device, [(2, 8, 8, 8, 16)], batch=2,
-                           layers=(0, 2, 2), seed=5)
+    rays, grid, dp = _case(device, [(2, 8, 8, 8, chn)], batch=2,
+                           layers=(0, 2, 2), hidden=chn, seed=5)
     rng = np.random.default_rng(6)
     cgrid = [torch.as_tensor(rng.standard_normal(s) * 0.5,
                              dtype=torch.float32, device=device)
-             for s in _tri(2, 10, 16)]
+             for s in _tri(2, 10, chn)]
     return rays, grid, dp, dict(color_grid=cgrid,
                                 mask_out_of_bounds_samples=True)
 
@@ -288,12 +309,13 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
     assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
     assert torch.isfinite(dp.mlp_params.grad).all()
     with torch.no_grad():
+        # past the widest build (128)
         wide = lp.init_decoder_params(None, 2, 2, 2, input_chn=8,
-                                      hidden_chn=72, device=cuda)
-        enc = torch.zeros((64, 72), device=cuda)
+                                      hidden_chn=136, device=cuda)
+        enc = torch.zeros((64, 136), device=cuda)
         rays_w = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
                          rays.near, rays.far, enc)
-        with pytest.raises(ValueError, match="widths up to 64"):
+        with pytest.raises(ValueError, match="widths up to 128"):
             lp.lightplane_renderer(rays_w, grid, wide, impl="cuda", **kw)
         short = lp.DecoderParams(dp.mlp_params.detach()[:-1],
                                  dp.n_hidden_trunk, dp.n_hidden_opacity,
@@ -359,6 +381,10 @@ def test_kernels_with_bad_grid_idx(cuda, monkeypatch):
     # too deep for the weight-gradient sums in shared memory: they stay in
     # the block's row of the partial buffer
     ("deep_8_8_8", 32),
+    # the wide build (W = 128: 128-channel grids and decoder; a warp per
+    # ray, rays_per_block not read), with the relu-field colour grid and a
+    # scaffold
+    ("wide_relu_field_scaffold", 32),
 ])
 def test_backward_kernel_matches_plain_under_its_masks(cuda, case,
                                                         rays_per_block):
@@ -375,7 +401,8 @@ def test_backward_kernel_matches_plain_under_its_masks(cuda, case,
                                layers=(8, 8, 8))
         extra = {}
     else:
-        rays, grid, dp, extra = _branch_case(cuda, "relu_field")
+        rays, grid, dp, extra = _branch_case(
+            cuda, "relu_field", chn=128 if case.startswith("wide") else 16)
         extra["scaffold"] = (torch.rand(
             (2, 8, 8, 8), generator=torch.Generator().manual_seed(2)) > 0.4
         ).float().to(cuda)
@@ -401,6 +428,36 @@ def test_backward_kernel_matches_plain_under_its_masks(cuda, case,
         assert err <= MAX_ABS * float(b.abs().max()), f"grad {i}: {err}"
 
 
+@pytest.mark.cuda
+def test_kernels_at_the_layer_and_grid_caps(cuda):
+    """R1 and R2 at the lifted caps: 16 sub-grids (planes of a few
+    resolutions) and a 16-layer trunk, against their plain versions."""
+    assert renderer_fw.MAX_GRIDS == 16 and renderer_fw.MAX_LAYERS == 16
+    shapes = [s for res in (6, 8, 10, 12, 14) for s in _tri(1, res, 8)]
+    shapes.append((1, 6, 6, 6, 8))
+    assert len(shapes) == 16
+    rays, grid, dp = _case(cuda, shapes, n_rays=256, layers=(16, 1, 1))
+    kw = dict(num_samples=24, gain=1.5)
+    fw, bw = renderer_fw.LAUNCHES, renderer_bw.LAUNCHES
+    with torch.no_grad():
+        out_k = lp.lightplane_renderer(rays, grid, dp, impl="cuda", **kw)
+        out_p = lp.lightplane_renderer(rays, grid, dp, impl="torch", **kw)
+    for name, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS, f"{name}: max |diff| {err}"
+    gen = torch.Generator().manual_seed(1)
+    proj = [torch.randn(s, generator=gen).to(cuda)
+            for s in [(256,), (256,), (256, 3)]]
+    g_k = _grads(rays, grid, dp, "cuda", proj, **kw)
+    g_p = _grads(rays, grid, dp, "torch", proj, **kw)
+    torch.cuda.synchronize()
+    assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 2, bw + 1)
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * max(1.0, float(b.abs().max())), (
+            f"grad {i}: max |diff| {err}")
+
+
 def _tri(batch, res, chn):
     return [(batch, 1, res, res, chn), (batch, res, 1, res, chn),
             (batch, res, res, 1, chn)]
@@ -418,6 +475,15 @@ SPLAT_CASES = {
     # the module's default MLP width: 64 output channels, the 64-wide builds
     "mlp_64ch_out": dict(out_sizes=[(1, 10, 12, 14, 64)], mlp=(32, 32, 64),
                          in_sizes=_tri(1, 12, 32), kw={}),
+    # the wide builds: a 96-wide MLP (72 padded up), and a 128-wide one
+    # into 128 channels from a 128-channel input grid-list (pass B's splat
+    # in two passes of 64 channels)
+    "mlp_wide_72": dict(out_sizes=_tri(1, 12, 16), mlp=(8, 72, 16),
+                        in_sizes=_tri(1, 12, 8),
+                        kw=dict(mask_out_of_bounds_samples=True)),
+    "mlp_wide_128ch": dict(out_sizes=[(1, 10, 12, 14, 128)],
+                           mlp=(128, 32, 128), in_sizes=_tri(1, 12, 128),
+                           kw={}),
 }
 
 
@@ -500,7 +566,8 @@ def test_splat_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out"])
+@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out",
+                                  "mlp_wide_72", "mlp_wide_128ch"])
 def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
     """S2 with the MLP against its plain version under the relu masks its
     recording build took, on every ray, and the shipped build against the
@@ -512,7 +579,8 @@ def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
     rays, sp, igrid = _splat_case(cuda, **c)
     out_sizes, in_sizes = c["out_sizes"], c["in_sizes"]
     cfg = smod._SplatCfg(
-        kw["num_samples"], 0, False, kw.get("contract_coords", False), 1e-5,
+        kw["num_samples"], 0, kw.get("mask_out_of_bounds_samples", False),
+        kw.get("contract_coords", False), 1e-5,
         tuple(out_sizes), tuple(in_sizes), tuple(sp.n_hidden))
     geom = (rays.directions, rays.origins, rays.near, rays.far,
             rays.grid_idx.to(torch.int32))
@@ -537,9 +605,9 @@ def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
 @pytest.mark.cuda
 def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
     monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
-    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 72, 16),
+    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 136, 16),
                                   in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
-    with pytest.raises(ValueError, match="widths up to 64"):
+    with pytest.raises(ValueError, match="widths up to 128"):
         lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
                                    num_samples=8, impl="cuda")
     rays, _, _ = _splat_case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
