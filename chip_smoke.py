@@ -4,8 +4,9 @@ NVIDIA Hopper GPU.
 
     python3 chip_smoke.py                # the phases below
     python3 chip_smoke.py --only 3b,5,9  # phases 1, 2 and those named
-    python3 chip_smoke.py --ablate       # phases 1-2, R1, R2, S1, S2 with parts off
+    python3 chip_smoke.py --ablate       # phases 1-2, each kernel, parts off
     python3 chip_smoke.py --ablate S2    # phases 1-2, S2 with parts off
+    python3 chip_smoke.py --ablate R2w   # phases 1-2, R2's wide build likewise
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -139,13 +140,14 @@ exits non-zero without its result line:
 12. The kernels' wide builds (padded widths 96 and 128: decoder and grid
    widths past 64). (a) R1 and R2 at the render headline with a 2/2/2
    decoder at hidden 128: timed, with their plain versions and the fw+bw
-   step, held on 4096 of the frame's rays (R2 under its relu masks); (b)
+   step, held on 4096 of the frame's rays (R2 under its relu masks), and
+   their layers' pre-pass held bit for bit to its plain version; (b)
    the port's trainer with ``--mlp_hidden_chn 128`` for 200 steps (phase
    9's scene and width, a scaffold update after step 50, evals after steps
    100 and 200): the loss of a fixed batch must fall, the eval PSNR rise,
-   and R1, R2 and R3 launch; (c) ``LightplaneMLPSplatter`` 32 -> 128 -> 128
-   from a 3 x 128^2 x 32ch prior into 3 x 128^2 x 128ch over phase 7's
-   rays: one fw+bw step, then S1 and S2 with the MLP timed and held on
+   and R1, R2 and R3 launch; then a step's device time by kernel; (c)
+   ``LightplaneMLPSplatter`` 32 -> 128 -> 128 from a 3 x 128^2 x 32ch
+   prior into 3 x 128^2 x 128ch over phase 7's rays: one fw+bw step, then S1 and S2 with the MLP timed and held on
    every ray; (d) the widths in between on phase 3's shapes: R1 and R2 at
    hidden 72, hidden 96, a 96-channel grid, and hidden 128 with the
    relu-field colour grid and a scaffold; S1 and S2 with the MLP at hidden
@@ -161,7 +163,7 @@ splatter step for S2 with the MLP, its error against the plain version,
 its time, the plain version's time and the least time the card could take,
 for R1 and R2 the same for the scaffold and relu-field branches, and for
 R1, R2, S1 and S2 with the MLP the same for the wide build at 128, phase
-12's ``wide_128_*`` keys) and
+12's ``wide_128_*`` keys, R1's and R2's with their warps a SM) and
 the result line ``{"ok": true, "device": {...}}``.  Needs no network and no
 JAX.
 
@@ -169,15 +171,21 @@ JAX.
 one kernel); it prints the result line but no kernels line, which needs
 every phase.
 
-``--ablate [R1,R2,S1,S2]`` builds variants of the kernels with parts switched
-off (the ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``), one build
-each, all started together, and times each twice in turn: R1 at the slice
-shape and at phase 9's trainer shape (without the fit: ``trainer_march``),
+``--ablate [R1,R2,S1,S2,R1w,R2w]`` builds variants of the kernels with parts
+switched off (the ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``),
+one build each, all started together, and times each twice in turn: R1 at
+the slice shape and at phase 9's trainer shape (without the fit:
+``trainer_march``),
 R2 at the slice shape, S1 at the splatter headline and at lift-then-render's
 splat: its plan alone, plan and tile sums without the flush, as built; and
 as built with the bricks that fit 1, 2, 3 or 4 blocks on an SM; S2 at the
 splatter headline and at the MLP splatter step: without the input grid's
-gradient, without the MLP's weight gradient, the gather alone, as built.
+gradient, without the MLP's weight gradient, the gather alone, as built;
+R1w and R2w, R1's and R2's wide builds, at the render headline with its
+2/2/2 decoder at hidden 128: R1 without grid sampling, without the decoder,
+without either, and R1 with 8, 4 and 2 warps a block (wgmma, wgmma,
+mma.sync); R2 without the grid reductions, without the weight-gradient
+pass, without either.
 """
 
 import copy
@@ -391,7 +399,7 @@ def phase_build():
     print(f"built {paths[0].name} and the recording build {paths[1].name} "
           f"in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    print_kernel_attrs()
+    return print_kernel_attrs()
 
 
 def phase_parity(lp):
@@ -1781,13 +1789,14 @@ def fwbw_step(lp, rays, out_sizes, kw):
     return enc.grad
 
 
-def device_breakdown(fn, smi, top=6, runs=1, groups=()):
+def device_breakdown(fn, smi, top=6, runs=1, groups=(), parts=None):
     """The device time of one run of ``fn`` by kernel (the mean of ``runs``
     runs), from ``torch.profiler``; prints the busiest ``top`` kernels and,
     given ``groups`` (``(label, name fragments)`` pairs), the time of each
     group's kernels (a kernel whose lower-cased name holds one of the
-    fragments; the rest under "rest"); returns the total in ms (None where
-    the profiler saw no device time)."""
+    fragments; the rest under "rest"), in ms into the dict ``parts`` where
+    given; returns the total in ms (None where the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1821,6 +1830,8 @@ def device_breakdown(fn, smi, top=6, runs=1, groups=()):
         print("  by part: " + ", ".join(
             f"{label} {t / 1e3:.3f} ms ({100 * t / total:.1f}%)"
             for label, t in sums.items()))
+        if parts is not None:
+            parts.update({label: t / 1e3 for label, t in sums.items()})
     return total / 1e3
 
 
@@ -2048,7 +2059,8 @@ def s2_mlp_alone(lp, smod, rays, gen, smi):
 
 
 def print_kernel_attrs():
-    """Registers and spilled bytes per thread of each kernel build."""
+    """Registers and spilled bytes per thread of each kernel build; returns
+    R1's and R2's wide builds' warps a SM at phase 12's decoder at 128."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import _build
@@ -2114,13 +2126,57 @@ def print_kernel_attrs():
           f"{conf[0]} warps a block, {conf[1]} "
           f"rows of {conf[2]} partial sums (a warp's each), {conf[3]} bytes "
           f"of shared memory a block")
-    head = (32, 128, 128, 128, 128, 1, 128, 128, 3)
-    widths = (ctypes.c_int * len(head))(*head)
-    assert lib.lightplane_render_bw_wide_config(128, 2, 2, 2, widths, 0,
-                                                conf) == 0
-    print(f"  R2 at phase 12's decoder (2/2/2, hidden 128): {conf[0]} warps a "
-          f"block, {conf[1]} rows of {conf[2]} partial sums (a warp's each), "
-          f"{conf[3]} bytes of shared memory a block")
+    return print_wide_plans(lib)
+
+
+def wide_head(hidden):
+    """The n_hidden tuples of phase 12's decoder (2/2/2, 32 channels in,
+    3 colours) at ``hidden``."""
+    return (32, hidden, hidden, hidden, hidden, 1, hidden, hidden, 3)
+
+
+def print_wide_plans(lib):
+    """R1's and R2's wide builds at phase 12's decoder (2/2/2 at hidden 128
+    and 96): warps a block (one block a SM: a warp's rays march in lockstep
+    with the block's), shared memory, the workspace of packed layers, and
+    R2's partial-sum buffer (a row per block), each as the C side plans it
+    and held to the wrapper's plan.  Returns the warps a SM at 128."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    warps = {}
+    for hidden in (128, 96):
+        head = wide_head(hidden)
+        widths = (ctypes.c_int * len(head))(*head)
+        fw = (ctypes.c_int * 3)()
+        assert lib.lightplane_render_fw_wide_config(hidden, 2, 2, 2, widths,
+                                                    fw) == 0
+        layers = rfw.wide_layers(2, 2, 2, head)
+        assert tuple(fw) == (rfw.WIDE_FW_WARPS,
+                             rfw.wide_fw_smem_bytes(hidden),
+                             rfw.wide_pack_bytes(rfw.wide_products(
+                                 layers, 2, 2, False))), tuple(fw)
+        bw = (ctypes.c_int * 5)()
+        assert lib.lightplane_render_bw_wide_config(hidden, 2, 2, 2, widths,
+                                                    0, bw) == 0
+        plan = rbw.wide_bw_plan(hidden, 2, 2, 2, head, False)
+        assert (bw[0], bw[3], bw[4], bw[2]) == (
+            plan.warps, plan.smem_bytes, plan.workspace_bytes,
+            plan.row_floats), (tuple(bw), plan)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert bw[1] == plan.partial_rows(sms), (bw[1], sms)
+        print(f"  R1 wide at phase 12's decoder (2/2/2, hidden {hidden}): "
+              f"{fw[0]} warps a block and a SM, {fw[1]} bytes of shared "
+              f"memory a block, a workspace of {fw[2]} bytes of packed "
+              f"layers")
+        print(f"  R2 wide there: {bw[0]} warps a block and a SM, {bw[3]} "
+              f"bytes of shared memory a block, a workspace of {bw[4]} "
+              f"bytes; the partial-sum buffer {bw[1]} rows (one a block) of "
+              f"{bw[2]} floats, {4 * bw[1] * bw[2]} bytes")
+        warps[hidden] = (fw[0], bw[0])
+    return warps[128]
 
 
 def mlp_splat_step(lp, rays, smi):
@@ -2984,20 +3040,24 @@ ABLATIONS = {
     "R1": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
     "R2": {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
            "neither": 6},
+    # the wide builds (csrc/renderer_wide.cu) at W = 128
+    "R1w": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
+    "R2w": {"no_atomics": 2, "no_wgrad": 4, "neither": 6},
     "S1": {"plan_alone": 32, "no_flush": 64},
     "S2": {"no_scatter": 128, "no_wgrad": 256, "gather_only": 512},
 }
 
 
-def time_variants(variants, fn, smi):
+def time_variants(variants, fn, smi, reps=5):
     """Time ``fn(arg)`` for each variant's ``arg`` (its defines, or warps
-    per block), twice in turn, by CUDA events, and print the times."""
+    per block), twice in turn, by CUDA events (the median of ``reps``
+    runs), and print the times."""
     times = {name: [] for name in variants}
     with torch.no_grad():
         for _ in range(2):
             for name, defines in variants.items():
                 times[name].append(cuda_ms(lambda: fn(defines), warmup=1,
-                                           reps=5))
+                                           reps=reps))
     for name, ms in times.items():
         print(f"  {name:14s} {' '.join(f'{t:.3f}' for t in ms)} ms "
               f"(median {statistics.median(ms):.3f})  [{smi}]")
@@ -3106,6 +3166,26 @@ def ablate(lp, smi, kernels):
             nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
         time_variants(variants["R2"], lambda d: rbw.render_bwd_cuda(
             cfg, geom, diff, nlt, g_out, d), smi)
+    if "R1w" in variants or "R2w" in variants:
+        _, _, r0, (cfg_w, geom_w, diff_w), g_out_w = wide_headline_inputs(
+            lp, 128)
+        if "R1w" in variants:
+            print("== ablation: R1's wide build with parts switched off, at "
+                  "the render headline with its 2/2/2 decoder at hidden 128")
+            time_variants(variants["R1w"], lambda d: rfw.render_fwd_cuda(
+                cfg_w, geom_w, diff_w, d), smi)
+            print("== R1's wide build as built by warps (rays) per block")
+            time_variants({f"{w} warps": w for w in (8, 4, 2)},
+                          lambda w: rfw.render_fwd_cuda(
+                              cfg_w, geom_w, diff_w, warps_per_block=w), smi)
+        if "R2w" in variants:
+            print("== ablation: R2's wide build with parts switched off, at "
+                  "the render headline with its 2/2/2 decoder at hidden 128")
+            with torch.no_grad():
+                nlt_w = rfw.render_fwd_cuda(cfg_w, geom_w, diff_w)[1]
+            time_variants(variants["R2w"], lambda d: rbw.render_bwd_cuda(
+                cfg_w, geom_w, diff_w, nlt_w, g_out_w, d), smi, reps=2)
+        del r0, cfg_w, geom_w, diff_w, g_out_w
     if "S1" in variants:
         print("== ablation: S1 with parts switched off, at the splatter "
               "headline")
@@ -3632,6 +3712,10 @@ WIDE_SUBSET = 4096
 # gates (R3) the last 150 steps, and evals after steps 100 and 200, both
 # with the scaffold (in_cube_psnr says why a scaffold lowers the PSNR)
 WIDE_FIT_STEPS = 200
+# A fit step's kernels at hidden 128, by part (device_breakdown)
+WIDE_FIT_PARTS = (("R1", ("render_fw_wide_kernel",)),
+                  ("R2", ("render_bw_wide_kernel", "reduce_wide_sums_kernel")),
+                  ("the layers' pre-pass", ("pack_wide_kernel",)))
 WIDE_FIT_ARGV = ["--mlp_hidden_chn", "128", "--n_iter", str(WIDE_FIT_STEPS),
                  "--update_scaffold_steps", "50", "--eval_rate", "100",
                  "--output_dir", "build/fit_wide", "--seed", "0"]
@@ -3661,11 +3745,11 @@ def ray_subset(geom, diff, idx):
     return geom, diff[:3] + (diff[3][idx],)
 
 
-def wide_headline(lp, smi, hidden=128):
-    """(a): R1 and R2 at the render headline with a ``hidden``-wide decoder;
-    held against their plain versions at 128 only."""
+def wide_headline_inputs(lp, hidden):
+    """The render headline's module (its 2/2/2 decoder ``hidden`` wide),
+    grid, rays, march inputs ``(cfg, geom, diff)`` and a cotangent, from
+    seeds."""
     from lightplane_tpu_torch.ops import renderer as rmod
-    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
     dev = "cuda"
@@ -3679,11 +3763,24 @@ def wide_headline(lp, smi, hidden=128):
     r0 = orbit_rays(lp, 0.0, dev)
     cfg, geom, diff = slice_march(lp, rmod, module, grid, r0)
     assert rfw._kernel_width(cfg, chn) == hidden
-    check = hidden == 128
     n = len(r0)
     gen = torch.Generator().manual_seed(5)
     g_out = tuple(torch.randn(s, generator=gen).to(dev)
                   for s in [(n,), (n,), (n, 3)])
+    return module, grid, r0, (cfg, geom, diff), g_out
+
+
+def wide_headline(lp, smi, hidden=128):
+    """(a): R1 and R2 at the render headline with a ``hidden``-wide decoder;
+    held against their plain versions at 128 only."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    module, grid, r0, (cfg, geom, diff), g_out = wide_headline_inputs(
+        lp, hidden)
+    check = hidden == 128
+    n = len(r0)
     dp = module.get_decoder_params()
     rays_enc = lp.Rays(r0.directions, r0.origins, r0.grid_idx, r0.near,
                        r0.far, diff[3])
@@ -3722,6 +3819,8 @@ def wide_headline(lp, smi, hidden=128):
     if check:
         fw_err, bw_err = wide_headline_parity(rmod, rfw, rbw, cfg, geom,
                                               diff, g_out)
+        wide_pack_parity(module.get_decoder_params().mlp_params.detach(),
+                         wide_head(hidden))
     (fl_fw, by_fw), (fl_bw, by_bw), fl_wg, fl_tc = kernel_work(
         rmod, cfg, geom, diff)
     b_fw, by_fw_kind = bound(fl_fw, by_fw)
@@ -3759,6 +3858,31 @@ def wide_headline_parity(rmod, rfw, rbw, cfg, geom, diff, g_out):
     bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom_s, diff_s,
                               tuple(g[idx].contiguous() for g in g_out))
     return fw_err, bw_err
+
+
+def wide_pack_parity(mlp, head):
+    """The wide kernels' pre-pass (R1's products and R2's) against its
+    plain version (``pack_wide_torch``), bit for bit, at a 2/2/2 decoder of
+    n_hidden tuples ``head``."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import _build
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    lib = _build.library()
+    widths = (ctypes.c_int * len(head))(*head)
+    layers = rfw.wide_layers(2, 2, 2, head)
+    for backward in (False, True):
+        want = rfw.pack_wide_torch(mlp.cpu(), layers,
+                                   rfw.wide_products(layers, 2, 2, backward))
+        ws = torch.full((want.numel(),), -1, dtype=torch.int32, device="cuda")
+        assert lib.lightplane_render_wide_pack(
+            mlp.data_ptr(), 2, 2, 2, widths, int(backward), ws.data_ptr(),
+            torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(ws.cpu().reshape(-1, 4), want), backward
+    print(f"    the layers' pre-pass equals its plain version bit for bit "
+          f"(R1's and R2's products, {want.numel() * 4} bytes)")
 
 
 def wide_fit(lp, smi):
@@ -3802,6 +3926,13 @@ def wide_fit(lp, smi):
     first, last = h["evals"][0][1], h["evals"][-1][1]
     assert np.isfinite(last) and last > first, (first, last)
     assert loss1 < loss0, (loss0, loss1)
+    # a step's device time by kernel at the fitted state (after the counts)
+    parts = {}
+    device_ms = device_breakdown(fit.step, smi, top=8, runs=3,
+                                 groups=WIDE_FIT_PARTS, parts=parts)
+    if device_ms:
+        print(f"    R2's share of a step's device time: "
+              f"{100 * parts['R2'] / device_ms:.1f}%")
     return launches
 
 
@@ -4043,11 +4174,10 @@ def main():
         return out
 
     smi, name = timed(phase_device)
-    timed(phase_build)
+    out = {"2": timed(phase_build)}
     if ablation:
         ablate(lp, smi, [k for k in ABLATIONS if k in kernels])
         return 0
-    out = {}
     for phase, fn, args in (
         ("3", phase_parity, (lp,)),
         ("3b", phase_backward_parity, (lp,)),
@@ -4133,6 +4263,8 @@ def kernel_lines(out):
         wide_fit["scaffold"][0])
     wide_rows["renderer_bw"]["wide_128_launches_scaffold"] = (
         wide_fit["scaffold"][1])
+    wide_rows["renderer_fw"]["wide_128_warps_per_sm"] = out["2"][0]
+    wide_rows["renderer_bw"]["wide_128_warps_per_sm"] = out["2"][1]
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);

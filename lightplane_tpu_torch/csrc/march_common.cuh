@@ -26,9 +26,9 @@ constexpr int kMaxLayers = 16;  // per MLP
 constexpr int kMaxTotalLayers = 3 * kMaxLayers;
 
 // LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
-// switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu), S1
-// (splatter_fw.cu) and S2 (splatter_bw.cu) off to time them.  The shipped
-// build has none of it.
+// switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu), their wide
+// builds (renderer_wide.cu: bits 2, 4, 8 and 16), S1 (splatter_fw.cu) and
+// S2 (splatter_bw.cu) off to time them.  The shipped build has none of it.
 #ifndef LIGHTPLANE_ABLATE
 #define LIGHTPLANE_ABLATE 0
 #endif
@@ -194,7 +194,8 @@ inline void fill_march(Params& p, int num_samples, int num_samples_inf,
 
 // The padded activation widths the kernels are built for: 32 and 64 keep
 // every MLP layer in shared memory; 96 and 128 are the wide builds
-// (wide_mlp.cuh), which read the layers from device memory.
+// (wide_mlp.cuh), which pass the layers through shared memory a slice at a
+// time (R1, R2) or read them from device memory (S1, S2).
 inline bool known_width(int width) {
   return width == 32 || width == 64 || width == 96 || width == 128;
 }

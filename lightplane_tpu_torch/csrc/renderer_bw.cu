@@ -429,10 +429,11 @@ int lightplane_render_bw_attrs(int width, int* out) {
 // The wide build's (W = 96 or 128, renderer_wide.cu) launch at these MLP
 // widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]) and with a
 // colour grid or not: out[0] warps per block, out[1] the rows of
-// g_mlp_partial (one per warp of the resident wave; the caller zero-fills
+// g_mlp_partial (one per block of the resident wave; the caller zero-fills
 // them), out[2] the floats of a row, out[3] a block's shared memory in
-// bytes; a cudaError_t code (cudaErrorInvalidValue where one warp's tiles
-// exceed a block's shared memory).
+// bytes, out[4] the bytes of the workspace lightplane_render_bw takes; a
+// cudaError_t code (cudaErrorInvalidValue where one warp's region and the
+// ring of layer slices exceed a block's shared memory).
 int lightplane_render_bw_wide_config(int width, int n_t, int n_o, int n_c,
                                      const int* mlp_widths,
                                      int has_color_grid, int* out) {
@@ -445,14 +446,34 @@ int lightplane_render_bw_wide_config(int width, int n_t, int n_o, int n_c,
   return render_bw_wide_config(p, width, has_color_grid != 0, out);
 }
 
+// The wide builds' pre-pass alone, on `stream`: the products of R1's chunk
+// (R2's with `backward`) packed from the flat `mlp` into `workspace` (the
+// bytes of lightplane_render_fw_wide_config or _bw_wide_config); a
+// cudaError_t code.
+int lightplane_render_wide_pack(const float* mlp, int n_t, int n_o, int n_c,
+                                const int* mlp_widths, int backward,
+                                void* workspace, void* stream) {
+  if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
+      n_c > kMaxLayers)
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  const int counts[3] = {n_t, n_o, n_c};
+  fill_layers(p, counts, mlp_widths);
+  p.mlp = mlp;
+  return (int)launch_wide_pack(p, backward != 0, workspace,
+                               static_cast<cudaStream_t>(stream));
+}
+
 // Launches the recompute backward on `stream`; returns a cudaError_t code.
 // Arguments as lightplane_render_fw's, plus the saved nlt_final and the
 // cotangents in, the gradients and the [blocks, partial floats] buffer out,
 // `rays_per_block` (128, 64 or 32; not read by the wide build, whose
 // g_mlp_partial has lightplane_render_bw_wide_config's rows, zero-filled),
 // with a colour grid its gradient
-// g_color_grid, and for the recording build the zero-filled
-// [R, steps, vectors, width / 32] mask words (null otherwise).  The caller
+// g_color_grid, for the recording build the zero-filled
+// [R, steps, vectors, width / 32] mask words (null otherwise), and the
+// wide build's workspace (lightplane_render_bw_wide_config's bytes, 16-byte
+// aligned; null for the others).  The caller
 // validates shapes, devices and limits and zero-fills g_grid and
 // g_color_grid.
 int lightplane_render_bw(
@@ -468,7 +489,8 @@ int lightplane_render_bw(
     int contract_coords, float noise_sigma, int noise_seed, int noise_stride,
     int num_rays_noise, const float* scaffold, const int* scaffold_dims,
     const float* color_grid, int num_color_grids, const int* color_grid_meta,
-    float* g_color_grid, uint32_t* relu_masks, void* stream) {
+    float* g_color_grid, uint32_t* relu_masks, void* workspace,
+    void* stream) {
   if (rays_per_block != 128 && rays_per_block != 64 && rays_per_block != 32)
     return (int)cudaErrorInvalidValue;
   if ((relu_masks != nullptr) != kReluMasks) return (int)cudaErrorInvalidValue;
@@ -505,7 +527,7 @@ int lightplane_render_bw(
   const bool cg = color_grid != nullptr;
   p.acc_in_smem = acc_fits(width, rays_per_block, n_total, color_chn, cg);
   if (width > 64)
-    return (int)launch_render_bw_wide(p, width,
+    return (int)launch_render_bw_wide(p, width, workspace,
                                       static_cast<cudaStream_t>(stream));
 
   const size_t smem = (size_t)lightplane_render_bw_smem_bytes(

@@ -371,12 +371,26 @@ cudaError_t launch(const Params& p, int warps, size_t smem_bytes,
 extern "C" {
 
 // Bytes of dynamic shared memory one block of `warps` warps (1, 2 or 4)
-// needs: the padded layers and each warp's two [32][W + 4] tiles (the wide
-// builds, W = 96 and 128, the tiles alone: renderer_wide.cu).
+// needs at width 32 or 64: the padded layers and each warp's two
+// [32][W + 4] tiles (the wide builds': lightplane_render_fw_wide_config).
 long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
                                           int color_chn, int warps) {
-  if (width > 64) return render_fw_wide_smem_bytes(width, warps);
   return fw_smem_bytes(width, n_layers_total, color_chn, warps);
+}
+
+// The wide build's (W = 96 or 128, renderer_wide.cu) launch at these MLP
+// widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]): out[0] warps
+// per block, out[1] a block's shared memory in bytes, out[2] the bytes of
+// the workspace lightplane_render_fw takes; a cudaError_t code.
+int lightplane_render_fw_wide_config(int width, int n_t, int n_o, int n_c,
+                                     const int* mlp_widths, int* out) {
+  if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
+      n_c > kMaxLayers)
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  const int counts[3] = {n_t, n_o, n_c};
+  fill_layers(p, counts, mlp_widths);
+  return render_fw_wide_config(p, width, out);
 }
 
 // Launches the forward march on `stream`; returns a cudaError_t code.
@@ -384,11 +398,13 @@ long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
 //   width: the padded activation width, 32 or 64, or 96 or 128 (the wide
 //     build, renderer_wide.cu)
-//   warps: rays (warps) per block, 1, 2 or 4
+//   warps: rays (warps) per block, 1, 2 or 4 (the wide build: 1-8)
 //   scaffold, scaffold_dims: the [B, D, H, W] scaffold and its host int[4]
 //     shape, or null
 //   color_grid, num_color_grids, color_grid_meta: the relu-field colour
 //     grid-list [Vc_total, grid_chn] and its table (as grid_meta's), or null
+//   workspace: the wide build's (lightplane_render_fw_wide_config's bytes,
+//     16-byte aligned; null for the others)
 // The caller validates shapes, devices and limits.
 int lightplane_render_fw(
     const float* origins, const float* directions, const float* near,
@@ -400,8 +416,9 @@ int lightplane_render_fw(
     float gain, int mask_out_of_bounds, int contract_coords,
     float noise_sigma, int noise_seed, int noise_stride, int num_rays_noise,
     const float* scaffold, const int* scaffold_dims, const float* color_grid,
-    int num_color_grids, const int* color_grid_meta, void* stream) {
-  if (warps != 1 && warps != 2 && warps != kMaxWarps)
+    int num_color_grids, const int* color_grid_meta, void* workspace,
+    void* stream) {
+  if (width <= 64 && warps != 1 && warps != 2 && warps != kMaxWarps)
     return (int)cudaErrorInvalidValue;
   Params p = {};
   int rc = fill_params(
@@ -427,7 +444,8 @@ int lightplane_render_fw(
   p.feat = feat;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width > 64) return (int)launch_render_fw_wide(p, width, warps, s);
+  if (width > 64)
+    return (int)launch_render_fw_wide(p, width, warps, workspace, s);
   const size_t smem =
       (size_t)fw_smem_bytes(width, n_t + n_o + n_c, color_chn, warps);
   const cudaError_t e = width == 32 ? launch<32>(p, warps, smem, s)

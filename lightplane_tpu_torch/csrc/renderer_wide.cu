@@ -7,43 +7,88 @@
 // renderer_bw.cu's C functions dispatch here above W = 64, with the scaffold
 // (R3) and relu-field colour grid (R1-rf) branches as there.
 //
-// Design.  Both march a ray per warp, 32 steps (a chunk) at a time, as R1
-// does: lane l owns step 32 chunk + l's geometry and gate, a chunk whose
-// gates are all shut is skipped whole, the corner rows are gathered into a
-// [32][W + 4] tile (warp_chunk.cuh::gather_chunk, W / 32 channel slices a
-// lane), and the dense layers run on the tensor cores over the tile in
-// 3xTF32 with their weights read from device memory (wide_mlp.cuh: at W =
-// 128 a 2/2/2 MLP is ~400 KB, more than a block's shared memory).  The
-// heads' last layers are per-lane dot products (wide_last_out).
+// Design.  A block's warps march a ray each, 16 steps (a chunk, one M-tile
+// of the tensor cores' products) at a time, in lockstep: every warp of the
+// block is on the same chunk of its ray and runs the same product at the
+// same time, so that each layer is staged in shared memory once a block and
+// every warp reads it there (wide_mlp.cuh: the layers packed once a launch
+// by pack_wide_kernel into wgmma's K-major core matrices, split into TF32
+// hi and lo; copied by cp.async into a ring of three 2-k-step slices, two
+// slices ahead of the one being multiplied; one block barrier a slice).  A
+// warpgroup of 4 warps (4 rays, 64 rows) multiplies by wgmma m64nWk8, A
+// from registers, B read by the tensor cores from the slot, three products
+// a k-step (3xTF32); a block of 1-3 warps (an MLP too deep for 4) by
+// mma.sync m16n8k8, a warp's 16 rows, B's fragments read from the slot.
+// Lane l < 16 owns step 16 chunk + l's geometry and gate; a chunk is
+// skipped only where no ray of the block has an open gate
+// (__syncthreads_or); a warp whose ray has none in a running chunk (or that
+// has no ray: past num_rays in the last block) takes every slice, barrier
+// and wgmma, and samples, writes and adds nothing.  The corner rows are
+// gathered into [16][W + 4] tiles (warp_chunk.cuh::gather_chunk); the dense
+// layers' epilogues are wide_mma_rows's; f32 sums, IEEE transcendentals;
+// the heads' last layers are per-lane dot products (wide_last_out).
 //   - R1 (render_fw_wide_kernel) keeps two tiles a warp, X and T, and
 //     composites each chunk by a warp scan, as renderer_fw.cu does.
 //   - R2 (render_bw_wide_kernel) walks the chunks last to first.  The
-//     recomputed forward is R1's, the same functions in the same order, so
-//     it gives R1's activations to the bit; it keeps every layer's input in
-//     its own tile.  The transmittance is rewound over a chunk by a warp
-//     scan from its far end (nlt_prev = nlt - the sum of sigma delta over
-//     the chunk's later steps), and the suffix sum of the EA adjoint by a
-//     second scan.  The decoder backward runs last layer first, a chunk at
-//     a time: each layer's weight gradient X^T G on the tensor cores into
-//     the warp's own row of sums in device memory (wide_weight_grad), its
-//     input gradient G W^T on the tensor cores too, times the relu mask,
-//     written over the layer's input tile.  The feature gradient is added
-//     into the grid's rows with float4 reductions (scatter_chunk, the
-//     gather's walk in reverse), the encoding's summed in registers and
-//     written once per ray.  reduce_wide_sums_kernel sums the warps' rows
-//     into the flat, unpadded g_mlp.
+//     recomputed forward is R1's: the same functions in the same order on
+//     the same values and by the same product (wgmma where R2's block is
+//     whole warpgroups, else mma.sync in both: wide_wgmma), so it gives R1's
+//     activations to the bit (the colour head's input, the trunk's output +
+//     the encoding, is R1's tile T + e there and added as the A fragments
+//     are read here: the same f32 sum).  It keeps every layer's input in its
+//     own tile (n_total - 1 of them, + 1 for a colour grid's sample, + 1
+//     with a one-layer colour head); the colour head's output gradient and
+//     then the opacity head's share one narrow tile (the heads' last layers'
+//     widest output rounded up to 8, + 4 wide).  The transmittance is
+//     rewound over a chunk by a warp scan from its far end (nlt_prev = nlt -
+//     the sum of sigma delta over the chunk's later steps), and the suffix
+//     sum of the EA adjoint by a second scan.  The decoder backward runs
+//     last layer first: each layer's weight gradient X^T G summed over the
+//     rows of the block's warps by mma.sync (block_weight_grad: the
+//     product's tiles and the bias sums shared out among the warps; wgmma
+//     takes only K-major TF32 operands, and X^T and G are not), added into
+//     the block's own row of sums in device memory by reductions; its input
+//     gradient G W^T by the staged transposed layer, times the relu mask,
+//     over the layer's input tile.  The feature gradient is added into the
+//     grid's rows with float4 reductions (scatter_chunk, the gather's walk
+//     in reverse), the encoding's summed in registers and written once per
+//     ray.  reduce_wide_sums_kernel sums the blocks' rows into the flat,
+//     unpadded g_mlp.
+//
+// Shared memory at W = 128 (a [16][132] tile 8,448 B; a ring slot two
+// k-steps of 16 N-tiles of 32 uint4, 16,384 B, three 49,152 B):
+//   - R1: 8 warps (two warpgroups) of two tiles, 135,168 B, + the ring:
+//     184,320 B, one block and 8 warps a SM (two [32][132] tiles a warp
+//     would hold 4).  At W = 96 139,264 B.
+//   - R2 at the 2/2/2 MLP (hidden 128, 3 colours): a warp 5 tiles (42,240
+//     B) + the narrow tile (768 B) + its encoding (512 B) = 43,520 B; four
+//     warps 174,080 B + the ring + 32 B of flags = 223,264 B of the 232,448
+//     a block may have (five would need 266,784), so 4 warps a SM (eight
+//     [32][132] tiles a warp would hold one).  At W = 96 five fit and it
+//     takes 4, a warpgroup.  The wrapper takes the most warps, up to 8,
+//     that fit, whole warpgroups past 4; one warp holds 21 tiles at W = 128
+//     with 3 colours (22 layers in all, 21 with a colour grid or a
+//     one-layer colour head) and 30 at W = 96 (31 layers).
+//   - The weight-gradient sums: a row per warp, read and written every
+//     32-step chunk, would move 223,296 B each way at that MLP (13,956 B a
+//     ray-step, 234 GB a frame at the render headline).  Here a block adds
+//     64 rows' sums by reductions that read nothing back: 223,296 B a
+//     16-step chunk of 4 rays, 3,489 B a ray-step, 58.5 GB a frame (a
+//     quarter), into one row a block (132 rows: 29.5 MB).
 //
 // What bounds it.  At the render headline at hidden 128 (triplane 3 x 32^2
 // x 32ch, MLPs 2/2/2, 256 samples, 65,536 rays) the decoder is 53,760
 // multiply-adds a ray-sample, 1.8 TFLOP a frame: ~11 ms at the TF32 rate in
-// 3xTF32.  R2 does it three times over (recompute, input and weight
-// gradients), and each chunk adds its weight-gradient sums into the warp's
-// row (~220 KB read and written a chunk at that MLP): what the first build
-// is bound by, before any tuning.
+// 3xTF32; R2 does it three times over (recompute, input and weight
+// gradients).  A chunk of 4 rays stages 848 KB of packed layers in R2 (416
+// KB in R1) from L2, 222 GB a frame, and takes 67 block barriers (R1: 27).
+// Measured on an H100 (PERF.md, section 6): the block barriers and waits
+// between slices, not the tensor cores, hold the staged products; R2's
+// weight gradient by mma.sync is about 40% of R2.
 //
-// Numerics: f32, the products in 3xTF32 with f32 sums, IEEE
-// transcendentals (no --use_fast_math); the grid gradient's reductions are
-// order-dependent from run to run, g_mlp and g_enc are not.
+// The grid gradient's reductions are order-dependent from run to run;
+// g_mlp and g_enc are not (each sum of a block's row is always added by the
+// same thread).
 
 #include "wide_mlp.cuh"
 
@@ -51,29 +96,154 @@ namespace lightplane {
 namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
-constexpr int kFwWarps = 4;  // R1: warps (rays) per block
-constexpr int kBwWarps = 4;  // R2: warps per block, at most
+constexpr int kFwWarps = 8;    // R1: warps (rays) per block
+constexpr int kBwWarps = 8;    // R2: warps per block, at most
+constexpr int kFlagBytes = 4 * kBwWarps;  // R2: a warp's active flag each
 constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
+
+// Bytes of the ring of slices at width W.
+__host__ __device__ __forceinline__ long long ring_bytes(int W) {
+  return 16LL * kRingSlots * ring_slot_u4(W);
+}
+
+// ---- the pre-pass: every product of a chunk packed, and the schedule -----
+
+// Block i < n packs product i of wide_n_products(p, backward) = n into the
+// workspace; block n writes the schedule (wide_mlp.cuh).
+__global__ void pack_wide_kernel(const Params p, int n, uint4* ws) {
+  long long off = 0;
+  int first = 0;
+  if (blockIdx.x == n) {
+    // slice by slice, each product's k-steps two at a time
+    for (int i = 0; i < n; ++i) {
+      wide_layout(p, n, i, &off, &first);
+      const Product pr = wide_product(p, i);
+      const int per_step = pr.n_tiles * 32;
+      for (int k = threadIdx.x; k < product_slices(pr); k += blockDim.x) {
+        const int ks0 = k * kSliceSteps;
+        const int steps = min(kSliceSteps, pr.k_steps - ks0);
+        reinterpret_cast<int2*>(ws)[first + k] =
+            make_int2((int)(off + (long long)ks0 * per_step),
+                      steps * per_step);
+      }
+    }
+    return;
+  }
+  wide_layout(p, n, blockIdx.x, &off, &first);
+  const Product pr = wide_product(p, blockIdx.x);
+  const int d_in = p.layer_in[pr.layer], d_out = p.layer_out[pr.layer];
+  const float* w = p.mlp + p.layer_w_off[pr.layer];
+  // a k-step: the hi part, then the lo part, each n_tiles x 2 core
+  // matrices (N-tile j, k-half h at core 2 j + h) of 8 rows (n) of 4 k
+  const int part = pr.n_tiles * 16;
+  const int count = pr.k_steps * 2 * part;
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const int ks = e / (2 * part), lo = (e / part) & 1, u = e % part;
+    const int n_idx = (u >> 4) * 8 + (u & 7), k0 = ks * 8 + 4 * ((u >> 3) & 1);
+    uint32_t v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + c;
+      const int i = pr.transposed ? n_idx : k, o = pr.transposed ? k : n_idx;
+      const float b = i < d_in && o < d_out ? w[i * d_out + o] : 0.0f;
+      const uint32_t hi = to_tf32(b);
+      v[c] = lo ? __float_as_uint(b - __uint_as_float(hi)) : hi;
+    }
+    ws[off + e] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Packs the products of p's chunk (R2's with `backward`) into ws; returns
+// the slices of a chunk.
+int launch_pack(const Params& p, bool backward, uint4* ws, cudaStream_t s) {
+  const int n = wide_n_products(p, backward);
+  long long size = 0;
+  int slices = 0;
+  wide_layout(p, n, n, &size, &slices);
+  pack_wide_kernel<<<n + 1, 256, 0, s>>>(p, n, ws);
+  return slices;
+}
+
+// A warp's region of R2's shared memory, in floats: n_wide [16][W + 4]
+// tiles, the narrow tile (Gt: [16][sg]; sg - 4 the heads' last layers'
+// widest output, the colours' count at most, rounded up to 8), the ray's
+// encoding (W).  After the warps' regions come the ring and the flags.
+struct BwLayout {
+  int n_wide, sg, gt_off, e_off, warp_floats;
+};
+
+__host__ __device__ __forceinline__ BwLayout bw_layout(int W, int n_total,
+                                                       int n_c, bool cgrid,
+                                                       int head_out) {
+  BwLayout l;
+  l.n_wide = n_total - 1 + (cgrid ? 1 : 0) + (n_c == 1 ? 1 : 0);
+  l.sg = (head_out + 7) / 8 * 8 + 4;
+  l.gt_off = l.n_wide * kChunk * (W + 4);
+  l.e_off = l.gt_off + kChunk * l.sg;
+  l.warp_floats = l.e_off + W;
+  return l;
+}
+
+// The heads' last layers' widest output.
+__host__ __device__ __forceinline__ int head_out(const Params& p) {
+  const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
+  const int o1 = p.layer_out[p.n_layers[0] + p.n_layers[1] - 1];
+  const int o2 = p.layer_out[n_total - 1];
+  return o1 > o2 ? o1 : o2;
+}
+
+long long bw_smem_bytes(int W, const BwLayout& l, int warps) {
+  return 4LL * warps * l.warp_floats + ring_bytes(W) + kFlagBytes;
+}
+
+// R2's warps a block at these layers: the most, up to kBwWarps, whose
+// regions fit with the ring in a block's shared memory, in whole
+// warpgroups of 4 past 4 (0 where one warp does not fit).
+int bw_warps(int W, const BwLayout& lay) {
+  int warps = kBwWarps;
+  while (warps > 1 && bw_smem_bytes(W, lay, warps) > kMaxSmemBytes) --warps;
+  if (bw_smem_bytes(W, lay, warps) > kMaxSmemBytes) return 0;
+  return warps > 4 ? warps / 4 * 4 : warps;
+}
+
+// Whether R1 and R2 run p's products by wgmma: where R2 takes whole
+// warpgroups (and R1's `warps` are), so that R2's recomputed forward
+// takes R1's path and gives its activations to the bit.
+bool wide_wgmma(const Params& p, int W, int fw_warps) {
+  const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
+  const BwLayout lay = bw_layout(W, n_total, p.n_layers[2],
+                                 p.color_grid != nullptr, head_out(p));
+  return fw_warps % 4 == 0 && bw_warps(W, lay) % 4 == 0;
+}
 
 // ---- R1 ---------------------------------------------------------------
 
+long long fw_smem_bytes(int W, int warps) {
+  return 4LL * warps * 2 * kChunk * (W + 4) + ring_bytes(W);
+}
+
 template <int W>
 __global__ void __launch_bounds__(32 * kFwWarps, 1)
-    render_fw_wide_kernel(const Params p) {
+    render_fw_wide_kernel(const Params p, const uint4* __restrict__ ws,
+                          int n_slices, bool wg) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int S = W + 4, V = W / 32;
+  constexpr int S = W + 4, V = W / 32, kTile = kChunk * S;
   const int n_t = p.n_layers[0], n_o = p.n_layers[1], n_c = p.n_layers[2];
   const int n_total = n_t + n_o + n_c;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = lane & (kChunk - 1);
   const int trunk_end = n_t;
   const int opacity_end = n_t + n_o - 1;
   const int n_relu_layers = n_total - 2;
   // the warp's tiles: X, the layers' activations; T, the trunk's output or
   // relu of the colour grid's sample
-  float* X = smem + warp * 2 * 32 * S;
-  float* T = X + 32 * S;
-  for (int i = lane; i < 2 * 32 * S; i += 32) X[i] = 0.0f;
+  float* X = smem + warp * 2 * kTile;
+  float* T = X + kTile;
+  for (int i = lane; i < 2 * kTile; i += 32) X[i] = 0.0f;
+  Ring ring = {reinterpret_cast<uint4*>(smem + warps * 2 * kTile), ws,
+               ring_slot_u4(W), n_slices, 0};
+  ring_start(ring);
   __syncwarp();
 
   const int tot = p.num_samples + p.num_samples_inf;
@@ -82,19 +252,23 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
   const int per_block = (groups + gridDim.x - 1) / gridDim.x;
   const int group_end = min(groups, (blockIdx.x + 1) * per_block);
   for (int group = blockIdx.x * per_block; group < group_end; ++group) {
+    // every warp walks the block's groups, a ray past num_rays too
     const int ray = group * warps + warp;
-    if (ray >= p.num_rays) break;
-    const Ray r = load_ray(p, ray);
+    const bool valid = ray < p.num_rays;
+    Ray r = {};
+    r.b = -1;
+    if (valid) r = load_ray(p, ray);
     float e[V], feat[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int c = 32 * v + lane;
-      e[v] = c < p.enc_chn ? p.enc[(long long)ray * p.enc_chn + c] : 0.0f;
+      e[v] = valid && c < p.enc_chn ? p.enc[(long long)ray * p.enc_chn + c]
+                                    : 0.0f;
       feat[v] = 0.0f;
     }
     float nlt = 0.0f, depth = 0.0f;
-    for (int c0 = 0; c0 < tot; c0 += 32) {
-      const int s = c0 + lane;
+    for (int c0 = 0; c0 < tot; c0 += kChunk) {
+      const int s = valid && lane < kChunk ? c0 + lane : tot;
       Step st = {};
       float gate = 0.0f;
       if (s < tot) {
@@ -102,28 +276,31 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
         gate = scaffold_gate(p, r.b, st);
       }
       const bool open = s < tot && gate != 0.0f;
-      if (__ballot_sync(kAll, open) == 0u) continue;
-      const uint32_t taken = __ballot_sync(
-          kAll, open && (!p.mask_out_of_bounds || st.in_bounds) &&
-                    part_runs(kAblateNoSampling, st.px));
-
-      gather_chunk<W>(p.grids, p.grid, p.grid_chn, r.b, st, taken, n_t == 0,
-                      X, n_t == 0 && !cgrid ? T : nullptr, lane);
-      if (cgrid)
-        gather_chunk<W>(p.cgrids, p.color_grid, p.grid_chn, r.b, st, taken,
-                        true, T, nullptr, lane);
-      __syncwarp();
+      if (!__syncthreads_or(open)) continue;  // no ray of the block samples
+      const bool active = __any_sync(kAll, open);
+      if (active) {
+        const uint32_t taken = __ballot_sync(
+            kAll, open && (!p.mask_out_of_bounds || st.in_bounds) &&
+                      part_runs(kAblateNoSampling, st.px));
+        gather_chunk<W, kChunk>(p.grids, p.grid, p.grid_chn, r.b, st, taken,
+                                n_t == 0, X,
+                                n_t == 0 && !cgrid ? T : nullptr, lane);
+        if (cgrid)
+          gather_chunk<W, kChunk>(p.cgrids, p.color_grid, p.grid_chn, r.b,
+                                  st, taken, true, T, nullptr, lane);
+        __syncwarp();
+      }
 
       // the relu layers in renderer_fw.cu's order; at j == opacity_end the
       // opacity head's last layer reads X, then X = T + the encoding
       float opacity_raw = 0.0f;
-      const bool mlp =
-          __any_sync(kAll, part_runs(kAblateNoMlp, X[lane * S]));
+      const bool mlp = !(kAblate & kAblateNoMlp) ||
+                       __syncthreads_or(active && X[row * S] == 1234.5f);
       for (int j = 0; mlp; ++j) {
-        if (j == opacity_end) {
-          opacity_raw = layer_out<W>(p, opacity_end, X + lane * S, 0);
+        if (j == opacity_end && active) {
+          opacity_raw = layer_out<W>(p, opacity_end, X + row * S, 0);
           __syncwarp();
-          for (int i = 0; i < 32; ++i) {
+          for (int i = 0; i < kChunk; ++i) {
 #pragma unroll
             for (int v = 0; v < V; ++v)
               X[i * S + 32 * v + lane] = T[i * S + 32 * v + lane] + e[v];
@@ -131,9 +308,14 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
           __syncwarp();
         }
         if (j == n_relu_layers) break;
-        relu_layer<W>(p, j < opacity_end ? j : j + 1, X, X,
-                      !cgrid && j == trunk_end - 1 ? T : nullptr, lane);
+        const int l = j < opacity_end ? j : j + 1;
+        staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l], X, S,
+                       nullptr,
+                       p.mlp + p.layer_b_off[l], true, nullptr, nullptr, X,
+                       !cgrid && j == trunk_end - 1 ? T : nullptr, active,
+                       wg, lane);
       }
+      if (!active) continue;
       if (open && p.noise_sigma > 0.0f) opacity_raw += step_noise(p, ray, s);
       const float sigma = open ? p.gain * softplus(opacity_raw) * gate : 0.0f;
 
@@ -156,7 +338,7 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
           v[k] = c < 0 ? w * st.t : 0.0f;
           if (open && c >= 0 && c < p.color_chn)
             v[k] = w * (sigmoid(mlp ? layer_out<W>(p, n_total - 1,
-                                                   X + lane * S, c)
+                                                   X + row * S, c)
                                     : 0.0f) *
                         gate);
         }
@@ -178,6 +360,7 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
       __syncwarp();  // the tiles are free for the next chunk
     }
 
+    if (!valid) continue;
     if (lane == 0) {
       p.depth[ray] = depth;
       p.nlt[ray] = nlt;
@@ -187,11 +370,15 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
     for (int v = 0; v < V; ++v)
       if (32 * v + lane < p.color_chn) f[32 * v + lane] = feat[v];
   }
+  cp_async_wait<0>();
 }
 
 template <int W>
-cudaError_t launch_fw(const Params& p, int warps, cudaStream_t stream) {
-  const size_t smem = (size_t)render_fw_wide_smem_bytes(W, warps);
+cudaError_t launch_fw(const Params& p, int warps, uint4* ws,
+                      cudaStream_t stream) {
+  const size_t smem = (size_t)fw_smem_bytes(W, warps);
+  if (warps < 1 || warps > kFwWarps || (long long)smem > kMaxSmemBytes)
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       render_fw_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -204,16 +391,19 @@ cudaError_t launch_fw(const Params& p, int warps, cudaStream_t stream) {
       &per_sm, render_fw_wide_kernel<W>, 32 * warps, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int n_slices = launch_pack(p, false, ws, stream);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long needed = (p.num_rays + warps - 1) / warps;
   const long long wave = (long long)sms * per_sm;
   render_fw_wide_kernel<W>
-      <<<(int)(needed < wave ? needed : wave), 32 * warps, smem, stream>>>(p);
+      <<<(int)(needed < wave ? needed : wave), 32 * warps, smem, stream>>>(
+          p, ws, n_slices, wide_wgmma(p, W, warps));
   return cudaGetLastError();
 }
 
 // ---- R2 ---------------------------------------------------------------
 
-// Where each layer's sums start in a warp's row (wide_sum_floats each).
+// Where each layer's sums start in a block's row (wide_sum_floats each).
 struct WideSums {
   int off[kMaxTotalLayers];
   int total;  // floats of a row, a multiple of 4
@@ -229,17 +419,6 @@ WideSums wide_sums(const Params& p) {
   }
   ws.total = (at + 3) / 4 * 4;
   return ws;
-}
-
-// Tiles of one warp: the layer inputs (+ relu of the colour grid sample),
-// the colour head's input, two gradient tiles.
-__host__ __device__ __forceinline__ int bw_tiles(int n_total,
-                                                 bool color_grid) {
-  return n_total - 1 + (color_grid ? 1 : 0) + 3;
-}
-
-long long bw_smem_bytes(int W, int n_total, bool color_grid, int warps) {
-  return 4LL * warps * bw_tiles(n_total, color_grid) * 32 * (W + 4);
 }
 
 // Adds w x row j of `tile` (channels [0, C)) into every in-bounds corner
@@ -267,7 +446,7 @@ __device__ __forceinline__ void scatter_chunk(const GridMeta& m, float* dst,
     }
     const int nz = m.dims[g][1] > 1 ? 2 : 1, ny = m.dims[g][2] > 1 ? 2 : 1,
               nx = m.dims[g][3] > 1 ? 2 : 1;
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kChunk / 4; ++i) {
       if (!((taken >> (4 * i)) & 0xfu)) continue;
       const float* at = tile + (4 * i + q) * S + 4 * u;
       float4 gv[V];
@@ -314,59 +493,79 @@ __device__ __forceinline__ float suffix_scan(float x, int lane) {
 
 template <int W>
 __global__ void __launch_bounds__(32 * kBwWarps, 1)
-    render_bw_wide_kernel(const Params p, const WideSums ws) {
+    render_bw_wide_kernel(const Params p, const WideSums ws,
+                          const uint4* __restrict__ pack, int n_slices) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int S = W + 4, kTile = 32 * S, V = W / 32;
+  constexpr int S = W + 4, kTile = kChunk * S, V = W / 32;
   const int n_t = p.n_layers[0], n_o = p.n_layers[1], n_c = p.n_layers[2];
   const int n_total = n_t + n_o + n_c;
   const bool cgrid = p.color_grid != nullptr;
-  const int n_slots = n_total - 1 + (cgrid ? 1 : 0);
+  const BwLayout lay = bw_layout(W, n_total, n_c, cgrid, head_out(p));
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* tiles =
-      smem + (long long)warp * bw_tiles(n_total, cgrid) * kTile;
-  for (int i = lane; i < bw_tiles(n_total, cgrid) * kTile; i += 32)
-    tiles[i] = 0.0f;
+  const int row = lane & (kChunk - 1);
+  const bool wg = warps % 4 == 0;  // warpgroups: the products by wgmma
+  const bool mine = lane < kChunk;  // the lanes that own a row
+  float* const region0 = smem;      // warp 0's region
+  float* tiles = region0 + (long long)warp * lay.warp_floats;
+  for (int i = lane; i < lay.warp_floats; i += 32) tiles[i] = 0.0f;
+  Ring ring = {reinterpret_cast<uint4*>(smem + warps * lay.warp_floats), pack,
+               ring_slot_u4(W), n_slices, 0};
+  int* active_warps = reinterpret_cast<int*>(
+      reinterpret_cast<char*>(ring.slots) + ring_bytes(W));
+  ring_start(ring);
   __syncwarp();
   // Slot k holds the input of relu layer k of the forward (slot 0: the
   // feature, relu'd with no trunk; with a colour grid, slot cslot relu of
   // its sample), as renderer_bw.cu numbers them; layer L reads slot L below
-  // the colour head, XC (slot cslot + the encoding) at its first layer and
-  // slot L - 1 past it.  Gt and Ht hold the colour and opacity heads'
-  // output gradients.
+  // the colour head, slot cslot + the encoding E at its first layer and
+  // slot L - 1 past it.  With a one-layer colour head slot n_slots (XC)
+  // holds that input as R1 holds it, for the colours, then the colour
+  // input's gradient GX; with more, GX goes over the colour head's first
+  // hidden tile.  Gt holds the colour head's output gradient, then the
+  // opacity head's (column 0).
 #define ACT(k) (tiles + (k) * kTile)
-  float* XC = ACT(n_slots);
-  float* Gt = ACT(n_slots + 1);
-  float* Ht = ACT(n_slots + 2);
-  float* acc = p.g_mlp_partial +
-               (long long)(blockIdx.x * warps + warp) * ws.total;
+  const int n_slots = n_total - 1 + (cgrid ? 1 : 0);
+  float* Gt = tiles + lay.gt_off;
+  float* E = tiles + lay.e_off;
+  const int sg = lay.sg;
+  float* acc = p.g_mlp_partial + (long long)blockIdx.x * ws.total;
   const int opacity_first = n_t, color_first = n_t + n_o;
   const int cslot = cgrid ? n_total - 1 : n_t;
+  float* GX = n_c == 1 ? ACT(n_slots) : ACT(color_first);
   const int opacity_end = n_t + n_o - 1;
   const int n_relu_layers = n_total - 2;
   const int mask0 = n_t > 0 ? 1 : 0;
   const int tot = p.num_samples + p.num_samples_inf;
-  const int c_pad = (p.color_chn + 7) / 8 * 8;
+  const int c_pad = sg - 4;
 
   const int groups = (p.num_rays + warps - 1) / warps;
   const int per_block = (groups + gridDim.x - 1) / gridDim.x;
   const int group_end = min(groups, (blockIdx.x + 1) * per_block);
   for (int group = blockIdx.x * per_block; group < group_end; ++group) {
+    // every warp walks the block's groups, a ray past num_rays too
     const int ray = group * warps + warp;
-    if (ray >= p.num_rays) break;
-    const Ray r = load_ray(p, ray);
-    float e[V], genc[V];
+    const bool valid = ray < p.num_rays;
+    Ray r = {};
+    r.b = -1;
+    if (valid) r = load_ray(p, ray);
+    float genc[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int c = 32 * v + lane;
-      e[v] = c < p.enc_chn ? p.enc[(long long)ray * p.enc_chn + c] : 0.0f;
+      // no warp reads E before the chunk's first barrier, and every warp
+      // is past the last chunk's reads of it
+      E[c] = valid && c < p.enc_chn ? p.enc[(long long)ray * p.enc_chn + c]
+                                    : 0.0f;
       genc[v] = 0.0f;
     }
-    const float* g_feat = p.g_feat + (long long)ray * p.color_chn;
-    const float g_depth = p.g_depth[ray], g_nlt = p.g_nlt[ray];
-    float nlt_carry = p.nlt_final[ray], suffix_carry = 0.0f;
-    for (int c0 = (tot - 1) / 32 * 32; c0 >= 0; c0 -= 32) {
-      const int s = c0 + lane;
+    const float* g_feat = p.g_feat + (long long)(valid ? ray : 0) *
+                                         p.color_chn;
+    const float g_depth = valid ? p.g_depth[ray] : 0.0f;
+    const float g_nlt = valid ? p.g_nlt[ray] : 0.0f;
+    float nlt_carry = valid ? p.nlt_final[ray] : 0.0f, suffix_carry = 0.0f;
+    for (int c0 = (tot - 1) / kChunk * kChunk; c0 >= 0; c0 -= kChunk) {
+      const int s = valid && mine ? c0 + lane : tot;
       Step st = {};
       float gate = 0.0f;
       if (s < tot) {
@@ -376,149 +575,194 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
       // a chunk with every gate shut adds nothing: sigma = 0 leaves the
       // transmittance, the suffix sum and every cotangent as they are
       const bool open = s < tot && gate != 0.0f;
-      if (__ballot_sync(kAll, open) == 0u) continue;
+      if (!__syncthreads_or(open)) continue;  // no ray of the block samples
+      const bool active = __any_sync(kAll, open);
+      // read by block_weight_grad, behind the barriers to come; every warp
+      // is past the last chunk's reads
+      if (lane == 0) active_warps[warp] = active;
       const uint32_t taken = __ballot_sync(
           kAll, open && (!p.mask_out_of_bounds || st.in_bounds));
-      const bool record = kReluMasks && s < tot;
+      const bool record = kReluMasks && active && s < tot;
 
       // ---- the forward, recomputed as R1's, each layer's input kept ----
-      gather_chunk<W>(p.grids, p.grid, p.grid_chn, r.b, st, taken, n_t == 0,
-                      ACT(0), nullptr, lane);
-      if (cgrid)
-        gather_chunk<W>(p.cgrids, p.color_grid, p.grid_chn, r.b, st, taken,
-                        true, ACT(cslot), nullptr, lane);
-      __syncwarp();
+      if (active) {
+        gather_chunk<W, kChunk>(p.grids, p.grid, p.grid_chn, r.b, st, taken,
+                                n_t == 0, ACT(0), nullptr, lane);
+        if (cgrid)
+          gather_chunk<W, kChunk>(p.cgrids, p.color_grid, p.grid_chn, r.b,
+                                  st, taken, true, ACT(cslot), nullptr, lane);
+        __syncwarp();
+      }
       if (record && n_t == 0)
-        record_mask<W>(p, ray, s, tot, 0, ACT(0) + lane * S);
+        record_mask<W>(p, ray, s, tot, 0, ACT(0) + row * S);
       if (record && cgrid)
-        record_mask<W>(p, ray, s, tot, cslot - mask0, ACT(cslot) + lane * S);
+        record_mask<W>(p, ray, s, tot, cslot - mask0, ACT(cslot) + row * S);
       float opacity_raw = 0.0f;
       for (int j = 0;; ++j) {
-        if (j == opacity_end) {
+        if (j == opacity_end && active)
           opacity_raw = layer_out<W>(p, opacity_end,
-                                     ACT(opacity_end) + lane * S, 0);
-          for (int i = 0; i < 32; ++i) {
+                                     ACT(opacity_end) + row * S, 0);
+        if (j == n_relu_layers) break;
+        const int l = j < opacity_end ? j : j + 1;
+        const bool xc = l == color_first;
+        staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l],
+                       xc ? ACT(cslot) : ACT(j), S,
+                       xc ? E : nullptr, p.mlp + p.layer_b_off[l], true,
+                       nullptr, nullptr, ACT(j + 1), nullptr, active, wg,
+                       lane);
+        if (record)
+          record_mask<W>(p, ray, s, tot, j + 1 - mask0,
+                         ACT(j + 1) + row * S);
+      }
+      float g_opacity = 0.0f;
+      if (active) {
+        if (open && p.noise_sigma > 0.0f)
+          opacity_raw += step_noise(p, ray, s);
+        const float sigma =
+            open ? p.gain * softplus(opacity_raw) * gate : 0.0f;
+        // the colours (before the gate) wait in the lane's row of Gt; with
+        // a one-layer colour head they read its input as R1 holds it
+        if (n_c == 1) {
+          for (int i = 0; i < kChunk; ++i) {
 #pragma unroll
             for (int v = 0; v < V; ++v)
-              XC[i * S + 32 * v + lane] =
-                  ACT(cslot)[i * S + 32 * v + lane] + e[v];
+              GX[i * S + 32 * v + lane] =
+                  ACT(cslot)[i * S + 32 * v + lane] + E[32 * v + lane];
           }
           __syncwarp();
         }
-        if (j == n_relu_layers) break;
-        const int l = j < opacity_end ? j : j + 1;
-        relu_layer<W>(p, l, l == color_first ? XC : ACT(j), ACT(j + 1),
-                      nullptr, lane);
-        if (record)
-          record_mask<W>(p, ray, s, tot, j + 1 - mask0, ACT(j + 1) + lane * S);
-      }
-      if (open && p.noise_sigma > 0.0f) opacity_raw += step_noise(p, ray, s);
-      const float sigma = open ? p.gain * softplus(opacity_raw) * gate : 0.0f;
-      // the colours (before the gate) wait in the lane's row of Gt
-      const float* xrow = (n_c == 1 ? XC : ACT(n_total - 2)) + lane * S;
-      float* grow = Gt + lane * S;
-      float g_dot = 0.0f;
-      for (int c = 0; c < c_pad; ++c) {
-        float col = 0.0f;
-        if (c < p.color_chn) {
-          col = sigmoid(layer_out<W>(p, n_total - 1, xrow, c));
-          g_dot += __ldg(g_feat + c) * (col * gate);
+        const float* xrow = (n_c == 1 ? GX : ACT(n_total - 2)) + row * S;
+        float* grow = Gt + row * sg;
+        float g_dot = 0.0f;
+        for (int c = 0; c < c_pad; ++c) {
+          float col = 0.0f;
+          if (c < p.color_chn) {
+            col = sigmoid(layer_out<W>(p, n_total - 1, xrow, c));
+            g_dot += __ldg(g_feat + c) * (col * gate);
+          }
+          if (mine) grow[c] = col;
         }
-        grow[c] = col;
-      }
 
-      // ---- transmittance rewind + EA adjoint, over the chunk ----
-      const float a = sigma * st.delta;
-      const float suf = suffix_scan(a, lane);
-      float later = __shfl_down_sync(kAll, suf, 1);
-      if (lane == 31) later = 0.0f;
-      const float nlt_run = nlt_carry - later;  // T_s includes step s
-      const float nlt_prev = nlt_carry - suf;
-      const float T = expf(-nlt_run);
-      const float w = expf(-nlt_prev) - T;
-      const float g_w = g_depth * st.t + g_dot;
-      const float term_suf = suffix_scan(g_w * w, lane);
-      float term_later = __shfl_down_sync(kAll, term_suf, 1);
-      if (lane == 31) term_later = 0.0f;
-      const float g_sigma =
-          (g_w * T - (suffix_carry + term_later) + g_nlt) * st.delta;
-      const float g_opacity =
-          g_sigma * p.gain * sigmoid(opacity_raw) * gate;
-      nlt_carry = __shfl_sync(kAll, nlt_prev, 0);
-      suffix_carry += __shfl_sync(kAll, term_suf, 0);
+        // ---- transmittance rewind + EA adjoint, over the chunk ----
+        const float a = sigma * st.delta;
+        const float suf = suffix_scan(a, lane);
+        float later = __shfl_down_sync(kAll, suf, 1);
+        if (lane == 31) later = 0.0f;
+        const float nlt_run = nlt_carry - later;  // T_s includes step s
+        const float nlt_prev = nlt_carry - suf;
+        const float T = expf(-nlt_run);
+        const float w = expf(-nlt_prev) - T;
+        const float g_w = g_depth * st.t + g_dot;
+        const float term_suf = suffix_scan(g_w * w, lane);
+        float term_later = __shfl_down_sync(kAll, term_suf, 1);
+        if (lane == 31) term_later = 0.0f;
+        const float g_sigma =
+            (g_w * T - (suffix_carry + term_later) + g_nlt) * st.delta;
+        g_opacity = g_sigma * p.gain * sigmoid(opacity_raw) * gate;
+        nlt_carry = __shfl_sync(kAll, nlt_prev, 0);
+        suffix_carry += __shfl_sync(kAll, term_suf, 0);
 
-      // the heads' output gradients: the colours' in Gt, the opacity's in
-      // column 0 of Ht
-      for (int c = 0; c < c_pad; ++c) {
-        float gv = 0.0f;
-        if (c < p.color_chn) {
-          const float col = grow[c];
-          gv = w * __ldg(g_feat + c) * gate * col * (1.0f - col);
+        // the colour head's output gradient in Gt (the opacity's waits in
+        // g_opacity until the colour head is done with Gt)
+        for (int c = 0; c < c_pad; ++c) {
+          float gv = 0.0f;
+          if (c < p.color_chn) {
+            const float col = grow[c];
+            gv = w * __ldg(g_feat + c) * gate * col * (1.0f - col);
+          }
+          if (mine) grow[c] = gv;
         }
-        grow[c] = gv;
+        __syncwarp();
       }
-      float* hrow = Ht + lane * S;
-      hrow[0] = g_opacity;
-      for (int c = 1; c < 8; ++c) hrow[c] = 0.0f;
-      __syncwarp();
 
       // ---- the decoder backward, last layer first ----
       const float* G = Gt;
+      int gs = sg;
       for (int L = n_total - 1;; --L) {
-        const float* X = L == color_first ? XC
-                                          : ACT(L > color_first ? L - 1 : L);
-        wide_weight_grad<W>(acc + ws.off[L], X, G, p.layer_in[L],
-                            p.layer_out[L], lane);
-        if (L == color_first) {
+        const bool xc = L == color_first;
+        const float* X = xc ? (n_c == 1 ? GX : ACT(cslot))
+                            : ACT(L > color_first ? L - 1 : L);
+        __syncthreads();  // every warp's X and G of this layer are written
+        if (part_runs(kAblateNoWeightGrad, X[lane]))
+          block_weight_grad<W>(acc + ws.off[L], region0 + (X - tiles),
+                               xc && n_c > 1 ? region0 + lay.e_off : nullptr,
+                               region0 + (G - tiles), gs, lay.warp_floats,
+                               active_warps, warps, p.layer_in[L],
+                               p.layer_out[L], warp, lane);
+        // (the products' first slice is a barrier: every warp is past the
+        // weight gradient before any writes over X)
+        const int k_steps = (p.layer_out[L] + 7) / 8, n_in = p.layer_in[L];
+        if (xc) {
           // the gradient of trunk + encoding, into g_enc; through the relu
           // of the colour grid's sample where there is one
-          layer_input_grad<W>(p, L, G, nullptr, nullptr, XC, lane);
+          staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
+                         false, nullptr, nullptr, GX, nullptr, active, wg,
+                         lane);
+          if (active) {
 #pragma unroll
-          for (int v = 0; v < V; ++v)
-            for (int j = 0; j < 32; ++j) genc[v] += XC[j * S + 32 * v + lane];
-          if (cgrid) {
-            for (int j = 0; j < 32; ++j) {
+            for (int v = 0; v < V; ++v)
+              for (int j = 0; j < kChunk; ++j)
+                genc[v] += GX[j * S + 32 * v + lane];
+            if (cgrid) {
+              for (int j = 0; j < kChunk; ++j) {
 #pragma unroll
-              for (int v = 0; v < V; ++v) {
-                const int k = j * S + 32 * v + lane;
-                if (!(ACT(cslot)[k] > 0.0f)) XC[k] = 0.0f;
+                for (int v = 0; v < V; ++v) {
+                  const int k = j * S + 32 * v + lane;
+                  if (!(ACT(cslot)[k] > 0.0f)) GX[k] = 0.0f;
+                }
               }
+            }
+            // the opacity head's output gradient, column 0 of Gt
+            if (mine) {
+              Gt[row * sg] = g_opacity;
+              for (int c = 1; c < c_pad; ++c) Gt[row * sg + c] = 0.0f;
             }
             __syncwarp();
           }
-          G = Ht;
+          G = Gt;
+          gs = sg;
         } else if (L == opacity_first) {
           // the trunk output went through a relu (relu of the feature with
           // no trunk); with a colour grid only the opacity head reads it
-          layer_input_grad<W>(p, L, G, ACT(n_t), cgrid ? nullptr : XC,
-                              ACT(n_t), lane);
+          staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
+                         false, ACT(n_t), cgrid ? nullptr : GX, ACT(n_t),
+                         nullptr, active, wg, lane);
           G = ACT(n_t);
+          gs = S;
           if (n_t == 0) break;  // G is the feature gradient
         } else if (L == 0) {
-          layer_input_grad<W>(p, L, G, nullptr, nullptr, ACT(0), lane);
+          staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
+                         false, nullptr, nullptr, ACT(0), nullptr, active, wg,
+                         lane);
           G = ACT(0);  // the feature gradient
           break;
         } else {
           // the layer's input is the relu output of the layer before it
           const int in = L > color_first ? L - 1 : L;
-          layer_input_grad<W>(p, L, G, ACT(in), nullptr, ACT(in), lane);
+          staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
+                         false, ACT(in), nullptr, ACT(in), nullptr, active, wg,
+                         lane);
           G = ACT(in);
+          gs = S;
         }
       }
 
       // ---- grid-gradient reductions ----
-      scatter_chunk<W>(p.grids, p.g_grid, p.grid_chn, r.b, st, taken, G,
-                       lane);
-      if (cgrid)
-        scatter_chunk<W>(p.cgrids, p.g_color_grid, p.grid_chn, r.b, st, taken,
-                         XC, lane);
+      if (active && part_runs(kAblateNoAtomics, G[lane])) {
+        scatter_chunk<W>(p.grids, p.g_grid, p.grid_chn, r.b, st, taken, G,
+                         lane);
+        if (cgrid)
+          scatter_chunk<W>(p.cgrids, p.g_color_grid, p.grid_chn, r.b, st,
+                           taken, GX, lane);
+      }
       __syncwarp();  // the tiles are free for the next chunk
     }
 #pragma unroll
     for (int v = 0; v < V; ++v)
-      if (32 * v + lane < p.enc_chn)
+      if (valid && 32 * v + lane < p.enc_chn)
         p.g_enc[(long long)ray * p.enc_chn + 32 * v + lane] = genc[v];
   }
+  cp_async_wait<0>();
 #undef ACT
 }
 
@@ -550,18 +794,18 @@ __global__ void reduce_wide_sums_kernel(const Params p, const WideSums ws,
   p.g_mlp[k] = acc;
 }
 
-// Warps per block (the most, up to kBwWarps, whose tiles one block's shared
-// memory holds), the block's shared memory and the resident wave of blocks.
+// Warps per block (the most, up to kBwWarps, whose regions fit with the
+// ring in a block's shared memory), the block's shared memory and the
+// resident wave of blocks.
 template <int W>
 cudaError_t bw_config(const Params& p, bool color_grid, int* warps,
                       size_t* smem, int* wave) {
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
-  *warps = kBwWarps;
-  while (*warps > 1 &&
-         bw_smem_bytes(W, n_total, color_grid, *warps) > kMaxSmemBytes)
-    --*warps;
-  *smem = (size_t)bw_smem_bytes(W, n_total, color_grid, *warps);
-  if ((long long)*smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  const BwLayout lay = bw_layout(W, n_total, p.n_layers[2], color_grid,
+                                 head_out(p));
+  *warps = bw_warps(W, lay);
+  *smem = (size_t)bw_smem_bytes(W, lay, *warps > 0 ? *warps : 1);
+  if (*warps == 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       render_bw_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)*smem);
@@ -579,7 +823,7 @@ cudaError_t bw_config(const Params& p, bool color_grid, int* warps,
 }
 
 template <int W>
-cudaError_t launch_bw(const Params& p, cudaStream_t stream) {
+cudaError_t launch_bw(const Params& p, uint4* pack, cudaStream_t stream) {
   int warps = 0, wave = 0;
   size_t smem = 0;
   const bool cgrid = p.color_grid != nullptr;
@@ -589,24 +833,41 @@ cudaError_t launch_bw(const Params& p, cudaStream_t stream) {
   const long long groups = (p.num_rays + warps - 1) / warps;
   const int blocks = (int)(groups < wave ? groups : wave);
   if (blocks > 0) {
-    render_bw_wide_kernel<W><<<blocks, 32 * warps, smem, stream>>>(p, ws);
+    const int n_slices = launch_pack(p, true, pack, stream);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    render_bw_wide_kernel<W><<<blocks, 32 * warps, smem, stream>>>(
+        p, ws, pack, n_slices);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   reduce_wide_sums_kernel<<<(p.n_params + 255) / 256, 256, 0, stream>>>(
-      p, ws, blocks * warps);
+      p, ws, blocks);
   return cudaGetLastError();
+}
+
+// Bytes of the workspace of p's products (R2's with `backward`).
+long long pack_bytes(const Params& p, bool backward) {
+  const int n = wide_n_products(p, backward);
+  long long size = 0;
+  int slices = 0;
+  wide_layout(p, n, n, &size, &slices);
+  return 16 * size;
 }
 
 }  // namespace
 
-long long render_fw_wide_smem_bytes(int width, int warps) {
-  return 4LL * warps * 2 * 32 * (width + 4);
+int render_fw_wide_config(const Params& p, int width, int* out) {
+  if (width != 96 && width != 128) return (int)cudaErrorInvalidValue;
+  out[0] = kFwWarps;
+  out[1] = (int)fw_smem_bytes(width, kFwWarps);
+  out[2] = (int)pack_bytes(p, false);
+  return (int)cudaSuccess;
 }
 
 cudaError_t launch_render_fw_wide(const Params& p, int width, int warps,
-                                  cudaStream_t stream) {
-  if (width == 96) return launch_fw<96>(p, warps, stream);
-  if (width == 128) return launch_fw<128>(p, warps, stream);
+                                  void* workspace, cudaStream_t stream) {
+  uint4* ws = static_cast<uint4*>(workspace);
+  if (width == 96) return launch_fw<96>(p, warps, ws, stream);
+  if (width == 128) return launch_fw<128>(p, warps, ws, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -625,16 +886,22 @@ int render_bw_wide_config(const Params& p, int width, bool color_grid,
   if (width == 96) e = bw_config<96>(p, color_grid, &warps, &smem, &wave);
   if (width == 128) e = bw_config<128>(p, color_grid, &warps, &smem, &wave);
   out[0] = warps;
-  out[1] = wave * warps;
+  out[1] = wave;
   out[2] = wide_sums(p).total;
-  out[3] = (int)(smem ? smem : bw_smem_bytes(width, n_total, color_grid, 1));
+  out[3] = (int)(smem ? smem
+                      : bw_smem_bytes(width,
+                                      bw_layout(width, n_total, p.n_layers[2],
+                                                color_grid, head_out(p)),
+                                      1));
+  out[4] = (int)pack_bytes(p, true);
   return (int)e;
 }
 
-cudaError_t launch_render_bw_wide(const Params& p, int width,
+cudaError_t launch_render_bw_wide(const Params& p, int width, void* workspace,
                                   cudaStream_t stream) {
-  if (width == 96) return launch_bw<96>(p, stream);
-  if (width == 128) return launch_bw<128>(p, stream);
+  uint4* ws = static_cast<uint4*>(workspace);
+  if (width == 96) return launch_bw<96>(p, ws, stream);
+  if (width == 128) return launch_bw<128>(p, ws, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -642,6 +909,12 @@ int render_bw_wide_attrs(int width, int* out) {
   if (width == 96) return kernel_attrs(render_bw_wide_kernel<96>, out);
   if (width == 128) return kernel_attrs(render_bw_wide_kernel<128>, out);
   return (int)cudaErrorInvalidValue;
+}
+
+cudaError_t launch_wide_pack(const Params& p, bool backward, void* workspace,
+                             cudaStream_t stream) {
+  launch_pack(p, backward, static_cast<uint4*>(workspace), stream);
+  return cudaGetLastError();
 }
 
 }  // namespace lightplane

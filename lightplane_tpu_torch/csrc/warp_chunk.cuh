@@ -69,17 +69,17 @@ __device__ __forceinline__ void grid_corners(const GridMeta& m, int g, int b,
   }
 }
 
-// Row j of `tile` (stride W + 4) gets the linear sample of every sub-grid of
-// the [V, C] grid-list (m, grid) at sample j's point, for the samples of the
-// chunk whose bit is set in `taken`, and 0 for the others (and in channels
-// C..W-1).  With `relu` the sum goes through a relu; `tile2`, when given,
+// Row j (< kRows) of `tile` (stride W + 4) gets the linear sample of every
+// sub-grid of the [V, C] grid-list (m, grid) at sample j's point, for the
+// samples of the chunk whose bit is set in `taken`, and 0 for the others
+// (and in channels C..W-1).  With `relu` the sum goes through a relu; `tile2`, when given,
 // gets the same rows.  `st` is the lane's own sample, b the ray's batch (< 0:
 // nothing is read).  The warp reads four samples' rows at a time: lane
 // 8 q + u sums channels 32 v + 4u .. + 3 (v < W / 32) of sample 4 i + q,
 // corner by corner in march_common.cuh::sample_grids's order onto the
 // row's sum so far, and gets each corner's row and weight from the
 // sample's lane by a shuffle.
-template <int W>
+template <int W, int kRows = 32>
 __device__ __forceinline__ void gather_chunk(const GridMeta& m,
                                              const float* __restrict__ grid,
                                              int C, int b, const Step& st,
@@ -103,7 +103,7 @@ __device__ __forceinline__ void gather_chunk(const GridMeta& m,
               nx = m.dims[g][3] > 1 ? 2 : 1;
     const bool last = g == m.num_grids - 1;
 #pragma unroll 2
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kRows / 4; ++i) {
       float4 acc[V];
       float* at = tile + (4 * i + q) * S + 4 * u;
 #pragma unroll

@@ -45,6 +45,7 @@ _RENDER_FW_ARGTYPES = (
     + [_I, _I, _F, _F]   # num_samples, num_samples_inf, disparity, gain
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
     + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
+    + [_P]               # workspace (the wide build's)
     + [_P]               # stream
 )
 # lightplane_render_bw (see csrc/renderer_bw.cu)
@@ -58,6 +59,7 @@ _RENDER_BW_ARGTYPES = (
     + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
     + [_P]               # g_color_grid
     + [_P]               # relu_masks (the recording build's)
+    + [_P]               # workspace (the wide build's)
     + [_P]               # stream
 )
 
@@ -178,6 +180,12 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_render_bw_wide_config.argtypes = [
         _I, _I, _I, _I, _P, _I, ctypes.POINTER(_I)]
     lib.lightplane_render_bw_wide_config.restype = _I
+    lib.lightplane_render_fw_wide_config.argtypes = [
+        _I, _I, _I, _I, _P, ctypes.POINTER(_I)]
+    lib.lightplane_render_fw_wide_config.restype = _I
+    lib.lightplane_render_wide_pack.argtypes = [_P, _I, _I, _I, _P, _I, _P,
+                                                _P]
+    lib.lightplane_render_wide_pack.restype = _I
     lib.lightplane_splat_fw.argtypes = _SPLAT_FW_ARGTYPES
     lib.lightplane_splat_fw.restype = _I
     lib.lightplane_splat_fw_smem_bytes.argtypes = [_I] * 5

@@ -30,6 +30,7 @@ of ``relu(x)``.  ``relu_masks_torch`` records the plain forward's own.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -45,10 +46,14 @@ from ..renderer import (
 )
 from .renderer_fw import (
     MAX_SMEM_BYTES,
+    WIDE_CHUNK,
     _check,
     _kernel_width,
+    _ptr,
     check_impl,
     launch_args,
+    wide_pack_bytes,
+    wide_ring_bytes,
 )
 
 # Number of kernel launches in this process; the kernel path adds one per
@@ -68,6 +73,11 @@ BLOCK_RESERVED_BYTES = 1024
 
 # The build that records the relu masks (csrc/renderer_bw.cu)
 RELU_MASKS_BUILD = ("LIGHTPLANE_RELU_MASKS=1",)
+
+# The wide build (csrc/renderer_wide.cu): the most warps (rays) a block
+# takes, and the bytes of their active flags after the ring
+WIDE_BW_MAX_WARPS = 8
+WIDE_FLAG_BYTES = 4 * WIDE_BW_MAX_WARPS
 
 
 def mask_shape(cfg: _RenderCfg, R: int, grid_chn: int):
@@ -223,23 +233,101 @@ def block_smem_bytes(lib, a, has_color_grid: bool):
         for r in RAYS_PER_BLOCK}
 
 
-def wide_partial_rows(lib, a, has_color_grid: bool):
-    """The wide build's (width 96 or 128) partial-sum buffer, ``(rows,
-    floats a row)``: a row per warp of its resident wave.  Raises where one
-    warp's tiles (every layer input of a 32-step chunk) exceed a block's
-    shared memory."""
+def wide_warp_floats(width: int, layers, n_c: int,
+                     has_color_grid: bool) -> int:
+    """Floats of one warp's region in the wide build's shared memory
+    (``csrc/renderer_wide.cu::bw_layout``): a [WIDE_CHUNK, width + 4] tile
+    for each layer input of the forward (``len(layers) - 1``, + 1 for a
+    colour grid's sample, + 1 with a one-layer colour head), the heads'
+    gradient tile [WIDE_CHUNK, c + 4] (c the heads' last layers' widest
+    output rounded up to 8) and the ray's encoding (``width``)."""
+    n_total = len(layers)
+    n_wide = n_total - 1 + int(has_color_grid) + int(n_c == 1)
+    head_out = max(layers[n_total - n_c - 1][1], layers[-1][1])
+    sg = -(-head_out // 8) * 8 + 4
+    return n_wide * WIDE_CHUNK * (width + 4) + WIDE_CHUNK * sg + width
+
+
+def wide_bw_smem_bytes(width: int, warp_floats: int, warps: int) -> int:
+    """Shared memory of a block of the wide backward: its warps' regions,
+    the ring of layer slices and the warps' active flags."""
+    return 4 * warps * warp_floats + wide_ring_bytes(width) + WIDE_FLAG_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """The wide backward's launch: warps (rays) a block, a block's shared
+    memory, the bytes of its workspace (the packed layers) and the floats
+    of a block's row of weight-gradient sums."""
+
+    warps: int
+    smem_bytes: int
+    workspace_bytes: int
+    row_floats: int
+
+    @staticmethod
+    def partial_rows(num_sms: int) -> int:
+        """Rows of the partial-sum buffer: one per block of the resident
+        wave (a block takes more than half an SM's shared memory, so one
+        fits an SM), not per warp."""
+        return num_sms
+
+
+def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
+                 has_color_grid: bool) -> WidePlan:
+    """The wide backward's plan at these MLP widths (``widths``: the
+    n_hidden tuples of the trunk, opacity and colour MLPs, one after the
+    other): the most warps, up to WIDE_BW_MAX_WARPS, whose regions fit with
+    the ring in a block's shared memory, rounded down to whole warpgroups
+    of 4 past 4 (a warpgroup runs the products by ``wgmma``; 1-3 warps by
+    ``mma.sync``).  Raises ``ValueError`` with the
+    bytes one warp needs where even that does not fit."""
+    from .renderer_fw import wide_layers, wide_products
+
+    layers = wide_layers(n_t, n_o, n_c, list(widths))
+    floats = wide_warp_floats(width, layers, n_c, has_color_grid)
+    warps = WIDE_BW_MAX_WARPS
+    while warps > 1 and wide_bw_smem_bytes(width, floats,
+                                           warps) > MAX_SMEM_BYTES:
+        warps -= 1
+    if warps > 4:
+        warps = warps // 4 * 4  # whole warpgroups: the products by wgmma
+    smem = wide_bw_smem_bytes(width, floats, warps)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the backward kernel needs {smem} bytes of shared memory for a "
+            f"block of one warp at width {width} with {len(layers)} layers, "
+            f"more than the {MAX_SMEM_BYTES} a Hopper block can have")
+    row = 0
+    for d_in, d_out, _, _ in layers:
+        mi, no = -(-d_in // 16), -(-d_out // 8)
+        row += mi * no * 128 + 8 * no
+    return WidePlan(warps, smem,
+                    wide_pack_bytes(wide_products(layers, n_t, n_o, True)),
+                    -(-row // 4) * 4)
+
+
+def wide_config(lib, a, has_color_grid: bool):
+    """The wide build's (width 96 or 128) launch as its C side plans it,
+    held to ``wide_bw_plan``'s: ``(plan, rows of the partial-sum buffer)``,
+    a row per block of the resident wave.  Raises ``ValueError`` where one
+    warp's region and the ring exceed a block's shared memory."""
     import ctypes
 
-    out = (ctypes.c_int * 4)()
+    plan = wide_bw_plan(a.width, a.n_t, a.n_o, a.n_c, list(a.mlp_widths),
+                        has_color_grid)
+    out = (ctypes.c_int * 5)()
     rc = lib.lightplane_render_bw_wide_config(
         a.width, a.n_t, a.n_o, a.n_c, a.mlp_widths, int(has_color_grid), out)
     if rc != 0:
-        raise ValueError(
-            f"the backward kernel needs {out[3]} bytes of shared memory per "
-            f"warp at width {a.width} with {a.n_layers} layers, more than "
-            f"the {MAX_SMEM_BYTES} a Hopper block can have "
-            f"({lib.lightplane_cuda_error_string(rc).decode()})")
-    return out[1], out[2]
+        raise ValueError(f"the wide backward refused its launch "
+                         f"({lib.lightplane_cuda_error_string(rc).decode()})")
+    if (out[0], out[3], out[4], out[2]) != (
+            plan.warps, plan.smem_bytes, plan.workspace_bytes,
+            plan.row_floats):
+        raise RuntimeError(f"the wide backward's plan {tuple(out)} is not "
+                           f"the wrapper's {plan}")
+    return plan, out[1]
 
 
 def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
@@ -258,13 +346,17 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
     from ._build import library
 
     lib = library(defines)
+    workspace = None
     if a.width > 64:
-        # the wide build: a warp per ray, each warp of the resident wave its
-        # own row of weight-gradient sums, zero-filled here; a second kernel
-        # sums the rows into g_mlp.  rays_per_block is not read.
-        rows, row_floats = wide_partial_rows(lib, a,
-                                             color_grid_flat is not None)
-        partials = torch.zeros((rows, row_floats), dtype=f32, device=a.device)
+        # the wide build: a warp per ray, each block of the resident wave
+        # its own row of weight-gradient sums, zero-filled here (a second
+        # kernel sums the rows into g_mlp), the layers packed into the
+        # workspace by the launch's pre-pass.  rays_per_block is not read.
+        plan, rows = wide_config(lib, a, color_grid_flat is not None)
+        partials = torch.zeros((rows, plan.row_floats), dtype=f32,
+                               device=a.device)
+        workspace = torch.empty((plan.workspace_bytes // 4,),
+                                dtype=torch.int32, device=a.device)
         rays_per_block = RAYS_PER_BLOCK[-1]
     else:
         smem = block_smem_bytes(lib, a, color_grid_flat is not None)
@@ -317,6 +409,7 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
         *a.extras(scaffold, color_grid_flat),
         None if g_color_grid is None else g_color_grid.data_ptr(),
         None if relu_masks is None else relu_masks.data_ptr(),
+        _ptr(workspace),
         stream,
     )
     if rc != 0:

@@ -48,6 +48,19 @@ MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # each warp keeps two [32, W + 4] tiles in shared memory beside the MLP.
 WARPS_PER_BLOCK = (4, 2, 1)
 
+# The wide builds (csrc/renderer_wide.cu, csrc/wide_mlp.cuh): a block's
+# warps march a ray each in lockstep, WIDE_CHUNK steps at a time, each
+# product's layer staged for the whole block in a ring of WIDE_RING_SLOTS
+# shared-memory slots of WIDE_SLICE_STEPS k-steps of 8 (packed once a
+# launch as wgmma's K-major core matrices, split into TF32 hi and lo:
+# pack_wide_torch) and multiplied by wgmma a warpgroup (4 warps) at a time.
+# The forward takes WIDE_FW_WARPS warps a block, two [WIDE_CHUNK, W + 4]
+# tiles each.
+WIDE_CHUNK = 16
+WIDE_SLICE_STEPS = 2
+WIDE_RING_SLOTS = 3
+WIDE_FW_WARPS = 8
+
 
 def render_fwd_torch(cfg: _RenderCfg, geom, diff):
     """Plain PyTorch forward march over all steps; memory O(R)."""
@@ -131,6 +144,15 @@ class LaunchArgs:
     @property
     def n_layers(self) -> int:
         return self.n_t + self.n_o + self.n_c
+
+    def layers(self):
+        """Each layer's (d_in, d_out, weight offset, bias offset)."""
+        return wide_layers(self.n_t, self.n_o, self.n_c,
+                           list(self.mlp_widths))
+
+    def products(self, backward: bool):
+        """The wide kernels' products of a chunk (``wide_products``)."""
+        return wide_products(self.layers(), self.n_t, self.n_o, backward)
 
     def extras(self, scaffold, color_grid_flat):
         """The kernels' trailing arguments: the scaffold and its shape, the
@@ -228,6 +250,117 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
     )
 
 
+def wide_ring_bytes(width: int) -> int:
+    """Bytes of the wide builds' ring of layer slices at ``width``: three
+    slots of two k-steps of ``width / 8`` N-tiles of 32 lanes' 16 bytes."""
+    return 16 * WIDE_RING_SLOTS * WIDE_SLICE_STEPS * (width // 8) * 32
+
+
+def wide_fw_smem_bytes(width: int, warps: int = WIDE_FW_WARPS) -> int:
+    """Shared memory of a block of the wide forward: each warp's two
+    [WIDE_CHUNK, width + 4] f32 tiles, then the ring."""
+    return 4 * warps * 2 * WIDE_CHUNK * (width + 4) + wide_ring_bytes(width)
+
+
+def wide_layers(n_t: int, n_o: int, n_c: int, widths):
+    """``(d_in, d_out, weight offset, bias offset)`` of each layer of the
+    three MLPs in the flat parameter vector, as
+    ``csrc/march_common.cuh::fill_layers`` lays them out: each MLP's
+    weights, then its biases."""
+    layers, at, off = [], 0, 0
+    for count in (n_t, n_o, n_c):
+        nh = widths[at:at + count + 1]
+        w_off = off
+        b_off = off + sum(nh[k] * nh[k + 1] for k in range(count))
+        for k in range(count):
+            layers.append((nh[k], nh[k + 1], w_off, b_off))
+            w_off += nh[k] * nh[k + 1]
+            b_off += nh[k + 1]
+        off = b_off
+        at += count + (count > 0)
+    return layers
+
+
+def wide_products(layers, n_t: int, n_o: int, backward: bool):
+    """The products of a chunk in the order the wide kernels run them
+    (``csrc/wide_mlp.cuh::wide_product``): ``(layer, transposed, k_steps,
+    n_tiles)``, the relu layers of the forward (layer j below the opacity
+    head's last, j + 1 past it), then with ``backward`` every layer's input
+    gradient (its transpose), last layer first."""
+    n_total = len(layers)
+    opacity_end = n_t + n_o - 1
+    out = []
+    for i in range(n_total - 2 + (n_total if backward else 0)):
+        transposed = i >= n_total - 2
+        if transposed:
+            layer = n_total - 1 - (i - (n_total - 2))
+        else:
+            layer = i if i < opacity_end else i + 1
+        d_in, d_out = layers[layer][:2]
+        k, n = (d_out, d_in) if transposed else (d_in, d_out)
+        out.append((layer, transposed, -(-k // 8), -(-n // 8)))
+    return out
+
+
+def wide_pack_bytes(products) -> int:
+    """Bytes of the wide kernels' workspace: an int2 a ring slice (two
+    k-steps of a product), then each product's 32 lanes' uint4 a k-step
+    and N-tile."""
+    slices = sum(-(-ks // WIDE_SLICE_STEPS) for _, _, ks, _ in products)
+    return 16 * (-(-slices // 2)
+                 + sum(ks * nt * 32 for _, _, ks, nt in products))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: the low 13 bits of the result are 0."""
+    bits = x.to(torch.float32).view(torch.int32).to(torch.int64)
+    bits = ((bits + 0x1000) & ~0x1FFF) & 0xFFFFFFFF
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def pack_wide_torch(mlp_params: torch.Tensor, layers, products):
+    """The plain version of the wide kernels' pre-pass
+    (``csrc/renderer_wide.cu::pack_wide_kernel``): their workspace as int32
+    ``[wide_pack_bytes / 16, 4]``.  First the schedule, an int2 a ring
+    slice (its first row, its rows); then per product and k-step of 8 the
+    hi part, then the lo part of B (the layer's ``[d_in, d_out]`` weights,
+    or their transpose; 0 past them), hi = ``tf32_round(b)`` and lo = b -
+    hi (so hi + lo == b): each part, per N-tile j of 8 and k-half h, a
+    core matrix of ``wgmma``'s K-major layout, row r = ``B[8 ks + 4 h +
+    (0..3), 8 j + r]`` (16 bytes), core 2 j + h."""
+    w_all = mlp_params.detach().to(torch.float32).reshape(-1)
+    slices = sum(-(-ks // WIDE_SLICE_STEPS) for _, _, ks, _ in products)
+    head = -(-slices // 2)
+    out = torch.zeros((wide_pack_bytes(products) // 16, 4),
+                      dtype=torch.int32, device=w_all.device)
+    sched, at = [], head
+    for layer, transposed, ks, nt in products:
+        d_in, d_out, w_off = layers[layer][:3]
+        w = w_all[w_off:w_off + d_in * d_out].reshape(d_in, d_out)
+        b = w.t() if transposed else w
+        padded = torch.zeros((8 * ks, 8 * nt), dtype=torch.float32,
+                             device=w_all.device)
+        padded[:b.shape[0], :b.shape[1]] = b
+        # k = 8 s + 4 h + c, n = 8 j + r -> [s][j][h][r][c]
+        core = padded.reshape(ks, 2, 4, nt, 8).permute(0, 3, 1, 4, 2)
+        hi = tf32_round(core)
+        lo = core - hi
+        region = torch.stack([hi, lo], 1).view(torch.int32)
+        n = ks * nt * 32
+        out[at:at + n] = region.reshape(n, 4)
+        for k0 in range(0, ks, WIDE_SLICE_STEPS):
+            sched.append((at + k0 * nt * 32,
+                          min(WIDE_SLICE_STEPS, ks - k0) * nt * 32))
+        at += n
+    if sched:
+        flat = out[:head].reshape(-1)
+        flat[:2 * len(sched)] = torch.tensor(sched, dtype=torch.int32,
+                                             device=w_all.device).reshape(-1)
+    return out
+
+
 def pick_warps_per_block(smem_bytes, max_smem: int = MAX_SMEM_BYTES):
     """The forward kernel's warps per block, given ``smem_bytes[w]``, the
     shared memory a block of ``w`` warps needs: the most of
@@ -243,12 +376,24 @@ def pick_warps_per_block(smem_bytes, max_smem: int = MAX_SMEM_BYTES):
                 None)
 
 
+def wide_config(lib, a):
+    """The wide forward's ``(warps, shared-memory bytes, workspace bytes)``
+    as its C side plans them (``lightplane_render_fw_wide_config``)."""
+    out = (ctypes.c_int * 3)()
+    rc = lib.lightplane_render_fw_wide_config(a.width, a.n_t, a.n_o, a.n_c,
+                                              a.mlp_widths, out)
+    if rc != 0:
+        raise ValueError(f"the wide forward does not take these widths "
+                         f"({lib.lightplane_cuda_error_string(rc).decode()})")
+    return tuple(out)
+
+
 def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
                     warps_per_block=None):
     """Launch the forward-march kernel on the current CUDA stream.
     ``defines`` pick a variant build of the kernel (``_build.library``);
-    ``warps_per_block`` (of ``WARPS_PER_BLOCK``) overrides
-    ``pick_warps_per_block``."""
+    ``warps_per_block`` (of ``WARPS_PER_BLOCK``; 1..``WIDE_FW_WARPS`` at
+    the wide widths) overrides ``pick_warps_per_block``."""
     global LAUNCHES, SCAFFOLD_LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
@@ -257,19 +402,39 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
     from ._build import library
 
     lib = library(defines)
-    smem = {w: lib.lightplane_render_fw_smem_bytes(a.width, a.n_layers,
-                                                   a.color_chn, w)
-            for w in WARPS_PER_BLOCK}
-    warps = warps_per_block or pick_warps_per_block(smem)
-    if warps is None:
-        raise ValueError(
-            f"the MLP weights need {smem[1]} bytes of shared memory per "
-            f"block of one warp, more than the {MAX_SMEM_BYTES} a Hopper "
-            f"block can have"
-        )
-    if smem.get(warps, MAX_SMEM_BYTES + 1) > MAX_SMEM_BYTES:
-        raise ValueError(f"warps_per_block must be one of {WARPS_PER_BLOCK} "
-                         f"and fit in shared memory, got {warps}")
+    workspace = None
+    if a.width > 64:
+        # the wide build: WIDE_FW_WARPS warps (or warps_per_block, 1-8) in
+        # lockstep over the layers staged in shared memory, packed into a
+        # workspace by the launch's pre-pass; by wgmma where R2's plan at
+        # these layers is whole warpgroups (and the warps are), so that R2's
+        # recomputed forward gives R1's activations to the bit
+        warps = warps_per_block or WIDE_FW_WARPS
+        if not 1 <= warps <= WIDE_FW_WARPS:
+            raise ValueError(f"warps_per_block must be 1..{WIDE_FW_WARPS} "
+                             f"at width {a.width}, got {warps}")
+        conf = wide_config(lib, a)
+        if conf != (WIDE_FW_WARPS, wide_fw_smem_bytes(a.width),
+                    wide_pack_bytes(a.products(False))):
+            raise RuntimeError(f"the wide forward's plan {conf} is not the "
+                               f"wrapper's")
+        workspace = torch.empty((conf[2] // 4,), dtype=torch.int32,
+                                device=a.device)
+    else:
+        smem = {w: lib.lightplane_render_fw_smem_bytes(a.width, a.n_layers,
+                                                       a.color_chn, w)
+                for w in WARPS_PER_BLOCK}
+        warps = warps_per_block or pick_warps_per_block(smem)
+        if warps is None:
+            raise ValueError(
+                f"the MLP weights need {smem[1]} bytes of shared memory per "
+                f"block of one warp, more than the {MAX_SMEM_BYTES} a Hopper "
+                f"block can have"
+            )
+        if smem.get(warps, MAX_SMEM_BYTES + 1) > MAX_SMEM_BYTES:
+            raise ValueError(f"warps_per_block must be one of "
+                             f"{WARPS_PER_BLOCK} and fit in shared memory, "
+                             f"got {warps}")
 
     f32 = torch.float32
     depth = torch.empty((a.R,), dtype=f32, device=a.device)
@@ -289,6 +454,7 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
         cfg.inject_noise_sigma, int(noise_seed), cfg.noise_stride,
         cfg.num_rays_noise,
         *a.extras(scaffold, color_grid_flat),
+        _ptr(workspace),
         stream,
     )
     if rc != 0:

@@ -463,6 +463,157 @@ def _tri(batch, res, chn):
             (batch, res, res, 1, chn)]
 
 
+def _wide_parity(rays, grid, dp, **kw):
+    """R1 against its plain version, and R2 against its plain version under
+    the relu masks its recording build took, on every ray (the wide builds'
+    bounds: max |d| <= MAX_ABS, and MAX_ABS x max |g|)."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+
+    flat = lp.process_and_flatten_grid(grid, kw.pop("color_grid", None))
+    cfg, geom, diff = rmod._march_inputs(rays, *flat, dp, **kw)
+    assert renderer_fw._kernel_width(cfg, diff[0].shape[1]) in (96, 128)
+    n = len(rays)
+    gen = torch.Generator().manual_seed(1)
+    g_out = tuple(torch.randn(s, generator=gen).to(rays.origins.device)
+                  for s in [(n,), (n,), (n, 3)])
+    fw, bw = renderer_fw.LAUNCHES, renderer_bw.LAUNCHES
+    with torch.no_grad():
+        out_k = renderer_fw.render_fwd_cuda(cfg, geom, diff)
+        out_p = renderer_fw.render_fwd_torch(cfg, geom, diff)
+        got, masks = renderer_bw.render_bwd_cuda_relu_masks(
+            cfg, geom, diff, out_k[1], g_out)
+        want = renderer_bw.render_bwd_torch(cfg, geom, diff, out_k[1], g_out,
+                                            relu_masks=masks)
+    torch.cuda.synchronize()
+    assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
+    for name, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * max(1.0, float(b.abs().max())), (
+            f"{name}: max |diff| {err}")
+    assert float(out_k[1].max()) > 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None:
+            continue
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS * float(b.abs().max()), f"grad {i}: {err}"
+    return cfg, geom, diff
+
+
+def _facing_rays(device, n, hidden_enc, seed=7):
+    """Rays that alternate between coming from z = -2 toward +z and from
+    z = +2 toward -z, so that a scaffold of the half-space z > 0 shuts the
+    first chunks of one kind and the last chunks of the other, in every
+    block."""
+    rng = np.random.default_rng(seed)
+    side = np.where(np.arange(n) % 2 == 0, -1.0, 1.0)
+    origins = rng.standard_normal((n, 3)) * 0.2
+    origins[:, 2] = 2.0 * side
+    directions = rng.standard_normal((n, 3)) * 0.1
+    directions[:, 2] = -side
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return lp.Rays(
+        directions=t(directions), origins=t(origins),
+        grid_idx=t(np.zeros(n), torch.int64), near=t(np.full(n, 0.5)),
+        far=t(np.full(n, 3.5)),
+        encoding=t(rng.standard_normal((n, hidden_enc)) * 0.1))
+
+
+@pytest.mark.cuda
+def test_wide_block_with_rays_gated_in_different_chunks(cuda):
+    """W = 128: a scaffold of the half-space z > 0 over rays that cross it
+    in opposite directions, so each block of R1 and R2 runs chunks where
+    some of its rays sample and others are shut whole."""
+    rays, grid, dp = _case(cuda, _tri(1, 12, 128), n_rays=64, hidden=128)
+    rays = _facing_rays(cuda, 64, dp.n_hidden_color[0])
+    scaffold = torch.zeros((1, 8, 8, 8), device=cuda)
+    scaffold[:, 4:] = 1.0  # z > 0 (the D axis is z)
+    _wide_parity(rays, grid, dp, num_samples=64, gain=1.5,
+                 scaffold=scaffold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [8, 4, 2])
+def test_wide_forward_by_wgmma_and_by_mma_sync(cuda, warps):
+    """R1 at W = 128 with 8 and 4 warps a block (its products by wgmma, a
+    warpgroup's 64 rows at a time) and with 2 (by mma.sync, a warp's 16
+    rows) against its plain version."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+
+    rays, grid, dp = _case(cuda, _tri(1, 12, 32), n_rays=200, hidden=128)
+    flat = lp.process_and_flatten_grid(grid, None)
+    cfg, geom, diff = rmod._march_inputs(rays, *flat, dp, num_samples=48,
+                                         gain=1.5)
+    with torch.no_grad():
+        out_k = renderer_fw.render_fwd_cuda(cfg, geom, diff,
+                                            warps_per_block=warps)
+        out_p = renderer_fw.render_fwd_torch(cfg, geom, diff)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("depth", "nlt", "feat"), out_k, out_p):
+        err = float((a - b).abs().max())
+        assert err <= MAX_ABS, f"{name}: max |diff| {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [37, 5])
+def test_wide_ray_count_not_a_multiple_of_the_block(cuda, n_rays):
+    """Ray counts that leave the last block of R1 (8 warps) and R2 (4 at
+    W = 128) part-empty, and one smaller than a block."""
+    rays, grid, dp = _case(cuda, _tri(1, 12, 32), n_rays=n_rays, hidden=128)
+    _wide_parity(rays, grid, dp, num_samples=40, gain=1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers, hidden", [((3, 4, 4), 128),
+                                            ((0, 1, 1), 128),
+                                            ((6, 5, 5), 96)])
+def test_wide_deep_and_shallow_mlps(cuda, layers, hidden):
+    """11 layers at W = 128 and 16 at W = 96 (blocks of fewer than 4
+    warps: the products by mma.sync), and the shallowest decoder (a
+    one-layer colour head, no trunk)."""
+    # with no trunk the heads read the grid's channels
+    chn = hidden if layers[0] == 0 else 32
+    rays, grid, dp = _case(cuda, _tri(1, 10, chn), n_rays=96, hidden=hidden,
+                           layers=layers)
+    _wide_parity(rays, grid, dp, num_samples=24, gain=1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True])
+def test_wide_pack_kernel_matches_its_plain_version(cuda, backward):
+    """The wide kernels' pre-pass equals ``pack_wide_torch`` bit for bit,
+    and the wrapper's plan the C side's."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import _build
+
+    n_t, n_o, n_c = 1, 2, 2
+    head = (32, 128) + (128, 72, 1) + (128, 72, 3)
+    layers = renderer_fw.wide_layers(n_t, n_o, n_c, head)
+    n_params = sum(i * o + o for i, o, _, _ in layers)
+    mlp = torch.randn(n_params, generator=torch.Generator().manual_seed(2))
+    products = renderer_fw.wide_products(layers, n_t, n_o, backward)
+    want = renderer_fw.pack_wide_torch(mlp, layers, products)
+    lib = _build.library()
+    widths = (ctypes.c_int * len(head))(*head)
+    ws = torch.full((want.numel(),), -1, dtype=torch.int32, device=cuda)
+    mlp_d = mlp.to(cuda)
+    rc = lib.lightplane_render_wide_pack(
+        mlp_d.data_ptr(), n_t, n_o, n_c, widths, int(backward),
+        ws.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(ws.cpu().reshape(-1, 4), want)
+    conf = (ctypes.c_int * 5)()
+    assert lib.lightplane_render_bw_wide_config(128, n_t, n_o, n_c, widths,
+                                                0, conf) == 0
+    plan = renderer_bw.wide_bw_plan(128, n_t, n_o, n_c, head, False)
+    assert (conf[0], conf[3], conf[4], conf[2]) == (
+        plan.warps, plan.smem_bytes, plan.workspace_bytes, plan.row_floats)
+
+
 SPLAT_CASES = {
     "triplane_batch2_mask": dict(out_sizes=_tri(2, 12, 16), batch=2,
                                  kw=dict(mask_out_of_bounds_samples=True)),

@@ -273,3 +273,183 @@ def test_mlp_splatter_plain_path_at_nine_layers_and_nine_grids():
     fixture = _splat_fixture(rng, n_hidden, res=4, n_grids=3)
     assert len(fixture[1]) == 9 and len(n_hidden) - 1 == 9
     _splat_matches_jax(*fixture, seed=8)
+
+
+# ---- the wide builds' host-side plan (csrc/renderer_wide.cu) ---------------
+
+def _head(n_t, n_o, n_c, hidden, chn=32, colours=3):
+    """The n_hidden tuples of a decoder of n_t / n_o / n_c layers at
+    ``hidden`` (the trunk from ``chn`` channels; no trunk: the heads read
+    the grid's ``chn`` channels)."""
+    trunk = (chn,) + (hidden,) * n_t if n_t else ()
+    head_in = hidden if n_t else chn
+    opacity = (head_in,) + (hidden,) * (n_o - 1) + (1,)
+    color = (head_in,) + (hidden,) * (n_c - 1) + (colours,)
+    return trunk + opacity + color
+
+
+def _bw_smem_by_hand(width, n_t, n_o, n_c, color_grid, warps, colours=3):
+    """R2's wide block, counted from its parts: per warp a [16][W + 4] f32
+    tile for each of the n_total - 1 layer inputs, one more for a colour
+    grid's sample and one more for a one-layer colour head's input, the
+    heads' gradient tile [16][8 + 4] (colours and opacity up to 8) and the
+    ray's encoding; then three ring slots of two k-steps of W / 8 N-tiles
+    of 32 lanes' 16 bytes, and 4 bytes of flag for each of 8 warps."""
+    n_total = n_t + n_o + n_c
+    tiles = n_total - 1 + int(color_grid) + int(n_c == 1)
+    gt_cols = -(-max(colours, 1) // 8) * 8
+    per_warp = 4 * (tiles * 16 * (width + 4) + 16 * (gt_cols + 4) + width)
+    return warps * per_warp + 3 * 2 * (width // 8) * 32 * 16 + 4 * 8
+
+
+@pytest.mark.parametrize("width", [96, 128])
+@pytest.mark.parametrize("layers, color_grid", [
+    ((2, 2, 2), False), ((0, 2, 2), True), ((1, 1, 1), False),
+    ((0, 1, 1), False), ((3, 4, 4), False), ((8, 4, 4), False)])
+def test_wide_plan_warps_and_shared_memory(width, layers, color_grid):
+    """R2's warps a block (the most, up to 8, that fit in 227 KB, whole
+    warpgroups past 4) and its shared memory, and R1's (8 warps of two
+    [16][W + 4] tiles and the ring), as the wrapper plans them, against
+    the same arithmetic done by hand."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    n_t, n_o, n_c = layers
+    plan = renderer_bw.wide_bw_plan(width, n_t, n_o, n_c,
+                                    _head(*layers, width), color_grid)
+    fits = [w for w in range(1, 9)
+            if _bw_smem_by_hand(width, *layers, color_grid, w) <= 232448]
+    # whole warpgroups of 4 where more than 4 fit
+    assert plan.warps == (max(fits) if max(fits) <= 4
+                          else max(fits) // 4 * 4)
+    assert plan.smem_bytes == _bw_smem_by_hand(width, *layers, color_grid,
+                                               plan.warps)
+    assert renderer_fw.wide_fw_smem_bytes(width) == (
+        8 * 2 * 16 * (width + 4) * 4 + 3 * 2 * (width // 8) * 32 * 16)
+    assert renderer_fw.wide_fw_smem_bytes(width) <= 232448
+
+
+def test_wide_plan_at_the_render_headline():
+    """The numbers of renderer_wide.cu's note: at the 2/2/2 decoder R2
+    takes 4 warps a block at W = 128 (223,264 bytes) and at 96 (five fit);
+    R1 8 at both (184,320 and 139,264 bytes)."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    p128 = renderer_bw.wide_bw_plan(128, 2, 2, 2, _head(2, 2, 2, 128), False)
+    p96 = renderer_bw.wide_bw_plan(96, 2, 2, 2, _head(2, 2, 2, 96), False)
+    assert (p128.warps, p128.smem_bytes) == (4, 223264)
+    assert (p96.warps, p96.smem_bytes) == (4, 169504)
+    assert renderer_fw.WIDE_FW_WARPS == 8
+    assert (renderer_fw.wide_fw_smem_bytes(128),
+            renderer_fw.wide_fw_smem_bytes(96)) == (184320, 139264)
+
+
+@pytest.mark.parametrize("width, layers, color_grid", [
+    # 11 layers in all at 128 (10 with a colour grid), 16 (15) at 96, and
+    # deeper ones
+    (128, (3, 4, 4), False), (128, (0, 5, 5), True), (128, (9, 1, 1), False),
+    (96, (6, 5, 5), False), (96, (0, 8, 7), True), (96, (14, 1, 1), False),
+    (128, (7, 7, 7), False), (96, (10, 10, 9), False)])
+def test_wide_plan_takes_deep_configs(width, layers, color_grid):
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    plan = renderer_bw.wide_bw_plan(width, *layers, _head(*layers, width),
+                                    color_grid)
+    assert plan.warps >= 1 and plan.smem_bytes <= 232448
+
+
+def test_wide_plan_refuses_what_does_not_fit():
+    """48 layers at W = 128 need more than a block's shared memory for one
+    warp: ValueError with the bytes; and widths above 128 stay refused."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
+        renderer_bw.wide_bw_plan(128, 16, 16, 16, _head(16, 16, 16, 128),
+                                 False)
+    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 136, 8),
+                                n_hidden_opacity=(8, 8, 1),
+                                n_hidden_color=(8, 8, 3))
+    with pytest.raises(ValueError, match="widths up to 128"):
+        renderer_fw._kernel_width(cfg, 8)
+
+
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_wide_partial_buffer_has_a_row_per_block(num_sms):
+    """R2's partial sums: one row per block of the resident wave (one block
+    a SM), whatever the warps a block, each row every layer's sums."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    for width, layers in ((128, (2, 2, 2)), (96, (1, 1, 1))):
+        plan = renderer_bw.wide_bw_plan(width, *layers,
+                                        _head(*layers, width), False)
+        assert plan.warps > 1
+        assert plan.partial_rows(num_sms) == num_sms
+        dims = renderer_fw.wide_layers(*layers, _head(*layers, width))
+        floats = sum(-(-i // 16) * -(-o // 8) * 128 + 8 * -(-o // 8)
+                     for i, o, _, _ in dims)
+        assert plan.row_floats == -(-floats // 4) * 4
+
+
+def _tf32_by_frexp(x):
+    """x rounded to 10 mantissa bits, to nearest, ties away from zero, in
+    float64 arithmetic."""
+    m, e = np.frexp(x.astype(np.float64))
+    scaled = np.abs(m) * 2.0**11
+    return (np.sign(m) * np.floor(scaled + 0.5) / 2.0**11 * 2.0**e).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_wide_pack_round_trips(backward):
+    """The plain version of the pre-pass: every weight of every product in
+    its place among wgmma's K-major core matrices, hi the TF32 rounding of
+    w, lo = w - hi, hi + lo == w; zero past a layer's widths; the schedule
+    a slice of two k-steps each, in the products' order."""
+    n_t, n_o, n_c = 1, 2, 2
+    head = (8, 40, 40, 72, 1, 40, 72, 3)
+    layers = renderer_fw.wide_layers(n_t, n_o, n_c, head)
+    n_params = sum(i * o + o for i, o, _, _ in layers)
+    rng = np.random.default_rng(3)
+    w_np = (rng.standard_normal(n_params) * 0.3).astype(np.float32)
+    w_np[:3] = [1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 3 * 2.0**-12]
+    products = renderer_fw.wide_products(layers, n_t, n_o, backward)
+    assert [(l, t) for l, t, _, _ in products][:3] == [
+        (0, False), (1, False), (3, False)]
+    if backward:
+        assert [l for l, t, _, _ in products if t] == [4, 3, 2, 1, 0]
+    pack = renderer_fw.pack_wide_torch(torch.from_numpy(w_np), layers,
+                                       products)
+    assert pack.shape[0] * 16 == renderer_fw.wide_pack_bytes(products)
+    slices = sum(-(-ks // 2) for _, _, ks, _ in products)
+    head_rows = -(-slices // 2)
+    sched = pack[:head_rows].reshape(-1)[:2 * slices].reshape(-1, 2).numpy()
+    at = head_rows
+    k = 0
+    for layer, transposed, ks, nt in products:
+        d_in, d_out, w_off, _ = layers[layer]
+        w = w_np[w_off:w_off + d_in * d_out].reshape(d_in, d_out)
+        b = w.T if transposed else w
+        assert (ks, nt) == (-(-b.shape[0] // 8), -(-b.shape[1] // 8))
+        # per k-step s: hi, lo; each N-tile j, k-half h: 8 rows of 4 k
+        region = pack[at:at + ks * nt * 32].numpy().view(np.float32)
+        region = region.reshape(ks, 2, nt, 2, 8, 4)
+        want = np.zeros((8 * ks, 8 * nt), np.float32)
+        want[:b.shape[0], :b.shape[1]] = b
+        for s in range(ks):
+            for j in range(nt):
+                for h in range(2):
+                    # rows n = 8 j + r, columns k = 8 s + 4 h + c
+                    wv = want[8 * s + 4 * h:8 * s + 4 * h + 4,
+                              8 * j:8 * j + 8].T
+                    hi, lo = region[s, 0, j, h], region[s, 1, j, h]
+                    assert np.array_equal(hi, _tf32_by_frexp(wv))
+                    assert np.array_equal(lo, wv - hi)
+                    assert np.array_equal(hi + lo, wv)
+        for k0 in range(0, ks, 2):
+            assert tuple(sched[k]) == (at + k0 * nt * 32,
+                                       min(2, ks - k0) * nt * 32)
+            k += 1
+        at += ks * nt * 32
+    assert k == slices and at == pack.shape[0]
+    # the ties round away from zero
+    assert float(renderer_fw.tf32_round(torch.tensor([1.0 + 2.0**-11]))) == (
+        1.0 + 2.0**-10)
