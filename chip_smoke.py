@@ -7,6 +7,7 @@ NVIDIA Hopper GPU.
     python3 chip_smoke.py --ablate       # phases 1-2, each kernel, parts off
     python3 chip_smoke.py --ablate S2    # phases 1-2, S2 with parts off
     python3 chip_smoke.py --ablate R2w   # phases 1-2, R2's wide build likewise
+    python3 chip_smoke.py --ablate S1w,S2w  # S1's and S2's wide MLP builds
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without its result line:
@@ -147,8 +148,17 @@ exits non-zero without its result line:
    100 and 200): the loss of a fixed batch must fall, the eval PSNR rise,
    and R1, R2 and R3 launch; then a step's device time by kernel; (c)
    ``LightplaneMLPSplatter`` 32 -> 128 -> 128 from a 3 x 128^2 x 32ch
-   prior into 3 x 128^2 x 128ch over phase 7's rays: one fw+bw step, then S1 and S2 with the MLP timed and held on
-   every ray; (d) the widths in between on phase 3's shapes: R1 and R2 at
+   prior into 3 x 128^2 x 128ch over phase 7's rays: one fw+bw step, then
+   S1 and S2 with the MLP timed, each by part with its slices of the rays
+   (S1: pass F, the layers' pre-pass, the plans, the splat passes; S2: the
+   gathers, pass A, the pre-pass, the plans, pass B, the weight-gradient
+   sum), held on every ray (S1's plan exactly, the pre-pass's splatter
+   schedules bit for bit), S1's own peak memory at 48, 96 and 192 samples
+   (within 5% from 96 to 192), and a yardstick on no path: S2's pass A
+   over one slice of the rays as f32 ``torch.matmul`` calls, beside the
+   kernel's pass A over the same rays; then 32 -> 96 -> 96 into 96
+   channels, timed, by part; (d) the widths in between on phase 3's
+   shapes: R1 and R2 at
    hidden 72, hidden 96, a 96-channel grid, and hidden 128 with the
    relu-field colour grid and a scaffold; S1 and S2 with the MLP at hidden
    72 and into 100 channels.
@@ -171,7 +181,7 @@ JAX.
 one kernel); it prints the result line but no kernels line, which needs
 every phase.
 
-``--ablate [R1,R2,S1,S2,R1w,R2w]`` builds variants of the kernels with parts
+``--ablate [R1,R2,S1,S2,R1w,R2w,S1w,S2w]`` builds variants of the kernels with parts
 switched off (the ``LIGHTPLANE_ABLATE`` bits of ``csrc/march_common.cuh``),
 one build each, all started together, and times each twice in turn: R1 at
 the slice shape and at phase 9's trainer shape (without the fit:
@@ -185,7 +195,10 @@ R1w and R2w, R1's and R2's wide builds, at the render headline with its
 2/2/2 decoder at hidden 128: R1 without grid sampling, without the decoder,
 without either, and R1 with 8, 4 and 2 warps a block (wgmma, wgmma,
 mma.sync); R2 without the grid reductions, without the weight-gradient
-pass, without either.
+pass, without either; S1w and S2w, S1 and S2 with the MLP at W = 128, at
+phase 12c's MLP splat: S1 as its plans alone (pass F still runs) and
+without its flush, S2 without pass B, without the weight gradient, as its
+gathers alone; each as built by part.
 """
 
 import copy
@@ -2096,37 +2109,70 @@ def print_kernel_attrs():
         print(f"  S2's {label}: {out[0]} registers, {out[1]} bytes spilled "
               f"per thread")
         assert out[1] == 0, f"S2's {label} spills"
-    conf = (ctypes.c_int * 4)()
+    conf = (ctypes.c_int * 5)()
     widths = (ctypes.c_int * 3)(32, 32, SPLAT_VOXEL[-1])
     assert lib.lightplane_splat_bw_mlp_config(64, 2, widths, conf) == 0
     print(f"  S2 pass A at the MLP splatter's MLP (32 -> 32 -> "
           f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
           f"resident, {conf[3]} bytes of shared memory a block, rows of "
           f"{conf[2]} partial sums")
-    # the wide builds (W = 96, 128: csrc/renderer_wide.cu, the wide S1 and
-    # pass A of S2)
+    # the wide builds (W = 96, 128: csrc/renderer_wide.cu, S1's pass F and
+    # S2's pass A)
     masks = _build.library(rbw.RELU_MASKS_BUILD)
     for name, fn in (("R1", lib.lightplane_render_fw_attrs),
                      ("R2", lib.lightplane_render_bw_attrs),
                      ("R2 recording masks", masks.lightplane_render_bw_attrs),
-                     ("S1 MLP", lambda w, o: lib.lightplane_splat_fw_attrs(
-                         1, w, o)),
-                     ("S2 MLP", lambda w, o: lib.lightplane_splat_bw_attrs(
-                         1, w, o)),
-                     ("S2 MLP recording masks",
+                     ("S1 MLP pass F", lambda w, o:
+                      lib.lightplane_splat_fw_attrs(1, w, o)),
+                     ("S2 MLP pass A", lambda w, o:
+                      lib.lightplane_splat_bw_attrs(1, w, o)),
+                     ("S2 MLP pass A recording masks",
                       lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
         for width in (96, 128):
             assert fn(width, out) == 0
             print(f"  {name} W={width} (wide build): {out[0]} registers, "
                   f"{out[1]} bytes spilled per thread")
-    widths = (ctypes.c_int * 3)(*WIDE_SPLAT_MLP)
-    assert lib.lightplane_splat_bw_mlp_config(128, 2, widths, conf) == 0
-    mlp = " -> ".join(map(str, WIDE_SPLAT_MLP))
-    print(f"  S2 pass A at phase 12's MLP splat ({mlp}, W = 128): "
-          f"{conf[0]} warps a block, {conf[1]} "
-          f"rows of {conf[2]} partial sums (a warp's each), {conf[3]} bytes "
-          f"of shared memory a block")
+    assert lib.lightplane_splat_fw_attrs(3, 0, out) == 0
+    print(f"  S1's per-step splat (pass S of the wide MLP build): {out[0]} "
+          f"registers, {out[1]} bytes spilled per thread")
+    print_wide_splat_plans(lib)
     return print_wide_plans(lib)
+
+
+def print_wide_splat_plans(lib):
+    """S1's pass F and S2's pass A at phase 12's MLP splat (W = 128 and
+    96): warps a block (one block a SM), shared memory and the workspace of
+    packed layers, as the C side plans them, held to the wrappers' plans."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    for width in WIDE_HIDDEN:
+        nh = (WIDE_SPLAT_MLP[0], width, width)
+        widths = (ctypes.c_int * 3)(*nh)
+        layers = rfw.wide_layers(2, 0, 0, nh)
+        fw = (ctypes.c_int * 3)()
+        assert lib.lightplane_splat_fw_mlp_config(width, 2, widths, fw) == 0
+        assert tuple(fw) == (sfw.PASS_F_WARPS, sfw.pass_f_smem_bytes(width),
+                             rfw.wide_pack_bytes(sfw.splat_products(
+                                 layers, False))), tuple(fw)
+        bw = (ctypes.c_int * 5)()
+        assert lib.lightplane_splat_bw_mlp_config(width, 2, widths, bw) == 0
+        warps, smem = sbw.wide_a_plan(width, nh)
+        assert (bw[0], bw[3], bw[4]) == (
+            warps, smem, rfw.wide_pack_bytes(sfw.splat_products(
+                layers, True))), tuple(bw)
+        mlp = " -> ".join(map(str, nh))
+        print(f"  S1 pass F at phase 12's MLP splat ({mlp}, W = {width}): "
+              f"{fw[0]} warps a block and a SM, {fw[1]} bytes of shared "
+              f"memory a block, a workspace of {fw[2]} bytes of packed "
+              f"layers")
+        print(f"  S2 pass A there: {bw[0]} warps a block and a SM, {bw[3]} "
+              f"bytes of shared memory a block, a workspace of {bw[4]} "
+              f"bytes; {bw[1]} rows (one a block) of {bw[2]} partial sums, "
+              f"{4 * bw[1] * bw[2]} bytes")
 
 
 def wide_head(hidden):
@@ -3045,7 +3091,20 @@ ABLATIONS = {
     "R2w": {"no_atomics": 2, "no_wgrad": 4, "neither": 6},
     "S1": {"plan_alone": 32, "no_flush": 64},
     "S2": {"no_scatter": 128, "no_wgrad": 256, "gather_only": 512},
+    # S1 and S2 with the MLP at W = 128, at phase 12c's MLP splat
+    "S1w": {"plan_alone": 32, "no_flush": 64},
+    "S2w": {"no_scatter": 128, "no_wgrad": 256, "gather_only": 512},
 }
+# the parts of S1's and S2's wide MLP builds by kernel name
+# (device_breakdown's groups)
+S1W_PARTS = (("pass F", ("splat_mlp_wide",)), ("pre-pass", ("pack_wide",)),
+             ("plans", ("splat_plan_kernel",)),
+             ("splat passes", ("splat_fw_kernel",)))
+S2W_PARTS = (("gather", ("splat_bw_enc_kernel",)),
+             ("pass A", ("splat_bw_mlp",)), ("pre-pass", ("pack_wide",)),
+             ("plans", ("splat_plan_kernel",)),
+             ("pass B", ("splat_fw_kernel",)),
+             ("weight-gradient sum", ("reduce_partial",)))
 
 
 def time_variants(variants, fn, smi, reps=5):
@@ -3241,6 +3300,34 @@ def ablate(lp, smi, kernels):
         time_variants(variants["S2"], lambda d: sbw.splat_bwd_cuda(
             cfg, geom, diff, g_out, d), smi)
         del rays, enc, geom, diff, g_out
+    if "S1w" in variants or "S2w" in variants:
+        cfg, geom, diff, g_out = wide_splat_march(
+            lp, smod, *wide_splat_inputs(lp, 128))
+        for key, label, parts, fn in (
+                ("S1w", "S1", S1W_PARTS,
+                 lambda d: sfw.splat_fwd_cuda(cfg, geom, diff, d)),
+                ("S2w", "S2", S2W_PARTS,
+                 lambda d: sbw.splat_bwd_cuda(cfg, geom, diff, g_out, d))):
+            if key not in variants:
+                continue
+            print(f"== ablation: {label} with the MLP at W = 128 with parts "
+                  f"switched off, at phase 12c's MLP splat (32 -> 128 -> "
+                  f"128 into 3 x 128^2 x 128ch)")
+            time_variants(variants[key], fn, smi, reps=2)
+            print(f"== {label} with the MLP at W = 128 as built, by part:")
+            with torch.no_grad():
+                fn(())
+                device_breakdown(lambda: fn(()), smi, top=8, groups=parts)
+        if "S1w" in variants:
+            print("== S1 with the MLP at W = 128 as built by pass S's brick, "
+                  "the largest that lets 1, 2, 3 or 4 blocks share an SM")
+            sweep = {}
+            for k in range(1, 5):
+                bricks = sfw.pick_bricks(cfg, budget=228 * 1024 // k - 1024)
+                sweep.setdefault(f"{bricks[0]}", bricks)
+            time_variants(sweep, lambda b: sfw.splat_fwd_cuda(
+                cfg, geom, diff, bricks=b), smi, reps=2)
+        del cfg, geom, diff, g_out
 
 
 def mlp_splat_march(lp, smod, rays, gen):
@@ -3957,16 +4044,10 @@ def splat_mlp_fw_work(cfg, geom):
     return flops, nbytes
 
 
-def wide_splat(lp, smi, width=128):
-    """(c): S1 and S2 with the MLP 32 -> width -> width into a grid of
-    ``width`` channels over phase 7's rays; at 128 also one fw+bw step of
-    the module (its launches) and both held against their plain versions
-    on every ray."""
-    from lightplane_tpu_torch.ops import splatter as smod
-    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
-    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
-
-    check = width == 128
+def wide_splat_inputs(lp, width):
+    """(c)'s inputs at ``width``: the module (MLP 32 -> width -> width), its
+    rays over phase 7's views with their encodings, the prior's sub-grids,
+    the output sizes and the generator they were drawn from."""
     gen = torch.Generator().manual_seed(12)
     n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
     c_in, hidden, c_out = WIDE_SPLAT_MLP[0], width, width
@@ -3978,6 +4059,38 @@ def wide_splat(lp, smi, width=128):
         mlp_hidden_chn=hidden, mlp_n_layers=2, generator=gen)
     igrid = [(torch.randn(s, generator=gen) * 0.1).cuda().requires_grad_(True)
              for s in in_sizes]
+    return module, rays, enc, igrid, in_sizes, out_sizes, gen
+
+
+def wide_splat_march(lp, smod, module, rays, enc, igrid, in_sizes,
+                     out_sizes, gen):
+    """``(cfg, geom, diff, g_out)`` of S1 and S2 with (c)'s MLP on its
+    inputs (``wide_splat_inputs``), ``g_out`` a random output gradient."""
+    c_in = in_sizes[0][-1]
+    sp = lp.SplatterParams(module.mlp_params.detach(), module._n_hidden)
+    igrid_flat = torch.cat([g.detach().reshape(-1, c_in) for g in igrid])
+    cfg, geom, diff = splat_march(smod, lp.Rays(
+        rays.directions, rays.origins, rays.grid_idx, rays.near, rays.far,
+        enc.detach()), out_sizes, dict(num_samples=SPLAT_SAMPLES), sp,
+        igrid_flat, in_sizes)
+    g_out = (torch.randn((cfg.v_total, cfg.out_chn), generator=gen)
+             * 0.01).cuda()
+    return cfg, geom, diff, g_out
+
+
+def wide_splat(lp, smi, width=128):
+    """(c): S1 and S2 with the MLP 32 -> width -> width into a grid of
+    ``width`` channels over phase 7's rays; at 128 also one fw+bw step of
+    the module (its launches) and both held against their plain versions
+    on every ray."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    check = width == 128
+    inputs = wide_splat_inputs(lp, width)
+    module, rays, enc, igrid, in_sizes, out_sizes, gen = inputs
+    n, c_out = len(rays), width
     launches = (0, 0)
     if check:
         enc.requires_grad_(True)
@@ -3996,14 +4109,8 @@ def wide_splat(lp, smi, width=128):
           f"rays x {SPLAT_SAMPLES} samples" + (
               f": one fw+bw step, launches (S1, S2 with the MLP) {launches}"
               if check else ""))
-    sp = lp.SplatterParams(module.mlp_params.detach(), module._n_hidden)
-    igrid_flat = torch.cat([g.detach().reshape(-1, c_in) for g in igrid])
-    cfg, geom, diff = splat_march(smod, lp.Rays(
-        rays.directions, rays.origins, rays.grid_idx, rays.near, rays.far,
-        enc.detach()), out_sizes, dict(num_samples=SPLAT_SAMPLES), sp,
-        igrid_flat, in_sizes)
+    cfg, geom, diff, g_out = wide_splat_march(lp, smod, *inputs)
     assert sfw._mlp_width(cfg) == width
-    g_out = (torch.randn((cfg.v_total, c_out), generator=gen) * 0.01).cuda()
     reps = 3 if check else 1
     fw_err = bw_err = None
     with torch.no_grad():
@@ -4011,6 +4118,7 @@ def wide_splat(lp, smi, width=128):
                         warmup=1, reps=reps)
         bw_ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
                         warmup=1, reps=reps)
+        wide_splat_parts(cfg, geom, diff, g_out, smi)
         feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4051,6 +4159,11 @@ def wide_splat(lp, smi, width=128):
             compare(label, a, b, max_rel=SPLAT_MAX_REL,
                     magnitude_scaled=True)
     del got, masks, shipped, want
+    if check:
+        plan_parity(cfg, geom, diff)
+        wide_splat_pack_parity(diff[2], cfg.n_hidden)
+        wide_splat_memory(cfg, geom, diff, smi)
+        pass_a_yardstick(cfg, geom, diff, g_out, smi)
     fl_fw, by_fw = splat_mlp_fw_work(cfg, geom)
     b_fw = bound(fl_fw, by_fw)
     fl_bw, fl_tc, by_bw = splat_mlp_work(cfg, geom)
@@ -4070,6 +4183,168 @@ def wide_splat(lp, smi, width=128):
                 bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
                         bound=b_bw, bound_tf32=b_bw_tc,
                         launches=launches[1]))
+
+
+def wide_splat_parts(cfg, geom, diff, g_out, smi):
+    """S1's and S2's wide MLP builds by part (``device_breakdown``: S1's
+    pass F, pre-pass, plans and splat passes; S2's gathers, pass A,
+    pre-pass, plans, pass B and weight-gradient sum), with their slices of
+    the rays and the plans and splat passes those make."""
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    n = geom[0].shape[0]
+    bricks = sfw.pick_bricks(cfg)
+    fw_slices = len(sfw.mlp_slices(cfg, bricks, n))
+    planes = len(cfg.output_grid_sizes)
+    print(f"    S1 with the MLP: {fw_slices} slices of the rays, {fw_slices}"
+          f" pass F launches, {fw_slices * planes} plans and pass S "
+          f"launches (bricks {bricks}), by part:")
+    device_breakdown(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), smi,
+                     top=6, groups=S1W_PARTS)
+    in_bricks = sfw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+    a_slices = sbw.adjoint_slices(cfg, in_bricks, n)
+    g_slices = sum(len(sbw.gvec_slices(cfg, lo, hi)) for lo, hi in a_slices)
+    print(f"    S2 with the MLP: {len(a_slices)} slices of the rays, "
+          f"{g_slices} gather and pass A launches, "
+          f"{len(a_slices) * len(cfg.input_grid_sizes)} plans and pass B "
+          f"launches (bricks {in_bricks}), by part:")
+    device_breakdown(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out), smi,
+                     top=6, groups=S2W_PARTS)
+
+
+def wide_splat_pack_parity(mlp, n_hidden):
+    """The layers' pre-pass with the splatter's schedules (S1's pass F, S2's
+    pass A) against its plain version, bit for bit."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import _build
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    lib = _build.library()
+    L = len(n_hidden) - 1
+    widths = (ctypes.c_int * len(n_hidden))(*n_hidden)
+    layers = rfw.wide_layers(L, 0, 0, n_hidden)
+    for schedule, backward in ((2, False), (3, True)):
+        want = rfw.pack_wide_torch(mlp.cpu(), layers,
+                                   sfw.splat_products(layers, backward))
+        ws = torch.full((want.numel(),), -1, dtype=torch.int32, device="cuda")
+        assert lib.lightplane_render_wide_pack(
+            mlp.data_ptr(), L, 0, 0, widths, schedule, ws.data_ptr(),
+            torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(ws.cpu().reshape(-1, 4), want), schedule
+    print("    the layers' pre-pass with the splatter's schedules equals its "
+          "plain version bit for bit (pass F's and pass A's products)")
+
+
+def wide_splat_memory(cfg, geom, diff, smi):
+    """S1's own peak memory with the MLP at 48, 96 and 192 samples: the
+    staging and the run lists of a slice stay within PLAN_MAX_RUNS' bytes,
+    so it stops growing with the samples."""
+    import dataclasses
+
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    n = geom[0].shape[0]
+    peaks = {}
+    for ns in (48, 96, 192):
+        cfg_n = dataclasses.replace(cfg, num_samples=ns)
+        slices = len(sfw.mlp_slices(cfg_n, sfw.pick_bricks(cfg_n), n))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            out = sfw.splat_fwd_cuda(cfg_n, geom, diff)
+        torch.cuda.synchronize()
+        peaks[ns] = torch.cuda.max_memory_allocated() - base
+        del out
+        print(f"    peak allocated by S1 with the MLP alone at {ns} samples: "
+              f"{peaks[ns]} bytes above the {base} held before it, the rays "
+              f"in {slices} slice(s)  [{smi}]")
+    assert abs(peaks[192] - peaks[96]) <= 0.05 * peaks[96], peaks
+
+
+def pass_a_yardstick(cfg, geom, diff, g_out, smi):
+    """A yardstick on no path: S2's pass A over the first slice of its
+    rays (``gvec_slices``) as f32 ``torch.matmul`` calls (TF32 off): the
+    forward's relu layers, then per layer last first the weight and bias
+    gradients and the input gradient through the relu mask, and the
+    encoding's gradient; its input the slice's staged rows (g_vec and
+    sample + encoding at every step, zero where a step is masked), timed
+    beside the kernel's pass A over the same rays (device time by part)."""
+    from lightplane_tpu_torch.ops import grid_sample as tgs
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+    from lightplane_tpu_torch.ops.mlp_utils import (
+        _flattened_one_mlp_params_to_list)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    in_bricks = sfw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+    lo, hi = sbw.gvec_slices(cfg, *sbw.adjoint_slices(
+        cfg, in_bricks, geom[0].shape[0])[0])[0]
+    geom_s = tuple(t[lo:hi] for t in geom)
+    enc, igrid, mlp = diff
+    steps, mask = cfg.tot_num_samples, cfg.mask_out_of_bounds_samples
+    with torch.no_grad():
+        gv, x0 = [], []
+        for s in range(steps):
+            pts = smod._march_points(cfg, geom_s, s)
+            gv.append(tgs.sample_grid_rep(g_out, cfg.output_grid_sizes, pts,
+                                          geom_s[4], mask))
+            x0.append(tgs.sample_grid_rep(igrid, cfg.input_grid_sizes, pts,
+                                          geom_s[4], mask) + enc[lo:hi])
+        G0 = torch.stack(gv, 1).reshape(-1, cfg.out_chn)
+        X0 = torch.stack(x0, 1).reshape(-1, cfg.n_hidden[0])
+        del gv, x0
+        weights, biases = _flattened_one_mlp_params_to_list(mlp,
+                                                            cfg.n_hidden)
+
+        def pass_a():
+            xs = [X0]
+            for w, b in zip(weights[:-1], biases[:-1]):
+                xs.append(torch.relu(xs[-1] @ w + b))
+            g, grads = G0, []
+            for l in reversed(range(len(weights))):
+                grads.append((xs[l].t() @ g, g.sum(0)))
+                g = g @ weights[l].t()
+                if l > 0:
+                    g = g * (xs[l] > 0)
+            return g.reshape(hi - lo, steps, -1).sum(1), grads
+
+        ms = cuda_ms(pass_a, warmup=1, reps=5)
+        del X0, G0
+        kernel = kernel_mean_ms(lambda: sbw.splat_bwd_cuda(
+            cfg, geom_s, (enc[lo:hi],) + diff[1:], g_out), "splat_bw_mlp")
+    print(f"    yardstick (on no path): S2's pass A over one slice ({hi - lo}"
+          f" rays x {steps} steps) as f32 torch.matmul calls (TF32 off): "
+          f"median {ms:.3f} ms; the kernel's pass A over the same rays "
+          f"{'not measured' if kernel is None else f'{kernel:.3f} ms'}  "
+          f"[{smi}]")
+
+
+def kernel_mean_ms(fn, fragment, runs=3):
+    """The mean device time, in ms, of one launch of the kernels whose
+    lower-cased names hold ``fragment``, over ``runs`` runs of ``fn`` under
+    ``torch.profiler`` (a launch the profiler missed counts in neither the
+    sum nor the launches); None where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages()
+            if e.device_type == cuda and fragment in e.key.lower()]
+    launches = sum(e.count for e in rows)
+    if not launches:
+        return None
+    return sum(e.self_device_time_total for e in rows) / launches / 1e3
 
 
 def wide_sweep(lp):

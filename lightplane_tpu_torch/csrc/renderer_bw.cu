@@ -446,21 +446,24 @@ int lightplane_render_bw_wide_config(int width, int n_t, int n_o, int n_c,
   return render_bw_wide_config(p, width, has_color_grid != 0, out);
 }
 
-// The wide builds' pre-pass alone, on `stream`: the products of R1's chunk
-// (R2's with `backward`) packed from the flat `mlp` into `workspace` (the
-// bytes of lightplane_render_fw_wide_config or _bw_wide_config); a
-// cudaError_t code.
+// The wide builds' pre-pass alone, on `stream`: the products of a chunk of
+// `schedule` (wide_mlp.cuh::WideSchedule: 0 R1's, 1 R2's, 2 the splatter
+// MLP's forward, S1's pass F, 3 its adjoint, S2's pass A; the splatter's
+// MLP in n_t layers, n_o = n_c = 0) packed from the flat `mlp` into
+// `workspace` (the bytes of the kernel's config); a cudaError_t code.
 int lightplane_render_wide_pack(const float* mlp, int n_t, int n_o, int n_c,
-                                const int* mlp_widths, int backward,
+                                const int* mlp_widths, int schedule,
                                 void* workspace, void* stream) {
-  if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
-      n_c > kMaxLayers)
+  const bool splat = schedule == kSplatFw || schedule == kSplatBw;
+  if (schedule < kRenderFw || schedule > kSplatBw || n_t > kMaxLayers ||
+      n_o > kMaxLayers || n_c > kMaxLayers ||
+      (splat ? n_t < 1 || n_o != 0 || n_c != 0 : n_o < 1 || n_c < 1))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_t, n_o, n_c};
   fill_layers(p, counts, mlp_widths);
   p.mlp = mlp;
-  return (int)launch_wide_pack(p, backward != 0, workspace,
+  return (int)launch_wide_pack(p, schedule, workspace,
                                static_cast<cudaStream_t>(stream));
 }
 

@@ -24,8 +24,8 @@
 // (__syncthreads_or); a warp whose ray has none in a running chunk (or that
 // has no ray: past num_rays in the last block) takes every slice, barrier
 // and wgmma, and samples, writes and adds nothing.  The corner rows are
-// gathered into [16][W + 4] tiles (warp_chunk.cuh::gather_chunk); the dense
-// layers' epilogues are wide_mma_rows's; f32 sums, IEEE transcendentals;
+// gathered into [16][W + 4] tiles (warp_chunk.cuh::gather_chunk); f32
+// sums, IEEE transcendentals;
 // the heads' last layers are per-lane dot products (wide_last_out).
 //   - R1 (render_fw_wide_kernel) keeps two tiles a warp, X and T, and
 //     composites each chunk by a warp scan, as renderer_fw.cu does.
@@ -101,23 +101,26 @@ constexpr int kBwWarps = 8;    // R2: warps per block, at most
 constexpr int kFlagBytes = 4 * kBwWarps;  // R2: a warp's active flag each
 constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
 
-// Bytes of the ring of slices at width W.
-__host__ __device__ __forceinline__ long long ring_bytes(int W) {
-  return 16LL * kRingSlots * ring_slot_u4(W);
-}
-
 // ---- the pre-pass: every product of a chunk packed, and the schedule -----
 
-// Block i < n packs product i of wide_n_products(p, backward) = n into the
-// workspace; block n writes the schedule (wide_mlp.cuh).
-__global__ void pack_wide_kernel(const Params p, int n, uint4* ws) {
+// Block i < n packs product i of the n = wide_n_products(p, kind) of
+// schedule `kind` into the workspace; block n writes the schedule
+// (wide_mlp.cuh).  R1, R2 and the splatter's wide MLP builds (splatter_fw.cu,
+// splatter_bw.cu) launch it.
+__global__ void pack_wide_kernel(const Params p, int kind, uint4* ws) {
+  const int n = wide_n_products(p, kind);
   long long off = 0;
   int first = 0;
   if (blockIdx.x == n) {
+    // an odd count of slices leaves the last int2 of the schedule's last
+    // uint4 unread: 0, as the plain version writes it
+    const int slices = wide_slices(p, kind);
+    if (threadIdx.x == 0 && (slices & 1))
+      reinterpret_cast<int2*>(ws)[slices] = make_int2(0, 0);
     // slice by slice, each product's k-steps two at a time
     for (int i = 0; i < n; ++i) {
-      wide_layout(p, n, i, &off, &first);
-      const Product pr = wide_product(p, i);
+      wide_layout(p, kind, i, &off, &first);
+      const Product pr = wide_product(p, kind, i);
       const int per_step = pr.n_tiles * 32;
       for (int k = threadIdx.x; k < product_slices(pr); k += blockDim.x) {
         const int ks0 = k * kSliceSteps;
@@ -129,8 +132,8 @@ __global__ void pack_wide_kernel(const Params p, int n, uint4* ws) {
     }
     return;
   }
-  wide_layout(p, n, blockIdx.x, &off, &first);
-  const Product pr = wide_product(p, blockIdx.x);
+  wide_layout(p, kind, blockIdx.x, &off, &first);
+  const Product pr = wide_product(p, kind, blockIdx.x);
   const int d_in = p.layer_in[pr.layer], d_out = p.layer_out[pr.layer];
   const float* w = p.mlp + p.layer_w_off[pr.layer];
   // a k-step: the hi part, then the lo part, each n_tiles x 2 core
@@ -153,15 +156,11 @@ __global__ void pack_wide_kernel(const Params p, int n, uint4* ws) {
   }
 }
 
-// Packs the products of p's chunk (R2's with `backward`) into ws; returns
-// the slices of a chunk.
-int launch_pack(const Params& p, bool backward, uint4* ws, cudaStream_t s) {
-  const int n = wide_n_products(p, backward);
-  long long size = 0;
-  int slices = 0;
-  wide_layout(p, n, n, &size, &slices);
-  pack_wide_kernel<<<n + 1, 256, 0, s>>>(p, n, ws);
-  return slices;
+// Packs the products of p's chunk of schedule `kind` into ws; returns the
+// slices of a chunk.
+int launch_pack(const Params& p, int kind, uint4* ws, cudaStream_t s) {
+  pack_wide_kernel<<<wide_n_products(p, kind) + 1, 256, 0, s>>>(p, kind, ws);
+  return wide_slices(p, kind);
 }
 
 // A warp's region of R2's shared memory, in floats: n_wide [16][W + 4]
@@ -312,7 +311,7 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
         staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l], X, S,
                        nullptr,
                        p.mlp + p.layer_b_off[l], true, nullptr, nullptr, X,
-                       !cgrid && j == trunk_end - 1 ? T : nullptr, active,
+                       !cgrid && j == trunk_end - 1 ? T : nullptr, S, active,
                        wg, lane);
       }
       if (!active) continue;
@@ -391,7 +390,7 @@ cudaError_t launch_fw(const Params& p, int warps, uint4* ws,
       &per_sm, render_fw_wide_kernel<W>, 32 * warps, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int n_slices = launch_pack(p, false, ws, stream);
+  const int n_slices = launch_pack(p, kRenderFw, ws, stream);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long needed = (p.num_rays + warps - 1) / warps;
   const long long wave = (long long)sms * per_sm;
@@ -608,7 +607,7 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
         staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l],
                        xc ? ACT(cslot) : ACT(j), S,
                        xc ? E : nullptr, p.mlp + p.layer_b_off[l], true,
-                       nullptr, nullptr, ACT(j + 1), nullptr, active, wg,
+                       nullptr, nullptr, ACT(j + 1), nullptr, S, active, wg,
                        lane);
         if (record)
           record_mask<W>(p, ray, s, tot, j + 1 - mask0,
@@ -686,7 +685,7 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
         if (part_runs(kAblateNoWeightGrad, X[lane]))
           block_weight_grad<W>(acc + ws.off[L], region0 + (X - tiles),
                                xc && n_c > 1 ? region0 + lay.e_off : nullptr,
-                               region0 + (G - tiles), gs, lay.warp_floats,
+                               region0 + (G - tiles), S, gs, lay.warp_floats,
                                active_warps, warps, p.layer_in[L],
                                p.layer_out[L], warp, lane);
         // (the products' first slice is a barrier: every warp is past the
@@ -696,7 +695,7 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
           // the gradient of trunk + encoding, into g_enc; through the relu
           // of the colour grid's sample where there is one
           staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
-                         false, nullptr, nullptr, GX, nullptr, active, wg,
+                         false, nullptr, nullptr, GX, nullptr, S, active, wg,
                          lane);
           if (active) {
 #pragma unroll
@@ -726,22 +725,22 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
           // no trunk); with a colour grid only the opacity head reads it
           staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
                          false, ACT(n_t), cgrid ? nullptr : GX, ACT(n_t),
-                         nullptr, active, wg, lane);
+                         nullptr, S, active, wg, lane);
           G = ACT(n_t);
           gs = S;
           if (n_t == 0) break;  // G is the feature gradient
         } else if (L == 0) {
           staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
-                         false, nullptr, nullptr, ACT(0), nullptr, active, wg,
-                         lane);
+                         false, nullptr, nullptr, ACT(0), nullptr, S, active,
+                         wg, lane);
           G = ACT(0);  // the feature gradient
           break;
         } else {
           // the layer's input is the relu output of the layer before it
           const int in = L > color_first ? L - 1 : L;
           staged_rows<W>(ring, k_steps, n_in, G, gs, nullptr, nullptr,
-                         false, ACT(in), nullptr, ACT(in), nullptr, active, wg,
-                         lane);
+                         false, ACT(in), nullptr, ACT(in), nullptr, S, active,
+                         wg, lane);
           G = ACT(in);
           gs = S;
         }
@@ -833,7 +832,7 @@ cudaError_t launch_bw(const Params& p, uint4* pack, cudaStream_t stream) {
   const long long groups = (p.num_rays + warps - 1) / warps;
   const int blocks = (int)(groups < wave ? groups : wave);
   if (blocks > 0) {
-    const int n_slices = launch_pack(p, true, pack, stream);
+    const int n_slices = launch_pack(p, kRenderBw, pack, stream);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     render_bw_wide_kernel<W><<<blocks, 32 * warps, smem, stream>>>(
         p, ws, pack, n_slices);
@@ -844,22 +843,13 @@ cudaError_t launch_bw(const Params& p, uint4* pack, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Bytes of the workspace of p's products (R2's with `backward`).
-long long pack_bytes(const Params& p, bool backward) {
-  const int n = wide_n_products(p, backward);
-  long long size = 0;
-  int slices = 0;
-  wide_layout(p, n, n, &size, &slices);
-  return 16 * size;
-}
-
 }  // namespace
 
 int render_fw_wide_config(const Params& p, int width, int* out) {
   if (width != 96 && width != 128) return (int)cudaErrorInvalidValue;
   out[0] = kFwWarps;
   out[1] = (int)fw_smem_bytes(width, kFwWarps);
-  out[2] = (int)pack_bytes(p, false);
+  out[2] = (int)wide_pack_bytes(p, kRenderFw);
   return (int)cudaSuccess;
 }
 
@@ -893,7 +883,7 @@ int render_bw_wide_config(const Params& p, int width, bool color_grid,
                                       bw_layout(width, n_total, p.n_layers[2],
                                                 color_grid, head_out(p)),
                                       1));
-  out[4] = (int)pack_bytes(p, true);
+  out[4] = (int)wide_pack_bytes(p, kRenderBw);
   return (int)e;
 }
 
@@ -911,9 +901,9 @@ int render_bw_wide_attrs(int width, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 
-cudaError_t launch_wide_pack(const Params& p, bool backward, void* workspace,
+cudaError_t launch_wide_pack(const Params& p, int kind, void* workspace,
                              cudaStream_t stream) {
-  launch_pack(p, backward, static_cast<uint4*>(workspace), stream);
+  launch_pack(p, kind, static_cast<uint4*>(workspace), stream);
   return cudaGetLastError();
 }
 

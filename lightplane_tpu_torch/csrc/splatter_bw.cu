@@ -54,7 +54,13 @@
 //     the end the block adds its warps' sums into its own row of
 //     g_mlp_partial (rows add across the slices' launches), and
 //     reduce_partial_kernel sums the rows into the flat g_mlp: g_enc and
-//     g_mlp are free of atomics, deterministic.
+//     g_mlp are free of atomics, deterministic.  At padded widths 96 and
+//     128 (splat_bw_mlp_wide_kernel, below) no layer fits beside the tiles:
+//     a block's warps work on 16-row chunks in lockstep, the layers staged
+//     once a block through R2-wide's ring (wide_mlp.cuh) and multiplied by
+//     wgmma a warpgroup, each layer's weight gradient summed over the
+//     block's rows into the block's row (block_weight_grad); the rest as
+//     above.
 //   Pass B, brick-major: S1's planned splat (splatter_fw.cu) over the input
 //     grid-list, one launch per input sub-grid, each step's staged g_in as
 //     the value splatted: the input grid's gradient is summed in
@@ -69,8 +75,9 @@
 // forward (x > 0; mlp_bwd.cuh::record_mask), as R2's recording build does,
 // so the plain version can be held to it on every ray: a relu input within
 // rounding of 0 can otherwise send the two down different branches
-// (splatter_bw.py::splat_bwd_cuda_relu_masks).  A chunk that its warp
-// skips (g_vec 0 at every step) records nothing.
+// (splatter_bw.py::splat_bwd_cuda_relu_masks).  A chunk where a ray's
+// g_vec is 0 at every step records nothing for that ray (its warp skips
+// it, or at 96 and 128 writes nothing there).
 //
 // What bounds it.  Without the MLP, at bench.py's splatter headline
 // (262,144 rays, 96 samples, 160^3 x 64ch) it gathers ~1.1e8 corner rows
@@ -79,7 +86,11 @@
 // three products (forward, input gradient, weight gradient) are 18,432
 // FLOPs a sampled step, <= 0.94 ms at the tensor cores' TF32 rate for the
 // headline's ~2.5e7 steps, ~3x that in 3xTF32; the g_out gather is the
-// no-MLP kernel's, the staging ~13 GB written and read once.
+// no-MLP kernel's, the staging ~13 GB written and read once.  At 32 ->
+// 128 -> 128 into 128 channels the three products are ~2.1e12 FLOPs, 14.2
+// ms in 3xTF32 at the tensor cores' rate; the wide pass A took ~99 ms on
+// an H100 (PERF.md, section 6), ~54 of it the weight gradient by mma.sync
+// (X^T and G are not K-major, as wgmma's TF32 operands must be).
 //
 // The timings with parts switched off build it with march_common.cuh's
 // LIGHTPLANE_ABLATE: 128 = no input-grid gradient (no pass B splat), 256 =
@@ -525,162 +536,262 @@ __global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
   }
 }
 
-// ---- with the MLP at W = 96 and 128: the wide pass A ----------------------
-// The same pass A, but no layer fits a block's shared memory beside its
-// warps' tiles (at W = 128 a 128 x 128 layer is 64 KB, staged twice, and one
-// warp's sums of a 32 -> 128 -> 128 MLP 83 KB): the products read the
-// layers from device memory (wide_mlp.cuh::wide_mma_rows) and each warp
-// adds its chunk's weight-gradient sums into its own row of g_mlp_partial
-// in device memory (wide_weight_grad, MlpLayout's sums), the resident
-// wave's warps a row each, zero-filled by the caller; reduce_partial_kernel
-// sums them.
+// ---- with the MLP at W = 96 and 128: pass A on the staged layers ----------
+// No layer fits a block's shared memory beside its warps' tiles (at W = 128
+// a 128 x 128 layer is 64 KB), so pass A takes R2-wide's design
+// (renderer_wide.cu, wide_mlp.cuh) without the march: a block's warps take
+// a ray each and work on the same 16-row chunk of their rays' staged g_vec
+// and samples in lockstep, each layer staged once a block through the
+// cp.async ring of packed slices (schedule kSplatBw: the L - 1 relu layers,
+// then every layer's input gradient, last layer first) and multiplied by
+// wgmma a warpgroup (mma.sync in a block of 1-3 warps).  A chunk is skipped
+// only where the block's whole g_vec is 0 there (__syncthreads_or); a warp
+// whose ray's g_vec is 0 over the chunk (or that has no ray) takes every
+// slice and barrier and writes zeros as its rows' g_in.  Each layer's
+// weight gradient is summed over the block's rows by block_weight_grad into
+// the block's row of g_mlp_partial (MlpLayout's sums, rows added across the
+// slices' launches), read back by nothing; reduce_partial_kernel sums the
+// rows.  Each tile is its layer input's width rounded up to 16 (the weight
+// gradient's M-tiles) plus 4 (wide_stride): at 32 -> 128 -> 128, X_0 and
+// g_in 36 floats wide, X_1 and g_vec 132, 19,200 B a warp, so 8 warps and
+// the ring (49,152 B) fit a block (202,784 B).
 
-// Floats of one warp's tiles in the wide pass A: X_0 .. X_{L-1} and G.
-__host__ __device__ __forceinline__ long long wide_warp_floats(int W,
-                                                               int n_layers) {
-  return (long long)(n_layers + 1) * 32 * (W + 4);
+constexpr int kMaxWarpsWide = 8;
+constexpr int kWideFlagBytes = 4 * kMaxWarpsWide;  // a warp's active flag
+
+// Floats of a tile row for d channels (a layer's input, or g_vec's C).
+__host__ __device__ __forceinline__ int wide_stride(int d) {
+  return (d + 15) / 16 * 16 + 4;
 }
 
-// Rows j < n of src [.., C] into rows j of the [32][W + 4] tile, plus
-// `add`, zeros past n and C: load_rows's layout, four rows a lane at a
-// time (load_rows's eight would hold 32 float4s a lane at W = 128).
-template <int W>
-__device__ __forceinline__ void load_rows_wide(float* tile, const float* src,
-                                               int n, int C,
-                                               const float4* add, int lane) {
-  constexpr int S = W + 4, V = W / 32;
-  const int q = lane >> 3, u = lane & 7;
-#pragma unroll
-  for (int i0 = 0; i0 < 8; i0 += 4) {
-    float4 x[4][V];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int j = 4 * (i0 + i) + q, c = 32 * v + 4 * u;
-        const float* at = src + (long long)j * C + c;
-        x[i][v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (j < n && (C & 3) == 0 && c < C) {
-          x[i][v] = __ldg(reinterpret_cast<const float4*>(at));
-        } else if (j < n) {
-          x[i][v].x = c < C ? __ldg(at) : 0.0f;
-          x[i][v].y = c + 1 < C ? __ldg(at + 1) : 0.0f;
-          x[i][v].z = c + 2 < C ? __ldg(at + 2) : 0.0f;
-          x[i][v].w = c + 3 < C ? __ldg(at + 3) : 0.0f;
-        }
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        float4 y = x[i][v];
-        if (add != nullptr) {
-          y.x += add[v].x;
-          y.y += add[v].y;
-          y.z += add[v].z;
-          y.w += add[v].w;
-        }
-        *reinterpret_cast<float4*>(tile + (4 * (i0 + i) + q) * S + 32 * v +
-                                   4 * u) = y;
-      }
+// Where a warp's tiles lie in its region (floats): X_0 .. X_{L-1} (layer
+// l's input, then its input gradient), then g_vec's.
+struct WideALayout {
+  int off[kMaxLayers + 1];
+  int warp_floats;
+};
+
+__host__ __device__ __forceinline__ WideALayout wide_a_layout(const Params& p,
+                                                              int C) {
+  WideALayout lay = {};
+  int at = 0;
+  for (int l = 0; l < p.n_layers[0]; ++l) {
+    lay.off[l] = at;
+    at += kChunk * wide_stride(p.layer_in[l]);
   }
+  lay.off[p.n_layers[0]] = at;
+  lay.warp_floats = at + kChunk * wide_stride(C);
+  return lay;
 }
 
+long long wide_a_smem_bytes(int W, const WideALayout& lay, int warps) {
+  return 4LL * warps * lay.warp_floats + ring_bytes(W) + kWideFlagBytes;
+}
+
+// The most warps, up to kMaxWarpsWide, whose tiles fit with the ring in a
+// block's shared memory, in whole warpgroups past 4 (0 where one does not).
+int wide_a_warps(int W, const WideALayout& lay) {
+  int warps = kMaxWarpsWide;
+  while (warps > 1 && wide_a_smem_bytes(W, lay, warps) > kMaxSmemBytes)
+    --warps;
+  if (wide_a_smem_bytes(W, lay, warps) > kMaxSmemBytes) return 0;
+  return warps > 4 ? warps / 4 * 4 : warps;
+}
+
+// Rows j < n of src [.., C] into rows j of a [kChunk][stride] tile, plus
+// `add` where given, zeros past n and C up to the tile's stride - 4
+// columns: lane 8 q + u loads channels 32 v + 4 u .. + 3 of rows 4 i + q,
+// every load of the chunk before any store.  Returns whether any value the
+// lane loaded is not 0.
 template <int W>
-__global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
-    splat_bw_mlp_wide_kernel(const SplatParams sp, const MlpLayout ml) {
+__device__ __forceinline__ bool load_chunk(float* tile, int stride,
+                                           const float* src, int n, int C,
+                                           const float4* add, int lane) {
+  constexpr int V = W / 32;
+  const int q = lane >> 3, u = lane & 7;
+  float4 x[kChunk / 4][V];
+  bool nonzero = false;
+#pragma unroll
+  for (int i = 0; i < kChunk / 4; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int j = 4 * i + q, c = 32 * v + 4 * u;
+      const float* at = src + (long long)j * C + c;
+      x[i][v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (j < n && (C & 3) == 0 && c < C) {
+        x[i][v] = __ldg(reinterpret_cast<const float4*>(at));
+      } else if (j < n && c < C) {
+        x[i][v].x = __ldg(at);
+        x[i][v].y = c + 1 < C ? __ldg(at + 1) : 0.0f;
+        x[i][v].z = c + 2 < C ? __ldg(at + 2) : 0.0f;
+        x[i][v].w = c + 3 < C ? __ldg(at + 3) : 0.0f;
+      }
+      nonzero |= x[i][v].x != 0.0f || x[i][v].y != 0.0f ||
+                 x[i][v].z != 0.0f || x[i][v].w != 0.0f;
+    }
+#pragma unroll
+  for (int i = 0; i < kChunk / 4; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = 32 * v + 4 * u;
+      if (c >= stride - 4) continue;
+      float4 y = x[i][v];
+      if (add != nullptr) {
+        y.x += add[v].x;
+        y.y += add[v].y;
+        y.z += add[v].z;
+        y.w += add[v].w;
+      }
+      *reinterpret_cast<float4*>(tile + (4 * i + q) * stride + c) = y;
+    }
+  return nonzero;
+}
+
+// Values 0 .. n - 1 of a tile row, 0 past them (record_mask's vector).
+struct RowPrefix {
+  const float* x;
+  int n;
+  __device__ __forceinline__ float operator[](int i) const {
+    return i < n ? x[i] : 0.0f;
+  }
+};
+
+// The wide pass A over the rays: g_enc, the staged g_in [R, steps, C_in]
+// (over the staged samples) and the block's row of g_mlp_partial (added
+// to).
+template <int W>
+__global__ void __launch_bounds__(32 * kMaxWarpsWide, 1)
+    splat_bw_mlp_wide_kernel(const SplatParams sp, const MlpLayout ml,
+                             const WideALayout lay,
+                             const uint4* __restrict__ pack, int n_slices) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int S = W + 4, kTile = 32 * S, V = W / 32;
+  constexpr int V = W / 32;
   const Params& p = sp.m;
   const int L = p.n_layers[0];
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5,
             lane = threadIdx.x & 31;
-  const int wf = (int)wide_warp_floats(W, L);
-  float* tiles = smem + warp * wf;  // X_0 .. X_{L-1}, G
-  for (int i = lane; i < wf; i += 32) tiles[i] = 0.0f;
+  const bool wg = warps % 4 == 0;  // warpgroups: the products by wgmma
+  float* const region0 = smem;     // warp 0's region
+  float* tiles = region0 + (long long)warp * lay.warp_floats;
+  for (int i = lane; i < lay.warp_floats; i += 32) tiles[i] = 0.0f;
+  Ring ring = {reinterpret_cast<uint4*>(smem + warps * lay.warp_floats), pack,
+               ring_slot_u4(W), n_slices, 0};
+  int* active_warps = reinterpret_cast<int*>(
+      reinterpret_cast<char*>(ring.slots) + ring_bytes(W));
+  ring_start(ring);
   __syncwarp();
-  float* Gt = tiles + L * kTile;
-  float* sums = p.g_mlp_partial +
-                (long long)(blockIdx.x * warps + warp) * ml.sum_floats;
-#define X(l) (tiles + (l) * kTile)
-
+#define X(l) (tiles + lay.off[l])
+#define SX(l) wide_stride(p.layer_in[l])
+  float* Gt = tiles + lay.off[L];
   const int C = sp.out_chn, C_in = p.grid_chn;
+  const int sg = wide_stride(C), s0 = SX(0);
   const int tot = p.num_samples + p.num_samples_inf;
   const int u = lane & 7;
+  float* acc = p.g_mlp_partial + (long long)blockIdx.x * ml.sum_floats;
+
   const int groups = (p.num_rays + warps - 1) / warps;
   const int per_block = (groups + gridDim.x - 1) / gridDim.x;
   const int group_end = min(groups, (blockIdx.x + 1) * per_block);
   for (int group = blockIdx.x * per_block; group < group_end; ++group) {
+    // every warp walks the block's groups, a ray past num_rays too
     const int ray = group * warps + warp;
-    if (ray >= p.num_rays) break;
+    const bool valid = ray < p.num_rays;
+    // the encoding in load_chunk's layout: lane 8 q + u, channels
+    // 32 v + 4 u .. + 3
     float4 e[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float* src = p.enc + (long long)ray * C_in + 32 * v + 4 * u;
+      const float* src = p.enc + (long long)(valid ? ray : 0) * C_in;
       const int c = 32 * v + 4 * u;
-      e[v] = make_float4(c < C_in ? src[0] : 0.0f,
-                         c + 1 < C_in ? src[1] : 0.0f,
-                         c + 2 < C_in ? src[2] : 0.0f,
-                         c + 3 < C_in ? src[3] : 0.0f);
+      e[v] = make_float4(valid && c < C_in ? src[c] : 0.0f,
+                         valid && c + 1 < C_in ? src[c + 1] : 0.0f,
+                         valid && c + 2 < C_in ? src[c + 2] : 0.0f,
+                         valid && c + 3 < C_in ? src[c + 3] : 0.0f);
     }
     float genc[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) genc[v] = 0.0f;
-    for (int c0 = 0; c0 < tot; c0 += 32) {
-      const int s = c0 + lane, n = min(32, tot - c0);
-      float* staged = sp.stage + ((long long)ray * tot + c0) * C_in;
-      load_rows_wide<W>(Gt, sp.gvec + ((long long)ray * tot + c0) * C, n, C,
-                        nullptr, lane);
-      load_rows_wide<W>(X(0), staged, n, C_in, e, lane);
+    for (int c0 = 0; c0 < tot; c0 += kChunk) {
+      const int n = valid ? min(kChunk, tot - c0) : 0;
+      float* staged = sp.stage + ((long long)(valid ? ray : 0) * tot + c0) *
+                                     C_in;
+      // the chunk's g_vec (the gradient of the MLP's output) and input
+      // samples, both staged by the gather (zero at unsampled steps): X_0 =
+      // the sample + the encoding, the plain version's order
+      bool nonzero = load_chunk<W>(
+          Gt, sg, sp.gvec + ((long long)(valid ? ray : 0) * tot + c0) * C, n,
+          C, nullptr, lane);
+      load_chunk<W>(X(0), s0, staged, n, C_in, e, lane);
       __syncwarp();
-      bool nonzero = false;
-      {
-        const float4* row = reinterpret_cast<const float4*>(Gt + lane * S);
+      bool active = __any_sync(kAll, nonzero);
+      if (kAblate & kAblateS2GatherOnly) {
+        for (int j = 0; j < kChunk; ++j) {
 #pragma unroll
-        for (int k = 0; k < W / 4; ++k) {
-          const float4 g = row[k];
-          nonzero |= g.x != 0.0f || g.y != 0.0f || g.z != 0.0f || g.w != 0.0f;
+          for (int v = 0; v < V; ++v) {
+            const int c = 32 * v + lane;
+            if (c < C && c < C_in) genc[v] += Gt[j * sg + c];
+          }
+        }
+        active = false;
+      }
+      const bool block_active = __syncthreads_or(active);
+      // read by block_weight_grad, behind the barriers to come; every warp
+      // is past the last chunk's reads
+      if (lane == 0) active_warps[warp] = active;
+      if (block_active) {
+        // the forward, recomputed, each layer's input kept
+        for (int l = 0; l + 1 < L; ++l) {
+          staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l], X(l),
+                         SX(l), nullptr, p.mlp + p.layer_b_off[l], true,
+                         nullptr, nullptr, X(l + 1), nullptr, SX(l + 1),
+                         active, wg, lane);
+          if (kReluMasks && active && lane < kChunk && lane < n)
+            record_mask<W>(p, ray, c0 + lane, tot, l,
+                           RowPrefix{X(l + 1) + lane * SX(l + 1),
+                                     p.layer_out[l]});
+        }
+        // the backward, last layer first: G_l is g_vec's tile, then X_{l+1}'s
+        const float* G = Gt;
+        int gs = sg;
+        for (int l = L - 1; l >= 0; --l) {
+          __syncthreads();  // every warp's X_l and G_l are written
+          if (!(kAblate & kAblateS2NoWeightGrad))
+            block_weight_grad<W>(acc + ml.sums[l], region0 + (X(l) - tiles),
+                                 nullptr, region0 + (G - tiles), SX(l), gs,
+                                 lay.warp_floats, active_warps, warps,
+                                 p.layer_in[l], p.layer_out[l], warp, lane);
+          // (the product's first slice is a barrier: every warp is past the
+          // weight gradient before any writes over X_l)
+          // G_{l-1} = (G_l W_l^T) * (X_l > 0) over X_l; at l = 0, g_in
+          staged_rows<W>(ring, (p.layer_out[l] + 7) / 8, p.layer_in[l], G, gs,
+                         nullptr, nullptr, false, l > 0 ? X(l) : nullptr,
+                         nullptr, X(l), nullptr, SX(l), active, wg, lane);
+          G = X(l);
+          gs = SX(l);
         }
       }
-      if (!__any_sync(kAll, nonzero)) {
-        for (int j = 0; j < n; ++j)
-          for (int c = lane; c < C_in; c += 32) staged[j * C_in + c] = 0.0f;
-        __syncwarp();  // the lanes' reads of Gt are done
-        continue;
-      }
-
-      // the forward, recomputed, each layer's input kept
-      for (int l = 0; l + 1 < L; ++l) {
-        relu_layer<W>(p, l, X(l), X(l + 1), nullptr, lane);
-        if (kReluMasks && s < tot)
-          record_mask<W>(p, ray, s, tot, l, X(l + 1) + lane * S);
-      }
-
-      // the backward, last layer first: G_l is Gt, then X_{l+1}'s tile
-      const float* G = Gt;
-      for (int l = L - 1; l >= 0; --l) {
-        wide_weight_grad<W>(sums + ml.sums[l], X(l), G, p.layer_in[l],
-                            p.layer_out[l], lane);
-        // G_{l-1} = (G_l W_l^T) * (X_l > 0) over X_l; at l = 0, g_in
-        layer_input_grad<W>(p, l, G, l > 0 ? X(l) : nullptr, nullptr, X(l),
-                            lane);
-        G = X(l);
-      }
-
-      // g_in, now in X_0: into g_enc and the staging rows
+      // g_in, now in X_0 (0 where the warp was not active): into g_enc and
+      // the staging rows
+      if (active) {
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        for (int j = 0; j < 32; ++j) genc[v] += X(0)[j * S + 32 * v + lane];
+        for (int v = 0; v < V; ++v) {
+          if (32 * v + lane >= C_in) continue;
+          for (int j = 0; j < kChunk; ++j)
+            genc[v] += X(0)[j * s0 + 32 * v + lane];
+        }
+      }
       for (int j = 0; j < n; ++j)
         for (int c = lane; c < C_in; c += 32)
-          staged[j * C_in + c] = X(0)[j * S + c];
+          staged[(long long)j * C_in + c] = active ? X(0)[j * s0 + c] : 0.0f;
       __syncwarp();  // the tiles are free for the next chunk
     }
 #pragma unroll
     for (int v = 0; v < V; ++v)
-      if (32 * v + lane < C_in)
+      if (valid && 32 * v + lane < C_in)
         p.g_enc[(long long)ray * C_in + 32 * v + lane] = genc[v];
   }
+  cp_async_wait<0>();
+#undef SX
 #undef X
 }
 
@@ -737,18 +848,15 @@ cudaError_t mlp_config(const Params& p, const MlpLayout& ml, int* warps,
   return cudaSuccess;
 }
 
-// The wide pass A's warps per block (the most, up to kMaxWarpsA, whose
-// tiles one block's shared memory holds), its shared memory and its
-// resident wave of blocks.
+// The wide pass A's warps per block (wide_a_warps), its shared memory and
+// its resident wave of blocks.
 template <int W>
-cudaError_t mlp_wide_config(const Params& p, int* warps, size_t* smem,
+cudaError_t mlp_wide_config(const Params& p, int C, int* warps, size_t* smem,
                             int* wave) {
-  const int L = p.n_layers[0];
-  *warps = kMaxWarpsA;
-  while (*warps > 1 && 4 * *warps * wide_warp_floats(W, L) > kMaxSmemBytes)
-    --*warps;
-  *smem = (size_t)(4 * *warps * wide_warp_floats(W, L));
-  if ((long long)*smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  const WideALayout lay = wide_a_layout(p, C);
+  *warps = wide_a_warps(W, lay);
+  *smem = (size_t)wide_a_smem_bytes(W, lay, *warps > 0 ? *warps : 1);
+  if (*warps == 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       splat_bw_mlp_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)*smem);
@@ -765,20 +873,24 @@ cudaError_t mlp_wide_config(const Params& p, int* warps, size_t* smem,
   return cudaSuccess;
 }
 
-// The wide pass A over the rays, a warp's row of sums each among `rows`.
+// The pre-pass (the packed layers into `pack`), then the wide pass A over
+// the rays, a block's row of sums each among `rows`.
 template <int W>
 cudaError_t launch_mlp_wide(const SplatParams& sp, const MlpLayout& ml,
-                            int rows, cudaStream_t stream) {
+                            int rows, void* pack, cudaStream_t stream) {
   int warps = 0, wave = 0;
   size_t smem = 0;
-  cudaError_t e = mlp_wide_config<W>(sp.m, &warps, &smem, &wave);
+  cudaError_t e = mlp_wide_config<W>(sp.m, sp.out_chn, &warps, &smem, &wave);
   if (e != cudaSuccess) return e;
   const long long groups = (sp.m.num_rays + warps - 1) / warps;
   long long blocks = groups < wave ? groups : wave;
-  if (blocks * warps > rows) blocks = rows / warps;
+  if (blocks > rows) blocks = rows;
   if (blocks < 1) return cudaSuccess;
-  splat_bw_mlp_wide_kernel<W>
-      <<<(int)blocks, 32 * warps, smem, stream>>>(sp, ml);
+  if ((e = launch_wide_pack(sp.m, kSplatBw, pack, stream)) != cudaSuccess)
+    return e;
+  splat_bw_mlp_wide_kernel<W><<<(int)blocks, 32 * warps, smem, stream>>>(
+      sp, ml, wide_a_layout(sp.m, sp.out_chn),
+      static_cast<const uint4*>(pack), wide_slices(sp.m, kSplatBw));
   return cudaGetLastError();
 }
 
@@ -828,9 +940,9 @@ extern "C" {
 // For the MLP adjoint at `width` (32, 64, 96 or 128) of n_layers layers of
 // mlp_widths (host int[n_layers + 1]): out[0] the warps per block of pass
 // A, out[1] the rows of g_mlp_partial that the caller zero-fills (its
-// resident wave of blocks; at 96 and 128 that wave's warps), out[2] the
-// floats of a row, out[3] a block's shared memory in bytes; a cudaError_t
-// code.
+// resident wave of blocks), out[2] the floats of a row, out[3] a block's
+// shared memory in bytes, out[4] the bytes of the workspace of packed
+// layers (96 and 128; 0 at 32 and 64); a cudaError_t code.
 int lightplane_splat_bw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
   if (n_layers < 1 || n_layers > kMaxLayers || !known_width(width))
@@ -839,17 +951,19 @@ int lightplane_splat_bw_mlp_config(int width, int n_layers,
   const int counts[3] = {n_layers, 0, 0};
   fill_layers(p, counts, mlp_widths);
   const MlpLayout ml = mlp_layout(p);
+  const int C = p.layer_out[n_layers - 1];
   int warps = 0, wave = 0;
   size_t smem = 0;
   const cudaError_t e =
       width == 32   ? mlp_config<32>(p, ml, &warps, &smem, &wave)
       : width == 64 ? mlp_config<64>(p, ml, &warps, &smem, &wave)
-      : width == 96 ? mlp_wide_config<96>(p, &warps, &smem, &wave)
-                    : mlp_wide_config<128>(p, &warps, &smem, &wave);
+      : width == 96 ? mlp_wide_config<96>(p, C, &warps, &smem, &wave)
+                    : mlp_wide_config<128>(p, C, &warps, &smem, &wave);
   out[0] = warps;
-  out[1] = width > 64 ? wave * warps : wave;
+  out[1] = wave;
   out[2] = ml.sum_floats;
   out[3] = (int)smem;
+  out[4] = width > 64 ? (int)wide_pack_bytes(p, kSplatBw) : 0;
   return (int)e;
 }
 
@@ -877,7 +991,8 @@ int lightplane_splat_bw_attrs(int mlp, int width, int* out) {
 //     rows of g_mlp_partial (`rows` of them, lightplane_splat_bw_mlp_config,
 //     zero-filled before the first slice) added to; for the recording
 //     build the zero-filled [R, steps, n_layers - 1, width / 32] mask words
-//     (null otherwise);
+//     (null otherwise); at widths 96 and 128 `workspace` (16-byte aligned,
+//     the config's bytes) takes the packed layers (null otherwise);
 //   part 2: g_mlp [n_params] = the sum of the `rows` rows (no rays read).
 // The caller validates shapes, devices, alignment and limits.
 int lightplane_splat_bw(
@@ -889,7 +1004,8 @@ int lightplane_splat_bw(
     int num_in_grids, const int* in_meta, int in_chn, int n_layers,
     const int* mlp_widths, int width, int rows, int num_samples,
     int num_samples_inf, float disparity_at_inf, int mask_out_of_bounds,
-    int contract_coords, int part, uint32_t* relu_masks, void* stream) {
+    int contract_coords, int part, uint32_t* relu_masks, void* workspace,
+    void* stream) {
   if (part < 0 || part > 2 || (part == 0) != (n_layers == 0))
     return (int)cudaErrorInvalidValue;
   if ((relu_masks != nullptr) != (kReluMasks && part == 1))
@@ -945,8 +1061,8 @@ int lightplane_splat_bw(
   const cudaError_t e =
       width == 32   ? launch_mlp<32>(sp, ml, rows, s)
       : width == 64 ? launch_mlp<64>(sp, ml, rows, s)
-      : width == 96 ? launch_mlp_wide<96>(sp, ml, rows, s)
-                    : launch_mlp_wide<128>(sp, ml, rows, s);
+      : width == 96 ? launch_mlp_wide<96>(sp, ml, rows, workspace, s)
+                    : launch_mlp_wide<128>(sp, ml, rows, workspace, s);
   return (int)e;
 }
 

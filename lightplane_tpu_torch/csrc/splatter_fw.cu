@@ -63,29 +63,61 @@
 //    reductions (scalar where C % 4 != 0) and zeroed: reductions, because
 //    halo rows and the slices of one brick overlap.  A touched row costs
 //    one reduction per item instead of one per corner.
-// 4. The MLP variant, on the same plan and tile: per step the warp samples
-//    the input grid-list (lanes over channels) and runs the MLP from layers
-//    staged in shared memory (stage_layers), lanes over output units, the
-//    inputs broadcast by shuffles.  A sample has one run per output
-//    sub-grid, so a triplane output runs its MLP once per plane.
-// 5. The per-step variant (kSteps), the adjoint's pass B (splatter_bw.cu):
-//    the value splatted at step s of a run's ray is row ray * steps + s of
-//    the "encoding" (the staged MLP input gradient), not the ray's row, so
-//    each run's lane copies its run's row of the next step into one of two
-//    staging buffers while the warp splats the current step; there is no
-//    weight column to flush, and its work items are smaller (the wrapper's
-//    RUNS_PER_ITEM_STEPS), since a slice of rays fills few bricks.
+// 4. The MLP variant at padded widths 32 and 64, on the same plan and
+//    tile: per step the warp samples the input grid-list (lanes over
+//    channels) and runs the MLP from layers staged in shared memory
+//    (stage_layers), lanes over output units, the inputs broadcast by
+//    shuffles.  A sample has one run per output sub-grid, so a triplane
+//    output runs its MLP once per plane.
+// 5. The per-step variant (kSteps): the value splatted at step s of a run's
+//    ray is row ray * steps + s of the "encoding" [rays, steps, C], not the
+//    ray's row, so each run's lane copies its run's row of the next step
+//    into one of two staging buffers while the warp splats the current
+//    step, in passes of 64 channels; its work items are smaller (the
+//    wrapper's RUNS_PER_ITEM_STEPS), since a slice of rays fills few
+//    bricks.  kSteps = 1 is the adjoint's pass B (splatter_bw.cu: the
+//    staged MLP input gradient over the input grid-list, no weight column
+//    flushed); kSteps = 2 is pass S of the wide MLP build (6), the weight
+//    flushed as the other variants flush it.
+// 6. The MLP variant at padded widths 96 and 128, in two passes over
+//    slices of the rays (splatter_fw.py::mlp_slices: the staging and each
+//    run list within PLAN_MAX_RUNS' bytes).  A ray marches in brick order
+//    as many times as it has output sub-grids, so running the MLP there
+//    (W^2 multiply-adds a layer a step on the CUDA cores, its weights read
+//    from L1 at every product: the first wide build, 851 ms at W = 128 on
+//    the MLP splat into 3 x 128^2 x 128ch on an H100, PERF.md section 6)
+//    runs it once per plane.  Here,
+//    as the TPU kernel does (splatter_pallas.py:57-117: each step's vector
+//    once, then splatted into every sub-grid):
+//    - pass F (splat_mlp_wide_kernel, ray-major): a block's 8 warps march
+//      a ray each in lockstep over 16-step chunks, R1-wide's design
+//      (renderer_wide.cu, wide_mlp.cuh): the input grid-list's sample
+//      gathered into a [16][W + 4] tile (gather_chunk) plus the encoding,
+//      then every layer on the tensor cores in 3xTF32 (wgmma a warpgroup),
+//      each layer staged once a block through the cp.async ring, relu
+//      between the layers; each sampled step's C outputs go to the staging
+//      [rays of the slice, steps, C];
+//    - pass S: the per-step variant (kSteps = 2) by S1's own plan, once per
+//      output sub-grid.
+//    A masked step is in no run, so its row of the staging is never
+//    written nor read.  What bounds it at that splat (32 -> 128 -> 128,
+//    2.5e7 steps): 1.03e12 FLOPs, 15.5 ms at the FP32 rate, ~6 ms in
+//    3xTF32 at the tensor cores'; the staging ~52 GB written and read,
+//    ~15 ms.  Measured on an H100 (PERF.md, section 6): ~128 ms, pass F
+//    ~57 (the block barriers between slices), the per-step splats ~45,
+//    the plans ~19 (128 channels leave bricks of 1 x 2 x 2 cells).
 //
 // The timings with parts switched off build it with march_common.cuh's
-// LIGHTPLANE_ABLATE: 32 = the plan alone (no splat pass), 64 = plan and
-// tile accumulation without the flush; S2's bits 128 and 512 leave out the
-// per-step splat (pass B).
+// LIGHTPLANE_ABLATE: 32 = the plan alone (no splat pass; pass F still
+// runs), 64 = plan and tile accumulation without the flush; S2's bits 128
+// and 512 leave out the adjoint's per-step splat (pass B).
 //
 // Numerics: f32; the fill pass's atomics order the runs of a brick, and the
 // flush's reductions the items, differently from run to run, so the sums
 // are order-dependent.
 
 #include "splat_common.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -193,14 +225,11 @@ __global__ void __launch_bounds__(kPlanThreads)
 // The channel slices of 32 a lane holds: 2 (C <= 64 per pass) without the
 // MLP, W / 32 with it.
 template <int W>
-constexpr int kSlices = W == 32 ? 1 : W <= 64 ? 2 : W / 32;
+constexpr int kSlices = W == 32 ? 1 : 2;
 
 // The warp's splat vector of the step `st` into v (lane c owns channels c,
-// c + 32, ...): MLP(input_grid[point] + encoding), the encoding held in e.
-// The wide builds (W = 96, 128) read the layers from device memory
-// (p.mlp, unpadded; a 128-wide layer is 64 KB, so the block's warps share
-// it in L1), each layer's own widths, in the same order: the bias, then
-// the products by ascending input.
+// c + 32): MLP(input_grid[point] + encoding), the encoding held in e, the
+// layers staged in shared memory (W = 32 or 64).
 template <int W>
 __device__ __forceinline__ void mlp_vector(const Params& p,
                                            const float* layers, int b,
@@ -223,52 +252,6 @@ __device__ __forceinline__ void mlp_vector(const Params& p,
     }
   });
   const int L = p.n_layers[0];
-  if constexpr (W > 64) {
-    for (int l = 0; l < L; ++l) {
-      const int d_in = p.layer_in[l], d_out = p.layer_out[l];
-      const float* w = p.mlp + p.layer_w_off[l];
-      const float* bias = p.mlp + p.layer_b_off[l];
-      float y[kS];
-#pragma unroll
-      for (int k = 0; k < kS; ++k) {
-        const int o = lane + 32 * k;
-        y[k] = o < d_out ? __ldg(bias + o) : 0.0f;
-      }
-      // per slice of 32 inputs, eight inputs at a time: their weights'
-      // loads issued together ahead of the products (predicated: 0 past
-      // the layer's widths, where adding x * 0 leaves the sum as it is),
-      // so their latencies overlap; the eight-input loop stays rolled, so
-      // one group's weights are live at a time
-#pragma unroll
-      for (int q = 0; q < kS; ++q) {
-        if (32 * q >= d_in) break;
-#pragma unroll 1
-        for (int i1 = 0; i1 < 32; i1 += 8) {
-          float wv[8][kS];
-#pragma unroll
-          for (int ii = 0; ii < 8; ++ii)
-#pragma unroll
-            for (int k = 0; k < kS; ++k) {
-              const int i = 32 * q + i1 + ii, o = lane + 32 * k;
-              wv[ii][k] = i < d_in && o < d_out ? __ldg(w + i * d_out + o)
-                                                : 0.0f;
-            }
-#pragma unroll
-          for (int ii = 0; ii < 8; ++ii) {
-            const float xi = __shfl_sync(kAll, x[q], i1 + ii);
-#pragma unroll
-            for (int k = 0; k < kS; ++k) y[k] += xi * wv[ii][k];
-          }
-        }
-      }
-      const bool relu = l < L - 1;
-#pragma unroll
-      for (int k = 0; k < kS; ++k) x[k] = relu ? fmaxf(y[k], 0.0f) : y[k];
-    }
-#pragma unroll
-    for (int k = 0; k < kS; ++k) v[k] = x[k];
-    return;
-  }
   for (int l = 0; l < L; ++l) {
     const float* lay = layers + l * kLayer;
     float y[kS];
@@ -310,10 +293,9 @@ __host__ __device__ __forceinline__ int warp_floats(int rows, int C,
 }
 
 // Channels of a run's staged encoding: one or two slices of 32 (a pass of
-// at most 64 of the encoding's E channels); the wide MLP builds' input, E
-// rounded up to 32.
+// at most 64 of the encoding's E channels).
 __host__ __device__ __forceinline__ int stage_chn(int E) {
-  return E <= 32 ? 32 : E <= 64 ? 64 : (E + 31) / 32 * 32;
+  return E <= 32 ? 32 : 64;
 }
 
 // dst = *src (4 bytes), or 0 where !ok (src is then not read), copied from
@@ -349,18 +331,19 @@ __device__ __forceinline__ bool touched(float w) {
 // walks its own work items and sums each brick's slice of runs in its own
 // tile, then flushes the rows it touched.  W = 0 splats the encoding, in
 // passes of 64 channels; W = 32 or 64 the MLP's output (its layers staged
-// once per block); W = 96 or 128 the MLP's output (its layers read from
-// device memory), run once a step and splatted in passes of 64 channels.
-// kC = 8 corners per step for a voxel grid, 4 for a plane (and a line or a
-// point, whose missing corners are out of bounds);
-// kT = 2 where the weight lies past a pass's 32 pairs of channels (C >=
-// 64): lane 0 adds it apart; else 1.  kSteps (W = 0): the per-step values
-// of the adjoint's pass B, and no flush of the weight column.
-template <int W, int kC, int kT, bool kSteps = false>
+// once per block).  kC = 8 corners per step for a voxel grid, 4 for a plane
+// (and a line or a point, whose missing corners are out of bounds); kT = 2
+// where the weight lies past a pass's 32 pairs of channels (C >= 64): lane
+// 0 adds it apart; else 1.  kSteps (W = 0): the per-step values, 1 for the
+// adjoint's pass B (the weight column not flushed), 2 for the wide MLP
+// build's pass S.
+template <int W, int kC, int kT, int kSteps = 0>
 __global__ void __launch_bounds__(kSplatThreads)
     splat_fw_kernel(const SplatParams sp, const Plan pl) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kS = kSlices<W>;
+  constexpr bool kStepVals = kSteps != 0;
+  constexpr bool kWeight = kSteps != 1;  // the weight column is flushed
   const Params& p = sp.m;
   const GridMeta& out = sp.out;
   const int C = sp.out_chn;
@@ -369,10 +352,9 @@ __global__ void __launch_bounds__(kSplatThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int E = W ? p.enc_chn : C;  // the encoding's channels
   const int SC = pl.stage;
-  float* tile =
-      smem + (W > 64 ? 0 : L * (W * W + W)) + warp * pl.warp_floats;
+  float* tile = smem + L * (W * W + W) + warp * pl.warp_floats;
   float* stage = tile + tile_floats(pl.max_rows, C);
-  if constexpr (W > 0 && W <= 64) stage_layers<W>(p, smem, L);
+  if constexpr (W > 0) stage_layers<W>(p, smem, L);
   for (int i = lane; i < pl.max_rows * C1; i += 32)
     tile[i] = i % C1 == C ? kUntouched : 0.0f;  // the padding stays 0
   __syncthreads();  // the layers; after it the warps never wait on another
@@ -432,7 +414,7 @@ __global__ void __launch_bounds__(kSplatThreads)
         const int c0 = 64 * pass;
         // the batch's encodings (this pass's channels), read once a run:
         // every copy in flight at once, straight into shared memory
-        for (int j = 0; j < n_runs && !kSteps; ++j) {
+        for (int j = 0; j < n_runs && !kStepVals; ++j) {
           const long long at = (long long)__shfl_sync(kAll, ray, j) * E;
           for (int c = lane; c < SC; c += 32)
             copy_async(stage + j * SC + c,
@@ -468,10 +450,10 @@ __global__ void __launch_bounds__(kSplatThreads)
               copy_async(row + c, c0 + c < E ? src + c : p.enc, c0 + c < E);
           asm volatile("cp.async.commit_group;\n" ::: "memory");
         };
-        if constexpr (kSteps) stage_step(0);
+        if constexpr (kStepVals) stage_step(0);
         for (int step = 0; step < max_len; ++step) {
           const float* vals = stage;
-          if constexpr (kSteps) {
+          if constexpr (kStepVals) {
             // the next step's copies go out before this step's are waited
             // for: its buffer's reads ended with the step before this one
             if (step + 1 < max_len) {
@@ -525,59 +507,6 @@ __global__ void __launch_bounds__(kSplatThreads)
             for (int q = 0; q < kC; ++q) {
               at[q] = __shfl_sync(kAll, crow[q], j);
               wgt[q] = __shfl_sync(kAll, cw[q], j);
-            }
-            if constexpr (W > 64) {
-              // the MLP once a step, its output splatted in passes of 64
-              // channels, lane l the pair of columns 64 pass + 2 l, the
-              // weight (column C) as the narrower builds add it
-              float e[kS], o[kS];
-#pragma unroll
-              for (int k = 0; k < kS; ++k)
-                e[k] = lane + 32 * k < SC ? stage[j * SC + lane + 32 * k]
-                                          : 0.0f;
-              Step st = {};
-              st.px = __shfl_sync(kAll, px, j);
-              st.py = __shfl_sync(kAll, py, j);
-              st.pz = __shfl_sync(kAll, pz, j);
-              mlp_vector<W>(p, smem, b, st, e, o);
-              for (int q0 = 0; q0 < C; q0 += 64) {
-                const int ap = q0 + 2 * lane;
-                const int cend_p = min(q0 + 64, C);
-                const bool own_p =
-                    ap < cend_p || (q0 == 0 && ap <= C && C <= ap + 1);
-                const bool own_wp = kT > 1 && q0 == 0 && lane == 0;
-                // unit c lives on lane c % 32, slice c / 32
-                float y0 = 0.0f, y1 = 0.0f;
-#pragma unroll
-                for (int k = 0; k < kS; ++k) {
-                  const float u0 = __shfl_sync(kAll, o[k], (2 * lane) & 31);
-                  const float u1 =
-                      __shfl_sync(kAll, o[k], (2 * lane + 1) & 31);
-                  if (32 * k == (ap & ~31)) {
-                    y0 = u0;
-                    y1 = u1;
-                  }
-                }
-                if (ap >= cend_p) y0 = q0 == 0 && ap == C ? 1.0f : 0.0f;
-                if (ap + 1 >= cend_p) y1 = q0 == 0 && ap + 1 == C ? 1.0f : 0.0f;
-                float2 acc[kC];
-                float acc_w[kC];
-#pragma unroll
-                for (int q = 0; q < kC; ++q) {
-                  if (at[q] >= 0 && own_p)
-                    acc[q] = *reinterpret_cast<float2*>(tile + at[q] + ap);
-                  if (at[q] >= 0 && own_wp) acc_w[q] = tile[at[q] + C];
-                }
-#pragma unroll
-                for (int q = 0; q < kC; ++q) {
-                  if (at[q] >= 0 && own_p)
-                    *reinterpret_cast<float2*>(tile + at[q] + ap) =
-                        make_float2(acc[q].x + wgt[q] * y0,
-                                    acc[q].y + wgt[q] * y1);
-                  if (at[q] >= 0 && own_wp) tile[at[q] + C] = acc_w[q] + wgt[q];
-                }
-              }
-              continue;
             }
             // the values of the lane's pair of columns: channels, the
             // weight's 1, padding's 0
@@ -633,7 +562,7 @@ __global__ void __launch_bounds__(kSplatThreads)
               if (at[q] >= 0 && own_w) tile[at[q] + C] = acc_w[q] + wgt[q];
             }
           }
-          if constexpr (kSteps) __syncwarp();  // before the next step's copies
+          if constexpr (kStepVals) __syncwarp();  // before the next step's copies
         }
         __syncwarp();  // before the next pass or batch restages
       }
@@ -675,7 +604,7 @@ __global__ void __launch_bounds__(kSplatThreads)
       }
       if (touched(wv)) {
         tile[row * C1 + C] = kUntouched;
-        if (!kSteps && part_runs(kAblateNoFlush, wv))
+        if (kWeight && part_runs(kAblateNoFlush, wv))
           atomicAdd(sp.w + grow, wv);
       }
     }
@@ -683,15 +612,15 @@ __global__ void __launch_bounds__(kSplatThreads)
   }
 }
 
-// Bytes of dynamic shared memory of a splat block: the MLP's layers (none
-// in the wide builds), then each warp's region.
+// Bytes of dynamic shared memory of a splat block: the MLP's layers (W =
+// 32 or 64), then each warp's region.
 long long splat_smem_bytes(int width, int n_layers, int max_rows, int C,
                            int stage) {
-  return 4LL * ((width > 64 ? 0 : n_layers * (width * width + width)) +
+  return 4LL * (n_layers * (width * width + width) +
                 kWarps * warp_floats(max_rows, C, stage));
 }
 
-template <int W, int kC, int kT, bool kSteps>
+template <int W, int kC, int kT, int kSteps>
 cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
                          long long max_items, cudaStream_t stream) {
   const size_t smem = (size_t)splat_smem_bytes(
@@ -721,7 +650,7 @@ cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
 
 // The splat pass with kC corners a step (8 where the sub-grid has no
 // singleton axis) and kT = 2 where C >= 64 (the weight apart).
-template <int W, int kT, bool kSteps>
+template <int W, int kT, int kSteps>
 cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
                          long long max_items, cudaStream_t stream) {
   const int* d = sp.out.dims[0];
@@ -730,7 +659,7 @@ cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
              : launch_splat<W, 4, kT, kSteps>(sp, pl, max_items, stream);
 }
 
-template <int W, bool kSteps = false>
+template <int W, int kSteps = 0>
 cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
                          long long max_items, cudaStream_t stream) {
   // W = 32 bounds the output at 32 channels
@@ -740,28 +669,235 @@ cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
   return launch_splat<W, 1, kSteps>(sp, pl, max_items, stream);
 }
 
+
+// ---- the wide MLP build's pass F (W = 96, 128) ------------------------------
+
+constexpr int kFWarps = 8;  // pass F: warps (rays) a block, two warpgroups
+constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
+
+// Bytes of a pass F block's shared memory: each warp's [16][W + 4] tile,
+// then the ring (116,736 at W = 128, one block an SM).
+__host__ __device__ __forceinline__ long long pass_f_smem_bytes(int W,
+                                                                int warps) {
+  return 4LL * warps * kChunk * (W + 4) + ring_bytes(W);
+}
+
+// Every sampled step's MLP output, its C = sp.out_chn channels into row
+// ray * steps + s of `values` [rays, steps, C]: a block's warps march a ray
+// each in lockstep over 16-step chunks (lane l < 16 owns step 16 chunk +
+// l's geometry), every warp on the same chunk and the same layer at once.
+// A step is sampled where its ray reads a batch of every grid-list and,
+// with masking, its point lies in the cube: the steps S1's plan can hold.
+// A chunk with no sampled step in the block is skipped whole
+// (__syncthreads_or); a warp with none in a running chunk (or with no ray)
+// takes every slice and barrier, and writes nothing.  X_0 = the input
+// grid-list's sample (gather_chunk, march_common.cuh's step geometry) plus
+// the ray's encoding, in the plain version's order; then each layer by
+// staged_rows over the ring's slices of the packed layers (schedule
+// kSplatFw: every layer, relu between them), in place in the warp's tile.
+template <int W>
+__global__ void __launch_bounds__(32 * kFWarps, 1)
+    splat_mlp_wide_kernel(const SplatParams sp, const uint4* __restrict__ ws,
+                          int n_slices, bool wg, float* __restrict__ values) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int S = W + 4, V = W / 32, kTile = kChunk * S;
+  const Params& p = sp.m;
+  const int L = p.n_layers[0];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* X = smem + warp * kTile;
+  for (int i = lane; i < kTile; i += 32) X[i] = 0.0f;
+  Ring ring = {reinterpret_cast<uint4*>(smem + warps * kTile), ws,
+               ring_slot_u4(W), n_slices, 0};
+  ring_start(ring);
+  __syncwarp();
+
+  const int C = sp.out_chn, C_in = p.grid_chn;
+  const int tot = p.num_samples + p.num_samples_inf;
+  const bool vec4 = (C & 3) == 0;
+  const int groups = (p.num_rays + warps - 1) / warps;
+  const int per_block = (groups + gridDim.x - 1) / gridDim.x;
+  const int group_end = min(groups, (blockIdx.x + 1) * per_block);
+  for (int group = blockIdx.x * per_block; group < group_end; ++group) {
+    // every warp walks the block's groups, a ray past num_rays too
+    const int ray = group * warps + warp;
+    const bool valid = ray < p.num_rays;
+    Ray r = {};
+    r.b = -1;
+    if (valid) r = load_ray(p, ray);
+    float e[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = 32 * v + lane;
+      e[v] = valid && c < C_in ? p.enc[(long long)ray * C_in + c] : 0.0f;
+    }
+    for (int c0 = 0; c0 < tot; c0 += kChunk) {
+      const int s = valid && lane < kChunk ? c0 + lane : tot;
+      Step st = {};
+      if (s < tot) st = march_step(p, r, s);
+      const bool sampled = s < tot && r.b >= 0 &&
+                           (!p.mask_out_of_bounds || st.in_bounds);
+      if (!__syncthreads_or(sampled)) continue;  // no ray of the block's
+      const uint32_t taken = __ballot_sync(kAll, sampled);
+      const bool active = taken != 0u;
+      if (active) {
+        gather_chunk<W, kChunk>(p.grids, p.grid, C_in, r.b, st, taken, false,
+                                X, nullptr, lane);
+        __syncwarp();
+        for (int j = 0; j < kChunk; ++j) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) X[j * S + 32 * v + lane] += e[v];
+        }
+        __syncwarp();
+      }
+      for (int l = 0; l < L; ++l)
+        staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l], X, S,
+                       nullptr, p.mlp + p.layer_b_off[l], l + 1 < L, nullptr,
+                       nullptr, X, nullptr, S, active, wg, lane);
+      if (!active) continue;
+      // the sampled steps' rows of the chunk into the staging
+      float* dst = values + ((long long)ray * tot + c0) * C;
+      for (uint32_t todo = taken; todo; todo &= todo - 1) {
+        const int j = __ffs(todo) - 1;
+        const float* x = X + j * S;
+        float* d = dst + (long long)j * C;
+        if (vec4) {
+          for (int c4 = lane; c4 < C / 4; c4 += 32)
+            reinterpret_cast<float4*>(d)[c4] =
+                reinterpret_cast<const float4*>(x)[c4];
+        } else {
+          for (int c = lane; c < C; c += 32) d[c] = x[c];
+        }
+      }
+      __syncwarp();  // the tile is free for the next chunk
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Pass F's warps, shared memory and resident wave of blocks.
+template <int W>
+cudaError_t pass_f_config(size_t* smem, int* wave) {
+  *smem = (size_t)pass_f_smem_bytes(W, kFWarps);
+  if ((long long)*smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      splat_mlp_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)*smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, splat_mlp_wide_kernel<W>, 32 * kFWarps, *smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *wave = sms * per_sm;
+  return cudaSuccess;
+}
+
+// The pre-pass (the packed layers into `workspace`), then pass F.
+template <int W>
+cudaError_t launch_pass_f(const SplatParams& sp, void* workspace,
+                          float* values, cudaStream_t stream) {
+  size_t smem = 0;
+  int wave = 0;
+  cudaError_t e = pass_f_config<W>(&smem, &wave);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_wide_pack(sp.m, kSplatFw, workspace, stream)) != cudaSuccess)
+    return e;
+  const long long needed = (sp.m.num_rays + kFWarps - 1) / kFWarps;
+  splat_mlp_wide_kernel<W>
+      <<<(int)(needed < wave ? needed : wave), 32 * kFWarps, smem, stream>>>(
+          sp, static_cast<const uint4*>(workspace),
+          wide_slices(sp.m, kSplatFw), kFWarps % 4 == 0, values);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one block of the splat pass needs.
-//   in_chn: the encoding's channels with the MLP (n_layers > 0)
+//   in_chn: the encoding's channels with the MLP (n_layers > 0); at widths
+//   96 and 128 the splat pass is the per-step variant's (pass S)
 long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
                                          int max_rows, int out_chn,
                                          int in_chn) {
-  const int E = n_layers ? in_chn : (out_chn < 64 ? out_chn : 64);
+  const int per_pass = out_chn < 64 ? out_chn : 64;
+  if (n_layers && width > 64)
+    return splat_smem_bytes(0, 0, max_rows, out_chn,
+                            2 * stage_chn(per_pass));
+  const int E = n_layers ? in_chn : per_pass;
   return splat_smem_bytes(width, n_layers, max_rows, out_chn, stage_chn(E));
+}
+
+// The wide MLP build's pass F at `width` (96 or 128) for n_layers layers of
+// mlp_widths (host int[n_layers + 1]): out[0] warps per block, out[1] a
+// block's shared memory in bytes, out[2] the bytes of the workspace of
+// packed layers; a cudaError_t code.
+int lightplane_splat_fw_mlp_config(int width, int n_layers,
+                                   const int* mlp_widths, int* out) {
+  if (n_layers < 1 || n_layers > kMaxLayers || (width != 96 && width != 128))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  const int counts[3] = {n_layers, 0, 0};
+  fill_layers(p, counts, mlp_widths);
+  out[0] = kFWarps;
+  out[1] = (int)pass_f_smem_bytes(width, kFWarps);
+  out[2] = (int)wide_pack_bytes(p, kSplatFw);
+  return (int)cudaSuccess;
+}
+
+// Launches the wide MLP build's pass F on `stream` (the pre-pass, then the
+// kernel); returns a cudaError_t code.  Arguments as lightplane_splat_fw's
+// (with an MLP at width 96 or 128), `values` [num_rays, steps, out_chn]
+// out (written at the sampled steps only) and `workspace` (16-byte
+// aligned, lightplane_splat_fw_mlp_config's bytes).
+int lightplane_splat_fw_mlp(
+    const float* origins, const float* directions, const float* near,
+    const float* far, const int* grid_idx, const float* enc,
+    const float* input_grid, const float* mlp, float* values,
+    void* workspace, int num_rays, int num_out_grids, const int* out_meta,
+    int out_chn, int num_in_grids, const int* in_meta, int in_chn,
+    int n_layers, const int* mlp_widths, int width, int num_samples,
+    int num_samples_inf, float disparity_at_inf, int mask_out_of_bounds,
+    int contract_coords, void* stream) {
+  SplatParams sp = {};
+  const int rc = fill_splat_params(
+      sp, num_rays, num_out_grids, out_meta, out_chn, num_in_grids, in_meta,
+      in_chn, n_layers, mlp_widths, width, num_samples, num_samples_inf,
+      disparity_at_inf, mask_out_of_bounds, contract_coords);
+  if (rc != (int)cudaSuccess) return rc;
+  if (n_layers < 1 || (width != 96 && width != 128) ||
+      sp.m.layer_out[n_layers - 1] != out_chn)
+    return (int)cudaErrorInvalidValue;
+  if (num_rays == 0) return (int)cudaSuccess;
+  Params& p = sp.m;
+  p.origins = origins;
+  p.directions = directions;
+  p.near = near;
+  p.far = far;
+  p.grid_idx = grid_idx;
+  p.enc = enc;
+  p.grid = input_grid;
+  p.mlp = mlp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(width == 96 ? launch_pass_f<96>(sp, workspace, values, s)
+                           : launch_pass_f<128>(sp, workspace, values, s));
 }
 
 // Registers, spilled bytes and the thread limit of the splat pass (its
 // voxel-grid build) without the MLP (mlp = 0) or with it at `width` (mlp =
-// 1), or of the plan's fill pass (mlp = 2), into out[3]; a cudaError_t
-// code.
+// 1; at 96 and 128 the wide build's pass F), of the plan's fill pass (mlp =
+// 2), or of the per-step splat (mlp = 3: the voxel-grid build of pass S),
+// into out[3]; a cudaError_t code.
 int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
   if (mlp == 2) return kernel_attrs(splat_plan_kernel<true>, out);
+  if (mlp == 3) return kernel_attrs(splat_fw_kernel<0, 8, 2, 2>, out);
   if (!mlp) return kernel_attrs(splat_fw_kernel<0, 8, 2>, out);
-  if (width == 96) return kernel_attrs(splat_fw_kernel<96, 8, 2>, out);
-  if (width == 128) return kernel_attrs(splat_fw_kernel<128, 8, 2>, out);
+  if (width == 96) return kernel_attrs(splat_mlp_wide_kernel<96>, out);
+  if (width == 128) return kernel_attrs(splat_mlp_wide_kernel<128>, out);
   return width == 32 ? kernel_attrs(splat_fw_kernel<32, 8, 1>, out)
                      : kernel_attrs(splat_fw_kernel<64, 8, 2>, out);
 }
@@ -771,7 +907,8 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //   out_meta, in_meta: host int[5 * n], per sub-grid (row offset, B, D, H, W)
 //   n_layers: the MLP's layer count, 0 without it (input_grid, mlp, in_meta
 //     and mlp_widths are then not read)
-//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96 or 128
+//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96 or 128 (at 96
+//     and 128 the plan's stages only: the wide build splats by pass S)
 //   bricks: host int[3 * num_out_grids], cells per brick along D, H, W
 //   stage: 0 counts the runs per brick into counts [bricks] (zero-filled);
 //     1 writes them at offsets [bricks + 1] (the exclusive prefix sum of
@@ -781,7 +918,8 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //     brick's items, at most max_items items
 //   step_values: 1 splats row ray * steps + s of enc at step s (the
 //     adjoint's pass B; no MLP, w not written; in passes of 64 channels),
-//     0 the ray's row
+//     2 the same with w written (the wide MLP build's pass S, enc its
+//     staging), 0 the ray's row
 //   batch_limit: > 0 caps the batches a ray's grid_idx may index (the
 //     adjoint's pass B passes the output grid-list's too), 0 none
 // The caller validates shapes, devices, alignment and limits, and
@@ -805,7 +943,8 @@ int lightplane_splat_fw(
       disparity_at_inf, mask_out_of_bounds, contract_coords);
   if (rc != (int)cudaSuccess) return rc;
   if (stage < 0 || stage > 2 || num_samples + num_samples_inf > 0xffff ||
-      runs_per_item < 1 || (step_values && n_layers))
+      runs_per_item < 1 || step_values < 0 || step_values > 2 ||
+      (step_values && n_layers) || (stage == 2 && n_layers && width > 64))
     return (int)cudaErrorInvalidValue;
   if (batch_limit > 0 && batch_limit < sp.m.num_batches)
     sp.m.num_batches = batch_limit;
@@ -862,15 +1001,15 @@ int lightplane_splat_fw(
   }
   if (kAblate & kAblateNoSplat) return (int)cudaSuccess;
   cudaError_t e;
-  if (step_values) {
+  if (step_values == 2) {
+    e = launch_splat<0, 2>(sp, pl, max_items, s);
+  } else if (step_values) {
     if (kAblate & (kAblateS2NoScatter | kAblateS2GatherOnly))
       return (int)cudaSuccess;
-    e = launch_splat<0, true>(sp, pl, max_items, s);
+    e = launch_splat<0, 1>(sp, pl, max_items, s);
   } else if (n_layers == 0) e = launch_splat<0>(sp, pl, max_items, s);
   else if (width == 32) e = launch_splat<32>(sp, pl, max_items, s);
-  else if (width == 64) e = launch_splat<64>(sp, pl, max_items, s);
-  else if (width == 96) e = launch_splat<96>(sp, pl, max_items, s);
-  else e = launch_splat<128>(sp, pl, max_items, s);
+  else e = launch_splat<64>(sp, pl, max_items, s);
   return (int)e;
 }
 

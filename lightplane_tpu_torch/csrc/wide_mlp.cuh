@@ -1,30 +1,23 @@
 // The dense layers of the wide builds (padded widths W = 96 and 128) of the
 // renderer's forward march and recompute backward (renderer_wide.cu, R1 and
-// R2) and the splatter's MLP adjoint (splatter_bw.cu, S2's pass A).
+// R2), of the splatter MLP's forward (splatter_fw.cu, S1's pass F) and of
+// its adjoint (splatter_bw.cu, S2's pass A).
 //
-// R1 and R2 stage their layers in shared memory, a slice at a time for a
+// All four stage their layers in shared memory, a slice at a time for a
 // whole block (staged_rows, below): at W = 128 a 2/2/2 MLP is ~400 KB, more
 // than a Hopper block's 227 KB, so a ring of slices of the layers, packed in
 // wgmma's K-major core matrices and pre-split into TF32 hi and lo, passes
-// through it; a warpgroup multiplies by wgmma, a lone warp by mma.sync.
-// R2's weight gradient is summed over a block's rows (block_weight_grad).
-//
-// S2's pass A keeps the first wide design: the B fragments of a product are
-// read straight from the flat, unpadded mlp_params in device memory (at
-// most a few hundred KB, so they stay in L2 and mostly in L1), zero past a
-// layer's widths.  A product is mma.sync m16n8k8 in 3xTF32 as
-// warp_chunk.cuh::mma_rows's, one M-tile of 16 rows at a time (W / 2
-// accumulators a lane), over a layer's own K and N rounded up to 8, on a
-// chunk's [32][W + 4] tile of activations in shared memory (row j = step
-// j).  The weight gradient X^T G of a chunk is
-// mlp_bwd.cuh::tc_weight_grad_rows's product, eight N-tiles at a time,
-// added into a warp's own row of sums in device memory (the layout of
-// splatter_bw.cu's MlpLayout: per layer mi x no accumulator tiles,
-// tc_index(i, o, no), then 8 no bias sums; R2's block rows have it too).
+// through it; a warpgroup multiplies by wgmma, a lone warp by mma.sync.  A
+// block's warps march a ray each, in lockstep over 16-step chunks; each
+// kernel runs its chunk's products in the order of its schedule
+// (wide_product: R1's, R2's, the splatter's forward, its adjoint).  R2's and
+// S2's weight gradients are summed over a block's rows into one row a block
+// (block_weight_grad; per layer mi x no accumulator tiles, tc_index(i, o,
+// no), then 8 no bias sums: splatter_bw.cu's MlpLayout).
 //
 // Everything is written against the template width, so a wider build
-// (160-256) needs only its instantiation and the shared memory of its
-// tiles.
+// (160-256) needs only its instantiation, its wgmma shape and the shared
+// memory of its tiles.
 
 #pragma once
 
@@ -32,114 +25,6 @@
 #include "warp_chunk.cuh"
 
 namespace lightplane {
-
-// Element (k, n) of a layer's K x N operand: its weight (i = k, o = n), or
-// with `transpose` (i = n, o = k); 0 outside the layer's [d_in, d_out].
-__device__ __forceinline__ float layer_weight(const float* __restrict__ w,
-                                              int d_in, int d_out, int k,
-                                              int n, bool transpose) {
-  const int i = transpose ? n : k, o = transpose ? k : n;
-  return i < d_in && o < d_out ? __ldg(w + i * d_out + o) : 0.0f;
-}
-
-// out = epi(A @ B + bias) for the chunk's 32 rows on the tensor cores in
-// 3xTF32, B the layer's [d_in, d_out] weights w in device memory (or their
-// transpose: the input gradient's product, K = d_out, N = d_in), bias the
-// layer's d_out biases or null for none.  The epilogue adds `add` (a tile
-// like A, read at each output's own place) where given, takes relu where
-// `relu`, and multiplies by (gate > 0) where `gate` is given.  Columns
-// [0, 8 ceil(N / 8)) of out, and of out2 when given, get the rows; out may
-// be A, gate or add (an M-tile's rows are all read before any is written).
-template <int W>
-__device__ __forceinline__ void wide_mma_rows(
-    const float* A, const float* __restrict__ w, const float* __restrict__ bias,
-    int d_in, int d_out, bool transpose, bool relu, const float* gate,
-    const float* add, float* out, float* out2, int lane) {
-  constexpr int S = W + 4, NT = W / 8;
-  const int K = transpose ? d_out : d_in, N = transpose ? d_in : d_out;
-  const int k_steps = (K + 7) / 8, n_tiles = (N + 7) / 8;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int mt = 0; mt < 2; ++mt) {
-    float d[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float b0 = 0.0f, b1 = 0.0f;
-      const int o = nt * 8 + 2 * t;
-      if (bias != nullptr && nt < n_tiles) {
-        b0 = o < N ? __ldg(bias + o) : 0.0f;
-        b1 = o + 1 < N ? __ldg(bias + o + 1) : 0.0f;
-      }
-      d[nt][0] = b0;
-      d[nt][1] = b1;
-      d[nt][2] = b0;
-      d[nt][3] = b1;
-    }
-    // b0 (k t, n g), b1 (k t + 4, n g) of every N-tile: the next k-step's
-    // are loaded before this one's MMAs, so that their latency overlaps
-    float b[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      b[nt][0] = layer_weight(w, d_in, d_out, t, nt * 8 + g, transpose);
-      b[nt][1] = layer_weight(w, d_in, d_out, t + 4, nt * 8 + g, transpose);
-    }
-#pragma unroll 1
-    for (int ks = 0; ks < k_steps; ++ks) {
-      // a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-      const float* a = A + (mt * 16 + g) * S + ks * 8 + t;
-      uint32_t ah[4], al[4];
-      split_tf32(a[0], ah[0], al[0]);
-      split_tf32(a[8 * S], ah[1], al[1]);
-      split_tf32(a[4], ah[2], al[2]);
-      split_tf32(a[8 * S + 4], ah[3], al[3]);
-      const int k = (ks + 1) * 8 + t;  // the next k-step's (0 past K)
-      float next[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        next[nt][0] = layer_weight(w, d_in, d_out, k, nt * 8 + g, transpose);
-        next[nt][1] =
-            layer_weight(w, d_in, d_out, k + 4, nt * 8 + g, transpose);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        if (nt >= n_tiles) continue;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(b[nt][0], bh0, bl0);
-        split_tf32(b[nt][1], bh1, bl1);
-        mma_tf32(d[nt], al, bh0, bh1);
-        mma_tf32(d[nt], ah, bl0, bl1);
-        mma_tf32(d[nt], ah, bh0, bh1);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        b[nt][0] = next[nt][0];
-        b[nt][1] = next[nt][1];
-      }
-    }
-    __syncwarp();  // every lane's reads of these rows are done
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (nt >= n_tiles) continue;
-      const int at = (mt * 16 + g) * S + nt * 8 + 2 * t;
-      const int o[4] = {at, at + 1, at + 8 * S, at + 8 * S + 1};
-      float y[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        y[e] = d[nt][e];
-        if (add != nullptr) y[e] += add[o[e]];
-        if (relu) y[e] = fmaxf(y[e], 0.0f);
-        if (gate != nullptr && !(gate[o[e]] > 0.0f)) y[e] = 0.0f;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[o[e]] = y[e];
-      if (out2 != nullptr) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) out2[o[e]] = y[e];
-      }
-    }
-  }
-  __syncwarp();
-}
 
 // Output o of a layer with no activation (the heads' last layers) for the
 // input `row` (a tile's row in shared memory, 16-byte aligned), in
@@ -174,16 +59,6 @@ __device__ __forceinline__ float wide_last_out(const float* row,
   return acc;
 }
 
-// Layer l of p's MLPs, relu'd, over the tile X into out (and out2).
-template <int W>
-__device__ __forceinline__ void relu_layer(const Params& p, int l,
-                                           const float* X, float* out,
-                                           float* out2, int lane) {
-  wide_mma_rows<W>(X, p.mlp + p.layer_w_off[l], p.mlp + p.layer_b_off[l],
-                   p.layer_in[l], p.layer_out[l], false, true, nullptr,
-                   nullptr, out, out2, lane);
-}
-
 // Output o of layer l of p's MLPs (no activation) for the input `row`.
 template <int W>
 __device__ __forceinline__ float layer_out(const Params& p, int l,
@@ -193,121 +68,27 @@ __device__ __forceinline__ float layer_out(const Params& p, int l,
                           p.layer_out[l], o);
 }
 
-// The input gradient of layer l of p's MLPs: out = (G @ W_l^T [+ add]) x
-// (gate > 0), gate and add as wide_mma_rows's.
-template <int W>
-__device__ __forceinline__ void layer_input_grad(const Params& p, int l,
-                                                 const float* G,
-                                                 const float* gate,
-                                                 const float* add, float* out,
-                                                 int lane) {
-  wide_mma_rows<W>(G, p.mlp + p.layer_w_off[l], nullptr, p.layer_in[l],
-                   p.layer_out[l], true, false, gate, add, out, nullptr, lane);
-}
-
-// acc += X^T G over the chunk's 32 rows for a [d_in, d_out] layer, and the
-// bias sums acc[mi no 128 + o] += the column sums of G: the layer's sums in
-// a warp's own row (device memory), mi = ceil(d_in / 16) M-tiles by no =
-// ceil(d_out / 8) N-tiles of accumulator fragments (tc_index(i, o, no)).
-// As tc_weight_grad_rows: per tile the products start at 0 over the 4
-// k-steps of 8 rows and are then added to the sums in f32, three MMAs a
-// tile, the small terms first; eight N-tiles at a time, so the
-// accumulators and the split B fragments take 64 registers.  Those eight
-// tiles' sums are loaded before the products and stored after them.
-template <int W>
-__device__ __forceinline__ void wide_weight_grad(float* acc, const float* X,
-                                                 const float* G, int d_in,
-                                                 int d_out, int lane) {
-  constexpr int S = W + 4, kN = 8;
-  const int mi = (d_in + 15) / 16, no = (d_out + 7) / 8;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int mt = 0; mt < mi; ++mt) {
-#pragma unroll 1
-    for (int n0 = 0; n0 < no; n0 += kN) {
-      float4* c = reinterpret_cast<float4*>(acc) + (mt * no + n0) * 32 + lane;
-      // the sums' loads go out first, their latency behind the products
-      float4 sum[kN];
-#pragma unroll
-      for (int nt = 0; nt < kN; ++nt)
-        if (n0 + nt < no) sum[nt] = c[nt * 32];
-      float d[kN][4];
-#pragma unroll
-      for (int nt = 0; nt < kN; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[nt][e] = 0.0f;
-#pragma unroll 1
-      for (int ks = 0; ks < 4; ++ks) {
-        // A = X^T: a0 (i g, row t), a1 (g + 8, t), a2 (g, t + 4),
-        // a3 (g + 8, t + 4)
-        const float* a = X + (ks * 8 + t) * S + mt * 16 + g;
-        uint32_t ah[4], al[4];
-        split_tf32(a[0], ah[0], al[0]);
-        split_tf32(a[8], ah[1], al[1]);
-        split_tf32(a[4 * S], ah[2], al[2]);
-        split_tf32(a[4 * S + 8], ah[3], al[3]);
-        // B = G: b0 (row t, o g), b1 (t + 4, g)
-        uint32_t bh[kN][2], bl[kN][2];
-#pragma unroll
-        for (int nt = 0; nt < kN; ++nt) {
-          if (n0 + nt >= no) continue;
-          const float* b = G + (ks * 8 + t) * S + (n0 + nt) * 8 + g;
-          split_tf32(b[0], bh[nt][0], bl[nt][0]);
-          split_tf32(b[4 * S], bh[nt][1], bl[nt][1]);
-        }
-#pragma unroll
-        for (int term = 0; term < 3; ++term)
-#pragma unroll
-          for (int nt = 0; nt < kN; ++nt) {
-            if (n0 + nt >= no) continue;
-            if (term == 0) mma_tf32(d[nt], al, bh[nt][0], bh[nt][1]);
-            if (term == 1) mma_tf32(d[nt], ah, bl[nt][0], bl[nt][1]);
-            if (term == 2) mma_tf32(d[nt], ah, bh[nt][0], bh[nt][1]);
-          }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kN; ++nt) {
-        if (n0 + nt >= no) continue;
-        float4 v = sum[nt];
-        v.x += d[nt][0];
-        v.y += d[nt][1];
-        v.z += d[nt][2];
-        v.w += d[nt][3];
-        c[nt * 32] = v;
-      }
-    }
-  }
-  float* bias_acc = acc + mi * no * 128;
-  for (int o = lane; o < 8 * no; o += 32) {
-    float a = 0.0f;
-    for (int j = 0; j < 32; ++j) a += G[j * S + o];
-    bias_acc[o] += a;
-  }
-  __syncwarp();
-}
-
-// Floats of a layer's sums in a wide build's row (wide_weight_grad,
-// block_weight_grad).
+// Floats of a layer's sums in a wide build's row (block_weight_grad).
 __host__ __device__ __forceinline__ int wide_sum_floats(int d_in, int d_out) {
   const int mi = (d_in + 15) / 16, no = (d_out + 7) / 8;
   return mi * no * 128 + 8 * no;
 }
 
-// ---- staged layers: R1's and R2's wide builds (renderer_wide.cu) ----------
+// ---- staged layers ----------------------------------------------------------
 // A block's warps march a ray each, 16 steps (one M-tile, kChunk) at a time,
 // all of them on the same chunk and the same product at once.  Each product
 // B of a chunk (a layer's [d_in, d_out] weights, or their transpose for the
 // input gradient) comes from a workspace that a pre-pass kernel fills once a
-// launch (pack_wide_kernel): per k-step of 8, B's hi part then its lo part
-// (hi the TF32 rounding of the weight, lo = w - hi in f32, so hi + lo == w;
-// the MMA reads lo's top 19 bits), each as wgmma's K-major, non-swizzled
-// core matrices (N-tile j and k-half h at core 2 j + h: 8 rows n of 4 k, 16
-// bytes a row), k-step-major, so two k-steps (kSliceSteps) of a product are
-// one contiguous slice.  The block
-// copies slices into a ring of kRingSlots slots in shared memory by
-// cp.async, two ahead of the one the warps multiply by, in the order of the
-// workspace's schedule (one int2 a slice: its first uint4 and its count),
-// which repeats every chunk.
+// launch (renderer_wide.cu::pack_wide_kernel): per k-step of 8, B's hi part
+// then its lo part (hi the TF32 rounding of the weight, lo = w - hi in f32,
+// so hi + lo == w; the MMA reads lo's top 19 bits), each as wgmma's
+// K-major, non-swizzled core matrices (N-tile j and k-half h at core 2 j +
+// h: 8 rows n of 4 k, 16 bytes a row), k-step-major, so two k-steps
+// (kSliceSteps) of a product are one contiguous slice.  The block copies
+// slices into a ring of kRingSlots slots in shared memory by cp.async, two
+// ahead of the one the warps multiply by, in the order of the workspace's
+// schedule (one int2 a slice: its first uint4 and its count), which repeats
+// every chunk.
 
 constexpr int kChunk = 16;       // steps a warp marches at a time
 constexpr int kSliceSteps = 2;   // k-steps of 8 a ring slot holds
@@ -318,30 +99,49 @@ __host__ __device__ __forceinline__ int ring_slot_u4(int W) {
   return kSliceSteps * (W / 8) * 32;
 }
 
+// Bytes of the ring of slices at width W.
+__host__ __device__ __forceinline__ long long ring_bytes(int W) {
+  return 16LL * kRingSlots * ring_slot_u4(W);
+}
+
 // A product of a chunk: layer `layer` as the K x N operand B (K = d_in,
 // N = d_out), or transposed (K = d_out, N = d_in: its input gradient).
 struct Product {
   int layer, transposed, k_steps, n_tiles;
 };
 
-// The products of a chunk in the order R1 and R2 run them: the relu layers
+// The schedules of a chunk's products.  R1 (kRenderFw) runs the relu layers
 // of the forward in renderer_fw.cu's order (relu layer j is layer j below
-// the opacity head's last, j + 1 past it), then, in R2 (`backward`), every
+// the opacity head's last, j + 1 past it); R2 (kRenderBw) those, then every
+// layer's input gradient, last layer first.  The splatter's MLP (its L
+// layers in p.n_layers[0]): S1's pass F (kSplatFw) runs every layer, the
+// last one too; S2's pass A (kSplatBw) the L - 1 relu layers, then every
 // layer's input gradient, last layer first.
+enum WideSchedule { kRenderFw = 0, kRenderBw = 1, kSplatFw = 2, kSplatBw = 3 };
+
 __host__ __device__ __forceinline__ int wide_n_products(const Params& p,
-                                                        bool backward) {
+                                                        int kind) {
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
-  return n_total - 2 + (backward ? n_total : 0);
+  if (kind == kSplatFw) return n_total;
+  if (kind == kSplatBw) return 2 * n_total - 1;
+  return n_total - 2 + (kind == kRenderBw ? n_total : 0);
 }
 
 __host__ __device__ __forceinline__ Product wide_product(const Params& p,
-                                                         int i) {
+                                                         int kind, int i) {
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
-  const int opacity_end = p.n_layers[0] + p.n_layers[1] - 1;
   Product pr;
-  pr.transposed = i >= n_total - 2;
-  pr.layer = !pr.transposed ? (i < opacity_end ? i : i + 1)
-                            : n_total - 1 - (i - (n_total - 2));
+  if (kind >= kSplatFw) {
+    // the forward's products, then (kSplatBw) the transposed ones
+    const int fwd = kind == kSplatFw ? n_total : n_total - 1;
+    pr.transposed = i >= fwd;
+    pr.layer = pr.transposed ? n_total - 1 - (i - fwd) : i;
+  } else {
+    const int opacity_end = p.n_layers[0] + p.n_layers[1] - 1;
+    pr.transposed = i >= n_total - 2;
+    pr.layer = !pr.transposed ? (i < opacity_end ? i : i + 1)
+                              : n_total - 1 - (i - (n_total - 2));
+  }
   const int d_in = p.layer_in[pr.layer], d_out = p.layer_out[pr.layer];
   pr.k_steps = ((pr.transposed ? d_out : d_in) + 7) / 8;
   pr.n_tiles = ((pr.transposed ? d_in : d_out) + 7) / 8;
@@ -353,24 +153,42 @@ __host__ __device__ __forceinline__ int product_slices(const Product& pr) {
   return (pr.k_steps + kSliceSteps - 1) / kSliceSteps;
 }
 
-// Where product `upto` starts in the workspace (uint4s) and its first
-// slice; with upto = n, the workspace's size and the slices of a chunk.
-// The schedule (an int2 a slice) comes first.
-__host__ __device__ __forceinline__ void wide_layout(const Params& p, int n,
-                                                     int upto,
+// Where product `upto` of schedule `kind` starts in the workspace (uint4s)
+// and its first slice; with upto = wide_n_products, the workspace's size
+// and the slices of a chunk.  The schedule (an int2 a slice) comes first.
+__host__ __device__ __forceinline__ void wide_layout(const Params& p,
+                                                     int kind, int upto,
                                                      long long* off,
                                                      int* first) {
+  const int n = wide_n_products(p, kind);
   int slices = 0;
-  for (int i = 0; i < n; ++i) slices += product_slices(wide_product(p, i));
+  for (int i = 0; i < n; ++i) slices += product_slices(wide_product(p, kind, i));
   long long at = (slices + 1) / 2;
   int s = 0;
   for (int i = 0; i < upto; ++i) {
-    const Product pr = wide_product(p, i);
+    const Product pr = wide_product(p, kind, i);
     at += (long long)pr.k_steps * pr.n_tiles * 32;
     s += product_slices(pr);
   }
   *off = at;
   *first = upto == n ? slices : s;
+}
+
+// The slices of a chunk of schedule `kind`, and its workspace's bytes.
+__host__ __device__ __forceinline__ int wide_slices(const Params& p,
+                                                    int kind) {
+  long long size = 0;
+  int slices = 0;
+  wide_layout(p, kind, wide_n_products(p, kind), &size, &slices);
+  return slices;
+}
+
+__host__ __device__ __forceinline__ long long wide_pack_bytes(
+    const Params& p, int kind) {
+  long long size = 0;
+  int slices = 0;
+  wide_layout(p, kind, wide_n_products(p, kind), &size, &slices);
+  return 16 * size;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -548,18 +366,21 @@ struct Wgmma<96> {
 // read from the slot.  A is a [16][sa] tile in shared
 // memory, plus the vector a_add (per column; the colour head's input: the
 // trunk's output + the encoding) where given, added as A's fragments are
-// read; bias (device memory, null for none) as wide_mma_rows's.  The
-// epilogue (W + 4-strided out, out2, gate and add) is wide_mma_rows's; out
-// may be A.  Each k-step splits A into TF32 hi and lo parts (split_wide)
-// and issues three MMAs per N-tile, term by term across the tiles, the
-// small terms first.
+// read; bias (device memory, N floats) or null for none.  The epilogue
+// writes columns [0, 8 ceil(N / 8)) of the rows of out (and out2 where
+// given), tiles of row stride so: A B + bias, plus `add` (a tile like out,
+// read at each output's own place) where given, through a relu where
+// `relu`, times (gate > 0) where `gate` (a tile like out) is given; out may
+// be A, gate or add.  Each k-step splits A into TF32 hi and lo parts
+// (split_wide) and issues three MMAs per N-tile, term by term across the
+// tiles, the small terms first.
 template <int W>
 __device__ __forceinline__ void staged_rows(
     Ring& r, int k_steps, int N, const float* A, int sa,
     const float* a_add, const float* __restrict__ bias, bool relu,
-    const float* gate, const float* add, float* out, float* out2,
+    const float* gate, const float* add, float* out, float* out2, int so,
     bool active, bool wg, int lane) {
-  constexpr int S = W + 4, NT = W / 8;
+  constexpr int NT = W / 8;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (N + 7) / 8;
   float d[NT][4];
@@ -653,8 +474,8 @@ __device__ __forceinline__ void staged_rows(
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     if (nt >= n_tiles) continue;
-    const int at = g * S + nt * 8 + 2 * t;
-    const int o[4] = {at, at + 1, at + 8 * S, at + 8 * S + 1};
+    const int at = g * so + nt * 8 + 2 * t;
+    const int o[4] = {at, at + 1, at + 8 * so, at + 8 * so + 1};
     float y[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -675,10 +496,11 @@ __device__ __forceinline__ void staged_rows(
 
 // The weight gradient of a [d_in, d_out] layer over the rows of the
 // block's active warps (16 each; active[w] in shared memory), added into
-// the block's row of sums (wide_weight_grad's layout): sums += X^T G and
-// the bias sums += the column sums of G.  Warp w's X and G tiles lie at X0
-// and G0 plus w x_stride floats; X (W + 4-strided) plus its warp's vector
-// at xadd0 + w x_stride where xadd0 is given (a_add's); G sg-strided.  The
+// the block's row of sums (per layer mi x no accumulator tiles, tc_index,
+// then 8 no bias sums): sums += X^T G and the bias sums += the column sums
+// of G.  Warp w's X and G tiles lie at X0 and G0 plus w x_stride floats; X
+// sx-strided (at least 16 mi columns) plus its warp's vector at xadd0 + w
+// x_stride where xadd0 is given (a_add's); G sg-strided.  The
 // mi M-tiles by no N-tiles of the product, and one more M-tile for the
 // bias sums (A all ones: every row the column sums), go out to the warps
 // eight N-tiles of one M-tile at a time: per job the products start at 0,
@@ -689,9 +511,9 @@ __device__ __forceinline__ void staged_rows(
 template <int W>
 __device__ __forceinline__ void block_weight_grad(
     float* sums, const float* X0, const float* xadd0, const float* G0,
-    int sg, int x_stride, const int* active, int warps, int d_in, int d_out,
-    int warp, int lane) {
-  constexpr int S = W + 4, kN = 8;
+    int sx, int sg, int x_stride, const int* active, int warps, int d_in,
+    int d_out, int warp, int lane) {
+  constexpr int kN = 8;
   const int mi = (d_in + 15) / 16, no = (d_out + 7) / 8;
   const int ng = (no + kN - 1) / kN;
   const int g = lane >> 2, t = lane & 3;
@@ -724,8 +546,8 @@ __device__ __forceinline__ void block_weight_grad(
           // A = X^T: a0 (i g, row t), a1 (g + 8, t), a2 (g, t + 4),
           // a3 (g + 8, t + 4)
           const int i = mt * 16 + g;
-          const float* a = X + (ks * 8 + t) * S + i;
-          float x[4] = {a[0], a[8], a[4 * S], a[4 * S + 8]};
+          const float* a = X + (ks * 8 + t) * sx + i;
+          float x[4] = {a[0], a[8], a[4 * sx], a[4 * sx + 8]};
           if (e != nullptr) {
             x[0] += e[i];
             x[1] += e[i + 8];
@@ -797,9 +619,9 @@ int render_bw_wide_config(const Params& p, int width, bool color_grid,
 cudaError_t launch_render_bw_wide(const Params& p, int width,
                                   void* workspace, cudaStream_t stream);
 int render_bw_wide_attrs(int width, int* out);
-// The pre-pass alone: the products of R1's chunk (R2's with `backward`)
-// packed into the workspace.
-cudaError_t launch_wide_pack(const Params& p, bool backward, void* workspace,
+// The pre-pass alone: the products of a chunk of schedule `kind`
+// (WideSchedule) packed into the workspace (wide_pack_bytes).
+cudaError_t launch_wide_pack(const Params& p, int kind, void* workspace,
                              cudaStream_t stream);
 
 }  // namespace lightplane

@@ -78,6 +78,16 @@ _SPLAT_FW_ARGTYPES = (
     + [_I, _I]           # step_values, batch_limit
     + [_P]               # stream
 )
+# lightplane_splat_fw_mlp, the wide MLP build's pass F (csrc/splatter_fw.cu)
+_SPLAT_FW_MLP_ARGTYPES = (
+    [_P] * 10            # origins .. mlp, values, workspace
+    + [_I, _I, _P, _I]   # num_rays, num_out_grids, out_meta, out_chn
+    + [_I, _P, _I]       # num_in_grids, in_meta, in_chn
+    + [_I, _P, _I]       # n_layers, mlp_widths, width
+    + [_I, _I, _F, _I, _I]  # num_samples, num_samples_inf, disparity, mask,
+                            # contract
+    + [_P]               # stream
+)
 # lightplane_splat_bw (see csrc/splatter_bw.cu)
 _SPLAT_BW_ARGTYPES = (
     [_P] * 14            # origins .. mlp, g_out, g_enc, g_mlp, partial,
@@ -89,6 +99,7 @@ _SPLAT_BW_ARGTYPES = (
                             # contract
     + [_I]               # part
     + [_P]               # relu_masks (the recording build's)
+    + [_P]               # workspace (the wide build's)
     + [_P]               # stream
 )
 
@@ -190,6 +201,11 @@ def library(defines=()) -> ctypes.CDLL:
     lib.lightplane_splat_fw.restype = _I
     lib.lightplane_splat_fw_smem_bytes.argtypes = [_I] * 5
     lib.lightplane_splat_fw_smem_bytes.restype = ctypes.c_longlong
+    lib.lightplane_splat_fw_mlp.argtypes = _SPLAT_FW_MLP_ARGTYPES
+    lib.lightplane_splat_fw_mlp.restype = _I
+    lib.lightplane_splat_fw_mlp_config.argtypes = [_I, _I, _P,
+                                                   ctypes.POINTER(_I)]
+    lib.lightplane_splat_fw_mlp_config.restype = _I
     lib.lightplane_splat_bw.argtypes = _SPLAT_BW_ARGTYPES
     lib.lightplane_splat_bw.restype = _I
     lib.lightplane_splat_bw_mlp_config.argtypes = [_I, _I, _P,

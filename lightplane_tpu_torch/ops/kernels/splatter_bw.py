@@ -6,7 +6,9 @@ versions and the dispatch between them.
 without the MLP one gather; with it, slice by slice of the rays
 (``adjoint_slices``), the gather staging every step's ``g_vec``, pass A (a
 warp per ray: the recomputed MLP and its backward, the MLP input gradient
-``g_in`` of every step staged) and pass B (S1's planned splat of the
+``g_in`` of every step staged; at widths 96 and 128 a block's warps in
+lockstep over the layers staged once a block, ``wide_a_plan``) and pass B
+(S1's planned splat of the
 staged ``g_in`` over the input grid-list,
 ``splatter_fw.splat_by_plan_cuda``), then the sum of the per-block weight
 gradients.  ``splat_bwd_torch`` is the same adjoint as a plain PyTorch loop
@@ -44,12 +46,20 @@ import ctypes
 
 import torch
 
-from .. import grid_sample as tgs
 from ..grid_sample import sample_grid_rep
 from ..splatter import _march_points, _SplatCfg, _step_fused_feature
 from . import splatter_fw as sfw
 from .renderer_bw import RELU_MASKS_BUILD, pack_masks, unpack_masks
-from .renderer_fw import WIDTHS, _check, check_impl
+from .renderer_fw import (
+    MAX_SMEM_BYTES,
+    WIDE_CHUNK,
+    WIDTHS,
+    _check,
+    check_impl,
+    wide_layers,
+    wide_pack_bytes,
+    wide_ring_bytes,
+)
 
 # Number of adjoints launched in this process: the kernel path adds one per
 # adjoint (its passes, slices and sums together) and nothing else changes
@@ -61,6 +71,10 @@ MLP_LAUNCHES = 0
 # The most output channels the gather without the MLP takes: 16 registers
 # a lane (csrc/splatter_bw.cu, kEncRegs).
 MAX_ENC_CHN = 512
+# The wide pass A (csrc/splatter_bw.cu, widths 96 and 128): the most warps
+# a block, and a flag each in shared memory
+WIDE_A_MAX_WARPS = 8
+WIDE_A_FLAG_BYTES = 4 * WIDE_A_MAX_WARPS
 
 
 def mask_shape(cfg: _SplatCfg, R: int):
@@ -121,14 +135,6 @@ def splat_bwd_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
     return tuple(grads)
 
 
-def _slices(lo, hi, per_ray):
-    """``[lo, hi)`` cut into slices of at most ``PLAN_MAX_RUNS`` runs'
-    bytes at ``per_ray`` bytes a ray, each but the last a multiple of 32
-    rays."""
-    step = max(32, 8 * sfw.PLAN_MAX_RUNS // max(per_ray, 1) // 32 * 32)
-    return [(a, min(a + step, hi)) for a in range(lo, hi, step)]
-
-
 def adjoint_slices(cfg: _SplatCfg, bricks, n_rays: int):
     """The slices ``(start, stop)`` of the rays that the MLP adjoint runs
     pass B over: each slice's staged ``g_in`` ([rays, steps, C_in] f32) and
@@ -138,14 +144,44 @@ def adjoint_slices(cfg: _SplatCfg, bricks, n_rays: int):
     steps, C_in = cfg.tot_num_samples, cfg.n_hidden[0]
     runs = max(sfw.plan_shape(cfg, (b,), 1, (gs,)).capacity
                for gs, b in zip(cfg.input_grid_sizes, bricks))
-    return _slices(0, n_rays, max(4 * steps * C_in, 8 * runs))
+    return sfw.byte_slices(0, n_rays, max(4 * steps * C_in, 8 * runs))
 
 
 def gvec_slices(cfg: _SplatCfg, lo: int, hi: int):
     """The slices of ``[lo, hi)`` (a slice of ``adjoint_slices``) that the
     gather and pass A run over: each one's staged ``g_vec`` ([rays, steps,
     C] f32) within ``PLAN_MAX_RUNS`` runs' bytes."""
-    return _slices(lo, hi, 4 * cfg.tot_num_samples * cfg.out_chn)
+    return sfw.byte_slices(lo, hi, 4 * cfg.tot_num_samples * cfg.out_chn)
+
+
+def wide_a_stride(d: int) -> int:
+    """Floats of a row of the wide pass A's tile of a layer input (or
+    g_vec) of ``d`` channels: rounded up to 16 (the weight gradient's
+    M-tiles), plus 4 (``csrc/splatter_bw.cu::wide_stride``)."""
+    return -(-d // 16) * 16 + 4
+
+
+def wide_a_plan(width: int, n_hidden):
+    """The wide pass A's ``(warps, shared-memory bytes)`` at ``width`` (96
+    or 128) for the MLP ``n_hidden``: per warp a [WIDE_CHUNK, stride] f32
+    tile for each layer's input and one for g_vec (``wide_a_stride``), then
+    the ring and a flag per warp; the most warps, up to
+    ``WIDE_A_MAX_WARPS``, that fit in a block's shared memory, in whole
+    warpgroups past 4 (``wide_a_warps``).  Raises where one warp does not
+    fit."""
+    per_warp = 4 * WIDE_CHUNK * sum(wide_a_stride(d) for d in n_hidden)
+
+    def smem(warps):
+        return warps * per_warp + wide_ring_bytes(width) + WIDE_A_FLAG_BYTES
+
+    fits = [w for w in range(1, WIDE_A_MAX_WARPS + 1)
+            if smem(w) <= MAX_SMEM_BYTES]
+    if not fits:
+        raise ValueError(f"the splatter's adjoint needs {smem(1)} bytes of "
+                         f"shared memory for one warp at these MLP widths, "
+                         f"more than the {MAX_SMEM_BYTES} a Hopper block has")
+    warps = fits[-1] if fits[-1] <= 4 else fits[-1] // 4 * 4
+    return warps, smem(warps)
 
 
 def splat_bwd_two_pass_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
@@ -155,7 +191,7 @@ def splat_bwd_two_pass_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
     (``torch.autograd.grad``), sums the encoding's and the MLP's gradients
     and stages each step's MLP input gradient ``g_in``; pass B splats the
     staged rows run by run of the plan over each input sub-grid
-    (``splatter_fw.splat_plan_torch``), as the kernel's pass B does.
+    (``splatter_fw.splat_steps_torch``), as the kernel's pass B does.
     ``relu_masks`` as ``splat_bwd_torch``'s.  Without the MLP it is
     ``splat_bwd_torch``."""
     if not cfg.n_hidden:
@@ -164,7 +200,6 @@ def splat_bwd_two_pass_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
     steps, C_in = cfg.tot_num_samples, cfg.n_hidden[0]
     in_sizes = cfg.input_grid_sizes
     mask = cfg.mask_out_of_bounds_samples
-    rows = tgs.grid_row_offsets(in_sizes)
     bricks = sfw.pick_bricks(cfg, grid_sizes=in_sizes)
     g_enc = torch.zeros_like(encoding)
     g_grid = torch.zeros_like(input_grid_flat)
@@ -189,22 +224,8 @@ def splat_bwd_two_pass_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
             stage[:, s] = g_in
             g_mlp += d_mlp
         g_enc[lo:hi] = stage.sum(1)
-        for g, (gs, brick) in enumerate(zip(in_sizes, bricks)):  # pass B
-            counts, _, runs = sfw.splat_plan_torch(cfg, geom_s, (brick,),
-                                                   (gs,))
-            lens = runs[:, 2] - runs[:, 1] + 1
-            ray = torch.repeat_interleave(runs[:, 0], lens)
-            first = torch.repeat_interleave(lens.cumsum(0) - lens, lens)
-            step = torch.repeat_interleave(runs[:, 1], lens) + (
-                torch.arange(int(lens.sum()), device=lens.device) - first)
-            for s in range(steps):
-                sel = ray[step == s]
-                if not sel.numel():
-                    continue
-                sub = tuple(t[sel] for t in geom_s)
-                tgs.splat_grid_rep(stage[sel, s], g_grid[rows[g]:rows[g + 1]],
-                                   (gs,), _march_points(cfg, sub, s), sub[4],
-                                   mask, inplace=True)
+        sfw.splat_steps_torch(cfg, geom_s, stage, g_grid, in_sizes,
+                              bricks)  # pass B
     return g_enc, g_grid, g_mlp
 
 
@@ -225,7 +246,8 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
     ptr = sfw._ptr
 
     def run(part, geom_s, enc, g_enc=None, rows=0, stage=None,
-            partial=None, g_mlp=None, masks=None, g_vec=None):
+            partial=None, g_mlp=None, masks=None, g_vec=None,
+            workspace=None):
         directions, origins, near, far, grid_idx = geom_s
         rc = lib.lightplane_splat_bw(
             origins.data_ptr(), directions.data_ptr(), near.data_ptr(),
@@ -237,7 +259,7 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
             a.n_layers, a.mlp_widths, a.width, rows,
             cfg.num_samples, cfg.num_samples_inf, cfg.disparity_at_inf,
             int(cfg.mask_out_of_bounds_samples), int(cfg.contract_coords),
-            part, ptr(masks), stream,
+            part, ptr(masks), ptr(workspace), stream,
         )
         if rc != 0:
             msg = lib.lightplane_cuda_error_string(rc).decode()
@@ -254,7 +276,15 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
         LAUNCHES += 1
         return g_enc, None, None
 
-    conf = (ctypes.c_int * 4)()
+    workspace = None
+    if a.width > 64:
+        # raises where one warp does not fit
+        warps, smem = wide_a_plan(a.width, cfg.n_hidden)
+        layers = wide_layers(a.n_layers, 0, 0, list(cfg.n_hidden))
+        ws_bytes = wide_pack_bytes(sfw.splat_products(layers, True))
+        workspace = torch.empty((ws_bytes // 4,), dtype=torch.int32,
+                                device=a.device)
+    conf = (ctypes.c_int * 5)()
     rc = lib.lightplane_splat_bw_mlp_config(a.width, a.n_layers,
                                             a.mlp_widths, conf)
     if rc != 0:
@@ -262,6 +292,10 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
             f"the splatter's adjoint needs {conf[3]} bytes of shared memory "
             f"for one warp at these MLP widths, more than a Hopper block "
             f"has ({lib.lightplane_cuda_error_string(rc).decode()})")
+    if a.width > 64 and (conf[0], conf[3], conf[4]) != (warps, smem,
+                                                         ws_bytes):
+        raise RuntimeError(f"the wide pass A's plan {tuple(conf)} is not "
+                           f"the wrapper's {(warps, smem, ws_bytes)}")
     rows, row_floats = conf[1], conf[2]
     g_enc = torch.empty_like(encoding)
     g_grid = torch.zeros_like(input_grid_flat)
@@ -284,7 +318,7 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
             run(1, tuple(t[glo:ghi] for t in geom), encoding[glo:ghi],
                 g_enc[glo:ghi], rows, stage[glo - lo:ghi - lo], partial,
                 masks=None if relu_masks is None else relu_masks[glo:ghi],
-                g_vec=g_vec)
+                g_vec=g_vec, workspace=workspace)
         del g_vec
         for g, brick in enumerate(bricks):
             sfw.splat_by_plan_cuda(lib, cfg, geom_s, (stage, None, None),
@@ -306,8 +340,9 @@ def splat_bwd_cuda(cfg: _SplatCfg, geom, diff, g_feat_grid, defines=()):
 def splat_bwd_cuda_relu_masks(cfg: _SplatCfg, geom, diff, g_feat_grid):
     """The kernel's recording build (``RELU_MASKS_BUILD``), with an MLP:
     returns its gradients, as ``splat_bwd_cuda``'s, and the relu masks its
-    recomputed forward took (``mask_shape``; zero in the chunks of 32 steps
-    that a ray's warp skipped, where its g_vec is 0 at every step)."""
+    recomputed forward took (``mask_shape``; zero in the chunks of 32
+    steps, 16 at widths 96 and 128, where a ray's g_vec is 0 at every
+    step)."""
     if not cfg.n_hidden:
         raise ValueError("the relu masks need the splatter MLP")
     masks = torch.zeros(mask_shape(cfg, geom[0].shape[0]), dtype=torch.int32,

@@ -5,13 +5,17 @@ kernel splats by, with its own plain version.
 ``splat_fwd_cuda`` launches ``csrc/splatter_fw.cu`` (which replaces
 ``lightplane_tpu/ops/kernels/splatter_pallas.py::_build_fw_kernel``):
 the plan's count pass, a prefix sum, its fill pass, then the splat pass that
-sums each brick's runs in shared memory and flushes the touched rows.
-``splat_fwd_torch`` is the same splat as a plain PyTorch loop over steps
-(the port of the JAX scan core ``_splat_fwd_impl``).  ``splat_fwd`` sends
-CUDA tensors to the kernel and CPU tensors to the plain version; there is no
-fallback from one to the other.  ``splat_plan_cuda`` and
-``splat_plan_torch`` give the plan itself (``canonical_runs`` puts the
-kernel's runs in the plain version's order).
+sums each brick's runs in shared memory and flushes the touched rows.  With
+an MLP wider than 64 it runs two passes per slice of the rays
+(``mlp_slices``): pass F computes every sampled step's MLP output once into
+a staging buffer, and pass S splats the staged rows by the plan into each
+output sub-grid.  ``splat_fwd_torch`` is the same splat as a plain PyTorch
+loop over steps (the port of the JAX scan core ``_splat_fwd_impl``);
+``splat_fwd_two_pass_torch`` is the wide build's two-pass design in plain
+PyTorch, for the tests.  ``splat_fwd`` sends CUDA tensors to the kernel and
+CPU tensors to ``splat_fwd_torch``; there is no fallback from one to the
+other.  ``splat_plan_cuda`` and ``splat_plan_torch`` give the plan itself
+(``canonical_runs`` puts the kernel's runs in the plain version's order).
 
 Every function takes ``(cfg, geom, diff)``: ``geom = (directions, origins,
 near, far, grid_idx)`` and ``diff = (encoding, input_grid_flat,
@@ -34,9 +38,13 @@ from .renderer_fw import (
     MAX_GRIDS,
     MAX_LAYERS,
     MAX_SMEM_BYTES,
+    WIDE_CHUNK,
     WIDTHS,
     _check,
     check_impl,
+    wide_layers,
+    wide_pack_bytes,
+    wide_ring_bytes,
 )
 
 # Number of kernel launches in this process; the kernel path adds one per
@@ -67,6 +75,9 @@ MAX_STEPS = 0xFFFF
 # (plan_shape) exceeds it plans and splats its rays in slices, so that the
 # list stops growing with the rays and the samples
 PLAN_MAX_RUNS = 1 << 25
+# The wide MLP build's pass F (csrc/splatter_fw.cu): warps (rays) a block,
+# each with one [WIDE_CHUNK, W + 4] f32 tile
+PASS_F_WARPS = 8
 
 
 def splat_fwd_torch(cfg: _SplatCfg, geom, diff):
@@ -107,44 +118,42 @@ def _tile_rows(grid_size, brick) -> int:
 
 
 def _stage_chn(cfg: _SplatCfg) -> int:
-    """Channels of a run's staged encoding (``stage_chn``): the MLP's input,
-    or a pass of at most 64 of the output's, in slices of 32."""
+    """Channels of a run's staged encoding (``stage_chn``): the MLP's input
+    (widths 32 and 64), or a pass of at most 64 of the output's, in slices
+    of 32."""
     E = cfg.n_hidden[0] if cfg.n_hidden else min(cfg.out_chn, 64)
-    return 32 if E <= 32 else 64 if E <= 64 else -(-E // 32) * 32
+    return 32 if E <= 32 else 64
 
 
 def splat_smem_bytes(width: int, n_layers: int, rows: int, C: int,
                      stage: int) -> int:
-    """Shared memory of a splat block: the MLP's layers (none at widths 96
-    and 128, which read them from device memory), then per warp a tile of
-    ``rows`` rows of C channels and the weight (an even count of floats) and
-    a batch of staged encodings of ``stage`` channels, each rounded up to 16
-    bytes (as ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
+    """Shared memory of a splat block: the MLP's layers (widths 32 and 64),
+    then per warp a tile of ``rows`` rows of C channels and the weight (an
+    even count of floats) and a batch of staged values of ``stage``
+    channels, each rounded up to 16 bytes (as
+    ``csrc/splatter_fw.cu::splat_smem_bytes``)."""
     row = (C + 2) & ~1
     warp = -(-rows * row // 4) * 4 + -(-RUN_BATCH * stage // 4) * 4
-    layers = 0 if width > 64 else n_layers * (width * width + width)
-    return 4 * (layers + SPLAT_WARPS * warp)
+    return 4 * (n_layers * (width * width + width) + SPLAT_WARPS * warp)
 
 
 def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET,
                 grid_sizes=None):
     """The brick, cells along (D, H, W), of each output sub-grid (or of each
     sub-grid of ``grid_sizes``, splatted without the MLP: the adjoint's
-    pass B over the input grid-list): from 2 cells along each axis that is
+    pass B over the input grid-list; with an MLP wider than 64 the output
+    sub-grids' are pass S's): from 2 cells along each axis that is
     not a singleton, the axis with the fewest cells (the later on a tie)
     doubles while the block's shared memory stays within ``budget`` and the
     brick within the grid.  Raises where even the smallest brick exceeds a
     block's shared memory."""
-    if grid_sizes is None:
-        grid_sizes = cfg.output_grid_sizes
-        C = cfg.out_chn
-        width = _mlp_width(cfg)
-        stage = _stage_chn(cfg)
-    else:
-        # pass B stages two steps' values of a batch of runs
-        C = int(grid_sizes[0][-1])
-        width = 0
-        stage = 2 * (32 if C <= 32 else 64)
+    # the per-step splat (the adjoint's pass B, the wide MLP build's pass
+    # S) stages two steps' values of a batch of runs
+    steps = grid_sizes is not None or _mlp_width(cfg) > 64
+    grid_sizes = grid_sizes or cfg.output_grid_sizes
+    C = int(grid_sizes[0][-1])
+    width = 0 if steps else _mlp_width(cfg)
+    stage = 2 * (32 if C <= 32 else 64) if steps else _stage_chn(cfg)
     n_layers = len(cfg.n_hidden) - 1 if width else 0
 
     def smem(gs, brick):
@@ -222,6 +231,50 @@ def ray_slices(cfg: _SplatCfg, g: int, brick, n_rays: int):
                          (cfg.output_grid_sizes[g],)).capacity
     step = max(32, PLAN_MAX_RUNS // max(per_ray, 1) // 32 * 32)
     return [(lo, min(lo + step, n_rays)) for lo in range(0, n_rays, step)]
+
+
+def byte_slices(lo: int, hi: int, per_ray: int):
+    """``[lo, hi)`` cut into slices of at most ``PLAN_MAX_RUNS`` runs'
+    bytes at ``per_ray`` bytes a ray, each but the last a multiple of 32
+    rays."""
+    step = max(32, 8 * PLAN_MAX_RUNS // max(per_ray, 1) // 32 * 32)
+    return [(a, min(a + step, hi)) for a in range(lo, hi, step)]
+
+
+def mlp_slices(cfg: _SplatCfg, bricks, n_rays: int):
+    """The slices ``(start, stop)`` of the rays that the wide MLP build
+    runs its two passes over: each slice's staged MLP outputs ([rays,
+    steps, C] f32) and each of its run lists over an output sub-grid
+    (``plan_shape``, 8 bytes a run, ``bricks`` per sub-grid) within
+    ``PLAN_MAX_RUNS`` runs' bytes; each slice but the last a multiple of 32
+    rays."""
+    runs = max(plan_shape(cfg, (b,), 1, (gs,)).capacity
+               for gs, b in zip(cfg.output_grid_sizes, bricks))
+    return byte_slices(0, n_rays,
+                       max(4 * cfg.tot_num_samples * cfg.out_chn, 8 * runs))
+
+
+def splat_products(layers, backward: bool):
+    """The products of a chunk of the splatter MLP's wide kernels, in the
+    order they run them (``csrc/wide_mlp.cuh::wide_product``):
+    ``(layer, transposed, k_steps, n_tiles)``; S1's pass F every layer,
+    S2's pass A (``backward``) the relu layers, then every layer's input
+    gradient (its transpose), last layer first.  ``layers`` as
+    ``renderer_fw.wide_layers(L, 0, 0, n_hidden)``'s."""
+    L = len(layers)
+    out = [(l, False, -(-layers[l][0] // 8), -(-layers[l][1] // 8))
+           for l in range(L - 1 if backward else L)]
+    if backward:
+        out += [(l, True, -(-layers[l][1] // 8), -(-layers[l][0] // 8))
+                for l in reversed(range(L))]
+    return out
+
+
+def pass_f_smem_bytes(width: int) -> int:
+    """Shared memory of a block of the wide MLP build's pass F: each warp's
+    [WIDE_CHUNK, width + 4] f32 tile, then the ring."""
+    return (4 * PASS_F_WARPS * WIDE_CHUNK * (width + 4)
+            + wide_ring_bytes(width))
 
 
 def _brick_keys(gs, brick, nb, first, pts, grid_idx, live):
@@ -431,6 +484,13 @@ def list_args(cfg: _SplatCfg, a: SplatLaunchArgs, rows: int):
         in_meta=None, mlp_widths=None)
 
 
+def steps_args(a: SplatLaunchArgs):
+    """``a`` for a per-step splat of no MLP into the same output grid-list:
+    the wide MLP build's pass S."""
+    return dataclasses.replace(a, C_in=0, n_layers=0, n_params=0, width=0,
+                               in_meta=None, mlp_widths=None)
+
+
 def batch_limit(cfg: _SplatCfg) -> int:
     """The batches that every grid-list of ``cfg`` has."""
     sizes = tuple(cfg.output_grid_sizes) + tuple(cfg.input_grid_sizes or ())
@@ -439,12 +499,12 @@ def batch_limit(cfg: _SplatCfg) -> int:
 
 def _launch(lib, stage, cfg, geom, diff, a, g, brick, feat=None, w=None,
             counts=None, cursor=None, offsets=None, runs=None, capacity=0,
-            item_start=None, max_items=0, step_values=False, limit=0):
+            item_start=None, max_items=0, step_values=0, limit=0):
     """One stage of ``lightplane_splat_fw`` (0 count, 1 fill, 2 splat) for
     sub-grid ``g`` of ``a``'s grid-list with bricks of ``brick`` cells, over
     the rays of ``geom`` (all of them or a slice), on the current CUDA
-    stream; ``step_values`` and ``limit`` as the C entry's step_values and
-    batch_limit.  Raises when the launch fails."""
+    stream; ``step_values`` (0, 1 or 2) and ``limit`` as the C entry's
+    step_values and batch_limit.  Raises when the launch fails."""
     directions, origins, near, far, grid_idx = geom
     encoding, input_grid_flat, mlp_params = diff
     meta = (ctypes.c_int * 5)(*a.out_meta[5 * g:5 * g + 5])
@@ -461,7 +521,7 @@ def _launch(lib, stage, cfg, geom, diff, a, g, brick, feat=None, w=None,
         (ctypes.c_int * 3)(*brick), stage, _ptr(counts), _ptr(cursor),
         _ptr(offsets), _ptr(runs), capacity, _ptr(item_start),
         RUNS_PER_ITEM_STEPS if step_values else RUNS_PER_ITEM, max_items,
-        int(step_values), limit, stream,
+        step_values, limit, stream,
     )
     if rc != 0:
         msg = lib.lightplane_cuda_error_string(rc).decode()
@@ -526,6 +586,8 @@ def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=(), bricks=None):
     sub-grid and slice of rays (``ray_slices``) after another, so that a
     run list holds at most one sub-grid's runs and ``PLAN_MAX_RUNS``: its
     plan (``_plan_cuda``), the work items' prefix sum, and the splat pass.
+    With an MLP wider than 64, slice by slice of the rays (``mlp_slices``):
+    pass F, then pass S into each output sub-grid (``_splat_mlp_wide``).
     ``defines`` pick a variant build of the kernel
     (``_build.library``); ``bricks`` (cells along D, H, W per output
     sub-grid) default to ``pick_bricks(cfg)``."""
@@ -548,33 +610,154 @@ def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=(), bricks=None):
     feat = torch.zeros((cfg.v_total, a.C), dtype=torch.float32,
                        device=a.device)
     w = torch.zeros((cfg.v_total, 1), dtype=torch.float32, device=a.device)
-    for g, brick in enumerate(bricks):
-        for lo, hi in ray_slices(cfg, g, brick, a.R):
-            geom_s = tuple(t[lo:hi] for t in geom)
-            diff_s = (diff[0][lo:hi],) + diff[1:]
-            splat_by_plan_cuda(lib, cfg, geom_s, diff_s, a, g, brick, feat, w)
+    if a.width > 64:
+        _splat_mlp_wide(lib, cfg, geom, diff, a, bricks, feat, w)
+    else:
+        for g, brick in enumerate(bricks):
+            for lo, hi in ray_slices(cfg, g, brick, a.R):
+                geom_s = tuple(t[lo:hi] for t in geom)
+                diff_s = (diff[0][lo:hi],) + diff[1:]
+                splat_by_plan_cuda(lib, cfg, geom_s, diff_s, a, g, brick,
+                                   feat, w)
     LAUNCHES += 1
     return feat, w
 
 
+def pass_f_config(lib, a: SplatLaunchArgs):
+    """Pass F's ``(warps, shared-memory bytes, workspace bytes)`` as its C
+    side plans them (``lightplane_splat_fw_mlp_config``), held to the
+    wrapper's plan."""
+    out = (ctypes.c_int * 3)()
+    rc = lib.lightplane_splat_fw_mlp_config(a.width, a.n_layers,
+                                            a.mlp_widths, out)
+    if rc != 0:
+        raise ValueError(f"the wide MLP splat does not take these widths "
+                         f"({lib.lightplane_cuda_error_string(rc).decode()})")
+    layers = wide_layers(a.n_layers, 0, 0, list(a.mlp_widths))
+    want = (PASS_F_WARPS, pass_f_smem_bytes(a.width),
+            wide_pack_bytes(splat_products(layers, False)))
+    if tuple(out) != want:
+        raise RuntimeError(f"pass F's plan {tuple(out)} is not the "
+                           f"wrapper's {want}")
+    return want
+
+
+def _splat_mlp_wide(lib, cfg, geom, diff, a, bricks, feat, w):
+    """The wide MLP build, slice by slice of the rays (``mlp_slices``):
+    pass F stages every sampled step's MLP output ([rays, steps, C]), then
+    per output sub-grid S1's plan of the slice and pass S, the per-step
+    splat of the staged rows by that plan, on the current CUDA stream."""
+    _, _, ws_bytes = pass_f_config(lib, a)
+    workspace = torch.empty((ws_bytes // 4,), dtype=torch.int32,
+                            device=a.device)
+    directions, origins, near, far, grid_idx = geom
+    encoding, input_grid_flat, mlp_params = diff
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stage = None
+    for lo, hi in mlp_slices(cfg, bricks, a.R):
+        geom_s = tuple(t[lo:hi] for t in geom)
+        diff_s = (encoding[lo:hi],) + diff[1:]
+        if stage is None:  # the first slice is the largest
+            stage = torch.empty((hi - lo, cfg.tot_num_samples, a.C),
+                                dtype=torch.float32, device=a.device)
+        values = stage[:hi - lo]
+        rc = lib.lightplane_splat_fw_mlp(
+            origins[lo:hi].data_ptr(), directions[lo:hi].data_ptr(),
+            near[lo:hi].data_ptr(), far[lo:hi].data_ptr(),
+            grid_idx[lo:hi].data_ptr(), diff_s[0].data_ptr(),
+            input_grid_flat.data_ptr(), mlp_params.data_ptr(),
+            values.data_ptr(), workspace.data_ptr(), hi - lo,
+            len(cfg.output_grid_sizes), a.out_meta, a.C,
+            len(cfg.input_grid_sizes), a.in_meta, a.C_in, a.n_layers,
+            a.mlp_widths, a.width, cfg.num_samples, cfg.num_samples_inf,
+            cfg.disparity_at_inf, int(cfg.mask_out_of_bounds_samples),
+            int(cfg.contract_coords), stream)
+        if rc != 0:
+            msg = lib.lightplane_cuda_error_string(rc).decode()
+            raise RuntimeError(f"splatter_fw pass F launch failed: {msg} "
+                               f"({rc})")
+        for g, brick in enumerate(bricks):
+            splat_by_plan_cuda(lib, cfg, geom_s, diff_s, a, g, brick, feat,
+                               w, values=values)
+
+
 def splat_by_plan_cuda(lib, cfg, geom, diff, a, g, brick, feat, w,
-                       grid_sizes=None, limit=0):
+                       grid_sizes=None, limit=0, values=None):
     """Plan the rays of ``geom`` in sub-grid ``g`` (``_plan_cuda``), sum the
     work items' prefix and splat by the plan into ``feat`` (and ``w``),
     all on the current CUDA stream.  With ``grid_sizes`` (the adjoint's
     pass B: ``a`` from ``list_args``, no ``w``) each step splats its own
-    row of ``diff[0]``, ``[rays, steps, C]``."""
+    row of ``diff[0]``, ``[rays, steps, C]``; with ``values`` (the wide MLP
+    build's pass S: S1's own plan, ``w`` written) each step its own row of
+    ``values``."""
     shape, counts, offsets, runs = _plan_cuda(lib, cfg, geom, diff, a, g,
                                               brick, grid_sizes, limit)
-    k = RUNS_PER_ITEM if grid_sizes is None else RUNS_PER_ITEM_STEPS
+    steps = grid_sizes is not None or values is not None
+    k = RUNS_PER_ITEM_STEPS if steps else RUNS_PER_ITEM
     items = (counts + (k - 1)) // k
     item_start = torch.zeros_like(offsets)
     item_start[1:] = torch.cumsum(items, 0, dtype=torch.int32)
     max_items = shape.n_bricks + -(-shape.capacity // k)
+    step_values = 0
+    if values is not None:
+        diff, a, limit, step_values = ((values, None, None), steps_args(a),
+                                       batch_limit(cfg), 2)
+    elif grid_sizes is not None:
+        step_values = 1
     _launch(lib, 2, cfg, geom, diff, a, g, brick, feat=feat, w=w,
             offsets=offsets, runs=runs, capacity=shape.capacity,
             item_start=item_start, max_items=max_items,
-            step_values=grid_sizes is not None, limit=limit)
+            step_values=step_values, limit=limit)
+
+
+def splat_steps_torch(cfg: _SplatCfg, geom, values, dst, grid_sizes,
+                      bricks):
+    """The per-step splat's plain version: row ``(ray, s)`` of ``values``
+    ``[rays, steps, C]`` splatted at step s of each run of the plan of the
+    rays of ``geom`` over each sub-grid of ``grid_sizes``
+    (``splat_plan_torch`` with ``bricks``) into ``dst``, their flat ``[V,
+    C]`` grid-list, in place."""
+    rows = grid_row_offsets(grid_sizes)
+    for g, (gs, brick) in enumerate(zip(grid_sizes, bricks)):
+        _, _, runs = splat_plan_torch(cfg, geom, (brick,), (gs,))
+        lens = runs[:, 2] - runs[:, 1] + 1
+        ray = torch.repeat_interleave(runs[:, 0], lens)
+        first = torch.repeat_interleave(lens.cumsum(0) - lens, lens)
+        step = torch.repeat_interleave(runs[:, 1], lens) + (
+            torch.arange(int(lens.sum()), device=lens.device) - first)
+        for s in range(cfg.tot_num_samples):
+            sel = ray[step == s]
+            if not sel.numel():
+                continue
+            sub = tuple(t[sel] for t in geom)
+            splat_grid_rep(values[sel, s], dst[rows[g]:rows[g + 1]], (gs,),
+                           _march_points(cfg, sub, s), sub[4],
+                           cfg.mask_out_of_bounds_samples, inplace=True)
+
+
+def splat_fwd_two_pass_torch(cfg: _SplatCfg, geom, diff):
+    """The wide MLP build's two-pass design in plain PyTorch, slice by slice
+    of the rays (``mlp_slices``): each step's MLP output computed once and
+    staged with the weight's 1 ([rays, steps, C + 1]), then splatted run by
+    run of S1's plan into each output sub-grid (``splat_steps_torch``).
+    Without the MLP it is ``splat_fwd_torch``."""
+    if not cfg.n_hidden:
+        return splat_fwd_torch(cfg, geom, diff)
+    encoding, input_grid_flat, mlp_params = diff
+    C = cfg.out_chn
+    bricks = pick_bricks(cfg)
+    acc = encoding.new_zeros((cfg.v_total, C + 1))
+    for lo, hi in mlp_slices(cfg, bricks, encoding.shape[0]):
+        geom_s = tuple(t[lo:hi] for t in geom)
+        stage = encoding.new_ones((hi - lo, cfg.tot_num_samples, C + 1))
+        for s in range(cfg.tot_num_samples):  # pass F
+            pts = _march_points(cfg, geom_s, s)
+            stage[:, s, :C] = _step_fused_feature(
+                cfg, pts, encoding[lo:hi], input_grid_flat, mlp_params,
+                geom_s[4])
+        splat_steps_torch(cfg, geom_s, stage, acc, cfg.output_grid_sizes,
+                          bricks)  # pass S
+    return acc[:, :C].contiguous(), acc[:, C:].contiguous()
 
 
 def splat_fwd(cfg: _SplatCfg, geom, diff, impl: str = "auto"):

@@ -1,6 +1,7 @@
 """The CUDA kernels (the renderer's forward march and recompute backward,
 with their scaffold and relu-field branches, the splatter's splat and
-adjoint) against their plain PyTorch versions, on the card.  Every test is marked ``cuda`` and skips
+adjoint, and their wide builds) against their plain PyTorch versions, on
+the card.  Every test is marked ``cuda`` and skips
 where no CUDA device is available; the file imports neither JAX nor the JAX
 package, so it runs on a GPU machine without them:
 
@@ -943,7 +944,8 @@ def test_splat_adjoint_gather_matches_plain(cuda, chn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out"])
+@pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out",
+                                  "mlp_wide_72", "mlp_wide_128ch"])
 def test_splat_adjoint_in_ray_slices(cuda, case, monkeypatch):
     """S2 with the MLP with its staging and run lists capped at ~100 rays,
     so that it runs pass A and pass B over slices of the rays, against its
@@ -1001,3 +1003,72 @@ def test_splat_adjoint_does_not_spill(cuda):
     for mlp, width in ((0, 0), (1, 32), (1, 64), (2, 0), (3, 0)):
         assert lib.lightplane_splat_bw_attrs(mlp, width, out) == 0
         assert out[1] == 0, (mlp, width, out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp_wide_72", "mlp_wide_128ch"])
+def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
+    """S1's wide MLP build with its staging capped at ~100 rays, so that
+    pass F and pass S run over slices of the rays, against
+    ``splat_fwd_torch`` and its own two-pass plain version; one pass F a
+    slice, one plan a slice and output sub-grid."""
+    cfg, geom, diff, _ = _adjoint_march(cuda, case)
+    monkeypatch.setattr(splatter_fw, "PLAN_MAX_RUNS",
+                        100 * cfg.tot_num_samples * cfg.out_chn // 2)
+    bricks = splatter_fw.pick_bricks(cfg)
+    slices = splatter_fw.mlp_slices(cfg, bricks, geom[0].shape[0])
+    assert len(slices) > 2
+    plans = splatter_fw.PLAN_LAUNCHES
+    with torch.no_grad():
+        got = splatter_fw.splat_fwd_cuda(cfg, geom, diff)
+        torch.cuda.synchronize()
+        assert splatter_fw.PLAN_LAUNCHES - plans == len(slices) * len(bricks)
+        want = splatter_fw.splat_fwd_torch(cfg, geom, diff)
+        two_pass = splatter_fw.splat_fwd_two_pass_torch(cfg, geom, diff)
+    for name, a, b, c in zip(("feat", "w"), got, want, two_pass):
+        bound = MAX_ABS * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, name
+        assert float((c - b).abs().max()) <= bound, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hidden", [(32, 128, 128), (8, 72, 100),
+                                      (128, 32, 128)])
+def test_wide_splat_pack_and_plans(cuda, n_hidden):
+    """The layers' pre-pass with the splatter's schedules (S1's pass F, S2's
+    pass A) equals ``pack_wide_torch`` bit for bit, and the C side plans
+    pass F and pass A as the wrappers do."""
+    import ctypes
+
+    from lightplane_tpu_torch.ops.kernels import _build
+
+    width = 128 if max(n_hidden) > 96 else 96
+    L = len(n_hidden) - 1
+    layers = renderer_fw.wide_layers(L, 0, 0, n_hidden)
+    n_params = sum(i * o + o for i, o, _, _ in layers)
+    mlp = torch.randn(n_params, generator=torch.Generator().manual_seed(4))
+    lib = _build.library()
+    widths = (ctypes.c_int * len(n_hidden))(*n_hidden)
+    mlp_d = mlp.to(cuda)
+    for schedule, backward in ((2, False), (3, True)):
+        want = renderer_fw.pack_wide_torch(
+            mlp, layers, splatter_fw.splat_products(layers, backward))
+        ws = torch.full((want.numel(),), -1, dtype=torch.int32, device=cuda)
+        rc = lib.lightplane_render_wide_pack(
+            mlp_d.data_ptr(), L, 0, 0, widths, schedule, ws.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.equal(ws.cpu().reshape(-1, 4), want), schedule
+    fw = (ctypes.c_int * 3)()
+    assert lib.lightplane_splat_fw_mlp_config(width, L, widths, fw) == 0
+    assert tuple(fw) == (
+        splatter_fw.PASS_F_WARPS, splatter_fw.pass_f_smem_bytes(width),
+        renderer_fw.wide_pack_bytes(splatter_fw.splat_products(layers,
+                                                               False)))
+    bw = (ctypes.c_int * 5)()
+    assert lib.lightplane_splat_bw_mlp_config(width, L, widths, bw) == 0
+    assert (bw[0], bw[3], bw[4]) == (
+        *splatter_bw.wide_a_plan(width, n_hidden),
+        renderer_fw.wide_pack_bytes(splatter_fw.splat_products(layers,
+                                                               True)))

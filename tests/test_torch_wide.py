@@ -26,7 +26,9 @@ import torch  # noqa: E402
 
 import lightplane_tpu as lt  # noqa: E402
 import lightplane_tpu_torch as lp  # noqa: E402
+from lightplane_tpu.ops.splatter import lightplane_splatter_raw  # noqa: E402
 from lightplane_tpu_torch import convert  # noqa: E402
+from lightplane_tpu_torch.ops import splatter as smod  # noqa: E402
 from lightplane_tpu_torch.ops.kernels import (  # noqa: E402
     renderer_fw,
     splatter_bw,
@@ -416,6 +418,18 @@ def test_wide_pack_round_trips(backward):
         (0, False), (1, False), (3, False)]
     if backward:
         assert [l for l, t, _, _ in products if t] == [4, 3, 2, 1, 0]
+    _check_pack(w_np, layers, products)
+    # the ties round away from zero
+    assert float(renderer_fw.tf32_round(torch.tensor([1.0 + 2.0**-11]))) == (
+        1.0 + 2.0**-10)
+
+
+def _check_pack(w_np, layers, products):
+    """``pack_wide_torch``'s workspace for ``products`` read back by hand:
+    every weight of every product in its place among wgmma's K-major core
+    matrices, hi the TF32 rounding of w, lo = w - hi, hi + lo == w; zero
+    past a layer's widths; the schedule a slice of two k-steps each, in the
+    products' order."""
     pack = renderer_fw.pack_wide_torch(torch.from_numpy(w_np), layers,
                                        products)
     assert pack.shape[0] * 16 == renderer_fw.wide_pack_bytes(products)
@@ -450,6 +464,136 @@ def test_wide_pack_round_trips(backward):
             k += 1
         at += ks * nt * 32
     assert k == slices and at == pack.shape[0]
-    # the ties round away from zero
-    assert float(renderer_fw.tf32_round(torch.tensor([1.0 + 2.0**-11]))) == (
-        1.0 + 2.0**-10)
+    # an odd count of slices leaves the schedule's last int2 at 0
+    assert not pack[:head_rows].reshape(-1)[2 * slices:].any()
+
+
+# ---- the splatter MLP's wide builds (csrc/splatter_fw.cu, splatter_bw.cu) --
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_splat_products_and_pack(backward):
+    """The splatter's schedules of a chunk's products (S1's pass F: every
+    layer; S2's pass A: the relu layers, then every input gradient, last
+    layer first), counted by hand, and their pack read back by hand."""
+    n_hidden = (8, 40, 72, 100)
+    layers = renderer_fw.wide_layers(3, 0, 0, n_hidden)
+    assert [l[:2] for l in layers] == [(8, 40), (40, 72), (72, 100)]
+    products = splatter_fw.splat_products(layers, backward)
+    fwd = [(0, False, 1, 5), (1, False, 5, 9), (2, False, 9, 13)]
+    if backward:
+        assert products == fwd[:2] + [(2, True, 13, 9), (1, True, 9, 5),
+                                      (0, True, 5, 1)]
+    else:
+        assert products == fwd
+    # an int2 a slice of two k-steps (1 + 3 + 5 slices forward, + 7 + 5 +
+    # 3 backward), then 32 lanes' uint4 a k-step and N-tile
+    rows = 5 + (1 * 5 + 5 * 9 + 9 * 13) * 32
+    if backward:
+        rows = 10 + (1 * 5 + 5 * 9 + 13 * 9 + 9 * 5 + 5 * 1) * 32
+    assert renderer_fw.wide_pack_bytes(products) == 16 * rows
+    n_params = sum(i * o + o for i, o, _, _ in layers)
+    w_np = (np.random.default_rng(5).standard_normal(n_params) * 0.3
+            ).astype(np.float32)
+    _check_pack(w_np, layers, products)
+
+
+def _by_hand_stride(d):
+    """A wide pass A tile row for d channels: d rounded up to 16, plus 4."""
+    return (d + 15) // 16 * 16 + 4
+
+
+@pytest.mark.parametrize("width, n_hidden", [
+    (128, (32, 128, 128)), (96, (32, 96, 96)), (96, (32, 72, 72)),
+    (128, (32, 128, 100)), (128, (128, 32, 128)), (128, (8,) + (128,) * 9),
+    (96, (32,) + (96,) * 16)])
+def test_wide_pass_a_plan(width, n_hidden):
+    """S2's wide pass A: per warp a [16][stride] f32 tile for each layer's
+    input and one for g_vec, then the ring (three slots of two k-steps of
+    W / 8 N-tiles of 32 lanes' 16 bytes) and a 4-byte flag for each of 8
+    warps; the most warps, up to 8, that fit in 227 KB, in whole
+    warpgroups past 4.  S1's pass F: 8 warps of one [16][W + 4] tile and
+    the ring."""
+    per_warp = 4 * 16 * sum(_by_hand_stride(d) for d in n_hidden)
+    ring = 3 * 2 * (width // 8) * 32 * 16
+
+    def smem(w):
+        return w * per_warp + ring + 4 * 8
+
+    fits = [w for w in range(1, 9) if smem(w) <= 232448]
+    warps = max(fits) if max(fits) <= 4 else max(fits) // 4 * 4
+    assert splatter_bw.wide_a_plan(width, n_hidden) == (warps, smem(warps))
+    assert splatter_fw.pass_f_smem_bytes(width) == (
+        8 * 16 * (width + 4) * 4 + ring)
+    assert splatter_fw.PASS_F_WARPS == 8
+
+
+def test_wide_pass_a_plan_at_the_mlp_splat():
+    """The numbers of splatter_bw.cu's note, at 32 -> 128 -> 128: tiles 36,
+    132 and 132 floats wide, 19,200 bytes a warp, 8 warps and the ring in
+    202,784 bytes; pass F 116,736 bytes a block."""
+    assert [_by_hand_stride(d) for d in (32, 128, 128)] == [36, 132, 132]
+    assert splatter_bw.wide_a_plan(128, (32, 128, 128)) == (8, 202784)
+    assert splatter_fw.pass_f_smem_bytes(128) == 116736
+
+
+@pytest.mark.parametrize("steps, C, want, n", [
+    # 49,152 bytes of staged outputs a ray at 128 channels and 96 steps:
+    # 5,440 rays a slice, 49 slices at the splat headline's 262,144 rays
+    (96, 128, 5440, 49), (192, 128, 2720, 97), (96, 96, 7264, 37)])
+def test_mlp_slices_cap_staging_and_run_lists(steps, C, want, n):
+    """The wide MLP build's slices: each one's staged outputs and its run
+    lists over the output sub-grids within PLAN_MAX_RUNS runs' bytes; the
+    slices cover the rays, all but the last a multiple of 32 rays."""
+    cfg = smod._SplatCfg(steps, 0, False, False, 1e-5,
+                         tuple(_tri_sizes(128, C)), tuple(_tri_sizes(128, 32)),
+                         (32, C, C))
+    bricks = splatter_fw.pick_bricks(cfg)
+    R = 262144
+    slices = splatter_fw.mlp_slices(cfg, bricks, R)
+    assert slices[0] == (0, want) and len(slices) == n
+    assert slices[-1][1] == R
+    cap = 8 * splatter_fw.PLAN_MAX_RUNS
+    for (a, b), (c, _) in zip(slices, slices[1:] + [(R, None)]):
+        assert b == c and a % 32 == 0
+        assert 4 * (b - a) * steps * C <= cap
+        for gs, brick in zip(cfg.output_grid_sizes, bricks):
+            runs = splatter_fw.plan_shape(cfg, (brick,), b - a, (gs,))
+            assert 8 * runs.capacity <= cap
+
+
+def _tri_sizes(res, chn):
+    return [(1, 1, res, res, chn), (1, res, 1, res, chn),
+            (1, res, res, 1, chn)]
+
+
+@pytest.mark.parametrize("hidden", [96, 128])
+def test_two_pass_wide_splat_matches_jax(hidden, monkeypatch):
+    """The wide MLP build's two passes in plain PyTorch (each step's MLP
+    output staged once, then splatted by S1's plan into each output
+    sub-grid), with the rays in slices of 32, against the JAX fused
+    splatter's raw accumulators and against ``splat_fwd_torch``."""
+    rng = np.random.default_rng(200 + hidden)
+    n_rays = 72
+    rays, out_sizes, sp, igrid, in_sizes = _splat_fixture(
+        rng, (8, hidden, hidden), n_rays=n_rays)
+    kw = dict(num_samples=8, mask_out_of_bounds_samples=hidden == 96)
+    want = lightplane_splatter_raw(rays, out_sizes, sp, jnp.asarray(igrid),
+                                   input_grid_sizes=in_sizes, **kw)
+    cfg = smod._SplatCfg(8, 0, kw["mask_out_of_bounds_samples"], False,
+                         1e-5, tuple(out_sizes), tuple(in_sizes),
+                         tuple(sp.n_hidden))
+    r = rays_to_torch(rays)
+    geom = (r.directions, r.origins, r.near, r.far,
+            r.grid_idx.to(torch.int32))
+    diff = (r.encoding, to_torch(igrid), to_torch(sp.mlp_params))
+    plain = splatter_fw.splat_fwd_torch(cfg, geom, diff)
+    monkeypatch.setattr(splatter_fw, "PLAN_MAX_RUNS", 1)
+    slices = splatter_fw.mlp_slices(cfg, splatter_fw.pick_bricks(cfg),
+                                    n_rays)
+    assert slices == [(0, 32), (32, 64), (64, 72)]
+    got = splatter_fw.splat_fwd_two_pass_torch(cfg, geom, diff)
+    compare_outputs(want, got, names=("feat", "w"))
+    for a, b in zip(plain, got):
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+    assert float(got[1].sum()) > 0
