@@ -84,7 +84,9 @@ exits non-zero without its result line:
    runs and bytes; peak memory is read at 48 and 96 samples; S2 with the
    MLP alone at the MLP splatter's shapes (its time, its plain version's,
    its error, its bounds, its own peak memory at 48, 96 and 192 samples);
-   then the ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over the same
+   S1 with the MLP alone there (its W = 64 build: its time, its plain
+   version's, its error on every ray, its bound); then the
+   ``LightplaneMLPSplatter`` (MLP 32 -> 32 -> 64) over the same
    rays with a 3 x 128^2 x 32ch input triplane, its step's device time by
    kernel.
 8. Lift-then-render (``bench.py``'s batched 512^2 memory workload): per-pixel
@@ -138,30 +140,32 @@ exits non-zero without its result line:
    R2, S1 and S2 counted; then a world of one NCCL rank in this process:
    the same checks, its launches, and both workloads timed against the
    plain single-process call in turns (the wrapper's overhead).
-12. The kernels' wide builds (padded widths 96 and 128: decoder and grid
-   widths past 64). (a) R1 and R2 at the render headline with a 2/2/2
-   decoder at hidden 128: timed, with their plain versions and the fw+bw
-   step, held on 4096 of the frame's rays (R2 under its relu masks), and
-   their layers' pre-pass held bit for bit to its plain version; (b)
-   the port's trainer with ``--mlp_hidden_chn 128`` for 200 steps (phase
-   9's scene and width, a scaffold update after step 50, evals after steps
-   100 and 200): the loss of a fixed batch must fall, the eval PSNR rise,
-   and R1, R2 and R3 launch; then a step's device time by kernel; (c)
-   ``LightplaneMLPSplatter`` 32 -> 128 -> 128 from a 3 x 128^2 x 32ch
-   prior into 3 x 128^2 x 128ch over phase 7's rays: one fw+bw step, then
-   S1 and S2 with the MLP timed, each by part with its slices of the rays
-   (S1: pass F, the layers' pre-pass, the plans, the splat passes; S2: the
-   gathers, pass A, the pre-pass, the plans, pass B, the weight-gradient
-   sum), held on every ray (S1's plan exactly, the pre-pass's splatter
-   schedules bit for bit), S1's own peak memory at 48, 96 and 192 samples
-   (within 5% from 96 to 192), and a yardstick on no path: S2's pass A
-   over one slice of the rays as f32 ``torch.matmul`` calls, beside the
-   kernel's pass A over the same rays; then 32 -> 96 -> 96 into 96
-   channels, timed, by part; (d) the widths in between on phase 3's
-   shapes: R1 and R2 at
-   hidden 72, hidden 96, a 96-channel grid, and hidden 128 with the
-   relu-field colour grid and a scaffold; S1 and S2 with the MLP at hidden
-   72 and into 100 channels.
+12. The kernels' wide builds (padded widths 96, 128, 192 and 256: decoder
+   and grid widths past 64). (a) R1 and R2 at the render headline with a
+   2/2/2 decoder at hidden 256, 192, 128 and 96: timed, with their plain
+   versions; at 256 and 128 held on 4096 of the frame's rays (R2 under its
+   relu masks) and their layers' pre-pass held bit for bit to its plain
+   version, at 128 the fw+bw step; (b) the port's trainer with
+   ``--mlp_hidden_chn 128`` for 200 steps (phase 9's scene and width, a
+   scaffold update after step 50, evals after steps 100 and 200), then
+   with ``--mlp_hidden_chn 256`` for 120 steps (a scaffold after step 30,
+   evals after 60 and 120): the loss of a fixed batch must fall, the eval
+   PSNR rise, and R1, R2 and R3 launch; then a step's device time by
+   kernel; (c) ``LightplaneMLPSplatter`` 32 -> W -> W from a 3 x 128^2 x
+   32ch prior into 3 x 128^2 x Wch over phase 7's rays at W = 256, 192, 128
+   and 96: one fw+bw step, then S1 and S2 with the MLP timed, each by part
+   with its slices of the rays (S1: pass F, the layers' pre-pass, the plans,
+   the splat passes; S2: the gathers, pass A, the pre-pass, the plans, pass
+   B, the weight-gradient sum); at 256 and 128 held on every ray (S1's
+   plan exactly, the pre-pass's splatter schedules bit for bit), at 128
+   also S1's own peak memory at 48, 96 and 192 samples (within 5% from 96
+   to 192) and a yardstick on no path: S2's pass A over one slice of the
+   rays as f32 ``torch.matmul`` calls, beside the kernel's pass A over the
+   same rays; (d) the widths in between on phase 3's shapes: R1 and R2 at
+   hidden 72, 96 and 160 (one-layer heads: R2 a warpgroup at W = 192), a
+   96- and a 160-channel grid, hidden 128 with the relu-field colour grid
+   and a scaffold, and the 3/3/3 decoder at hidden 256 (one warp a block);
+   S1 and S2 with the MLP at hidden 72 and 160 and into 100 channels.
 
 Phases 4, 5, 7, 8, 9, 10, 11 and 12 each set the kernels' launch counts to 0
 just before they drive their path and read them just after.  Every phase
@@ -172,8 +176,9 @@ data-parallel path, the splatter step of phase 7 for S1 and S2 and its MLP
 splatter step for S2 with the MLP, its error against the plain version,
 its time, the plain version's time and the least time the card could take,
 for R1 and R2 the same for the scaffold and relu-field branches, and for
-R1, R2, S1 and S2 with the MLP the same for the wide build at 128, phase
-12's ``wide_128_*`` keys, R1's and R2's with their warps a SM) and
+R1, R2, S1 and S2 with the MLP the same for the wide builds, phase 12's
+``wide_W_*`` keys at W = 256, 192, 128 and 96, R1's and R2's with their
+warps a SM) and
 the result line ``{"ok": true, "device": {...}}``.  Needs no network and no
 JAX.
 
@@ -1991,13 +1996,52 @@ def phase_splat(lp, smi):
     mlp = s2_mlp_alone(lp, smod, rays, gen, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    mlp["launches"] = mlp_splat_step(lp, rays, smi)
+    fw_mlp = s1_mlp_alone(lp, smod, rays, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fw_mlp["launches"], mlp["launches"] = mlp_splat_step(lp, rays, smi)
     return launches, dict(
         fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
                 bound=(b_fw, b_fw_kind), plan_ms=plan_ms, runs=n_runs),
         bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
                 bound=(b_bw, b_bw_kind)),
-        bw_mlp=mlp)
+        bw_mlp=mlp, fw_mlp=fw_mlp)
+
+
+def s1_mlp_alone(lp, smod, rays, smi):
+    """S1 with the MLP (its narrow build, W = 64, the MLP's 64 outputs: the
+    MLP run inside the splat pass) alone at the MLP splatter's shapes over
+    the headline rays:
+    its time, its plain version's (one run), its error against the plain
+    version and its bound (``splat_mlp_fw_work``)."""
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    cfg, geom, diff = mlp_splat_march(lp, smod, rays,
+                                      torch.Generator().manual_seed(9))
+    assert sfw._mlp_width(cfg) == 64
+    with torch.no_grad():
+        ms = cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff), warmup=1,
+                     reps=5)
+        feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat_p, w_p = sfw.splat_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+    print("  S1 with the MLP vs its plain version at the MLP splatter's "
+          "shapes, every ray:")
+    err = max(compare("feat", feat_k, feat_p, max_rel=SPLAT_MAX_REL,
+                      magnitude_scaled=True)[0],
+              compare("w", w_k, w_p, max_rel=SPLAT_MAX_REL,
+                      magnitude_scaled=True)[0])
+    del feat_k, w_k, feat_p, w_p
+    flops, nbytes = splat_mlp_fw_work(cfg, geom)
+    b_ms, b_kind = bound(flops, nbytes)
+    print(f"  S1 with the MLP alone (W = 64): median {ms:.3f} ms, plain "
+          f"version {plain_ms:.1f} ms (one run); work {flops / 1e9:.1f} "
+          f"GFLOP, {nbytes / 1e6:.1f} MB -> bound {b_ms:.3f} ms ({b_kind})  "
+          f"[{smi}]")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=(b_ms, b_kind))
 
 
 def s2_mlp_alone(lp, smod, rays, gen, smi):
@@ -2073,7 +2117,7 @@ def s2_mlp_alone(lp, smod, rays, gen, smi):
 
 def print_kernel_attrs():
     """Registers and spilled bytes per thread of each kernel build; returns
-    R1's and R2's wide builds' warps a SM at phase 12's decoder at 128."""
+    R1's and R2's wide builds' warps a SM at phase 12's decoder by width."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import _build
@@ -2116,8 +2160,8 @@ def print_kernel_attrs():
           f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
           f"resident, {conf[3]} bytes of shared memory a block, rows of "
           f"{conf[2]} partial sums")
-    # the wide builds (W = 96, 128: csrc/renderer_wide.cu, S1's pass F and
-    # S2's pass A)
+    # the wide builds (W = 96, 128, 192, 256: csrc/renderer_wide.cu, S1's
+    # pass F and S2's pass A)
     masks = _build.library(rbw.RELU_MASKS_BUILD)
     for name, fn in (("R1", lib.lightplane_render_fw_attrs),
                      ("R2", lib.lightplane_render_bw_attrs),
@@ -2128,7 +2172,7 @@ def print_kernel_attrs():
                       lib.lightplane_splat_bw_attrs(1, w, o)),
                      ("S2 MLP pass A recording masks",
                       lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
-        for width in (96, 128):
+        for width in (96, 128, 192, 256):
             assert fn(width, out) == 0
             print(f"  {name} W={width} (wide build): {out[0]} registers, "
                   f"{out[1]} bytes spilled per thread")
@@ -2150,7 +2194,7 @@ def print_wide_splat_plans(lib):
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
     for width in WIDE_HIDDEN:
-        nh = (WIDE_SPLAT_MLP[0], width, width)
+        nh = (WIDE_SPLAT_IN, width, width)
         widths = (ctypes.c_int * 3)(*nh)
         layers = rfw.wide_layers(2, 0, 0, nh)
         fw = (ctypes.c_int * 3)()
@@ -2182,25 +2226,26 @@ def wide_head(hidden):
 
 
 def print_wide_plans(lib):
-    """R1's and R2's wide builds at phase 12's decoder (2/2/2 at hidden 128
-    and 96): warps a block (one block a SM: a warp's rays march in lockstep
-    with the block's), shared memory, the workspace of packed layers, and
-    R2's partial-sum buffer (a row per block), each as the C side plans it
-    and held to the wrapper's plan.  Returns the warps a SM at 128."""
+    """R1's and R2's wide builds at phase 12's decoder (2/2/2 at each of
+    WIDE_HIDDEN): warps a block (one block a SM: a warp's rays march in
+    lockstep with the block's), shared memory, the workspace of packed
+    layers, and R2's partial-sum buffer (a row per block), each as the C
+    side plans it and held to the wrapper's plan.  Returns R1's and R2's
+    warps a SM by width."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
     warps = {}
-    for hidden in (128, 96):
+    for hidden in WIDE_HIDDEN:
         head = wide_head(hidden)
         widths = (ctypes.c_int * len(head))(*head)
         fw = (ctypes.c_int * 3)()
         assert lib.lightplane_render_fw_wide_config(hidden, 2, 2, 2, widths,
                                                     fw) == 0
         layers = rfw.wide_layers(2, 2, 2, head)
-        assert tuple(fw) == (rfw.WIDE_FW_WARPS,
+        assert tuple(fw) == (rfw.wide_fw_warps(hidden),
                              rfw.wide_fw_smem_bytes(hidden),
                              rfw.wide_pack_bytes(rfw.wide_products(
                                  layers, 2, 2, False))), tuple(fw)
@@ -2222,13 +2267,14 @@ def print_wide_plans(lib):
               f"bytes; the partial-sum buffer {bw[1]} rows (one a block) of "
               f"{bw[2]} floats, {4 * bw[1] * bw[2]} bytes")
         warps[hidden] = (fw[0], bw[0])
-    return warps[128]
+    return warps
 
 
 def mlp_splat_step(lp, rays, smi):
     """The MLP splatter over the headline rays: fw+bw step with gradients
-    for the encoding, the input triplane and ``mlp_params``; returns S2's
-    launches over the six timed steps (the counts set to 0 just before)."""
+    for the encoding, the input triplane and ``mlp_params``; returns S1's
+    and S2's launches over the six timed steps (the counts set to 0 just
+    before)."""
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
@@ -2265,7 +2311,7 @@ def mlp_splat_step(lp, rays, smi):
           f"{n / step_ms * 1e3:.0f} rays/s; launches (S1, S2) {launches} "
           f"[{smi}]")
     device_breakdown(step, smi, top=10)
-    return launches[1]
+    return launches
 
 
 def lift_splat_ms(lp, rays, out_sizes):
@@ -3785,32 +3831,42 @@ def phase_data_parallel(lp, smi):
     return dict(launches=launches, times=times)
 
 
-# ---- widths up to 128 (phase 12) -------------------------------------------
+# ---- widths up to 256 (phase 12) -------------------------------------------
 
 # The render headline (phases 4 and 5: 256^2 rays, triplane 3 x 32^2 x 32ch,
-# 256 samples, MLPs 2/2/2, 3 colours) with a decoder 128 wide, then 96: the
-# kernels' wide builds (parity at 96 is the sweep's, part d)
-WIDE_HIDDEN = (128, 96)
+# 256 samples, MLPs 2/2/2, 3 colours) with a decoder 256, 192, 128 and 96
+# wide: the kernels' wide builds; held against their plain versions at
+# WIDE_CHECKED (parity at 192 and 96 is the sweep's, part d)
+WIDE_HIDDEN = (256, 192, 128, 96)
+WIDE_CHECKED = (256, 128)
 # R1 and R2 held against their plain versions on this many of the frame's
 # rays, every (n / WIDE_SUBSET)-th
 WIDE_SUBSET = 4096
-# Phase 9's trainer at the JAX app's default width but a 128-wide decoder,
-# cut to 200 steps: a scaffold update after step 50, so that the scaffold
-# gates (R3) the last 150 steps, and evals after steps 100 and 200, both
-# with the scaffold (in_cube_psnr says why a scaffold lowers the PSNR)
-WIDE_FIT_STEPS = 200
-# A fit step's kernels at hidden 128, by part (device_breakdown)
+# Phase 9's trainer at the JAX app's default width but a wider decoder:
+# hidden 128 cut to 200 steps (a scaffold update after step 50, so that the
+# scaffold gates (R3) the last 150 steps; evals after steps 100 and 200),
+# and hidden 256 cut to 120 steps (a scaffold after step 30, evals after 60
+# and 120); the evals with the scaffold (in_cube_psnr says why a scaffold
+# lowers the PSNR).  Each: (hidden, steps, scaffold step, eval rate)
+WIDE_FITS = ((128, 200, 50, 100), (256, 120, 30, 60))
+# A fit step's kernels at hidden 128 and 256, by part (device_breakdown)
 WIDE_FIT_PARTS = (("R1", ("render_fw_wide_kernel",)),
                   ("R2", ("render_bw_wide_kernel", "reduce_wide_sums_kernel")),
                   ("the layers' pre-pass", ("pack_wide_kernel",)))
-WIDE_FIT_ARGV = ["--mlp_hidden_chn", "128", "--n_iter", str(WIDE_FIT_STEPS),
-                 "--update_scaffold_steps", "50", "--eval_rate", "100",
-                 "--output_dir", "build/fit_wide", "--seed", "0"]
-# The MLP splat into a 128-channel grid: MLP 32 -> 128 -> 128 from a
-# 3 x 128^2 x 32ch prior into 3 x 128^2 x 128ch (25.2 MB), over phase 7's
-# rays (16 views x 128^2, 96 samples); then 32 -> 96 -> 96 into 96
-# channels, timed only
-WIDE_SPLAT_MLP = (32, 128, 128)
+
+
+def wide_fit_argv(hidden, steps, scaffold_at, eval_rate):
+    """The trainer's argv of one of WIDE_FITS."""
+    return ["--mlp_hidden_chn", str(hidden), "--n_iter", str(steps),
+            "--update_scaffold_steps", str(scaffold_at), "--eval_rate",
+            str(eval_rate), "--output_dir", f"build/fit_wide_{hidden}",
+            "--seed", "0"]
+
+
+# The MLP splat into a W-channel grid: MLP 32 -> W -> W from a 3 x 128^2 x
+# 32ch prior into 3 x 128^2 x Wch (25.2 MB at 128, 50.3 MB at 256), over
+# phase 7's rays (16 views x 128^2, 96 samples), at each of WIDE_HIDDEN
+WIDE_SPLAT_IN = 32
 # The widths in between, on phase 3's shapes (4096 rays, 48 samples):
 # (name, random_case kwargs, renderer kwargs); then the MLP splat
 WIDE_SWEEP = [
@@ -3820,9 +3876,15 @@ WIDE_SWEEP = [
     ("hidden128_relu_field_scaffold",
      dict(grid_shapes=_TRI, hidden=128, layers=(0, 2, 2), relu_field=True),
      dict(mask_out_of_bounds_samples=True)),
+    ("hidden160_layers_1_1_1",
+     dict(grid_shapes=_TRI, hidden=160, layers=(1, 1, 1)), {}),
+    ("grid160_hidden32", dict(grid_shapes=[(1, 16, 16, 16, 160)]), {}),
+    ("hidden256_layers_3_3_3",
+     dict(grid_shapes=_TRI, hidden=256, layers=(3, 3, 3)), {}),
 ]
 WIDE_SWEEP_SPLAT = [("mlp_32_72_16", (32, 72, 16), tri_sizes(32, 16)),
-                    ("mlp_32_32_100", (32, 32, 100), [(1, 24, 24, 24, 100)])]
+                    ("mlp_32_32_100", (32, 32, 100), [(1, 24, 24, 24, 100)]),
+                    ("mlp_32_160_160", (32, 160, 160), tri_sizes(24, 160))]
 
 
 def ray_subset(geom, diff, idx):
@@ -3859,20 +3921,22 @@ def wide_headline_inputs(lp, hidden):
 
 def wide_headline(lp, smi, hidden=128):
     """(a): R1 and R2 at the render headline with a ``hidden``-wide decoder;
-    held against their plain versions at 128 only."""
+    held against their plain versions at WIDE_CHECKED, the fw+bw step timed
+    at 128; their launches (the timed runs, the counts set to 0 just
+    before)."""
     from lightplane_tpu_torch.ops import renderer as rmod
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
     module, grid, r0, (cfg, geom, diff), g_out = wide_headline_inputs(
         lp, hidden)
-    check = hidden == 128
+    check = hidden in WIDE_CHECKED
     n = len(r0)
     dp = module.get_decoder_params()
     rays_enc = lp.Rays(r0.directions, r0.origins, r0.grid_idx, r0.near,
                        r0.far, diff[3])
     proj = [g.clone() for g in g_out]
-    reps = (5, 3) if check else (3, 1)
+    reps = (5, 3) if hidden == 128 else (3, 1)
     with torch.no_grad():
         rfw.LAUNCHES = rbw.LAUNCHES = 0
         fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff),
@@ -3881,6 +3945,7 @@ def wide_headline(lp, smi, hidden=128):
         bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
                                                     g_out), warmup=1,
                         reps=reps[1])
+        launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES}
         assert (rfw.LAUNCHES, rbw.LAUNCHES) == (reps[0] + 2, reps[1] + 1), (
             rfw.LAUNCHES, rbw.LAUNCHES)
         torch.cuda.synchronize()
@@ -3893,7 +3958,7 @@ def wide_headline(lp, smi, hidden=128):
         torch.cuda.synchronize()
         bw_plain_ms = 1e3 * (time.perf_counter() - t0)
     step = ""
-    if check:
+    if hidden == 128:
         step_ms = cuda_ms(lambda: projected_grads(
             lp, rays_enc, grid, dp, "cuda", proj,
             num_samples=cfg.num_samples, gain=module.gain), warmup=1, reps=2)
@@ -3926,7 +3991,8 @@ def wide_headline(lp, smi, hidden=128):
         fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
                 bound=(b_fw, by_fw_kind), bound_tf32=b_fw_tc),
         bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
-                bound=(b_bw, by_bw_kind), bound_tf32=b_bw_tc))
+                bound=(b_bw, by_bw_kind), bound_tf32=b_bw_tc),
+        launches=launches)
 
 
 def wide_headline_parity(rmod, rfw, rbw, cfg, geom, diff, g_out):
@@ -3972,17 +4038,19 @@ def wide_pack_parity(mlp, head):
           f"(R1's and R2's products, {want.numel() * 4} bytes)")
 
 
-def wide_fit(lp, smi):
-    """(b): the port's trainer with ``--mlp_hidden_chn 128``; returns the
-    launches of R1, R2 and R3 (those passed a scaffold) over the fit."""
+def wide_fit(lp, smi, hidden, steps, scaffold_at, eval_rate):
+    """(b): the port's trainer with ``--mlp_hidden_chn hidden`` (one of
+    WIDE_FITS); returns the launches of R1, R2 and R3 (those passed a
+    scaffold) over the fit."""
     from lightplane_tpu_torch.examples import fit_single_scene as app
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
-    print(f"  (b) argv: {' '.join(WIDE_FIT_ARGV)}")
+    argv = wide_fit_argv(hidden, steps, scaffold_at, eval_rate)
+    print(f"  (b) argv: {' '.join(argv)}")
     # the loss of a fixed batch of rays at the seed's initial state and
     # after the fit (forward only; outside the launch count)
-    fit0 = app.SceneFit(app.parse_args(WIDE_FIT_ARGV))
+    fit0 = app.SceneFit(app.parse_args(argv))
     gen = torch.Generator().manual_seed(11)
     idx = torch.randint(0, fit0.origins.shape[0], (4096,),
                         generator=gen).cuda()
@@ -3992,7 +4060,7 @@ def wide_fit(lp, smi):
     rfw.LAUNCHES = rbw.LAUNCHES = 0
     rfw.SCAFFOLD_LAUNCHES = rbw.SCAFFOLD_LAUNCHES = 0
     t0 = time.perf_counter()
-    fit = app.main(WIDE_FIT_ARGV)
+    fit = app.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES,
@@ -4006,10 +4074,11 @@ def wide_fit(lp, smi):
           f"occupancy {h['scaffolds']}; evals (step, PSNR, SSIM) "
           f"{h['evals']}; loss of a fixed batch of 4096 rays {loss0:.6f} "
           f"at the start, {loss1:.6f} at the end")
-    assert launches["renderer_fw"] == WIDE_FIT_STEPS + len(h["evals"])
-    assert launches["renderer_bw"] == WIDE_FIT_STEPS
+    assert launches["renderer_fw"] == steps + len(h["evals"])
+    assert launches["renderer_bw"] == steps
     assert min(launches["scaffold"]) > 0, launches
-    assert [e[0] for e in h["evals"]] == [100, 200]
+    assert [e[0] for e in h["evals"]] == list(
+        range(eval_rate, steps + 1, eval_rate))
     first, last = h["evals"][0][1], h["evals"][-1][1]
     assert np.isfinite(last) and last > first, (first, last)
     assert loss1 < loss0, (loss0, loss1)
@@ -4050,7 +4119,7 @@ def wide_splat_inputs(lp, width):
     the output sizes and the generator they were drawn from."""
     gen = torch.Generator().manual_seed(12)
     n = SPLAT_VIEWS * SPLAT_VIEW_RES ** 2
-    c_in, hidden, c_out = WIDE_SPLAT_MLP[0], width, width
+    c_in, hidden, c_out = WIDE_SPLAT_IN, width, width
     enc = (torch.randn((n, c_in), generator=gen) * 0.1).cuda()
     rays = view_rays(lp, SPLAT_VIEWS, SPLAT_VIEW_RES, enc)
     in_sizes, out_sizes = tri_sizes(128, c_in), tri_sizes(128, c_out)
@@ -4080,35 +4149,32 @@ def wide_splat_march(lp, smod, module, rays, enc, igrid, in_sizes,
 
 def wide_splat(lp, smi, width=128):
     """(c): S1 and S2 with the MLP 32 -> width -> width into a grid of
-    ``width`` channels over phase 7's rays; at 128 also one fw+bw step of
-    the module (its launches) and both held against their plain versions
-    on every ray."""
+    ``width`` channels over phase 7's rays: one fw+bw step of the module
+    (its launches), S1 and S2 timed and by part; at WIDE_CHECKED both held
+    against their plain versions on every ray, at 128 also S1's own peak
+    memory and pass A's yardstick."""
     from lightplane_tpu_torch.ops import splatter as smod
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
-    check = width == 128
+    check = width in WIDE_CHECKED
     inputs = wide_splat_inputs(lp, width)
     module, rays, enc, igrid, in_sizes, out_sizes, gen = inputs
     n, c_out = len(rays), width
-    launches = (0, 0)
-    if check:
-        enc.requires_grad_(True)
-        sfw.LAUNCHES = sbw.LAUNCHES = sbw.MLP_LAUNCHES = 0
-        out = module(rays, out_sizes, igrid, return_list=False)
-        out.square().sum().backward()
-        torch.cuda.synchronize()
-        launches = (sfw.LAUNCHES, sbw.MLP_LAUNCHES)
-        assert launches == (1, 1), launches
-        for x in [enc, module.mlp_params] + igrid:
-            assert (torch.isfinite(x.grad).all()
-                    and float(x.grad.abs().sum()) > 0)
-        del out
+    enc.requires_grad_(True)
+    sfw.LAUNCHES = sbw.LAUNCHES = sbw.MLP_LAUNCHES = 0
+    out = module(rays, out_sizes, igrid, return_list=False)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    launches = (sfw.LAUNCHES, sbw.MLP_LAUNCHES)
+    assert launches == (1, 1), launches
+    for x in [enc, module.mlp_params] + igrid:
+        assert torch.isfinite(x.grad).all() and float(x.grad.abs().sum()) > 0
+    del out
     print(f"  (c) LightplaneMLPSplatter, MLP 32 -> {width} -> {width} (W = "
           f"{width}), 3 x 128^2 x 32ch prior into 3 x 128^2 x {width}ch, {n} "
-          f"rays x {SPLAT_SAMPLES} samples" + (
-              f": one fw+bw step, launches (S1, S2 with the MLP) {launches}"
-              if check else ""))
+          f"rays x {SPLAT_SAMPLES} samples: one fw+bw step, launches (S1, "
+          f"S2 with the MLP) {launches}")
     cfg, geom, diff, g_out = wide_splat_march(lp, smod, *inputs)
     assert sfw._mlp_width(cfg) == width
     reps = 3 if check else 1
@@ -4162,6 +4228,7 @@ def wide_splat(lp, smi, width=128):
     if check:
         plan_parity(cfg, geom, diff)
         wide_splat_pack_parity(diff[2], cfg.n_hidden)
+    if width == 128:
         wide_splat_memory(cfg, geom, diff, smi)
         pass_a_yardstick(cfg, geom, diff, g_out, smi)
     fl_fw, by_fw = splat_mlp_fw_work(cfg, geom)
@@ -4369,7 +4436,7 @@ def wide_sweep(lp):
         cfg, geom, diff = unsplit_march(lp, rmod, rays, grid, dp, **kw)
         width = rfw._kernel_width(cfg, grid[0].shape[-1])
         print(f"  (d) {name}: W = {width}")
-        assert width in (96, 128)
+        assert width in rfw.WIDTHS[2:]
         with torch.no_grad():
             fw0 = rfw.LAUNCHES
             out_k = rfw.render_fwd_cuda(cfg, geom, diff)
@@ -4395,10 +4462,10 @@ def wide_sweep(lp):
 
 
 def phase_wide(lp, smi):
-    print("== phase 12: the kernels' wide builds (W = 96, 128): decoder and "
-          "grid widths past 64")
+    print("== phase 12: the kernels' wide builds (W = 96, 128, 192, 256): "
+          "decoder and grid widths past 64")
     headline = {w: wide_headline(lp, smi, w) for w in WIDE_HIDDEN}
-    fit = wide_fit(lp, smi)
+    fit = {args[0]: wide_fit(lp, smi, *args) for args in WIDE_FITS}
     splat = {w: wide_splat(lp, smi, w) for w in WIDE_HIDDEN}
     sweep = wide_sweep(lp)
     print(f"  worst max|d| in the sweep: {sweep}")
@@ -4499,12 +4566,15 @@ def kernel_lines(out):
     # phase 11's launches (the NCCL world's drive of its three workloads),
     # S2's without and with the MLP counted apart
     dp_launches = out["11"]["launches"]
-    # phase 12's wide builds (W = 128 and 96): times and bounds at the
-    # render headline and the MLP splat into 128 (96) channels, errors at
-    # 128 there, launches on the scene fit at hidden 128 and on the MLP
-    # splatter's step; the worst errors of the sweep over the widths in
-    # between (96 and 128)
+    # phase 12's wide builds (W = 256, 192, 128 and 96): times and bounds at
+    # the render headline and the MLP splat into W channels, errors there at
+    # WIDE_CHECKED; launches of R1 and R2 on the scene fit at hidden 128 and
+    # 256 (at 192 and 96 on the headline's timed runs), of S1 and S2 with
+    # the MLP on the MLP splatter's step at each width; the worst errors of
+    # the sweep over the widths in between
     wide = out["12"]
+    fit_by_w = {w: wide["fit"][w] if w in wide["fit"]
+                else wide["headline"][w]["launches"] for w in WIDE_HIDDEN}
 
     def wide_keys(part, key, launches, sweep_err=None):
         keys = {}
@@ -4514,32 +4584,37 @@ def kernel_lines(out):
                          f"wide_{w}_plain_ms": k["plain_ms"],
                          f"wide_{w}_bound_ms": k["bound"][0],
                          f"wide_{w}_bound_by": k["bound"][1],
-                         f"wide_{w}_bound_tf32_ms": k.get("bound_tf32")})
-        k = wide[part][128][key]
-        keys.update(wide_128_max_abs_err=k["err"],
-                    wide_128_launches=launches)
+                         f"wide_{w}_bound_tf32_ms": k.get("bound_tf32"),
+                         f"wide_{w}_launches": launches[w]})
+            if w in WIDE_CHECKED:
+                keys[f"wide_{w}_max_abs_err"] = k["err"]
         if sweep_err is not None:
             keys["wide_sweep_max_abs_err"] = sweep_err
         return keys
 
-    wide_fit = wide["fit"]
     wide_rows = {
-        "renderer_fw": wide_keys("headline", "fw", wide_fit["renderer_fw"],
-                                 wide["sweep"]["fw"]),
-        "renderer_bw": wide_keys("headline", "bw", wide_fit["renderer_bw"],
-                                 wide["sweep"]["bw"]),
-        "splatter_fw": wide_keys("splat", "fw",
-                                 wide["splat"][128]["fw"]["launches"]),
+        "renderer_fw": wide_keys(
+            "headline", "fw",
+            {w: fit_by_w[w]["renderer_fw"] for w in WIDE_HIDDEN},
+            wide["sweep"]["fw"]),
+        "renderer_bw": wide_keys(
+            "headline", "bw",
+            {w: fit_by_w[w]["renderer_bw"] for w in WIDE_HIDDEN},
+            wide["sweep"]["bw"]),
+        "splatter_fw": wide_keys(
+            "splat", "fw",
+            {w: wide["splat"][w]["fw"]["launches"] for w in WIDE_HIDDEN}),
         "splatter_bw_mlp": dict(
-            wide_keys("splat", "bw", wide["splat"][128]["bw"]["launches"]),
+            wide_keys("splat", "bw", {w: wide["splat"][w]["bw"]["launches"]
+                                      for w in WIDE_HIDDEN}),
             wide_sweep_max_rel_err=wide["sweep"]["splat"]),
     }
-    wide_rows["renderer_fw"]["wide_128_launches_scaffold"] = (
-        wide_fit["scaffold"][0])
-    wide_rows["renderer_bw"]["wide_128_launches_scaffold"] = (
-        wide_fit["scaffold"][1])
-    wide_rows["renderer_fw"]["wide_128_warps_per_sm"] = out["2"][0]
-    wide_rows["renderer_bw"]["wide_128_warps_per_sm"] = out["2"][1]
+    for i, key in enumerate(("renderer_fw", "renderer_bw")):
+        for w, launches in wide["fit"].items():
+            wide_rows[key][f"wide_{w}_launches_scaffold"] = (
+                launches["scaffold"][i])
+        for w in WIDE_HIDDEN:
+            wide_rows[key][f"wide_{w}_warps_per_sm"] = out["2"][w][i]
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);
@@ -4592,6 +4667,16 @@ def kernel_lines(out):
             library_ms=None,
             **({"plan_ms": k["plan_ms"], "runs": k["runs"],
                 **wide_rows["splatter_fw"]} if key == "fw" else {})))
+    # S1 with the MLP at W = 64: launches on the MLP splatter's six timed
+    # steps, the rest at its shapes alone (phase 7)
+    k = splat["fw_mlp"]
+    kernels.append(dict(
+        name="splatter_fw_mlp", route="cuda",
+        source="lightplane_tpu_torch/csrc/splatter_fw.cu",
+        replaces="lightplane_tpu/ops/kernels/splatter_pallas.py:57",
+        launches=k["launches"], max_abs_err=k["err"], ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound"][0],
+        bound_by=k["bound"][1], library_ms=None))
     # S2 with the MLP: launches on the MLP splatter's six timed steps, the
     # rest at its shapes alone (phase 7)
     k = splat["bw_mlp"]

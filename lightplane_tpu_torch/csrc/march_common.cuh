@@ -193,17 +193,18 @@ inline void fill_march(Params& p, int num_samples, int num_samples_inf,
 }
 
 // The padded activation widths the kernels are built for: 32 and 64 keep
-// every MLP layer in shared memory; 96 and 128 are the wide builds
-// (wide_mlp.cuh), which pass the layers through shared memory a slice at a
-// time (R1, R2) or read them from device memory (S1, S2).
+// every MLP layer in shared memory; 96, 128, 192 and 256 are the wide
+// builds (wide_mlp.cuh), which pass the layers through shared memory a
+// slice at a time.
 inline bool known_width(int width) {
-  return width == 32 || width == 64 || width == 96 || width == 128;
+  return width == 32 || width == 64 || width == 96 || width == 128 ||
+         width == 192 || width == 256;
 }
 
 // Fills everything but the tensors; returns a cudaError_t code.
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32, 64, 96 or 128
+//   width: the padded activation width, 32, 64, 96, 128, 192 or 256
 inline int fill_params(Params& p, int num_rays, int num_grids,
                        const int* grid_meta, int grid_chn, int n_t, int n_o,
                        int n_c, const int* mlp_widths, int enc_chn,

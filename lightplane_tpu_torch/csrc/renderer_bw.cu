@@ -426,7 +426,7 @@ int lightplane_render_bw_attrs(int width, int* out) {
                      : kernel_attrs(render_bw_kernel<64>, out);
 }
 
-// The wide build's (W = 96 or 128, renderer_wide.cu) launch at these MLP
+// The wide build's (W = 96-256, renderer_wide.cu) launch at these MLP
 // widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]) and with a
 // colour grid or not: out[0] warps per block, out[1] the rows of
 // g_mlp_partial (one per block of the resident wave; the caller zero-fills
@@ -438,7 +438,7 @@ int lightplane_render_bw_wide_config(int width, int n_t, int n_o, int n_c,
                                      const int* mlp_widths,
                                      int has_color_grid, int* out) {
   if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
-      n_c > kMaxLayers || (width != 96 && width != 128))
+      n_c > kMaxLayers || width <= 64 || !known_width(width))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_t, n_o, n_c};

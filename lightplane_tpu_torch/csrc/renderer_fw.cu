@@ -378,7 +378,7 @@ long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
   return fw_smem_bytes(width, n_layers_total, color_chn, warps);
 }
 
-// The wide build's (W = 96 or 128, renderer_wide.cu) launch at these MLP
+// The wide build's (W = 96-256, renderer_wide.cu) launch at these MLP
 // widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]): out[0] warps
 // per block, out[1] a block's shared memory in bytes, out[2] the bytes of
 // the workspace lightplane_render_fw takes; a cudaError_t code.
@@ -396,8 +396,8 @@ int lightplane_render_fw_wide_config(int width, int n_t, int n_o, int n_c,
 // Launches the forward march on `stream`; returns a cudaError_t code.
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32 or 64, or 96 or 128 (the wide
-//     build, renderer_wide.cu)
+//   width: the padded activation width, 32 or 64, or 96, 128, 192 or 256
+//     (the wide build, renderer_wide.cu)
 //   warps: rays (warps) per block, 1, 2 or 4 (the wide build: 1-8)
 //   scaffold, scaffold_dims: the [B, D, H, W] scaffold and its host int[4]
 //     shape, or null

@@ -1,6 +1,6 @@
-// The wide builds (padded widths W = 96 and 128: the widest of the grid's
-// channels and the MLP layers) of the renderer's forward march (R1,
-// renderer_fw.cu) and recompute backward (R2, renderer_bw.cu), for Hopper
+// The wide builds (padded widths W = 96, 128, 192 and 256: the widest of
+// the grid's channels and the MLP layers) of the renderer's forward march
+// (R1, renderer_fw.cu) and recompute backward (R2, renderer_bw.cu), for Hopper
 // (sm_90a).  They replace the same TPU kernels as those
 // (lightplane_tpu/ops/kernels/renderer_pallas.py::_build_fw_kernel and
 // _build_bw_kernel), which take any width; renderer_fw.cu's and
@@ -69,6 +69,14 @@
 //     that fit, whole warpgroups past 4; one warp holds 21 tiles at W = 128
 //     with 3 colours (22 layers in all, 21 with a colour grid or a
 //     one-layer colour head) and 30 at W = 96 (31 layers).
+//   - At W = 192 and 256 (a tile 12,544 and 16,640 B; the ring's slots
+//     keep their 16,384 B, a product wider than 16 N-tiles one k-step a
+//     slot: wide_mlp.cuh): R1 4 warps, one warpgroup (149,504 and 182,272
+//     B; 8 would need 249,856 and 315,392).  R2 at the 2/2/2 MLP: a warp
+//     64,256 B at 192 and 84,992 at 256, so 2 warps a block at both
+//     (177,696 and 219,168 B), by mma.sync, and R1 then by mma.sync too; the
+//     3/3/3 MLP at 256 one warp (184,096 B).  One warp holds 14 tiles at
+//     W = 192 and 10 at 256 (15 and 11 layers in all with 3 colours).
 //   - The weight-gradient sums: a row per warp, read and written every
 //     32-step chunk, would move 223,296 B each way at that MLP (13,956 B a
 //     ray-step, 234 GB a frame at the render headline).  Here a block adds
@@ -117,14 +125,16 @@ __global__ void pack_wide_kernel(const Params p, int kind, uint4* ws) {
     const int slices = wide_slices(p, kind);
     if (threadIdx.x == 0 && (slices & 1))
       reinterpret_cast<int2*>(ws)[slices] = make_int2(0, 0);
-    // slice by slice, each product's k-steps two at a time
+    // slice by slice, each product's k-steps two at a time (one at a time
+    // past kSlotTiles N-tiles)
     for (int i = 0; i < n; ++i) {
       wide_layout(p, kind, i, &off, &first);
       const Product pr = wide_product(p, kind, i);
       const int per_step = pr.n_tiles * 32;
+      const int per_slice = slice_steps(pr.n_tiles);
       for (int k = threadIdx.x; k < product_slices(pr); k += blockDim.x) {
-        const int ks0 = k * kSliceSteps;
-        const int steps = min(kSliceSteps, pr.k_steps - ks0);
+        const int ks0 = k * per_slice;
+        const int steps = min(per_slice, pr.k_steps - ks0);
         reinterpret_cast<int2*>(ws)[first + k] =
             make_int2((int)(off + (long long)ks0 * per_step),
                       steps * per_step);
@@ -219,6 +229,12 @@ bool wide_wgmma(const Params& p, int W, int fw_warps) {
 
 long long fw_smem_bytes(int W, int warps) {
   return 4LL * warps * 2 * kChunk * (W + 4) + ring_bytes(W);
+}
+
+// R1's warps a block at width W: two warpgroups where their tiles fit with
+// the ring (W = 96, 128), else one (W = 192, 256).
+int fw_warps(int W) {
+  return fw_smem_bytes(W, kFwWarps) <= kMaxSmemBytes ? kFwWarps : 4;
 }
 
 template <int W>
@@ -846,9 +862,9 @@ cudaError_t launch_bw(const Params& p, uint4* pack, cudaStream_t stream) {
 }  // namespace
 
 int render_fw_wide_config(const Params& p, int width, int* out) {
-  if (width != 96 && width != 128) return (int)cudaErrorInvalidValue;
-  out[0] = kFwWarps;
-  out[1] = (int)fw_smem_bytes(width, kFwWarps);
+  if (width <= 64 || !known_width(width)) return (int)cudaErrorInvalidValue;
+  out[0] = fw_warps(width);
+  out[1] = (int)fw_smem_bytes(width, out[0]);
   out[2] = (int)wide_pack_bytes(p, kRenderFw);
   return (int)cudaSuccess;
 }
@@ -856,15 +872,15 @@ int render_fw_wide_config(const Params& p, int width, int* out) {
 cudaError_t launch_render_fw_wide(const Params& p, int width, int warps,
                                   void* workspace, cudaStream_t stream) {
   uint4* ws = static_cast<uint4*>(workspace);
-  if (width == 96) return launch_fw<96>(p, warps, ws, stream);
-  if (width == 128) return launch_fw<128>(p, warps, ws, stream);
-  return cudaErrorInvalidValue;
+  return wide_dispatch(width, [&](auto w) {
+    return launch_fw<decltype(w)::value>(p, warps, ws, stream);
+  });
 }
 
 int render_fw_wide_attrs(int width, int* out) {
-  if (width == 96) return kernel_attrs(render_fw_wide_kernel<96>, out);
-  if (width == 128) return kernel_attrs(render_fw_wide_kernel<128>, out);
-  return (int)cudaErrorInvalidValue;
+  return wide_dispatch(width, [&](auto w) {
+    return kernel_attrs(render_fw_wide_kernel<decltype(w)::value>, out);
+  });
 }
 
 int render_bw_wide_config(const Params& p, int width, bool color_grid,
@@ -872,9 +888,10 @@ int render_bw_wide_config(const Params& p, int width, bool color_grid,
   int warps = 0, wave = 0;
   size_t smem = 0;
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
-  cudaError_t e = cudaErrorInvalidValue;
-  if (width == 96) e = bw_config<96>(p, color_grid, &warps, &smem, &wave);
-  if (width == 128) e = bw_config<128>(p, color_grid, &warps, &smem, &wave);
+  const cudaError_t e = wide_dispatch(width, [&](auto w) {
+    return bw_config<decltype(w)::value>(p, color_grid, &warps, &smem,
+                                         &wave);
+  });
   out[0] = warps;
   out[1] = wave;
   out[2] = wide_sums(p).total;
@@ -890,15 +907,15 @@ int render_bw_wide_config(const Params& p, int width, bool color_grid,
 cudaError_t launch_render_bw_wide(const Params& p, int width, void* workspace,
                                   cudaStream_t stream) {
   uint4* ws = static_cast<uint4*>(workspace);
-  if (width == 96) return launch_bw<96>(p, ws, stream);
-  if (width == 128) return launch_bw<128>(p, ws, stream);
-  return cudaErrorInvalidValue;
+  return wide_dispatch(width, [&](auto w) {
+    return launch_bw<decltype(w)::value>(p, ws, stream);
+  });
 }
 
 int render_bw_wide_attrs(int width, int* out) {
-  if (width == 96) return kernel_attrs(render_bw_wide_kernel<96>, out);
-  if (width == 128) return kernel_attrs(render_bw_wide_kernel<128>, out);
-  return (int)cudaErrorInvalidValue;
+  return wide_dispatch(width, [&](auto w) {
+    return kernel_attrs(render_bw_wide_kernel<decltype(w)::value>, out);
+  });
 }
 
 cudaError_t launch_wide_pack(const Params& p, int kind, void* workspace,

@@ -28,7 +28,8 @@ struct SplatParams {
 //   n_layers: the MLP's layer count, 0 without an MLP (then the input
 //     grid-list and mlp_widths are not read)
 //   mlp_widths: host int[n_layers + 1], the MLP's n_hidden
-//   width: the padded activation width, 32, 64, 96 or 128 (with an MLP)
+//   width: the padded activation width, 32, 64, 96, 128, 192 or 256 (with
+//   an MLP)
 inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
                              const int* out_meta, int out_chn,
                              int num_in_grids, const int* in_meta, int in_chn,

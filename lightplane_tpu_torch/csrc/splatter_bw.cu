@@ -54,8 +54,8 @@
 //     the end the block adds its warps' sums into its own row of
 //     g_mlp_partial (rows add across the slices' launches), and
 //     reduce_partial_kernel sums the rows into the flat g_mlp: g_enc and
-//     g_mlp are free of atomics, deterministic.  At padded widths 96 and
-//     128 (splat_bw_mlp_wide_kernel, below) no layer fits beside the tiles:
+//     g_mlp are free of atomics, deterministic.  At padded widths 96 to
+//     256 (splat_bw_mlp_wide_kernel, below) no layer fits beside the tiles:
 //     a block's warps work on 16-row chunks in lockstep, the layers staged
 //     once a block through R2-wide's ring (wide_mlp.cuh) and multiplied by
 //     wgmma a warpgroup, each layer's weight gradient summed over the
@@ -77,7 +77,7 @@
 // rounding of 0 can otherwise send the two down different branches
 // (splatter_bw.py::splat_bwd_cuda_relu_masks).  A chunk where a ray's
 // g_vec is 0 at every step records nothing for that ray (its warp skips
-// it, or at 96 and 128 writes nothing there).
+// it, or above 64 writes nothing there).
 //
 // What bounds it.  Without the MLP, at bench.py's splatter headline
 // (262,144 rays, 96 samples, 160^3 x 64ch) it gathers ~1.1e8 corner rows
@@ -536,7 +536,7 @@ __global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
   }
 }
 
-// ---- with the MLP at W = 96 and 128: pass A on the staged layers ----------
+// ---- with the MLP at W = 96 to 256: pass A on the staged layers -----------
 // No layer fits a block's shared memory beside its warps' tiles (at W = 128
 // a 128 x 128 layer is 64 KB), so pass A takes R2-wide's design
 // (renderer_wide.cu, wide_mlp.cuh) without the march: a block's warps take
@@ -554,7 +554,9 @@ __global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
 // rows.  Each tile is its layer input's width rounded up to 16 (the weight
 // gradient's M-tiles) plus 4 (wide_stride): at 32 -> 128 -> 128, X_0 and
 // g_in 36 floats wide, X_1 and g_vec 132, 19,200 B a warp, so 8 warps and
-// the ring (49,152 B) fit a block (202,784 B).
+// the ring (49,152 B) fit a block (202,784 B); at 32 -> 256 -> 256 X_1 and
+// g_vec 260 wide, 35,584 B a warp, 4 warps (191,520 B; five would fit, not
+// eight), and at 32 -> 192 -> 192 27,392 B a warp, 4 warps (158,752 B).
 
 constexpr int kMaxWarpsWide = 8;
 constexpr int kWideFlagBytes = 4 * kMaxWarpsWide;  // a warp's active flag
@@ -937,12 +939,12 @@ cudaError_t launch_gather(const SplatParams& sp, cudaStream_t s) {
 
 extern "C" {
 
-// For the MLP adjoint at `width` (32, 64, 96 or 128) of n_layers layers of
-// mlp_widths (host int[n_layers + 1]): out[0] the warps per block of pass
-// A, out[1] the rows of g_mlp_partial that the caller zero-fills (its
+// For the MLP adjoint at `width` (32, 64, 96, 128, 192 or 256) of n_layers
+// layers of mlp_widths (host int[n_layers + 1]): out[0] the warps per block
+// of pass A, out[1] the rows of g_mlp_partial that the caller zero-fills (its
 // resident wave of blocks), out[2] the floats of a row, out[3] a block's
 // shared memory in bytes, out[4] the bytes of the workspace of packed
-// layers (96 and 128; 0 at 32 and 64); a cudaError_t code.
+// layers (above 64; 0 at 32 and 64); a cudaError_t code.
 int lightplane_splat_bw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
   if (n_layers < 1 || n_layers > kMaxLayers || !known_width(width))
@@ -957,8 +959,10 @@ int lightplane_splat_bw_mlp_config(int width, int n_layers,
   const cudaError_t e =
       width == 32   ? mlp_config<32>(p, ml, &warps, &smem, &wave)
       : width == 64 ? mlp_config<64>(p, ml, &warps, &smem, &wave)
-      : width == 96 ? mlp_wide_config<96>(p, C, &warps, &smem, &wave)
-                    : mlp_wide_config<128>(p, C, &warps, &smem, &wave);
+                    : wide_dispatch(width, [&](auto w) {
+                        return mlp_wide_config<decltype(w)::value>(
+                            p, C, &warps, &smem, &wave);
+                      });
   out[0] = warps;
   out[1] = wave;
   out[2] = ml.sum_floats;
@@ -975,8 +979,10 @@ int lightplane_splat_bw_attrs(int mlp, int width, int* out) {
   if (!mlp) return kernel_attrs(splat_bw_enc_kernel<8, false>, out);
   if (mlp == 2) return kernel_attrs(splat_bw_enc_kernel<8, true>, out);
   if (mlp == 3) return kernel_attrs(splat_bw_enc_kernel<16, false>, out);
-  if (width == 96) return kernel_attrs(splat_bw_mlp_wide_kernel<96>, out);
-  if (width == 128) return kernel_attrs(splat_bw_mlp_wide_kernel<128>, out);
+  if (width > 64)
+    return wide_dispatch(width, [&](auto w) {
+      return kernel_attrs(splat_bw_mlp_wide_kernel<decltype(w)::value>, out);
+    });
   return width == 32 ? kernel_attrs(splat_bw_mlp_kernel<32>, out)
                      : kernel_attrs(splat_bw_mlp_kernel<64>, out);
 }
@@ -991,7 +997,7 @@ int lightplane_splat_bw_attrs(int mlp, int width, int* out) {
 //     rows of g_mlp_partial (`rows` of them, lightplane_splat_bw_mlp_config,
 //     zero-filled before the first slice) added to; for the recording
 //     build the zero-filled [R, steps, n_layers - 1, width / 32] mask words
-//     (null otherwise); at widths 96 and 128 `workspace` (16-byte aligned,
+//     (null otherwise); at widths above 64 `workspace` (16-byte aligned,
 //     the config's bytes) takes the packed layers (null otherwise);
 //   part 2: g_mlp [n_params] = the sum of the `rows` rows (no rays read).
 // The caller validates shapes, devices, alignment and limits.
@@ -1061,8 +1067,10 @@ int lightplane_splat_bw(
   const cudaError_t e =
       width == 32   ? launch_mlp<32>(sp, ml, rows, s)
       : width == 64 ? launch_mlp<64>(sp, ml, rows, s)
-      : width == 96 ? launch_mlp_wide<96>(sp, ml, rows, workspace, s)
-                    : launch_mlp_wide<128>(sp, ml, rows, workspace, s);
+                    : wide_dispatch(width, [&](auto w) {
+                        return launch_mlp_wide<decltype(w)::value>(
+                            sp, ml, rows, workspace, s);
+                      });
   return (int)e;
 }
 

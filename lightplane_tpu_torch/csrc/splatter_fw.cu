@@ -79,7 +79,7 @@
 //    staged MLP input gradient over the input grid-list, no weight column
 //    flushed); kSteps = 2 is pass S of the wide MLP build (6), the weight
 //    flushed as the other variants flush it.
-// 6. The MLP variant at padded widths 96 and 128, in two passes over
+// 6. The MLP variant at padded widths 96 to 256, in two passes over
 //    slices of the rays (splatter_fw.py::mlp_slices: the staging and each
 //    run list within PLAN_MAX_RUNS' bytes).  A ray marches in brick order
 //    as many times as it has output sub-grids, so running the MLP there
@@ -670,13 +670,14 @@ cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
 }
 
 
-// ---- the wide MLP build's pass F (W = 96, 128) ------------------------------
+// ---- the wide MLP build's pass F (W = 96, 128, 192, 256) --------------------
 
 constexpr int kFWarps = 8;  // pass F: warps (rays) a block, two warpgroups
 constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
 
 // Bytes of a pass F block's shared memory: each warp's [16][W + 4] tile,
-// then the ring (116,736 at W = 128, one block an SM).
+// then the ring (116,736 at W = 128, 149,504 at 192, 182,272 at 256; one
+// block an SM).
 __host__ __device__ __forceinline__ long long pass_f_smem_bytes(int W,
                                                                 int warps) {
   return 4LL * warps * kChunk * (W + 4) + ring_bytes(W);
@@ -820,7 +821,7 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block of the splat pass needs.
 //   in_chn: the encoding's channels with the MLP (n_layers > 0); at widths
-//   96 and 128 the splat pass is the per-step variant's (pass S)
+//   above 64 the splat pass is the per-step variant's (pass S)
 long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
                                          int max_rows, int out_chn,
                                          int in_chn) {
@@ -832,13 +833,14 @@ long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
   return splat_smem_bytes(width, n_layers, max_rows, out_chn, stage_chn(E));
 }
 
-// The wide MLP build's pass F at `width` (96 or 128) for n_layers layers of
+// The wide MLP build's pass F at `width` (96-256) for n_layers layers of
 // mlp_widths (host int[n_layers + 1]): out[0] warps per block, out[1] a
 // block's shared memory in bytes, out[2] the bytes of the workspace of
 // packed layers; a cudaError_t code.
 int lightplane_splat_fw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
-  if (n_layers < 1 || n_layers > kMaxLayers || (width != 96 && width != 128))
+  if (n_layers < 1 || n_layers > kMaxLayers || width <= 64 ||
+      !known_width(width))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_layers, 0, 0};
@@ -851,7 +853,7 @@ int lightplane_splat_fw_mlp_config(int width, int n_layers,
 
 // Launches the wide MLP build's pass F on `stream` (the pre-pass, then the
 // kernel); returns a cudaError_t code.  Arguments as lightplane_splat_fw's
-// (with an MLP at width 96 or 128), `values` [num_rays, steps, out_chn]
+// (with an MLP at a width above 64), `values` [num_rays, steps, out_chn]
 // out (written at the sampled steps only) and `workspace` (16-byte
 // aligned, lightplane_splat_fw_mlp_config's bytes).
 int lightplane_splat_fw_mlp(
@@ -869,8 +871,7 @@ int lightplane_splat_fw_mlp(
       in_chn, n_layers, mlp_widths, width, num_samples, num_samples_inf,
       disparity_at_inf, mask_out_of_bounds, contract_coords);
   if (rc != (int)cudaSuccess) return rc;
-  if (n_layers < 1 || (width != 96 && width != 128) ||
-      sp.m.layer_out[n_layers - 1] != out_chn)
+  if (n_layers < 1 || width <= 64 || sp.m.layer_out[n_layers - 1] != out_chn)
     return (int)cudaErrorInvalidValue;
   if (num_rays == 0) return (int)cudaSuccess;
   Params& p = sp.m;
@@ -883,21 +884,24 @@ int lightplane_splat_fw_mlp(
   p.grid = input_grid;
   p.mlp = mlp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(width == 96 ? launch_pass_f<96>(sp, workspace, values, s)
-                           : launch_pass_f<128>(sp, workspace, values, s));
+  return (int)wide_dispatch(width, [&](auto w) {
+    return launch_pass_f<decltype(w)::value>(sp, workspace, values, s);
+  });
 }
 
 // Registers, spilled bytes and the thread limit of the splat pass (its
 // voxel-grid build) without the MLP (mlp = 0) or with it at `width` (mlp =
-// 1; at 96 and 128 the wide build's pass F), of the plan's fill pass (mlp =
+// 1; above 64 the wide build's pass F), of the plan's fill pass (mlp =
 // 2), or of the per-step splat (mlp = 3: the voxel-grid build of pass S),
 // into out[3]; a cudaError_t code.
 int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
   if (mlp == 2) return kernel_attrs(splat_plan_kernel<true>, out);
   if (mlp == 3) return kernel_attrs(splat_fw_kernel<0, 8, 2, 2>, out);
   if (!mlp) return kernel_attrs(splat_fw_kernel<0, 8, 2>, out);
-  if (width == 96) return kernel_attrs(splat_mlp_wide_kernel<96>, out);
-  if (width == 128) return kernel_attrs(splat_mlp_wide_kernel<128>, out);
+  if (width > 64)
+    return wide_dispatch(width, [&](auto w) {
+      return kernel_attrs(splat_mlp_wide_kernel<decltype(w)::value>, out);
+    });
   return width == 32 ? kernel_attrs(splat_fw_kernel<32, 8, 1>, out)
                      : kernel_attrs(splat_fw_kernel<64, 8, 2>, out);
 }
@@ -907,8 +911,8 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //   out_meta, in_meta: host int[5 * n], per sub-grid (row offset, B, D, H, W)
 //   n_layers: the MLP's layer count, 0 without it (input_grid, mlp, in_meta
 //     and mlp_widths are then not read)
-//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96 or 128 (at 96
-//     and 128 the plan's stages only: the wide build splats by pass S)
+//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96, 128, 192 or 256
+//     (above 64 the plan's stages only: the wide build splats by pass S)
 //   bricks: host int[3 * num_out_grids], cells per brick along D, H, W
 //   stage: 0 counts the runs per brick into counts [bricks] (zero-filled);
 //     1 writes them at offsets [bricks + 1] (the exclusive prefix sum of

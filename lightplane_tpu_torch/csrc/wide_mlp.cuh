@@ -1,7 +1,8 @@
-// The dense layers of the wide builds (padded widths W = 96 and 128) of the
-// renderer's forward march and recompute backward (renderer_wide.cu, R1 and
-// R2), of the splatter MLP's forward (splatter_fw.cu, S1's pass F) and of
-// its adjoint (splatter_bw.cu, S2's pass A).
+// The dense layers of the wide builds (padded widths W = 96, 128, 192 and
+// 256) of the renderer's forward march and recompute backward
+// (renderer_wide.cu, R1 and R2), of the splatter MLP's forward
+// (splatter_fw.cu, S1's pass F) and of its adjoint (splatter_bw.cu, S2's
+// pass A).
 //
 // All four stage their layers in shared memory, a slice at a time for a
 // whole block (staged_rows, below): at W = 128 a 2/2/2 MLP is ~400 KB, more
@@ -15,16 +16,37 @@
 // (block_weight_grad; per layer mi x no accumulator tiles, tc_index(i, o,
 // no), then 8 no bias sums: splatter_bw.cu's MlpLayout).
 //
-// Everything is written against the template width, so a wider build
-// (160-256) needs only its instantiation, its wgmma shape and the shared
-// memory of its tiles.
+// Everything is written against the template width.  Past 128 a ring slot
+// keeps the size it has at 128 (two k-steps of 16 N-tiles), so that a
+// product wider than 16 N-tiles takes one k-step a slice; each warpgroup
+// product takes the narrowest wgmma shape (128, 192, 256) that holds the
+// product's N-tiles, and mma.sync reads a k-step's B fragments one N-tile
+// at a time, so that only the accumulators grow with the width.
 
 #pragma once
+
+#include <type_traits>
 
 #include "mlp_bwd.cuh"
 #include "warp_chunk.cuh"
 
 namespace lightplane {
+
+// f(std::integral_constant<int, W>{}) for the wide build W == width (96,
+// 128, 192 or 256); cudaErrorInvalidValue, as f's return type, for any
+// other width.
+template <class F>
+auto wide_dispatch(int width, F&& f)
+    -> decltype(f(std::integral_constant<int, 128>{})) {
+  using R = decltype(f(std::integral_constant<int, 128>{}));
+  switch (width) {
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+  }
+  return static_cast<R>(cudaErrorInvalidValue);
+}
 
 // Output o of a layer with no activation (the heads' last layers) for the
 // input `row` (a tile's row in shared memory, 16-byte aligned), in
@@ -84,19 +106,28 @@ __host__ __device__ __forceinline__ int wide_sum_floats(int d_in, int d_out) {
 // so hi + lo == w; the MMA reads lo's top 19 bits), each as wgmma's
 // K-major, non-swizzled core matrices (N-tile j and k-half h at core 2 j +
 // h: 8 rows n of 4 k, 16 bytes a row), k-step-major, so two k-steps
-// (kSliceSteps) of a product are one contiguous slice.  The block copies
-// slices into a ring of kRingSlots slots in shared memory by cp.async, two
-// ahead of the one the warps multiply by, in the order of the workspace's
-// schedule (one int2 a slice: its first uint4 and its count), which repeats
-// every chunk.
+// (kSliceSteps; one past kSlotTiles N-tiles) of a product are one
+// contiguous slice.  The block copies slices into a ring of kRingSlots
+// slots in shared memory by cp.async, two ahead of the one the warps
+// multiply by, in the order of the workspace's schedule (one int2 a slice:
+// its first uint4 and its count), which repeats every chunk.
 
 constexpr int kChunk = 16;       // steps a warp marches at a time
 constexpr int kSliceSteps = 2;   // k-steps of 8 a ring slot holds
 constexpr int kRingSlots = 3;
 
-// uint4s of a ring slot at width W: kSliceSteps k-steps of W / 8 N-tiles.
+constexpr int kSlotTiles = 16;   // N-tiles of a slot's kSliceSteps k-steps
+
+// uint4s of a ring slot at width W: kSliceSteps k-steps of W / 8 N-tiles,
+// at most kSlotTiles.
 __host__ __device__ __forceinline__ int ring_slot_u4(int W) {
-  return kSliceSteps * (W / 8) * 32;
+  return kSliceSteps * (W / 8 < kSlotTiles ? W / 8 : kSlotTiles) * 32;
+}
+
+// k-steps a slice of a product of n_tiles N-tiles: kSliceSteps up to
+// kSlotTiles N-tiles (every product at W <= 128), else one.
+__host__ __device__ __forceinline__ int slice_steps(int n_tiles) {
+  return n_tiles > kSlotTiles ? 1 : kSliceSteps;
 }
 
 // Bytes of the ring of slices at width W.
@@ -150,7 +181,8 @@ __host__ __device__ __forceinline__ Product wide_product(const Params& p,
 
 // Ring slices of a product.
 __host__ __device__ __forceinline__ int product_slices(const Product& pr) {
-  return (pr.k_steps + kSliceSteps - 1) / kSliceSteps;
+  const int steps = slice_steps(pr.n_tiles);
+  return (pr.k_steps + steps - 1) / steps;
 }
 
 // Where product `upto` of schedule `kind` starts in the workspace (uint4s)
@@ -289,16 +321,19 @@ __device__ __forceinline__ void wgmma_commit_and_wait() {
 
 // d += A B over one k-step of 8 for the warpgroup's 64 rows (each warp its
 // 16: A's fragment as mma.sync m16n8k8's, d as its accumulators, an N-tile
-// of 8 columns each), B (8 x W, K-major) at descriptor `desc`, TF32 in, f32
-// sums: wgmma.mma_async m64nWk8, A from registers.
+// of 8 columns each; a wider d's tiles past N / 8 untouched), B (8 x N,
+// K-major) at descriptor `desc`, TF32 in, f32 sums: wgmma.mma_async
+// m64nNk8, A from registers.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[16][4],
+  template <int M>
+  static __device__ __forceinline__ void mma(float (&d)[M][4],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
+    static_assert(M >= 16, "the accumulators of 16 N-tiles");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -330,9 +365,11 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<96> {
-  static __device__ __forceinline__ void mma(float (&d)[12][4],
+  template <int M>
+  static __device__ __forceinline__ void mma(float (&d)[M][4],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
+    static_assert(M >= 12, "the accumulators of 12 N-tiles");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %52, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
@@ -357,6 +394,111 @@ struct Wgmma<96> {
   }
 };
 
+template <>
+struct Wgmma<256> {
+  template <int M>
+  static __device__ __forceinline__ void mma(float (&d)[M][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    static_assert(M >= 32, "the accumulators of 32 N-tiles");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %132, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
+        "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+        "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "
+        "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+        "%124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %133, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+          "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+          "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+          "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+          "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+          "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+          "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+          "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+          "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(1), "l"(desc));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  template <int M>
+  static __device__ __forceinline__ void mma(float (&d)[M][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    static_assert(M >= 24, "the accumulators of 24 N-tiles");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %100, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
+        "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+        "%92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %101, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(1), "l"(desc));
+  }
+};
+
 // out = epi(A @ B + bias) for a warp's 16 rows on the tensor cores in
 // 3xTF32, B the product (k_steps, N outputs) whose slices the ring hands out:
 // every warp takes them, and an inactive one (no open step in its chunk)
@@ -373,7 +515,8 @@ struct Wgmma<96> {
 // `relu`, times (gate > 0) where `gate` (a tile like out) is given; out may
 // be A, gate or add.  Each k-step splits A into TF32 hi and lo parts
 // (split_wide) and issues three MMAs per N-tile, term by term across the
-// tiles, the small terms first.
+// tiles, the small terms first (past W = 128 by mma.sync: N-tile by N-tile,
+// each tile's terms in the same order).
 template <int W>
 __device__ __forceinline__ void staged_rows(
     Ring& r, int k_steps, int N, const float* A, int sa,
@@ -383,6 +526,8 @@ __device__ __forceinline__ void staged_rows(
   constexpr int NT = W / 8;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (N + 7) / 8;
+  // k-steps a slice (kSliceSteps at W <= 128)
+  const int steps = W > 128 ? slice_steps(n_tiles) : kSliceSteps;
   float d[NT][4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -398,7 +543,7 @@ __device__ __forceinline__ void staged_rows(
     d[nt][3] = b1;
   }
 #pragma unroll 1
-  for (int ks0 = 0; ks0 < k_steps; ks0 += kSliceSteps) {
+  for (int ks0 = 0; ks0 < k_steps; ks0 += steps) {
     const uint4* slice = ring_next(r);
     if (!active && !wg) continue;
     // A's fragments of the slice's k-steps, split: a0 (row g, col t), a1
@@ -408,7 +553,7 @@ __device__ __forceinline__ void staged_rows(
     for (int kk = 0; kk < kSliceSteps; ++kk) {
       const int ks = ks0 + kk;
       float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (active && ks < k_steps) {
+      if (active && ks < k_steps && kk < steps) {
         const float* a = A + g * sa + ks * 8 + t;
         x[0] = a[0];
         x[1] = a[8 * sa];
@@ -431,14 +576,53 @@ __device__ __forceinline__ void staged_rows(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kSliceSteps; ++kk) {
-        if (ks0 + kk >= k_steps) break;
+        if (ks0 + kk >= k_steps || kk >= steps) break;
         const uint4* hi = slice + kk * n_tiles * 32;
         const uint4* lo = hi + n_tiles * 16;
-        Wgmma<W>::mma(d, al[kk], wgmma_desc(hi));
-        Wgmma<W>::mma(d, ah[kk], wgmma_desc(lo));
-        Wgmma<W>::mma(d, ah[kk], wgmma_desc(hi));
+        if constexpr (W <= 128) {
+          Wgmma<W>::mma(d, al[kk], wgmma_desc(hi));
+          Wgmma<W>::mma(d, ah[kk], wgmma_desc(lo));
+          Wgmma<W>::mma(d, ah[kk], wgmma_desc(hi));
+        } else if (n_tiles <= 16) {
+          // the narrowest shape that holds the product's columns: B's
+          // rows past them (read within the slot) land in d's tiles past
+          // n_tiles, which the epilogue never writes
+          Wgmma<128>::mma(d, al[kk], wgmma_desc(hi));
+          Wgmma<128>::mma(d, ah[kk], wgmma_desc(lo));
+          Wgmma<128>::mma(d, ah[kk], wgmma_desc(hi));
+        } else if (W == 256 && n_tiles <= 24) {
+          Wgmma<192>::mma(d, al[kk], wgmma_desc(hi));
+          Wgmma<192>::mma(d, ah[kk], wgmma_desc(lo));
+          Wgmma<192>::mma(d, ah[kk], wgmma_desc(hi));
+        } else {
+          Wgmma<W>::mma(d, al[kk], wgmma_desc(hi));
+          Wgmma<W>::mma(d, ah[kk], wgmma_desc(lo));
+          Wgmma<W>::mma(d, ah[kk], wgmma_desc(hi));
+        }
       }
       wgmma_commit_and_wait();
+      continue;
+    }
+    if constexpr (W > 128) {
+      // one k-step a slice past kSlotTiles N-tiles, else two; B's two
+      // fragments of each N-tile (hi, lo) read just before its three MMAs
+#pragma unroll
+      for (int kk = 0; kk < kSliceSteps; ++kk) {
+        if (ks0 + kk >= k_steps || kk >= steps) break;
+        const uint32_t* b = reinterpret_cast<const uint32_t*>(
+                                slice + kk * n_tiles * 32) +
+                            g * 4 + t;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= n_tiles) continue;
+          const uint32_t bh0 = b[nt * 64], bh1 = b[nt * 64 + 32];
+          const uint32_t bl0 = b[(n_tiles + nt) * 64],
+                         bl1 = b[(n_tiles + nt) * 64 + 32];
+          mma_tf32(d[nt], al[kk], bh0, bh1);
+          mma_tf32(d[nt], ah[kk], bl0, bl1);
+          mma_tf32(d[nt], ah[kk], bh0, bh1);
+        }
+      }
       continue;
     }
 #pragma unroll
@@ -600,9 +784,9 @@ __device__ __forceinline__ void block_weight_grad(
 }
 
 // The entry points of renderer_wide.cu that renderer_fw.cu's and
-// renderer_bw.cu's C functions dispatch to at W = 96 and 128.  Both
-// kernels take a workspace (the packed layers and their schedule, filled
-// by each launch) of the bytes their config gives.
+// renderer_bw.cu's C functions dispatch to at W = 96, 128, 192 and 256.
+// Both kernels take a workspace (the packed layers and their schedule,
+// filled by each launch) of the bytes their config gives.
 // out[0] warps per block, out[1] a block's shared memory in bytes, out[2]
 // the workspace's bytes; a cudaError_t code.
 int render_fw_wide_config(const Params& p, int width, int* out);

@@ -82,8 +82,7 @@ WIDE_FLAG_BYTES = 4 * WIDE_BW_MAX_WARPS
 
 def mask_shape(cfg: _RenderCfg, R: int, grid_chn: int):
     """Shape of the relu masks of ``R`` rays: ``[R, steps, vectors, words]``
-    with one bit per unit of the kernel's padded width (32, 64, 96 or
-    128)."""
+    with one bit per unit of the kernel's padded width (``WIDTHS``)."""
     n_t = max(len(cfg.n_hidden_trunk) - 1, 0)
     n_total = n_t + len(cfg.n_hidden_opacity) - 1 + len(cfg.n_hidden_color) - 1
     vectors = (n_total - 2 + (n_t == 0)
@@ -308,7 +307,7 @@ def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
 
 
 def wide_config(lib, a, has_color_grid: bool):
-    """The wide build's (width 96 or 128) launch as its C side plans it,
+    """The wide build's (widths 96-256) launch as its C side plans it,
     held to ``wide_bw_plan``'s: ``(plan, rows of the partial-sum buffer)``,
     a row per block of the resident wave.  Raises ``ValueError`` where one
     warp's region and the ring exceed a block's shared memory."""

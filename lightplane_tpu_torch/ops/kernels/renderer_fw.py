@@ -40,9 +40,9 @@ SCAFFOLD_LAUNCHES = 0
 MAX_GRIDS = 16         # kMaxGrids in march_common.cuh
 MAX_LAYERS = 16        # kMaxLayers in march_common.cuh (per MLP)
 # The kernels' compiled activation widths: 32 and 64 keep the MLP's layers
-# in shared memory, 96 and 128 (the wide builds, csrc/renderer_wide.cu and
-# csrc/wide_mlp.cuh) read them from device memory
-WIDTHS = (32, 64, 96, 128)
+# in shared memory, 96, 128, 192 and 256 (the wide builds,
+# csrc/renderer_wide.cu and csrc/wide_mlp.cuh) stage them a slice at a time
+WIDTHS = (32, 64, 96, 128, 192, 256)
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # Warps (one ray each) per block the forward kernel may take, most first:
 # each warp keeps two [32, W + 4] tiles in shared memory beside the MLP.
@@ -51,13 +51,15 @@ WARPS_PER_BLOCK = (4, 2, 1)
 # The wide builds (csrc/renderer_wide.cu, csrc/wide_mlp.cuh): a block's
 # warps march a ray each in lockstep, WIDE_CHUNK steps at a time, each
 # product's layer staged for the whole block in a ring of WIDE_RING_SLOTS
-# shared-memory slots of WIDE_SLICE_STEPS k-steps of 8 (packed once a
-# launch as wgmma's K-major core matrices, split into TF32 hi and lo:
-# pack_wide_torch) and multiplied by wgmma a warpgroup (4 warps) at a time.
-# The forward takes WIDE_FW_WARPS warps a block, two [WIDE_CHUNK, W + 4]
-# tiles each.
+# shared-memory slots of WIDE_SLICE_STEPS k-steps of 8 by up to
+# WIDE_SLOT_TILES N-tiles (a wider product, past W = 128, one k-step a
+# slot; packed once a launch as wgmma's K-major core matrices, split into
+# TF32 hi and lo: pack_wide_torch) and multiplied by wgmma a warpgroup (4
+# warps) at a time.  The forward takes WIDE_FW_WARPS warps a block where
+# they fit (``wide_fw_warps``), two [WIDE_CHUNK, W + 4] tiles each.
 WIDE_CHUNK = 16
 WIDE_SLICE_STEPS = 2
+WIDE_SLOT_TILES = 16
 WIDE_RING_SLOTS = 3
 WIDE_FW_WARPS = 8
 
@@ -114,8 +116,8 @@ def _kernel_width(cfg: _RenderCfg, grid_chn: int) -> int:
         if widest <= w:
             return w
     raise ValueError(
-        f"the CUDA renderer takes channel and MLP widths up to {WIDTHS[-1]}, "
-        f"got {widest}"
+        f"the CUDA renderer takes channel and MLP widths up to {WIDTHS[-1]} "
+        f"(wgmma's widest N), got {widest}"
     )
 
 
@@ -252,13 +254,31 @@ def launch_args(cfg: _RenderCfg, geom, diff, kernel: str) -> LaunchArgs:
 
 def wide_ring_bytes(width: int) -> int:
     """Bytes of the wide builds' ring of layer slices at ``width``: three
-    slots of two k-steps of ``width / 8`` N-tiles of 32 lanes' 16 bytes."""
-    return 16 * WIDE_RING_SLOTS * WIDE_SLICE_STEPS * (width // 8) * 32
+    slots of two k-steps of ``width / 8`` N-tiles (at most WIDE_SLOT_TILES)
+    of 32 lanes' 16 bytes."""
+    tiles = min(width // 8, WIDE_SLOT_TILES)
+    return 16 * WIDE_RING_SLOTS * WIDE_SLICE_STEPS * tiles * 32
 
 
-def wide_fw_smem_bytes(width: int, warps: int = WIDE_FW_WARPS) -> int:
-    """Shared memory of a block of the wide forward: each warp's two
-    [WIDE_CHUNK, width + 4] f32 tiles, then the ring."""
+def wide_slice_steps(n_tiles: int) -> int:
+    """k-steps a ring slice of a product of ``n_tiles`` N-tiles holds:
+    WIDE_SLICE_STEPS up to WIDE_SLOT_TILES N-tiles, else one."""
+    return 1 if n_tiles > WIDE_SLOT_TILES else WIDE_SLICE_STEPS
+
+
+def wide_fw_warps(width: int) -> int:
+    """The wide forward's warps a block: WIDE_FW_WARPS (two warpgroups)
+    where their tiles fit with the ring (W = 96, 128), else one warpgroup
+    (W = 192, 256)."""
+    fits = wide_fw_smem_bytes(width, WIDE_FW_WARPS) <= MAX_SMEM_BYTES
+    return WIDE_FW_WARPS if fits else 4
+
+
+def wide_fw_smem_bytes(width: int, warps: Optional[int] = None) -> int:
+    """Shared memory of a block of ``warps`` warps (``wide_fw_warps`` by
+    default) of the wide forward: each warp's two [WIDE_CHUNK, width + 4]
+    f32 tiles, then the ring."""
+    warps = warps or wide_fw_warps(width)
     return 4 * warps * 2 * WIDE_CHUNK * (width + 4) + wide_ring_bytes(width)
 
 
@@ -302,12 +322,17 @@ def wide_products(layers, n_t: int, n_o: int, backward: bool):
     return out
 
 
+def wide_slices(products) -> int:
+    """Ring slices of a chunk's products (``wide_slice_steps`` k-steps
+    each)."""
+    return sum(-(-ks // wide_slice_steps(nt)) for _, _, ks, nt in products)
+
+
 def wide_pack_bytes(products) -> int:
     """Bytes of the wide kernels' workspace: an int2 a ring slice (two
-    k-steps of a product), then each product's 32 lanes' uint4 a k-step
-    and N-tile."""
-    slices = sum(-(-ks // WIDE_SLICE_STEPS) for _, _, ks, _ in products)
-    return 16 * (-(-slices // 2)
+    k-steps of a product, one past WIDE_SLOT_TILES N-tiles), then each
+    product's 32 lanes' uint4 a k-step and N-tile."""
+    return 16 * (-(-wide_slices(products) // 2)
                  + sum(ks * nt * 32 for _, _, ks, nt in products))
 
 
@@ -331,8 +356,7 @@ def pack_wide_torch(mlp_params: torch.Tensor, layers, products):
     core matrix of ``wgmma``'s K-major layout, row r = ``B[8 ks + 4 h +
     (0..3), 8 j + r]`` (16 bytes), core 2 j + h."""
     w_all = mlp_params.detach().to(torch.float32).reshape(-1)
-    slices = sum(-(-ks // WIDE_SLICE_STEPS) for _, _, ks, _ in products)
-    head = -(-slices // 2)
+    head = -(-wide_slices(products) // 2)
     out = torch.zeros((wide_pack_bytes(products) // 16, 4),
                       dtype=torch.int32, device=w_all.device)
     sched, at = [], head
@@ -350,9 +374,9 @@ def pack_wide_torch(mlp_params: torch.Tensor, layers, products):
         region = torch.stack([hi, lo], 1).view(torch.int32)
         n = ks * nt * 32
         out[at:at + n] = region.reshape(n, 4)
-        for k0 in range(0, ks, WIDE_SLICE_STEPS):
-            sched.append((at + k0 * nt * 32,
-                          min(WIDE_SLICE_STEPS, ks - k0) * nt * 32))
+        steps = wide_slice_steps(nt)
+        for k0 in range(0, ks, steps):
+            sched.append((at + k0 * nt * 32, min(steps, ks - k0) * nt * 32))
         at += n
     if sched:
         flat = out[:head].reshape(-1)
@@ -392,8 +416,8 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
                     warps_per_block=None):
     """Launch the forward-march kernel on the current CUDA stream.
     ``defines`` pick a variant build of the kernel (``_build.library``);
-    ``warps_per_block`` (of ``WARPS_PER_BLOCK``; 1..``WIDE_FW_WARPS`` at
-    the wide widths) overrides ``pick_warps_per_block``."""
+    ``warps_per_block`` (of ``WARPS_PER_BLOCK``; 1..``WIDE_FW_WARPS`` that
+    fit at the wide widths) overrides ``pick_warps_per_block``."""
     global LAUNCHES, SCAFFOLD_LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
@@ -404,17 +428,19 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
     lib = library(defines)
     workspace = None
     if a.width > 64:
-        # the wide build: WIDE_FW_WARPS warps (or warps_per_block, 1-8) in
+        # the wide build: wide_fw_warps warps (or warps_per_block) in
         # lockstep over the layers staged in shared memory, packed into a
         # workspace by the launch's pre-pass; by wgmma where R2's plan at
         # these layers is whole warpgroups (and the warps are), so that R2's
         # recomputed forward gives R1's activations to the bit
-        warps = warps_per_block or WIDE_FW_WARPS
-        if not 1 <= warps <= WIDE_FW_WARPS:
+        warps = warps_per_block or wide_fw_warps(a.width)
+        if not (1 <= warps <= WIDE_FW_WARPS and wide_fw_smem_bytes(
+                a.width, warps) <= MAX_SMEM_BYTES):
             raise ValueError(f"warps_per_block must be 1..{WIDE_FW_WARPS} "
-                             f"at width {a.width}, got {warps}")
+                             f"and fit in shared memory at width {a.width}, "
+                             f"got {warps}")
         conf = wide_config(lib, a)
-        if conf != (WIDE_FW_WARPS, wide_fw_smem_bytes(a.width),
+        if conf != (wide_fw_warps(a.width), wide_fw_smem_bytes(a.width),
                     wide_pack_bytes(a.products(False))):
             raise RuntimeError(f"the wide forward's plan {conf} is not the "
                                f"wrapper's")

@@ -6,7 +6,7 @@ versions and the dispatch between them.
 without the MLP one gather; with it, slice by slice of the rays
 (``adjoint_slices``), the gather staging every step's ``g_vec``, pass A (a
 warp per ray: the recomputed MLP and its backward, the MLP input gradient
-``g_in`` of every step staged; at widths 96 and 128 a block's warps in
+``g_in`` of every step staged; at widths 96 to 256 a block's warps in
 lockstep over the layers staged once a block, ``wide_a_plan``) and pass B
 (S1's planned splat of the
 staged ``g_in`` over the input grid-list,
@@ -71,7 +71,7 @@ MLP_LAUNCHES = 0
 # The most output channels the gather without the MLP takes: 16 registers
 # a lane (csrc/splatter_bw.cu, kEncRegs).
 MAX_ENC_CHN = 512
-# The wide pass A (csrc/splatter_bw.cu, widths 96 and 128): the most warps
+# The wide pass A (csrc/splatter_bw.cu, widths 96-256): the most warps
 # a block, and a flag each in shared memory
 WIDE_A_MAX_WARPS = 8
 WIDE_A_FLAG_BYTES = 4 * WIDE_A_MAX_WARPS
@@ -80,7 +80,7 @@ WIDE_A_FLAG_BYTES = 4 * WIDE_A_MAX_WARPS
 def mask_shape(cfg: _SplatCfg, R: int):
     """Shape of the relu masks of ``R`` rays through the splatter MLP:
     ``[R, steps, layers - 1, words]`` with one bit per unit of the kernel's
-    padded width (32, 64, 96 or 128)."""
+    padded width (``WIDTHS``)."""
     width = next(w for w in WIDTHS if max(cfg.n_hidden) <= w)
     return (R, cfg.tot_num_samples, len(cfg.n_hidden) - 2, width // 32)
 
@@ -162,8 +162,8 @@ def wide_a_stride(d: int) -> int:
 
 
 def wide_a_plan(width: int, n_hidden):
-    """The wide pass A's ``(warps, shared-memory bytes)`` at ``width`` (96
-    or 128) for the MLP ``n_hidden``: per warp a [WIDE_CHUNK, stride] f32
+    """The wide pass A's ``(warps, shared-memory bytes)`` at ``width``
+    (96-256) for the MLP ``n_hidden``: per warp a [WIDE_CHUNK, stride] f32
     tile for each layer's input and one for g_vec (``wide_a_stride``), then
     the ring and a flag per warp; the most warps, up to
     ``WIDE_A_MAX_WARPS``, that fit in a block's shared memory, in whole
@@ -341,7 +341,7 @@ def splat_bwd_cuda_relu_masks(cfg: _SplatCfg, geom, diff, g_feat_grid):
     """The kernel's recording build (``RELU_MASKS_BUILD``), with an MLP:
     returns its gradients, as ``splat_bwd_cuda``'s, and the relu masks its
     recomputed forward took (``mask_shape``; zero in the chunks of 32
-    steps, 16 at widths 96 and 128, where a ray's g_vec is 0 at every
+    steps, 16 at widths above 64, where a ray's g_vec is 0 at every
     step)."""
     if not cfg.n_hidden:
         raise ValueError("the relu masks need the splatter MLP")

@@ -145,8 +145,9 @@ def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET,
     sub-grids' are pass S's): from 2 cells along each axis that is
     not a singleton, the axis with the fewest cells (the later on a tie)
     doubles while the block's shared memory stays within ``budget`` and the
-    brick within the grid.  Raises where even the smallest brick exceeds a
-    block's shared memory."""
+    brick within the grid.  A smallest brick past ``budget`` stays, and
+    fewer blocks share an SM (pass S at 256 channels: 102,720 bytes, two);
+    raises where it exceeds a block's shared memory."""
     # the per-step splat (the adjoint's pass B, the wide MLP build's pass
     # S) stages two steps' values of a batch of runs
     steps = grid_sizes is not None or _mlp_width(cfg) > 64
@@ -389,7 +390,7 @@ class SplatLaunchArgs:
     C_in: int        # MLP input channels (the encoding's), 0 without an MLP
     n_layers: int    # 0 without an MLP
     n_params: int
-    width: int       # 32, 64, 96 or 128 with an MLP, 0 without
+    width: int       # one of WIDTHS with an MLP, 0 without
     out_meta: ctypes.Array
     in_meta: object  # ctypes.Array, or None without an MLP
     mlp_widths: object

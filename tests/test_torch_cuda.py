@@ -81,6 +81,18 @@ CASES = {
         dict(grid_shapes=[(1, 12, 12, 12, 80)], hidden=80, layers=(0, 1, 1)),
         {},
     ),
+    # past 128: one-layer heads at hidden 160 (W = 192; R2 a warpgroup, the
+    # products by wgmma m64n192k8 and m64n128k8), and a 256-channel grid
+    # under a 256-wide decoder (R2 2 warps, mma.sync)
+    "wide_hidden160_layers_1_1_1": (
+        dict(grid_shapes=[(1, 1, 12, 12, 24), (1, 12, 12, 1, 24)], hidden=160,
+             layers=(1, 1, 1)),
+        {},
+    ),
+    "wide_grid256_hidden256_mask": (
+        dict(grid_shapes=[(1, 10, 10, 10, 256)], hidden=256),
+        dict(mask_out_of_bounds_samples=True),
+    ),
     "mixed_batch2_mask_noise": (
         dict(grid_shapes=[(2, 8, 8, 8, 8), (2, 1, 8, 8, 8)], batch=2),
         dict(mask_out_of_bounds_samples=True, inject_noise_sigma=1.0,
@@ -310,13 +322,13 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
     assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
     assert torch.isfinite(dp.mlp_params.grad).all()
     with torch.no_grad():
-        # past the widest build (128)
+        # past the widest build (256)
         wide = lp.init_decoder_params(None, 2, 2, 2, input_chn=8,
-                                      hidden_chn=136, device=cuda)
-        enc = torch.zeros((64, 136), device=cuda)
+                                      hidden_chn=264, device=cuda)
+        enc = torch.zeros((64, 264), device=cuda)
         rays_w = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
                          rays.near, rays.far, enc)
-        with pytest.raises(ValueError, match="widths up to 128"):
+        with pytest.raises(ValueError, match="widths up to 256"):
             lp.lightplane_renderer(rays_w, grid, wide, impl="cuda", **kw)
         short = lp.DecoderParams(dp.mlp_params.detach()[:-1],
                                  dp.n_hidden_trunk, dp.n_hidden_opacity,
@@ -472,7 +484,7 @@ def _wide_parity(rays, grid, dp, **kw):
 
     flat = lp.process_and_flatten_grid(grid, kw.pop("color_grid", None))
     cfg, geom, diff = rmod._march_inputs(rays, *flat, dp, **kw)
-    assert renderer_fw._kernel_width(cfg, diff[0].shape[1]) in (96, 128)
+    assert renderer_fw._kernel_width(cfg, diff[0].shape[1]) > 64
     n = len(rays)
     gen = torch.Generator().manual_seed(1)
     g_out = tuple(torch.randn(s, generator=gen).to(rays.origins.device)
@@ -569,11 +581,17 @@ def test_wide_ray_count_not_a_multiple_of_the_block(cuda, n_rays):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layers, hidden", [((3, 4, 4), 128),
                                             ((0, 1, 1), 128),
-                                            ((6, 5, 5), 96)])
+                                            ((6, 5, 5), 96),
+                                            ((3, 3, 3), 256),
+                                            ((3, 4, 4), 256),
+                                            ((5, 5, 5), 192),
+                                            ((0, 1, 2), 256)])
 def test_wide_deep_and_shallow_mlps(cuda, layers, hidden):
-    """11 layers at W = 128 and 16 at W = 96 (blocks of fewer than 4
-    warps: the products by mma.sync), and the shallowest decoder (a
-    one-layer colour head, no trunk)."""
+    """11 layers at W = 128 and 256, 15 at 192 and 16 at 96 (blocks of
+    fewer than 4 warps: the products by mma.sync), the 3/3/3 decoder at 256
+    (one warp a block), the shallowest decoder (a one-layer colour head, no
+    trunk) and at 256 one whose R2 takes a warpgroup (its products by
+    wgmma m64n256k8, and so R1's)."""
     # with no trunk the heads read the grid's channels
     chn = hidden if layers[0] == 0 else 32
     rays, grid, dp = _case(cuda, _tri(1, 10, chn), n_rays=96, hidden=hidden,
@@ -582,16 +600,19 @@ def test_wide_deep_and_shallow_mlps(cuda, layers, hidden):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
 @pytest.mark.parametrize("backward", [False, True])
-def test_wide_pack_kernel_matches_its_plain_version(cuda, backward):
+def test_wide_pack_kernel_matches_its_plain_version(cuda, backward, width):
     """The wide kernels' pre-pass equals ``pack_wide_torch`` bit for bit,
-    and the wrapper's plan the C side's."""
+    and the wrapper's plan the C side's (at 256 products of 1 to 32
+    N-tiles, one k-step a slice past 16)."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import _build
 
     n_t, n_o, n_c = 1, 2, 2
-    head = (32, 128) + (128, 72, 1) + (128, 72, 3)
+    head = ((32, 128) + (128, 72, 1) + (128, 72, 3) if width == 128
+            else (8, 256) + (256, 200, 1) + (256, 160, 3))
     layers = renderer_fw.wide_layers(n_t, n_o, n_c, head)
     n_params = sum(i * o + o for i, o, _, _ in layers)
     mlp = torch.randn(n_params, generator=torch.Generator().manual_seed(2))
@@ -608,9 +629,9 @@ def test_wide_pack_kernel_matches_its_plain_version(cuda, backward):
     assert rc == 0
     assert torch.equal(ws.cpu().reshape(-1, 4), want)
     conf = (ctypes.c_int * 5)()
-    assert lib.lightplane_render_bw_wide_config(128, n_t, n_o, n_c, widths,
+    assert lib.lightplane_render_bw_wide_config(width, n_t, n_o, n_c, widths,
                                                 0, conf) == 0
-    plan = renderer_bw.wide_bw_plan(128, n_t, n_o, n_c, head, False)
+    plan = renderer_bw.wide_bw_plan(width, n_t, n_o, n_c, head, False)
     assert (conf[0], conf[3], conf[4], conf[2]) == (
         plan.warps, plan.smem_bytes, plan.workspace_bytes, plan.row_floats)
 
@@ -636,6 +657,13 @@ SPLAT_CASES = {
     "mlp_wide_128ch": dict(out_sizes=[(1, 10, 12, 14, 128)],
                            mlp=(128, 32, 128), in_sizes=_tri(1, 12, 128),
                            kw={}),
+    # past 128: a 160-wide MLP (W = 192), and 32 -> 256 -> 256 into a
+    # 256-channel triplane (W = 256)
+    "mlp_wide_160": dict(out_sizes=_tri(1, 12, 24), mlp=(8, 160, 24),
+                         in_sizes=_tri(1, 12, 8),
+                         kw=dict(mask_out_of_bounds_samples=True)),
+    "mlp_wide_256ch": dict(out_sizes=_tri(1, 12, 256), mlp=(32, 256, 256),
+                           in_sizes=_tri(1, 12, 32), kw={}),
 }
 
 
@@ -719,7 +747,8 @@ def test_splat_kernels_match_plain(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out",
-                                  "mlp_wide_72", "mlp_wide_128ch"])
+                                  "mlp_wide_72", "mlp_wide_128ch",
+                                  "mlp_wide_160", "mlp_wide_256ch"])
 def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
     """S2 with the MLP against its plain version under the relu masks its
     recording build took, on every ray, and the shipped build against the
@@ -757,9 +786,9 @@ def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
 @pytest.mark.cuda
 def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
     monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
-    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 136, 16),
+    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 264, 16),
                                   in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
-    with pytest.raises(ValueError, match="widths up to 128"):
+    with pytest.raises(ValueError, match="widths up to 256"):
         lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
                                    num_samples=8, impl="cuda")
     rays, _, _ = _splat_case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
@@ -945,7 +974,8 @@ def test_splat_adjoint_gather_matches_plain(cuda, chn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out",
-                                  "mlp_wide_72", "mlp_wide_128ch"])
+                                  "mlp_wide_72", "mlp_wide_128ch",
+                                  "mlp_wide_256ch"])
 def test_splat_adjoint_in_ray_slices(cuda, case, monkeypatch):
     """S2 with the MLP with its staging and run lists capped at ~100 rays,
     so that it runs pass A and pass B over slices of the rays, against its
@@ -1006,7 +1036,8 @@ def test_splat_adjoint_does_not_spill(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mlp_wide_72", "mlp_wide_128ch"])
+@pytest.mark.parametrize("case", ["mlp_wide_72", "mlp_wide_128ch",
+                                  "mlp_wide_160", "mlp_wide_256ch"])
 def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
     """S1's wide MLP build with its staging capped at ~100 rays, so that
     pass F and pass S run over slices of the rays, against
@@ -1033,7 +1064,8 @@ def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_hidden", [(32, 128, 128), (8, 72, 100),
-                                      (128, 32, 128)])
+                                      (128, 32, 128), (32, 256, 256),
+                                      (8, 160, 24), (32, 160, 256)])
 def test_wide_splat_pack_and_plans(cuda, n_hidden):
     """The layers' pre-pass with the splatter's schedules (S1's pass F, S2's
     pass A) equals ``pack_wide_torch`` bit for bit, and the C side plans
@@ -1042,7 +1074,7 @@ def test_wide_splat_pack_and_plans(cuda, n_hidden):
 
     from lightplane_tpu_torch.ops.kernels import _build
 
-    width = 128 if max(n_hidden) > 96 else 96
+    width = next(w for w in renderer_fw.WIDTHS if max(n_hidden) <= w)
     L = len(n_hidden) - 1
     layers = renderer_fw.wide_layers(L, 0, 0, n_hidden)
     n_params = sum(i * o + o for i, o, _, _ in layers)

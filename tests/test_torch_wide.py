@@ -1,11 +1,12 @@
 """The port at the widths that its kernels' wide builds take (padded widths
-96 and 128: ``csrc/renderer_wide.cu``, ``csrc/wide_mlp.cuh`` and the wide
-builds of S1 and S2), against the JAX package on the CPU: decoder widths 72,
-96 and 128 and grid channels 96 and 128 through the renderer's forward and
-gradients (with one relu-field and one scaffold case), the MLP splatter at
-widths 72 and 128 and into 100 and 128 output channels, the Flax modules at
-those widths carried over by ``convert``, and the plain path at 9 layers and
-9 sub-grids (the kernels' caps are 16 of each).
+96, 128, 192 and 256: ``csrc/renderer_wide.cu``, ``csrc/wide_mlp.cuh`` and
+the wide builds of S1 and S2), against the JAX package on the CPU: decoder
+widths 72, 96, 128, 160 and 256 and grid channels 96, 128 and 160 through
+the renderer's forward and gradients (with relu-field and scaffold cases at
+128 and 256), the MLP splatter at widths 72, 128 and 256 and into 100, 128
+and 256 output channels, the Flax modules at width 128 carried over by
+``convert``, and the plain path at 9 layers and 9 sub-grids (the kernels'
+caps are 16 of each).
 
 Inputs are made from numpy seeds; the JAX side runs ``impl="scan"``, as its
 own CPU tests run it.  On the CPU the port takes its plain versions; the
@@ -97,6 +98,11 @@ RENDER_WIDE = {
     "grid128_hidden128": (dict(chn=128, hidden=128), 128),
     "grid8_hidden128_relu_field": (dict(chn=8, hidden=128, relu_field=True),
                                    128),
+    "grid8_hidden160": (dict(chn=8, hidden=160), 192),
+    "grid160_hidden32": (dict(chn=160, hidden=32), 192),
+    "grid8_hidden256": (dict(chn=8, hidden=256), 256),
+    "grid8_hidden256_relu_field_scaffold": (
+        dict(chn=8, hidden=256, relu_field=True, scaffold=True), 256),
 }
 
 
@@ -132,7 +138,9 @@ def test_renderer_wide_matches_jax_scan(case):
 
 
 @pytest.mark.parametrize("widest, width", [(16, 32), (64, 64), (65, 96),
-                                           (96, 96), (100, 128), (128, 128)])
+                                           (96, 96), (100, 128), (128, 128),
+                                           (129, 192), (192, 192), (200, 256),
+                                           (256, 256)])
 def test_kernel_width_pads_up_to_the_next_build(widest, width):
     cfg = types.SimpleNamespace(n_hidden_trunk=(8, widest, 8),
                                 n_hidden_opacity=(8, 8, 1),
@@ -140,18 +148,26 @@ def test_kernel_width_pads_up_to_the_next_build(widest, width):
     assert renderer_fw._kernel_width(cfg, 8) == width
 
 
-def test_kernel_width_refuses_above_128():
-    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 136, 8),
+def test_kernel_width_refuses_above_256():
+    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 264, 8),
                                 n_hidden_opacity=(8, 8, 1),
                                 n_hidden_color=(8, 8, 3))
-    with pytest.raises(ValueError, match="widths up to 128"):
+    with pytest.raises(ValueError, match="widths up to 256"):
         renderer_fw._kernel_width(cfg, 8)
+    # and a grid wider than 256 channels
+    cfg = types.SimpleNamespace(n_hidden_trunk=(264, 8, 8),
+                                n_hidden_opacity=(8, 8, 1),
+                                n_hidden_color=(8, 8, 3))
+    with pytest.raises(ValueError, match="widths up to 256"):
+        renderer_fw._kernel_width(cfg, 264)
 
 
 # the splatter MLP's n_hidden (input 8 channels)
 SPLAT_WIDE = {
     "hidden128_out128": (8, 128, 128),
     "hidden72_out100": (8, 72, 100),
+    # 32 -> 256 -> 256 into a 256-channel triplane (W = 256)
+    "in32_hidden256_out256": (32, 256, 256),
 }
 
 
@@ -290,43 +306,63 @@ def _head(n_t, n_o, n_c, hidden, chn=32, colours=3):
     return trunk + opacity + color
 
 
+def _ring_by_hand(width):
+    """Three ring slots of two k-steps of W / 8 N-tiles (16 at most: past
+    W = 128 a slot keeps its size at 128) of 32 lanes' 16 bytes."""
+    return 3 * 2 * min(width // 8, 16) * 32 * 16
+
+
+def _fw_smem_by_hand(width, warps):
+    """R1's wide block: per warp two [16][W + 4] f32 tiles, then the ring."""
+    return warps * 2 * 16 * (width + 4) * 4 + _ring_by_hand(width)
+
+
 def _bw_smem_by_hand(width, n_t, n_o, n_c, color_grid, warps, colours=3):
     """R2's wide block, counted from its parts: per warp a [16][W + 4] f32
     tile for each of the n_total - 1 layer inputs, one more for a colour
     grid's sample and one more for a one-layer colour head's input, the
     heads' gradient tile [16][8 + 4] (colours and opacity up to 8) and the
-    ray's encoding; then three ring slots of two k-steps of W / 8 N-tiles
-    of 32 lanes' 16 bytes, and 4 bytes of flag for each of 8 warps."""
+    ray's encoding; then the ring, and 4 bytes of flag for each of 8
+    warps."""
     n_total = n_t + n_o + n_c
     tiles = n_total - 1 + int(color_grid) + int(n_c == 1)
     gt_cols = -(-max(colours, 1) // 8) * 8
     per_warp = 4 * (tiles * 16 * (width + 4) + 16 * (gt_cols + 4) + width)
-    return warps * per_warp + 3 * 2 * (width // 8) * 32 * 16 + 4 * 8
+    return warps * per_warp + _ring_by_hand(width) + 4 * 8
 
 
-@pytest.mark.parametrize("width", [96, 128])
+@pytest.mark.parametrize("width", [96, 128, 192, 256])
 @pytest.mark.parametrize("layers, color_grid", [
     ((2, 2, 2), False), ((0, 2, 2), True), ((1, 1, 1), False),
     ((0, 1, 1), False), ((3, 4, 4), False), ((8, 4, 4), False)])
 def test_wide_plan_warps_and_shared_memory(width, layers, color_grid):
     """R2's warps a block (the most, up to 8, that fit in 227 KB, whole
     warpgroups past 4) and its shared memory, and R1's (8 warps of two
-    [16][W + 4] tiles and the ring), as the wrapper plans them, against
-    the same arithmetic done by hand."""
+    [16][W + 4] tiles and the ring where they fit, else 4), as the wrapper
+    plans them, against the same arithmetic done by hand."""
     from lightplane_tpu_torch.ops.kernels import renderer_bw
 
     n_t, n_o, n_c = layers
-    plan = renderer_bw.wide_bw_plan(width, n_t, n_o, n_c,
-                                    _head(*layers, width), color_grid)
     fits = [w for w in range(1, 9)
             if _bw_smem_by_hand(width, *layers, color_grid, w) <= 232448]
+    if not fits:
+        # 16 layers at W = 192 and 256: not even one warp
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            renderer_bw.wide_bw_plan(width, n_t, n_o, n_c,
+                                     _head(*layers, width), color_grid)
+        assert width > 128
+        return
+    plan = renderer_bw.wide_bw_plan(width, n_t, n_o, n_c,
+                                    _head(*layers, width), color_grid)
     # whole warpgroups of 4 where more than 4 fit
     assert plan.warps == (max(fits) if max(fits) <= 4
                           else max(fits) // 4 * 4)
     assert plan.smem_bytes == _bw_smem_by_hand(width, *layers, color_grid,
                                                plan.warps)
-    assert renderer_fw.wide_fw_smem_bytes(width) == (
-        8 * 2 * 16 * (width + 4) * 4 + 3 * 2 * (width // 8) * 32 * 16)
+    fw_warps = 8 if _fw_smem_by_hand(width, 8) <= 232448 else 4
+    assert renderer_fw.wide_fw_warps(width) == fw_warps
+    assert renderer_fw.wide_fw_smem_bytes(width) == _fw_smem_by_hand(
+        width, fw_warps)
     assert renderer_fw.wide_fw_smem_bytes(width) <= 232448
 
 
@@ -345,12 +381,48 @@ def test_wide_plan_at_the_render_headline():
             renderer_fw.wide_fw_smem_bytes(96)) == (184320, 139264)
 
 
+def test_wide_plan_at_192_and_256():
+    """The numbers of renderer_wide.cu's note past 128: R2 at the 2/2/2
+    decoder takes 2 warps at W = 256 (219,168 bytes; one warp 84,992) and
+    at 192 (177,696); the 3/3/3 decoder at 256 one warp (184,096); R1 4
+    warps at both (182,272 and 149,504 bytes); the deepest MLP R2 takes at
+    one warp is 11 layers at 256 and 15 at 192 (3 colours), one more
+    raises."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    def plan(width, layers, cgrid=False):
+        return renderer_bw.wide_bw_plan(width, *layers,
+                                        _head(*layers, width), cgrid)
+
+    p256, p192 = plan(256, (2, 2, 2)), plan(192, (2, 2, 2))
+    assert (p256.warps, p256.smem_bytes) == (2, 219168)
+    assert (p192.warps, p192.smem_bytes) == (2, 177696)
+    p333 = plan(256, (3, 3, 3))
+    assert (p333.warps, p333.smem_bytes) == (1, 184096)
+    assert renderer_fw.wide_fw_warps(256) == renderer_fw.wide_fw_warps(
+        192) == 4
+    assert (renderer_fw.wide_fw_smem_bytes(256),
+            renderer_fw.wide_fw_smem_bytes(192)) == (182272, 149504)
+    assert renderer_fw.wide_ring_bytes(256) == renderer_fw.wide_ring_bytes(
+        192) == renderer_fw.wide_ring_bytes(128) == 49152
+    assert plan(256, (3, 4, 4)).warps == 1
+    assert plan(192, (5, 5, 5)).warps == 1
+    for width, layers in ((256, (4, 4, 4)), (192, (6, 5, 5))):
+        with pytest.raises(ValueError,
+                           match=r"needs \d+ bytes of shared memory"):
+            plan(width, layers)
+
+
 @pytest.mark.parametrize("width, layers, color_grid", [
     # 11 layers in all at 128 (10 with a colour grid), 16 (15) at 96, and
     # deeper ones
     (128, (3, 4, 4), False), (128, (0, 5, 5), True), (128, (9, 1, 1), False),
     (96, (6, 5, 5), False), (96, (0, 8, 7), True), (96, (14, 1, 1), False),
-    (128, (7, 7, 7), False), (96, (10, 10, 9), False)])
+    (128, (7, 7, 7), False), (96, (10, 10, 9), False),
+    # 11 layers in all at 256 (10 with a colour grid), 15 at 192
+    (256, (3, 4, 4), False), (256, (0, 5, 5), True), (256, (3, 3, 3), False),
+    (192, (5, 5, 5), False), (192, (0, 7, 7), True), (192, (12, 1, 1), False),
+])
 def test_wide_plan_takes_deep_configs(width, layers, color_grid):
     from lightplane_tpu_torch.ops.kernels import renderer_bw
 
@@ -361,16 +433,16 @@ def test_wide_plan_takes_deep_configs(width, layers, color_grid):
 
 def test_wide_plan_refuses_what_does_not_fit():
     """48 layers at W = 128 need more than a block's shared memory for one
-    warp: ValueError with the bytes; and widths above 128 stay refused."""
+    warp: ValueError with the bytes; and widths above 256 stay refused."""
     from lightplane_tpu_torch.ops.kernels import renderer_bw
 
     with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
         renderer_bw.wide_bw_plan(128, 16, 16, 16, _head(16, 16, 16, 128),
                                  False)
-    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 136, 8),
+    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 264, 8),
                                 n_hidden_opacity=(8, 8, 1),
                                 n_hidden_color=(8, 8, 3))
-    with pytest.raises(ValueError, match="widths up to 128"):
+    with pytest.raises(ValueError, match="widths up to 256"):
         renderer_fw._kernel_width(cfg, 8)
 
 
@@ -380,7 +452,8 @@ def test_wide_partial_buffer_has_a_row_per_block(num_sms):
     a SM), whatever the warps a block, each row every layer's sums."""
     from lightplane_tpu_torch.ops.kernels import renderer_bw
 
-    for width, layers in ((128, (2, 2, 2)), (96, (1, 1, 1))):
+    for width, layers in ((128, (2, 2, 2)), (96, (1, 1, 1)),
+                          (256, (2, 2, 2)), (192, (2, 2, 2))):
         plan = renderer_bw.wide_bw_plan(width, *layers,
                                         _head(*layers, width), False)
         assert plan.warps > 1
@@ -424,16 +497,40 @@ def test_wide_pack_round_trips(backward):
         1.0 + 2.0**-10)
 
 
+@pytest.mark.parametrize("backward", [False, True])
+def test_wide_pack_round_trips_at_256(backward):
+    """The pre-pass's plain version at W = 256: products of 1 to 32 N-tiles,
+    those wider than 16 one k-step a ring slice, the rest two."""
+    n_t, n_o, n_c = 1, 2, 2
+    head = (8, 256, 256, 200, 1, 256, 160, 3)
+    layers = renderer_fw.wide_layers(n_t, n_o, n_c, head)
+    products = renderer_fw.wide_products(layers, n_t, n_o, backward)
+    fwd = [(0, False, 1, 32), (1, False, 32, 25), (3, False, 32, 20)]
+    if backward:
+        assert products == fwd + [(4, True, 1, 20), (3, True, 20, 32),
+                                  (2, True, 1, 25), (1, True, 25, 32),
+                                  (0, True, 32, 1)]
+    else:
+        assert products == fwd
+    # one slice a k-step past 16 N-tiles, two k-steps a slice up to it
+    assert renderer_fw.wide_slices(products) == sum(
+        ks if nt > 16 else -(-ks // 2) for _, _, ks, nt in products)
+    n_params = sum(i * o + o for i, o, _, _ in layers)
+    w_np = (np.random.default_rng(4).standard_normal(n_params) * 0.3
+            ).astype(np.float32)
+    _check_pack(w_np, layers, products)
+
+
 def _check_pack(w_np, layers, products):
     """``pack_wide_torch``'s workspace for ``products`` read back by hand:
     every weight of every product in its place among wgmma's K-major core
     matrices, hi the TF32 rounding of w, lo = w - hi, hi + lo == w; zero
-    past a layer's widths; the schedule a slice of two k-steps each, in the
-    products' order."""
+    past a layer's widths; the schedule a slice of two k-steps each (one
+    past 16 N-tiles), in the products' order."""
     pack = renderer_fw.pack_wide_torch(torch.from_numpy(w_np), layers,
                                        products)
     assert pack.shape[0] * 16 == renderer_fw.wide_pack_bytes(products)
-    slices = sum(-(-ks // 2) for _, _, ks, _ in products)
+    slices = sum(-(-ks // (1 if nt > 16 else 2)) for _, _, ks, nt in products)
     head_rows = -(-slices // 2)
     sched = pack[:head_rows].reshape(-1)[:2 * slices].reshape(-1, 2).numpy()
     at = head_rows
@@ -458,9 +555,10 @@ def _check_pack(w_np, layers, products):
                     assert np.array_equal(hi, _tf32_by_frexp(wv))
                     assert np.array_equal(lo, wv - hi)
                     assert np.array_equal(hi + lo, wv)
-        for k0 in range(0, ks, 2):
+        steps = 1 if nt > 16 else 2
+        for k0 in range(0, ks, steps):
             assert tuple(sched[k]) == (at + k0 * nt * 32,
-                                       min(2, ks - k0) * nt * 32)
+                                       min(steps, ks - k0) * nt * 32)
             k += 1
         at += ks * nt * 32
     assert k == slices and at == pack.shape[0]
@@ -505,16 +603,18 @@ def _by_hand_stride(d):
 @pytest.mark.parametrize("width, n_hidden", [
     (128, (32, 128, 128)), (96, (32, 96, 96)), (96, (32, 72, 72)),
     (128, (32, 128, 100)), (128, (128, 32, 128)), (128, (8,) + (128,) * 9),
-    (96, (32,) + (96,) * 16)])
+    (96, (32,) + (96,) * 16), (256, (32, 256, 256)), (192, (32, 192, 192)),
+    (256, (32, 160, 256)), (256, (256, 256, 256)), (192, (32,) + (160,) * 9),
+    (256, (8,) + (256,) * 4)])
 def test_wide_pass_a_plan(width, n_hidden):
     """S2's wide pass A: per warp a [16][stride] f32 tile for each layer's
     input and one for g_vec, then the ring (three slots of two k-steps of
-    W / 8 N-tiles of 32 lanes' 16 bytes) and a 4-byte flag for each of 8
-    warps; the most warps, up to 8, that fit in 227 KB, in whole
+    W / 8 N-tiles, at most 16, of 32 lanes' 16 bytes) and a 4-byte flag for
+    each of 8 warps; the most warps, up to 8, that fit in 227 KB, in whole
     warpgroups past 4.  S1's pass F: 8 warps of one [16][W + 4] tile and
     the ring."""
     per_warp = 4 * 16 * sum(_by_hand_stride(d) for d in n_hidden)
-    ring = 3 * 2 * (width // 8) * 32 * 16
+    ring = _ring_by_hand(width)
 
     def smem(w):
         return w * per_warp + ring + 4 * 8
@@ -536,10 +636,38 @@ def test_wide_pass_a_plan_at_the_mlp_splat():
     assert splatter_fw.pass_f_smem_bytes(128) == 116736
 
 
+def test_wide_pass_a_plan_at_256_and_192():
+    """The numbers of splatter_bw.cu's note past 128: at 32 -> 256 -> 256
+    tiles 36, 260 and 260 floats wide, 35,584 bytes a warp, 4 warps (five
+    fit, not eight) and the ring in 191,520 bytes; at 32 -> 192 -> 192
+    27,392 bytes a warp, 4 warps in 158,752; pass F 182,272 and 149,504
+    bytes a block."""
+    assert [_by_hand_stride(d) for d in (32, 256, 256)] == [36, 260, 260]
+    assert splatter_bw.wide_a_plan(256, (32, 256, 256)) == (4, 191520)
+    assert splatter_bw.wide_a_plan(192, (32, 192, 192)) == (4, 158752)
+    assert splatter_fw.pass_f_smem_bytes(256) == 182272
+    assert splatter_fw.pass_f_smem_bytes(192) == 149504
+
+
+def test_pass_s_bricks_at_256_channels():
+    """Pass S (the per-step splat) into 3 x 128^2 x 256ch: the smallest
+    brick (1 x 2 x 2 cells) exceeds the budget of three blocks an SM but
+    fits a block, so it stays, and fewer blocks share an SM; no error."""
+    cfg = smod._SplatCfg(96, 0, False, False, 1e-5,
+                         tuple(_tri_sizes(128, 256)),
+                         tuple(_tri_sizes(128, 32)), (32, 256, 256))
+    bricks = splatter_fw.pick_bricks(cfg)
+    assert bricks == ((1, 2, 2), (2, 1, 2), (2, 2, 1))
+    smem = splatter_fw.splat_smem_bytes(0, 0, 9, 256, 2 * 64)
+    assert splatter_fw.BLOCK_SMEM_BUDGET < smem <= 232448
+
+
 @pytest.mark.parametrize("steps, C, want, n", [
     # 49,152 bytes of staged outputs a ray at 128 channels and 96 steps:
     # 5,440 rays a slice, 49 slices at the splat headline's 262,144 rays
-    (96, 128, 5440, 49), (192, 128, 2720, 97), (96, 96, 7264, 37)])
+    (96, 128, 5440, 49), (192, 128, 2720, 97), (96, 96, 7264, 37),
+    # 98,304 bytes a ray at 256 channels: 2,720 rays a slice, 97 slices
+    (96, 256, 2720, 97)])
 def test_mlp_slices_cap_staging_and_run_lists(steps, C, want, n):
     """The wide MLP build's slices: each one's staged outputs and its run
     lists over the output sub-grids within PLAN_MAX_RUNS runs' bytes; the
