@@ -15,9 +15,13 @@ exits non-zero without its result line:
 1. Device: the card's name and power limit (``nvidia-smi``), its compute
    capability, which must be 9.0; TF32 is switched off.
 2. Build: ``nvcc`` compiles ``lightplane_tpu_torch/csrc/*.cu`` (cached under
-   ``build/kernels/`` by a hash of the sources), and at the same time the
-   relu-mask recording build of R2 and S2 (``-DLIGHTPLANE_RELU_MASKS=1``);
-   registers and spilled bytes per thread of every kernel.
+   ``build/kernels/`` by a hash of the sources), one process a source, all
+   in parallel; then, at nice 10, the relu-mask recording build of R2 and
+   S2 (``-DLIGHTPLANE_RELU_MASKS=1``), which compiles beside the phases
+   that need only the shipped build: phase 13's steps, then phases 4, 8
+   and 10; each source's compile time; once the recording build is done,
+   registers and spilled bytes per thread of every kernel, then phase 13's
+   checks and the other phases in order.
 3. The forward kernel (R1) vs its plain PyTorch version on the card, at
    4096 rays and 48 samples, over fifteen configurations it supports, five
    of them the big shapes that the TPU's W3 sampler served (a 3 x 128^2
@@ -166,9 +170,22 @@ exits non-zero without its result line:
    96- and a 160-channel grid, hidden 128 with the relu-field colour grid
    and a scaffold, and the 3/3/3 decoder at hidden 256 (one warp a block);
    S1 and S2 with the MLP at hidden 72 and 160 and into 100 channels.
+13. Feature fields at widths 384 and 512 (R1's and R2's builds past 256):
+   2 views of 128^2 rays with seeded 512-channel features splatted (96
+   samples) into a 3 x 128^2 x 512ch triplane (100.7 MB) and rendered back
+   (128 samples) through a 2/2/2 decoder 512 wide with 512 colours, an L2
+   loss against the features, 5 Adam steps over the lifted features, a
+   residual on the lifted triplane and the decoder (the loss must fall;
+   R1, R2, S1 and S2 launch once a step); the same at 384 channels for one
+   timed step.  Then (once the recording build is done) R1 and R2 alone
+   on each width's march, timed with
+   their plain versions and their bounds, and held on 4096 of its rays (R2
+   under its relu masks), R1's forward against R2's recomputed forward to
+   the bit (``renderer_bw.forward_probes``) and the layers' pre-pass bit for
+   bit.
 
-Phases 4, 5, 7, 8, 9, 10, 11 and 12 each set the kernels' launch counts to 0
-just before they drive their path and read them just after.  Every phase
+Phases 4, 5, 7, 8, 9, 10, 11, 12 and 13 each set the kernels' launch counts
+to 0 just before they drive their path and read them just after.  Every phase
 prints its time.  The last lines are the card's name and power limit, a
 JSON line with every kernel (its launches on its main path, the trainer of
 phase 9 for R1 and R2 and also phase 10's fit from files and phase 11's
@@ -178,7 +195,8 @@ its time, the plain version's time and the least time the card could take,
 for R1 and R2 the same for the scaffold and relu-field branches, and for
 R1, R2, S1 and S2 with the MLP the same for the wide builds, phase 12's
 ``wide_W_*`` keys at W = 256, 192, 128 and 96, R1's and R2's with their
-warps a SM) and
+warps a SM, and phase 13's ``wide_384_*`` and ``wide_512_*`` for R1 and
+R2, their launches on its feature path) and
 the result line ``{"ok": true, "device": {...}}``.  Needs no network and no
 JAX.
 
@@ -403,20 +421,52 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the shipped library, then starts R2's relu-mask recording
+    build at nice 10 in a thread; returns ``(the recording build's future,
+    its start time)`` for ``finish_build``."""
     print("== phase 2: build")
     from concurrent.futures import ThreadPoolExecutor
 
     from lightplane_tpu_torch.ops.kernels import _build
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
 
-    # the shipped build and R2's relu-mask recording build, all their nvcc
-    # runs started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        paths = list(pool.map(_build.build, [(), rbw.RELU_MASKS_BUILD]))
-    print(f"built {paths[0].name} and the recording build {paths[1].name} "
-          f"in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    path = _build.build()
+    print(f"built {path.name} in {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{' '.join(_build.NVCC_FLAGS)}); the recording build now compiles "
+          f"at nice {RECORDING_NICE} beside what needs only this one")
+    print_build_seconds(())
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    recording = pool.submit(_build.build, rbw.RELU_MASKS_BUILD, RECORDING_NICE)
+    pool.shutdown(wait=False)
+    return recording, t0
+
+
+# the recording build's priority: below the shipped build's and the phases'
+RECORDING_NICE = 10
+
+
+def print_build_seconds(defines):
+    """Each source's compile time in the last build with ``defines`` (none
+    where the library was cached)."""
+    from lightplane_tpu_torch.ops.kernels import _build
+
+    seconds = _build.SECONDS.get(tuple(defines))
+    if seconds:
+        print("  compile seconds by source: " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in seconds.items()))
+
+
+def finish_build(recording, t0):
+    """Waits for the recording build, then prints every kernel's registers
+    and spills and the wide plans (``print_kernel_attrs``)."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+
+    path = recording.result()
+    print(f"== phase 2 (cont.): the recording build {path.name}, done "
+          f"{time.perf_counter() - t0:.1f} s after it began")
+    print_build_seconds(rbw.RELU_MASKS_BUILD)
     return print_kernel_attrs()
 
 
@@ -529,14 +579,16 @@ def phase_slice(lp, smi):
         def frame_plain():
             module(r0, grid, image_size=image_size, impl="torch")
 
+        # the plain versions once each, within the script's time
         kernel_ms = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain_fn, warmup=1, reps=5)
+        plain_ms = cuda_ms(plain_fn, warmup=0, reps=1)
         frame_ms = cuda_ms(frame)
-        frame_plain_ms = cuda_ms(frame_plain, warmup=1, reps=5)
+        frame_plain_ms = cuda_ms(frame_plain, warmup=0, reps=1)
     print(f"  kernel call: median {kernel_ms:.3f} ms; plain version "
-          f"{plain_ms:.3f} ms  [{smi}]")
+          f"{plain_ms:.3f} ms (one run)  [{smi}]")
     print(f"  module frame: median {frame_ms:.3f} ms through the kernel, "
-          f"{frame_plain_ms:.3f} ms through the plain version  [{smi}]")
+          f"{frame_plain_ms:.3f} ms through the plain version (one run)  "
+          f"[{smi}]")
     print(f"  peak allocated while serving: {peak} bytes, {peak - base} "
           f"above the {base} held before it  [{smi}]")
     return dict(
@@ -552,7 +604,7 @@ def held_memory():
     """Print what the phases before serving leave allocated, and free
     cuBLAS's workspaces (allocated by PyTorch, held after a matrix product)
     so that serving's peak counts serving's own."""
-    print("== memory held after phases 1-3b")
+    print("== memory held before phase 4")
     gc.collect()
     torch.cuda.synchronize()
     print(f"  {torch.cuda.memory_allocated()} bytes allocated")
@@ -603,7 +655,9 @@ def kernel_work(rmod, cfg, geom, diff):
     weight-gradient FLOPs (one of its three decoder passes), which R2 runs
     on the tensor cores at width 32, and fourth, the forward's FLOPs in the
     dense layers that R1 runs on the tensor cores, all but the heads' last
-    ones (``tf32_bound``)."""
+    ones (``tf32_bound``), past W = 256 the colour head's last layer among
+    them."""
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
     from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
 
     directions, origins, near, far, grid_idx, scaffold = geom[:6]
@@ -612,6 +666,7 @@ def kernel_work(rmod, cfg, geom, diff):
     R = directions.shape[0]
     C = grid_flat.shape[1]
     color_chn = cfg.out_chn
+    head_on_tc = rfw._kernel_width(cfg, C) > 256
     macs = macs_tc = 0
     for m, widths in enumerate((cfg.n_hidden_trunk, cfg.n_hidden_opacity,
                                 cfg.n_hidden_color)):
@@ -619,19 +674,26 @@ def kernel_work(rmod, cfg, geom, diff):
             # the colour head's last layer computes the rendered channels
             last = m > 0 and i == len(widths) - 2
             macs += a * (color_chn if last and m == 2 else b)
-            macs_tc += 0 if last else a * b
+            if last and m == 2 and head_on_tc:
+                macs_tc += a * color_chn
+            elif not last:
+                macs_tc += a * b
     corners = samples = 0
     all_sizes = cfg.grid_sizes + (cfg.color_grid_sizes or ())
+    f64 = torch.float64
     with torch.no_grad():
-        for s in range(cfg.tot_num_samples):
-            t, _ = rmod._step_depth_delta(cfg, near, far, s)
+        # a chunk of steps at a time ([R, K] points), as the plain versions
+        for chunk in rmod._chunk_steps(range(cfg.tot_num_samples), R,
+                                       rmod._plain_width(cfg, diff),
+                                       near.is_cuda):
+            t, _ = rmod._chunk_depth_delta(cfg, near, far, chunk)
             pts = rmod._step_points(cfg, origins, directions, t)
             occupied = torch.ones_like(t)
             if scaffold is not None:
                 occupied = (sample_grid_rep(
                     scaffold, (cfg.scaffold_size + (1,),), pts, grid_idx,
-                    True, mode="nearest")[:, 0] != 0).float()
-            samples += float(occupied.sum())
+                    True, mode="nearest")[..., 0] != 0).float()
+            samples += float(occupied.sum(dtype=f64))
             keep = occupied
             if cfg.mask_out_of_bounds_samples:
                 keep = keep * (pts.abs() <= 1.0).all(-1).float()
@@ -640,10 +702,11 @@ def kernel_work(rmod, cfg, geom, diff):
                 for k, size in enumerate((W, H, D)):
                     if size == 1:
                         continue
-                    f0 = torch.floor(((pts[:, k] + 1.0) * 0.5) * size - 0.5)
+                    f0 = torch.floor(((pts[..., k] + 1.0) * 0.5) * size
+                                     - 0.5)
                     n = n * (((f0 >= 0) & (f0 < size)).float()
                              + ((f0 >= -1) & (f0 < size - 1)).float())
-                corners += float(n.sum())
+                corners += float(n.sum(dtype=f64))
     flops_fw = 2.0 * (samples * macs + corners * C)
     flops_bw = 2.0 * (3 * samples * macs + 2 * corners * C)
     rays_bytes = 4 * R * (3 + 3 + 1 + 1 + 1 + cfg.n_hidden_color[0])
@@ -759,7 +822,8 @@ def grad_compare(names, got, plain, ref, magnitude_scaled=False):
 def kink_margin(rmod, cfg, geom, diff, colour_only=False):
     """Per ray, the smallest |x| / sum |terms of x| over the march of every
     x that goes through a relu of the decoder (only the colour MLP's with
-    ``colour_only``, the ones the encoding gradient sees)."""
+    ``colour_only``, the ones the encoding gradient sees); a chunk of steps
+    at a time, as the plain versions march (``renderer._chunk_steps``)."""
     from lightplane_tpu_torch.ops.grid_sample import sample_grid_rep
     from lightplane_tpu_torch.ops.mlp_utils import (
         flattened_decoder_params_to_list,
@@ -776,15 +840,17 @@ def kink_margin(rmod, cfg, geom, diff, colour_only=False):
         nonlocal margin
         if seen:
             ratio = torch.where(terms > 0, x.abs() / terms, float("inf"))
-            margin = torch.minimum(margin, ratio.amin(-1))
+            margin = torch.minimum(margin, ratio.flatten(1).amin(-1))
         return torch.relu(x)
 
     def dense(x, w, b):
         return x @ w + b, x.abs() @ w.abs() + b.abs()
 
     rest = not colour_only
-    for s in range(cfg.tot_num_samples):
-        t, _ = rmod._step_depth_delta(cfg, near, far, s)
+    for chunk in rmod._chunk_steps(range(cfg.tot_num_samples), len(near),
+                                   rmod._plain_width(cfg, diff),
+                                   near.is_cuda):
+        t, _ = rmod._chunk_depth_delta(cfg, near, far, chunk)
         pts = rmod._step_points(cfg, origins, directions, t)
         mask = cfg.mask_out_of_bounds_samples
         x = sample_grid_rep(grid_flat, cfg.grid_sizes, pts, grid_idx, mask)
@@ -803,7 +869,7 @@ def kink_margin(rmod, cfg, geom, diff, colour_only=False):
                                 grid_idx, mask))
         for w, b in zip(w_o[:-1], b_o[:-1]):
             x = relu(*dense(x, w, b), rest)
-        x = trunk + enc
+        x = trunk + rmod._per_ray(enc, pts)
         for w, b in zip(w_c[:-1], b_c[:-1]):
             x = relu(*dense(x, w, b))
     return margin
@@ -1368,18 +1434,19 @@ def splat_kink_margin(rays, sp, igrid, in_sizes, out_sizes, kw):
     margin = torch.full_like(geom[2], float("inf"))
     mask = cfg.mask_out_of_bounds_samples
     with torch.no_grad():
-        for s in range(cfg.tot_num_samples):
-            pts = smod._march_points(cfg, geom, s)
+        # a chunk of steps at a time, as the plain versions march
+        for chunk in smod._splat_chunks(cfg, geom, (enc, grid)):
+            pts = smod._chunk_points(cfg, geom, chunk)
             x = sample_grid_rep(grid, cfg.input_grid_sizes, pts, geom[4],
-                                mask) + enc
+                                mask) + enc[:, None]
             terms = sample_grid_rep(grid.abs(), cfg.input_grid_sizes, pts,
-                                    geom[4], mask) + enc.abs()
+                                    geom[4], mask) + enc.abs()[:, None]
             for w, b in zip(ws[:-1], bs[:-1]):
                 pre = x @ w + b
                 terms = terms @ w.abs() + b.abs()
                 ratio = torch.where(terms > 0, pre.abs() / terms,
                                     float("inf"))
-                margin = torch.minimum(margin, ratio.amin(-1))
+                margin = torch.minimum(margin, ratio.flatten(1).amin(-1))
                 x = terms = torch.relu(pre)
     return margin
 
@@ -2160,7 +2227,7 @@ def print_kernel_attrs():
           f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
           f"resident, {conf[3]} bytes of shared memory a block, rows of "
           f"{conf[2]} partial sums")
-    # the wide builds (W = 96, 128, 192, 256: csrc/renderer_wide.cu, S1's
+    # the wide builds (W = 96, 128, 192, 256: csrc/renderer_wide.cuh, S1's
     # pass F and S2's pass A)
     masks = _build.library(rbw.RELU_MASKS_BUILD)
     for name, fn in (("R1", lib.lightplane_render_fw_attrs),
@@ -2172,7 +2239,9 @@ def print_kernel_attrs():
                       lib.lightplane_splat_bw_attrs(1, w, o)),
                      ("S2 MLP pass A recording masks",
                       lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
-        for width in (96, 128, 192, 256):
+        # the renderer's builds go on to 384 and 512
+        for width in (96, 128, 192, 256) + ((384, 512) if name[:2] in (
+                "R1", "R2") else ()):
             assert fn(width, out) == 0
             print(f"  {name} W={width} (wide build): {out[0]} registers, "
                   f"{out[1]} bytes spilled per thread")
@@ -2238,34 +2307,38 @@ def print_wide_plans(lib):
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
 
     warps = {}
-    for hidden in WIDE_HIDDEN:
-        head = wide_head(hidden)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for hidden, head, where in (
+            [(h, wide_head(h), f"phase 12's decoder (2/2/2, hidden {h})")
+             for h in WIDE_HIDDEN]
+            + [(c, feature_head(c), f"phase 13's feature decoder (2/2/2, "
+                f"{c} wide, {c} colours)") for c in FEATURE_CHN]):
         widths = (ctypes.c_int * len(head))(*head)
-        fw = (ctypes.c_int * 3)()
+        fw = (ctypes.c_int * 5)()
         assert lib.lightplane_render_fw_wide_config(hidden, 2, 2, 2, widths,
                                                     fw) == 0
         layers = rfw.wide_layers(2, 2, 2, head)
-        assert tuple(fw) == (rfw.wide_fw_warps(hidden),
-                             rfw.wide_fw_smem_bytes(hidden),
-                             rfw.wide_pack_bytes(rfw.wide_products(
-                                 layers, 2, 2, False))), tuple(fw)
-        bw = (ctypes.c_int * 5)()
+        assert tuple(fw[:3]) + (fw[4],) == (
+            rfw.wide_fw_warps(hidden), rfw.wide_fw_smem_bytes(hidden),
+            rfw.wide_pack_bytes(rfw.wide_products(layers, 2, 2, False)),
+            rfw.wide_fw_scratch_bytes(hidden)), tuple(fw)
+        bw = (ctypes.c_int * 6)()
         assert lib.lightplane_render_bw_wide_config(hidden, 2, 2, 2, widths,
                                                     0, bw) == 0
         plan = rbw.wide_bw_plan(hidden, 2, 2, 2, head, False)
-        assert (bw[0], bw[3], bw[4], bw[2]) == (
+        assert (bw[0], bw[3], bw[4], bw[2], bw[5]) == (
             plan.warps, plan.smem_bytes, plan.workspace_bytes,
-            plan.row_floats), (tuple(bw), plan)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
+            plan.row_floats, plan.scratch_bytes), (tuple(bw), plan)
         assert bw[1] == plan.partial_rows(sms), (bw[1], sms)
-        print(f"  R1 wide at phase 12's decoder (2/2/2, hidden {hidden}): "
-              f"{fw[0]} warps a block and a SM, {fw[1]} bytes of shared "
-              f"memory a block, a workspace of {fw[2]} bytes of packed "
-              f"layers")
+        print(f"  R1 wide at {where}: {fw[0]} warps a block and a SM, "
+              f"{fw[1]} bytes of shared memory a block, a workspace of "
+              f"{fw[2]} bytes of packed layers and {fw[3]} blocks' scratch "
+              f"of {fw[4]} bytes")
         print(f"  R2 wide there: {bw[0]} warps a block and a SM, {bw[3]} "
               f"bytes of shared memory a block, a workspace of {bw[4]} "
-              f"bytes; the partial-sum buffer {bw[1]} rows (one a block) of "
-              f"{bw[2]} floats, {4 * bw[1] * bw[2]} bytes")
+              f"bytes and {bw[1]} blocks' scratch of {bw[5]} bytes; the "
+              f"partial-sum buffer {bw[1]} rows (one a block) of {bw[2]} "
+              f"floats, {4 * bw[1] * bw[2]} bytes")
         warps[hidden] = (fw[0], bw[0])
     return warps
 
@@ -2780,18 +2853,16 @@ def write_scene_files(root, n_views, size):
     (the colour over black divided by the opacity, as Blender writes them),
     in NeRF-synthetic layout under ``root/nerf`` and NSVF layout under
     ``root/nsvf``; returns the written pixels and the two directories."""
-    import multiprocessing
     import shutil
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import ThreadPoolExecutor
 
     from lightplane_tpu_torch.examples.datasets import synthetic_view
     from lightplane_tpu_torch.utils.cameras import sphere_cameras
     from lightplane_tpu_torch.utils.io_utils import save_image, to_uint8
 
     c2ws = sphere_cameras(n_views, radius=3.0)
-    with ProcessPoolExecutor(min(n_views, os.cpu_count() or 1),
-                             mp_context=multiprocessing.get_context("spawn")
-                             ) as pool:
+    # a thread a view: numpy's array work runs outside the GIL
+    with ThreadPoolExecutor(min(n_views, os.cpu_count() or 1)) as pool:
         views = list(pool.map(synthetic_view, c2ws, [size] * n_views))
     nerf, nsvf = os.path.join(root, "nerf"), os.path.join(root, "nsvf")
     for d in ("pose", "rgb"):
@@ -2997,7 +3068,7 @@ def phase_fit_files(lp, smi):
         pixels, nerf, nsvf = write_scene_files(tmp, FILES_VIEWS, FILES_SIZE)
         print(f"  wrote {FILES_VIEWS} RGBA views of {FILES_SIZE}^2 in "
               f"NeRF-synthetic and NSVF layout in "
-              f"{time.perf_counter() - t0:.1f} s ({FILES_VIEWS} processes)")
+              f"{time.perf_counter() - t0:.1f} s ({FILES_VIEWS} threads)")
         want = []
         for px in pixels:   # the written pixels, composited over white
             a = px.astype(np.float32) / 255.0
@@ -3132,7 +3203,7 @@ ABLATIONS = {
     "R1": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
     "R2": {"scalar_atomics": 1, "no_atomics": 2, "no_wgrad": 4,
            "neither": 6},
-    # the wide builds (csrc/renderer_wide.cu) at W = 128
+    # the wide builds (csrc/renderer_wide.cuh) at W = 128
     "R1w": {"no_sampling": 8, "no_mlp": 16, "neither": 24},
     "R2w": {"no_atomics": 2, "no_wgrad": 4, "neither": 6},
     "S1": {"plan_alone": 32, "no_flush": 64},
@@ -3402,7 +3473,7 @@ DP_GRAD_MAX_REL = 1e-3
 LIFT_IMAGES, LIFT_SIZE, LIFT_RES, LIFT_CHN = 2, 512, 128, 32
 LIFT_SPLAT_SAMPLES = 96
 # the NCCL world's timings: rounds in turns, each the median of DP_REPS
-DP_ROUNDS, DP_REPS = 2, 5
+DP_ROUNDS, DP_REPS = 2, 3
 
 
 def dp_kernel_counts():
@@ -3840,8 +3911,8 @@ def phase_data_parallel(lp, smi):
 WIDE_HIDDEN = (256, 192, 128, 96)
 WIDE_CHECKED = (256, 128)
 # R1 and R2 held against their plain versions on this many of the frame's
-# rays, every (n / WIDE_SUBSET)-th
-WIDE_SUBSET = 4096
+# rays, every (n / WIDE_SUBSET)-th (phase 13: FEATURE_SUBSET)
+WIDE_SUBSET = FEATURE_SUBSET = 4096
 # Phase 9's trainer at the JAX app's default width but a wider decoder:
 # hidden 128 cut to 200 steps (a scaffold update after step 50, so that the
 # scaffold gates (R3) the last 150 steps; evals after steps 100 and 200),
@@ -3936,37 +4007,43 @@ def wide_headline(lp, smi, hidden=128):
     rays_enc = lp.Rays(r0.directions, r0.origins, r0.grid_idx, r0.near,
                        r0.far, diff[3])
     proj = [g.clone() for g in g_out]
-    reps = (5, 3) if hidden == 128 else (3, 1)
+    # (warm-up, reps): at 128 (1, 5) for R1 and (1, 3) for R2; elsewhere
+    # (0, 2) and (0, 1), within the script's time
+    warm, reps = ((1, (5, 3)) if hidden == 128 else (0, (2, 1)))
     with torch.no_grad():
         rfw.LAUNCHES = rbw.LAUNCHES = 0
         fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff),
-                        warmup=1, reps=reps[0])
+                        warmup=warm, reps=reps[0])
         nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
         bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(cfg, geom, diff, nlt,
-                                                    g_out), warmup=1,
+                                                    g_out), warmup=warm,
                         reps=reps[1])
         launches = {"renderer_fw": rfw.LAUNCHES, "renderer_bw": rbw.LAUNCHES}
-        assert (rfw.LAUNCHES, rbw.LAUNCHES) == (reps[0] + 2, reps[1] + 1), (
-            rfw.LAUNCHES, rbw.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rfw.render_fwd_torch(cfg, geom, diff)
-        torch.cuda.synchronize()
-        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
-        torch.cuda.synchronize()
-        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        assert (rfw.LAUNCHES, rbw.LAUNCHES) == (
+            reps[0] + warm + 1, reps[1] + warm), (rfw.LAUNCHES, rbw.LAUNCHES)
+        # the plain versions timed at WIDE_CHECKED, within the script's time
+        fw_plain_ms = bw_plain_ms = None
+        if check:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rfw.render_fwd_torch(cfg, geom, diff)
+            torch.cuda.synchronize()
+            fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+            torch.cuda.synchronize()
+            bw_plain_ms = 1e3 * (time.perf_counter() - t0)
     step = ""
     if hidden == 128:
         step_ms = cuda_ms(lambda: projected_grads(
             lp, rays_enc, grid, dp, "cuda", proj,
             num_samples=cfg.num_samples, gain=module.gain), warmup=1, reps=2)
         step = f"; fw+bw step through R1 + R2 {step_ms:.3f} ms"
+    plain = ((f"{fw_plain_ms:.1f} ms (one run)", f"{bw_plain_ms:.1f} ms (one "
+              f"run)") if check else ("not timed", "not timed"))
     print(f"  (a) render headline, decoder 2/2/2 at hidden {hidden} (W = "
-          f"{hidden}): R1 median {fw_ms:.3f} ms, plain {fw_plain_ms:.1f} ms "
-          f"(one run); R2 median {bw_ms:.3f} ms, plain {bw_plain_ms:.1f} ms "
-          f"(one run){step}  [{smi}]")
+          f"{hidden}): R1 median {fw_ms:.3f} ms, plain {plain[0]}; R2 median "
+          f"{bw_ms:.3f} ms, plain {plain[1]}{step}  [{smi}]")
     fw_err = bw_err = None
     if check:
         fw_err, bw_err = wide_headline_parity(rmod, rfw, rbw, cfg, geom,
@@ -4185,13 +4262,15 @@ def wide_splat(lp, smi, width=128):
         bw_ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
                         warmup=1, reps=reps)
         wide_splat_parts(cfg, geom, diff, g_out, smi)
-        feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        feat_p, w_p = sfw.splat_fwd_torch(cfg, geom, diff)
-        torch.cuda.synchronize()
-        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        # the plain versions run (and are timed) where they are held
+        fw_plain_ms = bw_plain_ms = None
         if check:
+            feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom, diff)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feat_p, w_p = sfw.splat_fwd_torch(cfg, geom, diff)
+            torch.cuda.synchronize()
+            fw_plain_ms = 1e3 * (time.perf_counter() - t0)
             # sums of up to ~1e3 weights a cell (25M steps into 3 x 128^2
             # cells): compare_one's absolute bounds scaled by the
             # magnitude, as s2_alone's; the 1e-3 x max |ref| bound as it is
@@ -4201,17 +4280,18 @@ def wide_splat(lp, smi, width=128):
                                  magnitude_scaled=True)[0],
                          compare("w", w_k, w_p, max_rel=SPLAT_MAX_REL,
                                  magnitude_scaled=True)[0])
-        del feat_k, w_k, feat_p, w_p
-        masks = got = shipped = None
+            del feat_k, w_k, feat_p, w_p
+        masks = got = shipped = want = None
         if check:
             got, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
                                                        g_out)
             shipped = sbw.splat_bwd_cuda(cfg, geom, diff, g_out)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = sbw.splat_bwd_torch(cfg, geom, diff, g_out, relu_masks=masks)
-        torch.cuda.synchronize()
-        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = sbw.splat_bwd_torch(cfg, geom, diff, g_out,
+                                       relu_masks=masks)
+            torch.cuda.synchronize()
+            bw_plain_ms = 1e3 * (time.perf_counter() - t0)
     if check:
         print("    S2 with the MLP vs its plain version under the recording "
               "build's relu masks, every ray:")
@@ -4237,11 +4317,14 @@ def wide_splat(lp, smi, width=128):
     b_bw = bound(fl_bw, by_bw)
     b_bw_tc = tf32_bound(fl_bw, fl_tc, by_bw)
     masked = ", under the masks" if check else ""
-    print(f"    S1 with the MLP: median {fw_ms:.3f} ms, plain {fw_plain_ms:.1f}"
-          f" ms (one run); work {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.1f} MB"
-          f" -> bound {b_fw[0]:.3f} ms ({b_fw[1]})  [{smi}]")
-    print(f"    S2 with the MLP: median {bw_ms:.3f} ms, plain {bw_plain_ms:.1f}"
-          f" ms (one run{masked}); work {fl_bw / 1e9:.1f} GFLOP "
+    plain = ((f"{fw_plain_ms:.1f} ms (one run)",
+              f"{bw_plain_ms:.1f} ms (one run{masked})") if check
+             else ("not timed", "not timed"))
+    print(f"    S1 with the MLP: median {fw_ms:.3f} ms, plain {plain[0]}; "
+          f"work {fl_fw / 1e9:.1f} GFLOP, {by_fw / 1e6:.1f} MB -> bound "
+          f"{b_fw[0]:.3f} ms ({b_fw[1]})  [{smi}]")
+    print(f"    S2 with the MLP: median {bw_ms:.3f} ms, plain {plain[1]}; "
+          f"work {fl_bw / 1e9:.1f} GFLOP "
           f"({fl_tc / 1e9:.1f} on the tensor cores), {by_bw / 1e6:.1f} MB -> "
           f"bound {b_bw[0]:.3f} ms ({b_bw[1]}), {b_bw_tc:.3f} ms with the "
           f"MLP in 3xTF32  [{smi}]")
@@ -4472,8 +4555,243 @@ def phase_wide(lp, smi):
     return dict(headline=headline, fit=fit, splat=splat, sweep=sweep)
 
 
+# ---- feature fields: widths 384 and 512 (phase 13) -------------------------
+
+# The feature-field lift-then-render at the features' own width
+# (``bench.py:403-526``'s lift-then-render, with the image features that
+# Distilled Feature Fields and LERF lift: 384 channels for DINO ViT-S/14,
+# 512 for CLIP ViT-B/16, each pixel's feature L2-normalised as theirs are):
+# FEATURE_VIEWS views of FEATURE_SIZE^2 rays with seeded features (unit
+# vectors), splatted (96 samples) into a 3 x 128^2 x C triplane and
+# rendered back (FEATURE_RENDER_SAMPLES) through a 2/2/2 decoder C wide with
+# C colours, an L2 loss against the features.  Cut from bench's 512^2
+# images and 256 render samples to 128^2 and 128, for the run's time; the
+# widths are not cut.  At 512 FEATURE_STEPS Adam steps (the loss must
+# fall), at 384 one; the last step of each by kernel (torch.profiler) gives
+# R1's and R2's times on the path.
+FEATURE_CHN = (512, 384)
+FEATURE_VIEWS, FEATURE_SIZE, FEATURE_RES = 2, 128, 128
+FEATURE_SPLAT_SAMPLES, FEATURE_RENDER_SAMPLES = 96, 128
+FEATURE_STEPS = 5
+
+
+def feature_model(lp, chn):
+    """The feature path at ``chn`` channels: its rays (the features as their
+    encodings), its decoder and an Adam step over the lifted encodings, a
+    residual added to the lifted triplane (the grid) and the decoder;
+    ``step()`` returns the loss."""
+    gen = torch.Generator().manual_seed(chn)
+    n = FEATURE_VIEWS * FEATURE_SIZE ** 2
+    target = torch.randn((n, chn), generator=gen)
+    target = (target / target.norm(dim=1, keepdim=True)).cuda()
+    rays = view_rays(lp, FEATURE_VIEWS, FEATURE_SIZE, target)
+    dp = lp.init_decoder_params(gen, n_layers_opacity=2, n_layers_trunk=2,
+                                n_layers_color=2, input_chn=chn,
+                                hidden_chn=chn, color_chn=chn,
+                                opacity_init_bias=-2.0)
+    enc = target.clone().requires_grad_(True)
+    mlp = dp.mlp_params.detach().clone().requires_grad_(True)
+    dp = lp.DecoderParams(mlp, dp.n_hidden_trunk, dp.n_hidden_opacity,
+                          dp.n_hidden_color, dp.color_chn)
+    sizes = tri_sizes(FEATURE_RES, chn)
+    residual = [torch.zeros(s, device="cuda", requires_grad=True)
+                for s in sizes]
+    lift_rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
+                        rays.near, rays.far, enc)
+    render_rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
+                          rays.near, rays.far,
+                          torch.zeros((n, chn), device="cuda"))
+    opt = torch.optim.Adam([enc, mlp] + residual, lr=1e-3)
+
+    def grid():
+        lifted = lp.lightplane_splatter(lift_rays, sizes,
+                                        num_samples=FEATURE_SPLAT_SAMPLES)
+        return [g + r for g, r in zip(lifted, residual)]
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        _, _, feat = lp.lightplane_renderer(
+            render_rays, grid(), dp, num_samples=FEATURE_RENDER_SAMPLES,
+            gain=1.0)
+        loss = (feat - target).square().mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return dict(step=step, grid=grid, dp=dp, render_rays=render_rays,
+                sizes=sizes)
+
+
+def feature_counts(reset=False):
+    """The launches of R1, R2, S1 and S2 (set to 0 first with ``reset``)."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    if reset:
+        rfw.LAUNCHES = rbw.LAUNCHES = sfw.LAUNCHES = sbw.LAUNCHES = 0
+    return dict(renderer_fw=rfw.LAUNCHES, renderer_bw=rbw.LAUNCHES,
+                splatter_fw=sfw.LAUNCHES, splatter_bw=sbw.LAUNCHES)
+
+
+# The feature path's kernels by part (device_breakdown)
+FEATURE_PARTS = (("R1", ("render_fw_wide_kernel",)),
+                 ("R2", ("render_bw_wide_kernel", "reduce_wide_sums_kernel")),
+                 ("the layers' pre-pass", ("pack_wide_kernel",)),
+                 ("the splat and its adjoint", ("splat",)))
+
+
+def feature_kernels(lp, smi, chn, model, parts):
+    """R1 and R2 on the feature path's march (the lifted grid after its
+    steps): their times in its last step (``parts``, device_breakdown's;
+    timed alone by CUDA events where the profiler saw nothing), their plain
+    versions timed, their bounds, then held on FEATURE_SUBSET of its rays
+    against their plain versions (R2 under its masks), R1 against R2's
+    recomputed forward to the bit, at 512 the layers' pre-pass bit for
+    bit."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    with torch.no_grad():
+        grid = [g.detach() for g in model["grid"]()]
+        dp = model["dp"]
+        dp = lp.DecoderParams(dp.mlp_params.detach(), dp.n_hidden_trunk,
+                              dp.n_hidden_opacity, dp.n_hidden_color,
+                              dp.color_chn)
+        cfg, geom, diff = unsplit_march(
+            lp, rmod, model["render_rays"], grid, dp,
+            num_samples=FEATURE_RENDER_SAMPLES, gain=1.0)
+        assert rfw._kernel_width(cfg, chn) == chn
+        n = geom[0].shape[0]
+        gen = torch.Generator().manual_seed(chn + 1)
+        g_out = tuple(torch.randn(s, generator=gen).cuda()
+                      for s in [(n,), (n,), (n, chn)])
+        nlt = rfw.render_fwd_cuda(cfg, geom, diff)[1]
+        if parts:
+            fw_ms, bw_ms = parts["R1"], parts["R2"]
+        else:
+            fw_ms = cuda_ms(lambda: rfw.render_fwd_cuda(cfg, geom, diff),
+                            warmup=0, reps=1)
+            bw_ms = cuda_ms(lambda: rbw.render_bwd_cuda(
+                cfg, geom, diff, nlt, g_out), warmup=0, reps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rfw.render_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rbw.render_bwd_torch(cfg, geom, diff, nlt, g_out)
+        torch.cuda.synchronize()
+        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"  R1 (W = {chn}) on the path's march ({n} rays, "
+          f"{FEATURE_RENDER_SAMPLES} samples): {fw_ms:.3f} ms in its last "
+          f"step, plain {fw_plain_ms:.1f} ms (one run); R2 {bw_ms:.3f} ms "
+          f"(with its row sums), plain {bw_plain_ms:.1f} ms (one run)  "
+          f"[{smi}]")
+    (fl_fw, by_fw), (fl_bw, by_bw), fl_wg, fl_tc = kernel_work(
+        rmod, cfg, geom, diff)
+    b_fw, b_bw = bound(fl_fw, by_fw), bound(fl_bw, by_bw)
+    b_fw_tc = tf32_bound(fl_fw, fl_tc, by_fw)
+    b_bw_tc = tf32_bound(fl_bw, fl_tc + 2 * fl_wg, by_bw)
+    print(f"    work: R1 {fl_fw / 1e9:.1f} GFLOP -> bound {b_fw[0]:.3f} ms "
+          f"({b_fw[1]}), {b_fw_tc:.3f} ms with its products in 3xTF32; R2 "
+          f"{fl_bw / 1e9:.1f} GFLOP -> bound {b_bw[0]:.3f} ms ({b_bw[1]}), "
+          f"{b_bw_tc:.3f} ms  [{smi}]")
+    idx = torch.arange(0, n, n // FEATURE_SUBSET,
+                       device="cuda")[:FEATURE_SUBSET]
+    geom_s, diff_s = ray_subset(geom, diff, idx)
+    g_s = tuple(g[idx].contiguous() for g in g_out)
+    with torch.no_grad():
+        out_k = rfw.render_fwd_cuda(cfg, geom_s, diff_s)
+        out_p = rfw.render_fwd_torch(cfg, geom_s, diff_s)
+    print(f"    R1 vs its plain version on {FEATURE_SUBSET} of the path's "
+          f"rays:")
+    fw_err = max(compare(label, a, b)[0]
+                 for label, a, b in zip(("depth", "nlt", "feat"), out_k, out_p))
+    bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom_s, diff_s, g_s)
+    with torch.no_grad():
+        r1, r2 = rbw.forward_probes(cfg, geom_s, diff_s, g_s)
+    torch.cuda.synchronize()
+    opened = int((r1[..., 0] != 0).sum())
+    assert opened > 0 and torch.equal(r1, r2), opened
+    print(f"    R1's forward equals R2's recomputed forward to the bit (raw "
+          f"opacity and the sum of the raw colours at {opened} open steps)")
+    if chn == 512:
+        wide_pack_parity(dp.mlp_params, feature_head(chn))
+    return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
+                        bound=b_fw, bound_tf32=b_fw_tc),
+                bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
+                        bound=b_bw, bound_tf32=b_bw_tc))
+
+
+def feature_head(chn):
+    """The n_hidden tuples of the feature path's decoder at ``chn``."""
+    return (chn,) * 5 + (1,) + (chn,) * 3
+
+
+def phase_feature(lp, smi):
+    """Phase 13's steps (the shipped build only): at each width the feature
+    path's Adam steps, the last by kernel; returns each width's model,
+    parts, launches and step times for ``phase_feature_checks``."""
+    print("== phase 13: feature fields, widths 384 and 512: "
+          f"{FEATURE_VIEWS} views of {FEATURE_SIZE}^2 rays with C-channel "
+          f"features lifted into 3 x {FEATURE_RES}^2 x Cch and rendered back "
+          f"through a 2/2/2 decoder C wide with C colours")
+    runs = {}
+    for chn in FEATURE_CHN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = feature_model(lp, chn)
+        steps = FEATURE_STEPS if chn == 512 else 1
+        torch.cuda.synchronize()
+        feature_counts(reset=True)
+        losses, times, parts = [], [], {}
+        for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if i < steps - 1:
+                loss = model["step"]()
+            else:
+                # the last step by kernel (its time includes the profiler's)
+                device_breakdown(lambda: losses.append(float(model["step"]())),
+                                 smi, top=6, groups=FEATURE_PARTS,
+                                 parts=parts)
+            end.record()
+            end.synchronize()
+            if i < steps - 1:
+                losses.append(float(loss))
+            times.append(start.elapsed_time(end))
+        launches = feature_counts()
+        assert set(launches.values()) == {steps}, launches
+        assert all(np.isfinite(losses)), losses
+        print(f"  C = {chn}: {steps} Adam step(s) of the lift-then-render, "
+              f"ms {[round(t, 3) for t in times]}, loss "
+              f"{[round(x, 6) for x in losses]}; launches {launches}  "
+              f"[{smi}]")
+        if chn == 512:
+            assert losses[-1] < losses[0], losses
+        runs[chn] = (model, parts, launches, times)
+    return runs
+
+
+def phase_feature_checks(lp, smi, runs):
+    """Phase 13's kernels on each width's march (``feature_kernels``: they
+    need the recording build)."""
+    print("== phase 13 (cont.): R1 and R2 on the feature path's march")
+    out = {}
+    for chn in FEATURE_CHN:
+        model, parts, launches, times = runs.pop(chn)
+        out[chn] = dict(feature_kernels(lp, smi, chn, model, parts),
+                        launches=launches, step_ms=times)
+        del model
+    return out
+
+
 PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12")
+          "11", "12", "13")
 
 
 def parse_only(argv):
@@ -4516,28 +4834,44 @@ def main():
         return out
 
     smi, name = timed(phase_device)
-    out = {"2": timed(phase_build)}
+    recording = timed(phase_build)
     if ablation:
+        timed(finish_build, *recording)
         ablate(lp, smi, [k for k in ABLATIONS if k in kernels])
         return 0
+    # phase 13's steps and phases 4, 8 and 10 need only the shipped build:
+    # they run while the recording build compiles; phase 13's checks and
+    # the other phases after it
+    feature = timed(phase_feature, lp, smi) if "13" in only else None
+    out = {}
+    early = (("4", phase_slice), ("8", phase_lift_render),
+             ("10", phase_fit_files))
+    for phase, fn in early:
+        if phase not in only:
+            continue
+        if phase == "4":
+            held_memory()
+        out[phase] = timed(fn, lp, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["2"] = timed(finish_build, *recording)
+    if feature is not None:
+        out["13"] = timed(phase_feature_checks, lp, smi, feature)
+        gc.collect()
+        torch.cuda.empty_cache()
     for phase, fn, args in (
         ("3", phase_parity, (lp,)),
         ("3b", phase_backward_parity, (lp,)),
         ("3c", phase_branch_parity, (lp,)),
-        ("4", phase_slice, (lp, smi)),
         ("5", phase_training, (lp, smi)),
         ("6", phase_splat_parity, (lp,)),
         ("7", phase_splat, (lp, smi)),
-        ("8", phase_lift_render, (lp, smi)),
         ("9", phase_fit, (lp, smi)),
-        ("10", phase_fit_files, (lp, smi)),
         ("11", phase_data_parallel, (lp, smi)),
         ("12", phase_wide, (lp, smi)),
     ):
         if phase not in only:
             continue
-        if phase == "4":
-            held_memory()
         out[phase] = timed(fn, *args)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4613,8 +4947,20 @@ def kernel_lines(out):
         for w, launches in wide["fit"].items():
             wide_rows[key][f"wide_{w}_launches_scaffold"] = (
                 launches["scaffold"][i])
-        for w in WIDE_HIDDEN:
+        for w in WIDE_HIDDEN + FEATURE_CHN:
             wide_rows[key][f"wide_{w}_warps_per_sm"] = out["2"][w][i]
+        # phase 13's builds past 256: launches on its feature path (5 steps
+        # at 512, one at 384), times, errors and bounds on its march
+        for w, k in out["13"].items():
+            part = k["fw" if i == 0 else "bw"]
+            wide_rows[key].update({
+                f"wide_{w}_ms": part["ms"],
+                f"wide_{w}_plain_ms": part["plain_ms"],
+                f"wide_{w}_bound_ms": part["bound"][0],
+                f"wide_{w}_bound_by": part["bound"][1],
+                f"wide_{w}_bound_tf32_ms": part["bound_tf32"],
+                f"wide_{w}_max_abs_err": part["err"],
+                f"wide_{w}_launches": k["launches"][key]})
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);
@@ -4665,6 +5011,8 @@ def kernel_lines(out):
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound"][0], bound_by=k["bound"][1],
             library_ms=None,
+            **{f"launches_feature_{w}": out["13"][w]["launches"][
+                f"splatter_{key}"] for w in FEATURE_CHN},
             **({"plan_ms": k["plan_ms"], "runs": k["runs"],
                 **wide_rows["splatter_fw"]} if key == "fw" else {})))
     # S1 with the MLP at W = 64: launches on the MLP splatter's six timed

@@ -27,7 +27,7 @@ constexpr int kMaxTotalLayers = 3 * kMaxLayers;
 
 // LIGHTPLANE_ABLATE, a bit mask that only `chip_smoke.py --ablate` sets,
 // switches parts of R1 (renderer_fw.cu), R2 (renderer_bw.cu), their wide
-// builds (renderer_wide.cu: bits 2, 4, 8 and 16), S1 (splatter_fw.cu) and
+// builds (renderer_wide.cuh: bits 2, 4, 8 and 16), S1 (splatter_fw.cu) and
 // S2 (splatter_bw.cu) off to time them.  The shipped build has none of it.
 #ifndef LIGHTPLANE_ABLATE
 #define LIGHTPLANE_ABLATE 0
@@ -195,16 +195,22 @@ inline void fill_march(Params& p, int num_samples, int num_samples_inf,
 // The padded activation widths the kernels are built for: 32 and 64 keep
 // every MLP layer in shared memory; 96, 128, 192 and 256 are the wide
 // builds (wide_mlp.cuh), which pass the layers through shared memory a
-// slice at a time.
-inline bool known_width(int width) {
+// slice at a time; the renderer's (R1, R2) also at 384 and 512, the
+// splatter MLP's (S1, S2) up to 256.
+inline bool known_splat_width(int width) {
   return width == 32 || width == 64 || width == 96 || width == 128 ||
          width == 192 || width == 256;
+}
+
+inline bool known_width(int width) {
+  return known_splat_width(width) || width == 384 || width == 512;
 }
 
 // Fills everything but the tensors; returns a cudaError_t code.
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32, 64, 96, 128, 192 or 256
+//   width: the padded activation width, 32, 64, 96, 128, 192, 256, 384 or
+//   512
 inline int fill_params(Params& p, int num_rays, int num_grids,
                        const int* grid_meta, int grid_chn, int n_t, int n_o,
                        int n_c, const int* mlp_widths, int enc_chn,

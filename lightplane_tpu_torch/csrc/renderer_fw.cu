@@ -378,10 +378,13 @@ long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
   return fw_smem_bytes(width, n_layers_total, color_chn, warps);
 }
 
-// The wide build's (W = 96-256, renderer_wide.cu) launch at these MLP
+// The wide build's (W = 96-512, renderer_wide.cuh) launch at these MLP
 // widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]): out[0] warps
 // per block, out[1] a block's shared memory in bytes, out[2] the bytes of
-// the workspace lightplane_render_fw takes; a cudaError_t code.
+// the packed layers, out[3] the blocks of the resident wave, out[4] a
+// block's scratch bytes (past W = 256; 0 below): the workspace
+// lightplane_render_fw takes is out[2] + out[3] out[4] bytes; a cudaError_t
+// code.
 int lightplane_render_fw_wide_config(int width, int n_t, int n_o, int n_c,
                                      const int* mlp_widths, int* out) {
   if (n_o < 1 || n_c < 1 || n_t > kMaxLayers || n_o > kMaxLayers ||
@@ -396,8 +399,8 @@ int lightplane_render_fw_wide_config(int width, int n_t, int n_o, int n_c,
 // Launches the forward march on `stream`; returns a cudaError_t code.
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
-//   width: the padded activation width, 32 or 64, or 96, 128, 192 or 256
-//     (the wide build, renderer_wide.cu)
+//   width: the padded activation width, 32 or 64, or 96, 128, 192, 256,
+//     384 or 512 (the wide build, renderer_wide.cuh)
 //   warps: rays (warps) per block, 1, 2 or 4 (the wide build: 1-8)
 //   scaffold, scaffold_dims: the [B, D, H, W] scaffold and its host int[4]
 //     shape, or null
@@ -405,6 +408,9 @@ int lightplane_render_fw_wide_config(int width, int n_t, int n_o, int n_c,
 //     grid-list [Vc_total, grid_chn] and its table (as grid_meta's), or null
 //   workspace: the wide build's (lightplane_render_fw_wide_config's bytes,
 //     16-byte aligned; null for the others)
+//   probe: the wide build's recording build (LIGHTPLANE_RELU_MASKS) only:
+//     [R, steps, 2] floats, zero-filled (renderer_wide.cuh::write_probe),
+//     or null
 // The caller validates shapes, devices and limits.
 int lightplane_render_fw(
     const float* origins, const float* directions, const float* near,
@@ -417,8 +423,10 @@ int lightplane_render_fw(
     float noise_sigma, int noise_seed, int noise_stride, int num_rays_noise,
     const float* scaffold, const int* scaffold_dims, const float* color_grid,
     int num_color_grids, const int* color_grid_meta, void* workspace,
-    void* stream) {
+    float* probe, void* stream) {
   if (width <= 64 && warps != 1 && warps != 2 && warps != kMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  if (probe != nullptr && (!kReluMasks || width <= 64))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   int rc = fill_params(
@@ -445,7 +453,7 @@ int lightplane_render_fw(
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (width > 64)
-    return (int)launch_render_fw_wide(p, width, warps, workspace, s);
+    return (int)launch_render_fw_wide(p, width, warps, workspace, probe, s);
   const size_t smem =
       (size_t)fw_smem_bytes(width, n_t + n_o + n_c, color_chn, warps);
   const cudaError_t e = width == 32 ? launch<32>(p, warps, smem, s)

@@ -1,0 +1,12 @@
+// R1's and R2's wide builds at W = 256 (renderer_wide.cuh), compiled apart
+// from the other widths so that nvcc builds them in parallel.
+
+#include "renderer_wide.cuh"
+
+namespace lightplane {
+
+WideOps wide_ops_256() {
+  return join_wide_ops(make_wide_fw_ops<256>(), make_wide_bw_ops<256>());
+}
+
+}  // namespace lightplane

@@ -1,0 +1,10 @@
+// R2's wide build at W = 512 (renderer_wide.cuh), compiled apart from
+// the others so that nvcc builds it in parallel.
+
+#include "renderer_wide.cuh"
+
+namespace lightplane {
+
+WideOps wide_bw_ops_512() { return make_wide_bw_ops<512>(); }
+
+}  // namespace lightplane

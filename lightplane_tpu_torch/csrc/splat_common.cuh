@@ -44,7 +44,7 @@ inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
   p.num_rays = num_rays;
   p.num_batches = min_batch(sp.out, sp.out.dims[0][0]);
   if (n_layers > 0) {
-    if (!known_width(width) ||
+    if (!known_splat_width(width) ||
         !fill_grid_meta(p.grids, num_in_grids, in_meta))
       return (int)cudaErrorInvalidValue;
     p.num_batches = min_batch(p.grids, p.num_batches);

@@ -539,7 +539,7 @@ __global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
 // ---- with the MLP at W = 96 to 256: pass A on the staged layers -----------
 // No layer fits a block's shared memory beside its warps' tiles (at W = 128
 // a 128 x 128 layer is 64 KB), so pass A takes R2-wide's design
-// (renderer_wide.cu, wide_mlp.cuh) without the march: a block's warps take
+// (renderer_wide.cuh, wide_mlp.cuh) without the march: a block's warps take
 // a ray each and work on the same 16-row chunk of their rays' staged g_vec
 // and samples in lockstep, each layer staged once a block through the
 // cp.async ring of packed slices (schedule kSplatBw: the L - 1 relu layers,
@@ -947,7 +947,7 @@ extern "C" {
 // layers (above 64; 0 at 32 and 64); a cudaError_t code.
 int lightplane_splat_bw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
-  if (n_layers < 1 || n_layers > kMaxLayers || !known_width(width))
+  if (n_layers < 1 || n_layers > kMaxLayers || !known_splat_width(width))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_layers, 0, 0};

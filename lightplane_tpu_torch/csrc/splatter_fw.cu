@@ -91,7 +91,7 @@
 //    once, then splatted into every sub-grid):
 //    - pass F (splat_mlp_wide_kernel, ray-major): a block's 8 warps march
 //      a ray each in lockstep over 16-step chunks, R1-wide's design
-//      (renderer_wide.cu, wide_mlp.cuh): the input grid-list's sample
+//      (renderer_wide.cuh, wide_mlp.cuh): the input grid-list's sample
 //      gathered into a [16][W + 4] tile (gather_chunk) plus the encoding,
 //      then every layer on the tensor cores in 3xTF32 (wgmma a warpgroup),
 //      each layer staged once a block through the cp.async ring, relu
@@ -840,7 +840,7 @@ long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
 int lightplane_splat_fw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
   if (n_layers < 1 || n_layers > kMaxLayers || width <= 64 ||
-      !known_width(width))
+      !known_splat_width(width))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_layers, 0, 0};

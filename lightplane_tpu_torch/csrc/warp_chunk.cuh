@@ -1,5 +1,5 @@
 // What the warp-cooperative kernels of the renderer's forward march
-// (renderer_fw.cu, R1; renderer_wide.cu, its wide build and R2's) and the
+// (renderer_fw.cu, R1; renderer_wide.cuh, its wide build and R2's) and the
 // splatter's adjoint (splatter_bw.cu, S2) share: the corners of a step in
 // one sub-grid (grid_corners), the gather of a chunk's grid samples into a
 // tile (gather_chunk), and dense

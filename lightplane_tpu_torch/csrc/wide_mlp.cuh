@@ -1,8 +1,8 @@
-// The dense layers of the wide builds (padded widths W = 96, 128, 192 and
-// 256) of the renderer's forward march and recompute backward
-// (renderer_wide.cu, R1 and R2), of the splatter MLP's forward
-// (splatter_fw.cu, S1's pass F) and of its adjoint (splatter_bw.cu, S2's
-// pass A).
+// The dense layers of the wide builds (padded widths W = 96, 128, 192,
+// 256, and for the renderer 384 and 512) of the renderer's forward march
+// and recompute backward (renderer_wide.cuh, R1 and R2), of the splatter
+// MLP's forward (splatter_fw.cu, S1's pass F) and of its adjoint
+// (splatter_bw.cu, S2's pass A).
 //
 // All four stage their layers in shared memory, a slice at a time for a
 // whole block (staged_rows, below): at W = 128 a 2/2/2 MLP is ~400 KB, more
@@ -21,7 +21,11 @@
 // product wider than 16 N-tiles takes one k-step a slice; each warpgroup
 // product takes the narrowest wgmma shape (128, 192, 256) that holds the
 // product's N-tiles, and mma.sync reads a k-step's B fragments one N-tile
-// at a time, so that only the accumulators grow with the width.
+// at a time, so that only the accumulators grow with the width.  Past 256
+// (wgmma's widest N, and a slot's widest k-step) a product runs in N-parts
+// of at most 256 columns (kPartTiles), in turn, each with its own 128
+// accumulators, a slice one k-step of one part; R2's block there is one
+// warp, so R1 and R2 both multiply by mma.sync (staged_rows_parts).
 
 #pragma once
 
@@ -33,8 +37,9 @@
 namespace lightplane {
 
 // f(std::integral_constant<int, W>{}) for the wide build W == width (96,
-// 128, 192 or 256); cudaErrorInvalidValue, as f's return type, for any
-// other width.
+// 128, 192 or 256: the splatter MLP's builds; the renderer's, to 512, are
+// renderer_wide.cu's wide_ops); cudaErrorInvalidValue, as f's return type,
+// for any other width.
 template <class F>
 auto wide_dispatch(int width, F&& f)
     -> decltype(f(std::integral_constant<int, 128>{})) {
@@ -52,7 +57,9 @@ auto wide_dispatch(int width, F&& f)
 // input `row` (a tile's row in shared memory, 16-byte aligned), in
 // march_common.cuh::dense_out's order: the bias, then the products by
 // ascending input.  o is the same in every lane (a broadcast of each
-// weight).
+// weight).  Past W = 256 each step is an explicit fused multiply-add: the
+// compiler may contract a product and a sum or not, kernel by kernel, and
+// R1 and R2 must round alike.
 template <int W>
 __device__ __forceinline__ float wide_last_out(const float* row,
                                                const float* __restrict__ w,
@@ -72,10 +79,17 @@ __device__ __forceinline__ float wide_last_out(const float* row,
 #pragma unroll
     for (int i4 = 0; i4 < 8; ++i4) {
       const float4 x = r4[i0 / 4 + i4];
-      acc += x.x * wv[4 * i4];
-      acc += x.y * wv[4 * i4 + 1];
-      acc += x.z * wv[4 * i4 + 2];
-      acc += x.w * wv[4 * i4 + 3];
+      if constexpr (W > 256) {
+        acc = __fmaf_rn(x.x, wv[4 * i4], acc);
+        acc = __fmaf_rn(x.y, wv[4 * i4 + 1], acc);
+        acc = __fmaf_rn(x.z, wv[4 * i4 + 2], acc);
+        acc = __fmaf_rn(x.w, wv[4 * i4 + 3], acc);
+      } else {
+        acc += x.x * wv[4 * i4];
+        acc += x.y * wv[4 * i4 + 1];
+        acc += x.z * wv[4 * i4 + 2];
+        acc += x.w * wv[4 * i4 + 3];
+      }
     }
   }
   return acc;
@@ -101,13 +115,15 @@ __host__ __device__ __forceinline__ int wide_sum_floats(int d_in, int d_out) {
 // all of them on the same chunk and the same product at once.  Each product
 // B of a chunk (a layer's [d_in, d_out] weights, or their transpose for the
 // input gradient) comes from a workspace that a pre-pass kernel fills once a
-// launch (renderer_wide.cu::pack_wide_kernel): per k-step of 8, B's hi part
+// launch (renderer_wide.cuh::pack_wide_kernel): per k-step of 8, B's hi part
 // then its lo part (hi the TF32 rounding of the weight, lo = w - hi in f32,
 // so hi + lo == w; the MMA reads lo's top 19 bits), each as wgmma's
 // K-major, non-swizzled core matrices (N-tile j and k-half h at core 2 j +
 // h: 8 rows n of 4 k, 16 bytes a row), k-step-major, so two k-steps
 // (kSliceSteps; one past kSlotTiles N-tiles) of a product are one
-// contiguous slice.  The block copies slices into a ring of kRingSlots
+// contiguous slice; past kPartTiles N-tiles the product is laid out part
+// by part (N-tiles 32 q .. 32 q + 31 of every k-step, then the next part).
+// The block copies slices into a ring of kRingSlots
 // slots in shared memory by cp.async, two ahead of the one the warps
 // multiply by, in the order of the workspace's schedule (one int2 a slice:
 // its first uint4 and its count), which repeats every chunk.
@@ -124,10 +140,25 @@ __host__ __device__ __forceinline__ int ring_slot_u4(int W) {
   return kSliceSteps * (W / 8 < kSlotTiles ? W / 8 : kSlotTiles) * 32;
 }
 
-// k-steps a slice of a product of n_tiles N-tiles: kSliceSteps up to
-// kSlotTiles N-tiles (every product at W <= 128), else one.
+// k-steps a slice of a product (or a part) of n_tiles N-tiles:
+// kSliceSteps up to kSlotTiles N-tiles (every product at W <= 128), else
+// one.
 __host__ __device__ __forceinline__ int slice_steps(int n_tiles) {
   return n_tiles > kSlotTiles ? 1 : kSliceSteps;
+}
+
+// N-tiles of a product's part: a slot's k-step and mma.sync's accumulators
+// (128 registers) at most; wider products (past W = 256) run part by part.
+constexpr int kPartTiles = 32;
+
+__host__ __device__ __forceinline__ int product_parts(int n_tiles) {
+  return (n_tiles + kPartTiles - 1) / kPartTiles;
+}
+
+// N-tiles of part q of a product of n_tiles N-tiles.
+__host__ __device__ __forceinline__ int part_tiles(int n_tiles, int q) {
+  const int rest = n_tiles - q * kPartTiles;
+  return rest < kPartTiles ? rest : kPartTiles;
 }
 
 // Bytes of the ring of slices at width W.
@@ -143,19 +174,32 @@ struct Product {
 
 // The schedules of a chunk's products.  R1 (kRenderFw) runs the relu layers
 // of the forward in renderer_fw.cu's order (relu layer j is layer j below
-// the opacity head's last, j + 1 past it); R2 (kRenderBw) those, then every
+// the opacity head's last, j + 1 past it), and past W = 256 the colour
+// head's last layer (wide_head_product); R2 (kRenderBw) those, then every
 // layer's input gradient, last layer first.  The splatter's MLP (its L
 // layers in p.n_layers[0]): S1's pass F (kSplatFw) runs every layer, the
 // last one too; S2's pass A (kSplatBw) the L - 1 relu layers, then every
 // layer's input gradient, last layer first.
 enum WideSchedule { kRenderFw = 0, kRenderBw = 1, kSplatFw = 2, kSplatBw = 3 };
 
+// 1 where R1 and R2 run the colour head's last layer as a product, 0 where
+// each lane takes its row's dot products (wide_last_out): its outputs are
+// the rendered channels, up to 512 past W = 256 (a padded width is the
+// widest layer's: the grid's channels are the first layer's input).
+__host__ __device__ __forceinline__ int wide_head_product(const Params& p) {
+  const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
+  for (int l = 0; l < n_total; ++l)
+    if (p.layer_in[l] > 256 || p.layer_out[l] > 256) return 1;
+  return 0;
+}
+
 __host__ __device__ __forceinline__ int wide_n_products(const Params& p,
                                                         int kind) {
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
   if (kind == kSplatFw) return n_total;
   if (kind == kSplatBw) return 2 * n_total - 1;
-  return n_total - 2 + (kind == kRenderBw ? n_total : 0);
+  return n_total - 2 + wide_head_product(p) +
+         (kind == kRenderBw ? n_total : 0);
 }
 
 __host__ __device__ __forceinline__ Product wide_product(const Params& p,
@@ -168,10 +212,13 @@ __host__ __device__ __forceinline__ Product wide_product(const Params& p,
     pr.transposed = i >= fwd;
     pr.layer = pr.transposed ? n_total - 1 - (i - fwd) : i;
   } else {
+    // the relu layers (and the colour head's last, i + 1 at i = n_total -
+    // 2), then the transposed ones
     const int opacity_end = p.n_layers[0] + p.n_layers[1] - 1;
-    pr.transposed = i >= n_total - 2;
+    const int fwd = n_total - 2 + wide_head_product(p);
+    pr.transposed = i >= fwd;
     pr.layer = !pr.transposed ? (i < opacity_end ? i : i + 1)
-                              : n_total - 1 - (i - (n_total - 2));
+                              : n_total - 1 - (i - fwd);
   }
   const int d_in = p.layer_in[pr.layer], d_out = p.layer_out[pr.layer];
   pr.k_steps = ((pr.transposed ? d_out : d_in) + 7) / 8;
@@ -179,10 +226,15 @@ __host__ __device__ __forceinline__ Product wide_product(const Params& p,
   return pr;
 }
 
-// Ring slices of a product.
+// Ring slices of a product: each part's k-steps, slice_steps of them a
+// slice.
 __host__ __device__ __forceinline__ int product_slices(const Product& pr) {
-  const int steps = slice_steps(pr.n_tiles);
-  return (pr.k_steps + steps - 1) / steps;
+  int slices = 0;
+  for (int q = 0; q < product_parts(pr.n_tiles); ++q) {
+    const int steps = slice_steps(part_tiles(pr.n_tiles, q));
+    slices += (pr.k_steps + steps - 1) / steps;
+  }
+  return slices;
 }
 
 // Where product `upto` of schedule `kind` starts in the workspace (uint4s)
@@ -246,6 +298,9 @@ struct Ring {
   int slot_u4, n_slices;   // a slot's uint4s; slices of a chunk
   int q;                   // the next slice the warps take
   int2 ahead;              // the schedule's entry of slice q + 2
+  // past W = 256, the warp's kStashFloats in device memory
+  // (staged_rows_parts)
+  float* stash;
 };
 
 __device__ __forceinline__ int2 ring_entry(const Ring& r, int q) {
@@ -516,9 +571,91 @@ struct Wgmma<192> {
 // be A, gate or add.  Each k-step splits A into TF32 hi and lo parts
 // (split_wide) and issues three MMAs per N-tile, term by term across the
 // tiles, the small terms first (past W = 128 by mma.sync: N-tile by N-tile,
-// each tile's terms in the same order).
+// each tile's terms in the same order; past W = 256 by N-parts,
+// staged_rows_parts).  A, out and the tiles may lie in device memory.
+
+// The bias of the N-tiles nt < n_tiles at columns c0 + 8 nt (0 past N) into
+// the accumulators of NT N-tiles, as rows g and g + 8 of each.
+template <int NT>
+__device__ __forceinline__ void bias_rows(float (&d)[NT][4],
+                                          const float* __restrict__ bias,
+                                          int c0, int N, int n_tiles,
+                                          bool active, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float b0 = 0.0f, b1 = 0.0f;
+    const int o = c0 + nt * 8 + 2 * t;
+    if (active && bias != nullptr && nt < n_tiles) {
+      b0 = o < N ? __ldg(bias + o) : 0.0f;
+      b1 = o + 1 < N ? __ldg(bias + o + 1) : 0.0f;
+    }
+    d[nt][0] = b0;
+    d[nt][1] = b1;
+    d[nt][2] = b0;
+    d[nt][3] = b1;
+  }
+}
+
+// A's fragments of a slice's k-steps ks0 .. ks0 + steps - 1 (below
+// k_steps), split: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4), plus a_add's columns where given; 0 in an inactive warp.
+__device__ __forceinline__ void a_fragments(
+    uint32_t (&ah)[kSliceSteps][4], uint32_t (&al)[kSliceSteps][4],
+    const float* A, int sa, const float* a_add, int ks0, int k_steps,
+    int steps, bool active, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kSliceSteps; ++kk) {
+    const int ks = ks0 + kk;
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (active && ks < k_steps && kk < steps) {
+      const float* a = A + g * sa + ks * 8 + t;
+      x[0] = a[0];
+      x[1] = a[8 * sa];
+      x[2] = a[4];
+      x[3] = a[8 * sa + 4];
+      if (a_add != nullptr) {
+        const float e0 = a_add[ks * 8 + t], e1 = a_add[ks * 8 + t + 4];
+        x[0] += e0;
+        x[1] += e0;
+        x[2] += e1;
+        x[3] += e1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_wide(x[j], ah[kk][j], al[kk][j]);
+  }
+}
+
+// The epilogue's four outputs of N-tile accumulators d at `at` (row g,
+// column 2 t of the tile) in out's layout: A B + bias (+ add), relu'd, gated.
+__device__ __forceinline__ void epilogue_values(float (&y)[4],
+                                                const float (&d)[4], int at,
+                                                int so, bool relu,
+                                                const float* gate,
+                                                const float* add) {
+  const int o[4] = {at, at + 1, at + 8 * so, at + 8 * so + 1};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    y[e] = d[e];
+    if (add != nullptr) y[e] += add[o[e]];
+    if (relu) y[e] = fmaxf(y[e], 0.0f);
+    if (gate != nullptr && !(gate[o[e]] > 0.0f)) y[e] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store_values(float* out, float* out2, int at,
+                                             int so, const float (&y)[4]) {
+  const int o[4] = {at, at + 1, at + 8 * so, at + 8 * so + 1};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[o[e]] = y[e];
+  if (out2 != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out2[o[e]] = y[e];
+  }
+}
+
 template <int W>
-__device__ __forceinline__ void staged_rows(
+__device__ __forceinline__ void staged_rows_whole(
     Ring& r, int k_steps, int N, const float* A, int sa,
     const float* a_add, const float* __restrict__ bias, bool relu,
     const float* gate, const float* add, float* out, float* out2, int so,
@@ -529,47 +666,13 @@ __device__ __forceinline__ void staged_rows(
   // k-steps a slice (kSliceSteps at W <= 128)
   const int steps = W > 128 ? slice_steps(n_tiles) : kSliceSteps;
   float d[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    float b0 = 0.0f, b1 = 0.0f;
-    const int o = nt * 8 + 2 * t;
-    if (active && bias != nullptr && nt < n_tiles) {
-      b0 = o < N ? __ldg(bias + o) : 0.0f;
-      b1 = o + 1 < N ? __ldg(bias + o + 1) : 0.0f;
-    }
-    d[nt][0] = b0;
-    d[nt][1] = b1;
-    d[nt][2] = b0;
-    d[nt][3] = b1;
-  }
+  bias_rows(d, bias, 0, N, n_tiles, active, t);
 #pragma unroll 1
   for (int ks0 = 0; ks0 < k_steps; ks0 += steps) {
     const uint4* slice = ring_next(r);
     if (!active && !wg) continue;
-    // A's fragments of the slice's k-steps, split: a0 (row g, col t), a1
-    // (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); 0 in an inactive warp
     uint32_t ah[kSliceSteps][4], al[kSliceSteps][4];
-#pragma unroll
-    for (int kk = 0; kk < kSliceSteps; ++kk) {
-      const int ks = ks0 + kk;
-      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (active && ks < k_steps && kk < steps) {
-        const float* a = A + g * sa + ks * 8 + t;
-        x[0] = a[0];
-        x[1] = a[8 * sa];
-        x[2] = a[4];
-        x[3] = a[8 * sa + 4];
-        if (a_add != nullptr) {
-          const float e0 = a_add[ks * 8 + t], e1 = a_add[ks * 8 + t + 4];
-          x[0] += e0;
-          x[1] += e0;
-          x[2] += e1;
-          x[3] += e1;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) split_wide(x[j], ah[kk][j], al[kk][j]);
-    }
+    a_fragments(ah, al, A, sa, a_add, ks0, k_steps, steps, active, g, t);
     if (wg) {
       // the warpgroup's three products a k-step, the small terms first,
       // B's hi and lo parts read by the tensor cores from the slot
@@ -659,23 +762,107 @@ __device__ __forceinline__ void staged_rows(
   for (int nt = 0; nt < NT; ++nt) {
     if (nt >= n_tiles) continue;
     const int at = g * so + nt * 8 + 2 * t;
-    const int o[4] = {at, at + 1, at + 8 * so, at + 8 * so + 1};
     float y[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      y[e] = d[nt][e];
-      if (add != nullptr) y[e] += add[o[e]];
-      if (relu) y[e] = fmaxf(y[e], 0.0f);
-      if (gate != nullptr && !(gate[o[e]] > 0.0f)) y[e] = 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[o[e]] = y[e];
-    if (out2 != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out2[o[e]] = y[e];
-    }
+    epilogue_values(y, d[nt], at, so, relu, gate, add);
+    store_values(out, out2, at, so, y);
   }
   __syncwarp();
+}
+
+// Floats of a warp's stash (Ring::stash): one part's outputs, a thread's
+// 4 kPartTiles values at stash[32 i + lane].
+constexpr int kStashFloats = kPartTiles * 4 * 32;
+
+// staged_rows past W = 256, by mma.sync (R2's block there is one warp, and
+// R1 follows it): the product's N-tiles in parts of kPartTiles, in turn,
+// each from the bias over every k-step of its slices (one k-step a slice;
+// two for a part of up to kSlotTiles N-tiles), each N-tile's three terms in
+// staged_rows_whole's order, so that an output's sums are those of the
+// whole product.  Where out is A (R1's layers, R2's colour input gradient)
+// the parts but the last wait in the warp's stash until the last has read
+// A (at W <= 512 a product has two parts at most).  Not inlined: one copy
+// a kernel, not one a call site, keeps the 384 and 512 builds' compile
+// time in bounds.
+static __device__ __noinline__ void staged_rows_parts(
+    Ring& r, int k_steps, int N, const float* A, int sa,
+    const float* a_add, const float* __restrict__ bias, bool relu,
+    const float* gate, const float* add, float* out, float* out2, int so,
+    bool active, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (N + 7) / 8;
+  const int parts = product_parts(n_tiles);
+  const bool stash = out == A && parts > 1;
+#pragma unroll 1
+  for (int q = 0; q < parts; ++q) {
+    const int pt = part_tiles(n_tiles, q), steps = slice_steps(pt);
+    const int c0 = q * kPartTiles * 8;  // the part's first column
+    float d[kPartTiles][4];
+    bias_rows(d, bias, c0, N, pt, active, t);
+#pragma unroll 1
+    for (int ks0 = 0; ks0 < k_steps; ks0 += steps) {
+      const uint4* slice = ring_next(r);
+      if (!active) continue;
+      uint32_t ah[kSliceSteps][4], al[kSliceSteps][4];
+      a_fragments(ah, al, A, sa, a_add, ks0, k_steps, steps, active, g, t);
+#pragma unroll
+      for (int kk = 0; kk < kSliceSteps; ++kk) {
+        if (ks0 + kk >= k_steps || kk >= steps) break;
+        const uint32_t* b = reinterpret_cast<const uint32_t*>(
+                                slice + kk * pt * 32) +
+                            g * 4 + t;
+#pragma unroll
+        for (int nt = 0; nt < kPartTiles; ++nt) {
+          if (nt >= pt) continue;
+          const uint32_t bh0 = b[nt * 64], bh1 = b[nt * 64 + 32];
+          const uint32_t bl0 = b[(pt + nt) * 64], bl1 = b[(pt + nt) * 64 + 32];
+          mma_tf32(d[nt], al[kk], bh0, bh1);
+          mma_tf32(d[nt], ah[kk], bl0, bl1);
+          mma_tf32(d[nt], ah[kk], bh0, bh1);
+        }
+      }
+    }
+    if (!active) continue;
+    __syncwarp();  // every lane's reads of A are done
+#pragma unroll
+    for (int nt = 0; nt < kPartTiles; ++nt) {
+      if (nt >= pt) continue;
+      const int at = g * so + c0 + nt * 8 + 2 * t;
+      float y[4];
+      epilogue_values(y, d[nt], at, so, relu, gate, add);
+      if (stash && q < parts - 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) r.stash[(nt * 4 + e) * 32 + lane] = y[e];
+      } else {
+        store_values(out, out2, at, so, y);
+      }
+    }
+    __syncwarp();
+  }
+  if (!stash || !active) return;
+  // the first part, from the stash (each thread reads back its own values)
+#pragma unroll
+  for (int nt = 0; nt < kPartTiles; ++nt) {
+    const int at = g * so + nt * 8 + 2 * t;
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[e] = r.stash[(nt * 4 + e) * 32 + lane];
+    store_values(out, out2, at, so, y);
+  }
+  __syncwarp();
+}
+
+template <int W>
+__device__ __forceinline__ void staged_rows(
+    Ring& r, int k_steps, int N, const float* A, int sa,
+    const float* a_add, const float* __restrict__ bias, bool relu,
+    const float* gate, const float* add, float* out, float* out2, int so,
+    bool active, bool wg, int lane) {
+  if constexpr (W > 256)
+    staged_rows_parts(r, k_steps, N, A, sa, a_add, bias, relu, gate, add,
+                      out, out2, so, active, lane);
+  else
+    staged_rows_whole<W>(r, k_steps, N, A, sa, a_add, bias, relu, gate, add,
+                         out, out2, so, active, wg, lane);
 }
 
 // The weight gradient of a [d_in, d_out] layer over the rows of the
@@ -784,24 +971,32 @@ __device__ __forceinline__ void block_weight_grad(
 }
 
 // The entry points of renderer_wide.cu that renderer_fw.cu's and
-// renderer_bw.cu's C functions dispatch to at W = 96, 128, 192 and 256.
-// Both kernels take a workspace (the packed layers and their schedule,
-// filled by each launch) of the bytes their config gives.
+// renderer_bw.cu's C functions dispatch to at W = 96, 128, 192, 256, 384
+// and 512.  Both kernels take a workspace (the packed layers and their
+// schedule, filled by each launch; past W = 256 then a scratch in device
+// memory for each block of the resident wave) of the bytes their config
+// gives.
 // out[0] warps per block, out[1] a block's shared memory in bytes, out[2]
-// the workspace's bytes; a cudaError_t code.
+// the packed layers' bytes, out[3] the blocks of the resident wave, out[4]
+// a block's scratch bytes (0 up to W = 256); a cudaError_t code.
 int render_fw_wide_config(const Params& p, int width, int* out);
+// probe: the recording build's (LIGHTPLANE_RELU_MASKS) [R, steps, 2]
+// floats, zero-filled, or null (renderer_wide.cuh::write_probe).
 cudaError_t launch_render_fw_wide(const Params& p, int width, int warps,
-                                  void* workspace, cudaStream_t stream);
+                                  void* workspace, float* probe,
+                                  cudaStream_t stream);
 int render_fw_wide_attrs(int width, int* out);
 // out[0] warps per block, out[1] rows of partial sums (one per block of
 // the resident wave), out[2] floats of a row, out[3] a block's shared
-// memory in bytes, out[4] the workspace's bytes; a cudaError_t code
+// memory in bytes, out[4] the packed layers' bytes, out[5] a block's
+// scratch bytes (0 up to W = 256); a cudaError_t code
 // (cudaErrorInvalidValue where one warp's region and the ring exceed a
 // block's shared memory).
 int render_bw_wide_config(const Params& p, int width, bool color_grid,
                           int* out);
 cudaError_t launch_render_bw_wide(const Params& p, int width,
-                                  void* workspace, cudaStream_t stream);
+                                  void* workspace, float* probe,
+                                  cudaStream_t stream);
 int render_bw_wide_attrs(int width, int* out);
 // The pre-pass alone: the products of a chunk of schedule `kind`
 // (WideSchedule) packed into the workspace (wide_pack_bytes).

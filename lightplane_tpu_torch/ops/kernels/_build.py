@@ -12,6 +12,9 @@ call to :func:`library` does it, and only a CUDA launch calls it.
 variant of the sources beside the default one: ``chip_smoke.py --ablate``
 uses them to switch parts of a kernel off, and the relu-mask recording
 build of R2 and S2 (``renderer_bw.RELU_MASKS_BUILD``) is one.
+``nice`` lowers the priority of a build's ``nvcc`` runs (``nice -n``), so
+that a build started beside other work takes the cores that work leaves;
+``SECONDS[defines]`` holds each source's compile time from the last build.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
@@ -46,6 +51,7 @@ _RENDER_FW_ARGTYPES = (
     + [_I, _I, _F, _I, _I, _I]  # mask, contract, sigma, seed, stride, R_noise
     + [_P, _P, _P, _I, _P]  # scaffold, its dims, color grid, its count, table
     + [_P]               # workspace (the wide build's)
+    + [_P]               # probe (the wide build's recording build's)
     + [_P]               # stream
 )
 # lightplane_render_bw (see csrc/renderer_bw.cu)
@@ -60,6 +66,7 @@ _RENDER_BW_ARGTYPES = (
     + [_P]               # g_color_grid
     + [_P]               # relu_masks (the recording build's)
     + [_P]               # workspace (the wide build's)
+    + [_P]               # probe (the wide build's recording build's)
     + [_P]               # stream
 )
 
@@ -132,22 +139,35 @@ def _cache_key(sources, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds):
-    """Run the commands in parallel; raise with the stderr of the first
-    that fails."""
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+def _run_all(cmds, nice=0):
+    """Run the commands in parallel (at ``nice``); return each one's
+    seconds; raise with the stderr of the first that fails."""
+    prefix = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(prefix + cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    errs = [proc.communicate()[1] for proc in procs]
-    for cmd, proc, err in zip(cmds, procs, errs):
+
+    def wait(proc):
+        err = proc.communicate()[1]
+        return err, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(wait, procs))
+    for cmd, proc, (err, _) in zip(cmds, procs, done):
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
                 f"{err}"
             )
+    return [seconds for _, seconds in done]
 
 
-def build(defines=()) -> Path:
+# each source's compile time (seconds) in the last build of each defines
+SECONDS: dict = {}
+
+
+def build(defines=(), nice=0) -> Path:
     """Compile the sources, with ``-D`` for each of ``defines``, into
     ``build/kernels/liblightplane_<hash>.so`` unless that file exists;
     returns its path.  Raises with nvcc's stderr when the build fails."""
@@ -164,11 +184,13 @@ def build(defines=()) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
         nvcc = _nvcc()
-        _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(sources, objs)])
+        seconds = _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
+                            for src, obj in zip(sources, objs)], nice)
+        SECONDS[tuple(defines)] = dict(zip((s.name for s in sources),
+                                           seconds))
         lib = Path(tmp) / "lib.so"
         _run_all([[nvcc, *flags, "-shared", "-o", str(lib),
-                   *map(str, objs)]])
+                   *map(str, objs)]], nice)
         os.replace(lib, out)
     return out
 

@@ -26,6 +26,10 @@ every unit of every relu'd vector at every (ray, step) as one bit, into an
 int32 tensor ``[R, steps, vectors, width // 32]`` (``mask_shape``), and
 ``render_bwd_torch(..., relu_masks=)`` replays them: ``x * mask`` in place
 of ``relu(x)``.  ``relu_masks_torch`` records the plain forward's own.
+The same build of the wide kernels (widths 96-512) also writes a probe of
+each open step's raw opacity and raw colours, in the forward march (R1)
+and in the backward's recomputed forward alike, so that the two can be
+held equal to the bit (``forward_probes``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ import torch.nn.functional as F
 
 from ..mlp_utils import _mlp_numel
 from ..renderer import (
+    _chunk_depth_delta,
+    _chunk_noise,
+    _chunk_steps,
+    _plain_width,
     _RenderCfg,
     _step_decoder,
     _step_depth_delta,
@@ -47,11 +55,13 @@ from ..renderer import (
 from .renderer_fw import (
     MAX_SMEM_BYTES,
     WIDE_CHUNK,
+    WIDE_STASH_FLOATS,
     _check,
     _kernel_width,
     _ptr,
     check_impl,
     launch_args,
+    render_fwd_cuda,
     wide_pack_bytes,
     wide_ring_bytes,
 )
@@ -74,8 +84,9 @@ BLOCK_RESERVED_BYTES = 1024
 # The build that records the relu masks (csrc/renderer_bw.cu)
 RELU_MASKS_BUILD = ("LIGHTPLANE_RELU_MASKS=1",)
 
-# The wide build (csrc/renderer_wide.cu): the most warps (rays) a block
-# takes, and the bytes of their active flags after the ring
+# The wide build (csrc/renderer_wide.cuh): the most warps (rays) a block
+# takes (one past W = 256), and the bytes of their active flags after the
+# ring
 WIDE_BW_MAX_WARPS = 8
 WIDE_FLAG_BYTES = 4 * WIDE_BW_MAX_WARPS
 
@@ -134,7 +145,10 @@ def relu_masks_torch(cfg: _RenderCfg, geom, diff):
 def render_bwd_torch(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
                      relu_masks=None):
     """Plain PyTorch reverse march; each step's decoder is differentiated by
-    ``torch.autograd.grad`` (the per-step ``jax.vjp``).  Given
+    ``torch.autograd.grad`` (the per-step ``jax.vjp``), a chunk of steps
+    (``renderer._chunk_steps``) at a time: the chunk's decoder is
+    recomputed at once, the EA adjoint walks its steps far to near one by
+    one, then one ``autograd.grad`` takes every step's cotangents.  Given
     ``relu_masks`` (``mask_shape``), each step's decoder applies them in
     place of its relus."""
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
@@ -147,38 +161,41 @@ def render_bwd_torch(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
 
     nlt_run = nlt_final
     suffix = torch.zeros_like(nlt_final)
-    for s in reversed(range(cfg.tot_num_samples)):
-        t, delta = _step_depth_delta(cfg, near, far, s)
+    chunks = _chunk_steps(range(cfg.tot_num_samples), R,
+                          _plain_width(cfg, diff), directions.is_cuda)
+    for chunk in reversed(chunks):
+        t, delta = _chunk_depth_delta(cfg, near, far, chunk)
         pts = _step_points(cfg, origins, directions, t)
-        noise = (
-            _step_noise(cfg, s, R, noise_seed, directions.device)
-            if cfg.inject_noise_sigma > 0.0
-            else None
-        )
+        noise = _chunk_noise(cfg, chunk, R, noise_seed, directions.device)
         relu = {}
         if relu_masks is not None:
-            m = unpack_masks(relu_masks[:, s]).to(nlt_final.dtype)
-            relu = dict(relu=lambda k, x, m=m: x * m[:, k, : x.shape[-1]])
+            m = unpack_masks(relu_masks[:, chunk[0]:chunk[-1] + 1]).to(
+                nlt_final.dtype)
+            relu = dict(relu=lambda k, x, m=m: x * m[:, :, k, : x.shape[-1]])
         with torch.enable_grad():
             sigma, color = _step_decoder(cfg, pts, *leaves, grid_idx,
                                          scaffold, noise, **relu)
-            color = color[:, : cfg.out_chn]
+            color = color[..., : cfg.out_chn]
 
-        # transmittance rewind + EA adjoint
-        nlt_prev = nlt_run - sigma.detach() * delta
-        T = torch.exp(-nlt_run)          # T_s (includes step s)
-        w = torch.exp(-nlt_prev) - T     # T_{s-1} - T_s
-        g_w = g_depth * t + (g_feat * color.detach()).sum(-1)
-        g_s = g_w * T - suffix + g_nlt
+        # transmittance rewind + EA adjoint, step by step far to near
+        g_sigma = torch.empty_like(sigma)
+        g_color = torch.empty_like(color)
+        for j in reversed(range(len(chunk))):
+            nlt_prev = nlt_run - sigma[:, j].detach() * delta[:, j]
+            T = torch.exp(-nlt_run)          # T_s (includes step s)
+            w = torch.exp(-nlt_prev) - T     # T_{s-1} - T_s
+            g_w = g_depth * t[:, j] + (g_feat * color[:, j].detach()).sum(-1)
+            g_s = g_w * T - suffix + g_nlt
+            g_sigma[:, j] = g_s * delta[:, j]
+            g_color[:, j] = w[:, None] * g_feat
+            suffix = suffix + g_w * w
+            nlt_run = nlt_prev
         d = torch.autograd.grad(
-            (sigma, color), wrt, (g_s * delta, w[:, None] * g_feat),
-            allow_unused=True,
+            (sigma, color), wrt, (g_sigma, g_color), allow_unused=True,
         )
         for acc, di in zip(grads, d):
             if di is not None:
                 acc += di
-        suffix = suffix + g_w * w
-        nlt_run = nlt_prev
 
     it = iter(grads)
     return tuple(None if t is None else next(it) for t in leaves)
@@ -232,19 +249,33 @@ def block_smem_bytes(lib, a, has_color_grid: bool):
         for r in RAYS_PER_BLOCK}
 
 
+def wide_head_stride(layers, n_c: int) -> int:
+    """Row stride of the wide backward's heads' tile (Gt): the heads' last
+    layers' widest output rounded up to 8, plus 4."""
+    head_out = max(layers[len(layers) - n_c - 1][1], layers[-1][1])
+    return -(-head_out // 8) * 8 + 4
+
+
 def wide_warp_floats(width: int, layers, n_c: int,
                      has_color_grid: bool) -> int:
     """Floats of one warp's region in the wide build's shared memory
-    (``csrc/renderer_wide.cu::bw_layout``): a [WIDE_CHUNK, width + 4] tile
+    (``csrc/renderer_wide.cuh::bw_layout``): a [WIDE_CHUNK, width + 4] tile
     for each layer input of the forward (``len(layers) - 1``, + 1 for a
     colour grid's sample, + 1 with a one-layer colour head), the heads'
-    gradient tile [WIDE_CHUNK, c + 4] (c the heads' last layers' widest
-    output rounded up to 8) and the ray's encoding (``width``)."""
-    n_total = len(layers)
-    n_wide = n_total - 1 + int(has_color_grid) + int(n_c == 1)
-    head_out = max(layers[n_total - n_c - 1][1], layers[-1][1])
-    sg = -(-head_out // 8) * 8 + 4
-    return n_wide * WIDE_CHUNK * (width + 4) + WIDE_CHUNK * sg + width
+    tile [WIDE_CHUNK, ``wide_head_stride``] (past W = 256 in device memory:
+    ``wide_bw_scratch_bytes``) and the ray's encoding (``width``)."""
+    n_wide = len(layers) - 1 + int(has_color_grid) + int(n_c == 1)
+    heads = 0 if width > 256 else WIDE_CHUNK * wide_head_stride(layers, n_c)
+    return n_wide * WIDE_CHUNK * (width + 4) + heads + width
+
+
+def wide_bw_scratch_bytes(width: int, layers, n_c: int) -> int:
+    """A block's scratch in device memory in the wide backward: past W =
+    256 (one warp a block) its stash (WIDE_STASH_FLOATS) and its heads'
+    tile, else none."""
+    if width <= 256:
+        return 0
+    return 4 * (WIDE_STASH_FLOATS + WIDE_CHUNK * wide_head_stride(layers, n_c))
 
 
 def wide_bw_smem_bytes(width: int, warp_floats: int, warps: int) -> int:
@@ -256,13 +287,15 @@ def wide_bw_smem_bytes(width: int, warp_floats: int, warps: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class WidePlan:
     """The wide backward's launch: warps (rays) a block, a block's shared
-    memory, the bytes of its workspace (the packed layers) and the floats
-    of a block's row of weight-gradient sums."""
+    memory, the bytes of the packed layers, the floats of a block's row of
+    weight-gradient sums and the bytes of a block's scratch in device memory
+    (past W = 256)."""
 
     warps: int
     smem_bytes: int
     workspace_bytes: int
     row_floats: int
+    scratch_bytes: int = 0
 
     @staticmethod
     def partial_rows(num_sms: int) -> int:
@@ -279,13 +312,14 @@ def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
     other): the most warps, up to WIDE_BW_MAX_WARPS, whose regions fit with
     the ring in a block's shared memory, rounded down to whole warpgroups
     of 4 past 4 (a warpgroup runs the products by ``wgmma``; 1-3 warps by
-    ``mma.sync``).  Raises ``ValueError`` with the
+    ``mma.sync``); past W = 256 one (its heads' tile and stash in a scratch
+    in device memory).  Raises ``ValueError`` with the
     bytes one warp needs where even that does not fit."""
     from .renderer_fw import wide_layers, wide_products
 
     layers = wide_layers(n_t, n_o, n_c, list(widths))
     floats = wide_warp_floats(width, layers, n_c, has_color_grid)
-    warps = WIDE_BW_MAX_WARPS
+    warps = 1 if width > 256 else WIDE_BW_MAX_WARPS
     while warps > 1 and wide_bw_smem_bytes(width, floats,
                                            warps) > MAX_SMEM_BYTES:
         warps -= 1
@@ -303,11 +337,12 @@ def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
         row += mi * no * 128 + 8 * no
     return WidePlan(warps, smem,
                     wide_pack_bytes(wide_products(layers, n_t, n_o, True)),
-                    -(-row // 4) * 4)
+                    -(-row // 4) * 4, wide_bw_scratch_bytes(width, layers,
+                                                            n_c))
 
 
 def wide_config(lib, a, has_color_grid: bool):
-    """The wide build's (widths 96-256) launch as its C side plans it,
+    """The wide build's (widths 96-512) launch as its C side plans it,
     held to ``wide_bw_plan``'s: ``(plan, rows of the partial-sum buffer)``,
     a row per block of the resident wave.  Raises ``ValueError`` where one
     warp's region and the ring exceed a block's shared memory."""
@@ -315,22 +350,22 @@ def wide_config(lib, a, has_color_grid: bool):
 
     plan = wide_bw_plan(a.width, a.n_t, a.n_o, a.n_c, list(a.mlp_widths),
                         has_color_grid)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     rc = lib.lightplane_render_bw_wide_config(
         a.width, a.n_t, a.n_o, a.n_c, a.mlp_widths, int(has_color_grid), out)
     if rc != 0:
         raise ValueError(f"the wide backward refused its launch "
                          f"({lib.lightplane_cuda_error_string(rc).decode()})")
-    if (out[0], out[3], out[4], out[2]) != (
+    if (out[0], out[3], out[4], out[2], out[5]) != (
             plan.warps, plan.smem_bytes, plan.workspace_bytes,
-            plan.row_floats):
+            plan.row_floats, plan.scratch_bytes):
         raise RuntimeError(f"the wide backward's plan {tuple(out)} is not "
                            f"the wrapper's {plan}")
     return plan, out[1]
 
 
 def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
-               rays_per_block, relu_masks):
+               rays_per_block, relu_masks, probe=None):
     global LAUNCHES, SCAFFOLD_LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
@@ -350,12 +385,14 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
         # the wide build: a warp per ray, each block of the resident wave
         # its own row of weight-gradient sums, zero-filled here (a second
         # kernel sums the rows into g_mlp), the layers packed into the
-        # workspace by the launch's pre-pass.  rays_per_block is not read.
+        # workspace by the launch's pre-pass, then (past W = 256) each
+        # block's scratch.  rays_per_block is not read.
         plan, rows = wide_config(lib, a, color_grid_flat is not None)
         partials = torch.zeros((rows, plan.row_floats), dtype=f32,
                                device=a.device)
-        workspace = torch.empty((plan.workspace_bytes // 4,),
-                                dtype=torch.int32, device=a.device)
+        workspace = torch.empty(
+            ((plan.workspace_bytes + rows * plan.scratch_bytes) // 4,),
+            dtype=torch.int32, device=a.device)
         rays_per_block = RAYS_PER_BLOCK[-1]
     else:
         smem = block_smem_bytes(lib, a, color_grid_flat is not None)
@@ -409,6 +446,7 @@ def _launch_bw(cfg: _RenderCfg, geom, diff, nlt_final, g_out, defines,
         None if g_color_grid is None else g_color_grid.data_ptr(),
         None if relu_masks is None else relu_masks.data_ptr(),
         _ptr(workspace),
+        _ptr(probe),
         stream,
     )
     if rc != 0:
@@ -429,16 +467,34 @@ def render_bwd_cuda(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
 
 
 def render_bwd_cuda_relu_masks(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
-                               rays_per_block=None):
+                               rays_per_block=None, probe=None):
     """The kernel's recording build (``RELU_MASKS_BUILD``): returns its
     gradients, as ``render_bwd_cuda``'s, and the relu masks its recomputed
     forward took (``mask_shape``; zero at steps that no ray of a block
-    passes the scaffold at, where every cotangent is 0)."""
+    passes the scaffold at, where every cotangent is 0).  ``probe`` as
+    ``renderer_fw.render_fwd_cuda``'s (the wide widths only)."""
     shape = mask_shape(cfg, geom[0].shape[0], diff[0].shape[1])
     masks = torch.zeros(shape, dtype=torch.int32, device=geom[0].device)
     grads = _launch_bw(cfg, geom, diff, nlt_final, g_out, RELU_MASKS_BUILD,
-                       rays_per_block, masks)
+                       rays_per_block, masks, probe)
     return grads, masks
+
+
+def forward_probes(cfg: _RenderCfg, geom, diff, g_out):
+    """R1's forward and R2's recomputed forward, each through the wide
+    builds' recording build (widths 96-512): ``(r1, r2)``, each ``[R,
+    steps, 2]`` f32, an open step's raw opacity (before the noise) and the
+    sum of its raw colours, 0 at the steps that are shut.  R2 recomputes
+    R1's activations by the same products in the same order, so the two
+    are equal to the bit (``torch.equal``)."""
+    R = geom[0].shape[0]
+    shape = (R, cfg.tot_num_samples, 2)
+    r1 = torch.zeros(shape, dtype=torch.float32, device=geom[0].device)
+    r2 = torch.zeros_like(r1)
+    nlt = render_fwd_cuda(cfg, geom, diff, defines=RELU_MASKS_BUILD,
+                          probe=r1)[1]
+    render_bwd_cuda_relu_masks(cfg, geom, diff, nlt, g_out, probe=r2)
+    return r1, r2
 
 
 def render_bwd(cfg: _RenderCfg, geom, diff, nlt_final, g_out,

@@ -40,15 +40,17 @@ SCAFFOLD_LAUNCHES = 0
 MAX_GRIDS = 16         # kMaxGrids in march_common.cuh
 MAX_LAYERS = 16        # kMaxLayers in march_common.cuh (per MLP)
 # The kernels' compiled activation widths: 32 and 64 keep the MLP's layers
-# in shared memory, 96, 128, 192 and 256 (the wide builds,
-# csrc/renderer_wide.cu and csrc/wide_mlp.cuh) stage them a slice at a time
-WIDTHS = (32, 64, 96, 128, 192, 256)
+# in shared memory, 96 to 512 (the wide builds, csrc/renderer_wide.cuh and
+# csrc/wide_mlp.cuh) stage them a slice at a time; past 256 each product in
+# N-parts of at most WIDE_PART_TILES N-tiles (the splatter MLP's builds stop
+# at 256: splatter_fw.MLP_WIDTHS)
+WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512)
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # Warps (one ray each) per block the forward kernel may take, most first:
 # each warp keeps two [32, W + 4] tiles in shared memory beside the MLP.
 WARPS_PER_BLOCK = (4, 2, 1)
 
-# The wide builds (csrc/renderer_wide.cu, csrc/wide_mlp.cuh): a block's
+# The wide builds (csrc/renderer_wide.cuh, csrc/wide_mlp.cuh): a block's
 # warps march a ray each in lockstep, WIDE_CHUNK steps at a time, each
 # product's layer staged for the whole block in a ring of WIDE_RING_SLOTS
 # shared-memory slots of WIDE_SLICE_STEPS k-steps of 8 by up to
@@ -62,6 +64,12 @@ WIDE_SLICE_STEPS = 2
 WIDE_SLOT_TILES = 16
 WIDE_RING_SLOTS = 3
 WIDE_FW_WARPS = 8
+# Past W = 256 a product runs in N-parts of up to WIDE_PART_TILES N-tiles
+# (256 columns: a slot's k-step, 128 accumulators a thread), and a part
+# that overwrites its own input waits in a warp's stash of
+# WIDE_STASH_FLOATS in device memory (csrc/wide_mlp.cuh::staged_rows_parts)
+WIDE_PART_TILES = 32
+WIDE_STASH_FLOATS = WIDE_PART_TILES * 4 * 32
 
 
 def render_fwd_torch(cfg: _RenderCfg, geom, diff):
@@ -116,8 +124,8 @@ def _kernel_width(cfg: _RenderCfg, grid_chn: int) -> int:
         if widest <= w:
             return w
     raise ValueError(
-        f"the CUDA renderer takes channel and MLP widths up to {WIDTHS[-1]} "
-        f"(wgmma's widest N), got {widest}"
+        f"the CUDA renderer takes channel and MLP widths up to {WIDTHS[-1]}, "
+        f"got {widest}"
     )
 
 
@@ -261,17 +269,34 @@ def wide_ring_bytes(width: int) -> int:
 
 
 def wide_slice_steps(n_tiles: int) -> int:
-    """k-steps a ring slice of a product of ``n_tiles`` N-tiles holds:
-    WIDE_SLICE_STEPS up to WIDE_SLOT_TILES N-tiles, else one."""
+    """k-steps a ring slice of a product (or an N-part) of ``n_tiles``
+    N-tiles holds: WIDE_SLICE_STEPS up to WIDE_SLOT_TILES N-tiles, else
+    one."""
     return 1 if n_tiles > WIDE_SLOT_TILES else WIDE_SLICE_STEPS
+
+
+def wide_parts(n_tiles: int):
+    """The N-tiles of each N-part of a product of ``n_tiles`` N-tiles:
+    WIDE_PART_TILES each, the last the rest (one part up to W = 256)."""
+    return [min(WIDE_PART_TILES, n_tiles - q)
+            for q in range(0, n_tiles, WIDE_PART_TILES)]
 
 
 def wide_fw_warps(width: int) -> int:
     """The wide forward's warps a block: WIDE_FW_WARPS (two warpgroups)
     where their tiles fit with the ring (W = 96, 128), else one warpgroup
-    (W = 192, 256)."""
-    fits = wide_fw_smem_bytes(width, WIDE_FW_WARPS) <= MAX_SMEM_BYTES
-    return WIDE_FW_WARPS if fits else 4
+    (W = 192, 256), else the most that fit (3 at W = 384, 2 at 512)."""
+    if wide_fw_smem_bytes(width, WIDE_FW_WARPS) <= MAX_SMEM_BYTES:
+        return WIDE_FW_WARPS
+    return next(w for w in (4, 3, 2, 1)
+                if wide_fw_smem_bytes(width, w) <= MAX_SMEM_BYTES)
+
+
+def wide_fw_scratch_bytes(width: int, warps: Optional[int] = None) -> int:
+    """A block's scratch in device memory in the wide forward: past W =
+    256 a stash of WIDE_STASH_FLOATS a warp, else none."""
+    warps = warps or wide_fw_warps(width)
+    return 4 * warps * WIDE_STASH_FLOATS if width > 256 else 0
 
 
 def wide_fw_smem_bytes(width: int, warps: Optional[int] = None) -> int:
@@ -305,15 +330,17 @@ def wide_products(layers, n_t: int, n_o: int, backward: bool):
     """The products of a chunk in the order the wide kernels run them
     (``csrc/wide_mlp.cuh::wide_product``): ``(layer, transposed, k_steps,
     n_tiles)``, the relu layers of the forward (layer j below the opacity
-    head's last, j + 1 past it), then with ``backward`` every layer's input
+    head's last, j + 1 past it), past W = 256 the colour head's last layer
+    (``wide_head_product``), then with ``backward`` every layer's input
     gradient (its transpose), last layer first."""
     n_total = len(layers)
     opacity_end = n_t + n_o - 1
+    fwd = n_total - 2 + wide_head_product(layers)
     out = []
-    for i in range(n_total - 2 + (n_total if backward else 0)):
-        transposed = i >= n_total - 2
+    for i in range(fwd + (n_total if backward else 0)):
+        transposed = i >= fwd
         if transposed:
-            layer = n_total - 1 - (i - (n_total - 2))
+            layer = n_total - 1 - (i - fwd)
         else:
             layer = i if i < opacity_end else i + 1
         d_in, d_out = layers[layer][:2]
@@ -322,16 +349,26 @@ def wide_products(layers, n_t: int, n_o: int, backward: bool):
     return out
 
 
+def wide_head_product(layers) -> bool:
+    """Whether R1 and R2 run the colour head's last layer as a product
+    (``csrc/wide_mlp.cuh::wide_head_product``): past W = 256, where its
+    outputs, the rendered channels, are too many for a lane's dot
+    products."""
+    return max(max(d_in, d_out) for d_in, d_out, _, _ in layers) > 256
+
+
 def wide_slices(products) -> int:
-    """Ring slices of a chunk's products (``wide_slice_steps`` k-steps
-    each)."""
-    return sum(-(-ks // wide_slice_steps(nt)) for _, _, ks, nt in products)
+    """Ring slices of a chunk's products: each N-part's k-steps,
+    ``wide_slice_steps`` of them a slice."""
+    return sum(-(-ks // wide_slice_steps(pt)) for _, _, ks, nt in products
+               for pt in wide_parts(nt))
 
 
 def wide_pack_bytes(products) -> int:
-    """Bytes of the wide kernels' workspace: an int2 a ring slice (two
-    k-steps of a product, one past WIDE_SLOT_TILES N-tiles), then each
-    product's 32 lanes' uint4 a k-step and N-tile."""
+    """Bytes of the wide kernels' packed layers: an int2 a ring slice (two
+    k-steps of a product, one past WIDE_SLOT_TILES N-tiles; a slice of one
+    N-part past WIDE_PART_TILES), then each product's 32 lanes' uint4 a
+    k-step and N-tile."""
     return 16 * (-(-wide_slices(products) // 2)
                  + sum(ks * nt * 32 for _, _, ks, nt in products))
 
@@ -347,14 +384,17 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def pack_wide_torch(mlp_params: torch.Tensor, layers, products):
     """The plain version of the wide kernels' pre-pass
-    (``csrc/renderer_wide.cu::pack_wide_kernel``): their workspace as int32
+    (``csrc/renderer_wide.cuh::pack_wide_kernel``): their workspace as int32
     ``[wide_pack_bytes / 16, 4]``.  First the schedule, an int2 a ring
     slice (its first row, its rows); then per product and k-step of 8 the
     hi part, then the lo part of B (the layer's ``[d_in, d_out]`` weights,
     or their transpose; 0 past them), hi = ``tf32_round(b)`` and lo = b -
     hi (so hi + lo == b): each part, per N-tile j of 8 and k-half h, a
     core matrix of ``wgmma``'s K-major layout, row r = ``B[8 ks + 4 h +
-    (0..3), 8 j + r]`` (16 bytes), core 2 j + h."""
+    (0..3), 8 j + r]`` (16 bytes), core 2 j + h.  A product of more than
+    WIDE_PART_TILES N-tiles is laid out N-part by N-part (``wide_parts``),
+    each as a product of its own N-tiles, its slices after the last
+    part's."""
     w_all = mlp_params.detach().to(torch.float32).reshape(-1)
     head = -(-wide_slices(products) // 2)
     out = torch.zeros((wide_pack_bytes(products) // 16, 4),
@@ -367,17 +407,20 @@ def pack_wide_torch(mlp_params: torch.Tensor, layers, products):
         padded = torch.zeros((8 * ks, 8 * nt), dtype=torch.float32,
                              device=w_all.device)
         padded[:b.shape[0], :b.shape[1]] = b
-        # k = 8 s + 4 h + c, n = 8 j + r -> [s][j][h][r][c]
-        core = padded.reshape(ks, 2, 4, nt, 8).permute(0, 3, 1, 4, 2)
-        hi = tf32_round(core)
-        lo = core - hi
-        region = torch.stack([hi, lo], 1).view(torch.int32)
-        n = ks * nt * 32
-        out[at:at + n] = region.reshape(n, 4)
-        steps = wide_slice_steps(nt)
-        for k0 in range(0, ks, steps):
-            sched.append((at + k0 * nt * 32, min(steps, ks - k0) * nt * 32))
-        at += n
+        for q, pt in enumerate(wide_parts(nt)):
+            part = padded[:, 8 * WIDE_PART_TILES * q:][:, :8 * pt]
+            # k = 8 s + 4 h + c, n = 8 j + r -> [s][j][h][r][c]
+            core = part.reshape(ks, 2, 4, pt, 8).permute(0, 3, 1, 4, 2)
+            hi = tf32_round(core)
+            lo = core - hi
+            region = torch.stack([hi, lo], 1).view(torch.int32)
+            n = ks * pt * 32
+            out[at:at + n] = region.reshape(n, 4)
+            steps = wide_slice_steps(pt)
+            for k0 in range(0, ks, steps):
+                sched.append((at + k0 * pt * 32,
+                              min(steps, ks - k0) * pt * 32))
+            at += n
     if sched:
         flat = out[:head].reshape(-1)
         flat[:2 * len(sched)] = torch.tensor(sched, dtype=torch.int32,
@@ -401,9 +444,10 @@ def pick_warps_per_block(smem_bytes, max_smem: int = MAX_SMEM_BYTES):
 
 
 def wide_config(lib, a):
-    """The wide forward's ``(warps, shared-memory bytes, workspace bytes)``
-    as its C side plans them (``lightplane_render_fw_wide_config``)."""
-    out = (ctypes.c_int * 3)()
+    """The wide forward's ``(warps, shared-memory bytes, packed layers'
+    bytes, blocks of the resident wave, a block's scratch bytes)`` as its C
+    side plans them (``lightplane_render_fw_wide_config``)."""
+    out = (ctypes.c_int * 5)()
     rc = lib.lightplane_render_fw_wide_config(a.width, a.n_t, a.n_o, a.n_c,
                                               a.mlp_widths, out)
     if rc != 0:
@@ -413,11 +457,15 @@ def wide_config(lib, a):
 
 
 def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
-                    warps_per_block=None):
+                    warps_per_block=None, probe=None):
     """Launch the forward-march kernel on the current CUDA stream.
     ``defines`` pick a variant build of the kernel (``_build.library``);
     ``warps_per_block`` (of ``WARPS_PER_BLOCK``; 1..``WIDE_FW_WARPS`` that
-    fit at the wide widths) overrides ``pick_warps_per_block``."""
+    fit at the wide widths up to 256) overrides ``pick_warps_per_block``.
+    ``probe``, for the wide builds' recording build only
+    (``renderer_bw.RELU_MASKS_BUILD``): a zero-filled ``[R, steps, 2]`` f32
+    tensor that gets each open step's raw opacity and the sum of its raw
+    colours (``renderer_bw.forward_probes``)."""
     global LAUNCHES, SCAFFOLD_LAUNCHES
     directions, origins, near, far, grid_idx, scaffold, noise_seed = geom
     grid_flat, color_grid_flat, mlp_params, rays_encoding = diff
@@ -435,17 +483,21 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
         # recomputed forward gives R1's activations to the bit
         warps = warps_per_block or wide_fw_warps(a.width)
         if not (1 <= warps <= WIDE_FW_WARPS and wide_fw_smem_bytes(
-                a.width, warps) <= MAX_SMEM_BYTES):
+                a.width, warps) <= MAX_SMEM_BYTES) or (
+                a.width > 256 and warps != wide_fw_warps(a.width)):
             raise ValueError(f"warps_per_block must be 1..{WIDE_FW_WARPS} "
-                             f"and fit in shared memory at width {a.width}, "
-                             f"got {warps}")
+                             f"and fit in shared memory at width {a.width} "
+                             f"(past 256 the plan's, for which the blocks' "
+                             f"scratch is sized), got {warps}")
         conf = wide_config(lib, a)
-        if conf != (wide_fw_warps(a.width), wide_fw_smem_bytes(a.width),
-                    wide_pack_bytes(a.products(False))):
+        want = (wide_fw_warps(a.width), wide_fw_smem_bytes(a.width),
+                wide_pack_bytes(a.products(False)))
+        if conf[:3] != want or conf[4] != wide_fw_scratch_bytes(a.width):
             raise RuntimeError(f"the wide forward's plan {conf} is not the "
                                f"wrapper's")
-        workspace = torch.empty((conf[2] // 4,), dtype=torch.int32,
-                                device=a.device)
+        # the packed layers, then (past W = 256) each block's scratch
+        workspace = torch.empty(((conf[2] + conf[3] * conf[4]) // 4,),
+                                dtype=torch.int32, device=a.device)
     else:
         smem = {w: lib.lightplane_render_fw_smem_bytes(a.width, a.n_layers,
                                                        a.color_chn, w)
@@ -481,6 +533,7 @@ def render_fwd_cuda(cfg: _RenderCfg, geom, diff, defines=(),
         cfg.num_rays_noise,
         *a.extras(scaffold, color_grid_flat),
         _ptr(workspace),
+        _ptr(probe),
         stream,
     )
     if rc != 0:

@@ -47,13 +47,18 @@ import ctypes
 import torch
 
 from ..grid_sample import sample_grid_rep
-from ..splatter import _march_points, _SplatCfg, _step_fused_feature
+from ..splatter import (
+    _chunk_points,
+    _march_points,
+    _splat_chunks,
+    _SplatCfg,
+    _step_fused_feature,
+)
 from . import splatter_fw as sfw
 from .renderer_bw import RELU_MASKS_BUILD, pack_masks, unpack_masks
 from .renderer_fw import (
     MAX_SMEM_BYTES,
     WIDE_CHUNK,
-    WIDTHS,
     _check,
     check_impl,
     wide_layers,
@@ -80,8 +85,8 @@ WIDE_A_FLAG_BYTES = 4 * WIDE_A_MAX_WARPS
 def mask_shape(cfg: _SplatCfg, R: int):
     """Shape of the relu masks of ``R`` rays through the splatter MLP:
     ``[R, steps, layers - 1, words]`` with one bit per unit of the kernel's
-    padded width (``WIDTHS``)."""
-    width = next(w for w in WIDTHS if max(cfg.n_hidden) <= w)
+    padded width (``splatter_fw.MLP_WIDTHS``)."""
+    width = next(w for w in sfw.MLP_WIDTHS if max(cfg.n_hidden) <= w)
     return (R, cfg.tot_num_samples, len(cfg.n_hidden) - 2, width // 32)
 
 
@@ -104,30 +109,36 @@ def relu_masks_torch(cfg: _SplatCfg, geom, diff):
 
 def splat_bwd_torch(cfg: _SplatCfg, geom, diff, g_feat_grid,
                     relu_masks=None):
-    """Plain PyTorch adjoint march; with an MLP each step is differentiated
-    by ``torch.autograd.grad`` (the per-step ``jax.vjp``).  Given
+    """Plain PyTorch adjoint march, a chunk of steps at a time
+    (``splatter._splat_chunks``); with an MLP each step is differentiated
+    by ``torch.autograd.grad`` (the per-step ``jax.vjp``; one call a
+    chunk).  Given
     ``relu_masks`` (``mask_shape``), each step's MLP applies them in place
     of its relus."""
     grid_idx = geom[4]
     encoding = diff[0]
+    chunks = _splat_chunks(cfg, geom, diff)
     if not cfg.n_hidden:
         g_enc = torch.zeros_like(encoding)
-        for s in range(cfg.tot_num_samples):
-            pts = _march_points(cfg, geom, s)
-            g_enc += sample_grid_rep(g_feat_grid, cfg.output_grid_sizes, pts,
-                                     grid_idx, cfg.mask_out_of_bounds_samples)
+        for chunk in chunks:
+            pts = _chunk_points(cfg, geom, chunk)
+            g = sample_grid_rep(g_feat_grid, cfg.output_grid_sizes, pts,
+                                grid_idx, cfg.mask_out_of_bounds_samples)
+            for j in range(len(chunk)):   # summed step by step
+                g_enc += g[:, j]
         return g_enc, None, None
 
     leaves = [t.detach().requires_grad_(True) for t in diff]
     grads = [torch.zeros_like(t) for t in leaves]
-    for s in range(cfg.tot_num_samples):
-        pts = _march_points(cfg, geom, s)
+    for chunk in chunks:
+        pts = _chunk_points(cfg, geom, chunk)
         g_vec = sample_grid_rep(g_feat_grid, cfg.output_grid_sizes, pts,
                                 grid_idx, cfg.mask_out_of_bounds_samples)
         relu = {}
         if relu_masks is not None:
-            m = unpack_masks(relu_masks[:, s]).to(encoding.dtype)
-            relu = dict(relu=lambda k, x, m=m: x * m[:, k, : x.shape[-1]])
+            m = unpack_masks(relu_masks[:, chunk[0]:chunk[-1] + 1]).to(
+                encoding.dtype)
+            relu = dict(relu=lambda k, x, m=m: x * m[:, :, k, : x.shape[-1]])
         with torch.enable_grad():
             vec = _step_fused_feature(cfg, pts, *leaves, grid_idx, **relu)
         for acc, d in zip(grads, torch.autograd.grad(vec, leaves, g_vec)):

@@ -33,19 +33,28 @@ import torch
 from .. import guards
 from ..grid_sample import grid_row_offsets, splat_grid_rep
 from ..mlp_utils import _mlp_numel
-from ..splatter import _march_points, _SplatCfg, _step_fused_feature
+from ..splatter import (
+    _chunk_points,
+    _march_points,
+    _splat_chunks,
+    _SplatCfg,
+    _step_fused_feature,
+)
 from .renderer_fw import (
     MAX_GRIDS,
     MAX_LAYERS,
     MAX_SMEM_BYTES,
     WIDE_CHUNK,
-    WIDTHS,
     _check,
     check_impl,
     wide_layers,
     wide_pack_bytes,
     wide_ring_bytes,
 )
+
+# The splatter MLP's padded activation widths (its kernels' builds: 32 and
+# 64, and the wide ones up to 256; the renderer's go on to 512)
+MLP_WIDTHS = (32, 64, 96, 128, 192, 256)
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it, so a caller can reset it and show that
@@ -81,18 +90,18 @@ PASS_F_WARPS = 8
 
 
 def splat_fwd_torch(cfg: _SplatCfg, geom, diff):
-    """Plain PyTorch splat over all steps: ``[vec | 1]`` into one
-    ``[V, C + 1]`` accumulator updated in place, split at the end; memory
-    O(V + R)."""
-    directions, _, _, _, grid_idx = geom
+    """Plain PyTorch splat over all steps, a chunk of steps at a time
+    (``splatter._splat_chunks``): ``[vec | 1]`` into one ``[V, C + 1]``
+    accumulator updated in place, split at the end; memory O(V + R)."""
+    grid_idx = geom[4]
     encoding, input_grid_flat, mlp_params = diff
     C = cfg.out_chn
     acc = encoding.new_zeros((cfg.v_total, C + 1))
-    ones = encoding.new_ones((directions.shape[0], 1))
-    for s in range(cfg.tot_num_samples):
-        pts = _march_points(cfg, geom, s)
+    for chunk in _splat_chunks(cfg, geom, diff):
+        pts = _chunk_points(cfg, geom, chunk)
         vec = _step_fused_feature(cfg, pts, encoding, input_grid_flat,
                                   mlp_params, grid_idx)
+        ones = vec.new_ones(vec.shape[:-1] + (1,))
         splat_grid_rep(torch.cat([vec, ones], -1), acc, cfg.output_grid_sizes,
                        pts, grid_idx, cfg.mask_out_of_bounds_samples,
                        inplace=True)
@@ -100,12 +109,12 @@ def splat_fwd_torch(cfg: _SplatCfg, geom, diff):
 
 
 def _mlp_width(cfg: _SplatCfg) -> int:
-    """The MLP's padded activation width, the narrowest of ``WIDTHS`` that
-    holds every layer (0 without an MLP or beyond the widest build;
+    """The MLP's padded activation width, the narrowest of ``MLP_WIDTHS``
+    that holds every layer (0 without an MLP or beyond the widest build;
     ``splat_launch_args`` raises for the latter)."""
     if not cfg.n_hidden:
         return 0
-    return next((w for w in WIDTHS if max(cfg.n_hidden) <= w), 0)
+    return next((w for w in MLP_WIDTHS if max(cfg.n_hidden) <= w), 0)
 
 
 def _tile_rows(grid_size, brick) -> int:
@@ -390,7 +399,7 @@ class SplatLaunchArgs:
     C_in: int        # MLP input channels (the encoding's), 0 without an MLP
     n_layers: int    # 0 without an MLP
     n_params: int
-    width: int       # one of WIDTHS with an MLP, 0 without
+    width: int       # one of MLP_WIDTHS with an MLP, 0 without
     out_meta: ctypes.Array
     in_meta: object  # ctypes.Array, or None without an MLP
     mlp_widths: object
@@ -429,10 +438,10 @@ def splat_launch_args(cfg: _SplatCfg, geom, diff, kernel: str):
             raise ValueError(
                 f"the CUDA splatter takes MLPs of 1..{MAX_LAYERS} layers")
         widest = max(cfg.n_hidden)
-        width = next((w for w in WIDTHS if widest <= w), None)
+        width = next((w for w in MLP_WIDTHS if widest <= w), None)
         if width is None:
             raise ValueError(
-                f"the CUDA splatter takes MLP widths up to {WIDTHS[-1]}, "
+                f"the CUDA splatter takes MLP widths up to {MLP_WIDTHS[-1]}, "
                 f"got {widest}")
         _check(encoding, "encoding", f32, (R, C_in), device)
         V_in = input_grid_flat.shape[0]

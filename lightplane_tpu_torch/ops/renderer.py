@@ -8,7 +8,8 @@ plain PyTorch version for CPU tensors, and saves only the inputs and the
 final negative log transmittance.  Its backward recomputes the march far to
 near, in ``csrc/renderer_bw.cu`` or its plain version.  Both passes keep
 memory O(R), independent of ``num_samples``: no ``[R, S, ...]`` tensor is
-made.  The background samples (``num_samples_inf``) are split off the main
+made (the plain versions take a bounded chunk of steps at a time,
+:func:`_chunk_steps`).  The background samples (``num_samples_inf``) are split off the main
 march and run as a plain PyTorch loop under ordinary autograd, chained from
 its negative log transmittance, as the JAX package does.
 """
@@ -112,17 +113,19 @@ def _relu(k: int, x):
 
 def _step_decoder(
     cfg: _RenderCfg,
-    pts,                # [R, 3] (already contracted if requested)
+    pts,                # [R, 3] or a chunk's [R, K, 3] (contracted)
     grid_flat,
     color_grid_flat,
     mlp_params,
     rays_encoding,      # [R, C_enc]
     grid_idx,           # [R]
     scaffold,           # [B*D*H*W, 1] flat or None
-    noise,              # [R] or None
+    noise,              # [R] ([R, K]) or None
     relu=_relu,
 ):
-    """Sample and decode one march step: returns (sigma [R], color [R, C]).
+    """Sample and decode one march step: returns (sigma [R], color [R, C]);
+    for a chunk of K steps (``pts`` [R, K, 3]) sigma [R, K] and color [R,
+    K, C], each sample as its step alone gives it.
 
     ``relu(k, x)`` computes the decoder's k-th relu'd vector (``F.relu`` by
     default).  They are numbered in order: the trunk's layers (with no
@@ -167,7 +170,7 @@ def _step_decoder(
             x = relu(k, x)
             k += 1
     opacity_raw = x[..., 0]
-    x = color_in + rays_encoding
+    x = color_in + _per_ray(rays_encoding, pts)
     for l in range(len(w_c)):
         x = x @ w_c[l] + b_c[l]
         if l < len(w_c) - 1:
@@ -191,10 +194,66 @@ def _step_decoder(
 
 
 def _step_points(cfg: _RenderCfg, origins, directions, t):
-    pts = origins + t[:, None] * directions
+    """The sample points at depths ``t`` [R] (or a chunk's [R, K]): [R, 3]
+    (or [R, K, 3]), contracted if asked."""
+    if t.dim() == 2:
+        origins, directions = origins[:, None], directions[:, None]
+    pts = origins + t[..., None] * directions
     if cfg.contract_coords:
         pts = _contract_pi(pts)
     return pts
+
+
+def _per_ray(x, pts):
+    """A per-ray ``x`` [R, C] shaped to broadcast against the samples of
+    ``pts`` ([R, 3], or a chunk's [R, K, 3])."""
+    return x[:, None] if pts.dim() == 3 else x
+
+
+# The plain versions march a chunk of steps at a time: one sampling and
+# decoder call over a chunk's [R, K] samples in place of K calls over [R]
+# (the same arithmetic sample by sample; the per-step host work, not the
+# card, is what bounds a plain march of a few thousand rays).  A chunk has
+# at most PLAIN_CHUNK_STEPS steps and at most PLAIN_CHUNK_FLOATS floats in
+# an activation of the widest layer (PLAIN_CHUNK_FLOATS_CARD on a CUDA
+# device, whose memory is larger), so memory stays O(R).
+PLAIN_CHUNK_STEPS = 32
+PLAIN_CHUNK_FLOATS = 1 << 22
+PLAIN_CHUNK_FLOATS_CARD = 1 << 26
+
+
+def _chunk_steps(steps, num_rays: int, width: int, on_card: bool = False):
+    """``steps`` in consecutive runs (chunks) of at most PLAIN_CHUNK_STEPS
+    steps and PLAIN_CHUNK_FLOATS (``on_card``: PLAIN_CHUNK_FLOATS_CARD)
+    floats of a ``width``-wide activation over ``num_rays`` rays."""
+    steps = list(steps)
+    budget = PLAIN_CHUNK_FLOATS_CARD if on_card else PLAIN_CHUNK_FLOATS
+    k = max(1, min(PLAIN_CHUNK_STEPS, budget // max(1, num_rays * width)))
+    return [steps[i:i + k] for i in range(0, len(steps), k)]
+
+
+def _plain_width(cfg: _RenderCfg, diff) -> int:
+    """The widest of a march's grid channels and decoder layers."""
+    widths = [t.shape[-1] for t in diff[:2] if t is not None]
+    return max(widths + list(cfg.n_hidden_trunk + cfg.n_hidden_opacity
+                             + cfg.n_hidden_color))
+
+
+def _chunk_depth_delta(cfg: _RenderCfg, near, far, steps):
+    """``_step_depth_delta`` of each of ``steps``, stacked: t, delta [R,
+    K]."""
+    td = [_step_depth_delta(cfg, near, far, s) for s in steps]
+    return (torch.stack([t for t, _ in td], 1),
+            torch.stack([d for _, d in td], 1))
+
+
+def _chunk_noise(cfg: _RenderCfg, steps, num_rays: int, seed, device):
+    """``_step_noise`` of each of ``steps``, stacked [R, K] (None without
+    noise)."""
+    if cfg.inject_noise_sigma <= 0.0:
+        return None
+    return torch.stack([_step_noise(cfg, s, num_rays, seed, device)
+                        for s in steps], 1)
 
 
 def _march(cfg: _RenderCfg, geom, diff, steps, nlt):
@@ -206,23 +265,22 @@ def _march(cfg: _RenderCfg, geom, diff, steps, nlt):
     R = directions.shape[0]
     depth = torch.zeros_like(nlt)
     feat = nlt.new_zeros((R, cfg.out_chn))
-    for s in steps:
-        t, delta = _step_depth_delta(cfg, near, far, s)
+    for chunk in _chunk_steps(steps, R, _plain_width(cfg, diff),
+                              directions.is_cuda):
+        t, delta = _chunk_depth_delta(cfg, near, far, chunk)
         pts = _step_points(cfg, origins, directions, t)
-        noise = (
-            _step_noise(cfg, s, R, noise_seed, directions.device)
-            if cfg.inject_noise_sigma > 0.0
-            else None
-        )
+        noise = _chunk_noise(cfg, chunk, R, noise_seed, directions.device)
         sigma, color = _step_decoder(
             cfg, pts, grid_flat, color_grid_flat, mlp_params, rays_encoding,
             grid_idx, scaffold, noise,
         )
-        nlt_new = nlt + sigma * delta
-        w = torch.exp(-nlt) - torch.exp(-nlt_new)
-        depth = depth + w * t
-        feat = feat + w[:, None] * color[:, : cfg.out_chn]
-        nlt = nlt_new
+        # the accumulation step by step, as one step at a time makes it
+        for j in range(len(chunk)):
+            nlt_new = nlt + sigma[:, j] * delta[:, j]
+            w = torch.exp(-nlt) - torch.exp(-nlt_new)
+            depth = depth + w * t[:, j]
+            feat = feat + w[:, None] * color[:, j, : cfg.out_chn]
+            nlt = nlt_new
     return depth, nlt, feat
 
 

@@ -37,7 +37,13 @@ from .misc_utils import (
 from .mlp_utils import SplatterParams, _flattened_one_mlp_params_to_list
 from .naive_splatter import WEIGHT_GRID_EPS, _normalize_output_grid_size
 from .rays import Rays
-from .renderer import _step_depth_delta, _step_points
+from .renderer import (
+    _chunk_depth_delta,
+    _chunk_steps,
+    _per_ray,
+    _step_depth_delta,
+    _step_points,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,15 +82,17 @@ def _step_fused_feature(cfg: _SplatCfg, pts, encoding, input_grid_flat,
     ``MLP(input_grid[pts] + encoding)`` (relu after every layer but the
     last).  ``relu(k, x)`` computes the output of hidden layer k
     (``torch.relu`` by default; the adjoint's relu-mask replay,
-    ``kernels/splatter_bw.py``, passes its own)."""
+    ``kernels/splatter_bw.py``, passes its own).  For a chunk of K steps
+    (``pts`` [R, K, 3]) the vectors of each: [R, K, C]."""
     if len(cfg.n_hidden) == 0:
-        return encoding
+        return _per_ray(encoding, pts).expand(
+            pts.shape[:-1] + encoding.shape[-1:])
     weights, biases = _flattened_one_mlp_params_to_list(mlp_params,
                                                         cfg.n_hidden)
     x = sample_grid_rep(
         input_grid_flat, cfg.input_grid_sizes, pts, grid_idx,
         cfg.mask_out_of_bounds_samples,
-    ) + encoding
+    ) + _per_ray(encoding, pts)
     for l in range(len(weights)):
         x = x @ weights[l] + biases[l]
         if l < len(weights) - 1:
@@ -97,6 +105,26 @@ def _march_points(cfg: _SplatCfg, geom, s: int):
     directions, origins, near, far = geom[:4]
     t, _ = _step_depth_delta(cfg, near, far, s)
     return _step_points(cfg, origins, directions, t)
+
+
+def _chunk_points(cfg: _SplatCfg, geom, steps):
+    """The (contracted) sample points of every ray at each of ``steps``:
+    [R, K, 3]."""
+    directions, origins, near, far = geom[:4]
+    t, _ = _chunk_depth_delta(cfg, near, far, steps)
+    return _step_points(cfg, origins, directions, t)
+
+
+def _splat_chunks(cfg: _SplatCfg, geom, diff):
+    """The plain splat's and adjoint's chunks of steps
+    (``renderer._chunk_steps``), by the widest of the output's channels
+    (and its weight), the input grid's and the MLP's layers."""
+    encoding, input_grid_flat = diff[:2]
+    widths = [cfg.out_chn + 1, encoding.shape[-1], *cfg.n_hidden]
+    if input_grid_flat is not None:
+        widths.append(input_grid_flat.shape[-1])
+    return _chunk_steps(range(cfg.tot_num_samples), geom[0].shape[0],
+                        max(widths), geom[0].is_cuda)
 
 
 class _SplatCore(torch.autograd.Function):

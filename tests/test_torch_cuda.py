@@ -34,7 +34,7 @@ def cuda():
 
 
 def _case(device, grid_shapes, batch=1, n_rays=512, layers=(2, 2, 2),
-          hidden=16, seed=0):
+          hidden=16, seed=0, colours=3):
     rng = np.random.default_rng(seed)
     origins = rng.standard_normal((n_rays, 3)) / 3.0 + np.array([0, 0, -2.0])
     directions = rng.standard_normal((n_rays, 3)) * 0.2 - origins
@@ -42,7 +42,7 @@ def _case(device, grid_shapes, batch=1, n_rays=512, layers=(2, 2, 2),
     dp = lp.init_decoder_params(
         gen, n_layers_trunk=layers[0], n_layers_opacity=layers[1],
         n_layers_color=layers[2], input_chn=grid_shapes[0][-1],
-        hidden_chn=hidden, color_chn=3, opacity_init_bias=-1.0,
+        hidden_chn=hidden, color_chn=colours, opacity_init_bias=-1.0,
         device=device,
     )
 
@@ -322,14 +322,16 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
     assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
     assert torch.isfinite(dp.mlp_params.grad).all()
     with torch.no_grad():
-        # past the widest build (256)
+        # past the widest build (512), under "cuda" and under "auto": no
+        # CUDA call falls back to the plain version
         wide = lp.init_decoder_params(None, 2, 2, 2, input_chn=8,
-                                      hidden_chn=264, device=cuda)
-        enc = torch.zeros((64, 264), device=cuda)
+                                      hidden_chn=520, device=cuda)
+        enc = torch.zeros((64, 520), device=cuda)
         rays_w = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
                          rays.near, rays.far, enc)
-        with pytest.raises(ValueError, match="widths up to 256"):
-            lp.lightplane_renderer(rays_w, grid, wide, impl="cuda", **kw)
+        for impl in ("cuda", "auto"):
+            with pytest.raises(ValueError, match="widths up to 512"):
+                lp.lightplane_renderer(rays_w, grid, wide, impl=impl, **kw)
         short = lp.DecoderParams(dp.mlp_params.detach()[:-1],
                                  dp.n_hidden_trunk, dp.n_hidden_opacity,
                                  dp.n_hidden_color, dp.color_chn)
@@ -488,7 +490,7 @@ def _wide_parity(rays, grid, dp, **kw):
     n = len(rays)
     gen = torch.Generator().manual_seed(1)
     g_out = tuple(torch.randn(s, generator=gen).to(rays.origins.device)
-                  for s in [(n,), (n,), (n, 3)])
+                  for s in [(n,), (n,), (n, cfg.out_chn)])
     fw, bw = renderer_fw.LAUNCHES, renderer_bw.LAUNCHES
     with torch.no_grad():
         out_k = renderer_fw.render_fwd_cuda(cfg, geom, diff)
@@ -599,20 +601,90 @@ def test_wide_deep_and_shallow_mlps(cuda, layers, hidden):
     _wide_parity(rays, grid, dp, num_samples=24, gain=1.5)
 
 
+# past 256: hidden 320 (W = 384) and 512, each with and without the
+# relu-field colour grid and a scaffold, and the feature path's decoder
+# (512 colours: the colour head's last product in two N-parts, its tile in
+# device memory)
+PAST_256 = {
+    "hidden320": dict(chn=32, hidden=320),
+    "hidden512": dict(chn=32, hidden=512),
+    "hidden320_relu_field_scaffold": dict(chn=320, relu_field=True),
+    "hidden512_relu_field_scaffold": dict(chn=512, relu_field=True),
+    "feature512": dict(chn=512, hidden=512, colours=512),
+}
+
+
+def _past_256_case(device, name):
+    c = PAST_256[name]
+    extra = dict(num_samples=24, gain=1.5)
+    if c.get("relu_field"):
+        rays, grid, dp, branch = _branch_case(device, "relu_field",
+                                              chn=c["chn"])
+        rays = lp.Rays(rays.directions[:96], rays.origins[:96],
+                       rays.grid_idx[:96], rays.near[:96], rays.far[:96],
+                       rays.encoding[:96])
+        extra.update(branch)
+        extra["scaffold"] = (torch.rand(
+            (2, 8, 8, 8), generator=torch.Generator().manual_seed(2)) > 0.4
+        ).float().to(device)
+    else:
+        rays, grid, dp = _case(device, _tri(1, 10, c["chn"]), n_rays=96,
+                               hidden=c["hidden"],
+                               colours=c.get("colours", 3))
+    return rays, grid, dp, extra
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("name", sorted(PAST_256))
+def test_wide_past_256_matches_plain(cuda, name):
+    """R1 at W = 384 and 512 against its plain version, and R2 against its
+    plain version under the relu masks its recording build took, on every
+    ray, with the relu-field colour grid and a scaffold too."""
+    rays, grid, dp, extra = _past_256_case(cuda, name)
+    cfg, _, diff = _wide_parity(rays, grid, dp, **extra)
+    assert renderer_fw._kernel_width(cfg, diff[0].shape[1]) in (384, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hidden320", "hidden512",
+                                  "hidden512_relu_field_scaffold",
+                                  "feature512"])
+def test_wide_forward_equals_the_recomputed_forward(cuda, name):
+    """R1's forward and R2's recomputed forward past 256, each by its
+    recording build's probe (every open step's raw opacity and the sum of
+    its raw colours), are equal to the bit."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+
+    rays, grid, dp, extra = _past_256_case(cuda, name)
+    flat = lp.process_and_flatten_grid(grid, extra.pop("color_grid", None))
+    cfg, geom, diff = rmod._march_inputs(rays, *flat, dp, **extra)
+    n = len(rays)
+    g_out = tuple(torch.randn(s, generator=torch.Generator().manual_seed(3)
+                              ).to(cuda)
+                  for s in [(n,), (n,), (n, cfg.out_chn)])
+    with torch.no_grad():
+        r1, r2 = renderer_bw.forward_probes(cfg, geom, diff, g_out)
+    torch.cuda.synchronize()
+    assert int((r1 != 0).sum()) > 0
+    assert torch.equal(r1, r2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 512])
 @pytest.mark.parametrize("backward", [False, True])
 def test_wide_pack_kernel_matches_its_plain_version(cuda, backward, width):
     """The wide kernels' pre-pass equals ``pack_wide_torch`` bit for bit,
     and the wrapper's plan the C side's (at 256 products of 1 to 32
-    N-tiles, one k-step a slice past 16)."""
+    N-tiles, one k-step a slice past 16; at 512 products of up to 64
+    N-tiles in N-parts of 32, the colour head's last layer among them)."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import _build
 
     n_t, n_o, n_c = 1, 2, 2
-    head = ((32, 128) + (128, 72, 1) + (128, 72, 3) if width == 128
-            else (8, 256) + (256, 200, 1) + (256, 160, 3))
+    head = {128: (32, 128) + (128, 72, 1) + (128, 72, 3),
+            256: (8, 256) + (256, 200, 1) + (256, 160, 3),
+            512: (8, 512) + (512, 200, 1) + (512, 320, 512)}[width]
     layers = renderer_fw.wide_layers(n_t, n_o, n_c, head)
     n_params = sum(i * o + o for i, o, _, _ in layers)
     mlp = torch.randn(n_params, generator=torch.Generator().manual_seed(2))
@@ -628,12 +700,13 @@ def test_wide_pack_kernel_matches_its_plain_version(cuda, backward, width):
     torch.cuda.synchronize()
     assert rc == 0
     assert torch.equal(ws.cpu().reshape(-1, 4), want)
-    conf = (ctypes.c_int * 5)()
+    conf = (ctypes.c_int * 6)()
     assert lib.lightplane_render_bw_wide_config(width, n_t, n_o, n_c, widths,
                                                 0, conf) == 0
     plan = renderer_bw.wide_bw_plan(width, n_t, n_o, n_c, head, False)
-    assert (conf[0], conf[3], conf[4], conf[2]) == (
-        plan.warps, plan.smem_bytes, plan.workspace_bytes, plan.row_floats)
+    assert (conf[0], conf[3], conf[4], conf[2], conf[5]) == (
+        plan.warps, plan.smem_bytes, plan.workspace_bytes, plan.row_floats,
+        plan.scratch_bytes)
 
 
 SPLAT_CASES = {

@@ -155,3 +155,44 @@ def test_own_masks_replay_the_plain_backward(case):
     g_enc = (other[3] - plain[3]).abs().amax(-1)
     g_enc[ray] = 0.0
     assert float(g_enc.max()) == 0.0
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_plain_chunks_match_one_step_at_a_time(case, monkeypatch):
+    """The plain forward and backward, a chunk of steps at a time (the
+    default), against the same one step at a time: the same per-sample
+    arithmetic, so equal up to the rounding of the chunk's larger matrix
+    products and sums."""
+    cfg, geom, diff, nlt, g_out = _march(**MASK_CASES[case])
+    assert len(rmod._chunk_steps(range(cfg.tot_num_samples), 40, 8)) == 1
+    masks = renderer_bw.relu_masks_torch(cfg, geom, diff)
+    chunked = (renderer_fw.render_fwd_torch(cfg, geom, diff),
+               renderer_bw.render_bwd_torch(cfg, geom, diff, nlt, g_out),
+               renderer_bw.render_bwd_torch(cfg, geom, diff, nlt, g_out,
+                                            relu_masks=masks))
+    monkeypatch.setattr(rmod, "PLAIN_CHUNK_STEPS", 1)
+    stepped = (renderer_fw.render_fwd_torch(cfg, geom, diff),
+               renderer_bw.render_bwd_torch(cfg, geom, diff, nlt, g_out),
+               renderer_bw.render_bwd_torch(cfg, geom, diff, nlt, g_out,
+                                            relu_masks=masks))
+    for outs_c, outs_s in zip(chunked, stepped):
+        for a, b in zip(outs_c, outs_s):
+            if a is not None:
+                tol = 1e-6 * max(1.0, float(b.abs().max()))
+                assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("rays, width, on_card, want", [
+    (40, 8, False, [10]),               # all ten steps in one chunk
+    (4096, 32, False, [32, 32, 6]),     # PLAIN_CHUNK_STEPS
+    (65536, 32, False, [2] * 35),       # PLAIN_CHUNK_FLOATS: 2 x 65536 x 32
+    (32768, 512, False, [1] * 70),      # one step: one activation is 2^24
+    (65536, 32, True, [32, 32, 6]),     # PLAIN_CHUNK_FLOATS_CARD
+    (32768, 512, True, [4] * 17 + [2]),
+])
+def test_plain_chunk_sizes(rays, width, on_card, want):
+    steps = range(10) if rays == 40 else range(70)
+    chunks = rmod._chunk_steps(steps, rays, width, on_card)
+    assert [len(c) for c in chunks] == want
+    assert [s for c in chunks for s in c] == list(steps)
+

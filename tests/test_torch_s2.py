@@ -183,3 +183,39 @@ def test_adjoint_slices_cap_staging_and_run_lists(steps, C_in, sizes,
         for (d, e), (f, _) in zip(sub, sub[1:] + [(b, None)]):
             assert e == f and (d - a) % 32 == 0
             assert 4 * (e - d) * steps * cfg.out_chn <= cap
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES) + ["no_mlp"])
+def test_plain_chunks_match_one_step_at_a_time(case, monkeypatch):
+    """The plain splat and adjoint, a chunk of steps at a time (the
+    default), against the same one step at a time: equal up to the rounding
+    of the chunk's larger products and sums."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+
+    if case == "no_mlp":
+        cfg, geom, diff, g_out = _splat(**MASK_CASES["mlp_voxel"])
+        cfg = smod._SplatCfg(cfg.num_samples, 0, False, False, 1e-3,
+                             ((2, 8, 8, 8, 8),), None, ())
+        diff = (diff[0], None, None)
+        g_out = g_out[:, :8].contiguous()
+        masks = None
+    else:
+        cfg, geom, diff, g_out = _splat(**MASK_CASES[case])
+        masks = splatter_bw.relu_masks_torch(cfg, geom, diff)
+
+    def run():
+        return (splatter_fw.splat_fwd_torch(cfg, geom, diff),
+                splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out),
+                splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out,
+                                            relu_masks=masks))
+
+    chunked = run()
+    assert len(smod._splat_chunks(cfg, geom, diff)) == 1
+    monkeypatch.setattr(rmod, "PLAIN_CHUNK_STEPS", 1)
+    stepped = run()
+    for outs_c, outs_s in zip(chunked, stepped):
+        for a, b in zip(outs_c, outs_s):
+            if a is not None:
+                tol = 1e-6 * max(1.0, float(b.abs().max()))
+                assert float((a - b).abs().max()) <= tol
+

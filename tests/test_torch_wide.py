@@ -1,12 +1,15 @@
 """The port at the widths that its kernels' wide builds take (padded widths
-96, 128, 192 and 256: ``csrc/renderer_wide.cu``, ``csrc/wide_mlp.cuh`` and
-the wide builds of S1 and S2), against the JAX package on the CPU: decoder
-widths 72, 96, 128, 160 and 256 and grid channels 96, 128 and 160 through
-the renderer's forward and gradients (with relu-field and scaffold cases at
-128 and 256), the MLP splatter at widths 72, 128 and 256 and into 100, 128
-and 256 output channels, the Flax modules at width 128 carried over by
+96, 128, 192, 256, and for the renderer 384 and 512:
+``csrc/renderer_wide.cuh``, ``csrc/wide_mlp.cuh`` and the wide builds of S1
+and S2), against the JAX package on the CPU: decoder widths 72, 96, 128,
+160, 256, 320 and 512 and grid channels 96, 128 and 160 through the
+renderer's forward and gradients (with relu-field and scaffold cases at
+128, 256 and 512), the feature-field lift-then-render at 384 and 512
+channels, the MLP splatter at widths 72, 128 and 256 and into 100, 128 and
+256 output channels, the Flax modules at width 128 carried over by
 ``convert``, and the plain path at 9 layers and 9 sub-grids (the kernels'
-caps are 16 of each).
+caps are 16 of each).  The wide builds' host-side plans, their refusals
+and the pre-pass's plain version are checked by hand.
 
 Inputs are made from numpy seeds; the JAX side runs ``impl="scan"``, as its
 own CPU tests run it.  On the CPU the port takes its plain versions; the
@@ -72,15 +75,18 @@ def _planes(rng, chn, res=6, scale=0.5):
     return [jnp.asarray(rng.standard_normal(s) * scale, F32) for s in shapes]
 
 
-def _decoder(rng, chn, hidden, layers=(2, 2, 2), relu_field=False):
+def _decoder(rng, chn, hidden, layers=(2, 2, 2), relu_field=False,
+             color_chn=3):
     """The JAX package's decoder layout at these widths, its parameters
-    drawn from ``rng`` (N(0, 0.1^2)): wide layers then carry activations of
-    the same order as their inputs."""
+    drawn from ``rng`` (N(0, 0.1^2); N(0, 1 / hidden) past 256): wide
+    layers then carry activations of the same order as their inputs."""
     dp = lt.init_decoder_params(
         jax.random.PRNGKey(0), n_layers_opacity=layers[1],
         n_layers_trunk=layers[0], n_layers_color=layers[2], input_chn=chn,
-        hidden_chn=hidden, color_chn=3, use_separate_color_grid=relu_field)
-    mlp = rng.standard_normal(dp.mlp_params.shape) * 0.1
+        hidden_chn=hidden, color_chn=color_chn,
+        use_separate_color_grid=relu_field)
+    scale = 0.1 if hidden <= 256 else hidden ** -0.5
+    mlp = rng.standard_normal(dp.mlp_params.shape) * scale
     return dataclasses.replace(dp, mlp_params=jnp.asarray(mlp, F32))
 
 
@@ -103,6 +109,12 @@ RENDER_WIDE = {
     "grid8_hidden256": (dict(chn=8, hidden=256), 256),
     "grid8_hidden256_relu_field_scaffold": (
         dict(chn=8, hidden=256, relu_field=True, scaffold=True), 256),
+    # past 256: hidden 320 (padded to 384) and 512, and the relu-field
+    # colour grid with a scaffold at 512
+    "grid8_hidden320": (dict(chn=8, hidden=320), 384),
+    "grid8_hidden512": (dict(chn=8, hidden=512), 512),
+    "grid8_hidden512_relu_field_scaffold": (
+        dict(chn=8, hidden=512, relu_field=True, scaffold=True), 512),
 }
 
 
@@ -140,7 +152,9 @@ def test_renderer_wide_matches_jax_scan(case):
 @pytest.mark.parametrize("widest, width", [(16, 32), (64, 64), (65, 96),
                                            (96, 96), (100, 128), (128, 128),
                                            (129, 192), (192, 192), (200, 256),
-                                           (256, 256)])
+                                           (256, 256), (257, 384),
+                                           (384, 384), (385, 512),
+                                           (512, 512)])
 def test_kernel_width_pads_up_to_the_next_build(widest, width):
     cfg = types.SimpleNamespace(n_hidden_trunk=(8, widest, 8),
                                 n_hidden_opacity=(8, 8, 1),
@@ -148,18 +162,18 @@ def test_kernel_width_pads_up_to_the_next_build(widest, width):
     assert renderer_fw._kernel_width(cfg, 8) == width
 
 
-def test_kernel_width_refuses_above_256():
-    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 264, 8),
+def test_kernel_width_refuses_above_512():
+    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 520, 8),
                                 n_hidden_opacity=(8, 8, 1),
                                 n_hidden_color=(8, 8, 3))
-    with pytest.raises(ValueError, match="widths up to 256"):
+    with pytest.raises(ValueError, match="widths up to 512"):
         renderer_fw._kernel_width(cfg, 8)
-    # and a grid wider than 256 channels
-    cfg = types.SimpleNamespace(n_hidden_trunk=(264, 8, 8),
+    # and a grid wider than 512 channels
+    cfg = types.SimpleNamespace(n_hidden_trunk=(520, 8, 8),
                                 n_hidden_opacity=(8, 8, 1),
                                 n_hidden_color=(8, 8, 3))
-    with pytest.raises(ValueError, match="widths up to 256"):
-        renderer_fw._kernel_width(cfg, 264)
+    with pytest.raises(ValueError, match="widths up to 512"):
+        renderer_fw._kernel_width(cfg, 520)
 
 
 # the splatter MLP's n_hidden (input 8 channels)
@@ -293,7 +307,7 @@ def test_mlp_splatter_plain_path_at_nine_layers_and_nine_grids():
     _splat_matches_jax(*fixture, seed=8)
 
 
-# ---- the wide builds' host-side plan (csrc/renderer_wide.cu) ---------------
+# ---- the wide builds' host-side plan (csrc/renderer_wide.cuh) --------------
 
 def _head(n_t, n_o, n_c, hidden, chn=32, colours=3):
     """The n_hidden tuples of a decoder of n_t / n_o / n_c layers at
@@ -321,13 +335,14 @@ def _bw_smem_by_hand(width, n_t, n_o, n_c, color_grid, warps, colours=3):
     """R2's wide block, counted from its parts: per warp a [16][W + 4] f32
     tile for each of the n_total - 1 layer inputs, one more for a colour
     grid's sample and one more for a one-layer colour head's input, the
-    heads' gradient tile [16][8 + 4] (colours and opacity up to 8) and the
-    ray's encoding; then the ring, and 4 bytes of flag for each of 8
-    warps."""
+    heads' gradient tile [16][8 + 4] (colours and opacity up to 8; past
+    W = 256 in device memory instead) and the ray's encoding; then the
+    ring, and 4 bytes of flag for each of 8 warps."""
     n_total = n_t + n_o + n_c
     tiles = n_total - 1 + int(color_grid) + int(n_c == 1)
     gt_cols = -(-max(colours, 1) // 8) * 8
-    per_warp = 4 * (tiles * 16 * (width + 4) + 16 * (gt_cols + 4) + width)
+    heads = 0 if width > 256 else 16 * (gt_cols + 4)
+    per_warp = 4 * (tiles * 16 * (width + 4) + heads + width)
     return warps * per_warp + _ring_by_hand(width) + 4 * 8
 
 
@@ -367,7 +382,7 @@ def test_wide_plan_warps_and_shared_memory(width, layers, color_grid):
 
 
 def test_wide_plan_at_the_render_headline():
-    """The numbers of renderer_wide.cu's note: at the 2/2/2 decoder R2
+    """The numbers of renderer_wide.cuh's note: at the 2/2/2 decoder R2
     takes 4 warps a block at W = 128 (223,264 bytes) and at 96 (five fit);
     R1 8 at both (184,320 and 139,264 bytes)."""
     from lightplane_tpu_torch.ops.kernels import renderer_bw
@@ -382,7 +397,7 @@ def test_wide_plan_at_the_render_headline():
 
 
 def test_wide_plan_at_192_and_256():
-    """The numbers of renderer_wide.cu's note past 128: R2 at the 2/2/2
+    """The numbers of renderer_wide.cuh's note past 128: R2 at the 2/2/2
     decoder takes 2 warps at W = 256 (219,168 bytes; one warp 84,992) and
     at 192 (177,696); the 3/3/3 decoder at 256 one warp (184,096); R1 4
     warps at both (182,272 and 149,504 bytes); the deepest MLP R2 takes at
@@ -413,6 +428,65 @@ def test_wide_plan_at_192_and_256():
             plan(width, layers)
 
 
+@pytest.mark.parametrize("width", [384, 512])
+@pytest.mark.parametrize("layers, color_grid", [
+    ((2, 2, 2), False), ((0, 2, 2), True), ((1, 1, 1), False),
+    ((0, 1, 1), False), ((3, 3, 3), False)])
+def test_wide_plan_past_256(width, layers, color_grid):
+    """Past W = 256 R2 takes one warp a block (by mma.sync), its region
+    without the heads' tile, which lies with its stash of 32 x 128 floats
+    in a scratch in device memory; one that does not fit raises with the
+    bytes.  R1 the most warps, up to 4, whose two [16][W + 4] tiles a warp
+    fit with the ring, each with a stash of its own in device memory."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    one = _bw_smem_by_hand(width, *layers, color_grid, 1)
+    if one > 232448:
+        # the 3/3/3 decoder: 8 tiles
+        with pytest.raises(ValueError, match=f"needs {one} bytes"):
+            renderer_bw.wide_bw_plan(width, *layers, _head(*layers, width),
+                                     color_grid)
+        assert layers == (3, 3, 3)
+    else:
+        plan = renderer_bw.wide_bw_plan(width, *layers,
+                                        _head(*layers, width), color_grid)
+        assert (plan.warps, plan.smem_bytes) == (1, one)
+        assert plan.scratch_bytes == 4 * (32 * 128 + 16 * (8 + 4))
+    fw_warps = max(w for w in range(1, 5)
+                   if _fw_smem_by_hand(width, w) <= 232448)
+    assert renderer_fw.wide_fw_warps(width) == fw_warps
+    assert renderer_fw.wide_fw_smem_bytes(width) == _fw_smem_by_hand(
+        width, fw_warps)
+    assert renderer_fw.wide_fw_scratch_bytes(width) == (
+        fw_warps * 32 * 128 * 4)
+
+
+def test_wide_plan_at_384_and_512():
+    """The numbers of renderer_wide.cuh's note past 256: R1 3 warps at 384
+    (198,144 bytes) and 2 at 512 (181,248); R2 at the 2/2/2 decoder one
+    warp, 174,880 bytes at 384 and 216,352 at 512, the same at the feature
+    path's 512 colours, whose heads' tile makes its scratch 49,408 bytes;
+    the weight-gradient partials at that decoder 1,317,384 floats a row, a
+    row a block (695.6 MB on 132 SMs)."""
+    from lightplane_tpu_torch.ops.kernels import renderer_bw
+
+    assert [renderer_fw.wide_fw_warps(w) for w in (384, 512)] == [3, 2]
+    assert [renderer_fw.wide_fw_smem_bytes(w) for w in (384, 512)] == [
+        198144, 181248]
+    p384 = renderer_bw.wide_bw_plan(384, 2, 2, 2, _head(2, 2, 2, 384),
+                                    False)
+    p512 = renderer_bw.wide_bw_plan(512, 2, 2, 2, _head(2, 2, 2, 512),
+                                    False)
+    feat = renderer_bw.wide_bw_plan(
+        512, 2, 2, 2, _head(2, 2, 2, 512, chn=512, colours=512), False)
+    assert (p384.warps, p384.smem_bytes) == (1, 174880)
+    assert (p512.warps, p512.smem_bytes) == (1, 216352)
+    assert (feat.warps, feat.smem_bytes, feat.scratch_bytes) == (
+        1, 216352, 49408)
+    assert feat.row_floats == 1317384
+    assert 4 * feat.row_floats * feat.partial_rows(132) == 695578752
+
+
 @pytest.mark.parametrize("width, layers, color_grid", [
     # 11 layers in all at 128 (10 with a colour grid), 16 (15) at 96, and
     # deeper ones
@@ -433,16 +507,16 @@ def test_wide_plan_takes_deep_configs(width, layers, color_grid):
 
 def test_wide_plan_refuses_what_does_not_fit():
     """48 layers at W = 128 need more than a block's shared memory for one
-    warp: ValueError with the bytes; and widths above 256 stay refused."""
+    warp: ValueError with the bytes; and widths above 512 stay refused."""
     from lightplane_tpu_torch.ops.kernels import renderer_bw
 
     with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
         renderer_bw.wide_bw_plan(128, 16, 16, 16, _head(16, 16, 16, 128),
                                  False)
-    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 264, 8),
+    cfg = types.SimpleNamespace(n_hidden_trunk=(8, 520, 8),
                                 n_hidden_opacity=(8, 8, 1),
                                 n_hidden_color=(8, 8, 3))
-    with pytest.raises(ValueError, match="widths up to 256"):
+    with pytest.raises(ValueError, match="widths up to 512"):
         renderer_fw._kernel_width(cfg, 8)
 
 
@@ -525,12 +599,19 @@ def _check_pack(w_np, layers, products):
     """``pack_wide_torch``'s workspace for ``products`` read back by hand:
     every weight of every product in its place among wgmma's K-major core
     matrices, hi the TF32 rounding of w, lo = w - hi, hi + lo == w; zero
-    past a layer's widths; the schedule a slice of two k-steps each (one
-    past 16 N-tiles), in the products' order."""
+    past a layer's widths; a product of more than 32 N-tiles in N-parts of
+    32 (the last the rest), each laid out as a product of its own; the
+    schedule a slice of two k-steps each (one past 16 N-tiles), in the
+    products' and the parts' order."""
     pack = renderer_fw.pack_wide_torch(torch.from_numpy(w_np), layers,
                                        products)
     assert pack.shape[0] * 16 == renderer_fw.wide_pack_bytes(products)
-    slices = sum(-(-ks // (1 if nt > 16 else 2)) for _, _, ks, nt in products)
+
+    def parts(nt):
+        return [min(32, nt - q) for q in range(0, nt, 32)]
+
+    slices = sum(-(-ks // (1 if pt > 16 else 2))
+                 for _, _, ks, nt in products for pt in parts(nt))
     head_rows = -(-slices // 2)
     sched = pack[:head_rows].reshape(-1)[:2 * slices].reshape(-1, 2).numpy()
     at = head_rows
@@ -540,30 +621,173 @@ def _check_pack(w_np, layers, products):
         w = w_np[w_off:w_off + d_in * d_out].reshape(d_in, d_out)
         b = w.T if transposed else w
         assert (ks, nt) == (-(-b.shape[0] // 8), -(-b.shape[1] // 8))
-        # per k-step s: hi, lo; each N-tile j, k-half h: 8 rows of 4 k
-        region = pack[at:at + ks * nt * 32].numpy().view(np.float32)
-        region = region.reshape(ks, 2, nt, 2, 8, 4)
         want = np.zeros((8 * ks, 8 * nt), np.float32)
         want[:b.shape[0], :b.shape[1]] = b
-        for s in range(ks):
-            for j in range(nt):
-                for h in range(2):
-                    # rows n = 8 j + r, columns k = 8 s + 4 h + c
-                    wv = want[8 * s + 4 * h:8 * s + 4 * h + 4,
-                              8 * j:8 * j + 8].T
-                    hi, lo = region[s, 0, j, h], region[s, 1, j, h]
-                    assert np.array_equal(hi, _tf32_by_frexp(wv))
-                    assert np.array_equal(lo, wv - hi)
-                    assert np.array_equal(hi + lo, wv)
-        steps = 1 if nt > 16 else 2
-        for k0 in range(0, ks, steps):
-            assert tuple(sched[k]) == (at + k0 * nt * 32,
-                                       min(steps, ks - k0) * nt * 32)
-            k += 1
-        at += ks * nt * 32
+        for q, pt in enumerate(parts(nt)):
+            # per k-step s: hi, lo; each N-tile j of the part, k-half h: 8
+            # rows of 4 k
+            region = pack[at:at + ks * pt * 32].numpy().view(np.float32)
+            region = region.reshape(ks, 2, pt, 2, 8, 4)
+            for s in range(ks):
+                for j in range(pt):
+                    n0 = 8 * (32 * q + j)
+                    for h in range(2):
+                        # rows n = n0 + r, columns k = 8 s + 4 h + c
+                        wv = want[8 * s + 4 * h:8 * s + 4 * h + 4,
+                                  n0:n0 + 8].T
+                        hi, lo = region[s, 0, j, h], region[s, 1, j, h]
+                        assert np.array_equal(hi, _tf32_by_frexp(wv))
+                        assert np.array_equal(lo, wv - hi)
+                        assert np.array_equal(hi + lo, wv)
+            steps = 1 if pt > 16 else 2
+            for k0 in range(0, ks, steps):
+                assert tuple(sched[k]) == (at + k0 * pt * 32,
+                                           min(steps, ks - k0) * pt * 32)
+                k += 1
+            at += ks * pt * 32
     assert k == slices and at == pack.shape[0]
     # an odd count of slices leaves the schedule's last int2 at 0
     assert not pack[:head_rows].reshape(-1)[2 * slices:].any()
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("width", [384, 512])
+def test_wide_pack_round_trips_past_256(width, backward):
+    """The pre-pass's plain version past W = 256: products wider than 32
+    N-tiles in N-parts of 32 (256 + 128 columns at 384, 256 + 256 at 512,
+    and 256 + 64 at 320 wide), one k-step a slice; the colour head's last
+    layer among the forward's products (its outputs as many as the
+    hidden units)."""
+    n_t, n_o, n_c = 1, 2, 2
+    hidden, colours = (384, 320) if width == 384 else (512, 512)
+    head = (8, hidden, hidden, 200, 1, hidden, hidden, colours)
+    layers = renderer_fw.wide_layers(n_t, n_o, n_c, head)
+    assert renderer_fw.wide_head_product(layers)
+    products = renderer_fw.wide_products(layers, n_t, n_o, backward)
+    h = hidden // 8
+    fwd = [(0, False, 1, h), (1, False, h, 25), (3, False, h, h),
+           (4, False, h, colours // 8)]
+    if backward:
+        assert products == fwd + [(4, True, colours // 8, h),
+                                  (3, True, h, h), (2, True, 1, 25),
+                                  (1, True, 25, h), (0, True, h, 1)]
+    else:
+        assert products == fwd
+    assert [renderer_fw.wide_parts(nt) for nt in (48, 40, 64, 25)] == [
+        [32, 16], [32, 8], [32, 32], [25]]
+    n_params = sum(i * o + o for i, o, _, _ in layers)
+    w_np = (np.random.default_rng(6).standard_normal(n_params) * 0.3
+            ).astype(np.float32)
+    _check_pack(w_np, layers, products)
+
+
+def _fake_cuda(t):
+    """A CPU tensor that reports a CUDA device: the wrappers' checks run
+    on it (shapes, types, the widths) up to the launch."""
+    return types.SimpleNamespace(device=torch.device("cuda", 0),
+                                 dtype=t.dtype, shape=t.shape,
+                                 is_contiguous=t.is_contiguous,
+                                 numel=t.numel, data_ptr=lambda: 16)
+
+
+def _fake_render_inputs(chn, hidden, colours=3, n_rays=4):
+    from lightplane_tpu_torch.ops import renderer as rmod
+
+    dp = lp.init_decoder_params(None, 2, 2, 2, input_chn=chn,
+                                hidden_chn=hidden, color_chn=colours,
+                                device="cpu")
+    res = 4
+    grid = [torch.zeros(s) for s in _tri_sizes(res, chn)]
+    rays = lp.Rays(torch.zeros((n_rays, 3)), torch.zeros((n_rays, 3)),
+                   torch.zeros((n_rays,), dtype=torch.int64),
+                   torch.zeros((n_rays,)), torch.ones((n_rays,)),
+                   torch.zeros((n_rays, dp.n_hidden_color[0])))
+    flat = lp.process_and_flatten_grid(grid, None)
+    cfg, geom, diff = rmod._march_inputs(rays, *flat, dp, num_samples=4,
+                                         gain=1.0)
+    fake = lambda x: x if x is None or not torch.is_tensor(x) else (  # noqa
+        _fake_cuda(x))
+    return cfg, tuple(map(fake, geom)), tuple(map(fake, diff))
+
+
+@pytest.mark.parametrize("hidden, width", [(512, 512), (320, 384), (520, 0)])
+def test_cuda_tensors_take_the_kernels_or_raise(hidden, width):
+    """A launch on CUDA tensors (``impl="auto"`` or ``"cuda"``) takes the
+    kernels at every width up to 512 and raises past it: no CUDA call
+    reaches the plain version."""
+    cfg, geom, diff = _fake_render_inputs(8, hidden)
+    for impl in ("auto", "cuda"):
+        assert not renderer_fw.check_impl(impl, True, "cuda")
+    if width:
+        a = renderer_fw.launch_args(cfg, geom, diff, "render_fwd_cuda")
+        assert a.width == width
+    else:
+        with pytest.raises(ValueError, match="widths up to 512"):
+            renderer_fw.launch_args(cfg, geom, diff, "render_fwd_cuda")
+
+
+def test_splatter_mlp_refuses_above_256():
+    """The splatter MLP's builds stop at 256 (the renderer's go on to 512):
+    an MLP 264 wide on CUDA tensors raises "MLP widths up to 256"."""
+    sizes = tuple(_tri_sizes(4, 8))
+    cfg = smod._SplatCfg(4, 0, False, False, 1e-5, sizes,
+                         tuple(_tri_sizes(4, 8)), (8, 264, 8))
+    n = 4
+    geom = tuple(_fake_cuda(t) for t in (
+        torch.zeros((n, 3)), torch.zeros((n, 3)), torch.zeros((n,)),
+        torch.ones((n,)), torch.zeros((n,), dtype=torch.int32)))
+    diff = (_fake_cuda(torch.zeros((n, 8))), _fake_cuda(torch.zeros((48, 8))),
+            _fake_cuda(torch.zeros((8 * 264 + 264 * 8 + 272,))))
+    assert splatter_fw.MLP_WIDTHS[-1] == 256
+    with pytest.raises(ValueError, match="MLP widths up to 256"):
+        splatter_fw.splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
+
+
+@pytest.mark.parametrize("chn", [384, 512])
+def test_feature_lift_then_render_matches_jax(chn):
+    """The feature-field lift-then-render at the features' own width:
+    ``chn``-channel features of a few rays splatted into a 3 x 8^2 x chn
+    triplane and rendered back through a 2/2/2 decoder ``chn`` wide with
+    ``chn`` colours (the kernels' builds at 384 and 512), the L2 loss
+    against the features; the loss and its gradients with respect to the
+    features and the decoder against the JAX package (``impl="scan"``)."""
+    rng = np.random.default_rng(300 + chn)
+    rays = _rays(rng, 12, chn)
+    feats = rays.encoding
+    sizes = _tri_sizes(8, chn)
+    dp = _decoder(rng, chn, chn, color_chn=chn)
+    zeros = jnp.zeros_like(feats)
+    kw_s, kw_r = dict(num_samples=10), dict(num_samples=12, gain=1.5)
+
+    def loss_j(enc, mlp):
+        lifted = lt.lightplane_splatter(
+            dataclasses.replace(rays, encoding=enc), sizes, **kw_s)
+        _, _, feat = lt.lightplane_renderer(
+            dataclasses.replace(rays, encoding=zeros), lifted,
+            dataclasses.replace(dp, mlp_params=mlp), impl="scan", **kw_r)
+        return jnp.sum((feat - enc) ** 2)
+
+    loss_jax, g_jax = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(
+        feats, dp.mlp_params)
+    rt = rays_to_torch(rays)
+    enc = rt.encoding.clone().requires_grad_(True)
+    mlp = to_torch(dp.mlp_params).requires_grad_(True)
+    dt = lp.DecoderParams(mlp, dp.n_hidden_trunk, dp.n_hidden_opacity,
+                          dp.n_hidden_color, dp.color_chn)
+    assert renderer_fw._kernel_width(_cfg(dp, chn), chn) == chn
+    lifted = lp.lightplane_splatter(
+        lp.Rays(rt.directions, rt.origins, rt.grid_idx, rt.near, rt.far,
+                enc), sizes, **kw_s)
+    _, _, feat = lp.lightplane_renderer(
+        lp.Rays(rt.directions, rt.origins, rt.grid_idx, rt.near, rt.far,
+                torch.zeros_like(enc)), lifted, dt, **kw_r)
+    loss = ((feat - enc) ** 2).sum()
+    loss.backward()
+    compare_outputs([loss_jax], [loss], names=["loss"],
+                    magnitude_scaled=True)
+    assert float(loss.detach()) > 0.0
+    compare_outputs(g_jax, [enc.grad, mlp.grad], names=["g_feat", "g_mlp"],
+                    magnitude_scaled=True)
 
 
 # ---- the splatter MLP's wide builds (csrc/splatter_fw.cu, splatter_bw.cu) --
