@@ -1,7 +1,8 @@
 """The kernels of one tree, alone, for an A/B of two trees on one card:
 R1 and R2 at the render headline with its 2/2/2 decoder at hidden 32,
 128 and 256 (chip_smoke.py phases 5 and 12's inputs), S1 and S2 at the
-splat headline (phase 7's); medians of CUDA-event runs, one JSON line.
+splat headline (phase 7's), S1 and S2 with the MLP 32 -> 256 -> 256 at
+phase 12's MLP splat; medians of CUDA-event runs, one JSON line.
 
     python3 chip_ab.py TREE   # TREE: a checkout whose kernels it builds
 
@@ -50,4 +51,11 @@ with torch.no_grad():
     g = torch.randn((cfg.v_total, cfg.out_chn), device="cuda")
     out["S2"] = cs.cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g),
                            reps=7)
+    del cfg, geom, diff, g
+    inputs = cs.wide_splat_inputs(lp, 256)
+    cfg, geom, diff, g_out = cs.wide_splat_march(lp, smod, *inputs)
+    out["S1_MLP_256"] = cs.cuda_ms(
+        lambda: sfw.splat_fwd_cuda(cfg, geom, diff), warmup=1, reps=3)
+    out["S2_MLP_256"] = cs.cuda_ms(
+        lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out), warmup=1, reps=3)
 print(json.dumps(out))

@@ -2227,8 +2227,8 @@ def print_kernel_attrs():
           f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
           f"resident, {conf[3]} bytes of shared memory a block, rows of "
           f"{conf[2]} partial sums")
-    # the wide builds (W = 96, 128, 192, 256: csrc/renderer_wide.cuh, S1's
-    # pass F and S2's pass A)
+    # the wide builds (W = 96 to 512: csrc/renderer_wide.cuh, S1's pass F
+    # and S2's pass A, csrc/splatter_wide.cuh)
     masks = _build.library(rbw.RELU_MASKS_BUILD)
     for name, fn in (("R1", lib.lightplane_render_fw_attrs),
                      ("R2", lib.lightplane_render_bw_attrs),
@@ -2239,9 +2239,7 @@ def print_kernel_attrs():
                       lib.lightplane_splat_bw_attrs(1, w, o)),
                      ("S2 MLP pass A recording masks",
                       lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
-        # the renderer's builds go on to 384 and 512
-        for width in (96, 128, 192, 256) + ((384, 512) if name[:2] in (
-                "R1", "R2") else ()):
+        for width in (96, 128, 192, 256, 384, 512):
             assert fn(width, out) == 0
             print(f"  {name} W={width} (wide build): {out[0]} registers, "
                   f"{out[1]} bytes spilled per thread")
@@ -2253,24 +2251,32 @@ def print_kernel_attrs():
 
 
 def print_wide_splat_plans(lib):
-    """S1's pass F and S2's pass A at phase 12's MLP splat (W = 128 and
-    96): warps a block (one block a SM), shared memory and the workspace of
-    packed layers, as the C side plans them, held to the wrappers' plans."""
+    """S1's pass F and S2's pass A at phase 12's MLP splat (32 -> W -> W at
+    each of WIDE_HIDDEN) and at phase 13's feature lift (C -> C -> C at 512
+    and 384): warps a block (one block a SM), shared memory, the workspace
+    of packed layers and pass F's stashes past 256, as the C side plans
+    them, held to the wrappers' plans."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
-    for width in WIDE_HIDDEN:
-        nh = (WIDE_SPLAT_IN, width, width)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for nh, where in (
+            [((WIDE_SPLAT_IN, w, w), "phase 12's MLP splat")
+             for w in WIDE_HIDDEN]
+            + [((c, c, c), "phase 13's feature lift") for c in FEATURE_CHN]):
+        width = nh[-1]
         widths = (ctypes.c_int * 3)(*nh)
         layers = rfw.wide_layers(2, 0, 0, nh)
-        fw = (ctypes.c_int * 3)()
+        fw = (ctypes.c_int * 5)()
         assert lib.lightplane_splat_fw_mlp_config(width, 2, widths, fw) == 0
-        assert tuple(fw) == (sfw.PASS_F_WARPS, sfw.pass_f_smem_bytes(width),
+        assert tuple(fw) == (sfw.pass_f_warps(width),
+                             sfw.pass_f_smem_bytes(width),
                              rfw.wide_pack_bytes(sfw.splat_products(
-                                 layers, False))), tuple(fw)
+                                 layers, False)), sms,
+                             sfw.pass_f_scratch_bytes(width)), tuple(fw)
         bw = (ctypes.c_int * 5)()
         assert lib.lightplane_splat_bw_mlp_config(width, 2, widths, bw) == 0
         warps, smem = sbw.wide_a_plan(width, nh)
@@ -2278,10 +2284,10 @@ def print_wide_splat_plans(lib):
             warps, smem, rfw.wide_pack_bytes(sfw.splat_products(
                 layers, True))), tuple(bw)
         mlp = " -> ".join(map(str, nh))
-        print(f"  S1 pass F at phase 12's MLP splat ({mlp}, W = {width}): "
-              f"{fw[0]} warps a block and a SM, {fw[1]} bytes of shared "
-              f"memory a block, a workspace of {fw[2]} bytes of packed "
-              f"layers")
+        print(f"  S1 pass F at {where} ({mlp}, W = {width}): {fw[0]} warps "
+              f"a block and a SM, {fw[1]} bytes of shared memory a block, a "
+              f"workspace of {fw[2]} bytes of packed layers and {fw[3]} "
+              f"blocks' stashes of {fw[4]} bytes")
         print(f"  S2 pass A there: {bw[0]} warps a block and a SM, {bw[3]} "
               f"bytes of shared memory a block, a workspace of {bw[4]} "
               f"bytes; {bw[1]} rows (one a block) of {bw[2]} partial sums, "
@@ -4566,19 +4572,25 @@ def phase_wide(lp, smi):
 # rendered back (FEATURE_RENDER_SAMPLES) through a 2/2/2 decoder C wide with
 # C colours, an L2 loss against the features.  Cut from bench's 512^2
 # images and 256 render samples to 128^2 and 128, for the run's time; the
-# widths are not cut.  At 512 FEATURE_STEPS Adam steps (the loss must
-# fall), at 384 one; the last step of each by kernel (torch.profiler) gives
-# R1's and R2's times on the path.
+# widths are not cut.  Each width twice: lifted by the plain splat (S1 and
+# S2 without the MLP), and lifted through an MLP C -> C -> C that reads a
+# learned prior 3 x 128^2 x C triplane (``LightplaneMLPSplatter``: S1's
+# pass F and S2's pass A at W = C).  At 512 FEATURE_STEPS Adam steps of
+# each (the loss must fall), at 384 one; the last step of each by kernel
+# (torch.profiler) gives R1's and R2's times on the path.
 FEATURE_CHN = (512, 384)
 FEATURE_VIEWS, FEATURE_SIZE, FEATURE_RES = 2, 128, 128
 FEATURE_SPLAT_SAMPLES, FEATURE_RENDER_SAMPLES = 96, 128
-FEATURE_STEPS = 5
+FEATURE_STEPS = 3
 
 
-def feature_model(lp, chn):
+def feature_model(lp, chn, mlp=False):
     """The feature path at ``chn`` channels: its rays (the features as their
     encodings), its decoder and an Adam step over the lifted encodings, a
-    residual added to the lifted triplane (the grid) and the decoder;
+    residual added to the lifted triplane (the grid) and the decoder; with
+    ``mlp`` the lift goes through an MLP chn -> chn -> chn that reads a
+    prior 3 x 128^2 x chn triplane, and the step's Adam takes the
+    encodings, the prior, the splatter's MLP and the decoder (no residual);
     ``step()`` returns the loss."""
     gen = torch.Generator().manual_seed(chn)
     n = FEATURE_VIEWS * FEATURE_SIZE ** 2
@@ -4590,23 +4602,37 @@ def feature_model(lp, chn):
                                 hidden_chn=chn, color_chn=chn,
                                 opacity_init_bias=-2.0)
     enc = target.clone().requires_grad_(True)
-    mlp = dp.mlp_params.detach().clone().requires_grad_(True)
-    dp = lp.DecoderParams(mlp, dp.n_hidden_trunk, dp.n_hidden_opacity,
+    mlp_d = dp.mlp_params.detach().clone().requires_grad_(True)
+    dp = lp.DecoderParams(mlp_d, dp.n_hidden_trunk, dp.n_hidden_opacity,
                           dp.n_hidden_color, dp.color_chn)
     sizes = tri_sizes(FEATURE_RES, chn)
-    residual = [torch.zeros(s, device="cuda", requires_grad=True)
-                for s in sizes]
     lift_rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
                         rays.near, rays.far, enc)
     render_rays = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
                           rays.near, rays.far,
                           torch.zeros((n, chn), device="cuda"))
-    opt = torch.optim.Adam([enc, mlp] + residual, lr=1e-3)
+    if mlp:
+        splatter = lp.LightplaneMLPSplatter(
+            num_samples=FEATURE_SPLAT_SAMPLES, grid_chn=chn,
+            input_grid_chn=chn, mlp_hidden_chn=chn, mlp_n_layers=2,
+            generator=gen)
+        prior = [(torch.randn(s, generator=gen) * 0.1).cuda()
+                 .requires_grad_(True) for s in sizes]
+        learned = [splatter.mlp_params] + prior
 
-    def grid():
-        lifted = lp.lightplane_splatter(lift_rays, sizes,
-                                        num_samples=FEATURE_SPLAT_SAMPLES)
-        return [g + r for g, r in zip(lifted, residual)]
+        def grid():
+            return splatter(lift_rays, sizes, prior)
+    else:
+        splatter = prior = None
+        learned = [torch.zeros(s, device="cuda", requires_grad=True)
+                   for s in sizes]
+
+        def grid():
+            lifted = lp.lightplane_splatter(lift_rays, sizes,
+                                            num_samples=FEATURE_SPLAT_SAMPLES)
+            return [g + r for g, r in zip(lifted, learned)]
+
+    opt = torch.optim.Adam([enc, mlp_d] + learned, lr=1e-3)
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -4619,11 +4645,13 @@ def feature_model(lp, chn):
         return loss.detach()
 
     return dict(step=step, grid=grid, dp=dp, render_rays=render_rays,
-                sizes=sizes)
+                lift_rays=lift_rays, sizes=sizes, splatter=splatter,
+                prior=prior)
 
 
 def feature_counts(reset=False):
-    """The launches of R1, R2, S1 and S2 (set to 0 first with ``reset``)."""
+    """The launches of R1, R2, S1 and S2, and of S2 with the MLP (set to 0
+    first with ``reset``)."""
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
     from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
@@ -4631,13 +4659,18 @@ def feature_counts(reset=False):
 
     if reset:
         rfw.LAUNCHES = rbw.LAUNCHES = sfw.LAUNCHES = sbw.LAUNCHES = 0
+        sbw.MLP_LAUNCHES = 0
     return dict(renderer_fw=rfw.LAUNCHES, renderer_bw=rbw.LAUNCHES,
-                splatter_fw=sfw.LAUNCHES, splatter_bw=sbw.LAUNCHES)
+                splatter_fw=sfw.LAUNCHES, splatter_bw=sbw.LAUNCHES,
+                splatter_bw_mlp=sbw.MLP_LAUNCHES)
 
 
-# The feature path's kernels by part (device_breakdown)
+# The feature path's kernels by part (device_breakdown; the first group
+# whose fragment a kernel's name holds takes it)
 FEATURE_PARTS = (("R1", ("render_fw_wide_kernel",)),
                  ("R2", ("render_bw_wide_kernel", "reduce_wide_sums_kernel")),
+                 ("S1 pass F", ("splat_mlp_wide_kernel",)),
+                 ("S2 pass A", ("splat_bw_mlp_wide_kernel",)),
                  ("the layers' pre-pass", ("pack_wide_kernel",)),
                  ("the splat and its adjoint", ("splat",)))
 
@@ -4731,61 +4764,191 @@ def feature_head(chn):
     return (chn,) * 5 + (1,) + (chn,) * 3
 
 
+def feature_splat_kernels(lp, smi, chn, model):
+    """S1 and S2 with the MLP on the MLP lift's splat (its state after its
+    steps): each timed alone (one run, CUDA events) with its plain version
+    (one run), its bound, its slices of the rays; then held on
+    FEATURE_SUBSET of its rays against its plain version (S2 under the
+    relu masks its recording build took, and the shipped build against
+    the recording one), the layers' pre-pass with both schedules at 512
+    bit for bit."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+    from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
+
+    splatter, sizes = model["splatter"], model["sizes"]
+    with torch.no_grad():
+        sp = lp.SplatterParams(splatter.mlp_params.detach(),
+                               splatter._n_hidden)
+        prior = torch.cat([g.detach().reshape(-1, chn)
+                           for g in model["prior"]])
+        rays = model["lift_rays"]
+        cfg, geom, diff = splat_march(smod, lp.Rays(
+            rays.directions, rays.origins, rays.grid_idx, rays.near,
+            rays.far, rays.encoding.detach()), sizes,
+            dict(num_samples=FEATURE_SPLAT_SAMPLES), sp, prior, sizes)
+        assert sfw._mlp_width(cfg) == chn
+        n = geom[0].shape[0]
+        gen = torch.Generator().manual_seed(chn + 2)
+        g_out = (torch.randn((cfg.v_total, chn), generator=gen)
+                 * 0.01).cuda()
+        bricks = sfw.pick_bricks(cfg)
+        fw_slices = len(sfw.mlp_slices(cfg, bricks, n))
+        in_bricks = sfw.pick_bricks(cfg, grid_sizes=cfg.input_grid_sizes)
+        a_slices = sbw.adjoint_slices(cfg, in_bricks, n)
+        g_slices = sum(len(sbw.gvec_slices(cfg, lo, hi))
+                       for lo, hi in a_slices)
+        print(f"  the MLP lift at C = {chn} ({n} rays x "
+              f"{FEATURE_SPLAT_SAMPLES} samples): S1 in {fw_slices} slices "
+              f"of the rays ({fw_slices} pass F launches, "
+              f"{fw_slices * len(sizes)} plans and pass S launches), S2 in "
+              f"{len(a_slices)} ({g_slices} gather and pass A launches, "
+              f"{len(a_slices) * len(sizes)} plans and pass B launches); "
+              f"pass F {sfw.pass_f_warps(chn)} warps a block, pass A "
+              f"{sbw.wide_a_plan(chn, cfg.n_hidden)[0]}")
+        fw_ms = cuda_ms(lambda: sfw.splat_fwd_cuda(cfg, geom, diff),
+                        warmup=0, reps=1)
+        bw_ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
+                        warmup=0, reps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sfw.splat_fwd_torch(cfg, geom, diff)
+        torch.cuda.synchronize()
+        fw_plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sbw.splat_bwd_torch(cfg, geom, diff, g_out)
+        torch.cuda.synchronize()
+        bw_plain_ms = 1e3 * (time.perf_counter() - t0)
+    fl_fw, by_fw = splat_mlp_fw_work(cfg, geom)
+    b_fw = bound(fl_fw, by_fw)
+    fl_bw, fl_tc, by_bw = splat_mlp_work(cfg, geom)
+    b_bw = bound(fl_bw, by_bw)
+    b_bw_tc = tf32_bound(fl_bw, fl_tc, by_bw)
+    print(f"    S1 with the MLP (W = {chn}): {fw_ms:.3f} ms (one run), plain "
+          f"{fw_plain_ms:.1f} ms (one run); work {fl_fw / 1e9:.1f} GFLOP, "
+          f"{by_fw / 1e6:.1f} MB -> bound {b_fw[0]:.3f} ms ({b_fw[1]})  "
+          f"[{smi}]")
+    print(f"    S2 with the MLP (W = {chn}): {bw_ms:.3f} ms (one run), plain "
+          f"{bw_plain_ms:.1f} ms (one run); work {fl_bw / 1e9:.1f} GFLOP "
+          f"({fl_tc / 1e9:.1f} on the tensor cores), {by_bw / 1e6:.1f} MB "
+          f"-> bound {b_bw[0]:.3f} ms ({b_bw[1]}), {b_bw_tc:.3f} ms with the "
+          f"MLP in 3xTF32  [{smi}]")
+    idx = torch.arange(0, n, n // FEATURE_SUBSET,
+                       device="cuda")[:FEATURE_SUBSET]
+    geom_s = tuple(t[idx].contiguous() for t in geom)
+    diff_s = (diff[0][idx].contiguous(),) + diff[1:]
+    with torch.no_grad():
+        feat_k, w_k = sfw.splat_fwd_cuda(cfg, geom_s, diff_s)
+        feat_p, w_p = sfw.splat_fwd_torch(cfg, geom_s, diff_s)
+    # compare_one's absolute bounds scaled by the magnitude and 1e-3 x
+    # max |ref|, as phase 12's
+    print(f"    S1 with the MLP vs its plain version on {FEATURE_SUBSET} of "
+          f"the lift's rays:")
+    assert float(w_p.sum()) > 0
+    fw_err = max(compare("feat", feat_k, feat_p, max_rel=SPLAT_MAX_REL,
+                         magnitude_scaled=True)[0],
+                 compare("w", w_k, w_p, max_rel=SPLAT_MAX_REL,
+                         magnitude_scaled=True)[0])
+    del feat_k, w_k, feat_p, w_p
+    with torch.no_grad():
+        got, masks = sbw.splat_bwd_cuda_relu_masks(cfg, geom_s, diff_s,
+                                                   g_out)
+        shipped = sbw.splat_bwd_cuda(cfg, geom_s, diff_s, g_out)
+        want = sbw.splat_bwd_torch(cfg, geom_s, diff_s, g_out,
+                                   relu_masks=masks)
+    torch.cuda.synchronize()
+    assert int(masks.count_nonzero()) > 0
+    print(f"    S2 with the MLP vs its plain version under the recording "
+          f"build's relu masks, on {FEATURE_SUBSET} of the lift's rays:")
+    bw_err = max(compare(label, a, b, max_rel=SPLAT_MAX_REL,
+                         magnitude_scaled=True)[0]
+                 for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), got,
+                                        want))
+    print("    the shipped build vs the recording build:")
+    for label, a, b in zip(("g_enc", "g_igrid", "g_mlp"), shipped, got):
+        compare(label, a, b, max_rel=SPLAT_MAX_REL, magnitude_scaled=True)
+    del got, masks, shipped, want
+    if chn == 512:
+        wide_splat_pack_parity(diff[2], cfg.n_hidden)
+    return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
+                        bound=b_fw),
+                bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
+                        bound=b_bw, bound_tf32=b_bw_tc))
+
+
 def phase_feature(lp, smi):
     """Phase 13's steps (the shipped build only): at each width the feature
-    path's Adam steps, the last by kernel; returns each width's model,
-    parts, launches and step times for ``phase_feature_checks``."""
+    path's Adam steps, lifted by the plain splat, then through the MLP, the
+    last step of each by kernel; returns each run's model, parts, launches
+    and step times for ``phase_feature_checks``."""
     print("== phase 13: feature fields, widths 384 and 512: "
           f"{FEATURE_VIEWS} views of {FEATURE_SIZE}^2 rays with C-channel "
-          f"features lifted into 3 x {FEATURE_RES}^2 x Cch and rendered back "
-          f"through a 2/2/2 decoder C wide with C colours")
+          f"features lifted into 3 x {FEATURE_RES}^2 x Cch (by the splat, "
+          f"then through an MLP C -> C -> C from a learned 3 x "
+          f"{FEATURE_RES}^2 x Cch prior) and rendered back through a 2/2/2 "
+          f"decoder C wide with C colours")
     runs = {}
     for chn in FEATURE_CHN:
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = feature_model(lp, chn)
-        steps = FEATURE_STEPS if chn == 512 else 1
-        torch.cuda.synchronize()
-        feature_counts(reset=True)
-        losses, times, parts = [], [], {}
-        for i in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            if i < steps - 1:
-                loss = model["step"]()
-            else:
-                # the last step by kernel (its time includes the profiler's)
-                device_breakdown(lambda: losses.append(float(model["step"]())),
-                                 smi, top=6, groups=FEATURE_PARTS,
-                                 parts=parts)
-            end.record()
-            end.synchronize()
-            if i < steps - 1:
-                losses.append(float(loss))
-            times.append(start.elapsed_time(end))
-        launches = feature_counts()
-        assert set(launches.values()) == {steps}, launches
-        assert all(np.isfinite(losses)), losses
-        print(f"  C = {chn}: {steps} Adam step(s) of the lift-then-render, "
-              f"ms {[round(t, 3) for t in times]}, loss "
-              f"{[round(x, 6) for x in losses]}; launches {launches}  "
-              f"[{smi}]")
-        if chn == 512:
-            assert losses[-1] < losses[0], losses
-        runs[chn] = (model, parts, launches, times)
+        for mlp in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = feature_model(lp, chn, mlp)
+            steps = FEATURE_STEPS if chn == 512 else 1
+            torch.cuda.synchronize()
+            feature_counts(reset=True)
+            losses, times, parts = [], [], {}
+            for i in range(steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if i < steps - 1:
+                    loss = model["step"]()
+                else:
+                    # the last step by kernel (its time includes the
+                    # profiler's)
+                    device_breakdown(
+                        lambda: losses.append(float(model["step"]())), smi,
+                        top=6, groups=FEATURE_PARTS, parts=parts)
+                end.record()
+                end.synchronize()
+                if i < steps - 1:
+                    losses.append(float(loss))
+                times.append(start.elapsed_time(end))
+            launches = feature_counts()
+            # R1, R2, S1 and S2 once a step; S2's with the MLP only with it
+            assert launches == dict(
+                renderer_fw=steps, renderer_bw=steps, splatter_fw=steps,
+                splatter_bw=steps,
+                splatter_bw_mlp=steps if mlp else 0), launches
+            if mlp and parts:
+                assert parts["S1 pass F"] > 0 and parts["S2 pass A"] > 0, parts
+            assert all(np.isfinite(losses)), losses
+            lift = "the MLP lift" if mlp else "the lift"
+            print(f"  C = {chn}, {lift}: {steps} Adam step(s), ms "
+                  f"{[round(t, 3) for t in times]}, loss "
+                  f"{[round(x, 6) for x in losses]}; launches {launches}  "
+                  f"[{smi}]")
+            if chn == 512:
+                assert losses[-1] < losses[0], losses
+            runs[chn, mlp] = (model, parts, launches, times)
     return runs
 
 
 def phase_feature_checks(lp, smi, runs):
-    """Phase 13's kernels on each width's march (``feature_kernels``: they
-    need the recording build)."""
-    print("== phase 13 (cont.): R1 and R2 on the feature path's march")
+    """Phase 13's kernels on each width's march (``feature_kernels``) and on
+    its MLP lift (``feature_splat_kernels``): they need the recording
+    build."""
+    print("== phase 13 (cont.): R1 and R2 on the feature path's march, S1 "
+          "and S2 on its MLP lift")
     out = {}
     for chn in FEATURE_CHN:
-        model, parts, launches, times = runs.pop(chn)
+        model, parts, launches, times = runs.pop((chn, False))
         out[chn] = dict(feature_kernels(lp, smi, chn, model, parts),
                         launches=launches, step_ms=times)
+        del model
+        model, parts, launches, times = runs.pop((chn, True))
+        out[chn]["mlp"] = dict(feature_splat_kernels(lp, smi, chn, model),
+                               launches=launches, step_ms=times)
         del model
     return out
 
@@ -4960,7 +5123,22 @@ def kernel_lines(out):
                 f"wide_{w}_bound_by": part["bound"][1],
                 f"wide_{w}_bound_tf32_ms": part["bound_tf32"],
                 f"wide_{w}_max_abs_err": part["err"],
-                f"wide_{w}_launches": k["launches"][key]})
+                f"wide_{w}_launches": k["launches"][key],
+                f"wide_{w}_launches_mlp_lift": k["mlp"]["launches"][key]})
+    # phase 13's MLP lift: S1's pass F and S2's pass A past 256, launches on
+    # its steps (3 at 512, one at 384), times, errors and bounds on its splat
+    for key, part, count in (("splatter_fw", "fw", "splatter_fw"),
+                             ("splatter_bw_mlp", "bw", "splatter_bw_mlp")):
+        for w, k in out["13"].items():
+            m = k["mlp"][part]
+            wide_rows[key].update({
+                f"wide_{w}_ms": m["ms"],
+                f"wide_{w}_plain_ms": m["plain_ms"],
+                f"wide_{w}_bound_ms": m["bound"][0],
+                f"wide_{w}_bound_by": m["bound"][1],
+                f"wide_{w}_bound_tf32_ms": m.get("bound_tf32"),
+                f"wide_{w}_max_abs_err": m["err"],
+                f"wide_{w}_launches": k["mlp"]["launches"][count]})
     b_fw, b_fw_kind = train["fw_bound"]
     b_bw, b_bw_kind = train["bw"]["bound"]
     # R1 and R2: launches on this slice's main path (the trainer, phase 9);

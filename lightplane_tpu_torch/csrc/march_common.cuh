@@ -192,18 +192,14 @@ inline void fill_march(Params& p, int num_samples, int num_samples_inf,
   p.contract_coords = contract_coords;
 }
 
-// The padded activation widths the kernels are built for: 32 and 64 keep
-// every MLP layer in shared memory; 96, 128, 192 and 256 are the wide
+// The padded activation widths the kernels are built for, the renderer's
+// (R1, R2) and the splatter MLP's (S1, S2) alike: 32 and 64 keep every MLP
+// layer in shared memory; 96, 128, 192, 256, 384 and 512 are the wide
 // builds (wide_mlp.cuh), which pass the layers through shared memory a
-// slice at a time; the renderer's (R1, R2) also at 384 and 512, the
-// splatter MLP's (S1, S2) up to 256.
-inline bool known_splat_width(int width) {
-  return width == 32 || width == 64 || width == 96 || width == 128 ||
-         width == 192 || width == 256;
-}
-
+// slice at a time.
 inline bool known_width(int width) {
-  return known_splat_width(width) || width == 384 || width == 512;
+  return width == 32 || width == 64 || width == 96 || width == 128 ||
+         width == 192 || width == 256 || width == 384 || width == 512;
 }
 
 // Fills everything but the tensors; returns a cudaError_t code.

@@ -132,8 +132,8 @@ constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
 
 // Block i < n packs product i of the n = wide_n_products(p, kind) of
 // schedule `kind` into the workspace; block n writes the schedule
-// (wide_mlp.cuh).  R1, R2 and the splatter's wide MLP builds (splatter_fw.cu,
-// splatter_bw.cu) launch it.
+// (wide_mlp.cuh).  R1, R2 and the splatter's wide MLP builds
+// (splatter_wide.cuh) launch it.
 __global__ void pack_wide_kernel(const Params p, int kind, uint4* ws) {
   const int n = wide_n_products(p, kind);
   long long off = 0;

@@ -55,12 +55,12 @@
 //     g_mlp_partial (rows add across the slices' launches), and
 //     reduce_partial_kernel sums the rows into the flat g_mlp: g_enc and
 //     g_mlp are free of atomics, deterministic.  At padded widths 96 to
-//     256 (splat_bw_mlp_wide_kernel, below) no layer fits beside the tiles:
-//     a block's warps work on 16-row chunks in lockstep, the layers staged
-//     once a block through R2-wide's ring (wide_mlp.cuh) and multiplied by
-//     wgmma a warpgroup, each layer's weight gradient summed over the
-//     block's rows into the block's row (block_weight_grad); the rest as
-//     above.
+//     512 (splat_bw_mlp_wide_kernel, splatter_wide.cuh) no layer fits
+//     beside the tiles: a block's warps work on 16-row chunks in lockstep,
+//     the layers staged once a block through R2-wide's ring (wide_mlp.cuh)
+//     and multiplied by wgmma a warpgroup (past 256 by mma.sync in
+//     N-parts), each layer's weight gradient summed over the block's rows
+//     into the block's row (block_weight_grad); the rest as above.
 //   Pass B, brick-major: S1's planned splat (splatter_fw.cu) over the input
 //     grid-list, one launch per input sub-grid, each step's staged g_in as
 //     the value splatted: the input grid's gradient is summed in
@@ -100,14 +100,11 @@
 // gradient sums are order-dependent from run to run (pass B's reductions),
 // g_enc and g_mlp are not.
 
-#include "splat_common.cuh"
-#include "wide_mlp.cuh"
+#include "splatter_wide.cuh"
 
 namespace {
 
 using namespace lightplane;
-
-constexpr unsigned kAll = 0xffffffffu;
 
 // ---- without the MLP: the gather ------------------------------------------
 
@@ -282,41 +279,6 @@ bool enc_shape(int C, bool steps, int* kv, int* group, int* passes) {
 // ---- with the MLP: pass A --------------------------------------------------
 
 constexpr int kMaxWarpsA = 8;
-constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
-
-// Where the MLP lives in shared memory and in a warp's sums, per layer at
-// its own widths: ki k-steps (inputs / 8), no N-tiles (outputs / 8), mi
-// M-tiles of the weight gradient (inputs / 16), all rounded up.  Layer l's
-// staging at frag[l]: its weights in the forward fragment order (k = input,
-// n = output; ki x no blocks of 64 floats), then transposed (k = output,
-// n = input), then 8 no biases; after the layers, 64 zeros (the input
-// gradient's bias).  Layer l's sums at sums[l]: mi x no accumulator tiles
-// of 128 floats (tc_index), then 8 no bias sums.
-struct MlpLayout {
-  int ki[kMaxLayers], no[kMaxLayers], mi[kMaxLayers];
-  int frag[kMaxLayers], sums[kMaxLayers];
-  int zeros;        // offset of the 64 zeros
-  int frag_floats;  // the staged layers, a multiple of 4
-  int sum_floats;   // one warp's sums, a multiple of 4
-};
-
-MlpLayout mlp_layout(const Params& p) {
-  MlpLayout ml = {};
-  int f = 0, s = 0;
-  for (int l = 0; l < p.n_layers[0]; ++l) {
-    ml.ki[l] = (p.layer_in[l] + 7) / 8;
-    ml.no[l] = (p.layer_out[l] + 7) / 8;
-    ml.mi[l] = (p.layer_in[l] + 15) / 16;
-    ml.frag[l] = f;
-    f += 2 * ml.ki[l] * ml.no[l] * 64 + 8 * ml.no[l];
-    ml.sums[l] = s;
-    s += ml.mi[l] * ml.no[l] * 128 + 8 * ml.no[l];
-  }
-  ml.zeros = f;
-  ml.frag_floats = (f + 64 + 3) / 4 * 4;
-  ml.sum_floats = (s + 3) / 4 * 4;
-  return ml;
-}
 
 // Floats of one warp's region: its L + 1 tiles and its sums.
 __host__ __device__ __forceinline__ long long warp_floats(
@@ -536,267 +498,6 @@ __global__ void __launch_bounds__(32 * kMaxWarpsA, 1)
   }
 }
 
-// ---- with the MLP at W = 96 to 256: pass A on the staged layers -----------
-// No layer fits a block's shared memory beside its warps' tiles (at W = 128
-// a 128 x 128 layer is 64 KB), so pass A takes R2-wide's design
-// (renderer_wide.cuh, wide_mlp.cuh) without the march: a block's warps take
-// a ray each and work on the same 16-row chunk of their rays' staged g_vec
-// and samples in lockstep, each layer staged once a block through the
-// cp.async ring of packed slices (schedule kSplatBw: the L - 1 relu layers,
-// then every layer's input gradient, last layer first) and multiplied by
-// wgmma a warpgroup (mma.sync in a block of 1-3 warps).  A chunk is skipped
-// only where the block's whole g_vec is 0 there (__syncthreads_or); a warp
-// whose ray's g_vec is 0 over the chunk (or that has no ray) takes every
-// slice and barrier and writes zeros as its rows' g_in.  Each layer's
-// weight gradient is summed over the block's rows by block_weight_grad into
-// the block's row of g_mlp_partial (MlpLayout's sums, rows added across the
-// slices' launches), read back by nothing; reduce_partial_kernel sums the
-// rows.  Each tile is its layer input's width rounded up to 16 (the weight
-// gradient's M-tiles) plus 4 (wide_stride): at 32 -> 128 -> 128, X_0 and
-// g_in 36 floats wide, X_1 and g_vec 132, 19,200 B a warp, so 8 warps and
-// the ring (49,152 B) fit a block (202,784 B); at 32 -> 256 -> 256 X_1 and
-// g_vec 260 wide, 35,584 B a warp, 4 warps (191,520 B; five would fit, not
-// eight), and at 32 -> 192 -> 192 27,392 B a warp, 4 warps (158,752 B).
-
-constexpr int kMaxWarpsWide = 8;
-constexpr int kWideFlagBytes = 4 * kMaxWarpsWide;  // a warp's active flag
-
-// Floats of a tile row for d channels (a layer's input, or g_vec's C).
-__host__ __device__ __forceinline__ int wide_stride(int d) {
-  return (d + 15) / 16 * 16 + 4;
-}
-
-// Where a warp's tiles lie in its region (floats): X_0 .. X_{L-1} (layer
-// l's input, then its input gradient), then g_vec's.
-struct WideALayout {
-  int off[kMaxLayers + 1];
-  int warp_floats;
-};
-
-__host__ __device__ __forceinline__ WideALayout wide_a_layout(const Params& p,
-                                                              int C) {
-  WideALayout lay = {};
-  int at = 0;
-  for (int l = 0; l < p.n_layers[0]; ++l) {
-    lay.off[l] = at;
-    at += kChunk * wide_stride(p.layer_in[l]);
-  }
-  lay.off[p.n_layers[0]] = at;
-  lay.warp_floats = at + kChunk * wide_stride(C);
-  return lay;
-}
-
-long long wide_a_smem_bytes(int W, const WideALayout& lay, int warps) {
-  return 4LL * warps * lay.warp_floats + ring_bytes(W) + kWideFlagBytes;
-}
-
-// The most warps, up to kMaxWarpsWide, whose tiles fit with the ring in a
-// block's shared memory, in whole warpgroups past 4 (0 where one does not).
-int wide_a_warps(int W, const WideALayout& lay) {
-  int warps = kMaxWarpsWide;
-  while (warps > 1 && wide_a_smem_bytes(W, lay, warps) > kMaxSmemBytes)
-    --warps;
-  if (wide_a_smem_bytes(W, lay, warps) > kMaxSmemBytes) return 0;
-  return warps > 4 ? warps / 4 * 4 : warps;
-}
-
-// Rows j < n of src [.., C] into rows j of a [kChunk][stride] tile, plus
-// `add` where given, zeros past n and C up to the tile's stride - 4
-// columns: lane 8 q + u loads channels 32 v + 4 u .. + 3 of rows 4 i + q,
-// every load of the chunk before any store.  Returns whether any value the
-// lane loaded is not 0.
-template <int W>
-__device__ __forceinline__ bool load_chunk(float* tile, int stride,
-                                           const float* src, int n, int C,
-                                           const float4* add, int lane) {
-  constexpr int V = W / 32;
-  const int q = lane >> 3, u = lane & 7;
-  float4 x[kChunk / 4][V];
-  bool nonzero = false;
-#pragma unroll
-  for (int i = 0; i < kChunk / 4; ++i)
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int j = 4 * i + q, c = 32 * v + 4 * u;
-      const float* at = src + (long long)j * C + c;
-      x[i][v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (j < n && (C & 3) == 0 && c < C) {
-        x[i][v] = __ldg(reinterpret_cast<const float4*>(at));
-      } else if (j < n && c < C) {
-        x[i][v].x = __ldg(at);
-        x[i][v].y = c + 1 < C ? __ldg(at + 1) : 0.0f;
-        x[i][v].z = c + 2 < C ? __ldg(at + 2) : 0.0f;
-        x[i][v].w = c + 3 < C ? __ldg(at + 3) : 0.0f;
-      }
-      nonzero |= x[i][v].x != 0.0f || x[i][v].y != 0.0f ||
-                 x[i][v].z != 0.0f || x[i][v].w != 0.0f;
-    }
-#pragma unroll
-  for (int i = 0; i < kChunk / 4; ++i)
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int c = 32 * v + 4 * u;
-      if (c >= stride - 4) continue;
-      float4 y = x[i][v];
-      if (add != nullptr) {
-        y.x += add[v].x;
-        y.y += add[v].y;
-        y.z += add[v].z;
-        y.w += add[v].w;
-      }
-      *reinterpret_cast<float4*>(tile + (4 * i + q) * stride + c) = y;
-    }
-  return nonzero;
-}
-
-// Values 0 .. n - 1 of a tile row, 0 past them (record_mask's vector).
-struct RowPrefix {
-  const float* x;
-  int n;
-  __device__ __forceinline__ float operator[](int i) const {
-    return i < n ? x[i] : 0.0f;
-  }
-};
-
-// The wide pass A over the rays: g_enc, the staged g_in [R, steps, C_in]
-// (over the staged samples) and the block's row of g_mlp_partial (added
-// to).
-template <int W>
-__global__ void __launch_bounds__(32 * kMaxWarpsWide, 1)
-    splat_bw_mlp_wide_kernel(const SplatParams sp, const MlpLayout ml,
-                             const WideALayout lay,
-                             const uint4* __restrict__ pack, int n_slices) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int V = W / 32;
-  const Params& p = sp.m;
-  const int L = p.n_layers[0];
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5,
-            lane = threadIdx.x & 31;
-  const bool wg = warps % 4 == 0;  // warpgroups: the products by wgmma
-  float* const region0 = smem;     // warp 0's region
-  float* tiles = region0 + (long long)warp * lay.warp_floats;
-  for (int i = lane; i < lay.warp_floats; i += 32) tiles[i] = 0.0f;
-  Ring ring = {reinterpret_cast<uint4*>(smem + warps * lay.warp_floats), pack,
-               ring_slot_u4(W), n_slices, 0};
-  int* active_warps = reinterpret_cast<int*>(
-      reinterpret_cast<char*>(ring.slots) + ring_bytes(W));
-  ring_start(ring);
-  __syncwarp();
-#define X(l) (tiles + lay.off[l])
-#define SX(l) wide_stride(p.layer_in[l])
-  float* Gt = tiles + lay.off[L];
-  const int C = sp.out_chn, C_in = p.grid_chn;
-  const int sg = wide_stride(C), s0 = SX(0);
-  const int tot = p.num_samples + p.num_samples_inf;
-  const int u = lane & 7;
-  float* acc = p.g_mlp_partial + (long long)blockIdx.x * ml.sum_floats;
-
-  const int groups = (p.num_rays + warps - 1) / warps;
-  const int per_block = (groups + gridDim.x - 1) / gridDim.x;
-  const int group_end = min(groups, (blockIdx.x + 1) * per_block);
-  for (int group = blockIdx.x * per_block; group < group_end; ++group) {
-    // every warp walks the block's groups, a ray past num_rays too
-    const int ray = group * warps + warp;
-    const bool valid = ray < p.num_rays;
-    // the encoding in load_chunk's layout: lane 8 q + u, channels
-    // 32 v + 4 u .. + 3
-    float4 e[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float* src = p.enc + (long long)(valid ? ray : 0) * C_in;
-      const int c = 32 * v + 4 * u;
-      e[v] = make_float4(valid && c < C_in ? src[c] : 0.0f,
-                         valid && c + 1 < C_in ? src[c + 1] : 0.0f,
-                         valid && c + 2 < C_in ? src[c + 2] : 0.0f,
-                         valid && c + 3 < C_in ? src[c + 3] : 0.0f);
-    }
-    float genc[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) genc[v] = 0.0f;
-    for (int c0 = 0; c0 < tot; c0 += kChunk) {
-      const int n = valid ? min(kChunk, tot - c0) : 0;
-      float* staged = sp.stage + ((long long)(valid ? ray : 0) * tot + c0) *
-                                     C_in;
-      // the chunk's g_vec (the gradient of the MLP's output) and input
-      // samples, both staged by the gather (zero at unsampled steps): X_0 =
-      // the sample + the encoding, the plain version's order
-      bool nonzero = load_chunk<W>(
-          Gt, sg, sp.gvec + ((long long)(valid ? ray : 0) * tot + c0) * C, n,
-          C, nullptr, lane);
-      load_chunk<W>(X(0), s0, staged, n, C_in, e, lane);
-      __syncwarp();
-      bool active = __any_sync(kAll, nonzero);
-      if (kAblate & kAblateS2GatherOnly) {
-        for (int j = 0; j < kChunk; ++j) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c = 32 * v + lane;
-            if (c < C && c < C_in) genc[v] += Gt[j * sg + c];
-          }
-        }
-        active = false;
-      }
-      const bool block_active = __syncthreads_or(active);
-      // read by block_weight_grad, behind the barriers to come; every warp
-      // is past the last chunk's reads
-      if (lane == 0) active_warps[warp] = active;
-      if (block_active) {
-        // the forward, recomputed, each layer's input kept
-        for (int l = 0; l + 1 < L; ++l) {
-          staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l], X(l),
-                         SX(l), nullptr, p.mlp + p.layer_b_off[l], true,
-                         nullptr, nullptr, X(l + 1), nullptr, SX(l + 1),
-                         active, wg, lane);
-          if (kReluMasks && active && lane < kChunk && lane < n)
-            record_mask<W>(p, ray, c0 + lane, tot, l,
-                           RowPrefix{X(l + 1) + lane * SX(l + 1),
-                                     p.layer_out[l]});
-        }
-        // the backward, last layer first: G_l is g_vec's tile, then X_{l+1}'s
-        const float* G = Gt;
-        int gs = sg;
-        for (int l = L - 1; l >= 0; --l) {
-          __syncthreads();  // every warp's X_l and G_l are written
-          if (!(kAblate & kAblateS2NoWeightGrad))
-            block_weight_grad<W>(acc + ml.sums[l], region0 + (X(l) - tiles),
-                                 nullptr, region0 + (G - tiles), SX(l), gs,
-                                 lay.warp_floats, active_warps, warps,
-                                 p.layer_in[l], p.layer_out[l], warp, lane);
-          // (the product's first slice is a barrier: every warp is past the
-          // weight gradient before any writes over X_l)
-          // G_{l-1} = (G_l W_l^T) * (X_l > 0) over X_l; at l = 0, g_in
-          staged_rows<W>(ring, (p.layer_out[l] + 7) / 8, p.layer_in[l], G, gs,
-                         nullptr, nullptr, false, l > 0 ? X(l) : nullptr,
-                         nullptr, X(l), nullptr, SX(l), active, wg, lane);
-          G = X(l);
-          gs = SX(l);
-        }
-      }
-      // g_in, now in X_0 (0 where the warp was not active): into g_enc and
-      // the staging rows
-      if (active) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if (32 * v + lane >= C_in) continue;
-          for (int j = 0; j < kChunk; ++j)
-            genc[v] += X(0)[j * s0 + 32 * v + lane];
-        }
-      }
-      for (int j = 0; j < n; ++j)
-        for (int c = lane; c < C_in; c += 32)
-          staged[(long long)j * C_in + c] = active ? X(0)[j * s0 + c] : 0.0f;
-      __syncwarp();  // the tiles are free for the next chunk
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (valid && 32 * v + lane < C_in)
-        p.g_enc[(long long)ray * C_in + 32 * v + lane] = genc[v];
-  }
-  cp_async_wait<0>();
-#undef SX
-#undef X
-}
-
 // g_mlp[k] = the sum over the `rows` rows of g_mlp_partial of the entry of
 // flat parameter k (MlpLayout's sums).
 __global__ void reduce_partial_kernel(const Params p, const MlpLayout ml,
@@ -850,52 +551,6 @@ cudaError_t mlp_config(const Params& p, const MlpLayout& ml, int* warps,
   return cudaSuccess;
 }
 
-// The wide pass A's warps per block (wide_a_warps), its shared memory and
-// its resident wave of blocks.
-template <int W>
-cudaError_t mlp_wide_config(const Params& p, int C, int* warps, size_t* smem,
-                            int* wave) {
-  const WideALayout lay = wide_a_layout(p, C);
-  *warps = wide_a_warps(W, lay);
-  *smem = (size_t)wide_a_smem_bytes(W, lay, *warps > 0 ? *warps : 1);
-  if (*warps == 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      splat_bw_mlp_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)*smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, splat_bw_mlp_wide_kernel<W>, 32 * *warps, *smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *wave = sms * per_sm;
-  return cudaSuccess;
-}
-
-// The pre-pass (the packed layers into `pack`), then the wide pass A over
-// the rays, a block's row of sums each among `rows`.
-template <int W>
-cudaError_t launch_mlp_wide(const SplatParams& sp, const MlpLayout& ml,
-                            int rows, void* pack, cudaStream_t stream) {
-  int warps = 0, wave = 0;
-  size_t smem = 0;
-  cudaError_t e = mlp_wide_config<W>(sp.m, sp.out_chn, &warps, &smem, &wave);
-  if (e != cudaSuccess) return e;
-  const long long groups = (sp.m.num_rays + warps - 1) / warps;
-  long long blocks = groups < wave ? groups : wave;
-  if (blocks > rows) blocks = rows;
-  if (blocks < 1) return cudaSuccess;
-  if ((e = launch_wide_pack(sp.m, kSplatBw, pack, stream)) != cudaSuccess)
-    return e;
-  splat_bw_mlp_wide_kernel<W><<<(int)blocks, 32 * warps, smem, stream>>>(
-      sp, ml, wide_a_layout(sp.m, sp.out_chn),
-      static_cast<const uint4*>(pack), wide_slices(sp.m, kSplatBw));
-  return cudaGetLastError();
-}
-
 template <int W>
 cudaError_t launch_mlp(const SplatParams& sp, const MlpLayout& ml, int rows,
                        cudaStream_t stream) {
@@ -935,11 +590,26 @@ cudaError_t launch_gather(const SplatParams& sp, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Pass A's wide launchers at `width`, false for a width with no wide
+// build: built here at 96-256, past 256 in splatter_wide_<W>_bw.cu.
+bool pass_a_ops(int width, SplatWideOps* ops) {
+  switch (width) {
+    case 96: *ops = make_splat_bw_ops<96>(); return true;
+    case 128: *ops = make_splat_bw_ops<128>(); return true;
+    case 192: *ops = make_splat_bw_ops<192>(); return true;
+    case 256: *ops = make_splat_bw_ops<256>(); return true;
+    case 384: *ops = splat_bw_ops_384(); return true;
+    case 512: *ops = splat_bw_ops_512(); return true;
+  }
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
 
-// For the MLP adjoint at `width` (32, 64, 96, 128, 192 or 256) of n_layers
+// For the MLP adjoint at `width` (32, 64, 96, 128, 192, 256, 384 or 512)
+// of n_layers
 // layers of mlp_widths (host int[n_layers + 1]): out[0] the warps per block
 // of pass A, out[1] the rows of g_mlp_partial that the caller zero-fills (its
 // resident wave of blocks), out[2] the floats of a row, out[3] a block's
@@ -947,7 +617,9 @@ extern "C" {
 // layers (above 64; 0 at 32 and 64); a cudaError_t code.
 int lightplane_splat_bw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
-  if (n_layers < 1 || n_layers > kMaxLayers || !known_splat_width(width))
+  SplatWideOps ops;
+  if (n_layers < 1 || n_layers > kMaxLayers ||
+      (width != 32 && width != 64 && !pass_a_ops(width, &ops)))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_layers, 0, 0};
@@ -959,10 +631,7 @@ int lightplane_splat_bw_mlp_config(int width, int n_layers,
   const cudaError_t e =
       width == 32   ? mlp_config<32>(p, ml, &warps, &smem, &wave)
       : width == 64 ? mlp_config<64>(p, ml, &warps, &smem, &wave)
-                    : wide_dispatch(width, [&](auto w) {
-                        return mlp_wide_config<decltype(w)::value>(
-                            p, C, &warps, &smem, &wave);
-                      });
+                    : ops.a_config(p, C, &warps, &smem, &wave);
   out[0] = warps;
   out[1] = wave;
   out[2] = ml.sum_floats;
@@ -979,10 +648,10 @@ int lightplane_splat_bw_attrs(int mlp, int width, int* out) {
   if (!mlp) return kernel_attrs(splat_bw_enc_kernel<8, false>, out);
   if (mlp == 2) return kernel_attrs(splat_bw_enc_kernel<8, true>, out);
   if (mlp == 3) return kernel_attrs(splat_bw_enc_kernel<16, false>, out);
+  SplatWideOps ops;
   if (width > 64)
-    return wide_dispatch(width, [&](auto w) {
-      return kernel_attrs(splat_bw_mlp_wide_kernel<decltype(w)::value>, out);
-    });
+    return pass_a_ops(width, &ops) ? ops.a_attrs(out)
+                                   : (int)cudaErrorInvalidValue;
   return width == 32 ? kernel_attrs(splat_bw_mlp_kernel<32>, out)
                      : kernel_attrs(splat_bw_mlp_kernel<64>, out);
 }
@@ -1064,14 +733,12 @@ int lightplane_splat_bw(
     return (int)cudaGetLastError();
   }
   if (num_rays == 0) return (int)cudaSuccess;
-  const cudaError_t e =
-      width == 32   ? launch_mlp<32>(sp, ml, rows, s)
-      : width == 64 ? launch_mlp<64>(sp, ml, rows, s)
-                    : wide_dispatch(width, [&](auto w) {
-                        return launch_mlp_wide<decltype(w)::value>(
-                            sp, ml, rows, workspace, s);
-                      });
-  return (int)e;
+  if (width == 32) return (int)launch_mlp<32>(sp, ml, rows, s);
+  if (width == 64) return (int)launch_mlp<64>(sp, ml, rows, s);
+  SplatWideOps ops;
+  return pass_a_ops(width, &ops)
+             ? (int)ops.launch_a(sp, ml, rows, workspace, s)
+             : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

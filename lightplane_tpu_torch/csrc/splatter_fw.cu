@@ -79,7 +79,7 @@
 //    staged MLP input gradient over the input grid-list, no weight column
 //    flushed); kSteps = 2 is pass S of the wide MLP build (6), the weight
 //    flushed as the other variants flush it.
-// 6. The MLP variant at padded widths 96 to 256, in two passes over
+// 6. The MLP variant at padded widths 96 to 512, in two passes over
 //    slices of the rays (splatter_fw.py::mlp_slices: the staging and each
 //    run list within PLAN_MAX_RUNS' bytes).  A ray marches in brick order
 //    as many times as it has output sub-grids, so running the MLP there
@@ -89,14 +89,16 @@
 //    runs it once per plane.  Here,
 //    as the TPU kernel does (splatter_pallas.py:57-117: each step's vector
 //    once, then splatted into every sub-grid):
-//    - pass F (splat_mlp_wide_kernel, ray-major): a block's 8 warps march
-//      a ray each in lockstep over 16-step chunks, R1-wide's design
-//      (renderer_wide.cuh, wide_mlp.cuh): the input grid-list's sample
-//      gathered into a [16][W + 4] tile (gather_chunk) plus the encoding,
-//      then every layer on the tensor cores in 3xTF32 (wgmma a warpgroup),
-//      each layer staged once a block through the cp.async ring, relu
-//      between the layers; each sampled step's C outputs go to the staging
-//      [rays of the slice, steps, C];
+//    - pass F (splat_mlp_wide_kernel, ray-major; splatter_wide.cuh): a
+//      block's 8 warps (past 256 7 and 5) march a ray each in lockstep
+//      over 16-step chunks, R1-wide's design (renderer_wide.cuh,
+//      wide_mlp.cuh): the input grid-list's sample gathered into a
+//      [16][W + 4] tile (gather_chunk) plus the encoding, then every layer
+//      on the tensor cores in 3xTF32 (wgmma a warpgroup; past 256 by
+//      mma.sync in N-parts, each part but the last in a stash in device
+//      memory), each layer staged once a block through the cp.async ring,
+//      relu between the layers; each sampled step's C outputs go to the
+//      staging [rays of the slice, steps, C];
 //    - pass S: the per-step variant (kSteps = 2) by S1's own plan, once per
 //      output sub-grid.
 //    A masked step is in no run, so its row of the staging is never
@@ -116,8 +118,7 @@
 // flush's reductions the items, differently from run to run, so the sums
 // are order-dependent.
 
-#include "splat_common.cuh"
-#include "wide_mlp.cuh"
+#include "splatter_wide.cuh"
 
 namespace {
 
@@ -127,7 +128,6 @@ constexpr int kPlanThreads = 128;
 constexpr int kWarps = 4;  // warps per block of the splat pass
 constexpr int kSplatThreads = 32 * kWarps;
 constexpr int kBatch = 32;  // runs a warp marches together, a lane each
-constexpr unsigned kAll = 0xffffffffu;
 
 // The bricks of the output grid-list and the buffers of the plan.
 struct Plan {
@@ -669,150 +669,18 @@ cudaError_t launch_splat(const SplatParams& sp, const Plan& pl,
   return launch_splat<W, 1, kSteps>(sp, pl, max_items, stream);
 }
 
-
-// ---- the wide MLP build's pass F (W = 96, 128, 192, 256) --------------------
-
-constexpr int kFWarps = 8;  // pass F: warps (rays) a block, two warpgroups
-constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
-
-// Bytes of a pass F block's shared memory: each warp's [16][W + 4] tile,
-// then the ring (116,736 at W = 128, 149,504 at 192, 182,272 at 256; one
-// block an SM).
-__host__ __device__ __forceinline__ long long pass_f_smem_bytes(int W,
-                                                                int warps) {
-  return 4LL * warps * kChunk * (W + 4) + ring_bytes(W);
-}
-
-// Every sampled step's MLP output, its C = sp.out_chn channels into row
-// ray * steps + s of `values` [rays, steps, C]: a block's warps march a ray
-// each in lockstep over 16-step chunks (lane l < 16 owns step 16 chunk +
-// l's geometry), every warp on the same chunk and the same layer at once.
-// A step is sampled where its ray reads a batch of every grid-list and,
-// with masking, its point lies in the cube: the steps S1's plan can hold.
-// A chunk with no sampled step in the block is skipped whole
-// (__syncthreads_or); a warp with none in a running chunk (or with no ray)
-// takes every slice and barrier, and writes nothing.  X_0 = the input
-// grid-list's sample (gather_chunk, march_common.cuh's step geometry) plus
-// the ray's encoding, in the plain version's order; then each layer by
-// staged_rows over the ring's slices of the packed layers (schedule
-// kSplatFw: every layer, relu between them), in place in the warp's tile.
-template <int W>
-__global__ void __launch_bounds__(32 * kFWarps, 1)
-    splat_mlp_wide_kernel(const SplatParams sp, const uint4* __restrict__ ws,
-                          int n_slices, bool wg, float* __restrict__ values) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int S = W + 4, V = W / 32, kTile = kChunk * S;
-  const Params& p = sp.m;
-  const int L = p.n_layers[0];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* X = smem + warp * kTile;
-  for (int i = lane; i < kTile; i += 32) X[i] = 0.0f;
-  Ring ring = {reinterpret_cast<uint4*>(smem + warps * kTile), ws,
-               ring_slot_u4(W), n_slices, 0};
-  ring_start(ring);
-  __syncwarp();
-
-  const int C = sp.out_chn, C_in = p.grid_chn;
-  const int tot = p.num_samples + p.num_samples_inf;
-  const bool vec4 = (C & 3) == 0;
-  const int groups = (p.num_rays + warps - 1) / warps;
-  const int per_block = (groups + gridDim.x - 1) / gridDim.x;
-  const int group_end = min(groups, (blockIdx.x + 1) * per_block);
-  for (int group = blockIdx.x * per_block; group < group_end; ++group) {
-    // every warp walks the block's groups, a ray past num_rays too
-    const int ray = group * warps + warp;
-    const bool valid = ray < p.num_rays;
-    Ray r = {};
-    r.b = -1;
-    if (valid) r = load_ray(p, ray);
-    float e[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int c = 32 * v + lane;
-      e[v] = valid && c < C_in ? p.enc[(long long)ray * C_in + c] : 0.0f;
-    }
-    for (int c0 = 0; c0 < tot; c0 += kChunk) {
-      const int s = valid && lane < kChunk ? c0 + lane : tot;
-      Step st = {};
-      if (s < tot) st = march_step(p, r, s);
-      const bool sampled = s < tot && r.b >= 0 &&
-                           (!p.mask_out_of_bounds || st.in_bounds);
-      if (!__syncthreads_or(sampled)) continue;  // no ray of the block's
-      const uint32_t taken = __ballot_sync(kAll, sampled);
-      const bool active = taken != 0u;
-      if (active) {
-        gather_chunk<W, kChunk>(p.grids, p.grid, C_in, r.b, st, taken, false,
-                                X, nullptr, lane);
-        __syncwarp();
-        for (int j = 0; j < kChunk; ++j) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) X[j * S + 32 * v + lane] += e[v];
-        }
-        __syncwarp();
-      }
-      for (int l = 0; l < L; ++l)
-        staged_rows<W>(ring, (p.layer_in[l] + 7) / 8, p.layer_out[l], X, S,
-                       nullptr, p.mlp + p.layer_b_off[l], l + 1 < L, nullptr,
-                       nullptr, X, nullptr, S, active, wg, lane);
-      if (!active) continue;
-      // the sampled steps' rows of the chunk into the staging
-      float* dst = values + ((long long)ray * tot + c0) * C;
-      for (uint32_t todo = taken; todo; todo &= todo - 1) {
-        const int j = __ffs(todo) - 1;
-        const float* x = X + j * S;
-        float* d = dst + (long long)j * C;
-        if (vec4) {
-          for (int c4 = lane; c4 < C / 4; c4 += 32)
-            reinterpret_cast<float4*>(d)[c4] =
-                reinterpret_cast<const float4*>(x)[c4];
-        } else {
-          for (int c = lane; c < C; c += 32) d[c] = x[c];
-        }
-      }
-      __syncwarp();  // the tile is free for the next chunk
-    }
+// Pass F's launchers at `width`, false for a width with no wide build:
+// built here at 96-256, past 256 in splatter_wide_<W>_fw.cu.
+bool pass_f_ops(int width, SplatWideOps* ops) {
+  switch (width) {
+    case 96: *ops = make_splat_fw_ops<96>(); return true;
+    case 128: *ops = make_splat_fw_ops<128>(); return true;
+    case 192: *ops = make_splat_fw_ops<192>(); return true;
+    case 256: *ops = make_splat_fw_ops<256>(); return true;
+    case 384: *ops = splat_fw_ops_384(); return true;
+    case 512: *ops = splat_fw_ops_512(); return true;
   }
-  cp_async_wait<0>();
-}
-
-// Pass F's warps, shared memory and resident wave of blocks.
-template <int W>
-cudaError_t pass_f_config(size_t* smem, int* wave) {
-  *smem = (size_t)pass_f_smem_bytes(W, kFWarps);
-  if ((long long)*smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      splat_mlp_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)*smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, splat_mlp_wide_kernel<W>, 32 * kFWarps, *smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *wave = sms * per_sm;
-  return cudaSuccess;
-}
-
-// The pre-pass (the packed layers into `workspace`), then pass F.
-template <int W>
-cudaError_t launch_pass_f(const SplatParams& sp, void* workspace,
-                          float* values, cudaStream_t stream) {
-  size_t smem = 0;
-  int wave = 0;
-  cudaError_t e = pass_f_config<W>(&smem, &wave);
-  if (e != cudaSuccess) return e;
-  if ((e = launch_wide_pack(sp.m, kSplatFw, workspace, stream)) != cudaSuccess)
-    return e;
-  const long long needed = (sp.m.num_rays + kFWarps - 1) / kFWarps;
-  splat_mlp_wide_kernel<W>
-      <<<(int)(needed < wave ? needed : wave), 32 * kFWarps, smem, stream>>>(
-          sp, static_cast<const uint4*>(workspace),
-          wide_slices(sp.m, kSplatFw), kFWarps % 4 == 0, values);
-  return cudaGetLastError();
+  return false;
 }
 
 }  // namespace
@@ -833,22 +701,27 @@ long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
   return splat_smem_bytes(width, n_layers, max_rows, out_chn, stage_chn(E));
 }
 
-// The wide MLP build's pass F at `width` (96-256) for n_layers layers of
+// The wide MLP build's pass F at `width` (96-512) for n_layers layers of
 // mlp_widths (host int[n_layers + 1]): out[0] warps per block, out[1] a
-// block's shared memory in bytes, out[2] the bytes of the workspace of
-// packed layers; a cudaError_t code.
+// block's shared memory in bytes, out[2] the bytes of the packed layers,
+// out[3] the blocks of the resident wave, out[4] a block's scratch bytes
+// (its warps' stashes past 256, 0 up to it); the workspace holds the packed
+// layers, then a scratch for each block of the wave.  A cudaError_t code.
 int lightplane_splat_fw_mlp_config(int width, int n_layers,
                                    const int* mlp_widths, int* out) {
-  if (n_layers < 1 || n_layers > kMaxLayers || width <= 64 ||
-      !known_splat_width(width))
+  SplatWideOps ops;
+  if (n_layers < 1 || n_layers > kMaxLayers || !pass_f_ops(width, &ops))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   const int counts[3] = {n_layers, 0, 0};
   fill_layers(p, counts, mlp_widths);
-  out[0] = kFWarps;
-  out[1] = (int)pass_f_smem_bytes(width, kFWarps);
+  out[0] = pass_f_warps(width);
+  out[1] = (int)pass_f_smem_bytes(width, out[0]);
   out[2] = (int)wide_pack_bytes(p, kSplatFw);
-  return (int)cudaSuccess;
+  out[3] = 0;
+  out[4] = (int)(4 * pass_f_scratch_floats(width, out[0]));
+  size_t smem = 0;
+  return (int)ops.f_config(&smem, &out[3]);
 }
 
 // Launches the wide MLP build's pass F on `stream` (the pre-pass, then the
@@ -871,7 +744,9 @@ int lightplane_splat_fw_mlp(
       in_chn, n_layers, mlp_widths, width, num_samples, num_samples_inf,
       disparity_at_inf, mask_out_of_bounds, contract_coords);
   if (rc != (int)cudaSuccess) return rc;
-  if (n_layers < 1 || width <= 64 || sp.m.layer_out[n_layers - 1] != out_chn)
+  SplatWideOps ops;
+  if (n_layers < 1 || !pass_f_ops(width, &ops) ||
+      sp.m.layer_out[n_layers - 1] != out_chn)
     return (int)cudaErrorInvalidValue;
   if (num_rays == 0) return (int)cudaSuccess;
   Params& p = sp.m;
@@ -883,10 +758,8 @@ int lightplane_splat_fw_mlp(
   p.enc = enc;
   p.grid = input_grid;
   p.mlp = mlp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)wide_dispatch(width, [&](auto w) {
-    return launch_pass_f<decltype(w)::value>(sp, workspace, values, s);
-  });
+  return (int)ops.launch_f(sp, workspace, values,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // Registers, spilled bytes and the thread limit of the splat pass (its
@@ -898,10 +771,10 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
   if (mlp == 2) return kernel_attrs(splat_plan_kernel<true>, out);
   if (mlp == 3) return kernel_attrs(splat_fw_kernel<0, 8, 2, 2>, out);
   if (!mlp) return kernel_attrs(splat_fw_kernel<0, 8, 2>, out);
+  SplatWideOps ops;
   if (width > 64)
-    return wide_dispatch(width, [&](auto w) {
-      return kernel_attrs(splat_mlp_wide_kernel<decltype(w)::value>, out);
-    });
+    return pass_f_ops(width, &ops) ? ops.f_attrs(out)
+                                   : (int)cudaErrorInvalidValue;
   return width == 32 ? kernel_attrs(splat_fw_kernel<32, 8, 1>, out)
                      : kernel_attrs(splat_fw_kernel<64, 8, 2>, out);
 }
@@ -911,7 +784,8 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //   out_meta, in_meta: host int[5 * n], per sub-grid (row offset, B, D, H, W)
 //   n_layers: the MLP's layer count, 0 without it (input_grid, mlp, in_meta
 //     and mlp_widths are then not read)
-//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96, 128, 192 or 256
+//   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96, 128, 192, 256,
+//     384 or 512
 //     (above 64 the plan's stages only: the wide build splats by pass S)
 //   bricks: host int[3 * num_out_grids], cells per brick along D, H, W
 //   stage: 0 counts the runs per brick into counts [bricks] (zero-filled);

@@ -1,8 +1,7 @@
 // The dense layers of the wide builds (padded widths W = 96, 128, 192,
-// 256, and for the renderer 384 and 512) of the renderer's forward march
-// and recompute backward (renderer_wide.cuh, R1 and R2), of the splatter
-// MLP's forward (splatter_fw.cu, S1's pass F) and of its adjoint
-// (splatter_bw.cu, S2's pass A).
+// 256, 384 and 512) of the renderer's forward march and recompute backward
+// (renderer_wide.cuh, R1 and R2), of the splatter MLP's forward (S1's pass
+// F) and of its adjoint (S2's pass A; both splatter_wide.cuh).
 //
 // All four stage their layers in shared memory, a slice at a time for a
 // whole block (staged_rows, below): at W = 128 a 2/2/2 MLP is ~400 KB, more
@@ -14,7 +13,7 @@
 // (wide_product: R1's, R2's, the splatter's forward, its adjoint).  R2's and
 // S2's weight gradients are summed over a block's rows into one row a block
 // (block_weight_grad; per layer mi x no accumulator tiles, tc_index(i, o,
-// no), then 8 no bias sums: splatter_bw.cu's MlpLayout).
+// no), then 8 no bias sums: splatter_wide.cuh's MlpLayout).
 //
 // Everything is written against the template width.  Past 128 a ring slot
 // keeps the size it has at 128 (two k-steps of 16 N-tiles), so that a
@@ -25,33 +24,15 @@
 // (wgmma's widest N, and a slot's widest k-step) a product runs in N-parts
 // of at most 256 columns (kPartTiles), in turn, each with its own 128
 // accumulators, a slice one k-step of one part; R2's block there is one
-// warp, so R1 and R2 both multiply by mma.sync (staged_rows_parts).
+// warp, so R1 and R2 both multiply by mma.sync (staged_rows_parts), and
+// S1's pass F and S2's pass A with them.
 
 #pragma once
-
-#include <type_traits>
 
 #include "mlp_bwd.cuh"
 #include "warp_chunk.cuh"
 
 namespace lightplane {
-
-// f(std::integral_constant<int, W>{}) for the wide build W == width (96,
-// 128, 192 or 256: the splatter MLP's builds; the renderer's, to 512, are
-// renderer_wide.cu's wide_ops); cudaErrorInvalidValue, as f's return type,
-// for any other width.
-template <class F>
-auto wide_dispatch(int width, F&& f)
-    -> decltype(f(std::integral_constant<int, 128>{})) {
-  using R = decltype(f(std::integral_constant<int, 128>{}));
-  switch (width) {
-    case 96: return f(std::integral_constant<int, 96>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    case 192: return f(std::integral_constant<int, 192>{});
-    case 256: return f(std::integral_constant<int, 256>{});
-  }
-  return static_cast<R>(cudaErrorInvalidValue);
-}
 
 // Output o of a layer with no activation (the heads' last layers) for the
 // input `row` (a tile's row in shared memory, 16-byte aligned), in
@@ -774,12 +755,12 @@ __device__ __forceinline__ void staged_rows_whole(
 constexpr int kStashFloats = kPartTiles * 4 * 32;
 
 // staged_rows past W = 256, by mma.sync (R2's block there is one warp, and
-// R1 follows it): the product's N-tiles in parts of kPartTiles, in turn,
+// R1, S1's pass F and S2's pass A follow it): the product's N-tiles in parts of kPartTiles, in turn,
 // each from the bias over every k-step of its slices (one k-step a slice;
 // two for a part of up to kSlotTiles N-tiles), each N-tile's three terms in
 // staged_rows_whole's order, so that an output's sums are those of the
-// whole product.  Where out is A (R1's layers, R2's colour input gradient)
-// the parts but the last wait in the warp's stash until the last has read
+// whole product.  Where out is A (R1's and pass F's layers, R2's colour
+// input gradient) the parts but the last wait in the warp's stash until the last has read
 // A (at W <= 512 a product has two parts at most).  Not inlined: one copy
 // a kernel, not one a call site, keeps the 384 and 512 builds' compile
 // time in bounds.

@@ -42,8 +42,8 @@ MAX_LAYERS = 16        # kMaxLayers in march_common.cuh (per MLP)
 # The kernels' compiled activation widths: 32 and 64 keep the MLP's layers
 # in shared memory, 96 to 512 (the wide builds, csrc/renderer_wide.cuh and
 # csrc/wide_mlp.cuh) stage them a slice at a time; past 256 each product in
-# N-parts of at most WIDE_PART_TILES N-tiles (the splatter MLP's builds stop
-# at 256: splatter_fw.MLP_WIDTHS)
+# N-parts of at most WIDE_PART_TILES N-tiles (the splatter MLP's builds are
+# the same widths: splatter_fw.MLP_WIDTHS)
 WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512)
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # Warps (one ray each) per block the forward kernel may take, most first:

@@ -8,8 +8,9 @@ the plan's count pass, a prefix sum, its fill pass, then the splat pass that
 sums each brick's runs in shared memory and flushes the touched rows.  With
 an MLP wider than 64 it runs two passes per slice of the rays
 (``mlp_slices``): pass F computes every sampled step's MLP output once into
-a staging buffer, and pass S splats the staged rows by the plan into each
-output sub-grid.  ``splat_fwd_torch`` is the same splat as a plain PyTorch
+a staging buffer (``pass_f_warps`` rays a block; past width 256 each warp
+with a stash in device memory, ``pass_f_scratch_bytes``), and pass S
+splats the staged rows by the plan into each output sub-grid.  ``splat_fwd_torch`` is the same splat as a plain PyTorch
 loop over steps (the port of the JAX scan core ``_splat_fwd_impl``);
 ``splat_fwd_two_pass_torch`` is the wide build's two-pass design in plain
 PyTorch, for the tests.  ``splat_fwd`` sends CUDA tensors to the kernel and
@@ -45,6 +46,8 @@ from .renderer_fw import (
     MAX_LAYERS,
     MAX_SMEM_BYTES,
     WIDE_CHUNK,
+    WIDE_STASH_FLOATS,
+    WIDTHS,
     _check,
     check_impl,
     wide_layers,
@@ -53,8 +56,8 @@ from .renderer_fw import (
 )
 
 # The splatter MLP's padded activation widths (its kernels' builds: 32 and
-# 64, and the wide ones up to 256; the renderer's go on to 512)
-MLP_WIDTHS = (32, 64, 96, 128, 192, 256)
+# 64, and the wide ones 96 to 512), the renderer's
+MLP_WIDTHS = WIDTHS
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it, so a caller can reset it and show that
@@ -84,8 +87,10 @@ MAX_STEPS = 0xFFFF
 # (plan_shape) exceeds it plans and splats its rays in slices, so that the
 # list stops growing with the rays and the samples
 PLAN_MAX_RUNS = 1 << 25
-# The wide MLP build's pass F (csrc/splatter_fw.cu): warps (rays) a block,
-# each with one [WIDE_CHUNK, W + 4] f32 tile
+# The wide MLP build's pass F (csrc/splatter_wide.cuh): the most warps
+# (rays) a block, each with one [WIDE_CHUNK, W + 4] f32 tile; up to width
+# 256 it takes them all (two warpgroups, wgmma), past it fewer
+# (``pass_f_warps``)
 PASS_F_WARPS = 8
 
 
@@ -156,7 +161,8 @@ def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET,
     doubles while the block's shared memory stays within ``budget`` and the
     brick within the grid.  A smallest brick past ``budget`` stays, and
     fewer blocks share an SM (pass S at 256 channels: 102,720 bytes, two);
-    raises where it exceeds a block's shared memory."""
+    raises where it exceeds a block's shared memory, with the channels
+    that the sub-grid's smallest brick takes."""
     # the per-step splat (the adjoint's pass B, the wide MLP build's pass
     # S) stages two steps' values of a batch of runs
     steps = grid_sizes is not None or _mlp_width(cfg) > 64
@@ -175,10 +181,17 @@ def pick_bricks(cfg: _SplatCfg, budget: int = BLOCK_SMEM_BUDGET,
         dims = gs[1:4]
         brick = [2 if d > 1 else 1 for d in dims]
         if smem(gs, brick) > MAX_SMEM_BYTES:
+            # the channels that its smallest brick's tile holds: 385 into a
+            # voxel grid, 1,157 into a plane (the per-step splat's)
+            rows = _tile_rows(gs, brick)
+            cap = next(c for c in range(C - 1, 0, -1) if splat_smem_bytes(
+                width, n_layers, rows, c, stage) <= MAX_SMEM_BYTES)
             raise ValueError(
-                f"the CUDA splatter needs {smem(gs, brick)} bytes of shared "
-                f"memory for the smallest brick of {C} channels, more than "
-                f"the {MAX_SMEM_BYTES} a Hopper block has")
+                f"the CUDA splatter takes up to {cap} channels into a "
+                f"sub-grid of {tuple(gs[:4])} cells (its smallest brick, "
+                f"{tuple(brick)} cells, a tile of {rows} rows), got {C}: "
+                f"{smem(gs, brick)} bytes of shared memory, more than the "
+                f"{MAX_SMEM_BYTES} a Hopper block has")
         while True:
             grow = [k for k in range(3) if 1 < dims[k] and brick[k] < dims[k]]
             if not grow:
@@ -280,11 +293,33 @@ def splat_products(layers, backward: bool):
     return out
 
 
+def _pass_f_smem(width: int, warps: int) -> int:
+    return 4 * warps * WIDE_CHUNK * (width + 4) + wide_ring_bytes(width)
+
+
+def pass_f_warps(width: int) -> int:
+    """Pass F's warps a block: PASS_F_WARPS up to width 256; past it (by
+    ``mma.sync``, where a block need not be a warpgroup) the most whose
+    tiles fit with the ring, 7 at 384 and 5 at 512."""
+    warps = PASS_F_WARPS
+    while width > 256 and warps > 1 and (
+            _pass_f_smem(width, warps) > MAX_SMEM_BYTES):
+        warps -= 1
+    return warps
+
+
 def pass_f_smem_bytes(width: int) -> int:
-    """Shared memory of a block of the wide MLP build's pass F: each warp's
-    [WIDE_CHUNK, width + 4] f32 tile, then the ring."""
-    return (4 * PASS_F_WARPS * WIDE_CHUNK * (width + 4)
-            + wide_ring_bytes(width))
+    """Shared memory of a block of the wide MLP build's pass F: each of
+    its ``pass_f_warps`` warps' [WIDE_CHUNK, width + 4] f32 tile, then the
+    ring."""
+    return _pass_f_smem(width, pass_f_warps(width))
+
+
+def pass_f_scratch_bytes(width: int) -> int:
+    """A pass F block's scratch in device memory: past width 256 a stash
+    of WIDE_STASH_FLOATS a warp (its layers run in place, each N-part but
+    the last through the stash), else none."""
+    return 4 * pass_f_warps(width) * WIDE_STASH_FLOATS if width > 256 else 0
 
 
 def _brick_keys(gs, brick, nb, first, pts, grid_idx, live):
@@ -605,10 +640,11 @@ def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=(), bricks=None):
     a = splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
     diff = tuple(aligned(t) for t in diff)
 
+    bricks = pick_bricks(cfg) if bricks is None else tuple(bricks)
+
     from ._build import library
 
     lib = library(defines)
-    bricks = pick_bricks(cfg) if bricks is None else tuple(bricks)
     rows = max(_tile_rows(gs, b)
                for gs, b in zip(cfg.output_grid_sizes, bricks))
     smem = lib.lightplane_splat_fw_smem_bytes(a.width, a.n_layers, rows, a.C,
@@ -634,22 +670,24 @@ def splat_fwd_cuda(cfg: _SplatCfg, geom, diff, defines=(), bricks=None):
 
 
 def pass_f_config(lib, a: SplatLaunchArgs):
-    """Pass F's ``(warps, shared-memory bytes, workspace bytes)`` as its C
-    side plans them (``lightplane_splat_fw_mlp_config``), held to the
-    wrapper's plan."""
-    out = (ctypes.c_int * 3)()
+    """Pass F's ``(warps, shared-memory bytes, packed layers' bytes, blocks
+    of the resident wave, a block's scratch bytes)`` as its C side plans
+    them (``lightplane_splat_fw_mlp_config``), held to the wrapper's plan;
+    the workspace holds the packed layers, then a scratch for each block of
+    the wave."""
+    out = (ctypes.c_int * 5)()
     rc = lib.lightplane_splat_fw_mlp_config(a.width, a.n_layers,
                                             a.mlp_widths, out)
     if rc != 0:
         raise ValueError(f"the wide MLP splat does not take these widths "
                          f"({lib.lightplane_cuda_error_string(rc).decode()})")
     layers = wide_layers(a.n_layers, 0, 0, list(a.mlp_widths))
-    want = (PASS_F_WARPS, pass_f_smem_bytes(a.width),
+    want = (pass_f_warps(a.width), pass_f_smem_bytes(a.width),
             wide_pack_bytes(splat_products(layers, False)))
-    if tuple(out) != want:
+    if tuple(out)[:3] != want or out[4] != pass_f_scratch_bytes(a.width):
         raise RuntimeError(f"pass F's plan {tuple(out)} is not the "
                            f"wrapper's {want}")
-    return want
+    return tuple(out)
 
 
 def _splat_mlp_wide(lib, cfg, geom, diff, a, bricks, feat, w):
@@ -657,9 +695,9 @@ def _splat_mlp_wide(lib, cfg, geom, diff, a, bricks, feat, w):
     pass F stages every sampled step's MLP output ([rays, steps, C]), then
     per output sub-grid S1's plan of the slice and pass S, the per-step
     splat of the staged rows by that plan, on the current CUDA stream."""
-    _, _, ws_bytes = pass_f_config(lib, a)
-    workspace = torch.empty((ws_bytes // 4,), dtype=torch.int32,
-                            device=a.device)
+    _, _, pack, wave, scratch = pass_f_config(lib, a)
+    workspace = torch.empty(((pack + wave * scratch) // 4,),
+                            dtype=torch.int32, device=a.device)
     directions, origins, near, far, grid_idx = geom
     encoding, input_grid_flat, mlp_params = diff
     stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -737,6 +737,17 @@ SPLAT_CASES = {
                          kw=dict(mask_out_of_bounds_samples=True)),
     "mlp_wide_256ch": dict(out_sizes=_tri(1, 12, 256), mlp=(32, 256, 256),
                            in_sizes=_tri(1, 12, 32), kw={}),
+    # past 256 (N-parts of 256 columns by mma.sync): a 320-wide MLP (W =
+    # 384), and the feature lift's MLP C -> C -> C from a C-channel prior
+    # into C channels at C = 384 and 512 (pass F 7 and 5 warps, pass A 2
+    # and 1)
+    "mlp_wide_320": dict(out_sizes=_tri(1, 12, 48), mlp=(8, 320, 48),
+                         in_sizes=_tri(1, 12, 8),
+                         kw=dict(mask_out_of_bounds_samples=True)),
+    "mlp_feature_384": dict(out_sizes=_tri(1, 12, 384), mlp=(384, 384, 384),
+                            in_sizes=_tri(1, 12, 384), kw={}),
+    "mlp_feature_512": dict(out_sizes=_tri(1, 12, 512), mlp=(512, 512, 512),
+                            in_sizes=_tri(1, 12, 512), kw={}),
 }
 
 
@@ -821,7 +832,9 @@ def test_splat_kernels_match_plain(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mlp_contract", "mlp_64ch_out",
                                   "mlp_wide_72", "mlp_wide_128ch",
-                                  "mlp_wide_160", "mlp_wide_256ch"])
+                                  "mlp_wide_160", "mlp_wide_256ch",
+                                  "mlp_wide_320", "mlp_feature_384",
+                                  "mlp_feature_512"])
 def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
     """S2 with the MLP against its plain version under the relu masks its
     recording build took, on every ray, and the shipped build against the
@@ -859,9 +872,9 @@ def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
 @pytest.mark.cuda
 def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
     monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
-    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 264, 16),
+    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 520, 16),
                                   in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
-    with pytest.raises(ValueError, match="widths up to 256"):
+    with pytest.raises(ValueError, match="widths up to 512"):
         lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
                                    num_samples=8, impl="cuda")
     rays, _, _ = _splat_case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
@@ -1110,7 +1123,8 @@ def test_splat_adjoint_does_not_spill(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mlp_wide_72", "mlp_wide_128ch",
-                                  "mlp_wide_160", "mlp_wide_256ch"])
+                                  "mlp_wide_160", "mlp_wide_256ch",
+                                  "mlp_feature_512"])
 def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
     """S1's wide MLP build with its staging capped at ~100 rays, so that
     pass F and pass S run over slices of the rays, against
@@ -1138,11 +1152,14 @@ def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_hidden", [(32, 128, 128), (8, 72, 100),
                                       (128, 32, 128), (32, 256, 256),
-                                      (8, 160, 24), (32, 160, 256)])
+                                      (8, 160, 24), (32, 160, 256),
+                                      (32, 384, 384), (384, 384, 384),
+                                      (32, 512, 512), (512, 512, 512)])
 def test_wide_splat_pack_and_plans(cuda, n_hidden):
     """The layers' pre-pass with the splatter's schedules (S1's pass F, S2's
-    pass A) equals ``pack_wide_torch`` bit for bit, and the C side plans
-    pass F and pass A as the wrappers do."""
+    pass A) equals ``pack_wide_torch`` bit for bit (past 256 its products
+    in N-parts), and the C side plans pass F (its warps' stashes past 256)
+    and pass A as the wrappers do."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import _build
@@ -1165,15 +1182,84 @@ def test_wide_splat_pack_and_plans(cuda, n_hidden):
         torch.cuda.synchronize()
         assert rc == 0
         assert torch.equal(ws.cpu().reshape(-1, 4), want), schedule
-    fw = (ctypes.c_int * 3)()
+    fw = (ctypes.c_int * 5)()
     assert lib.lightplane_splat_fw_mlp_config(width, L, widths, fw) == 0
-    assert tuple(fw) == (
-        splatter_fw.PASS_F_WARPS, splatter_fw.pass_f_smem_bytes(width),
+    assert tuple(fw[:3]) == (
+        splatter_fw.pass_f_warps(width), splatter_fw.pass_f_smem_bytes(width),
         renderer_fw.wide_pack_bytes(splatter_fw.splat_products(layers,
                                                                False)))
+    # one block an SM; past 256 a 16 KB stash a warp
+    assert fw[3] == torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fw[4] == splatter_fw.pass_f_scratch_bytes(width)
+    assert (fw[4] > 0) == (width > 256)
     bw = (ctypes.c_int * 5)()
     assert lib.lightplane_splat_bw_mlp_config(width, L, widths, bw) == 0
     assert (bw[0], bw[3], bw[4]) == (
         *splatter_bw.wide_a_plan(width, n_hidden),
         renderer_fw.wide_pack_bytes(splatter_fw.splat_products(layers,
                                                                True)))
+
+
+def _wide_splat_parity(cfg, geom, diff, g_out):
+    """S1 against ``splat_fwd_torch``, and S2 against ``splat_bwd_torch``
+    under the relu masks its recording build took, on every ray; both
+    kernels launched once."""
+    fw, bw = splatter_fw.LAUNCHES, splatter_bw.MLP_LAUNCHES
+    with torch.no_grad():
+        got_fw = splatter_fw.splat_fwd_cuda(cfg, geom, diff)
+        got_bw = splatter_bw.splat_bwd_cuda(cfg, geom, diff, g_out)
+        torch.cuda.synchronize()
+        assert (splatter_fw.LAUNCHES, splatter_bw.MLP_LAUNCHES) == (fw + 1,
+                                                                    bw + 1)
+        want_fw = splatter_fw.splat_fwd_torch(cfg, geom, diff)
+        masked, masks = splatter_bw.splat_bwd_cuda_relu_masks(cfg, geom, diff,
+                                                              g_out)
+        want_bw = splatter_bw.splat_bwd_torch(cfg, geom, diff, g_out,
+                                              relu_masks=masks)
+    assert float(want_fw[1].sum()) > 0
+    for name, a, b in zip(("feat", "w"), got_fw, want_fw):
+        bound = MAX_ABS * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= bound, name
+    for name, a, b, c in zip(("g_enc", "g_igrid", "g_mlp"), masked, want_bw,
+                             got_bw):
+        bound = MAX_ABS * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, name
+        assert float((c - a).abs().max()) <= bound, f"{name}, shipped"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [37, 5])
+@pytest.mark.parametrize("case", ["mlp_feature_384", "mlp_feature_512"])
+def test_wide_splat_past_256_ray_count_not_a_multiple_of_the_block(
+        cuda, case, n_rays):
+    """Pass F (7 warps a block at 384, 5 at 512) and pass A (2 and 1) on a
+    ray count that leaves a block's last warps without a ray."""
+    _wide_splat_parity(*_adjoint_march(cuda, case, n_rays=n_rays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chn", [384, 512])
+def test_wide_splat_past_256_rays_gated_in_different_chunks(cuda, chn):
+    """The feature lift's MLP past 256 with out-of-bounds steps masked, over
+    rays whose sampled steps start and end in different 16-step chunks
+    (near and far vary ray by ray) and rays that miss the cube: each block
+    of pass F and pass A runs chunks where some warps sample and others
+    take the slices and barriers alone."""
+    from lightplane_tpu_torch.ops import splatter as smod
+
+    cfg, geom, diff, g_out = _adjoint_march(cuda, f"mlp_feature_{chn}",
+                                            n_rays=96)
+    cfg = smod._SplatCfg(64, 0, True, False, 1e-5, cfg.output_grid_sizes,
+                         cfg.input_grid_sizes, cfg.n_hidden)
+    directions, origins, near, far, grid_idx = geom
+    n = directions.shape[0]
+    k = torch.arange(n, device=cuda)
+    # near from 0.1 to 1.6, far from 2.4 to 3.9, and every fifth ray
+    # shifted off the cube
+    near = (0.1 + 0.5 * (k % 4)).float()
+    far = (2.4 + 0.5 * ((k // 4) % 4)).float()
+    origins = origins + torch.where(
+        k % 5 == 4, 4.0, 0.0)[:, None] * torch.tensor([1.0, 0.0, 0.0],
+                                                      device=cuda)
+    geom = (directions, origins.contiguous(), near, far, grid_idx)
+    _wide_splat_parity(cfg, geom, diff, g_out)

@@ -726,23 +726,6 @@ def test_cuda_tensors_take_the_kernels_or_raise(hidden, width):
             renderer_fw.launch_args(cfg, geom, diff, "render_fwd_cuda")
 
 
-def test_splatter_mlp_refuses_above_256():
-    """The splatter MLP's builds stop at 256 (the renderer's go on to 512):
-    an MLP 264 wide on CUDA tensors raises "MLP widths up to 256"."""
-    sizes = tuple(_tri_sizes(4, 8))
-    cfg = smod._SplatCfg(4, 0, False, False, 1e-5, sizes,
-                         tuple(_tri_sizes(4, 8)), (8, 264, 8))
-    n = 4
-    geom = tuple(_fake_cuda(t) for t in (
-        torch.zeros((n, 3)), torch.zeros((n, 3)), torch.zeros((n,)),
-        torch.ones((n,)), torch.zeros((n,), dtype=torch.int32)))
-    diff = (_fake_cuda(torch.zeros((n, 8))), _fake_cuda(torch.zeros((48, 8))),
-            _fake_cuda(torch.zeros((8 * 264 + 264 * 8 + 272,))))
-    assert splatter_fw.MLP_WIDTHS[-1] == 256
-    with pytest.raises(ValueError, match="MLP widths up to 256"):
-        splatter_fw.splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
-
-
 @pytest.mark.parametrize("chn", [384, 512])
 def test_feature_lift_then_render_matches_jax(chn):
     """The feature-field lift-then-render at the features' own width:
