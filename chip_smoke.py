@@ -2230,6 +2230,7 @@ def print_kernel_attrs():
     # the wide builds (W = 96 to 512: csrc/renderer_wide.cuh, S1's pass F
     # and S2's pass A, csrc/splatter_wide.cuh)
     masks = _build.library(rbw.RELU_MASKS_BUILD)
+    # (the splatter MLP's builds stop at 512, the renderer's at 768)
     for name, fn in (("R1", lib.lightplane_render_fw_attrs),
                      ("R2", lib.lightplane_render_bw_attrs),
                      ("R2 recording masks", masks.lightplane_render_bw_attrs),
@@ -2239,7 +2240,8 @@ def print_kernel_attrs():
                       lib.lightplane_splat_bw_attrs(1, w, o)),
                      ("S2 MLP pass A recording masks",
                       lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
-        for width in (96, 128, 192, 256, 384, 512):
+        widths = (96, 128, 192, 256, 384, 512)
+        for width in widths + ((768,) if name.startswith("R") else ()):
             assert fn(width, out) == 0
             print(f"  {name} W={width} (wide build): {out[0]} registers, "
                   f"{out[1]} bytes spilled per thread")
@@ -2302,11 +2304,13 @@ def wide_head(hidden):
 
 def print_wide_plans(lib):
     """R1's and R2's wide builds at phase 12's decoder (2/2/2 at each of
-    WIDE_HIDDEN): warps a block (one block a SM: a warp's rays march in
-    lockstep with the block's), shared memory, the workspace of packed
-    layers, and R2's partial-sum buffer (a row per block), each as the C
-    side plans it and held to the wrapper's plan.  Returns R1's and R2's
-    warps a SM by width."""
+    WIDE_HIDDEN), at phase 13's feature decoders (2/2/2 at 512, 384 and
+    768) and at its deep decoder (DEEP_LAYERS at 512): warps a block (one
+    block a SM, but 4 of R2 where its tiles lie in device memory: a warp's
+    rays march in lockstep with the block's), shared memory, the workspace
+    of packed layers, and R2's partial-sum buffer (a row per block), each
+    as the C side plans it and held to the wrapper's plan.  Returns R1's
+    and R2's warps a SM by width (at the 2/2/2 decoders)."""
     import ctypes
 
     from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
@@ -2314,38 +2318,50 @@ def print_wide_plans(lib):
 
     warps = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for hidden, head, where in (
-            [(h, wide_head(h), f"phase 12's decoder (2/2/2, hidden {h})")
+    deep = DEEP_LAYERS
+    for hidden, layers_n, head, where in (
+            [(h, (2, 2, 2), wide_head(h),
+              f"phase 12's decoder (2/2/2, hidden {h})")
              for h in WIDE_HIDDEN]
-            + [(c, feature_head(c), f"phase 13's feature decoder (2/2/2, "
-                f"{c} wide, {c} colours)") for c in FEATURE_CHN]):
+            + [(c, (2, 2, 2), feature_head(c), f"phase 13's feature decoder "
+                f"(2/2/2, {c} wide, {c} colours)")
+               for c in FEATURE_CHN + (FEATURE_WIDE_CHN,)]
+            + [(512, deep, (512,) * (deep[0] + 1) + (512,) * deep[1] + (1,)
+                + (512,) * (deep[2] + 1), f"phase 13's deep decoder "
+                f"({'/'.join(map(str, deep))}, 512 wide, 512 colours)")]):
         widths = (ctypes.c_int * len(head))(*head)
         fw = (ctypes.c_int * 5)()
-        assert lib.lightplane_render_fw_wide_config(hidden, 2, 2, 2, widths,
-                                                    fw) == 0
-        layers = rfw.wide_layers(2, 2, 2, head)
+        assert lib.lightplane_render_fw_wide_config(hidden, *layers_n,
+                                                    widths, fw) == 0
+        layers = rfw.wide_layers(*layers_n, head)
         assert tuple(fw[:3]) + (fw[4],) == (
             rfw.wide_fw_warps(hidden), rfw.wide_fw_smem_bytes(hidden),
-            rfw.wide_pack_bytes(rfw.wide_products(layers, 2, 2, False)),
+            rfw.wide_pack_bytes(rfw.wide_products(layers, *layers_n[:2],
+                                                  False)),
             rfw.wide_fw_scratch_bytes(hidden)), tuple(fw)
         bw = (ctypes.c_int * 6)()
-        assert lib.lightplane_render_bw_wide_config(hidden, 2, 2, 2, widths,
-                                                    0, bw) == 0
-        plan = rbw.wide_bw_plan(hidden, 2, 2, 2, head, False)
+        assert lib.lightplane_render_bw_wide_config(hidden, *layers_n,
+                                                    widths, 0, bw) == 0
+        plan = rbw.wide_bw_plan(hidden, *layers_n, head, False)
         assert (bw[0], bw[3], bw[4], bw[2], bw[5]) == (
             plan.warps, plan.smem_bytes, plan.workspace_bytes,
             plan.row_floats, plan.scratch_bytes), (tuple(bw), plan)
-        assert bw[1] == plan.partial_rows(sms), (bw[1], sms)
+        assert bw[1] == plan.partial_rows(sms), (bw[1], sms, plan)
+        per_sm = bw[1] // sms
         print(f"  R1 wide at {where}: {fw[0]} warps a block and a SM, "
               f"{fw[1]} bytes of shared memory a block, a workspace of "
               f"{fw[2]} bytes of packed layers and {fw[3]} blocks' scratch "
               f"of {fw[4]} bytes")
-        print(f"  R2 wide there: {bw[0]} warps a block and a SM, {bw[3]} "
-              f"bytes of shared memory a block, a workspace of {bw[4]} "
-              f"bytes and {bw[1]} blocks' scratch of {bw[5]} bytes; the "
-              f"partial-sum buffer {bw[1]} rows (one a block) of {bw[2]} "
-              f"floats, {4 * bw[1] * bw[2]} bytes")
-        warps[hidden] = (fw[0], bw[0])
+        where_tiles = ("its tiles in device memory"
+                       if plan.tiles_in_device_memory
+                       else "its tiles in shared memory")
+        print(f"  R2 wide there: {bw[0]} warps a block, {per_sm} blocks a "
+              f"SM ({where_tiles}), {bw[3]} bytes of shared memory a block, "
+              f"a workspace of {bw[4]} bytes and {bw[1]} blocks' scratch of "
+              f"{bw[5]} bytes; the partial-sum buffer {bw[1]} rows (one a "
+              f"block) of {bw[2]} floats, {4 * bw[1] * bw[2]} bytes")
+        if layers_n == (2, 2, 2):
+            warps[hidden] = (fw[0], bw[0] * per_sm)
     return warps
 
 
@@ -4576,27 +4592,38 @@ def phase_wide(lp, smi):
 # S2 without the MLP), and lifted through an MLP C -> C -> C that reads a
 # learned prior 3 x 128^2 x C triplane (``LightplaneMLPSplatter``: S1's
 # pass F and S2's pass A at W = C).  At 512 FEATURE_STEPS Adam steps of
-# each (the loss must fall), at 384 one; the last step of each by kernel
-# (torch.profiler) gives R1's and R2's times on the path.
+# each (the loss must fall; two, for the script's time), at 384 one; the
+# last step of each by kernel (torch.profiler) gives R1's and R2's times on
+# the path.
 FEATURE_CHN = (512, 384)
 FEATURE_VIEWS, FEATURE_SIZE, FEATURE_RES = 2, 128, 128
 FEATURE_SPLAT_SAMPLES, FEATURE_RENDER_SAMPLES = 96, 128
-FEATURE_STEPS = 3
+FEATURE_STEPS = 2
+# At 768 channels (DINOv2 ViT-B/14's; CLIP ViT-L/14's, which F3RM lifts;
+# DINO ViT-B/8's, which Distilled Feature Fields lifts) the plain lift
+# alone (the splatter MLP is built up to 512), one view (cut from 2 for
+# chip time; the width is not cut) and one Adam step; then R1, R2 and S2
+# (at 768 channels) held on its march and its splat.
+FEATURE_WIDE_CHN, FEATURE_WIDE_VIEWS = 768, 1
+# The deep decoder: R2 at 512 with a 3/3/3 decoder (its tiles in device
+# memory) on FEATURE_SUBSET rays of the 512 lift's march
+DEEP_LAYERS = (3, 3, 3)
 
 
-def feature_model(lp, chn, mlp=False):
-    """The feature path at ``chn`` channels: its rays (the features as their
-    encodings), its decoder and an Adam step over the lifted encodings, a
+def feature_model(lp, chn, mlp=False, views=FEATURE_VIEWS):
+    """The feature path at ``chn`` channels over ``views`` views: its rays
+    (the features as their encodings), its decoder and an Adam step over the
+    lifted encodings, a
     residual added to the lifted triplane (the grid) and the decoder; with
     ``mlp`` the lift goes through an MLP chn -> chn -> chn that reads a
     prior 3 x 128^2 x chn triplane, and the step's Adam takes the
     encodings, the prior, the splatter's MLP and the decoder (no residual);
     ``step()`` returns the loss."""
     gen = torch.Generator().manual_seed(chn)
-    n = FEATURE_VIEWS * FEATURE_SIZE ** 2
+    n = views * FEATURE_SIZE ** 2
     target = torch.randn((n, chn), generator=gen)
     target = (target / target.norm(dim=1, keepdim=True)).cuda()
-    rays = view_rays(lp, FEATURE_VIEWS, FEATURE_SIZE, target)
+    rays = view_rays(lp, views, FEATURE_SIZE, target)
     dp = lp.init_decoder_params(gen, n_layers_opacity=2, n_layers_trunk=2,
                                 n_layers_color=2, input_chn=chn,
                                 hidden_chn=chn, color_chn=chn,
@@ -4751,7 +4778,7 @@ def feature_kernels(lp, smi, chn, model, parts):
     assert opened > 0 and torch.equal(r1, r2), opened
     print(f"    R1's forward equals R2's recomputed forward to the bit (raw "
           f"opacity and the sum of the raw colours at {opened} open steps)")
-    if chn == 512:
+    if chn in (512, FEATURE_WIDE_CHN):
         wide_pack_parity(dp.mlp_params, feature_head(chn))
     return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
                         bound=b_fw, bound_tf32=b_fw_tc),
@@ -4877,80 +4904,188 @@ def feature_splat_kernels(lp, smi, chn, model):
 
 
 def phase_feature(lp, smi):
-    """Phase 13's steps (the shipped build only): at each width the feature
-    path's Adam steps, lifted by the plain splat, then through the MLP, the
-    last step of each by kernel; returns each run's model, parts, launches
-    and step times for ``phase_feature_checks``."""
-    print("== phase 13: feature fields, widths 384 and 512: "
-          f"{FEATURE_VIEWS} views of {FEATURE_SIZE}^2 rays with C-channel "
-          f"features lifted into 3 x {FEATURE_RES}^2 x Cch (by the splat, "
-          f"then through an MLP C -> C -> C from a learned 3 x "
-          f"{FEATURE_RES}^2 x Cch prior) and rendered back through a 2/2/2 "
-          f"decoder C wide with C colours")
+    """Phase 13's steps (the shipped build only): at 512 and 384 the feature
+    path's Adam steps, lifted by the plain splat, then through the MLP, at
+    768 by the plain splat alone, the last step of each by kernel; returns
+    each run's model, parts, launches and step times for
+    ``phase_feature_checks``."""
+    print("== phase 13: feature fields, widths 384, 512 and 768: "
+          f"{FEATURE_VIEWS} views ({FEATURE_WIDE_VIEWS} at 768) of "
+          f"{FEATURE_SIZE}^2 rays with C-channel features lifted into 3 x "
+          f"{FEATURE_RES}^2 x Cch (by the splat, then, at 384 and 512, "
+          f"through an MLP C -> C -> C from a learned 3 x {FEATURE_RES}^2 x "
+          f"Cch prior) and rendered back through a 2/2/2 decoder C wide with "
+          f"C colours")
     runs = {}
-    for chn in FEATURE_CHN:
-        for mlp in (False, True):
-            gc.collect()
-            torch.cuda.empty_cache()
-            model = feature_model(lp, chn, mlp)
-            steps = FEATURE_STEPS if chn == 512 else 1
-            torch.cuda.synchronize()
-            feature_counts(reset=True)
-            losses, times, parts = [], [], {}
-            for i in range(steps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                if i < steps - 1:
-                    loss = model["step"]()
-                else:
-                    # the last step by kernel (its time includes the
-                    # profiler's)
-                    device_breakdown(
-                        lambda: losses.append(float(model["step"]())), smi,
-                        top=6, groups=FEATURE_PARTS, parts=parts)
-                end.record()
-                end.synchronize()
-                if i < steps - 1:
-                    losses.append(float(loss))
-                times.append(start.elapsed_time(end))
-            launches = feature_counts()
-            # R1, R2, S1 and S2 once a step; S2's with the MLP only with it
-            assert launches == dict(
-                renderer_fw=steps, renderer_bw=steps, splatter_fw=steps,
-                splatter_bw=steps,
-                splatter_bw_mlp=steps if mlp else 0), launches
-            if mlp and parts:
-                assert parts["S1 pass F"] > 0 and parts["S2 pass A"] > 0, parts
-            assert all(np.isfinite(losses)), losses
-            lift = "the MLP lift" if mlp else "the lift"
-            print(f"  C = {chn}, {lift}: {steps} Adam step(s), ms "
-                  f"{[round(t, 3) for t in times]}, loss "
-                  f"{[round(x, 6) for x in losses]}; launches {launches}  "
-                  f"[{smi}]")
-            if chn == 512:
-                assert losses[-1] < losses[0], losses
-            runs[chn, mlp] = (model, parts, launches, times)
+    spec = [(chn, mlp) for chn in FEATURE_CHN for mlp in (False, True)]
+    for chn, mlp in spec + [(FEATURE_WIDE_CHN, False)]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        wide = chn == FEATURE_WIDE_CHN
+        model = feature_model(lp, chn, mlp,
+                              FEATURE_WIDE_VIEWS if wide else FEATURE_VIEWS)
+        steps = FEATURE_STEPS if chn == 512 else 1
+        torch.cuda.synchronize()
+        feature_counts(reset=True)
+        losses, times, parts = [], [], {}
+        for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if i < steps - 1:
+                loss = model["step"]()
+            else:
+                # the last step by kernel (its time includes the profiler's)
+                device_breakdown(
+                    lambda: losses.append(float(model["step"]())), smi,
+                    top=6, groups=FEATURE_PARTS, parts=parts)
+            end.record()
+            end.synchronize()
+            if i < steps - 1:
+                losses.append(float(loss))
+            times.append(start.elapsed_time(end))
+        launches = feature_counts()
+        # R1, R2, S1 and S2 once a step; S2's with the MLP only with it
+        assert launches == dict(
+            renderer_fw=steps, renderer_bw=steps, splatter_fw=steps,
+            splatter_bw=steps,
+            splatter_bw_mlp=steps if mlp else 0), launches
+        if mlp and parts:
+            assert parts["S1 pass F"] > 0 and parts["S2 pass A"] > 0, parts
+        assert all(np.isfinite(losses)), losses
+        lift = "the MLP lift" if mlp else "the lift"
+        print(f"  C = {chn}, {lift}: {steps} Adam step(s), ms "
+              f"{[round(t, 3) for t in times]}, loss "
+              f"{[round(x, 6) for x in losses]}; launches {launches}  "
+              f"[{smi}]")
+        if chn == 512:
+            assert losses[-1] < losses[0], losses
+        runs[chn, mlp] = (model, parts, launches, times)
     return runs
 
 
+def feature_s2(lp, smi, chn, model):
+    """S2 without the MLP on the lift's splat at ``chn`` channels (past 512
+    a launch a slice of at most 512 channels): timed alone (CUDA events)
+    with its plain version (one run) and its bound, then held on every ray
+    against its plain version and bit-identical across two runs."""
+    from lightplane_tpu_torch.ops import splatter as smod
+    from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
+
+    rays = model["lift_rays"]
+    with torch.no_grad():
+        cfg, geom, diff = splat_march(smod, lp.Rays(
+            rays.directions, rays.origins, rays.grid_idx, rays.near,
+            rays.far, rays.encoding.detach()), model["sizes"],
+            dict(num_samples=FEATURE_SPLAT_SAMPLES), None, None, None)
+        gen = torch.Generator().manual_seed(chn + 3)
+        g_out = torch.randn((cfg.v_total, chn), generator=gen).cuda()
+        ms = cuda_ms(lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out),
+                     warmup=1, reps=5)
+        got = sbw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
+        again = sbw.splat_bwd_cuda(cfg, geom, diff, g_out)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sbw.splat_bwd_torch(cfg, geom, diff, g_out)[0]
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+    n = geom[0].shape[0]
+    print(f"  S2 without the MLP at C = {chn} ({n} rays x "
+          f"{FEATURE_SPLAT_SAMPLES} samples, {-(-chn // 512)} slices of the "
+          f"channels) vs its plain version on every ray:")
+    assert torch.equal(got, again)
+    err = compare("g_enc", got, want, max_rel=SPLAT_MAX_REL,
+                  magnitude_scaled=True)[0]
+    _, (flops, nbytes) = splat_work(cfg, geom)
+    b = bound(flops, nbytes)
+    print(f"    S2 (C = {chn}): median {ms:.3f} ms, plain {plain_ms:.1f} ms "
+          f"(one run); work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> "
+          f"bound {b[0]:.3f} ms ({b[1]}); bit-identical across two runs  "
+          f"[{smi}]")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=b)
+
+
+def deep_decoder_check(lp, model, chn=512):
+    """R2 at ``chn`` with a DEEP_LAYERS decoder ``chn`` wide with ``chn``
+    colours, whose tiles lie in device memory (as many blocks an SM as its
+    shared memory holds), on FEATURE_SUBSET rays of the lift's march (its
+    grid after its steps): R1 against its plain version, R2 under its relu
+    masks against its plain version, R1's forward equal to R2's recomputed
+    one to the bit; returns their worst errors."""
+    from lightplane_tpu_torch.ops import renderer as rmod
+    from lightplane_tpu_torch.ops.kernels import renderer_bw as rbw
+    from lightplane_tpu_torch.ops.kernels import renderer_fw as rfw
+
+    gen = torch.Generator().manual_seed(chn + 4)
+    n_t, n_o, n_c = DEEP_LAYERS
+    dp = lp.init_decoder_params(gen, n_layers_opacity=n_o,
+                                n_layers_trunk=n_t, n_layers_color=n_c,
+                                input_chn=chn, hidden_chn=chn, color_chn=chn,
+                                opacity_init_bias=-2.0)
+    head = dp.n_hidden_trunk + dp.n_hidden_opacity + dp.n_hidden_color
+    plan = rbw.wide_bw_plan(chn, n_t, n_o, n_c, head, False)
+    assert plan.tiles_in_device_memory, plan
+    with torch.no_grad():
+        grid = [g.detach() for g in model["grid"]()]
+        cfg, geom, diff = unsplit_march(
+            lp, rmod, model["render_rays"], grid, dp,
+            num_samples=FEATURE_RENDER_SAMPLES, gain=1.0)
+    n = geom[0].shape[0]
+    idx = torch.arange(0, n, n // FEATURE_SUBSET,
+                       device="cuda")[:FEATURE_SUBSET]
+    geom_s, diff_s = ray_subset(geom, diff, idx)
+    m = idx.shape[0]
+    g_s = tuple(torch.randn(s, generator=gen).cuda()
+                for s in [(m,), (m,), (m, chn)])
+    print(f"  the {'/'.join(map(str, DEEP_LAYERS))} decoder at {chn} on {m} "
+          f"of the {chn}-channel lift's rays: R2 {plan.warps} warp a block, "
+          f"its tiles in device memory ({plan.smem_bytes} bytes of shared "
+          f"memory, {plan.scratch_bytes} of scratch a block, "
+          f"{plan.blocks_per_sm} blocks an SM)")
+    with torch.no_grad():
+        out_k = rfw.render_fwd_cuda(cfg, geom_s, diff_s)
+        out_p = rfw.render_fwd_torch(cfg, geom_s, diff_s)
+    print("    R1 vs its plain version:")
+    fw_err = max(compare(label, a, b)[0]
+                 for label, a, b in zip(("depth", "nlt", "feat"), out_k, out_p))
+    bw_err = masked_r2_parity(rmod, rfw, rbw, cfg, geom_s, diff_s, g_s)
+    with torch.no_grad():
+        r1, r2 = rbw.forward_probes(cfg, geom_s, diff_s, g_s)
+    torch.cuda.synchronize()
+    opened = int((r1[..., 0] != 0).sum())
+    assert opened > 0 and torch.equal(r1, r2), opened
+    print(f"    R1's forward equals R2's recomputed forward to the bit at "
+          f"{opened} open steps")
+    return dict(fw_err=fw_err, bw_err=bw_err)
+
+
 def phase_feature_checks(lp, smi, runs):
-    """Phase 13's kernels on each width's march (``feature_kernels``) and on
-    its MLP lift (``feature_splat_kernels``): they need the recording
-    build."""
+    """Phase 13's kernels on each width's march (``feature_kernels``), on
+    its MLP lift at 384 and 512 (``feature_splat_kernels``), S2 on the lift
+    at 768 (``feature_s2``) and the deep decoder at 512
+    (``deep_decoder_check``): they need the recording build.  Returns the
+    widths' results and the deep decoder's."""
     print("== phase 13 (cont.): R1 and R2 on the feature path's march, S1 "
-          "and S2 on its MLP lift")
-    out = {}
-    for chn in FEATURE_CHN:
+          "and S2 on its MLP lift, S2 on the lift at 768, the deep decoder")
+    out, deep = {}, None
+    for chn in FEATURE_CHN + (FEATURE_WIDE_CHN,):
         model, parts, launches, times = runs.pop((chn, False))
         out[chn] = dict(feature_kernels(lp, smi, chn, model, parts),
                         launches=launches, step_ms=times)
+        if chn == FEATURE_WIDE_CHN:
+            out[chn]["s2"] = feature_s2(lp, smi, chn, model)
+        if chn == 512:
+            deep = deep_decoder_check(lp, model, chn)
         del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if (chn, True) not in runs:
+            continue
         model, parts, launches, times = runs.pop((chn, True))
         out[chn]["mlp"] = dict(feature_splat_kernels(lp, smi, chn, model),
                                launches=launches, step_ms=times)
         del model
-    return out
+    return out, deep
 
 
 PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "6", "7", "8", "9", "10",
@@ -5106,15 +5241,18 @@ def kernel_lines(out):
                                       for w in WIDE_HIDDEN}),
             wide_sweep_max_rel_err=wide["sweep"]["splat"]),
     }
+    feature, deep = out["13"]
+    feature_chn = FEATURE_CHN + (FEATURE_WIDE_CHN,)
     for i, key in enumerate(("renderer_fw", "renderer_bw")):
         for w, launches in wide["fit"].items():
             wide_rows[key][f"wide_{w}_launches_scaffold"] = (
                 launches["scaffold"][i])
-        for w in WIDE_HIDDEN + FEATURE_CHN:
+        for w in WIDE_HIDDEN + feature_chn:
             wide_rows[key][f"wide_{w}_warps_per_sm"] = out["2"][w][i]
-        # phase 13's builds past 256: launches on its feature path (5 steps
-        # at 512, one at 384), times, errors and bounds on its march
-        for w, k in out["13"].items():
+        # phase 13's builds past 256: launches on its feature path (2 steps
+        # at 512, one at 384 and 768), times, errors and bounds on its
+        # march; the deep decoder's errors
+        for w, k in feature.items():
             part = k["fw" if i == 0 else "bw"]
             wide_rows[key].update({
                 f"wide_{w}_ms": part["ms"],
@@ -5123,13 +5261,19 @@ def kernel_lines(out):
                 f"wide_{w}_bound_by": part["bound"][1],
                 f"wide_{w}_bound_tf32_ms": part["bound_tf32"],
                 f"wide_{w}_max_abs_err": part["err"],
-                f"wide_{w}_launches": k["launches"][key],
-                f"wide_{w}_launches_mlp_lift": k["mlp"]["launches"][key]})
+                f"wide_{w}_launches": k["launches"][key]})
+            if "mlp" in k:
+                wide_rows[key][f"wide_{w}_launches_mlp_lift"] = (
+                    k["mlp"]["launches"][key])
+        wide_rows[key]["wide_512_deep_max_abs_err"] = deep[
+            "fw_err" if i == 0 else "bw_err"]
     # phase 13's MLP lift: S1's pass F and S2's pass A past 256, launches on
-    # its steps (3 at 512, one at 384), times, errors and bounds on its splat
+    # its steps (2 at 512, one at 384), times, errors and bounds on its splat
     for key, part, count in (("splatter_fw", "fw", "splatter_fw"),
                              ("splatter_bw_mlp", "bw", "splatter_bw_mlp")):
-        for w, k in out["13"].items():
+        for w, k in feature.items():
+            if "mlp" not in k:
+                continue
             m = k["mlp"][part]
             wide_rows[key].update({
                 f"wide_{w}_ms": m["ms"],
@@ -5178,6 +5322,16 @@ def kernel_lines(out):
              bound_tf32_ms=train["bw"]["bound_tf32"],
              **branches["bw"], **wide_rows["renderer_bw"]),
     ]
+    # S2 without the MLP at 768 channels on phase 13's lift (slices of 512)
+    s2 = feature[FEATURE_WIDE_CHN]["s2"]
+    w = FEATURE_WIDE_CHN
+    s2_wide_keys = {f"wide_{w}_ms": s2["ms"],
+                    f"wide_{w}_plain_ms": s2["plain_ms"],
+                    f"wide_{w}_bound_ms": s2["bound"][0],
+                    f"wide_{w}_bound_by": s2["bound"][1],
+                    f"wide_{w}_max_abs_err": s2["err"],
+                    f"wide_{w}_launches": feature[w]["launches"][
+                        "splatter_bw"]}
     for key, line in (("fw", 57), ("bw", 183)):
         k = splat[key]
         kernels.append(dict(
@@ -5189,10 +5343,11 @@ def kernel_lines(out):
             max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound"][0], bound_by=k["bound"][1],
             library_ms=None,
-            **{f"launches_feature_{w}": out["13"][w]["launches"][
-                f"splatter_{key}"] for w in FEATURE_CHN},
+            **{f"launches_feature_{w}": feature[w]["launches"][
+                f"splatter_{key}"] for w in feature_chn},
             **({"plan_ms": k["plan_ms"], "runs": k["runs"],
-                **wide_rows["splatter_fw"]} if key == "fw" else {})))
+                **wide_rows["splatter_fw"]} if key == "fw" else
+               s2_wide_keys)))
     # S1 with the MLP at W = 64: launches on the MLP splatter's six timed
     # steps, the rest at its shapes alone (phase 7)
     k = splat["fw_mlp"]

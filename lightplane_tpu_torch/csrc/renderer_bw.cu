@@ -114,7 +114,7 @@ int lightplane_render_bw_attrs(int width, int* out) {
                      : lightplane::render_bw_attrs_64(out);
 }
 
-// The wide build's (W = 96-512, renderer_wide.cuh) launch at these MLP
+// The wide build's (W = 96-768, renderer_wide.cuh) launch at these MLP
 // widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]) and with a
 // colour grid or not: out[0] warps per block, out[1] the rows of
 // g_mlp_partial (one per block of the resident wave; the caller zero-fills

@@ -378,7 +378,7 @@ long long lightplane_render_fw_smem_bytes(int width, int n_layers_total,
   return fw_smem_bytes(width, n_layers_total, color_chn, warps);
 }
 
-// The wide build's (W = 96-512, renderer_wide.cuh) launch at these MLP
+// The wide build's (W = 96-768, renderer_wide.cuh) launch at these MLP
 // widths (mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1]): out[0] warps
 // per block, out[1] a block's shared memory in bytes, out[2] the bytes of
 // the packed layers, out[3] the blocks of the resident wave, out[4] a
@@ -400,7 +400,7 @@ int lightplane_render_fw_wide_config(int width, int n_t, int n_o, int n_c,
 //   grid_meta: host int[5 * num_grids], per sub-grid (row offset, B, D, H, W)
 //   mlp_widths: host int[n_t + 1 + n_o + 1 + n_c + 1], the n_hidden tuples
 //   width: the padded activation width, 32 or 64, or 96, 128, 192, 256,
-//     384 or 512 (the wide build, renderer_wide.cuh)
+//     384, 512 or 768 (the wide build, renderer_wide.cuh)
 //   warps: rays (warps) per block, 1, 2 or 4 (the wide build: 1-8)
 //   scaffold, scaffold_dims: the [B, D, H, W] scaffold and its host int[4]
 //     shape, or null

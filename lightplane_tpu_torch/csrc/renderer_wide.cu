@@ -22,6 +22,9 @@ bool wide_ops(int width, WideOps* ops) {
     case 512:
       *ops = join_wide_ops(wide_fw_ops_512(), wide_bw_ops_512());
       return true;
+    case 768:
+      *ops = join_wide_ops(wide_fw_ops_768(), wide_bw_ops_768());
+      return true;
   }
   return false;
 }

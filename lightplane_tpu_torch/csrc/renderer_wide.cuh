@@ -1,5 +1,5 @@
-// The wide builds (padded widths W = 96, 128, 192, 256, 384 and 512: the
-// widest of the grid's channels and the MLP layers) of the renderer's
+// The wide builds (padded widths W = 96, 128, 192, 256, 384, 512 and 768:
+// the widest of the grid's channels and the MLP layers) of the renderer's
 // forward march (R1, renderer_fw.cu) and recompute backward (R2,
 // renderer_bw.cu), for Hopper (sm_90a).  They replace the same TPU kernels
 // as those (lightplane_tpu/ops/kernels/renderer_pallas.py::_build_fw_kernel
@@ -78,19 +78,27 @@
 //     3/3/3 MLP at 256 one warp (184,096 B).  One warp holds 14 tiles at
 //     W = 192 and 10 at 256 (15 and 11 layers in all with 3 colours).
 //   - Past W = 256 (wide_mlp.cuh: each product in N-parts of at most 256
-//     columns by mma.sync, a part that overwrites its own input stashed in
-//     device memory; the colour head's last layer a product too, its
-//     outputs up to 512 rendered channels): a tile is 24,832 B at 384 and
-//     33,024 at 512.  R1 the most warps that fit, 3 at 384 (198,144 B) and
-//     2 at 512 (181,248), each a 16 KB stash in device memory.  R2 one warp
-//     a block (so R1 and R2 both by mma.sync), its heads' tile (up to
-//     [16][516] with 512 colours) and stash in a scratch a block in device
-//     memory after the packed layers: at the 2/2/2 MLP 174,880 B at 384 and
-//     216,352 at 512, whatever the colours; one warp holds 7 tiles at 384
-//     and 5 at 512 (8 and 6 layers in all).  The other way, every layer
-//     input in device memory and a warpgroup a block, would free shared
-//     memory for wgmma but put each product's A operand and output behind
-//     L2; kept for deeper MLPs (ROADMAP).
+//     columns by mma.sync, two at 384 and 512, three at 768, the parts but
+//     the last of one that overwrites its own input stashed in device
+//     memory, 16 KB a warp at 384 and 512, 32 KB at 768; the colour head's
+//     last layer a product too, its outputs up to W rendered channels): a
+//     tile is 24,832 B at 384, 33,024 at 512 and 49,408 at 768.  R1 the
+//     most warps that fit, 3 at 384 (198,144 B), 2 at 512 (181,248) and 1
+//     at 768 (147,968), each a stash in device memory.  R2 one warp a block
+//     (so R1 and R2 both by mma.sync), its heads' tile (up to [16][W + 4]
+//     with W colours) and stash in a scratch a block in device memory after
+//     the packed layers: at the 2/2/2 MLP 174,880 B at 384 and 216,352 at
+//     512, whatever the colours; one warp holds 7 tiles at 384 and 5 at 512
+//     (8 and 6 layers in all).  Where the warp's tiles do not fit with the
+//     ring (the 2/2/2 MLP at 768 would need 299,296 B; past 8 and 6 layers
+//     at 384 and 512), every one of them follows the heads' tile into the
+//     block's scratch (BwLayout::dev) and shared memory keeps the ring and
+//     the encoding alone: 52,256 B at 768, so that four blocks are resident
+//     on an SM where one was, each with its own row of sums (the resident
+//     wave's).  Every reader of a tile (the products' A fragments and
+//     epilogues, the relu masks, block_weight_grad, the scatter) takes a
+//     generic pointer; the tiles' traffic goes through L1 and L2 instead of
+//     shared memory.
 //   - The weight-gradient sums: a row per warp, read and written every
 //     32-step chunk, would move 223,296 B each way at that MLP (13,956 B a
 //     ray-step, 234 GB a frame at the render headline).  Here a block adds
@@ -99,7 +107,8 @@
 //     quarter), into one row a block (132 rows: 29.5 MB).
 //
 // Past 256 the weight-gradient rows grow as W^2: 1,317,384 floats a row at
-// the 2/2/2 MLP 512 wide with 512 colours, 695.6 MB on 132 SMs.
+// the 2/2/2 MLP 512 wide with 512 colours, 695.6 MB on 132 SMs; 2,959,112
+// at 768 with 768 colours, 6.25 GB for its 528 resident blocks.
 //
 // What bounds it.  At the render headline at hidden 128 (triplane 3 x 32^2
 // x 32ch, MLPs 2/2/2, 256 samples, 65,536 rays) the decoder is 53,760
@@ -203,13 +212,16 @@ int launch_pack(const Params& p, int kind, uint4* ws, cudaStream_t s) {
 }
 
 // A warp's region of R2's shared memory, in floats: n_wide [16][W + 4]
-// tiles, the narrow tile (Gt: [16][sg]; sg - 4 the heads' last layers'
-// widest output, the colours' count at most, rounded up to 8; past W = 256
-// in the warp's scratch in device memory instead: up to 512 colours), the
-// ray's encoding (W).  After the warps' regions come the ring and the
-// flags.
+// tiles (tile_floats), the narrow tile (Gt: [16][sg]; sg - 4 the heads'
+// last layers' widest output, the colours' count at most, rounded up to 8;
+// past W = 256 in the block's scratch in device memory instead: up to W
+// colours), the ray's encoding (W).  After the warps' regions come the ring
+// and the flags.  Past W = 256 (one warp a block), where that region and
+// the ring exceed a block's shared memory, the tiles too lie in the block's
+// scratch (dev) and the region is the encoding alone.
 struct BwLayout {
-  int n_wide, sg, gt_off, e_off, warp_floats;
+  int n_wide, sg, gt_off, e_off, warp_floats, tile_floats;
+  bool dev;
 };
 
 __host__ __device__ __forceinline__ BwLayout bw_layout(int W, int n_total,
@@ -218,23 +230,32 @@ __host__ __device__ __forceinline__ BwLayout bw_layout(int W, int n_total,
   BwLayout l;
   l.n_wide = n_total - 1 + (cgrid ? 1 : 0) + (n_c == 1 ? 1 : 0);
   l.sg = (head_out + 7) / 8 * 8 + 4;
-  l.gt_off = l.n_wide * kChunk * (W + 4);
+  l.tile_floats = l.n_wide * kChunk * (W + 4);
+  l.gt_off = l.tile_floats;
   l.e_off = l.gt_off + (W > 256 ? 0 : kChunk * l.sg);
   l.warp_floats = l.e_off + W;
+  l.dev = W > 256 && 4LL * l.warp_floats + ring_bytes(W) + kFlagBytes >
+                         kMaxSmemBytes;
+  if (l.dev) {
+    l.gt_off = l.e_off = 0;
+    l.warp_floats = W;
+  }
   return l;
 }
 
 // Floats of a block's scratch in device memory past W = 256 (0 up to it):
 // R1 a stash a warp (wide_mlp.cuh::staged_rows_parts); R2 (one warp) its
-// stash, then its Gt.
+// stash, then its Gt, then (dev) its tiles.
 __host__ __device__ __forceinline__ long long fw_scratch_floats(int W,
                                                                 int warps) {
-  return W > 256 ? (long long)warps * kStashFloats : 0;
+  return (long long)warps * stash_floats(W);
 }
 
 __host__ __device__ __forceinline__ long long bw_scratch_floats(
     int W, const BwLayout& l) {
-  return W > 256 ? kStashFloats + kChunk * l.sg : 0;
+  return W > 256 ? stash_floats(W) + kChunk * l.sg +
+                       (l.dev ? (long long)l.tile_floats : 0)
+                 : 0;
 }
 
 // The heads' last layers' widest output.
@@ -250,9 +271,10 @@ long long bw_smem_bytes(int W, const BwLayout& l, int warps) {
 }
 
 // R2's warps a block at these layers: the most, up to kBwWarps (one past
-// W = 256: its Gt and stash lie in a scratch a block), whose regions fit
-// with the ring in a block's shared memory, in whole warpgroups of 4 past
-// 4 (0 where one warp does not fit).
+// W = 256: its Gt and stash, and its tiles where they do not fit, lie in a
+// scratch a block), whose regions fit with the ring in a block's shared
+// memory, in whole warpgroups of 4 past 4 (0 where one warp does not
+// fit).
 int bw_warps(int W, const BwLayout& lay) {
   int warps = W > 256 ? 1 : kBwWarps;
   while (warps > 1 && bw_smem_bytes(W, lay, warps) > kMaxSmemBytes) --warps;
@@ -307,7 +329,7 @@ long long fw_smem_bytes(int W, int warps) {
 
 // R1's warps a block at width W: two warpgroups where their tiles fit with
 // the ring (W = 96, 128), else one (W = 192, 256), else the most that fit
-// (3 at W = 384, 2 at 512).
+// (3 at W = 384, 2 at 512, 1 at 768).
 int fw_warps(int W) {
   if (fw_smem_bytes(W, kFwWarps) <= kMaxSmemBytes) return kFwWarps;
   int warps = 4;
@@ -340,7 +362,7 @@ __global__ void __launch_bounds__(32 * kFwWarps, 1)
                ring_slot_u4(W), n_slices, 0};
   if constexpr (W > 256)
     ring.stash = scratch + ((long long)blockIdx.x * warps + warp) *
-                               kStashFloats;
+                               stash_floats(W);
   ring_start(ring);
   __syncwarp();
 
@@ -647,14 +669,24 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
   const int row = lane & (kChunk - 1);
   const bool wg = warps % 4 == 0;  // warpgroups: the products by wgmma
   const bool mine = lane < kChunk;  // the lanes that own a row
-  float* const region0 = smem;      // warp 0's region
-  float* tiles = region0 + (long long)warp * lay.warp_floats;
-  for (int i = lane; i < lay.warp_floats; i += 32) tiles[i] = 0.0f;
+  float* const region = smem + (long long)warp * lay.warp_floats;
+  for (int i = lane; i < lay.warp_floats; i += 32) region[i] = 0.0f;
   Ring ring = {reinterpret_cast<uint4*>(smem + warps * lay.warp_floats), pack,
                ring_slot_u4(W), n_slices, 0};
-  // past W = 256 (one warp a block) the block's scratch: its stash, its Gt
-  if constexpr (W > 256)
+  // the warp's tiles: in its region, or (lay.dev) in the block's scratch
+  float* tiles = region;
+  // past W = 256 (one warp a block) the block's scratch: its stash, its Gt,
+  // (lay.dev) its tiles
+  if constexpr (W > 256) {
     ring.stash = scratch + (long long)blockIdx.x * bw_scratch_floats(W, lay);
+    if (lay.dev) {
+      tiles = ring.stash + stash_floats(W) + kChunk * lay.sg;
+      for (int i = lane; i < lay.tile_floats; i += 32) tiles[i] = 0.0f;
+    }
+  }
+  // a pointer of this warp's region or tiles less this, warp 0's
+  // (block_weight_grad's; 0 past W = 256)
+  const long long to0 = -(long long)warp * lay.warp_floats;
   int* active_warps = reinterpret_cast<int*>(
       reinterpret_cast<char*>(ring.slots) + ring_bytes(W));
   ring_start(ring);
@@ -672,10 +704,10 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
   const int n_slots = n_total - 1 + (cgrid ? 1 : 0);
   float* Gt;
   if constexpr (W > 256)
-    Gt = ring.stash + kStashFloats;
+    Gt = ring.stash + stash_floats(W);
   else
     Gt = tiles + lay.gt_off;
-  float* E = tiles + lay.e_off;
+  float* E = region + lay.e_off;
   const int sg = lay.sg;
   float* acc = p.g_mlp_partial + (long long)blockIdx.x * ws.total;
   const int opacity_first = n_t, color_first = n_t + n_o;
@@ -842,12 +874,12 @@ __global__ void __launch_bounds__(32 * kBwWarps, 1)
         const float* X = xc ? (n_c == 1 ? GX : ACT(cslot))
                             : ACT(L > color_first ? L - 1 : L);
         __syncthreads();  // every warp's X and G of this layer are written
-        // (past W = 256, one warp a block, G may be Gt in device memory)
+        // (past W = 256, one warp a block, G may be Gt and X a tile in
+        // device memory)
         if (part_runs(kAblateNoWeightGrad, X[lane]))
-          block_weight_grad<W>(acc + ws.off[L], region0 + (X - tiles),
-                               xc && n_c > 1 ? region0 + lay.e_off : nullptr,
-                               W > 256 ? G : region0 + (G - tiles), S, gs,
-                               lay.warp_floats, active_warps, warps,
+          block_weight_grad<W>(acc + ws.off[L], X + to0,
+                               xc && n_c > 1 ? E + to0 : nullptr, G + to0, S,
+                               gs, lay.warp_floats, active_warps, warps,
                                p.layer_in[L], p.layer_out[L], warp, lane);
         // (the products' first slice is a barrier: every warp is past the
         // weight gradient before any writes over X)
@@ -1069,5 +1101,7 @@ WideOps wide_fw_ops_384();
 WideOps wide_bw_ops_384();
 WideOps wide_fw_ops_512();
 WideOps wide_bw_ops_512();
+WideOps wide_fw_ops_768();
+WideOps wide_bw_ops_768();
 
 }  // namespace lightplane

@@ -1,0 +1,10 @@
+// R1's wide build at W = 768 (renderer_wide.cuh), compiled apart from
+// the others so that nvcc builds it in parallel.
+
+#include "renderer_wide.cuh"
+
+namespace lightplane {
+
+WideOps wide_fw_ops_768() { return make_wide_fw_ops<768>(); }
+
+}  // namespace lightplane

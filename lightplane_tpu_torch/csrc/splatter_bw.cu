@@ -24,8 +24,11 @@
 // one 8- or 4-byte load), so the group reads a corner row as contiguous
 // accesses and each lane spends its shuffles on 8 or 16 channels;
 // above 32 kV channels it walks passes over the row, re-reading the corner
-// but never re-marching.  g_enc is written once per ray: no atomics,
-// bit-deterministic.
+// but never re-marching.  Past kEncSliceChn channels (kEncRegs sums a
+// lane) the row goes in slices of that many channels, a launch each, each
+// marching the rays again: every channel count that S1 splats (at 768, one
+// slice of 512 and one of 256).  g_enc is written once per ray: no
+// atomics, bit-deterministic.
 //
 // With the MLP, over slices of the rays that bound their memory
 // (splatter_bw.py::adjoint_slices):
@@ -110,6 +113,9 @@ using namespace lightplane;
 
 constexpr int kEncThreads = 128;
 constexpr int kEncRegs = 16;  // channels a lane sums: kV x passes
+// Channels of a launch of the gather: kEncRegs sums a lane for every kV,
+// a warp a ray
+constexpr int kEncSliceChn = 512;
 
 // v = src[0:kV) for the kV channels a lane owns: kV / 4 16-byte loads
 // (kV = 8 or 16; each only where it starts below C), one 8-byte or one
@@ -157,13 +163,15 @@ __device__ __forceinline__ void store_vec(float* dst, int c, int C,
 
 // g_enc = the sum over steps of the sampled g_out (kSteps false), or each
 // step's sampled g_out, g_vec, into its row of sp.gvec [R, steps, C]
-// (kSteps, before the MLP adjoint's pass A; zeros at unsampled steps), a
-// group of `group` lanes (a power of two) per ray, lane j of a group
-// owning channels pass * group * kV + j * kV + [0, kV) of each of
-// `passes` passes.
+// (kSteps, before the MLP adjoint's pass A; zeros at unsampled steps), in
+// the channels c_first + [0, width) of the rows' C, a group of `group`
+// lanes (a power of two) per ray, lane j of a group owning channels
+// c_first + pass * group * kV + j * kV + [0, kV) of each of `passes`
+// passes.
 template <int kV, bool kSteps>
 __global__ void __launch_bounds__(kEncThreads, 1)
-    splat_bw_enc_kernel(const SplatParams sp, int group, int passes) {
+    splat_bw_enc_kernel(const SplatParams sp, int group, int passes,
+                        int c_first, int width) {
   constexpr int kP = kEncRegs / kV;
   constexpr int kCB = kV > 8 ? 4 : 8;  // corners loaded at once
   const Params& p = sp.m;
@@ -216,15 +224,16 @@ __global__ void __launch_bounds__(kEncThreads, 1)
 #pragma unroll
         for (int q = 0; q < kP; ++q) {
           const int c = q * span + j0 * kV;
-          if (q >= passes || c >= C) continue;
+          if (q >= passes || c >= width) continue;
           // kSteps: this step's row, which the first sub-grid writes and
           // the others add to (its load goes out with the corners')
-          float* dst = sp.gvec + ((long long)ray * tot + c0 + j) * C + c;
+          float* dst =
+              sp.gvec + ((long long)ray * tot + c0 + j) * C + c_first + c;
           float y[kV];
 #pragma unroll
           for (int v = 0; v < kV; ++v) y[v] = kSteps ? 0.0f : acc[q][v];
           if (kSteps && g > 0 && ray < p.num_rays)
-            load_vec<kV, false>(dst, c, C, y);
+            load_vec<kV, false>(dst, c, width, y);
           // every corner load of a batch of kCB corners before any add
 #pragma unroll
           for (int k0 = 0; k0 < 8; k0 += kCB) {
@@ -234,7 +243,8 @@ __global__ void __launch_bounds__(kEncThreads, 1)
 #pragma unroll
               for (int v = 0; v < kV; ++v) x[kk][v] = 0.0f;
               if (at[k0 + kk] >= 0)
-                load_vec<kV>(sp.g_out + at[k0 + kk] + c, c, C, x[kk]);
+                load_vec<kV>(sp.g_out + at[k0 + kk] + c_first + c, c,
+                             width, x[kk]);
             }
 #pragma unroll
             for (int kk = 0; kk < kCB; ++kk)
@@ -243,7 +253,7 @@ __global__ void __launch_bounds__(kEncThreads, 1)
           }
 #pragma unroll
           for (int v = 0; v < kV; ++v) acc[q][v] = y[v];
-          if (kSteps && ray < p.num_rays) store_vec<kV>(dst, c, C, y);
+          if (kSteps && ray < p.num_rays) store_vec<kV>(dst, c, width, y);
         }
       }
     }
@@ -252,27 +262,30 @@ __global__ void __launch_bounds__(kEncThreads, 1)
 #pragma unroll
   for (int q = 0; q < kP; ++q) {
     const int c = q * span + j0 * kV;
-    if (q >= passes || c >= C) continue;
+    if (q >= passes || c >= width) continue;
 #pragma unroll
     for (int v = 0; v < kV; ++v)
-      if (c + v < C) p.g_enc[(long long)ray * C + c + v] = acc[q][v];
+      if (c + v < width)
+        p.g_enc[(long long)ray * C + c_first + c + v] = acc[q][v];
   }
 }
 
-// The gather's channels a lane owns (kV: four float4s where C is 16 or 32
-// and the gather sums over the steps, whose rows a group of at most two
-// lanes reads; two where C % 4 == 0, else a float2 or a float), lanes per
-// ray (a power of two, up to a warp) and passes over the row for C
-// channels; false where C needs more than kEncRegs registers a lane.
-bool enc_shape(int C, bool steps, int* kv, int* group, int* passes) {
+// The gather's channels a lane owns for rows of C channels (kV: four
+// float4s where C is 16 or 32 and the gather sums over the steps, whose
+// rows a group of at most two lanes reads; two where C % 4 == 0, else a
+// float2 or a float), lanes per ray (a power of two, up to a warp) and
+// passes over a slice of `width` channels; false where the slice needs
+// more than kEncRegs registers a lane (never up to kEncSliceChn).
+bool enc_shape(int C, int width, bool steps, int* kv, int* group,
+               int* passes) {
   *kv = (C & 15) == 0 && C <= 32 && !steps ? 16
         : (C & 3) == 0           ? 8
         : (C & 1) == 0           ? 2
                                  : 1;
-  const int lanes = (C + *kv - 1) / *kv;
+  const int lanes = (width + *kv - 1) / *kv;
   *group = 1;
   while (*group < lanes && *group < 32) *group *= 2;
-  *passes = (C + *group * *kv - 1) / (*group * *kv);
+  *passes = (width + *group * *kv - 1) / (*group * *kv);
   return *passes * *kv <= kEncRegs;
 }
 
@@ -567,27 +580,35 @@ cudaError_t launch_mlp(const SplatParams& sp, const MlpLayout& ml, int rows,
 }
 
 // The gather over sp.out and sp.g_out (enc_shape's build for its
-// channels), a group of lanes per ray.
+// channels), a group of lanes per ray, a launch a slice of at most
+// kEncSliceChn channels.
 template <bool kSteps>
 cudaError_t launch_gather(const SplatParams& sp, cudaStream_t s) {
-  int kv = 0, group = 0, passes = 0;
-  if (!enc_shape(sp.out_chn, kSteps, &kv, &group, &passes))
-    return cudaErrorInvalidValue;
-  const int blocks = (int)(((long long)sp.m.num_rays * group + kEncThreads -
-                            1) / kEncThreads);
-  if (kv == 16 && !kSteps)
-    splat_bw_enc_kernel<16, false><<<blocks, kEncThreads, 0, s>>>(sp, group,
-                                                                  passes);
-  else if (kv == 8)
-    splat_bw_enc_kernel<8, kSteps><<<blocks, kEncThreads, 0, s>>>(sp, group,
-                                                                  passes);
-  else if (kv == 2)
-    splat_bw_enc_kernel<2, kSteps><<<blocks, kEncThreads, 0, s>>>(sp, group,
-                                                                  passes);
-  else
-    splat_bw_enc_kernel<1, kSteps><<<blocks, kEncThreads, 0, s>>>(sp, group,
-                                                                  passes);
-  return cudaGetLastError();
+  const int C = sp.out_chn;
+  for (int c_first = 0; c_first < C; c_first += kEncSliceChn) {
+    const int width =
+        C - c_first < kEncSliceChn ? C - c_first : kEncSliceChn;
+    int kv = 0, group = 0, passes = 0;
+    if (!enc_shape(C, width, kSteps, &kv, &group, &passes))
+      return cudaErrorInvalidValue;
+    const int blocks = (int)(((long long)sp.m.num_rays * group +
+                              kEncThreads - 1) / kEncThreads);
+    if (kv == 16 && !kSteps)
+      splat_bw_enc_kernel<16, false><<<blocks, kEncThreads, 0, s>>>(
+          sp, group, passes, c_first, width);
+    else if (kv == 8)
+      splat_bw_enc_kernel<8, kSteps><<<blocks, kEncThreads, 0, s>>>(
+          sp, group, passes, c_first, width);
+    else if (kv == 2)
+      splat_bw_enc_kernel<2, kSteps><<<blocks, kEncThreads, 0, s>>>(
+          sp, group, passes, c_first, width);
+    else
+      splat_bw_enc_kernel<1, kSteps><<<blocks, kEncThreads, 0, s>>>(
+          sp, group, passes, c_first, width);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // Pass A's wide launchers at `width`, false for a width with no wide

@@ -1,5 +1,6 @@
 // The splatter MLP's wide builds (padded widths 96, 128, 192, 256, 384 and
-// 512): S1's pass F (splatter_fw.cu's note, 6) and S2's pass A
+// 512; the renderer's 768 has none: march_common.cuh::known_mlp_width): S1's
+// pass F (splatter_fw.cu's note, 6) and S2's pass A
 // (splatter_bw.cu's note), their plans, kernels and launchers, on the
 // layers that wide_mlp.cuh stages.  splatter_fw.cu and splatter_bw.cu build
 // them at 96-256; past 256, where one such kernel takes as long to compile
@@ -96,7 +97,7 @@ __host__ __device__ __forceinline__ int pass_f_warps(int W) {
 // stash a warp (wide_mlp.cuh::staged_rows_parts), else none.
 __host__ __device__ __forceinline__ long long pass_f_scratch_floats(
     int W, int warps) {
-  return W > 256 ? (long long)warps * kStashFloats : 0;
+  return (long long)warps * stash_floats(W);
 }
 
 // One width's launchers of pass F (the f_* members) or pass A (the a_*
@@ -166,7 +167,7 @@ __global__ void __launch_bounds__(32 * kFWarps, 1)
                ring_slot_u4(W), n_slices, 0};
   if constexpr (W > 256)
     ring.stash = scratch + ((long long)blockIdx.x * warps + warp) *
-                               kStashFloats;
+                               stash_floats(W);
   ring_start(ring);
   __syncwarp();
 

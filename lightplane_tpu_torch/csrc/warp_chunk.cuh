@@ -102,7 +102,9 @@ __device__ __forceinline__ void gather_chunk(const GridMeta& m,
     const int nz = m.dims[g][1] > 1 ? 2 : 1, ny = m.dims[g][2] > 1 ? 2 : 1,
               nx = m.dims[g][3] > 1 ? 2 : 1;
     const bool last = g == m.num_grids - 1;
-#pragma unroll 2
+    // two rows of samples at a time (one past W = 512, where V float4
+    // sums a row would double a build's compile time)
+#pragma unroll (W > 512 ? 1 : 2)
     for (int i = 0; i < kRows / 4; ++i) {
       float4 acc[V];
       float* at = tile + (4 * i + q) * S + 4 * u;

@@ -1,7 +1,8 @@
 // The dense layers of the wide builds (padded widths W = 96, 128, 192,
-// 256, 384 and 512) of the renderer's forward march and recompute backward
-// (renderer_wide.cuh, R1 and R2), of the splatter MLP's forward (S1's pass
-// F) and of its adjoint (S2's pass A; both splatter_wide.cuh).
+// 256, 384, 512 and, the renderer's alone, 768) of the renderer's forward
+// march and recompute backward (renderer_wide.cuh, R1 and R2), of the
+// splatter MLP's forward (S1's pass F) and of its adjoint (S2's pass A;
+// both splatter_wide.cuh).
 //
 // All four stage their layers in shared memory, a slice at a time for a
 // whole block (staged_rows, below): at W = 128 a 2/2/2 MLP is ~400 KB, more
@@ -22,8 +23,9 @@
 // product's N-tiles, and mma.sync reads a k-step's B fragments one N-tile
 // at a time, so that only the accumulators grow with the width.  Past 256
 // (wgmma's widest N, and a slot's widest k-step) a product runs in N-parts
-// of at most 256 columns (kPartTiles), in turn, each with its own 128
-// accumulators, a slice one k-step of one part; R2's block there is one
+// of at most 256 columns (kPartTiles: two at 384 and 512, three at 768), in
+// turn, each with its own 128 accumulators, a slice one k-step of one part;
+// R2's block there is one
 // warp, so R1 and R2 both multiply by mma.sync (staged_rows_parts), and
 // S1's pass F and S2's pass A with them.
 
@@ -48,10 +50,12 @@ __device__ __forceinline__ float wide_last_out(const float* row,
                                                int d_in, int d_out, int o) {
   // 32 inputs at a time, each weight's load issued ahead of the products
   // (predicated: 0 past d_in, where adding x * 0 leaves the sum as it is)
-  // and none behind a branch out of the loop, so their latencies overlap
+  // and none behind a branch out of the loop, so their latencies overlap;
+  // past W = 512 the groups of 32 in a loop (in the same order), which
+  // keeps the build's compile time in bounds
   float acc = __ldg(bias + o);
   const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
+#pragma unroll (W > 512 ? 1 : W / 32)
   for (int i0 = 0; i0 < W; i0 += 32) {
     float wv[32];
 #pragma unroll
@@ -165,7 +169,7 @@ enum WideSchedule { kRenderFw = 0, kRenderBw = 1, kSplatFw = 2, kSplatBw = 3 };
 
 // 1 where R1 and R2 run the colour head's last layer as a product, 0 where
 // each lane takes its row's dot products (wide_last_out): its outputs are
-// the rendered channels, up to 512 past W = 256 (a padded width is the
+// the rendered channels, up to W past W = 256 (a padded width is the
 // widest layer's: the grid's channels are the first layer's input).
 __host__ __device__ __forceinline__ int wide_head_product(const Params& p) {
   const int n_total = p.n_layers[0] + p.n_layers[1] + p.n_layers[2];
@@ -279,7 +283,7 @@ struct Ring {
   int slot_u4, n_slices;   // a slot's uint4s; slices of a chunk
   int q;                   // the next slice the warps take
   int2 ahead;              // the schedule's entry of slice q + 2
-  // past W = 256, the warp's kStashFloats in device memory
+  // past W = 256, the warp's stash_floats(W) in device memory
   // (staged_rows_parts)
   float* stash;
 };
@@ -750,9 +754,16 @@ __device__ __forceinline__ void staged_rows_whole(
   __syncwarp();
 }
 
-// Floats of a warp's stash (Ring::stash): one part's outputs, a thread's
-// 4 kPartTiles values at stash[32 i + lane].
-constexpr int kStashFloats = kPartTiles * 4 * 32;
+// Floats of one N-part's outputs in a warp's stash (Ring::stash): a
+// thread's 4 kPartTiles values at stash[32 i + lane], part q's kPartStash
+// q floats on.
+constexpr int kPartStash = kPartTiles * 4 * 32;
+
+// Floats of a warp's stash at width W: every N-part but the last of a
+// product W wide (one at W = 384 and 512, two at 768), none up to 256.
+__host__ __device__ __forceinline__ int stash_floats(int W) {
+  return W > 256 ? (product_parts(W / 8) - 1) * kPartStash : 0;
+}
 
 // staged_rows past W = 256, by mma.sync (R2's block there is one warp, and
 // R1, S1's pass F and S2's pass A follow it): the product's N-tiles in parts of kPartTiles, in turn,
@@ -760,10 +771,10 @@ constexpr int kStashFloats = kPartTiles * 4 * 32;
 // two for a part of up to kSlotTiles N-tiles), each N-tile's three terms in
 // staged_rows_whole's order, so that an output's sums are those of the
 // whole product.  Where out is A (R1's and pass F's layers, R2's colour
-// input gradient) the parts but the last wait in the warp's stash until the last has read
-// A (at W <= 512 a product has two parts at most).  Not inlined: one copy
-// a kernel, not one a call site, keeps the 384 and 512 builds' compile
-// time in bounds.
+// input gradient) the parts but the last wait in the warp's stash until
+// the last has read A (stash_floats: one part at W = 384 and 512, two at
+// 768).  Not inlined: one copy a kernel, not one a call site, keeps the
+// builds' compile time past 256 in bounds.
 static __device__ __noinline__ void staged_rows_parts(
     Ring& r, int k_steps, int N, const float* A, int sa,
     const float* a_add, const float* __restrict__ bias, bool relu,
@@ -811,8 +822,9 @@ static __device__ __noinline__ void staged_rows_parts(
       float y[4];
       epilogue_values(y, d[nt], at, so, relu, gate, add);
       if (stash && q < parts - 1) {
+        float* st = r.stash + q * kPartStash;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) r.stash[(nt * 4 + e) * 32 + lane] = y[e];
+        for (int e = 0; e < 4; ++e) st[(nt * 4 + e) * 32 + lane] = y[e];
       } else {
         store_values(out, out2, at, so, y);
       }
@@ -820,14 +832,19 @@ static __device__ __noinline__ void staged_rows_parts(
     __syncwarp();
   }
   if (!stash || !active) return;
-  // the first part, from the stash (each thread reads back its own values)
+  // the parts but the last, from the stash (each thread reads back its own
+  // values)
+#pragma unroll 1
+  for (int q = 0; q < parts - 1; ++q) {
+    const float* st = r.stash + q * kPartStash;
 #pragma unroll
-  for (int nt = 0; nt < kPartTiles; ++nt) {
-    const int at = g * so + nt * 8 + 2 * t;
-    float y[4];
+    for (int nt = 0; nt < kPartTiles; ++nt) {
+      const int at = g * so + q * kPartTiles * 8 + nt * 8 + 2 * t;
+      float y[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) y[e] = r.stash[(nt * 4 + e) * 32 + lane];
-    store_values(out, out2, at, so, y);
+      for (int e = 0; e < 4; ++e) y[e] = st[(nt * 4 + e) * 32 + lane];
+      store_values(out, out2, at, so, y);
+    }
   }
   __syncwarp();
 }
@@ -952,8 +969,8 @@ __device__ __forceinline__ void block_weight_grad(
 }
 
 // The entry points of renderer_wide.cu that renderer_fw.cu's and
-// renderer_bw.cu's C functions dispatch to at W = 96, 128, 192, 256, 384
-// and 512.  Both kernels take a workspace (the packed layers and their
+// renderer_bw.cu's C functions dispatch to at W = 96, 128, 192, 256, 384,
+// 512 and 768.  Both kernels take a workspace (the packed layers and their
 // schedule, filled by each launch; past W = 256 then a scratch in device
 // memory for each block of the resident wave) of the bytes their config
 // gives.

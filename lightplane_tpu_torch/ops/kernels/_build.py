@@ -2,8 +2,9 @@
 ``lightplane_tpu_torch/csrc``.
 
 The ``*.cu`` files have a plain C interface, so ``nvcc`` compiles them
-without PyTorch's headers: one ``nvcc`` per source, all started together,
-then one link into a shared library.  The library goes to ``build/kernels/``
+without PyTorch's headers: one ``nvcc`` per source, as many at once as
+the machine has cores, the slowest first (``SLOW_FIRST``), then one link
+into a shared library.  The library goes to ``build/kernels/``
 at the repository root, named by a hash of the sources (``*.cu`` and
 ``*.cuh``) and the flags, so a changed source builds anew and an unchanged
 one loads the cached file.  Nothing is built or loaded on import: the first
@@ -130,6 +131,30 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+# The sources that take longest to compile, slowest first: started
+# first, so that the slowest is not the last to get a core (with all 20
+# started at once on the H100 machine's 8 cores, renderer_wide_768_bw.cu
+# ended 217 s after the start, 70 s after the next one).
+SLOW_FIRST = ("renderer_wide_768_bw.cu", "renderer_bw_64.cu",
+              "renderer_wide_768_fw.cu", "renderer_wide_512_bw.cu",
+              "renderer_wide_256.cu", "renderer_wide_384_bw.cu",
+              "renderer_wide_192.cu", "renderer_wide_512_fw.cu",
+              "renderer_wide_128.cu")
+
+
+def _cores() -> int:
+    """The cores this process may run on: its CPU affinity, within the
+    cgroup's CPU quota where one is set."""
+    cores = len(os.sched_getaffinity(0))
+    try:
+        quota, period = Path("/sys/fs/cgroup/cpu.max").read_text().split()
+        if quota != "max":
+            cores = min(cores, max(1, -(-int(quota) // int(period))))
+    except (OSError, ValueError):
+        pass
+    return cores
+
+
 def _cache_key(sources, flags) -> str:
     h = hashlib.sha256()
     for src in sources:
@@ -140,25 +165,24 @@ def _cache_key(sources, flags) -> str:
 
 
 def _run_all(cmds, nice=0):
-    """Run the commands in parallel (at ``nice``); return each one's
-    seconds; raise with the stderr of the first that fails."""
+    """Run the commands in parallel (at ``nice``), as many at once as
+    there are cores, in their order; return each one's seconds from the
+    start until it ended; raise with the stderr of the first that
+    fails."""
     prefix = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(prefix + cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for cmd in cmds]
 
-    def wait(proc):
-        err = proc.communicate()[1]
-        return err, time.perf_counter() - t0
+    def run(cmd):
+        proc = subprocess.run(prefix + cmd, capture_output=True, text=True)
+        return proc, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(procs)) as pool:
-        done = list(pool.map(wait, procs))
-    for cmd, proc, (err, _) in zip(cmds, procs, done):
+    with ThreadPoolExecutor(min(len(cmds), _cores())) as pool:
+        done = list(pool.map(run, cmds))
+    for cmd, (proc, _) in zip(cmds, done):
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{err}"
+                f"{proc.stderr}"
             )
     return [seconds for _, seconds in done]
 
@@ -184,9 +208,14 @@ def build(defines=(), nice=0) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
         nvcc = _nvcc()
-        seconds = _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
-                            for src, obj in zip(sources, objs)], nice)
-        SECONDS[tuple(defines)] = dict(zip((s.name for s in sources),
+        # the slowest sources first
+        order = sorted(sources, key=lambda src: (
+            SLOW_FIRST.index(src.name) if src.name in SLOW_FIRST
+            else len(SLOW_FIRST)))
+        seconds = _run_all([[nvcc, *flags, "-c", "-o",
+                             str(Path(tmp) / f"{src.stem}.o"), str(src)]
+                            for src in order], nice)
+        SECONDS[tuple(defines)] = dict(zip((s.name for s in order),
                                            seconds))
         lib = Path(tmp) / "lib.so"
         _run_all([[nvcc, *flags, "-shared", "-o", str(lib),

@@ -26,7 +26,7 @@ every unit of every relu'd vector at every (ray, step) as one bit, into an
 int32 tensor ``[R, steps, vectors, width // 32]`` (``mask_shape``), and
 ``render_bwd_torch(..., relu_masks=)`` replays them: ``x * mask`` in place
 of ``relu(x)``.  ``relu_masks_torch`` records the plain forward's own.
-The same build of the wide kernels (widths 96-512) also writes a probe of
+The same build of the wide kernels (widths 96-768) also writes a probe of
 each open step's raw opacity and raw colours, in the forward march (R1)
 and in the backward's recomputed forward alike, so that the two can be
 held equal to the bit (``forward_probes``).
@@ -55,7 +55,6 @@ from ..renderer import (
 from .renderer_fw import (
     MAX_SMEM_BYTES,
     WIDE_CHUNK,
-    WIDE_STASH_FLOATS,
     _check,
     _kernel_width,
     _ptr,
@@ -64,6 +63,7 @@ from .renderer_fw import (
     render_fwd_cuda,
     wide_pack_bytes,
     wide_ring_bytes,
+    wide_stash_floats,
 )
 
 # Number of kernel launches in this process; the kernel path adds one per
@@ -256,26 +256,56 @@ def wide_head_stride(layers, n_c: int) -> int:
     return -(-head_out // 8) * 8 + 4
 
 
+def wide_tile_floats(width: int, layers, n_c: int,
+                     has_color_grid: bool) -> int:
+    """Floats of one warp's layer-input tiles in the wide backward: a
+    [WIDE_CHUNK, width + 4] tile for each layer input of the forward
+    (``len(layers) - 1``, + 1 for a colour grid's sample, + 1 with a
+    one-layer colour head)."""
+    n_wide = len(layers) - 1 + int(has_color_grid) + int(n_c == 1)
+    return n_wide * WIDE_CHUNK * (width + 4)
+
+
+def wide_tiles_in_device_memory(width: int, layers, n_c: int,
+                                has_color_grid: bool) -> bool:
+    """Whether the wide backward's tiles lie in its block's scratch in
+    device memory (``csrc/renderer_wide.cuh::BwLayout::dev``): past W = 256
+    (one warp a block), where they and the encoding do not fit with the
+    ring in a block's shared memory (the 2/2/2 decoder at 768, more than 8
+    and 6 layers at 384 and 512)."""
+    floats = wide_tile_floats(width, layers, n_c, has_color_grid) + width
+    return width > 256 and wide_bw_smem_bytes(width, floats,
+                                              1) > MAX_SMEM_BYTES
+
+
 def wide_warp_floats(width: int, layers, n_c: int,
                      has_color_grid: bool) -> int:
     """Floats of one warp's region in the wide build's shared memory
-    (``csrc/renderer_wide.cuh::bw_layout``): a [WIDE_CHUNK, width + 4] tile
-    for each layer input of the forward (``len(layers) - 1``, + 1 for a
-    colour grid's sample, + 1 with a one-layer colour head), the heads'
-    tile [WIDE_CHUNK, ``wide_head_stride``] (past W = 256 in device memory:
-    ``wide_bw_scratch_bytes``) and the ray's encoding (``width``)."""
-    n_wide = len(layers) - 1 + int(has_color_grid) + int(n_c == 1)
+    (``csrc/renderer_wide.cuh::bw_layout``): its tiles
+    (``wide_tile_floats``), the heads' tile [WIDE_CHUNK,
+    ``wide_head_stride``] (past W = 256 in device memory:
+    ``wide_bw_scratch_bytes``) and the ray's encoding (``width``); the
+    encoding alone where the tiles lie in device memory
+    (``wide_tiles_in_device_memory``)."""
+    if wide_tiles_in_device_memory(width, layers, n_c, has_color_grid):
+        return width
     heads = 0 if width > 256 else WIDE_CHUNK * wide_head_stride(layers, n_c)
-    return n_wide * WIDE_CHUNK * (width + 4) + heads + width
+    return (wide_tile_floats(width, layers, n_c, has_color_grid) + heads
+            + width)
 
 
-def wide_bw_scratch_bytes(width: int, layers, n_c: int) -> int:
+def wide_bw_scratch_bytes(width: int, layers, n_c: int,
+                          has_color_grid: bool) -> int:
     """A block's scratch in device memory in the wide backward: past W =
-    256 (one warp a block) its stash (WIDE_STASH_FLOATS) and its heads'
-    tile, else none."""
+    256 (one warp a block) its stash (``wide_stash_floats``), its heads'
+    tile and, where they lie in device memory, its tiles; else none."""
     if width <= 256:
         return 0
-    return 4 * (WIDE_STASH_FLOATS + WIDE_CHUNK * wide_head_stride(layers, n_c))
+    tiles = (wide_tile_floats(width, layers, n_c, has_color_grid)
+             if wide_tiles_in_device_memory(width, layers, n_c,
+                                            has_color_grid) else 0)
+    return 4 * (wide_stash_floats(width)
+                + WIDE_CHUNK * wide_head_stride(layers, n_c) + tiles)
 
 
 def wide_bw_smem_bytes(width: int, warp_floats: int, warps: int) -> int:
@@ -288,21 +318,25 @@ def wide_bw_smem_bytes(width: int, warp_floats: int, warps: int) -> int:
 class WidePlan:
     """The wide backward's launch: warps (rays) a block, a block's shared
     memory, the bytes of the packed layers, the floats of a block's row of
-    weight-gradient sums and the bytes of a block's scratch in device memory
-    (past W = 256)."""
+    weight-gradient sums, the bytes of a block's scratch in device memory
+    (past W = 256), whether its tiles lie there and the blocks an SM
+    holds."""
 
     warps: int
     smem_bytes: int
     workspace_bytes: int
     row_floats: int
     scratch_bytes: int = 0
+    tiles_in_device_memory: bool = False
+    blocks_per_sm: int = 1
 
-    @staticmethod
-    def partial_rows(num_sms: int) -> int:
+    def partial_rows(self, num_sms: int) -> int:
         """Rows of the partial-sum buffer: one per block of the resident
-        wave (a block takes more than half an SM's shared memory, so one
-        fits an SM), not per warp."""
-        return num_sms
+        wave, not per warp: one block an SM where a block takes more than
+        half an SM's shared memory, as many as fit where its tiles lie in
+        device memory (4 at 768: the ring and the encoding, 52,256
+        bytes)."""
+        return num_sms * self.blocks_per_sm
 
 
 def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
@@ -313,8 +347,10 @@ def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
     the ring in a block's shared memory, rounded down to whole warpgroups
     of 4 past 4 (a warpgroup runs the products by ``wgmma``; 1-3 warps by
     ``mma.sync``); past W = 256 one (its heads' tile and stash in a scratch
-    in device memory).  Raises ``ValueError`` with the
-    bytes one warp needs where even that does not fit."""
+    in device memory, and its tiles too where they do not fit with the
+    ring: ``wide_tiles_in_device_memory``, as many blocks an SM as its
+    shared memory holds).  Raises ``ValueError`` with the bytes one warp
+    needs where even that does not fit (up to W = 256)."""
     from .renderer_fw import wide_layers, wide_products
 
     layers = wide_layers(n_t, n_o, n_c, list(widths))
@@ -335,14 +371,16 @@ def wide_bw_plan(width: int, n_t: int, n_o: int, n_c: int, widths,
     for d_in, d_out, _, _ in layers:
         mi, no = -(-d_in // 16), -(-d_out // 8)
         row += mi * no * 128 + 8 * no
-    return WidePlan(warps, smem,
-                    wide_pack_bytes(wide_products(layers, n_t, n_o, True)),
-                    -(-row // 4) * 4, wide_bw_scratch_bytes(width, layers,
-                                                            n_c))
+    dev = wide_tiles_in_device_memory(width, layers, n_c, has_color_grid)
+    return WidePlan(
+        warps, smem, wide_pack_bytes(wide_products(layers, n_t, n_o, True)),
+        -(-row // 4) * 4,
+        wide_bw_scratch_bytes(width, layers, n_c, has_color_grid), dev,
+        SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES) if dev else 1)
 
 
 def wide_config(lib, a, has_color_grid: bool):
-    """The wide build's (widths 96-512) launch as its C side plans it,
+    """The wide build's (widths 96-768) launch as its C side plans it,
     held to ``wide_bw_plan``'s: ``(plan, rows of the partial-sum buffer)``,
     a row per block of the resident wave.  Raises ``ValueError`` where one
     warp's region and the ring exceed a block's shared memory."""
@@ -482,7 +520,7 @@ def render_bwd_cuda_relu_masks(cfg: _RenderCfg, geom, diff, nlt_final, g_out,
 
 def forward_probes(cfg: _RenderCfg, geom, diff, g_out):
     """R1's forward and R2's recomputed forward, each through the wide
-    builds' recording build (widths 96-512): ``(r1, r2)``, each ``[R,
+    builds' recording build (widths 96-768): ``(r1, r2)``, each ``[R,
     steps, 2]`` f32, an open step's raw opacity (before the noise) and the
     sum of its raw colours, 0 at the steps that are shut.  R2 recomputes
     R1's activations by the same products in the same order, so the two

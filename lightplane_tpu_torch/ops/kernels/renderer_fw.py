@@ -40,11 +40,11 @@ SCAFFOLD_LAUNCHES = 0
 MAX_GRIDS = 16         # kMaxGrids in march_common.cuh
 MAX_LAYERS = 16        # kMaxLayers in march_common.cuh (per MLP)
 # The kernels' compiled activation widths: 32 and 64 keep the MLP's layers
-# in shared memory, 96 to 512 (the wide builds, csrc/renderer_wide.cuh and
+# in shared memory, 96 to 768 (the wide builds, csrc/renderer_wide.cuh and
 # csrc/wide_mlp.cuh) stage them a slice at a time; past 256 each product in
 # N-parts of at most WIDE_PART_TILES N-tiles (the splatter MLP's builds are
-# the same widths: splatter_fw.MLP_WIDTHS)
-WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512)
+# those up to 512: splatter_fw.MLP_WIDTHS)
+WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768)
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # Warps (one ray each) per block the forward kernel may take, most first:
 # each warp keeps two [32, W + 4] tiles in shared memory beside the MLP.
@@ -65,9 +65,10 @@ WIDE_SLOT_TILES = 16
 WIDE_RING_SLOTS = 3
 WIDE_FW_WARPS = 8
 # Past W = 256 a product runs in N-parts of up to WIDE_PART_TILES N-tiles
-# (256 columns: a slot's k-step, 128 accumulators a thread), and a part
-# that overwrites its own input waits in a warp's stash of
-# WIDE_STASH_FLOATS in device memory (csrc/wide_mlp.cuh::staged_rows_parts)
+# (256 columns: a slot's k-step, 128 accumulators a thread), and the parts
+# but the last of one that overwrites its own input wait in a warp's stash
+# in device memory, WIDE_STASH_FLOATS a part (``wide_stash_floats``;
+# csrc/wide_mlp.cuh::staged_rows_parts)
 WIDE_PART_TILES = 32
 WIDE_STASH_FLOATS = WIDE_PART_TILES * 4 * 32
 
@@ -282,10 +283,18 @@ def wide_parts(n_tiles: int):
             for q in range(0, n_tiles, WIDE_PART_TILES)]
 
 
+def wide_stash_floats(width: int) -> int:
+    """Floats of a warp's stash at ``width``: WIDE_STASH_FLOATS for each
+    N-part but the last of a product ``width`` wide (one at 384 and 512,
+    two at 768), none up to 256 (``csrc/wide_mlp.cuh::stash_floats``)."""
+    return (len(wide_parts(width // 8)) - 1) * WIDE_STASH_FLOATS
+
+
 def wide_fw_warps(width: int) -> int:
     """The wide forward's warps a block: WIDE_FW_WARPS (two warpgroups)
     where their tiles fit with the ring (W = 96, 128), else one warpgroup
-    (W = 192, 256), else the most that fit (3 at W = 384, 2 at 512)."""
+    (W = 192, 256), else the most that fit (3 at W = 384, 2 at 512, 1 at
+    768)."""
     if wide_fw_smem_bytes(width, WIDE_FW_WARPS) <= MAX_SMEM_BYTES:
         return WIDE_FW_WARPS
     return next(w for w in (4, 3, 2, 1)
@@ -294,9 +303,9 @@ def wide_fw_warps(width: int) -> int:
 
 def wide_fw_scratch_bytes(width: int, warps: Optional[int] = None) -> int:
     """A block's scratch in device memory in the wide forward: past W =
-    256 a stash of WIDE_STASH_FLOATS a warp, else none."""
+    256 a stash (``wide_stash_floats``) a warp, else none."""
     warps = warps or wide_fw_warps(width)
-    return 4 * warps * WIDE_STASH_FLOATS if width > 256 else 0
+    return 4 * warps * wide_stash_floats(width)
 
 
 def wide_fw_smem_bytes(width: int, warps: Optional[int] = None) -> int:
@@ -352,8 +361,8 @@ def wide_products(layers, n_t: int, n_o: int, backward: bool):
 def wide_head_product(layers) -> bool:
     """Whether R1 and R2 run the colour head's last layer as a product
     (``csrc/wide_mlp.cuh::wide_head_product``): past W = 256, where its
-    outputs, the rendered channels, are too many for a lane's dot
-    products."""
+    outputs, the rendered channels (up to W), are too many for a lane's
+    dot products."""
     return max(max(d_in, d_out) for d_in, d_out, _, _ in layers) > 256
 
 

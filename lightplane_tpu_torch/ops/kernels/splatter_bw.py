@@ -3,7 +3,8 @@ versions and the dispatch between them.
 
 ``splat_bwd_cuda`` launches ``csrc/splatter_bw.cu`` (which replaces
 ``lightplane_tpu/ops/kernels/splatter_pallas.py::_build_bw_kernel``):
-without the MLP one gather; with it, slice by slice of the rays
+without the MLP one gather (a launch a slice of at most 512 channels);
+with it, slice by slice of the rays
 (``adjoint_slices``), the gather staging every step's ``g_vec``, pass A (a
 warp per ray: the recomputed MLP and its backward, the MLP input gradient
 ``g_in`` of every step staged; at widths 96 to 512 a block's warps in
@@ -73,9 +74,6 @@ from .renderer_fw import (
 LAUNCHES = 0
 MLP_LAUNCHES = 0
 
-# The most output channels the gather without the MLP takes: 16 registers
-# a lane (csrc/splatter_bw.cu, kEncRegs).
-MAX_ENC_CHN = 512
 # The wide pass A (csrc/splatter_wide.cuh, widths 96-512): the most warps
 # a block, and a flag each in shared memory
 WIDE_A_MAX_WARPS = 8
@@ -279,9 +277,8 @@ def _launch_bw(cfg: _SplatCfg, geom, diff, g_feat_grid, defines,
                 f"({rc})")
 
     if not a.n_layers:
-        if a.C > MAX_ENC_CHN:
-            raise ValueError(f"the CUDA splatter's adjoint takes up to "
-                             f"{MAX_ENC_CHN} channels, got {a.C}")
+        # the gather, in slices of at most 512 channels past 512
+        # (csrc/splatter_bw.cu, kEncSliceChn)
         g_enc = torch.empty_like(encoding)
         run(0, geom, encoding, g_enc)
         LAUNCHES += 1

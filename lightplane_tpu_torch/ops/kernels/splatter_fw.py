@@ -46,18 +46,19 @@ from .renderer_fw import (
     MAX_LAYERS,
     MAX_SMEM_BYTES,
     WIDE_CHUNK,
-    WIDE_STASH_FLOATS,
     WIDTHS,
     _check,
     check_impl,
     wide_layers,
     wide_pack_bytes,
     wide_ring_bytes,
+    wide_stash_floats,
 )
 
 # The splatter MLP's padded activation widths (its kernels' builds: 32 and
-# 64, and the wide ones 96 to 512), the renderer's
-MLP_WIDTHS = WIDTHS
+# 64, and the wide ones 96 to 512), the renderer's up to 512
+# (csrc/march_common.cuh::known_mlp_width)
+MLP_WIDTHS = tuple(w for w in WIDTHS if w <= 512)
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it, so a caller can reset it and show that
@@ -317,9 +318,9 @@ def pass_f_smem_bytes(width: int) -> int:
 
 def pass_f_scratch_bytes(width: int) -> int:
     """A pass F block's scratch in device memory: past width 256 a stash
-    of WIDE_STASH_FLOATS a warp (its layers run in place, each N-part but
-    the last through the stash), else none."""
-    return 4 * pass_f_warps(width) * WIDE_STASH_FLOATS if width > 256 else 0
+    (``wide_stash_floats``) a warp (its layers run in place, each N-part
+    but the last through the stash), else none."""
+    return 4 * pass_f_warps(width) * wide_stash_floats(width)
 
 
 def _brick_keys(gs, brick, nb, first, pts, grid_idx, live):

@@ -322,15 +322,15 @@ def test_kernel_rejects_what_it_does_not_run(cuda):
     assert (renderer_fw.LAUNCHES, renderer_bw.LAUNCHES) == (fw + 1, bw + 1)
     assert torch.isfinite(dp.mlp_params.grad).all()
     with torch.no_grad():
-        # past the widest build (512), under "cuda" and under "auto": no
+        # past the widest build (768), under "cuda" and under "auto": no
         # CUDA call falls back to the plain version
         wide = lp.init_decoder_params(None, 2, 2, 2, input_chn=8,
-                                      hidden_chn=520, device=cuda)
-        enc = torch.zeros((64, 520), device=cuda)
+                                      hidden_chn=776, device=cuda)
+        enc = torch.zeros((64, 776), device=cuda)
         rays_w = lp.Rays(rays.directions, rays.origins, rays.grid_idx,
                          rays.near, rays.far, enc)
         for impl in ("cuda", "auto"):
-            with pytest.raises(ValueError, match="widths up to 512"):
+            with pytest.raises(ValueError, match="widths up to 768"):
                 lp.lightplane_renderer(rays_w, grid, wide, impl=impl, **kw)
         short = lp.DecoderParams(dp.mlp_params.detach()[:-1],
                                  dp.n_hidden_trunk, dp.n_hidden_opacity,
@@ -587,13 +587,16 @@ def test_wide_ray_count_not_a_multiple_of_the_block(cuda, n_rays):
                                             ((3, 3, 3), 256),
                                             ((3, 4, 4), 256),
                                             ((5, 5, 5), 192),
-                                            ((0, 1, 2), 256)])
+                                            ((0, 1, 2), 256),
+                                            ((3, 3, 3), 384),
+                                            ((3, 3, 3), 512)])
 def test_wide_deep_and_shallow_mlps(cuda, layers, hidden):
     """11 layers at W = 128 and 256, 15 at 192 and 16 at 96 (blocks of
     fewer than 4 warps: the products by mma.sync), the 3/3/3 decoder at 256
     (one warp a block), the shallowest decoder (a one-layer colour head, no
     trunk) and at 256 one whose R2 takes a warpgroup (its products by
-    wgmma m64n256k8, and so R1's)."""
+    wgmma m64n256k8, and so R1's); the 3/3/3 decoder at 384 and 512, whose
+    R2 keeps its tiles in device memory (4 blocks an SM)."""
     # with no trunk the heads read the grid's channels
     chn = hidden if layers[0] == 0 else 32
     rays, grid, dp = _case(cuda, _tri(1, 10, chn), n_rays=96, hidden=hidden,
@@ -604,13 +607,17 @@ def test_wide_deep_and_shallow_mlps(cuda, layers, hidden):
 # past 256: hidden 320 (W = 384) and 512, each with and without the
 # relu-field colour grid and a scaffold, and the feature path's decoder
 # (512 colours: the colour head's last product in two N-parts, its tile in
-# device memory)
+# device memory); at 768 the feature path's decoder (768 colours, every
+# product in three N-parts, R2's tiles in device memory) and hidden 600
+# (W = 768 from 32 channels, its last part 88 columns)
 PAST_256 = {
     "hidden320": dict(chn=32, hidden=320),
     "hidden512": dict(chn=32, hidden=512),
     "hidden320_relu_field_scaffold": dict(chn=320, relu_field=True),
     "hidden512_relu_field_scaffold": dict(chn=512, relu_field=True),
     "feature512": dict(chn=512, hidden=512, colours=512),
+    "hidden600": dict(chn=32, hidden=600),
+    "feature768": dict(chn=768, hidden=768, colours=768),
 }
 
 
@@ -637,18 +644,19 @@ def _past_256_case(device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(PAST_256))
 def test_wide_past_256_matches_plain(cuda, name):
-    """R1 at W = 384 and 512 against its plain version, and R2 against its
-    plain version under the relu masks its recording build took, on every
-    ray, with the relu-field colour grid and a scaffold too."""
+    """R1 at W = 384, 512 and 768 against its plain version, and R2 against
+    its plain version under the relu masks its recording build took, on
+    every ray, with the relu-field colour grid and a scaffold too."""
     rays, grid, dp, extra = _past_256_case(cuda, name)
     cfg, _, diff = _wide_parity(rays, grid, dp, **extra)
-    assert renderer_fw._kernel_width(cfg, diff[0].shape[1]) in (384, 512)
+    assert renderer_fw._kernel_width(cfg, diff[0].shape[1]) in (384, 512,
+                                                                768)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["hidden320", "hidden512",
                                   "hidden512_relu_field_scaffold",
-                                  "feature512"])
+                                  "feature512", "hidden600", "feature768"])
 def test_wide_forward_equals_the_recomputed_forward(cuda, name):
     """R1's forward and R2's recomputed forward past 256, each by its
     recording build's probe (every open step's raw opacity and the sum of
@@ -874,7 +882,13 @@ def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
     monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
     rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 520, 16),
                                   in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
-    with pytest.raises(ValueError, match="widths up to 512"):
+    with pytest.raises(ValueError, match="MLP widths up to 512"):
+        lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
+                                   num_samples=8, impl="cuda")
+    # the renderer's 768 is not the splatter MLP's
+    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 768, 16),
+                                  in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
+    with pytest.raises(ValueError, match="MLP widths up to 512"):
         lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
                                    num_samples=8, impl="cuda")
     rays, _, _ = _splat_case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
@@ -1028,12 +1042,14 @@ def _adjoint_march(device, case, n_rays=512):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chn", [3, 6, 16, 32, 64, 100, 128, 200])
+@pytest.mark.parametrize("chn", [3, 6, 16, 32, 64, 100, 128, 200, 768,
+                                 1030])
 def test_splat_adjoint_gather_matches_plain(cuda, chn):
     """S2 without the MLP (lanes own scalars, pairs or quads of a row;
-    several rays a warp below 64 channels, passes over the row above 128)
-    against ``splat_bwd_torch`` on every ray, and bit-identical across two
-    runs."""
+    several rays a warp below 64 channels, passes over the row above 128;
+    past 512 channels slices of 512, a launch each: 512 + 256 at 768, 512
+    + 512 + 6 pairs at 1030) against ``splat_bwd_torch`` on every ray, and
+    bit-identical across two runs."""
     from lightplane_tpu_torch.ops import splatter as smod
 
     out_sizes = [(2, 9, 10, 11, chn)]

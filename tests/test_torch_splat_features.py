@@ -249,10 +249,11 @@ def _fake_splat_inputs(n_hidden, out_sizes, in_sizes, n=4):
 @pytest.mark.parametrize("case", [
     # an MLP 264 wide pads up to the build at 384
     "mlp_264_takes_384", "mlp_512_takes_512",
-    "mlp_520_refused", "voxel_386_refused"])
+    "mlp_520_refused", "mlp_768_refused", "voxel_386_refused"])
 def test_splatter_mlp_refusals(case):
     """On CUDA tensors the splatter's MLP takes the builds up to 512 and
-    raises past them ("MLP widths up to 512"); a per-step splat into a
+    raises past them ("MLP widths up to 512"), at the renderer's 768 too;
+    a per-step splat into a
     voxel grid past 385 channels raises, naming that cap (its smallest
     brick's tile in a block's shared memory), while a plane takes up to
     1,157."""
