@@ -2,7 +2,8 @@
 R1 and R2 at the render headline with its 2/2/2 decoder at hidden 32,
 128 and 256 (chip_smoke.py phases 5 and 12's inputs), S1 and S2 at the
 splat headline (phase 7's), S1 and S2 with the MLP 32 -> 256 -> 256 at
-phase 12's MLP splat; medians of CUDA-event runs, one JSON line.
+phase 12's MLP splat and 768 -> 768 -> 768 at phase 13's MLP lift (its
+first state); medians of CUDA-event runs, one JSON line.
 
     python3 chip_ab.py TREE   # TREE: a checkout whose kernels it builds
 
@@ -57,5 +58,14 @@ with torch.no_grad():
     out["S1_MLP_256"] = cs.cuda_ms(
         lambda: sfw.splat_fwd_cuda(cfg, geom, diff), warmup=1, reps=3)
     out["S2_MLP_256"] = cs.cuda_ms(
+        lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out), warmup=1, reps=3)
+    del cfg, geom, diff, g_out, inputs
+    w = cs.FEATURE_WIDE_CHN
+    model = cs.feature_model(lp, w, mlp=True, views=cs.FEATURE_WIDE_VIEWS)
+    cfg, geom, diff = cs.feature_lift_march(lp, smod, w, model)
+    g_out = (torch.randn((cfg.v_total, w), generator=gen) * 0.01).cuda()
+    out[f"S1_MLP_{w}"] = cs.cuda_ms(
+        lambda: sfw.splat_fwd_cuda(cfg, geom, diff), warmup=1, reps=3)
+    out[f"S2_MLP_{w}"] = cs.cuda_ms(
         lambda: sbw.splat_bwd_cuda(cfg, geom, diff, g_out), warmup=1, reps=3)
 print(json.dumps(out))

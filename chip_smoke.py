@@ -170,19 +170,25 @@ exits non-zero without its result line:
    96- and a 160-channel grid, hidden 128 with the relu-field colour grid
    and a scaffold, and the 3/3/3 decoder at hidden 256 (one warp a block);
    S1 and S2 with the MLP at hidden 72 and 160 and into 100 channels.
-13. Feature fields at widths 384 and 512 (R1's and R2's builds past 256):
-   2 views of 128^2 rays with seeded 512-channel features splatted (96
-   samples) into a 3 x 128^2 x 512ch triplane (100.7 MB) and rendered back
-   (128 samples) through a 2/2/2 decoder 512 wide with 512 colours, an L2
-   loss against the features, 5 Adam steps over the lifted features, a
-   residual on the lifted triplane and the decoder (the loss must fall;
-   R1, R2, S1 and S2 launch once a step); the same at 384 channels for one
-   timed step.  Then (once the recording build is done) R1 and R2 alone
-   on each width's march, timed with
-   their plain versions and their bounds, and held on 4096 of its rays (R2
-   under its relu masks), R1's forward against R2's recomputed forward to
-   the bit (``renderer_bw.forward_probes``) and the layers' pre-pass bit for
-   bit.
+13. Feature fields at widths 512, 384 and 768 (R1's and R2's builds, S1's
+   pass F and S2's pass A past 256): 2 views (1 at 768) of 128^2 rays with
+   seeded C-channel features splatted (96 samples) into a 3 x 128^2 x Cch
+   triplane and rendered back (128 samples) through a 2/2/2 decoder C wide
+   with C colours, an L2 loss against the features; lifted by the splat
+   (a residual on the lifted triplane learned), then through an MLP C -> C
+   -> C from a learned 3 x 128^2 x Cch prior (``LightplaneMLPSplatter``);
+   Adam steps over the features, the decoder and the lift's parameters, 2
+   of each at 512 (the loss must fall), one at 384 and 768 (R1, R2, S1 and
+   S2 launch once a step, S2 with the MLP once a step with it; the loss
+   finite), the last step of each by kernel.  Then (once the recording
+   build is done) R1 and R2 alone on each width's march, timed with their
+   plain versions and their bounds, and held on 4096 of its rays (R2 under
+   its relu masks), R1's forward against R2's recomputed forward to the
+   bit (``renderer_bw.forward_probes``) and the layers' pre-pass bit for
+   bit; S1 and S2 with the MLP alone on each MLP lift, timed with their
+   plain versions and bounds, held on 4096 of its rays (S2 under its relu
+   masks); S2 without the MLP at 768 channels on every ray; R2 at 512 with
+   a 3/3/3 decoder (its tiles in device memory).
 
 Phases 4, 5, 7, 8, 9, 10, 11, 12 and 13 each set the kernels' launch counts
 to 0 just before they drive their path and read them just after.  Every phase
@@ -195,8 +201,9 @@ its time, the plain version's time and the least time the card could take,
 for R1 and R2 the same for the scaffold and relu-field branches, and for
 R1, R2, S1 and S2 with the MLP the same for the wide builds, phase 12's
 ``wide_W_*`` keys at W = 256, 192, 128 and 96, R1's and R2's with their
-warps a SM, and phase 13's ``wide_384_*`` and ``wide_512_*`` for R1 and
-R2, their launches on its feature path) and
+warps a SM, and phase 13's ``wide_384_*``, ``wide_512_*`` and
+``wide_768_*`` for R1, R2, S1 and S2 with the MLP, their launches on its
+feature path, and S2's ``wide_768_*`` at 768 channels) and
 the result line ``{"ok": true, "device": {...}}``.  Needs no network and no
 JAX.
 
@@ -2102,7 +2109,7 @@ def s1_mlp_alone(lp, smod, rays, smi):
               compare("w", w_k, w_p, max_rel=SPLAT_MAX_REL,
                       magnitude_scaled=True)[0])
     del feat_k, w_k, feat_p, w_p
-    flops, nbytes = splat_mlp_fw_work(cfg, geom)
+    flops, _, nbytes = splat_mlp_fw_work(cfg, geom)
     b_ms, b_kind = bound(flops, nbytes)
     print(f"  S1 with the MLP alone (W = 64): median {ms:.3f} ms, plain "
           f"version {plain_ms:.1f} ms (one run); work {flops / 1e9:.1f} "
@@ -2227,10 +2234,9 @@ def print_kernel_attrs():
           f"{SPLAT_VOXEL[-1]}): {conf[0]} warps a block, {conf[1]} blocks "
           f"resident, {conf[3]} bytes of shared memory a block, rows of "
           f"{conf[2]} partial sums")
-    # the wide builds (W = 96 to 512: csrc/renderer_wide.cuh, S1's pass F
+    # the wide builds (W = 96 to 768: csrc/renderer_wide.cuh, S1's pass F
     # and S2's pass A, csrc/splatter_wide.cuh)
     masks = _build.library(rbw.RELU_MASKS_BUILD)
-    # (the splatter MLP's builds stop at 512, the renderer's at 768)
     for name, fn in (("R1", lib.lightplane_render_fw_attrs),
                      ("R2", lib.lightplane_render_bw_attrs),
                      ("R2 recording masks", masks.lightplane_render_bw_attrs),
@@ -2240,8 +2246,7 @@ def print_kernel_attrs():
                       lib.lightplane_splat_bw_attrs(1, w, o)),
                      ("S2 MLP pass A recording masks",
                       lambda w, o: masks.lightplane_splat_bw_attrs(1, w, o))):
-        widths = (96, 128, 192, 256, 384, 512)
-        for width in widths + ((768,) if name.startswith("R") else ()):
+        for width in (96, 128, 192, 256, 384, 512, 768):
             assert fn(width, out) == 0
             print(f"  {name} W={width} (wide build): {out[0]} registers, "
                   f"{out[1]} bytes spilled per thread")
@@ -2254,8 +2259,8 @@ def print_kernel_attrs():
 
 def print_wide_splat_plans(lib):
     """S1's pass F and S2's pass A at phase 12's MLP splat (32 -> W -> W at
-    each of WIDE_HIDDEN) and at phase 13's feature lift (C -> C -> C at 512
-    and 384): warps a block (one block a SM), shared memory, the workspace
+    each of WIDE_HIDDEN) and at phase 13's feature lift (C -> C -> C at 512,
+    384 and 768): warps a block (one block a SM), shared memory, the workspace
     of packed layers and pass F's stashes past 256, as the C side plans
     them, held to the wrappers' plans."""
     import ctypes
@@ -2268,7 +2273,8 @@ def print_wide_splat_plans(lib):
     for nh, where in (
             [((WIDE_SPLAT_IN, w, w), "phase 12's MLP splat")
              for w in WIDE_HIDDEN]
-            + [((c, c, c), "phase 13's feature lift") for c in FEATURE_CHN]):
+            + [((c, c, c), "phase 13's feature lift")
+               for c in FEATURE_CHN + (FEATURE_WIDE_CHN,)]):
         width = nh[-1]
         widths = (ctypes.c_int * 3)(*nh)
         layers = rfw.wide_layers(2, 0, 0, nh)
@@ -4192,12 +4198,13 @@ def wide_fit(lp, smi, hidden, steps, scaffold_at, eval_rate):
 
 
 def splat_mlp_fw_work(cfg, geom):
-    """(FLOPs, bytes) S1 with the MLP must do on these inputs: per sampled
-    step with an output corner the MLP once (2 d_in d_out FLOPs a layer)
-    and its input sample (2 C_in a corner), per in-bounds output corner
-    2C + 1 (the channels and the weight).  Bytes: every input read once
-    (rays, encodings, the input grid-list, the MLP) and every output written
-    once (the feature and weight grids)."""
+    """(FLOPs, FLOPs on the tensor cores, bytes) S1 with the MLP must do on
+    these inputs: per sampled step with an output corner the MLP once (2
+    d_in d_out FLOPs a layer, on the tensor cores in the wide builds) and
+    its input sample (2 C_in a corner), per in-bounds output corner 2C + 1
+    (the channels and the weight).  Bytes: every input read once (rays,
+    encodings, the input grid-list, the MLP) and every output written once
+    (the feature and weight grids)."""
     R, C, C_in = geom[0].shape[0], cfg.out_chn, cfg.n_hidden[0]
     v_in = sum(int(np.prod(gs[:-1])) for gs in cfg.input_grid_sizes)
     n_params = sum(a * b + b for a, b in zip(cfg.n_hidden, cfg.n_hidden[1:]))
@@ -4205,11 +4212,11 @@ def splat_mlp_fw_work(cfg, geom):
                                              cfg.output_grid_sizes)
     in_corners, _ = grid_corners_needed(cfg, geom, cfg.input_grid_sizes)
     macs = sum(a * b for a, b in zip(cfg.n_hidden, cfg.n_hidden[1:]))
-    flops = steps * 2.0 * macs + in_corners * 2 * C_in + out_corners * (
-        2 * C + 1)
+    flops_tc = steps * 2.0 * macs
+    flops = flops_tc + in_corners * 2 * C_in + out_corners * (2 * C + 1)
     nbytes = 4 * (R * 9 + R * C_in + v_in * C_in + n_params
                   + cfg.v_total * (C + 1))
-    return flops, nbytes
+    return flops, flops_tc, nbytes
 
 
 def wide_splat_inputs(lp, width):
@@ -4333,7 +4340,7 @@ def wide_splat(lp, smi, width=128):
     if width == 128:
         wide_splat_memory(cfg, geom, diff, smi)
         pass_a_yardstick(cfg, geom, diff, g_out, smi)
-    fl_fw, by_fw = splat_mlp_fw_work(cfg, geom)
+    fl_fw, _, by_fw = splat_mlp_fw_work(cfg, geom)
     b_fw = bound(fl_fw, by_fw)
     fl_bw, fl_tc, by_bw = splat_mlp_work(cfg, geom)
     b_bw = bound(fl_bw, by_bw)
@@ -4577,7 +4584,7 @@ def phase_wide(lp, smi):
     return dict(headline=headline, fit=fit, splat=splat, sweep=sweep)
 
 
-# ---- feature fields: widths 384 and 512 (phase 13) -------------------------
+# ---- feature fields: widths 384, 512 and 768 (phase 13) --------------------
 
 # The feature-field lift-then-render at the features' own width
 # (``bench.py:403-526``'s lift-then-render, with the image features that
@@ -4600,10 +4607,10 @@ FEATURE_VIEWS, FEATURE_SIZE, FEATURE_RES = 2, 128, 128
 FEATURE_SPLAT_SAMPLES, FEATURE_RENDER_SAMPLES = 96, 128
 FEATURE_STEPS = 2
 # At 768 channels (DINOv2 ViT-B/14's; CLIP ViT-L/14's, which F3RM lifts;
-# DINO ViT-B/8's, which Distilled Feature Fields lifts) the plain lift
-# alone (the splatter MLP is built up to 512), one view (cut from 2 for
-# chip time; the width is not cut) and one Adam step; then R1, R2 and S2
-# (at 768 channels) held on its march and its splat.
+# DINO ViT-B/8's, which Distilled Feature Fields lifts) both lifts, one
+# view (cut from 2 for chip time; the width is not cut) and one Adam step
+# each; then R1, R2 and S2 (at 768 channels) held on its march and its
+# splat, S1 and S2 with the MLP on its MLP lift.
 FEATURE_WIDE_CHN, FEATURE_WIDE_VIEWS = 768, 1
 # The deep decoder: R2 at 512 with a 3/3/3 decoder (its tiles in device
 # memory) on FEATURE_SUBSET rays of the 512 lift's march
@@ -4791,6 +4798,22 @@ def feature_head(chn):
     return (chn,) * 5 + (1,) + (chn,) * 3
 
 
+def feature_lift_march(lp, smod, chn, model):
+    """``(cfg, geom, diff)`` of the MLP lift's splat at ``chn`` (its state
+    now), as ``LightplaneMLPSplatter`` hands them to S1 and S2."""
+    splatter, sizes = model["splatter"], model["sizes"]
+    with torch.no_grad():
+        sp = lp.SplatterParams(splatter.mlp_params.detach(),
+                               splatter._n_hidden)
+        prior = torch.cat([g.detach().reshape(-1, chn)
+                           for g in model["prior"]])
+        rays = model["lift_rays"]
+        return splat_march(smod, lp.Rays(
+            rays.directions, rays.origins, rays.grid_idx, rays.near,
+            rays.far, rays.encoding.detach()), sizes,
+            dict(num_samples=FEATURE_SPLAT_SAMPLES), sp, prior, sizes)
+
+
 def feature_splat_kernels(lp, smi, chn, model):
     """S1 and S2 with the MLP on the MLP lift's splat (its state after its
     steps): each timed alone (one run, CUDA events) with its plain version
@@ -4803,17 +4826,9 @@ def feature_splat_kernels(lp, smi, chn, model):
     from lightplane_tpu_torch.ops.kernels import splatter_bw as sbw
     from lightplane_tpu_torch.ops.kernels import splatter_fw as sfw
 
-    splatter, sizes = model["splatter"], model["sizes"]
+    sizes = model["sizes"]
+    cfg, geom, diff = feature_lift_march(lp, smod, chn, model)
     with torch.no_grad():
-        sp = lp.SplatterParams(splatter.mlp_params.detach(),
-                               splatter._n_hidden)
-        prior = torch.cat([g.detach().reshape(-1, chn)
-                           for g in model["prior"]])
-        rays = model["lift_rays"]
-        cfg, geom, diff = splat_march(smod, lp.Rays(
-            rays.directions, rays.origins, rays.grid_idx, rays.near,
-            rays.far, rays.encoding.detach()), sizes,
-            dict(num_samples=FEATURE_SPLAT_SAMPLES), sp, prior, sizes)
         assert sfw._mlp_width(cfg) == chn
         n = geom[0].shape[0]
         gen = torch.Generator().manual_seed(chn + 2)
@@ -4846,15 +4861,16 @@ def feature_splat_kernels(lp, smi, chn, model):
         sbw.splat_bwd_torch(cfg, geom, diff, g_out)
         torch.cuda.synchronize()
         bw_plain_ms = 1e3 * (time.perf_counter() - t0)
-    fl_fw, by_fw = splat_mlp_fw_work(cfg, geom)
+    fl_fw, fl_fw_tc, by_fw = splat_mlp_fw_work(cfg, geom)
     b_fw = bound(fl_fw, by_fw)
+    b_fw_tc = tf32_bound(fl_fw, fl_fw_tc, by_fw)
     fl_bw, fl_tc, by_bw = splat_mlp_work(cfg, geom)
     b_bw = bound(fl_bw, by_bw)
     b_bw_tc = tf32_bound(fl_bw, fl_tc, by_bw)
     print(f"    S1 with the MLP (W = {chn}): {fw_ms:.3f} ms (one run), plain "
           f"{fw_plain_ms:.1f} ms (one run); work {fl_fw / 1e9:.1f} GFLOP, "
-          f"{by_fw / 1e6:.1f} MB -> bound {b_fw[0]:.3f} ms ({b_fw[1]})  "
-          f"[{smi}]")
+          f"{by_fw / 1e6:.1f} MB -> bound {b_fw[0]:.3f} ms ({b_fw[1]}), "
+          f"{b_fw_tc:.3f} ms with the MLP in 3xTF32  [{smi}]")
     print(f"    S2 with the MLP (W = {chn}): {bw_ms:.3f} ms (one run), plain "
           f"{bw_plain_ms:.1f} ms (one run); work {fl_bw / 1e9:.1f} GFLOP "
           f"({fl_tc / 1e9:.1f} on the tensor cores), {by_bw / 1e6:.1f} MB "
@@ -4898,27 +4914,27 @@ def feature_splat_kernels(lp, smi, chn, model):
     if chn == 512:
         wide_splat_pack_parity(diff[2], cfg.n_hidden)
     return dict(fw=dict(ms=fw_ms, plain_ms=fw_plain_ms, err=fw_err,
-                        bound=b_fw),
+                        bound=b_fw, bound_tf32=b_fw_tc),
                 bw=dict(ms=bw_ms, plain_ms=bw_plain_ms, err=bw_err,
                         bound=b_bw, bound_tf32=b_bw_tc))
 
 
 def phase_feature(lp, smi):
-    """Phase 13's steps (the shipped build only): at 512 and 384 the feature
-    path's Adam steps, lifted by the plain splat, then through the MLP, at
-    768 by the plain splat alone, the last step of each by kernel; returns
+    """Phase 13's steps (the shipped build only): at 512, 384 and 768 the
+    feature path's Adam steps, lifted by the plain splat, then through the
+    MLP, the last step of each by kernel; returns
     each run's model, parts, launches and step times for
     ``phase_feature_checks``."""
     print("== phase 13: feature fields, widths 384, 512 and 768: "
           f"{FEATURE_VIEWS} views ({FEATURE_WIDE_VIEWS} at 768) of "
           f"{FEATURE_SIZE}^2 rays with C-channel features lifted into 3 x "
-          f"{FEATURE_RES}^2 x Cch (by the splat, then, at 384 and 512, "
+          f"{FEATURE_RES}^2 x Cch (by the splat, then "
           f"through an MLP C -> C -> C from a learned 3 x {FEATURE_RES}^2 x "
           f"Cch prior) and rendered back through a 2/2/2 decoder C wide with "
           f"C colours")
     runs = {}
-    spec = [(chn, mlp) for chn in FEATURE_CHN for mlp in (False, True)]
-    for chn, mlp in spec + [(FEATURE_WIDE_CHN, False)]:
+    for chn, mlp in [(chn, mlp) for chn in FEATURE_CHN + (FEATURE_WIDE_CHN,)
+                     for mlp in (False, True)]:
         gc.collect()
         torch.cuda.empty_cache()
         wide = chn == FEATURE_WIDE_CHN
@@ -5061,7 +5077,7 @@ def deep_decoder_check(lp, model, chn=512):
 
 def phase_feature_checks(lp, smi, runs):
     """Phase 13's kernels on each width's march (``feature_kernels``), on
-    its MLP lift at 384 and 512 (``feature_splat_kernels``), S2 on the lift
+    its MLP lift (``feature_splat_kernels``), S2 on the lift
     at 768 (``feature_s2``) and the deep decoder at 512
     (``deep_decoder_check``): they need the recording build.  Returns the
     widths' results and the deep decoder's."""
@@ -5268,7 +5284,8 @@ def kernel_lines(out):
         wide_rows[key]["wide_512_deep_max_abs_err"] = deep[
             "fw_err" if i == 0 else "bw_err"]
     # phase 13's MLP lift: S1's pass F and S2's pass A past 256, launches on
-    # its steps (2 at 512, one at 384), times, errors and bounds on its splat
+    # its steps (2 at 512, one at 384 and 768), times, errors and bounds on
+    # its splat
     for key, part, count in (("splatter_fw", "fw", "splatter_fw"),
                              ("splatter_bw_mlp", "bw", "splatter_bw_mlp")):
         for w, k in feature.items():

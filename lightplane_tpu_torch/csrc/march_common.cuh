@@ -192,19 +192,15 @@ inline void fill_march(Params& p, int num_samples, int num_samples_inf,
   p.contract_coords = contract_coords;
 }
 
-// The padded activation widths the renderer's kernels (R1, R2) are built
-// for: 32 and 64 keep every MLP layer in shared memory; 96, 128, 192, 256,
-// 384, 512 and 768 are the wide builds (wide_mlp.cuh), which pass the
-// layers through shared memory a slice at a time.
+// The padded activation widths the renderer's kernels (R1, R2) and the
+// splatter MLP's (S1's pass F, S2's pass A) are built for: 32 and 64 keep
+// every MLP layer in shared memory; 96, 128, 192, 256, 384, 512 and 768
+// are the wide builds (wide_mlp.cuh), which pass the layers through shared
+// memory a slice at a time.
 inline bool known_width(int width) {
   return width == 32 || width == 64 || width == 96 || width == 128 ||
          width == 192 || width == 256 || width == 384 || width == 512 ||
          width == 768;
-}
-
-// The splatter MLP's (S1's pass F, S2's pass A): the renderer's up to 512.
-inline bool known_mlp_width(int width) {
-  return known_width(width) && width <= 512;
 }
 
 // Fills everything but the tensors; returns a cudaError_t code.

@@ -28,8 +28,8 @@ struct SplatParams {
 //   n_layers: the MLP's layer count, 0 without an MLP (then the input
 //     grid-list and mlp_widths are not read)
 //   mlp_widths: host int[n_layers + 1], the MLP's n_hidden
-//   width: the padded activation width, 32, 64, 96, 128, 192, 256, 384 or
-//   512 (with an MLP)
+//   width: the padded activation width, 32, 64, 96, 128, 192, 256, 384,
+//   512 or 768 (with an MLP)
 inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
                              const int* out_meta, int out_chn,
                              int num_in_grids, const int* in_meta, int in_chn,
@@ -44,7 +44,7 @@ inline int fill_splat_params(SplatParams& sp, int num_rays, int num_out_grids,
   p.num_rays = num_rays;
   p.num_batches = min_batch(sp.out, sp.out.dims[0][0]);
   if (n_layers > 0) {
-    if (!known_mlp_width(width) ||
+    if (!known_width(width) ||
         !fill_grid_meta(p.grids, num_in_grids, in_meta))
       return (int)cudaErrorInvalidValue;
     p.num_batches = min_batch(p.grids, p.num_batches);

@@ -58,7 +58,7 @@
 //     g_mlp_partial (rows add across the slices' launches), and
 //     reduce_partial_kernel sums the rows into the flat g_mlp: g_enc and
 //     g_mlp are free of atomics, deterministic.  At padded widths 96 to
-//     512 (splat_bw_mlp_wide_kernel, splatter_wide.cuh) no layer fits
+//     768 (splat_bw_mlp_wide_kernel, splatter_wide.cuh) no layer fits
 //     beside the tiles: a block's warps work on 16-row chunks in lockstep,
 //     the layers staged once a block through R2-wide's ring (wide_mlp.cuh)
 //     and multiplied by wgmma a warpgroup (past 256 by mma.sync in
@@ -621,6 +621,7 @@ bool pass_a_ops(int width, SplatWideOps* ops) {
     case 256: *ops = make_splat_bw_ops<256>(); return true;
     case 384: *ops = splat_bw_ops_384(); return true;
     case 512: *ops = splat_bw_ops_512(); return true;
+    case 768: *ops = splat_bw_ops_768(); return true;
   }
   return false;
 }
@@ -629,9 +630,8 @@ bool pass_a_ops(int width, SplatWideOps* ops) {
 
 extern "C" {
 
-// For the MLP adjoint at `width` (32, 64, 96, 128, 192, 256, 384 or 512)
-// of n_layers
-// layers of mlp_widths (host int[n_layers + 1]): out[0] the warps per block
+// For the MLP adjoint at `width` (32, 64, 96, 128, 192, 256, 384, 512 or
+// 768) of n_layers layers of mlp_widths (host int[n_layers + 1]): out[0] the warps per block
 // of pass A, out[1] the rows of g_mlp_partial that the caller zero-fills (its
 // resident wave of blocks), out[2] the floats of a row, out[3] a block's
 // shared memory in bytes, out[4] the bytes of the workspace of packed

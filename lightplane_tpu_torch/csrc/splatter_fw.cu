@@ -79,7 +79,7 @@
 //    staged MLP input gradient over the input grid-list, no weight column
 //    flushed); kSteps = 2 is pass S of the wide MLP build (6), the weight
 //    flushed as the other variants flush it.
-// 6. The MLP variant at padded widths 96 to 512, in two passes over
+// 6. The MLP variant at padded widths 96 to 768, in two passes over
 //    slices of the rays (splatter_fw.py::mlp_slices: the staging and each
 //    run list within PLAN_MAX_RUNS' bytes).  A ray marches in brick order
 //    as many times as it has output sub-grids, so running the MLP there
@@ -90,7 +90,7 @@
 //    as the TPU kernel does (splatter_pallas.py:57-117: each step's vector
 //    once, then splatted into every sub-grid):
 //    - pass F (splat_mlp_wide_kernel, ray-major; splatter_wide.cuh): a
-//      block's 8 warps (past 256 7 and 5) march a ray each in lockstep
+//      block's 8 warps (past 256 7, 5 and 3) march a ray each in lockstep
 //      over 16-step chunks, R1-wide's design (renderer_wide.cuh,
 //      wide_mlp.cuh): the input grid-list's sample gathered into a
 //      [16][W + 4] tile (gather_chunk) plus the encoding, then every layer
@@ -679,6 +679,7 @@ bool pass_f_ops(int width, SplatWideOps* ops) {
     case 256: *ops = make_splat_fw_ops<256>(); return true;
     case 384: *ops = splat_fw_ops_384(); return true;
     case 512: *ops = splat_fw_ops_512(); return true;
+    case 768: *ops = splat_fw_ops_768(); return true;
   }
   return false;
 }
@@ -701,7 +702,7 @@ long long lightplane_splat_fw_smem_bytes(int width, int n_layers,
   return splat_smem_bytes(width, n_layers, max_rows, out_chn, stage_chn(E));
 }
 
-// The wide MLP build's pass F at `width` (96-512) for n_layers layers of
+// The wide MLP build's pass F at `width` (96-768) for n_layers layers of
 // mlp_widths (host int[n_layers + 1]): out[0] warps per block, out[1] a
 // block's shared memory in bytes, out[2] the bytes of the packed layers,
 // out[3] the blocks of the resident wave, out[4] a block's scratch bytes
@@ -785,7 +786,7 @@ int lightplane_splat_fw_attrs(int mlp, int width, int* out) {
 //   n_layers: the MLP's layer count, 0 without it (input_grid, mlp, in_meta
 //     and mlp_widths are then not read)
 //   mlp_widths: host int[n_layers + 1]; width: 32, 64, 96, 128, 192, 256,
-//     384 or 512
+//     384, 512 or 768
 //     (above 64 the plan's stages only: the wide build splats by pass S)
 //   bricks: host int[3 * num_out_grids], cells per brick along D, H, W
 //   stage: 0 counts the runs per brick into counts [bricks] (zero-filled);

@@ -1,5 +1,5 @@
-// The splatter MLP's wide builds (padded widths 96, 128, 192, 256, 384 and
-// 512; the renderer's 768 has none: march_common.cuh::known_mlp_width): S1's
+// The splatter MLP's wide builds (padded widths 96, 128, 192, 256, 384, 512
+// and 768, the renderer's: march_common.cuh::known_width): S1's
 // pass F (splatter_fw.cu's note, 6) and S2's pass A
 // (splatter_bw.cu's note), their plans, kernels and launchers, on the
 // layers that wide_mlp.cuh stages.  splatter_fw.cu and splatter_bw.cu build
@@ -11,24 +11,32 @@
 // R1's and R2's.
 //
 // Past 256 each product runs in N-parts of at most 256 columns by mma.sync
-// (wide_mlp.cuh::staged_rows_parts), so a block need not be a warpgroup:
+// (wide_mlp.cuh::staged_rows_parts; three at 768), so a block need not be
+// a warpgroup:
 // - Pass F takes the most warps whose [16][W + 4] tiles fit with the ring
-//   (49,152 B): 7 at 384 (222,976 B) and 5 at 512 (214,272 B); eight would
-//   need 247,808 and 313,344.  Its layers run in place in the warp's tile
-//   (out == A), so each part but the last waits in the warp's 16 KB stash
-//   in device memory: a stash a warp of each block of the resident wave,
-//   after the packed layers in the workspace (pass_f_scratch_floats).
+//   (49,152 B): 7 at 384 (222,976 B), 5 at 512 (214,272 B) and 3 at 768
+//   (197,376 B); eight would need 247,808, 313,344 and 444,416, and four
+//   at 768 246,784.  Its layers run in place in the warp's tile (out ==
+//   A), so each part but the last waits in the warp's stash in device
+//   memory (16 KB at 384 and 512, 32 KB at 768): a stash a warp of each
+//   block of the resident wave, after the packed layers in the workspace
+//   (pass_f_scratch_floats).
 // - Pass A keeps its plan (wide_a_warps): at the feature MLP C -> C -> C 2
-//   warps at 384 (198,176 B) and 1 at 512 (148,256 B); at 32 -> W -> W 3
-//   and 2.  None of its products writes over its own input (the forward
-//   writes X_{l+1} from X_l, each input gradient X_l from G_l, gated by X_l
-//   at each output's own place), so it takes no stash.  A chunk's staged
-//   rows load four rows at a time (load_chunk_rows): a whole chunk's loads
-//   would hold 256 floats a lane at 512.  The weight gradient is
-//   block_weight_grad's, as R2's past 256: a block's row of sums is 525,312
-//   floats at 512 -> 512 -> 512, 277 MB for 132 blocks.
+//   warps at 384 (198,176 B), 1 at 512 (148,256 B) and 1 at 768 (197,408
+//   B); at 32 -> W -> W 3, 2 and 1 (150,304 B at 768).  None of its
+//   products writes over its own input (the forward writes X_{l+1} from
+//   X_l, each input gradient X_l from G_l, gated by X_l at each output's
+//   own place), so it takes no stash.  A chunk's staged rows load four
+//   rows at a time (load_chunk_rows): a whole chunk's loads would hold 256
+//   floats a lane at 512.  Past 512 each row loads in two halves of its
+//   channels (48 floats a lane at 768, not 96) and g_enc's sums stay in
+//   the ray's row of g_enc, not in registers: at 768 on an H100, with both
+//   in registers, pass A spilled 600 B a thread and took 14% longer.  The
+//   weight gradient is block_weight_grad's, as R2's past 256: a block's row
+//   of sums is 525,312 floats at 512 -> 512 -> 512 and 1,181,184 (4.7 MB)
+//   at 768 -> 768 -> 768, 277 MB and 624 MB for 132 blocks.
 // An MLP whose pass A does not fit one warp raises (the wrapper's
-// splatter_bw.wide_a_plan).
+// splatter_bw.wide_a_plan): 768 -> 768 -> 768 -> 768 needs 246,816 B.
 
 #pragma once
 
@@ -78,14 +86,16 @@ constexpr long long kMaxSmemBytes = 232448;  // a Hopper block's 227 KB
 
 // Bytes of a pass F block's shared memory: each warp's [16][W + 4] tile,
 // then the ring (116,736 at W = 128, 149,504 at 192, 182,272 at 256,
-// 222,976 at 384 with 7 warps, 214,272 at 512 with 5; one block an SM).
+// 222,976 at 384 with 7 warps, 214,272 at 512 with 5, 197,376 at 768 with
+// 3; one block an SM).
 __host__ __device__ __forceinline__ long long pass_f_smem_bytes(int W,
                                                                 int warps) {
   return 4LL * warps * kChunk * (W + 4) + ring_bytes(W);
 }
 
 // Pass F's warps a block at width W: kFWarps up to 256; past it (by
-// mma.sync) the most whose tiles fit with the ring, 7 at 384 and 5 at 512.
+// mma.sync) the most whose tiles fit with the ring, 7 at 384, 5 at 512
+// and 3 at 768.
 __host__ __device__ __forceinline__ int pass_f_warps(int W) {
   int warps = kFWarps;
   while (W > 256 && warps > 1 && pass_f_smem_bytes(W, warps) > kMaxSmemBytes)
@@ -122,8 +132,10 @@ struct SplatWideOps {
 // The builds past 256, each in a source of its own.
 SplatWideOps splat_fw_ops_384();
 SplatWideOps splat_fw_ops_512();
+SplatWideOps splat_fw_ops_768();
 SplatWideOps splat_bw_ops_384();
 SplatWideOps splat_bw_ops_512();
+SplatWideOps splat_bw_ops_768();
 
 }  // namespace lightplane
 
@@ -393,48 +405,52 @@ __device__ __forceinline__ bool load_chunk(float* tile, int stride,
 
 // load_chunk past W = 256: the same rows and layout, four rows (a lane's
 // one) at a time, so that a lane holds W / 32 float4s and not four times
-// that (256 floats at 512); `add` is the encoding's row in device memory
-// (add_n floats) or null.
+// that (256 floats at 512), past W = 512 in two halves of the row's
+// channels (48 floats a lane at 768, not 96); `add` is the encoding's row
+// in device memory (add_n floats) or null.
 template <int W>
 __device__ __forceinline__ bool load_chunk_rows(float* tile, int stride,
                                                 const float* src, int n,
                                                 int C, const float* add,
                                                 int add_n, int lane) {
-  constexpr int V = W / 32;
+  constexpr int V = W / 32, VH = W > 512 ? V / 2 : V;
   const int q = lane >> 3, u = lane & 7;
   bool nonzero = false;
 #pragma unroll 1
   for (int i = 0; i < kChunk / 4; ++i) {
     const int j = 4 * i + q;
-    float4 x[V];
+#pragma unroll 1
+    for (int v0 = 0; v0 < V; v0 += VH) {
+      float4 x[VH];
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int c = 32 * v + 4 * u;
-      const float* at = src + (long long)j * C + c;
-      x[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (j < n && (C & 3) == 0 && c < C) {
-        x[v] = __ldg(reinterpret_cast<const float4*>(at));
-      } else if (j < n && c < C) {
-        x[v].x = __ldg(at);
-        x[v].y = c + 1 < C ? __ldg(at + 1) : 0.0f;
-        x[v].z = c + 2 < C ? __ldg(at + 2) : 0.0f;
-        x[v].w = c + 3 < C ? __ldg(at + 3) : 0.0f;
+      for (int h = 0; h < VH; ++h) {
+        const int c = 32 * (v0 + h) + 4 * u;
+        const float* at = src + (long long)j * C + c;
+        x[h] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (j < n && (C & 3) == 0 && c < C) {
+          x[h] = __ldg(reinterpret_cast<const float4*>(at));
+        } else if (j < n && c < C) {
+          x[h].x = __ldg(at);
+          x[h].y = c + 1 < C ? __ldg(at + 1) : 0.0f;
+          x[h].z = c + 2 < C ? __ldg(at + 2) : 0.0f;
+          x[h].w = c + 3 < C ? __ldg(at + 3) : 0.0f;
+        }
+        nonzero |= x[h].x != 0.0f || x[h].y != 0.0f || x[h].z != 0.0f ||
+                   x[h].w != 0.0f;
       }
-      nonzero |= x[v].x != 0.0f || x[v].y != 0.0f || x[v].z != 0.0f ||
-                 x[v].w != 0.0f;
-    }
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int c = 32 * v + 4 * u;
-      if (c >= stride - 4) continue;
-      float4 y = x[v];
-      if (add != nullptr) {
-        y.x += c < add_n ? __ldg(add + c) : 0.0f;
-        y.y += c + 1 < add_n ? __ldg(add + c + 1) : 0.0f;
-        y.z += c + 2 < add_n ? __ldg(add + c + 2) : 0.0f;
-        y.w += c + 3 < add_n ? __ldg(add + c + 3) : 0.0f;
+      for (int h = 0; h < VH; ++h) {
+        const int c = 32 * (v0 + h) + 4 * u;
+        if (c >= stride - 4) continue;
+        float4 y = x[h];
+        if (add != nullptr) {
+          y.x += c < add_n ? __ldg(add + c) : 0.0f;
+          y.y += c + 1 < add_n ? __ldg(add + c + 1) : 0.0f;
+          y.z += c + 2 < add_n ? __ldg(add + c + 2) : 0.0f;
+          y.w += c + 3 < add_n ? __ldg(add + c + 3) : 0.0f;
+        }
+        *reinterpret_cast<float4*>(tile + j * stride + c) = y;
       }
-      *reinterpret_cast<float4*>(tile + j * stride + c) = y;
     }
   }
   return nonzero;
@@ -448,6 +464,19 @@ struct RowPrefix {
     return i < n ? x[i] : 0.0f;
   }
 };
+
+// row[c] += the sum of a [kChunk][stride] tile's column c, rows in order,
+// for each of the lane's channels c < n (c = lane, lane + 32, ...): pass A's
+// g_enc past W = 512, kept in device memory.
+__device__ __forceinline__ void add_rows(float* row, const float* tile,
+                                         int stride, int n, int lane) {
+#pragma unroll 1
+  for (int c = lane; c < n; c += 32) {
+    float a = row[c];
+    for (int j = 0; j < kChunk; ++j) a += tile[j * stride + c];
+    row[c] = a;
+  }
+}
 
 // The wide pass A over the rays: g_enc, the staged g_in [R, steps, C_in]
 // (over the staged samples) and the block's row of g_mlp_partial (added
@@ -503,9 +532,18 @@ __global__ void __launch_bounds__(32 * kMaxWarpsWide, 1)
                            valid && c + 3 < C_in ? src[c + 3] : 0.0f);
       }
     }
-    float genc[V];
+    // g_enc's sums: in registers up to W = 512; past it in the ray's own
+    // row of g_enc, each lane's channels added to chunk by chunk in the
+    // same order (24 fewer registers live across the products at 768)
+    float genc[W > 512 ? 1 : V];
+    float* const genc_row =
+        W > 512 && valid ? p.g_enc + (long long)ray * C_in : nullptr;
+    if constexpr (W <= 512) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) genc[v] = 0.0f;
+      for (int v = 0; v < V; ++v) genc[v] = 0.0f;
+    } else if (genc_row != nullptr) {
+      for (int c = lane; c < C_in; c += 32) genc_row[c] = 0.0f;
+    }
     for (int c0 = 0; c0 < tot; c0 += kChunk) {
       const int n = valid ? min(kChunk, tot - c0) : 0;
       float* staged = sp.stage + ((long long)(valid ? ray : 0) * tot + c0) *
@@ -528,12 +566,16 @@ __global__ void __launch_bounds__(32 * kMaxWarpsWide, 1)
       __syncwarp();
       bool active = __any_sync(kAll, nonzero);
       if (kAblate & kAblateS2GatherOnly) {
-        for (int j = 0; j < kChunk; ++j) {
+        if constexpr (W <= 512) {
+          for (int j = 0; j < kChunk; ++j) {
 #pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c = 32 * v + lane;
-            if (c < C && c < C_in) genc[v] += Gt[j * sg + c];
+            for (int v = 0; v < V; ++v) {
+              const int c = 32 * v + lane;
+              if (c < C && c < C_in) genc[v] += Gt[j * sg + c];
+            }
           }
+        } else if (genc_row != nullptr) {
+          add_rows(genc_row, Gt, sg, min(C, C_in), lane);
         }
         active = false;
       }
@@ -576,11 +618,15 @@ __global__ void __launch_bounds__(32 * kMaxWarpsWide, 1)
       // g_in, now in X_0 (0 where the warp was not active): into g_enc and
       // the staging rows
       if (active) {
+        if constexpr (W <= 512) {
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if (32 * v + lane >= C_in) continue;
-          for (int j = 0; j < kChunk; ++j)
-            genc[v] += X(0)[j * s0 + 32 * v + lane];
+          for (int v = 0; v < V; ++v) {
+            if (32 * v + lane >= C_in) continue;
+            for (int j = 0; j < kChunk; ++j)
+              genc[v] += X(0)[j * s0 + 32 * v + lane];
+          }
+        } else {
+          add_rows(genc_row, X(0), s0, C_in, lane);
         }
       }
       for (int j = 0; j < n; ++j)
@@ -588,10 +634,12 @@ __global__ void __launch_bounds__(32 * kMaxWarpsWide, 1)
           staged[(long long)j * C_in + c] = active ? X(0)[j * s0 + c] : 0.0f;
       __syncwarp();  // the tiles are free for the next chunk
     }
+    if constexpr (W <= 512) {
 #pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (valid && 32 * v + lane < C_in)
-        p.g_enc[(long long)ray * C_in + 32 * v + lane] = genc[v];
+      for (int v = 0; v < V; ++v)
+        if (valid && 32 * v + lane < C_in)
+          p.g_enc[(long long)ray * C_in + 32 * v + lane] = genc[v];
+    }
   }
   cp_async_wait<0>();
 #undef SX

@@ -1,5 +1,5 @@
 // The dense layers of the wide builds (padded widths W = 96, 128, 192,
-// 256, 384, 512 and, the renderer's alone, 768) of the renderer's forward
+// 256, 384, 512 and 768) of the renderer's forward
 // march and recompute backward (renderer_wide.cuh, R1 and R2), of the
 // splatter MLP's forward (S1's pass F) and of its adjoint (S2's pass A;
 // both splatter_wide.cuh).

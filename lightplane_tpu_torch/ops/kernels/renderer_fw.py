@@ -43,7 +43,7 @@ MAX_LAYERS = 16        # kMaxLayers in march_common.cuh (per MLP)
 # in shared memory, 96 to 768 (the wide builds, csrc/renderer_wide.cuh and
 # csrc/wide_mlp.cuh) stage them a slice at a time; past 256 each product in
 # N-parts of at most WIDE_PART_TILES N-tiles (the splatter MLP's builds are
-# those up to 512: splatter_fw.MLP_WIDTHS)
+# the same: splatter_fw.MLP_WIDTHS)
 WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768)
 MAX_SMEM_BYTES = 232448  # 227 KB, a Hopper block's shared-memory limit
 # Warps (one ray each) per block the forward kernel may take, most first:

@@ -7,7 +7,7 @@ without the MLP one gather (a launch a slice of at most 512 channels);
 with it, slice by slice of the rays
 (``adjoint_slices``), the gather staging every step's ``g_vec``, pass A (a
 warp per ray: the recomputed MLP and its backward, the MLP input gradient
-``g_in`` of every step staged; at widths 96 to 512 a block's warps in
+``g_in`` of every step staged; at widths 96 to 768 a block's warps in
 lockstep over the layers staged once a block, ``wide_a_plan``) and pass B
 (S1's planned splat of the
 staged ``g_in`` over the input grid-list,
@@ -74,7 +74,7 @@ from .renderer_fw import (
 LAUNCHES = 0
 MLP_LAUNCHES = 0
 
-# The wide pass A (csrc/splatter_wide.cuh, widths 96-512): the most warps
+# The wide pass A (csrc/splatter_wide.cuh, widths 96-768): the most warps
 # a block, and a flag each in shared memory
 WIDE_A_MAX_WARPS = 8
 WIDE_A_FLAG_BYTES = 4 * WIDE_A_MAX_WARPS
@@ -172,7 +172,7 @@ def wide_a_stride(d: int) -> int:
 
 def wide_a_plan(width: int, n_hidden):
     """The wide pass A's ``(warps, shared-memory bytes)`` at ``width``
-    (96-512) for the MLP ``n_hidden``: per warp a [WIDE_CHUNK, stride] f32
+    (96-768) for the MLP ``n_hidden``: per warp a [WIDE_CHUNK, stride] f32
     tile for each layer's input and one for g_vec (``wide_a_stride``), then
     the ring and a flag per warp; the most warps, up to
     ``WIDE_A_MAX_WARPS``, that fit in a block's shared memory, in whole

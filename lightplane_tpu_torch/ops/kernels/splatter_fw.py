@@ -56,9 +56,9 @@ from .renderer_fw import (
 )
 
 # The splatter MLP's padded activation widths (its kernels' builds: 32 and
-# 64, and the wide ones 96 to 512), the renderer's up to 512
-# (csrc/march_common.cuh::known_mlp_width)
-MLP_WIDTHS = tuple(w for w in WIDTHS if w <= 512)
+# 64, and the wide ones 96 to 768), the renderer's
+# (csrc/march_common.cuh::known_width)
+MLP_WIDTHS = WIDTHS
 
 # Number of kernel launches in this process; the kernel path adds one per
 # launch and nothing else changes it, so a caller can reset it and show that
@@ -301,7 +301,7 @@ def _pass_f_smem(width: int, warps: int) -> int:
 def pass_f_warps(width: int) -> int:
     """Pass F's warps a block: PASS_F_WARPS up to width 256; past it (by
     ``mma.sync``, where a block need not be a warpgroup) the most whose
-    tiles fit with the ring, 7 at 384 and 5 at 512."""
+    tiles fit with the ring, 7 at 384, 5 at 512 and 3 at 768."""
     warps = PASS_F_WARPS
     while width > 256 and warps > 1 and (
             _pass_f_smem(width, warps) > MAX_SMEM_BYTES):

@@ -747,8 +747,8 @@ SPLAT_CASES = {
                            in_sizes=_tri(1, 12, 32), kw={}),
     # past 256 (N-parts of 256 columns by mma.sync): a 320-wide MLP (W =
     # 384), and the feature lift's MLP C -> C -> C from a C-channel prior
-    # into C channels at C = 384 and 512 (pass F 7 and 5 warps, pass A 2
-    # and 1)
+    # into C channels at C = 384, 512 and 768 (pass F 7, 5 and 3 warps,
+    # pass A 2, 1 and 1; three N-parts at 768)
     "mlp_wide_320": dict(out_sizes=_tri(1, 12, 48), mlp=(8, 320, 48),
                          in_sizes=_tri(1, 12, 8),
                          kw=dict(mask_out_of_bounds_samples=True)),
@@ -756,6 +756,8 @@ SPLAT_CASES = {
                             in_sizes=_tri(1, 12, 384), kw={}),
     "mlp_feature_512": dict(out_sizes=_tri(1, 12, 512), mlp=(512, 512, 512),
                             in_sizes=_tri(1, 12, 512), kw={}),
+    "mlp_feature_768": dict(out_sizes=_tri(1, 12, 768), mlp=(768, 768, 768),
+                            in_sizes=_tri(1, 12, 768), kw={}),
 }
 
 
@@ -809,8 +811,19 @@ def _splat_grads(rays, out_sizes, sp, igrid, impl, proj, **kw):
     return [t.detach() for t in raw] + [x.grad for x in leaves]
 
 
+# The cases held end to end on every ray.  Not the feature lift at 768:
+# there 3xTF32 products 768 wide turn relus whose pre-activation lies within
+# ~1e-6 of 0 (relative to its terms, in f64: the median ray has one at
+# 1.2e-6) the other way from the plain version's f32, and the gradients jump
+# there (output 4, an input plane's gradient, 6.85e-3 from the plain
+# version's, of 6.09, on an H100).  It is held on every ray under the
+# kernel's own relu masks (test_splat_adjoint_matches_plain_under_its_masks)
+# and its forward on every ray (_wide_splat_parity's tests).
+END_TO_END_EVERY_RAY = sorted(set(SPLAT_CASES) - {"mlp_feature_768"})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(SPLAT_CASES))
+@pytest.mark.parametrize("case", END_TO_END_EVERY_RAY)
 def test_splat_kernels_match_plain(cuda, case):
     c = dict(SPLAT_CASES[case])
     kw = dict(num_samples=24, **c.pop("kw"))
@@ -842,7 +855,7 @@ def test_splat_kernels_match_plain(cuda, case):
                                   "mlp_wide_72", "mlp_wide_128ch",
                                   "mlp_wide_160", "mlp_wide_256ch",
                                   "mlp_wide_320", "mlp_feature_384",
-                                  "mlp_feature_512"])
+                                  "mlp_feature_512", "mlp_feature_768"])
 def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
     """S2 with the MLP against its plain version under the relu masks its
     recording build took, on every ray, and the shipped build against the
@@ -880,17 +893,14 @@ def test_splat_adjoint_matches_plain_under_its_masks(cuda, case):
 @pytest.mark.cuda
 def test_splat_kernels_reject_what_they_do_not_run(cuda, monkeypatch):
     monkeypatch.setenv("LIGHTPLANE_CHECK_GRID_IDX", "1")
-    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 520, 16),
+    # past the widest build, the renderer's 768, under "auto" as under
+    # "cuda"
+    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 776, 16),
                                   in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
-    with pytest.raises(ValueError, match="MLP widths up to 512"):
-        lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
-                                   num_samples=8, impl="cuda")
-    # the renderer's 768 is not the splatter MLP's
-    rays, sp, igrid = _splat_case(cuda, [(1, 8, 8, 8, 16)], mlp=(8, 768, 16),
-                                  in_sizes=[(1, 8, 8, 8, 8)], n_rays=64)
-    with pytest.raises(ValueError, match="MLP widths up to 512"):
-        lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
-                                   num_samples=8, impl="cuda")
+    for impl in ("cuda", "auto"):
+        with pytest.raises(ValueError, match="MLP widths up to 768"):
+            lp.lightplane_mlp_splatter(rays, [(1, 8, 8, 8, 16)], sp, igrid,
+                                       num_samples=8, impl=impl)
     rays, _, _ = _splat_case(cuda, [(1, 8, 8, 8, 16)], n_rays=64)
     rays_b = lp.Rays(rays.directions, rays.origins, rays.grid_idx + 1,
                      rays.near, rays.far, rays.encoding)
@@ -1140,7 +1150,7 @@ def test_splat_adjoint_does_not_spill(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mlp_wide_72", "mlp_wide_128ch",
                                   "mlp_wide_160", "mlp_wide_256ch",
-                                  "mlp_feature_512"])
+                                  "mlp_feature_512", "mlp_feature_768"])
 def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
     """S1's wide MLP build with its staging capped at ~100 rays, so that
     pass F and pass S run over slices of the rays, against
@@ -1170,7 +1180,8 @@ def test_wide_splat_fwd_in_ray_slices(cuda, case, monkeypatch):
                                       (128, 32, 128), (32, 256, 256),
                                       (8, 160, 24), (32, 160, 256),
                                       (32, 384, 384), (384, 384, 384),
-                                      (32, 512, 512), (512, 512, 512)])
+                                      (32, 512, 512), (512, 512, 512),
+                                      (32, 768, 768), (768, 768, 768)])
 def test_wide_splat_pack_and_plans(cuda, n_hidden):
     """The layers' pre-pass with the splatter's schedules (S1's pass F, S2's
     pass A) equals ``pack_wide_torch`` bit for bit (past 256 its products
@@ -1204,7 +1215,7 @@ def test_wide_splat_pack_and_plans(cuda, n_hidden):
         splatter_fw.pass_f_warps(width), splatter_fw.pass_f_smem_bytes(width),
         renderer_fw.wide_pack_bytes(splatter_fw.splat_products(layers,
                                                                False)))
-    # one block an SM; past 256 a 16 KB stash a warp
+    # one block an SM; past 256 a stash a warp (16 KB, 32 KB at 768)
     assert fw[3] == torch.cuda.get_device_properties(cuda).multi_processor_count
     assert fw[4] == splatter_fw.pass_f_scratch_bytes(width)
     assert (fw[4] > 0) == (width > 256)
@@ -1245,16 +1256,18 @@ def _wide_splat_parity(cfg, geom, diff, g_out):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rays", [37, 5])
-@pytest.mark.parametrize("case", ["mlp_feature_384", "mlp_feature_512"])
+@pytest.mark.parametrize("case", ["mlp_feature_384", "mlp_feature_512",
+                                  "mlp_feature_768"])
 def test_wide_splat_past_256_ray_count_not_a_multiple_of_the_block(
         cuda, case, n_rays):
-    """Pass F (7 warps a block at 384, 5 at 512) and pass A (2 and 1) on a
-    ray count that leaves a block's last warps without a ray."""
+    """Pass F (7 warps a block at 384, 5 at 512, 3 at 768) and pass A (2, 1
+    and 1) on a ray count that leaves a block's last warps without a
+    ray."""
     _wide_splat_parity(*_adjoint_march(cuda, case, n_rays=n_rays))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chn", [384, 512])
+@pytest.mark.parametrize("chn", [384, 512, 768])
 def test_wide_splat_past_256_rays_gated_in_different_chunks(cuda, chn):
     """The feature lift's MLP past 256 with out-of-bounds steps masked, over
     rays whose sampled steps start and end in different 16-step chunks

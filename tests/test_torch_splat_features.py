@@ -1,13 +1,14 @@
-"""The splatter MLP at padded widths 384 and 512 (S1's pass F and S2's pass
-A past 256, ``csrc/splatter_wide.cuh``), against the JAX package on the
-CPU: the MLP splatter at n_hidden (8, 320, 384) and (32, 512, 512), forward
-and its three gradients; the feature-field slice as a whole (C-channel
-features lifted through an MLP C -> C -> C that reads a prior triplane,
-then rendered back through a 2/2/2 decoder C wide with C colours) at
-C = 384 and 512, the loss and its gradients; ``convert`` carrying a
-512-wide ``LightplaneMLPSplatter``.  The wrappers' plans past 256 (pass F's
-warps, shared memory and stashes, pass A's warps and shared memory, the
-slices of the rays) and the refusals past 512 are checked by hand.
+"""The splatter MLP at padded widths 384, 512 and 768 (S1's pass F and S2's
+pass A past 256, ``csrc/splatter_wide.cuh``), against the JAX package on
+the CPU: the MLP splatter at n_hidden (8, 320, 384), (32, 512, 512) and
+(8, 600, 768), forward and its three gradients; the feature-field slice as
+a whole (C-channel features lifted through an MLP C -> C -> C that reads a
+prior triplane, then rendered back through a 2/2/2 decoder C wide with C
+colours) at C = 384, 512 and 768, the loss and its gradients; ``convert``
+carrying a 512-wide ``LightplaneMLPSplatter``.  The wrappers' plans past
+256 (pass F's warps, shared memory and stashes, pass A's warps and shared
+memory, the slices of the rays) and the refusals past 768 are checked by
+hand.
 
 Inputs are made from numpy seeds; the JAX side runs ``impl="scan"`` and its
 fused splatter, as its own CPU tests run them.  On the CPU the port takes
@@ -56,7 +57,8 @@ F32 = jnp.float32
 
 
 @pytest.mark.parametrize("n_hidden, width", [((8, 320, 384), 384),
-                                             ((32, 512, 512), 512)])
+                                             ((32, 512, 512), 512),
+                                             ((8, 600, 768), 768)])
 def test_mlp_splatter_past_256_matches_jax(n_hidden, width):
     """The MLP splatter at the widths of S1's and S2's builds past 256: the
     grid and the gradients of the encoding, the input grid-list and the
@@ -67,7 +69,7 @@ def test_mlp_splatter_past_256_matches_jax(n_hidden, width):
     _splat_matches_jax(*_splat_fixture(rng, n_hidden), seed=11)
 
 
-@pytest.mark.parametrize("chn", [384, 512])
+@pytest.mark.parametrize("chn", [384, 512, 768])
 def test_feature_mlp_lift_then_render_matches_jax(chn):
     """The feature-field slice with the MLP lift: ``chn``-channel features of
     a few rays splatted through an MLP chn -> chn -> chn that reads a prior
@@ -175,19 +177,25 @@ def _pass_a_by_hand(n_hidden, warps):
 def test_splatter_plans_past_256():
     """The numbers of splatter_wide.cuh's note.  Pass F: per warp a [16][W
     + 4] f32 tile, then the ring; eight warps would need 247,808 bytes at
-    384 and 313,344 at 512, so it takes 7 (222,976) and 5 (214,272), each a
-    16 KB stash in device memory past 256.  Pass A at the feature MLP
-    C -> C -> C: 2 warps at 384 (198,176 bytes), 1 at 512 (148,256); at
-    32 -> W -> W 3 and 2; an MLP whose one warp does not fit raises with
-    its bytes."""
+    384, 313,344 at 512 and 444,416 at 768, so it takes 7 (222,976), 5
+    (214,272) and 3 (197,376; four would need 246,784), each a stash in
+    device memory past 256 (16 KB at 384 and 512, two N-parts' 32 KB at
+    768).  Pass A at the feature MLP C -> C -> C: 2 warps at 384 (198,176
+    bytes), 1 at 512 (148,256) and 1 at 768 (197,408); at 32 -> W -> W 3,
+    2 and 1 (150,304 at 768); an MLP whose one warp does not fit raises
+    with its bytes, 768 -> 768 -> 768 -> 768 with 246,816."""
     def pass_f(width, warps):
         return 4 * warps * 16 * (width + 4) + _ring_by_hand()
 
-    assert (pass_f(384, 8), pass_f(512, 8)) == (247808, 313344)
+    assert (pass_f(384, 8), pass_f(512, 8), pass_f(768, 8)) == (
+        247808, 313344, 444416)
     assert pass_f(384, 7) == 222976 and pass_f(512, 5) == 214272
+    assert pass_f(768, 3) == 197376 and pass_f(768, 4) == 246784
     assert pass_f(384, 8) > 232448 >= pass_f(384, 7)
     assert pass_f(512, 6) > 232448 >= pass_f(512, 5)
-    for width, warps, smem, stash in ((384, 7, 222976, 7 * 16384),
+    assert pass_f(768, 4) > 232448 >= pass_f(768, 3)
+    for width, warps, smem, stash in ((768, 3, 197376, 3 * 32768),
+                                      (384, 7, 222976, 7 * 16384),
                                       (512, 5, 214272, 5 * 16384),
                                       (256, 8, 182272, 0),
                                       (128, 8, 116736, 0)):
@@ -195,32 +203,37 @@ def test_splatter_plans_past_256():
         assert splatter_fw.pass_f_smem_bytes(width) == smem
         assert splatter_fw.pass_f_scratch_bytes(width) == stash
     assert renderer_fw.WIDE_STASH_FLOATS * 4 == 16384
+    # at 768 the stash holds two of a product's three N-parts
+    assert renderer_fw.wide_stash_floats(768) * 4 == 32768
     for width, n_hidden, warps, smem in (
             (384, (384, 384, 384), 2, 198176),
             (512, (512, 512, 512), 1, 148256),
-            (384, (32, 384, 384), 3, None), (512, (32, 512, 512), 2, None)):
+            (768, (768, 768, 768), 1, 197408),
+            (384, (32, 384, 384), 3, None), (512, (32, 512, 512), 2, None),
+            (768, (32, 768, 768), 1, 150304)):
         want = (warps, smem or _pass_a_by_hand(n_hidden, warps))
         assert want[1] == _pass_a_by_hand(n_hidden, warps)
         assert splatter_bw.wide_a_plan(width, n_hidden) == want
         assert _pass_a_by_hand(n_hidden, warps + 1) > 232448
     with pytest.raises(ValueError, match="needs 247328 bytes"):
         splatter_bw.wide_a_plan(512, (512,) * 6)
+    with pytest.raises(ValueError, match="needs 246816 bytes"):
+        splatter_bw.wide_a_plan(768, (768,) * 4)
 
 
-@pytest.mark.parametrize("chn, rays_a_slice, n_slices", [(384, 1792, 19),
-                                                          (512, 1344, 25)])
-def test_mlp_slices_at_feature_widths(chn, rays_a_slice, n_slices):
+@pytest.mark.parametrize("chn, R, rays_a_slice, n_slices", [
+    (384, 32768, 1792, 19), (512, 32768, 1344, 25), (768, 16384, 896, 19)])
+def test_mlp_slices_at_feature_widths(chn, R, rays_a_slice, n_slices):
     """The feature lift's slices (96 samples into 3 x 128^2 x chn, phase
-    13's 32,768 rays): each slice's staged MLP outputs within
-    PLAN_MAX_RUNS' 256 MiB, 4 x 96 x chn bytes a ray; S2's gathers and pass
-    A take the same slices (g_vec's staging is as wide) and so does pass B
-    (its g_in staging, the prior's chn channels)."""
+    13's R rays: two views of 128^2, one at 768): each slice's staged MLP
+    outputs within PLAN_MAX_RUNS' 256 MiB, 4 x 96 x chn bytes a ray; S2's
+    gathers and pass A take the same slices (g_vec's staging is as wide)
+    and so does pass B (its g_in staging, the prior's chn channels)."""
     cfg = smod._SplatCfg(96, 0, False, False, 1e-5,
                          tuple(_tri_sizes(128, chn)),
                          tuple(_tri_sizes(128, chn)), (chn, chn, chn))
     assert 8 * splatter_fw.PLAN_MAX_RUNS == 256 << 20
     assert rays_a_slice == (256 << 20) // (4 * 96 * chn) // 32 * 32
-    R = 32768
     slices = splatter_fw.mlp_slices(cfg, splatter_fw.pick_bricks(cfg), R)
     assert slices[0] == (0, rays_a_slice) and len(slices) == n_slices
     assert slices[-1][1] == R
@@ -247,16 +260,15 @@ def _fake_splat_inputs(n_hidden, out_sizes, in_sizes, n=4):
 
 
 @pytest.mark.parametrize("case", [
-    # an MLP 264 wide pads up to the build at 384
-    "mlp_264_takes_384", "mlp_512_takes_512",
-    "mlp_520_refused", "mlp_768_refused", "voxel_386_refused"])
+    # an MLP 264 wide pads up to the build at 384, 520 up to 768
+    "mlp_264_takes_384", "mlp_512_takes_512", "mlp_520_takes_768",
+    "mlp_768_takes_768", "mlp_776_refused", "voxel_386_refused"])
 def test_splatter_mlp_refusals(case):
-    """On CUDA tensors the splatter's MLP takes the builds up to 512 and
-    raises past them ("MLP widths up to 512"), at the renderer's 768 too;
-    a per-step splat into a
-    voxel grid past 385 channels raises, naming that cap (its smallest
-    brick's tile in a block's shared memory), while a plane takes up to
-    1,157."""
+    """On CUDA tensors the splatter's MLP takes the builds up to 768, the
+    renderer's, and raises past them ("MLP widths up to 768"); a per-step
+    splat into a voxel grid past 385 channels raises, naming that cap (its
+    smallest brick's tile in a block's shared memory), while a plane takes
+    up to 1,157."""
     tri = tuple(_tri_sizes(4, 8))
     if case == "voxel_386_refused":
         cfg, geom, diff = _fake_splat_inputs(
@@ -273,9 +285,9 @@ def test_splatter_mlp_refusals(case):
     hidden = int(case.split("_")[1])
     n_hidden = (8, hidden, 8)
     cfg, geom, diff = _fake_splat_inputs(n_hidden, _tri_sizes(4, 8), tri)
-    assert splatter_fw.MLP_WIDTHS[-1] == 512
+    assert splatter_fw.MLP_WIDTHS[-1] == 768
     if case.endswith("refused"):
-        with pytest.raises(ValueError, match="MLP widths up to 512"):
+        with pytest.raises(ValueError, match="MLP widths up to 768"):
             splatter_fw.splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
     else:
         a = splatter_fw.splat_launch_args(cfg, geom, diff, "splat_fwd_cuda")
